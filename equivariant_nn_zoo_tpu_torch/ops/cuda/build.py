@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a`` into one
+shared library with a plain C interface under ``build/kernels/`` at the
+repository root (listed in ``.gitignore``); ``ctypes`` loads it at first
+use.  The library's file name carries a hash of the sources and flags, so
+an edited source is rebuilt and a current one is reused.  A failed build
+raises with the compiler's output.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+from typing import Tuple
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the entry points (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "full_conv_fwd": [
+        _P, _I, _I,            # x, N, in_dim
+        _P, _I,                # sh, J
+        _P, _I,                # edge_radial, R
+        _P, _P, _I,            # src, dst, E
+        _P, _I, _I,            # hidden MLP weights, H, n_hidden
+        _P, _I, _F,            # last MLP layer, its width, activation scale
+        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I,            # scratch, K * mul, mul
+        _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
+        _P, _I, _P,            # out, out_dim, stream
+    ],
+    "species_sc_fwd": [
+        _P, _I, _I,            # x, N, in_dim
+        _P, _I,                # species, types
+        _P, _I,                # tables, table row width
+        _P, _I, _P,            # output slots, count, items
+        _P, _I, _P,            # out, out_dim, stream
+    ],
+}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the GPU")
+    return path
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels if their library is missing; return its path and
+    the compiler's output (empty when an existing library was reused)."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode() + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"libe3kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with {res.returncode}:\n{log}")
+    os.replace(tmp, lib)
+    return lib, log
+
+
+@lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def check_tensor(t, name: str, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what the kernels' C entry points take."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})"
+        )
