@@ -11,16 +11,31 @@ Phases, in order; any failure exits non-zero before the last line:
              on the card, at ``config_energy``'s hot-layer shapes (layer3 of
              a 128-graph synthetic QM9-like batch);
 4. K3      — the species self-connection kernel, likewise;
-5. slice   — full-width ``config_energy`` (random weights from a seeded
+5. K2      — the convolution's backward kernel against the plain backward
+             (autograd of the plain forward) on K1's saved scratch and a
+             seeded cotangent: dx, d edge_radial, dW (MLP) and dwsel;
+6. K3b     — the self-connection's backward kernel (dx, dtables), likewise;
+7. slice   — full-width ``config_energy`` (random weights from a seeded
              generator) serves 4 batches of 128 graphs through
-             ``inference.evaluate``; the kernels' launch counters must rise
+             ``inference.evaluate``; the K1/K3 launch counters must rise
              by at least one per layer and batch, energies must be finite,
              and a 32-graph cut of the first batch must match the CPU plain
-             path.
+             path;
+8. train   — a ``run.Trainer`` with ``config_energy``'s own training
+             settings (Adam lr 1e-2, EMA 0.99 with num_updates, loss
+             1e3 * MSE, ReduceLROnPlateau 0.8 / 1) runs 2 epochs over 4
+             training batches and 1 validation batch of 128 graphs labelled
+             ``sum of per-species shifts + N(0, 1)``; losses must be finite
+             and each of K1, K2, K3 and K3b must launch at least
+             ``num_layers x steps`` times; then ms per step and graphs/s;
+9. train parity — one step's gradient of every parameter on a 32-graph
+             cut, card against the CPU plain path, from the same seeded
+             weights (labels N(0, 1), so the float32 residual is
+             well-conditioned).
 
 TF32 is off, so the plain versions compute in float32; the kernels sum with
-atomics in a varying order, hence rel-linf 1e-4 of max|plain|.  The
-second-to-last line is the kernels' JSON, the last the device JSON.
+atomics in a varying order, hence rel-linf 1e-4 of max|plain| (per tensor).
+The second-to-last line is the kernels' JSON, the last the device JSON.
 """
 
 import json
@@ -28,6 +43,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 TOL = 1e-4
 N_BATCHES, BATCH = 4, 128
@@ -39,9 +56,12 @@ def fail(msg):
     sys.exit(1)
 
 
-def synthetic_qm9(n_mol, rng):
-    """QM9-like molecules: 8-23 atoms of H/C/N/O, ~1.4 A blobs, r_max 4."""
+def synthetic_qm9(n_mol, rng, labels=False):
+    """QM9-like molecules: 8-23 atoms of H/C/N/O, ~1.4 A blobs, r_max 4;
+    with ``labels``, a ``total_energy`` of the per-species shifts plus
+    N(0, 1)."""
     from equivariant_nn_zoo_tpu_torch.data import Data, computeEdgeIndex
+    from equivariant_nn_zoo_tpu_torch.models.config_energy import SHIFTS
 
     mols = []
     for _ in range(n_mol):
@@ -51,6 +71,11 @@ def synthetic_qm9(n_mol, rng):
         d["atom_types"] = d["species"]
         attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
                  "atom_types": ("node", "1x0e")}
+        if labels:
+            d["total_energy"] = np.asarray(
+                [[sum(SHIFTS[int(t)] for t in d["species"][:, 0])
+                  + rng.normal()]])
+            attrs["total_energy"] = ("graph", "1x0e")
         out, attrs = computeEdgeIndex(d, attrs, r_max=4.0)
         d.update(out)
         mols.append(Data(attrs, **d))
@@ -109,8 +134,44 @@ def compare(name, kernel, plain):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def compare_grads(name, kernel, plain, names):
+    """As ``compare`` for a kernel with several outputs (a backward): each
+    output is held against its plain version at rel-linf TOL of its own
+    max|plain|; the record keeps the largest absolute error."""
+    import torch
+
+    with torch.no_grad():
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        errs = []
+        for what, a, b in zip(names, got, want):
+            if not torch.isfinite(a).all():
+                fail(f"{name}: non-finite {what}")
+            err = float((a - b).abs().max())
+            rel = err / max(float(b.abs().max()), 1e-30)
+            errs.append(err)
+            print(f"{name} {what}: max_abs_err={err:.3e} rel={rel:.3e}")
+            if rel > TOL:
+                fail(f"{name}: {what} disagrees with plain (rel {rel:.3e} "
+                     f"> {TOL})")
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+
+
+def step_gradients(model, gb, loss_fn):
+    """Loss and every parameter's gradient (on the host) of one step."""
+    model.zero_grad()
+    out = model(gb)
+    loss, _ = loss_fn(out.data, gb.data)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu()
+                         for n, p in model.named_parameters()}
+
+
 def main():
-    import numpy as np
     import torch
 
     # -------------------------------------------------------------- device
@@ -122,7 +183,10 @@ def main():
         FullConv,
         SpeciesScalarFCTP,
     )
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+    from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,7 +219,7 @@ def main():
     seen = {}
     hook = conv.register_forward_pre_hook(
         lambda mod, args: seen.update(data=args[0]))
-    with torch.inference_mode():
+    with torch.no_grad():  # the backward phases differentiate these inputs
         model(batches[0])
     hook.remove()
     data = seen["data"]
@@ -180,6 +244,38 @@ def main():
                data["species"])
     k3 = compare("K3 species_sc", lambda: conv.species_sc.launch(*k3_args),
                  lambda: conv.species_sc.plain(*k3_args))
+
+    # ------------------------------------------------------------------ K2
+    fconv = conv.full_conv
+    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
+                                                   k1_args[-1])]
+    with torch.no_grad():  # K1's inputs again, as tensors autograd takes
+        x1g = conv.linear_1(data["input_features"])
+        erg = data["edge_radial"] * data["_edge_mask"]
+        _, scratch = conv_ops.launch_forward(
+            fconv, x1g, erg, *k1_args[4:7], *flat, x1g.shape[0])
+    gout = torch.randn(x1g.shape[0], fconv.out_dim,
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+    k2_args = (x1g, erg, *k1_args[4:7], *flat, x1g.shape[0], scratch, gout)
+    k2 = compare_grads(
+        "K2 full_conv_bwd",
+        lambda: conv_ops.launch_backward(fconv, *k2_args),
+        lambda: fconv.plain_backward(*k2_args),
+        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
+    del scratch, k2_args
+
+    # ----------------------------------------------------------------- K3b
+    ssc = conv.species_sc
+    spec = data["species"].reshape(-1)
+    with torch.no_grad():
+        tables = ssc.tables(conv.sc, data["node_attrs"], spec)
+    g3 = torch.randn(spec.shape[0], ssc.irreps_out.dim,
+                     generator=torch.Generator().manual_seed(2)).to(dev)
+    k3b_args = (data["input_features"], spec, tables, g3)
+    k3b = compare_grads(
+        "K3b species_sc_bwd",
+        lambda: sc_ops.launch_backward(ssc, *k3b_args),
+        lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
 
     # --------------------------------------------------------------- slice
     evaluate(model, batches[:1], ["total_energy"])  # warm-up
@@ -247,14 +343,106 @@ def main():
         if rel > TOL:
             fail(f"{what}: card and CPU plain path disagree (rel {rel:.3e})")
 
+    # --------------------------------------------------------------- train
+    cfg = get_config("config_energy")
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    labelled = synthetic_qm9(5 * BATCH, np.random.default_rng(1),
+                             labels=True)
+    train_batches = make_batches(labelled, dev)
+    train, val = train_batches[:4], train_batches[4:]
+    trainer = Trainer(build_model(mc, dev, torch.Generator().manual_seed(0)),
+                      **settings)
+    n_epochs = 2
+    torch.cuda.synchronize()
+    FullConv.launches = FullConv.backward_launches = 0
+    SpeciesScalarFCTP.launches = SpeciesScalarFCTP.backward_launches = 0
+    t0 = time.perf_counter()
+    for epoch in range(n_epochs):
+        trainer.epoch_step(train, val)
+        md = trainer.mae_dict
+        print(f"train epoch {epoch}: training_loss {md['training_loss']} "
+              f"validation_loss {md['validation_loss']} "
+              f"validation_total_energy_mae "
+              f"{md['validation_total_energy_mae']} LR {trainer.current_lr}")
+        for key in ("training_loss", "validation_loss"):
+            if not np.isfinite(md[key]):
+                fail(f"train: non-finite {key} in epoch {epoch}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    train_launches = {
+        "full_conv": FullConv.launches,
+        "full_conv_bwd": FullConv.backward_launches,
+        "species_sc": SpeciesScalarFCTP.launches,
+        "species_sc_bwd": SpeciesScalarFCTP.backward_launches}
+    steps = n_epochs * len(train)
+    print(f"train: {n_epochs} epochs of {len(train)} steps + {len(val)} "
+          f"validation batch in {dt:.4f} s; launches {train_launches}")
+    for name, n in train_launches.items():
+        if n < n_layers * steps:
+            fail(f"train: {name} launched {n} times, want >= "
+                 f"{n_layers * steps}")
+
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for gb in train:
+            trainer.batch_step(gb)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / (reps * len(train))
+    print(f"train step: {step_ms:.3f} ms per {BATCH}-graph batch, "
+          f"{1e3 * BATCH / step_ms:.1f} graphs/s (host clock around "
+          f"synchronize, {reps * len(train)} steps)")
+    if not np.isfinite(trainer.batch_losses["loss"].item()):
+        fail("train: non-finite loss in the timed steps")
+    del trainer, train_batches, train, val
+
+    # --------------------------------------------------------- train parity
+    # labels N(0, 1) here: with the shifted labels the float32 residual
+    # (a ~1e4 total energy minus a ~1e4 label) keeps only ~3 digits, so
+    # the loss and its gradient differ at ~1e-3 between any two summation
+    # orders; against ~1e4 residuals the comparison holds the kernels.
+    host = Batch.from_data_list(labelled[:cut])
+    small = GraphBatch.from_batch(host, int(host["_n_nodes"].sum()) + 1,
+                                  int(host["_n_edges"].sum()), cut)
+    small = small.replace(total_energy=torch.randn(
+        cut, 1, generator=torch.Generator().manual_seed(3)))
+    loss_fn = Loss(settings["loss_coeffs"])
+    card_loss, card = step_gradients(
+        build_model(mc, dev, torch.Generator().manual_seed(0)),
+        small.to(dev), loss_fn)
+    cpu_loss, plain = step_gradients(cpu_model, small, loss_fn)
+    worst = max((float((card[n] - plain[n]).abs().max()
+                       / max(float(plain[n].abs().max()), 1e-30)), n)
+                for n in plain)
+    print(f"train parity ({cut} graphs): loss card {card_loss} CPU "
+          f"{cpu_loss}; worst gradient rel {worst[0]:.3e} ({worst[1]}) over "
+          f"{len(plain)} tensors")
+    if abs(card_loss - cpu_loss) > TOL * abs(cpu_loss):
+        fail("train parity: the loss differs")
+    if any(not torch.isfinite(card[n]).all() for n in card):
+        fail("train parity: non-finite gradients on the card")
+    if worst[0] > TOL:
+        fail(f"train parity: {worst[1]} gradient rel {worst[0]:.3e} > {TOL}")
+
     src = "equivariant_nn_zoo_tpu_torch/csrc"
+    pallas = "equivariant_nn_zoo_tpu/ops/pallas"
     kernels = [
         dict(name="full_conv", route="cuda", source=f"{src}/full_conv.cu",
-             replaces="equivariant_nn_zoo_tpu/ops/pallas/fused_conv.py:926",
+             replaces=f"{pallas}/fused_conv.py:926",
              launches=launches["full_conv"], **k1),
         dict(name="species_sc", route="cuda", source=f"{src}/species_sc.cu",
-             replaces="equivariant_nn_zoo_tpu/ops/pallas/sc.py:181",
+             replaces=f"{pallas}/sc.py:181",
              launches=launches["species_sc"], **k3),
+        dict(name="full_conv_bwd", route="cuda",
+             source=f"{src}/full_conv_bwd.cu",
+             replaces=f"{pallas}/fused_conv.py:1051",
+             launches=train_launches["full_conv_bwd"], **k2),
+        dict(name="species_sc_bwd", route="cuda",
+             source=f"{src}/species_sc.cu",
+             replaces=f"{pallas}/sc.py:208",
+             launches=train_launches["species_sc_bwd"], **k3b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

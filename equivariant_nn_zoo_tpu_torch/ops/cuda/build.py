@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a`` into one
-shared library with a plain C interface under ``build/kernels/`` at the
-repository root (listed in ``.gitignore``); ``ctypes`` loads it at first
+``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a`` (one
+compiler process per source, all started together) and links the objects
+into one shared library with a plain C interface under ``build/kernels/`` at
+the repository root (listed in ``.gitignore``); ``ctypes`` loads it at first
 use.  The library's file name carries a hash of the sources and flags, so
 an edited source is rebuilt and a current one is reused.  A failed build
 raises with the compiler's output.  Nothing here runs at import time.
@@ -21,10 +22,9 @@ from typing import Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (pointers and the stream as c_void_p)
@@ -47,6 +47,30 @@ SIGNATURES = {
         _P, _I,                # tables, table row width
         _P, _I, _P,            # output slots, count, items
         _P, _I, _P,            # out, out_dim, stream
+    ],
+    "species_sc_bwd": [
+        _P, _I, _I,            # x, N, in_dim
+        _P, _I,                # species, types
+        _P, _I,                # tables, table row width
+        _P, _I,                # g, out_dim
+        _P, _I,                # input slots, count
+        _P, _I, _I, _I,        # backward items, count, max mul1, max mul_out
+        _P, _P, _P,            # dx, dtables, stream
+    ],
+    "full_conv_bwd": [
+        _P, _I, _I,            # x, N, in_dim
+        _P, _I,                # sh, J
+        _P, _I,                # edge_radial, R
+        _P, _P, _I,            # src, dst, E
+        _P, _I, _I,            # hidden MLP weights, H, n_hidden
+        _P, _I, _F,            # last MLP layer, its width, activation scale
+        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I,            # forward scratch, K * mul, mul
+        _P, _I, _P, _I,        # mix matrices, their length, host problems, n
+        _P, _I,                # gout, out_dim
+        _P, _P, _P, _P, _P, _P,  # work: dS, dw, z, h, dh, dz
+        _P, _P, _P, _I,        # dx, d edge_radial, d hidden weights, length
+        _P, _P, _P,            # d last layer, d mix matrices, stream
     ],
 }
 
@@ -73,14 +97,32 @@ def build() -> Tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
+    nvcc = nvcc_path()
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with {res.returncode}:\n"
+                               f"{log}")
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with {res.returncode}:\n{log}")
-    os.replace(tmp, lib)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib, log
 
 

@@ -1,17 +1,25 @@
-"""K1: the whole-convolution forward — radial MLP, gather, CG tensor
-product times radial weight, scatter, and mix — as one wrapper around
-``csrc/full_conv.cu``.
+"""K1 and K2: the whole-convolution forward — radial MLP, gather, CG tensor
+product times radial weight, scatter, and mix — and its VJP, as one wrapper
+around ``csrc/full_conv.cu`` and ``csrc/full_conv_bwd.cu``.
 
-It replaces the TPU kernel ``PallasFullConv._full_fwd_kernel``
-(``equivariant_nn_zoo_tpu/ops/pallas/fused_conv.py:926``) and keeps its
-contract on the plain padded batch: global ``edge_index``, padded edges
-pointing at the dummy node with masked (zero) ``edge_radial``.  The TPU
-layout (one-hot window gathers, ``(u, e)`` lanes, K8 row padding, run
-flush flags) is not carried over.
+The kernels replace the TPU kernels ``PallasFullConv._full_fwd_kernel`` and
+``_full_bwd_kernel`` (``equivariant_nn_zoo_tpu/ops/pallas/fused_conv.py:926``
+and ``:1051``) and keep their contract on the plain padded batch: global
+``edge_index``, padded edges pointing at the dummy node with masked (zero)
+``edge_radial``.  The TPU layout (one-hot window gathers, ``(u, e)`` lanes,
+K8 row padding, run flush flags) is not carried over.
 
 For tensors on the CPU the wrapper runs the plain version
-(``FullyConnectedNet`` then ``FusedUVUConv``); for CUDA tensors it launches
-the kernels or raises.
+(``FullyConnectedNet`` then ``FusedUVUConv``) and autograd differentiates
+it.  For CUDA tensors it builds the kernels' flat weights in plain PyTorch
+(scaled MLP weights, mix matrices with their alphas and ``pre_scale``) and
+goes through ``FullConvFunction``, whose forward launches K1 and whose
+backward launches K2, or raises; autograd carries the kernels' weight
+gradients back to ``fc.w*`` and ``tp.linear.*``.  The sh cotangent is not
+computed (``compute_dsh=False``, the energy path): the Function raises when
+``sh`` needs a gradient.  ``plain_forward`` and ``plain_backward`` are the
+plain PyTorch versions of the two kernels' contracts on the same flat
+inputs, for the tests and the on-card checks.
 """
 
 from __future__ import annotations
@@ -23,10 +31,11 @@ import torch
 
 from ..fused_tp import FusedUVUConv
 from ..gate import ScaledActivation, shifted_softplus
+from ..segment import segment_sum
 from ..wigner import wigner_3j
 from .build import check, check_tensor, load_library
 
-MAX_RADIAL, MAX_HIDDEN, MAX_SH = 16, 64, 16
+MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 7
 
 
 class FullConv(torch.nn.Module):
@@ -38,6 +47,7 @@ class FullConv(torch.nn.Module):
 
     #: kernel launches, over all instances (the main path's proof of use)
     launches = 0
+    backward_launches = 0
 
     def __init__(self, tpe, fc):
         super().__init__()
@@ -92,8 +102,12 @@ class FullConv(torch.nn.Module):
                     probs.append([(k0 + dd * n_paths) * mul, n_paths * mul,
                                   b_off, wo, out_starts[io] + dd, d])
                 b_off += n_paths * mul * wo
+        self.wsel_len = b_off
         self.mix_plan = plan
         self.n_probs = len(probs)
+        # the backward's host builds its products from the problem table
+        self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
+        self.max_d1 = max((p[1] for p in paths), default=0)
         self.max_wo = max((p[3] for p in probs), default=0)
         self.out_dim = linear_out.dim
 
@@ -130,63 +144,218 @@ class FullConv(torch.nn.Module):
 
     def launch(self, fc, linear, x, edge_radial, sh, edge_src, edge_dst,
                num_nodes, pre_scale=None):
-        dev = x.device
-        if dev.type != "cuda":
-            raise ValueError(f"FullConv kernel needs CUDA tensors, got {dev}")
-        fused = self.fused
-        N, E = int(num_nodes), sh.shape[0]
-        in_dim = fused.irreps_in.dim
-        R, H, PC = self.fc_dims[0], self.fc_dims[1], self.fc_dims[-1]
-        n_hidden = len(self.fc_dims) - 2
-        check_tensor(x, "x", (N, in_dim), torch.float32, dev)
-        check_tensor(sh, "sh", (E, fused.J_dim), torch.float32, dev)
-        check_tensor(edge_radial, "edge_radial", (E, R), torch.float32, dev)
-        check_tensor(edge_src, "edge_src", (E,), torch.int64, dev)
-        check_tensor(edge_dst, "edge_dst", (E,), torch.int64, dev)
-        if not (R <= MAX_RADIAL and H <= MAX_HIDDEN and n_hidden >= 1
-                and fused.J_dim <= MAX_SH and fused.mul * 4 <= 1024
-                and all(h == H for h in self.fc_dims[1:-1])
-                and PC == fused.weight_numel):
-            raise ValueError(f"FullConv kernel does not take MLP dims "
-                             f"{self.fc_dims}, J={fused.J_dim}, "
-                             f"mul={fused.mul}")
-        if self.path_table.device != dev:
-            raise ValueError("FullConv tables are not on the input's device")
+        """The kernel path: flat weights in plain PyTorch, then K1, through
+        ``FullConvFunction`` (K2 in the backward) when a gradient is
+        wanted."""
+        if not torch.is_grad_enabled():
+            return launch_forward(self, x, edge_radial, sh, edge_src,
+                                  edge_dst, *self.flat_weights(
+                                      fc, linear, pre_scale),
+                                  int(num_nodes))[0]
+        w_hidden, w_out, wsel = self.flat_weights(fc, linear, pre_scale)
+        return FullConvFunction.apply(self, x, edge_radial, w_hidden, w_out,
+                                      wsel, sh, edge_src, edge_dst,
+                                      int(num_nodes))
 
+    def flat_weights(self, fc, linear, pre_scale=None):
+        """The kernels' weights: hidden MLP layers (each divided by
+        sqrt(fan_in), flattened and concatenated), the last MLP layer
+        ``[H, PC]`` likewise, and the mix matrices of every problem (alphas
+        and ``pre_scale`` folded in), flattened in ``mix_plan`` order."""
+        n_hidden = len(self.fc_dims) - 2
         scale = [float(d) ** -0.5 for d in self.fc_dims[:-1]]
         w_hidden = torch.cat([
             (getattr(fc, f"w{i}") * scale[i]).reshape(-1)
             for i in range(n_hidden)
-        ]).contiguous()
-        w_out = (getattr(fc, f"w{n_hidden}") * scale[n_hidden]).contiguous()
+        ])
+        w_out = getattr(fc, f"w{n_hidden}") * scale[n_hidden]
         pre = 1.0 if pre_scale is None else float(pre_scale)
         wsel = torch.cat([
-            (fused.mix_weight(linear, g, io) * pre).reshape(-1)
+            (self.fused.mix_weight(linear, g, io) * pre).reshape(-1)
             for g, io in self.mix_plan
-        ]).contiguous()
-        for name, t in (("w_hidden", w_hidden), ("w_out", w_out),
-                        ("wsel", wsel)):
-            check_tensor(t, name, tuple(t.shape), torch.float32, dev)
+        ])
+        return w_hidden.contiguous(), w_out.contiguous(), wsel.contiguous()
 
-        scratch = torch.empty(N * self.KM, dtype=torch.float32, device=dev)
-        out = torch.empty((N, self.out_dim), dtype=torch.float32, device=dev)
-        lib = load_library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.full_conv_fwd(
-                x.data_ptr(), N, in_dim,
-                sh.data_ptr(), fused.J_dim,
-                edge_radial.data_ptr(), R,
-                edge_src.data_ptr(), edge_dst.data_ptr(), E,
-                w_hidden.data_ptr(), H, n_hidden,
-                w_out.data_ptr(), PC, self.act_cst,
-                self.path_table.data_ptr(), self.n_paths,
-                self.nz_idx.data_ptr(), self.nz_c.data_ptr(),
-                scratch.data_ptr(), self.KM, fused.mul,
-                wsel.data_ptr(), self.prob_table.data_ptr(), self.n_probs,
-                self.max_wo, out.data_ptr(), self.out_dim, stream,
-            )
-        check(err, "full_conv_fwd")
-        FullConv.launches += 1
+    def plain_forward(self, x, edge_radial, sh, edge_src, edge_dst,
+                      w_hidden, w_out, wsel, num_nodes):
+        """Plain PyTorch version of K1's contract on the flat weights:
+        ``(out [N, out_dim], scratch [N, K * mul])``, the scratch holding
+        the unmixed node sums in the kernel's row order (component-major
+        inside each output-irrep group)."""
+        fused, mul, E = self.fused, self.fused.mul, sh.shape[0]
+        R, H = self.fc_dims[0], self.fc_dims[1]
+        h, ofs = edge_radial, 0
+        for i in range(len(self.fc_dims) - 2):
+            fan = R if i == 0 else H
+            W = w_hidden[ofs: ofs + fan * H].reshape(fan, H)
+            h = shifted_softplus(h @ W) * self.act_cst
+            ofs += fan * H
+        w3 = (h @ w_out).reshape(E, -1, mul)              # [E, P, mul]
+        mid = fused.edge_mid(x, edge_src, sh)             # [E, K, mul]
+        rows = []
+        for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
+            block = mid[:, k0: k0 + n_paths * d].reshape(E, n_paths, d, mul)
+            block = block * w3[:, getattr(fused, f"widx{g}")][:, :, None]
+            rows.append(block.transpose(1, 2).reshape(E, -1))
+        scratch = segment_sum(torch.cat(rows, 1), edge_dst, int(num_nodes))
+        out = x.new_zeros((int(num_nodes), self.out_dim))
+        for a_col, kdim, b_off, wo, c_off, c_stride in self.prob_rows:
+            blk = scratch[:, a_col: a_col + kdim] @ wsel[
+                b_off: b_off + kdim * wo].reshape(kdim, wo)
+            cols = c_off + c_stride * torch.arange(wo, device=x.device)
+            out = out.index_add(1, cols, blk)
+        return out, scratch
+
+    def plain_backward(self, x, edge_radial, sh, edge_src, edge_dst,
+                       w_hidden, w_out, wsel, num_nodes, scratch, gout):
+        """Plain PyTorch version of K2's contract: ``(dx, d edge_radial,
+        dw_hidden, dw_out, dwsel)`` for the cotangent ``gout``, by autograd
+        of ``plain_forward`` (which recomputes what the kernel reads from
+        ``scratch``)."""
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True)
+                   for t in (x, edge_radial, w_hidden, w_out, wsel)]
+            out, _ = self.plain_forward(ins[0], ins[1], sh, edge_src,
+                                        edge_dst, *ins[2:], num_nodes)
+            return torch.autograd.grad(out, ins, gout)
+
+
+class FullConvFunction(torch.autograd.Function):
+    """K1 forward, K2 backward.  Differentiable inputs: ``x``,
+    ``edge_radial`` and the flat weights.  An ``sh`` that needs a gradient
+    is refused: that cotangent is the force path's kernel, and this one
+    must not stand in for it with zeros.  (``needs_input_grad`` does not
+    see grad mode, so ``FullConv.launch`` calls this under grad mode
+    only.)"""
+
+    @staticmethod
+    def forward(ctx, conv, x, edge_radial, w_hidden, w_out, wsel, sh,
+                edge_src, edge_dst, num_nodes):
+        if ctx.needs_input_grad[6]:
+            raise NotImplementedError(
+                "FullConv: the sh cotangent (forces through positions) is "
+                "not computed by this kernel; sh must not need a gradient")
+        out, scratch = launch_forward(conv, x, edge_radial, sh, edge_src,
+                                      edge_dst, w_hidden, w_out, wsel,
+                                      num_nodes)
+        ctx.save_for_backward(x, edge_radial, w_hidden, w_out, wsel, sh,
+                              edge_src, edge_dst, scratch)
+        ctx.conv, ctx.num_nodes = conv, num_nodes
         return out
 
+    @staticmethod
+    def backward(ctx, gout):
+        x, er, w_hidden, w_out, wsel, sh, src, dst, scratch = \
+            ctx.saved_tensors
+        grads = launch_backward(ctx.conv, x, er, sh, src, dst, w_hidden,
+                                w_out, wsel, ctx.num_nodes, scratch,
+                                gout.contiguous())
+        return (None, *grads, None, None, None, None)
+
+
+def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
+                  w_out, wsel, num_nodes):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"FullConv kernel needs CUDA tensors, got {dev}")
+    fused = conv.fused
+    N, E = int(num_nodes), sh.shape[0]
+    R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
+    n_hidden = len(conv.fc_dims) - 2
+    check_tensor(x, "x", (N, fused.irreps_in.dim), torch.float32, dev)
+    check_tensor(sh, "sh", (E, fused.J_dim), torch.float32, dev)
+    check_tensor(edge_radial, "edge_radial", (E, R), torch.float32, dev)
+    check_tensor(edge_src, "edge_src", (E,), torch.int64, dev)
+    check_tensor(edge_dst, "edge_dst", (E,), torch.int64, dev)
+    if not (R <= MAX_RADIAL and H <= MAX_HIDDEN and n_hidden >= 1
+            and fused.J_dim <= MAX_SH and fused.mul * 4 <= 1024
+            and conv.max_d1 <= MAX_D
+            and all(h == H for h in conv.fc_dims[1:-1])
+            and PC == fused.weight_numel):
+        raise ValueError(f"FullConv kernel does not take MLP dims "
+                         f"{conv.fc_dims}, J={fused.J_dim}, "
+                         f"mul={fused.mul}")
+    if conv.path_table.device != dev:
+        raise ValueError("FullConv tables are not on the input's device")
+    n_w = R * H + (n_hidden - 1) * H * H
+    check_tensor(w_hidden, "w_hidden", (n_w,), torch.float32, dev)
+    check_tensor(w_out, "w_out", (H, PC), torch.float32, dev)
+    check_tensor(wsel, "wsel", (conv.wsel_len,), torch.float32, dev)
+    return dev, N, E
+
+
+def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
+                   w_out, wsel, num_nodes):
+    """Launch K1: ``(out [N, out_dim], scratch [N, K * mul])``."""
+    dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
+                              w_hidden, w_out, wsel, num_nodes)
+    fused = conv.fused
+    R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
+    scratch = torch.empty((N, conv.KM), dtype=torch.float32, device=dev)
+    out = torch.empty((N, conv.out_dim), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.full_conv_fwd(
+            x.data_ptr(), N, fused.irreps_in.dim,
+            sh.data_ptr(), fused.J_dim,
+            edge_radial.data_ptr(), R,
+            edge_src.data_ptr(), edge_dst.data_ptr(), E,
+            w_hidden.data_ptr(), H, len(conv.fc_dims) - 2,
+            w_out.data_ptr(), PC, conv.act_cst,
+            conv.path_table.data_ptr(), conv.n_paths,
+            conv.nz_idx.data_ptr(), conv.nz_c.data_ptr(),
+            scratch.data_ptr(), conv.KM, fused.mul,
+            wsel.data_ptr(), conv.prob_table.data_ptr(), conv.n_probs,
+            conv.max_wo, out.data_ptr(), conv.out_dim, stream,
+        )
+    check(err, "full_conv_fwd")
+    FullConv.launches += 1
+    return out, scratch
+
+
+def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
+                    w_out, wsel, num_nodes, scratch, gout):
+    """Launch K2: ``(dx, d edge_radial, dw_hidden, dw_out, dwsel)``, all
+    float32, from the forward's inputs, its scratch and ``gout``."""
+    dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
+                              w_hidden, w_out, wsel, num_nodes)
+    check_tensor(scratch, "scratch", (N, conv.KM), torch.float32, dev)
+    check_tensor(gout, "gout", (N, conv.out_dim), torch.float32, dev)
+    fused = conv.fused
+    R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
+    n_hidden = len(conv.fc_dims) - 2
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    dx, der = empty(N, fused.irreps_in.dim), empty(E, R)
+    dw_hidden, dw_out, dwsel = empty(w_hidden.numel()), empty(H, PC), \
+        empty(conv.wsel_len)
+    # work buffers: node cotangent of the scratch, per-edge radial-weight
+    # cotangent, the MLP's pre-activations and activations, and two rows
+    work = [empty(N, conv.KM), empty(E, PC), empty(n_hidden, E, H),
+            empty(n_hidden, E, H), empty(E, H), empty(E, H)]
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.full_conv_bwd(
+            x.data_ptr(), N, fused.irreps_in.dim,
+            sh.data_ptr(), fused.J_dim,
+            edge_radial.data_ptr(), R,
+            edge_src.data_ptr(), edge_dst.data_ptr(), E,
+            w_hidden.data_ptr(), H, n_hidden,
+            w_out.data_ptr(), PC, conv.act_cst,
+            conv.path_table.data_ptr(), conv.n_paths,
+            conv.nz_idx.data_ptr(), conv.nz_c.data_ptr(),
+            scratch.data_ptr(), conv.KM, fused.mul,
+            wsel.data_ptr(), conv.wsel_len,
+            conv.prob_rows.ctypes.data, conv.n_probs,
+            gout.data_ptr(), conv.out_dim,
+            *(t.data_ptr() for t in work),
+            dx.data_ptr(), der.data_ptr(), dw_hidden.data_ptr(),
+            w_hidden.numel(), dw_out.data_ptr(), dwsel.data_ptr(), stream,
+        )
+    check(err, "full_conv_bwd")
+    FullConv.backward_launches += 1
+    return dx, der, dw_hidden, dw_out, dwsel

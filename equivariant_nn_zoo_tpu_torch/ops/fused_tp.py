@@ -130,13 +130,9 @@ class FusedUVUConv(torch.nn.Module):
         return linear.weight(self.lin_in_index[ir], io)[
             getattr(self, f"rows{g}")]
 
-    def forward(self, linear, x: torch.Tensor, edge_src: torch.Tensor,
-                edge_dst: torch.Tensor, sh: torch.Tensor,
-                weight: torch.Tensor, num_nodes: int,
-                pre_scale: Optional[float] = None) -> torch.Tensor:
-        """x [N, in_dim] (already linear_1'd), sh [E, J], weight
-        [E, weight_numel] -> node-summed mixed output [N, out_dim]."""
-        E = sh.shape[0]
+    def edge_mid(self, x: torch.Tensor, edge_src: torch.Tensor,
+                 sh: torch.Tensor) -> torch.Tensor:
+        """Unweighted per-edge CG products ``[E, K, mul]`` (steps 1-2)."""
         mul = self.mul
         blocks = []
         ofs = 0
@@ -146,9 +142,18 @@ class FusedUVUConv(torch.nn.Module):
             blocks.append(b.transpose(1, 2))
             ofs += mul * d
         xT = torch.cat(blocks, dim=1)                     # [N, I, mul]
-        xTg = xT[edge_src]                                # [E, I, mul]
-        M = (sh @ self.C_flat).reshape(E, self.K_dim, self.I_dim)
-        mid = torch.bmm(M, xTg)                           # [E, K, mul]
+        M = (sh @ self.C_flat).reshape(-1, self.K_dim, self.I_dim)
+        return torch.bmm(M, xT[edge_src])
+
+    def forward(self, linear, x: torch.Tensor, edge_src: torch.Tensor,
+                edge_dst: torch.Tensor, sh: torch.Tensor,
+                weight: torch.Tensor, num_nodes: int,
+                pre_scale: Optional[float] = None) -> torch.Tensor:
+        """x [N, in_dim] (already linear_1'd), sh [E, J], weight
+        [E, weight_numel] -> node-summed mixed output [N, out_dim]."""
+        E = sh.shape[0]
+        mul = self.mul
+        mid = self.edge_mid(x, edge_src, sh)              # [E, K, mul]
         w3 = weight.reshape(E, -1, mul)                   # [E, P, mul]
         out_blocks = {}
         for g, (ir, k0, n_paths, d, p0) in enumerate(self.groups):

@@ -1,13 +1,17 @@
-"""Parity of the plain versions of the port's two CUDA kernels against the
-JAX package (CPU, f32, rel-linf 1e-5):
+"""Parity of the plain versions of the port's CUDA kernels against the JAX
+package (CPU, f32, rel-linf 1e-5 forward, 2e-4 gradients as the JAX
+package's own kernel-gradient test):
 
 - K1 (``ops/cuda/full_conv.py``, radial MLP + gather + CG TP + scatter +
   mix) against ``FusedUVUConv`` after the JAX radial MLP, and against the
-  TPU kernel ``PallasFullConv`` in interpret mode;
+  TPU kernel ``PallasFullConv`` in interpret mode; K2, its VJP, as autograd
+  of the plain K1 against the TPU kernel's backward (``compute_dsh`` off);
 - K3 (``ops/cuda/species_sc.py``) against ``FusedScalarFCTP`` and the TPU
   kernel ``SpeciesScalarFCTP`` in interpret mode.
 
 On the CPU the wrappers take their plain versions, which is what runs here.
+The autograd Functions of the card path are exercised with their launches
+routed to the plain contract functions.
 """
 
 import jax
@@ -25,6 +29,8 @@ from equivariant_nn_zoo_tpu.ops.pallas.fused_conv import PallasFullConv
 from equivariant_nn_zoo_tpu.ops.pallas.sc import SpeciesScalarFCTP
 from equivariant_nn_zoo_tpu_torch.nn.message_passing import \
     FactorizedConvolution as TConv
+from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.utils.params import load_jax_params
 
 TOL = 1e-5
@@ -174,3 +180,126 @@ def test_padded_edges_contribute_nothing(convs):
     assert np.isfinite(padded).all()
     np.testing.assert_allclose(padded[: N - 1], base[: N - 1],
                                rtol=1e-6, atol=1e-6 * np.abs(base).max())
+
+
+def _sin_cotangent(shape):
+    return np.sin(0.1 * np.arange(np.prod(shape))).reshape(shape).astype(
+        np.float32)
+
+
+def test_full_conv_grads_match_pallas_backward(convs):
+    """Autograd of the port's plain K1 (the contract K2 implements) against
+    the TPU kernel's VJP in interpret mode, with ``compute_dsh=False``:
+    d x, d edge_radial, d ``fc.w*`` and d ``tp.linear.*``."""
+    jconv, params, tconv = convs
+    lp, fcp = params["tp"]["linear"], params["fc"]
+    gb = _tiled_batch(seed=3)
+    N, E = gb.node_capacity, gb.edge_capacity
+    ei = np.asarray(gb["edge_index"])
+    x, sh, er, src, dst = _k1_inputs(6, N, E, ei[0], ei[1],
+                                     np.asarray(gb["_edge_mask"]))
+    full = PallasFullConv(jconv.tp, jconv.fc, compute_dtype=jnp.float32,
+                          tile=32, window=32, compute_dsh=False)
+    tiles = [jnp.asarray(gb[k]) for k in (
+        "_edge_tile_win", "_edge_tile_first", "_edge_tile_last",
+        "_edge_src_local", "_edge_dst_local")]
+    cot = jnp.asarray(_sin_cotangent((N, full_conv_mod.FullConv(
+        tconv.tp, tconv.fc).out_dim)))
+
+    def loss(fcp_, lp_, x_, er_):
+        out = full(fcp_, lp_, x_, er_, jnp.asarray(sh), *tiles, N,
+                   pre_scale=0.5)
+        return jnp.sum(out * cot)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2, 3))(fcp, lp, jnp.asarray(x),
+                                               jnp.asarray(er))
+    tconv.zero_grad()
+    xt = torch.tensor(x, requires_grad=True)
+    ert = torch.tensor(er, requires_grad=True)
+    out = tconv.full_conv(tconv.fc, tconv.tp.linear, xt, ert,
+                          torch.tensor(sh), torch.tensor(src),
+                          torch.tensor(dst), N, pre_scale=0.5)
+    (out * torch.tensor(np.asarray(cot))).sum().backward()
+    pairs = [(f"fc.{k}", getattr(tconv.fc, k).grad, v)
+             for k, v in ref[0].items()]
+    pairs += [(f"tp.linear.{k}", getattr(tconv.tp.linear, k).grad, v)
+              for k, v in ref[1].items()]
+    pairs += [("x", xt.grad, ref[2]), ("edge_radial", ert.grad, ref[3])]
+    assert len(pairs) == len(ref[0]) + len(ref[1]) + 2
+    for name, got, want in pairs:
+        assert _rel(got.numpy(), want) <= 2e-4, (name, _rel(got.numpy(),
+                                                            want))
+
+
+def _route_launches_to_plain(monkeypatch):
+    """Send both wrappers through their autograd Functions (the card path)
+    with every launch replaced by its plain contract function."""
+    monkeypatch.setattr(full_conv_mod.FullConv, "forward",
+                        full_conv_mod.FullConv.launch)
+    monkeypatch.setattr(species_sc_mod.SpeciesScalarFCTP, "forward",
+                        species_sc_mod.SpeciesScalarFCTP.launch)
+    monkeypatch.setattr(full_conv_mod, "launch_forward",
+                        lambda conv, *a: conv.plain_forward(*a))
+    monkeypatch.setattr(full_conv_mod, "launch_backward",
+                        lambda conv, *a: conv.plain_backward(*a))
+    monkeypatch.setattr(species_sc_mod, "launch_forward",
+                        lambda sc, *a: sc.table_product(*a))
+    monkeypatch.setattr(species_sc_mod, "launch_backward",
+                        lambda sc, *a: sc.plain_backward(*a))
+
+
+def _conv_grads(tconv, x, sh, er, src, dst, table, species):
+    tconv.zero_grad()
+    xt = torch.tensor(x, requires_grad=True)
+    ert = torch.tensor(er, requires_grad=True)
+    tb = torch.tensor(table, requires_grad=True)
+    sp = torch.tensor(species, dtype=torch.int64)
+    data = {"input_features": xt, "edge_radial": ert,
+            "edge_spherical": torch.tensor(sh),
+            "edge_index": torch.tensor(np.stack([src, dst])),
+            "node_attrs": tb[sp], "species": sp}
+    out = tconv(data, {"input_features": (None, None)})[0][
+        "output_features"]
+    (out * torch.tensor(_sin_cotangent(out.shape))).sum().backward()
+    grads = {n: p.grad.clone() for n, p in tconv.named_parameters()}
+    grads.update(x=xt.grad, edge_radial=ert.grad, table=tb.grad)
+    return out.detach(), grads
+
+
+def test_functions_match_plain_autograd(convs, monkeypatch):
+    """The layer's gradients through ``FullConvFunction`` and
+    ``SpeciesScalarFCTPFunction`` (launches routed to the plain contracts
+    of K1/K2 and K3/K3b) equal plain autograd's, for every parameter, the
+    input features, the radial features and the embedding table."""
+    _, _, tconv = convs
+    N, E = 40, 300
+    x, sh, er, src, dst = _k1_inputs(7, N, E)
+    rng = np.random.default_rng(8)
+    table = rng.normal(size=(TYPES, 4)).astype(np.float32)
+    species = rng.integers(0, TYPES, size=N)
+    want_out, want = _conv_grads(tconv, x, sh, er, src, dst, table, species)
+    _route_launches_to_plain(monkeypatch)
+    got_out, got = _conv_grads(tconv, x, sh, er, src, dst, table, species)
+    assert _rel(got_out.numpy(), want_out.numpy()) <= TOL
+    assert set(got) == set(want)
+    for name in want:
+        assert _rel(got[name].numpy(), want[name].numpy()) <= TOL, name
+
+
+def test_function_raises_when_sh_needs_grad(convs, monkeypatch):
+    """The sh cotangent belongs to the force path's kernel: the card path
+    raises instead of returning a zero gradient for it."""
+    _, _, tconv = convs
+    _route_launches_to_plain(monkeypatch)
+    N, E = 24, 96
+    x, sh, er, src, dst = _k1_inputs(9, N, E)
+    sh_t = torch.tensor(sh, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="sh cotangent"):
+        tconv.full_conv(tconv.fc, tconv.tp.linear, torch.tensor(x),
+                        torch.tensor(er), sh_t, torch.tensor(src),
+                        torch.tensor(dst), N, pre_scale=0.5)
+    with torch.no_grad():  # no gradient wanted: the forward runs
+        out = tconv.full_conv(tconv.fc, tconv.tp.linear, torch.tensor(x),
+                              torch.tensor(er), sh_t, torch.tensor(src),
+                              torch.tensor(dst), N, pre_scale=0.5)
+    assert out.shape == (N, tconv.full_conv.out_dim)

@@ -1,5 +1,6 @@
 """On-card checks of the port's CUDA kernels against their plain PyTorch
-versions, at full ``config_energy`` width.
+versions, at full ``config_energy`` width: K1 and K3 forward, K2 and K3b
+backward, and a whole training step's gradients against the CPU plain path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -19,7 +20,11 @@ from equivariant_nn_zoo_tpu_torch.data import (
     computeEdgeIndex,
 )
 from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+from equivariant_nn_zoo_tpu_torch.models.config_energy import SHIFTS
 from equivariant_nn_zoo_tpu_torch.ops.cuda import FullConv, SpeciesScalarFCTP
+from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
+from equivariant_nn_zoo_tpu_torch.run import Loss
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -34,26 +39,40 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def model_and_batch(cuda):
-    model = build_model(get_config("config_energy")["model_config"], cuda,
-                        torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
+def _molecules(n_mol, seed=0):
+    """QM9-like molecules with ``total_energy`` labels (per-species shifts
+    plus unit noise)."""
+    rng = np.random.default_rng(seed)
     mols = []
-    for _ in range(16):
+    for _ in range(n_mol):
         n = int(rng.integers(8, 24))
         d = {"pos": rng.normal(size=(n, 3)) * 1.4,
              "species": rng.choice([1, 6, 7, 8], size=(n, 1))}
         d["atom_types"] = d["species"]
+        d["total_energy"] = np.asarray(
+            [[sum(SHIFTS[int(t)] for t in d["species"][:, 0])
+              + rng.normal()]])
         attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
-                 "atom_types": ("node", "1x0e")}
+                 "atom_types": ("node", "1x0e"),
+                 "total_energy": ("graph", "1x0e")}
         out, attrs = computeEdgeIndex(d, attrs, r_max=4.0)
         d.update(out)
         mols.append(Data(attrs, **d))
+    return mols
+
+
+def _batch(mols, device, extra_edges=64):
     host = Batch.from_data_list(mols)
-    gb = GraphBatch.from_batch(host, int(host["_n_nodes"].sum()) + 1,
-                               int(host["_n_edges"].sum()) + 64, 16, cuda)
-    return model, gb
+    return GraphBatch.from_batch(host, int(host["_n_nodes"].sum()) + 1,
+                                 int(host["_n_edges"].sum()) + extra_edges,
+                                 len(mols), device)
+
+
+@pytest.fixture(scope="module")
+def model_and_batch(cuda):
+    model = build_model(get_config("config_energy")["model_config"], cuda,
+                        torch.Generator().manual_seed(0))
+    return model, _batch(_molecules(16), cuda)
 
 
 def _layer3_inputs(model, gb):
@@ -61,14 +80,51 @@ def _layer3_inputs(model, gb):
     seen = {}
     hook = model.layer3.conv.register_forward_pre_hook(
         lambda mod, args: seen.update(data=args[0]))
-    with torch.inference_mode():
+    with torch.no_grad():
         model(gb)
     hook.remove()
     return seen["data"]
 
 
+def _k2_case(conv, x, er, sh, src, dst, N, pre, seed):
+    """K1's forward (for its scratch) and a seeded cotangent: the inputs
+    of K2 and of its plain version."""
+    fc = conv.full_conv
+    w = fc.flat_weights(conv.fc, conv.tp.linear, pre)
+    with torch.no_grad():
+        _, scratch = full_conv_mod.launch_forward(fc, x, er, sh, src, dst,
+                                                  *w, N)
+    gout = torch.randn(N, fc.out_dim, generator=torch.Generator().manual_seed(
+        seed)).to(x.device)
+    return (x, er, sh, src, dst, *(t.detach() for t in w), N, scratch, gout)
+
+
+def _k3b_case(conv, x, attrs, species, seed):
+    sc = conv.species_sc
+    with torch.no_grad():
+        tables = sc.tables(conv.sc, attrs, species.reshape(-1))
+    g = torch.randn(x.shape[0], sc.irreps_out.dim,
+                    generator=torch.Generator().manual_seed(seed)).to(
+        x.device)
+    return (x, species.reshape(-1), tables, g)
+
+
+def _assert_all_close(got, want, names):
+    for name, a, b in zip(names, got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= TOL, (name, _rel(a, b))
+
+
 def _rel(a, b):
-    return float((a - b).abs().max() / b.abs().max())
+    """max|a - b| / max|b|; an all-zero ``b`` (a structurally zero
+    gradient) requires an all-zero ``a``."""
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    if scale == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / scale
+
+
+K2_OUT = ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel")
 
 
 def test_full_conv_kernel_matches_plain(model_and_batch):
@@ -188,3 +244,114 @@ def test_full_conv_kernel_skips_out_of_range_edges(cuda):
             src[keep].to(cuda), dst[keep].to(cuda), N, 0.3)
         torch.cuda.synchronize()
     assert _rel(got, want) <= TOL
+
+
+def test_full_conv_backward_kernel_matches_plain(model_and_batch):
+    model, gb = model_and_batch
+    conv = model.layer3.conv
+    data = _layer3_inputs(model, gb)
+    with torch.no_grad():
+        x = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    args = _k2_case(conv, x, er, data["edge_spherical"],
+                    data["edge_index"][0], data["edge_index"][1],
+                    x.shape[0], 0.1 ** 0.5, seed=4)
+    before = FullConv.backward_launches
+    got = full_conv_mod.launch_backward(conv.full_conv, *args)
+    want = conv.full_conv.plain_backward(*args)
+    torch.cuda.synchronize()
+    assert FullConv.backward_launches == before + 1
+    _assert_all_close(got, want, K2_OUT)
+
+
+def test_species_sc_backward_kernel_matches_plain(model_and_batch):
+    model, gb = model_and_batch
+    conv = model.layer3.conv
+    data = _layer3_inputs(model, gb)
+    args = _k3b_case(conv, data["input_features"], data["node_attrs"],
+                     data["species"], seed=5)
+    before = SpeciesScalarFCTP.backward_launches
+    got = species_sc_mod.launch_backward(conv.species_sc, *args)
+    want = conv.species_sc.plain_backward(*args)
+    torch.cuda.synchronize()
+    assert SpeciesScalarFCTP.backward_launches == before + 1
+    _assert_all_close(got, want, ("dx", "dtables"))
+
+
+@pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (32, 130, 4099)])
+def test_backward_kernels_match_plain_at_other_widths(cuda, n_dim, N, E):
+    conv = _small_conv(cuda, n_dim)
+    g = torch.Generator().manual_seed(6)
+    in_dim = conv.full_conv.fused.irreps_in.dim
+    x = torch.randn(N, in_dim, generator=g).to(cuda)
+    sh = torch.randn(E, 9, generator=g).to(cuda)
+    er = torch.randn(E, 8, generator=g).to(cuda)
+    src = torch.randint(0, N, (E,), generator=g).to(cuda)
+    dst = torch.randint(0, N, (E,), generator=g).to(cuda)
+    table = torch.randn(5, 4, generator=g)
+    species = torch.randint(0, 4, (N,), generator=g)  # type 4 absent
+    args = _k2_case(conv, x, er, sh, src, dst, N, 0.3, seed=7)
+    got = full_conv_mod.launch_backward(conv.full_conv, *args)
+    want = conv.full_conv.plain_backward(*args)
+    _assert_all_close(got, want, K2_OUT)
+    args = _k3b_case(conv, x, table[species].to(cuda), species.to(cuda),
+                     seed=8)
+    got = species_sc_mod.launch_backward(conv.species_sc, *args)
+    want = conv.species_sc.plain_backward(*args)
+    torch.cuda.synchronize()
+    _assert_all_close(got, want, ("dx", "dtables"))
+
+
+def _step_gradients(model, gb):
+    model.zero_grad()
+    out = model(gb)
+    loss, _ = Loss({"total_energy": [1e3, "MSELoss"]})(out.data, gb.data)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in
+                         model.named_parameters()}
+
+
+def test_train_step_gradients_match_cpu(model_and_batch):
+    """One training step's gradient of every parameter, through K1/K2 and
+    K3/K3b on the card, against the plain path on the CPU."""
+    model, gb = model_and_batch
+    cpu = build_model(get_config("config_energy")["model_config"], "cpu",
+                      torch.Generator().manual_seed(0))
+    # labels N(0, 1): against the shifted labels the float32 residual keeps
+    # ~3 digits (totals ~1e4), and the gradient would differ at ~1e-3
+    # between any two summation orders
+    gb = gb.replace(total_energy=torch.randn(
+        gb.n_graphs, 1, generator=torch.Generator().manual_seed(9)).to(
+        gb["total_energy"].device))
+    before = (FullConv.backward_launches, SpeciesScalarFCTP.backward_launches)
+    loss, got = _step_gradients(model, gb)
+    torch.cuda.synchronize()
+    n_layers = get_config("config_energy")["model_config"]["num_layers"]
+    assert FullConv.backward_launches - before[0] == n_layers
+    assert SpeciesScalarFCTP.backward_launches - before[1] == n_layers
+    want_loss, want = _step_gradients(cpu, gb.to("cpu"))
+    assert abs(loss - want_loss) <= TOL * abs(want_loss)
+    assert set(got) == set(want)
+    for name in want:
+        assert torch.isfinite(got[name]).all(), name
+        assert _rel(got[name], want[name]) <= TOL, (name, _rel(got[name],
+                                                               want[name]))
+
+
+def test_kernel_outputs_carry_autograd(model_and_batch):
+    """On the card the conv and self-connection outputs are attached to
+    autograd, and an sh that needs a gradient is refused."""
+    model, gb = model_and_batch
+    conv = model.layer3.conv
+    data = _layer3_inputs(model, gb)
+    x = data["input_features"].detach().requires_grad_(True)
+    out = conv.species_sc(conv.sc, x, data["node_attrs"], data["species"])
+    assert out.grad_fn is not None
+    x1 = conv.linear_1(x)
+    er = data["edge_radial"] * data["_edge_mask"]
+    args = (conv.fc, conv.tp.linear, x1, er, data["edge_spherical"],
+            data["edge_index"][0], data["edge_index"][1], x1.shape[0], 0.3)
+    assert conv.full_conv(*args).grad_fn is not None
+    sh = data["edge_spherical"].detach().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="sh cotangent"):
+        conv.full_conv(*args[:4], sh, *args[5:])
