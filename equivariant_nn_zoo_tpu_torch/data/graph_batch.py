@@ -65,7 +65,7 @@ class GraphBatch:
 
     @classmethod
     def from_batch(cls, batch: Batch, node_capacity: int, edge_capacity: int,
-                   n_graphs: int = None, device="cpu") -> "GraphBatch":
+                   n_graphs: int = None, device="cuda") -> "GraphBatch":
         """Pad a host Batch to static capacities.
 
         Graphs that don't fit the capacities are dropped from the tail and

@@ -16,12 +16,15 @@ from .data.graph_batch import GraphBatch
 
 def evaluate(model: torch.nn.Module, batches: Iterable[GraphBatch],
              output_keys: Sequence[str] = ()) -> Batch:
-    """Forward every batch under ``torch.inference_mode()`` and return one
-    host ``Batch`` of the real graphs (``_graph_mask``), with the requested
-    outputs (all public annotated keys when ``output_keys`` is empty)."""
+    """Forward every batch under ``torch.no_grad()`` and return one host
+    ``Batch`` of the real graphs (``_graph_mask``), with the requested
+    outputs (all public annotated keys when ``output_keys`` is empty);
+    node outputs such as ``forces`` keep the real nodes.  Not
+    ``inference_mode``: a force head differentiates the energy inside the
+    forward, and tensors made in inference mode cannot enter autograd."""
     results = []
     keys = list(output_keys)
-    with torch.inference_mode():
+    with torch.no_grad():
         for gb in batches:
             out = model(gb)
             if not keys:

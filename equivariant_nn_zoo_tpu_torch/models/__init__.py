@@ -1,13 +1,16 @@
-"""Named workload configs of the port (``config_energy`` so far) and the
-function that builds a model from a seeded generator."""
+"""Named workload configs of the port (``config_energy`` and
+``config_energy_force``) and the function that builds a model from a seeded
+generator."""
 
 import torch
 
 from ..utils.params import init_parameters
 from ..utils.utils import build
 from .config_energy import get_config as config_energy
+from .config_energy_force import get_config as config_energy_force
 
-CONFIG_REGISTRY = {"config_energy": config_energy}
+CONFIG_REGISTRY = {"config_energy": config_energy,
+                   "config_energy_force": config_energy_force}
 
 
 def get_config(name: str):
@@ -17,7 +20,7 @@ def get_config(name: str):
     return CONFIG_REGISTRY[name]()
 
 
-def build_model(model_config: dict, device="cpu",
+def build_model(model_config: dict, device="cuda",
                 generator: torch.Generator = None) -> torch.nn.Module:
     """Build the model of ``model_config``, fill its parameters from
     ``generator`` (a CPU generator; seed 0 when omitted) and move it to

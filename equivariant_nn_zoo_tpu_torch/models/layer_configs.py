@@ -1,7 +1,9 @@
-"""Functions that assemble the layer configs of the ``config_energy`` model, as plain dicts.
+"""Functions that assemble the layer configs of the ``config_energy`` and
+``config_energy_force`` models, as plain dicts.
 
-PyTorch counterparts of ``featureModel``, ``embedCategorial`` and
-``addEnergyOutput`` in ``equivariant_nn_zoo_tpu/models/layer_configs.py``:
+PyTorch counterparts of ``featureModel``, ``embedCategorial``,
+``addEnergyOutput`` and ``addForceOutput`` in
+``equivariant_nn_zoo_tpu/models/layer_configs.py``:
 the same layer names, irreps, key wiring and hyperparameters, naming the
 port's classes.
 """
@@ -13,6 +15,7 @@ from copy import deepcopy
 from ..data import computeEdgeVector
 from ..nn import (
     FactorizedConvolution,
+    GradientOutput,
     MessagePassing,
     OneHotEncoding,
     PerTypeScaleShift,
@@ -145,4 +148,20 @@ def addEnergyOutput(config, shifts=None, output_key="total_energy"):
         "irreps_out": ("1x0e", output_key),
     }
     config["layers"] = config["layers"] + list(layers.items())
+    return config
+
+
+def addForceOutput(config, gradients="forces", y="energy", sign=-1.0):
+    """Wrap the whole network in a ``GradientOutput`` head (forces =
+    ``sign * d(sum y)/d pos``).  Training then differentiates twice through
+    every convolution, so each is built with ``grad_order=2``."""
+    config = dict(config)
+    layers = config.pop("layers")
+    for _name, layer in layers:
+        if isinstance(layer, dict) and isinstance(layer.get("convolution"),
+                                                  dict):
+            layer["convolution"]["grad_order"] = 2
+    config["func"] = {"module": config.pop("module"), "layers": layers}
+    config.update(module=GradientOutput, x=("1x1o", "pos"), y=("1x0e", y),
+                  gradients=("1x1o", gradients), sign=sign)
     return config

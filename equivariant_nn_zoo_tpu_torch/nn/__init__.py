@@ -9,7 +9,7 @@ from .embedding import (
 )
 from .pointwise import PointwiseLinear, TensorProductExpansion
 from .scaling import PerTypeScaleShift
-from .output import Pooling
+from .output import GradientOutput, Pooling
 from .message_passing import FactorizedConvolution, MessagePassing
 
 __all__ = [
@@ -24,6 +24,7 @@ __all__ = [
     "TensorProductExpansion",
     "PerTypeScaleShift",
     "Pooling",
+    "GradientOutput",
     "FactorizedConvolution",
     "MessagePassing",
 ]

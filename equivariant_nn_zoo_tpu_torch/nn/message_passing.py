@@ -1,17 +1,28 @@
 """NequIP-style factorized convolution + gated message-passing block.
 
 PyTorch counterpart of ``equivariant_nn_zoo_tpu/nn/message_passing.py`` for
-the ``config_energy`` trunk (first-order, ``reduce=True``, species-table
-self-connection; no resnet, no layer norm).  Per layer:
+the trunk of ``config_energy`` and ``config_energy_force`` (``reduce=True``;
+no resnet, no layer norm).  Per layer, on the first-order path:
 
     sc  = SpeciesScalarFCTP(x, node_attrs, species)      K3
     x   = linear_1(x)
     out = FullConv(MLP(edge_radial * edge_mask), x, sh)   K1 (MLP, gather,
           / sqrt(avg_num_neighbors) + sc                      TP, scatter, mix)
 
-The mix runs after the edge sum (a shared bias-free linear commutes with
-it).  Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
-version for CPU tensors, so the layer has one code path.  Padded-edge
+and with ``grad_order >= 2`` (the layer sits under a ``GradientOutput``
+whose training loss differentiates twice through it):
+
+    sc  = FusedScalarFCTP(x, node_attrs)                 plain PyTorch
+    x   = linear_1(x)
+    w   = MLP(edge_radial * edge_mask)                   plain PyTorch
+    out = FullConvExt(x, sh, w) / sqrt(avg_num_neighbors) + sc   K4f/K4b/K4g
+
+The species-table kernel is first-order only, and the MLP stays outside the
+kernels so that autograd differentiates it to any order, as in the JAX
+package (``message_passing.py:194-195, 224-241, 274-290``).  The mix runs
+after the edge sum (a shared bias-free linear commutes with it).  Each
+wrapper takes its kernel for CUDA tensors and its plain PyTorch version for
+CPU tensors, so the layer has one code path per order.  Padded-edge
 messages vanish because ``edge_radial`` is masked and the radial MLP has no
 bias.
 """
@@ -21,7 +32,9 @@ from __future__ import annotations
 from typing import Dict
 
 from ..ops.cuda.full_conv import FullConv
+from ..ops.cuda.full_conv_ext import FullConvExt
 from ..ops.cuda.species_sc import SpeciesScalarFCTP
+from ..ops.fused_tp import FusedScalarFCTP
 from ..ops.gate import Gate, activations
 from ..ops.irreps import Irreps, tp_path_exists
 from ..ops.tensor_product import Linear, fully_connected_tp
@@ -35,8 +48,9 @@ class FactorizedConvolution(Module):
     def __init__(self, input_features, output_features, node_attrs,
                  edge_radial, edge_spherical, invariant_layers=1,
                  invariant_neurons=8, avg_num_neighbors=None, use_sc=True,
-                 sc_species_types: int = None):
+                 sc_species_types: int = None, grad_order: int = 1):
         super().__init__()
+        self.grad_order = int(grad_order)
         self.init_irreps(
             input_features=input_features, output_features=output_features,
             node_attrs=node_attrs, edge_radial=edge_radial,
@@ -60,9 +74,12 @@ class FactorizedConvolution(Module):
             + [self.tp.tp.weight_numel],
             activations["ssp"],
         )
-        self.full_conv = FullConv(self.tp, self.fc)
+        if self.grad_order >= 2:
+            self.full_conv = FullConvExt(self.tp)
+        else:
+            self.full_conv = FullConv(self.tp, self.fc)
         if self.use_sc:
-            if not sc_species_types:
+            if self.grad_order < 2 and not sc_species_types:
                 raise ValueError(
                     "the port's self-connection needs species-pure node "
                     "attributes (sc_species_types)")
@@ -70,7 +87,11 @@ class FactorizedConvolution(Module):
                 feature_irreps_in, Irreps(self.irreps_in["node_attrs"]),
                 feature_irreps_out,
             )
-            self.species_sc = SpeciesScalarFCTP(self.sc, sc_species_types)
+            if self.grad_order >= 2:
+                self.fused_sc = FusedScalarFCTP(self.sc)
+            else:
+                self.species_sc = SpeciesScalarFCTP(self.sc,
+                                                    sc_species_types)
 
     def forward(self, data: Dict, attrs: Dict):
         edge_radial = data["edge_radial"]
@@ -79,15 +100,22 @@ class FactorizedConvolution(Module):
         x = data["input_features"]
         edge_index = data["edge_index"]
         num_nodes = x.shape[0]
-        if self.use_sc:
+        if self.use_sc and self.grad_order >= 2:
+            sc = self.fused_sc(x, data["node_attrs"])
+        elif self.use_sc:
             sc = self.species_sc(self.sc, x, data["node_attrs"],
                                  data["species"])
         x = self.linear_1(x)
         pre = (1.0 / self.avg_num_neighbors ** 0.5
                if self.avg_num_neighbors is not None else None)
-        out = self.full_conv(self.fc, self.tp.linear, x, edge_radial,
-                             data["edge_spherical"], edge_index[0],
-                             edge_index[1], num_nodes, pre_scale=pre)
+        if self.grad_order >= 2:
+            out = self.full_conv(self.tp.linear, x, data["edge_spherical"],
+                                 self.fc(edge_radial), edge_index[0],
+                                 edge_index[1], num_nodes, pre_scale=pre)
+        else:
+            out = self.full_conv(self.fc, self.tp.linear, x, edge_radial,
+                                 data["edge_spherical"], edge_index[0],
+                                 edge_index[1], num_nodes, pre_scale=pre)
         if self.use_sc:
             out = out + sc
         return ({"output_features": out},

@@ -1,7 +1,8 @@
 """Scalar MLP with normalized parameterization (e3nn's
 ``FullyConnectedNet``); PyTorch counterpart of
 ``equivariant_nn_zoo_tpu/nn/mlp.py``.  It is the convolution's radial
-network."""
+network: inside the K1/K2 kernels on the energy path, and in plain PyTorch
+(differentiable to any order) on the force path."""
 
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a`` (one
-compiler process per source, all started together) and links the objects
-into one shared library with a plain C interface under ``build/kernels/`` at
-the repository root (listed in ``.gitignore``); ``ctypes`` loads it at first
-use.  The library's file name carries a hash of the sources and flags, so
-an edited source is rebuilt and a current one is reused.  A failed build
-raises with the compiler's output.  Nothing here runs at import time.
+``nvcc`` compiles every ``csrc/*.cu`` of the package (``full_conv.cu``,
+``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``) for
+``sm_90a`` (one compiler process per source, all started together) and
+links the objects into one shared library with a plain C interface under
+``build/kernels/`` at the repository root (listed in ``.gitignore``);
+``ctypes`` loads it at first use.  The library's file name carries a hash
+of the sources and flags, so an edited source is rebuilt and a current one
+is reused.  A failed build raises with the compiler's output.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,6 +28,15 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# leading arguments of the three external-weight conv entries (K4f/b/g)
+_EXT_COMMON = [
+    _I, _I, _I,                # N, in_dim, J
+    _P, _P, _I,                # src, dst, E
+    _I,                        # radial-weight columns P * mul
+    _P, _I, _P, _P,            # path table, P, CG non-zero codes, values
+    _I, _I,                    # K * mul, mul
+    _P, _I, _I,                # host mix problems, count, out_dim
+]
 # C signatures of the entry points (pointers and the stream as c_void_p)
 SIGNATURES = {
     "full_conv_fwd": [
@@ -71,6 +81,23 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,  # work: dS, dw, z, h, dh, dz
         _P, _P, _P, _I,        # dx, d edge_radial, d hidden weights, length
         _P, _P, _P,            # d last layer, d mix matrices, stream
+    ],
+    "full_conv_ext_fwd": _EXT_COMMON + [
+        _P, _P, _P, _P,        # x, sh, w, wsel
+        _P, _P, _P,            # scratch, out, stream
+    ],
+    "full_conv_ext_bwd": _EXT_COMMON + [
+        _P, _P, _P, _P, _P,    # x, sh, w, wsel, gout
+        _P, _P,                # work: scratch, dS
+        _P, _P, _P, _P, _I,    # dx, dsh, dw, dwsel, its length
+        _P,                    # stream
+    ],
+    "full_conv_ext_grad2": _EXT_COMMON + [
+        _P, _P, _P, _P,        # x, cx, sh, csh
+        _P, _P, _P, _P,        # w, cw, wsel, gout
+        _P, _P,                # work: scratch, dS
+        _P, _P, _P, _P, _P,    # c_x, c_s, c_w, c_m, c_g
+        _I, _P,                # wsel length, stream
     ],
 }
 

@@ -38,27 +38,15 @@ from .build import check, check_tensor, load_library
 MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 7
 
 
-class FullConv(torch.nn.Module):
-    """Constant tables for one ``FactorizedConvolution``'s K1 launch.
+class ConvTables(torch.nn.Module):
+    """Constant tables of one uvu ``TensorProductExpansion`` for the conv
+    kernels (K1, K2 and the external-weight K4 family): the CG paths with
+    their host-built wigner_3j non-zeros, and the mix problems.  Parameters
+    are passed at call time, so this module holds buffers only."""
 
-    Parameters are passed at call time (the radial ``FullyConnectedNet`` and
-    the expansion's mix ``Linear``), so this module holds buffers only.
-    """
-
-    #: kernel launches, over all instances (the main path's proof of use)
-    launches = 0
-    backward_launches = 0
-
-    def __init__(self, tpe, fc):
+    def __init__(self, tpe):
         super().__init__()
         self.fused = FusedUVUConv(tpe)
-        act = fc.act
-        if not (isinstance(act, ScaledActivation)
-                and act.fn is shifted_softplus):
-            raise ValueError("the conv kernel implements the normalized "
-                             "shifted-softplus radial MLP only")
-        self.act_cst = float(act.cst)
-        self.fc_dims = list(fc.dims)
         fused = self.fused
         mul = fused.mul
         in_starts = [s.start for s in fused.irreps_in.slices()]
@@ -123,6 +111,59 @@ class FullConv(torch.nn.Module):
             "nz_c", torch.tensor(np.asarray(nz_c, np.float32)),
             persistent=False)
 
+    def plain_core(self, x, sh, w, wsel, edge_src, edge_dst, num_nodes):
+        """The conv core on per-edge radial weights ``w [E, P * mul]``
+        (columns in the expansion's instruction order) and the flat mix
+        matrices: ``(out [N, out_dim], scratch [N, K * mul])``, the scratch
+        holding the unmixed node sums in the kernels' row order
+        (component-major inside each output-irrep group).  Plain PyTorch,
+        differentiable to any order."""
+        fused, mul, E = self.fused, self.fused.mul, sh.shape[0]
+        w3 = w.reshape(E, -1, mul)                        # [E, P, mul]
+        mid = fused.edge_mid(x, edge_src, sh)             # [E, K, mul]
+        rows = []
+        for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
+            block = mid[:, k0: k0 + n_paths * d].reshape(E, n_paths, d, mul)
+            block = block * w3[:, getattr(fused, f"widx{g}")][:, :, None]
+            rows.append(block.transpose(1, 2).reshape(E, -1))
+        scratch = segment_sum(torch.cat(rows, 1), edge_dst, int(num_nodes))
+        out = x.new_zeros((int(num_nodes), self.out_dim))
+        for a_col, kdim, b_off, wo, c_off, c_stride in self.prob_rows:
+            blk = scratch[:, a_col: a_col + kdim] @ wsel[
+                b_off: b_off + kdim * wo].reshape(kdim, wo)
+            cols = c_off + c_stride * torch.arange(wo, device=x.device)
+            out = out.index_add(1, cols, blk)
+        return out, scratch
+
+    def flat_wsel(self, linear, pre_scale=None) -> torch.Tensor:
+        """The mix matrices of every problem (alphas and ``pre_scale``
+        folded in), flattened in ``mix_plan`` order."""
+        pre = 1.0 if pre_scale is None else float(pre_scale)
+        return torch.cat([
+            (self.fused.mix_weight(linear, g, io) * pre).reshape(-1)
+            for g, io in self.mix_plan
+        ]).contiguous()
+
+
+class FullConv(ConvTables):
+    """K1 and K2 for one ``FactorizedConvolution``: the radial
+    ``FullyConnectedNet`` and the expansion's mix ``Linear`` are passed at
+    call time."""
+
+    #: kernel launches, over all instances (the main path's proof of use)
+    launches = 0
+    backward_launches = 0
+
+    def __init__(self, tpe, fc):
+        super().__init__(tpe)
+        act = fc.act
+        if not (isinstance(act, ScaledActivation)
+                and act.fn is shifted_softplus):
+            raise ValueError("the conv kernel implements the normalized "
+                             "shifted-softplus radial MLP only")
+        self.act_cst = float(act.cst)
+        self.fc_dims = list(fc.dims)
+
     def forward(self, fc, linear, x: torch.Tensor, edge_radial: torch.Tensor,
                 sh: torch.Tensor, edge_src: torch.Tensor,
                 edge_dst: torch.Tensor, num_nodes: int,
@@ -169,12 +210,8 @@ class FullConv(torch.nn.Module):
             for i in range(n_hidden)
         ])
         w_out = getattr(fc, f"w{n_hidden}") * scale[n_hidden]
-        pre = 1.0 if pre_scale is None else float(pre_scale)
-        wsel = torch.cat([
-            (self.fused.mix_weight(linear, g, io) * pre).reshape(-1)
-            for g, io in self.mix_plan
-        ])
-        return w_hidden.contiguous(), w_out.contiguous(), wsel.contiguous()
+        return (w_hidden.contiguous(), w_out.contiguous(),
+                self.flat_wsel(linear, pre_scale))
 
     def plain_forward(self, x, edge_radial, sh, edge_src, edge_dst,
                       w_hidden, w_out, wsel, num_nodes):
@@ -182,7 +219,6 @@ class FullConv(torch.nn.Module):
         ``(out [N, out_dim], scratch [N, K * mul])``, the scratch holding
         the unmixed node sums in the kernel's row order (component-major
         inside each output-irrep group)."""
-        fused, mul, E = self.fused, self.fused.mul, sh.shape[0]
         R, H = self.fc_dims[0], self.fc_dims[1]
         h, ofs = edge_radial, 0
         for i in range(len(self.fc_dims) - 2):
@@ -190,21 +226,8 @@ class FullConv(torch.nn.Module):
             W = w_hidden[ofs: ofs + fan * H].reshape(fan, H)
             h = shifted_softplus(h @ W) * self.act_cst
             ofs += fan * H
-        w3 = (h @ w_out).reshape(E, -1, mul)              # [E, P, mul]
-        mid = fused.edge_mid(x, edge_src, sh)             # [E, K, mul]
-        rows = []
-        for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
-            block = mid[:, k0: k0 + n_paths * d].reshape(E, n_paths, d, mul)
-            block = block * w3[:, getattr(fused, f"widx{g}")][:, :, None]
-            rows.append(block.transpose(1, 2).reshape(E, -1))
-        scratch = segment_sum(torch.cat(rows, 1), edge_dst, int(num_nodes))
-        out = x.new_zeros((int(num_nodes), self.out_dim))
-        for a_col, kdim, b_off, wo, c_off, c_stride in self.prob_rows:
-            blk = scratch[:, a_col: a_col + kdim] @ wsel[
-                b_off: b_off + kdim * wo].reshape(kdim, wo)
-            cols = c_off + c_stride * torch.arange(wo, device=x.device)
-            out = out.index_add(1, cols, blk)
-        return out, scratch
+        return self.plain_core(x, sh, h @ w_out, wsel, edge_src, edge_dst,
+                               num_nodes)
 
     def plain_backward(self, x, edge_radial, sh, edge_src, edge_dst,
                        w_hidden, w_out, wsel, num_nodes, scratch, gout):

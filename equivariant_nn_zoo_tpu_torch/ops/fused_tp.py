@@ -1,10 +1,14 @@
 """Dense uvu tensor-product convolution and scalar self-connection.
 
 PyTorch counterparts of ``equivariant_nn_zoo_tpu/ops/fused_tp.py``.  They
-are the plain versions of the port's two CUDA kernels on the
-``config_energy`` path (``ops/cuda/full_conv.py`` and
+are the plain versions of the port's conv and self-connection kernels
+(``ops/cuda/full_conv.py``, ``ops/cuda/full_conv_ext.py`` and
 ``ops/cuda/species_sc.py``): the kernels' wrappers call them for tensors on
-the CPU, and the tests hold them against the JAX package.
+the CPU, and the tests hold them against the JAX package.  On the force
+path (``grad_order >= 2``) ``FusedScalarFCTP`` is itself the
+self-connection, on every device, as in the JAX package: the species-table
+kernel is first-order only.  The JAX package's ``apply_blocks`` (a
+kernel-layout handoff) has no counterpart here.
 
 ``FusedUVUConv`` restructures the per-path convolution into dense ops:
 

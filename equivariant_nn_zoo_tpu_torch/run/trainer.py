@@ -10,9 +10,14 @@ validation loss).
 
 One step is eager PyTorch: forward, the masked loss, ``backward`` (through
 the convolution's and self-connection's CUDA kernels on the card),
-``optimizer.step`` and the EMA update.  Datasets and loaders, checkpoints
-and resume, early stopping, the equivariance test, profiling, logging to
-wandb, gradient accumulation and multi-device runs are not ported yet.
+``optimizer.step`` and the EMA update.  With a force head
+(``GradientOutput``, ``config_energy_force``) the forward already takes the
+energy's gradient with ``create_graph``, so ``backward`` differentiates a
+second time through every convolution; validation runs under
+``torch.no_grad()``, where the head still computes forces.  Datasets and
+loaders, checkpoints and resume, early stopping, the equivariance test,
+profiling, logging to wandb, gradient accumulation and multi-device runs
+are not ported yet.
 """
 
 from __future__ import annotations

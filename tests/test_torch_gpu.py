@@ -1,6 +1,9 @@
 """On-card checks of the port's CUDA kernels against their plain PyTorch
 versions, at full ``config_energy`` width: K1 and K3 forward, K2 and K3b
-backward, and a whole training step's gradients against the CPU plain path.
+backward, and a whole training step's gradients against the CPU plain path;
+and for the force path (``config_energy_force``): K4f, K4b and K4g against
+their plain contracts, the routes of the second backward, and forces and a
+training step's gradients against the CPU plain path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -23,6 +26,8 @@ from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
 from equivariant_nn_zoo_tpu_torch.models.config_energy import SHIFTS
 from equivariant_nn_zoo_tpu_torch.ops.cuda import FullConv, SpeciesScalarFCTP
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.run import Loss
 
@@ -172,7 +177,7 @@ def test_model_forward_matches_cpu(model_and_batch):
     assert _rel(got, want) <= TOL
 
 
-def _small_conv(cuda, n_dim):
+def _small_conv(cuda, n_dim, grad_order=1):
     from equivariant_nn_zoo_tpu_torch.nn.message_passing import (
         FactorizedConvolution,
     )
@@ -186,7 +191,7 @@ def _small_conv(cuda, n_dim):
         node_attrs="4x0e", edge_radial="8x0e",
         edge_spherical="1x0e+1x1o+1x2e", invariant_layers=2,
         invariant_neurons=n_dim, avg_num_neighbors=5.0,
-        sc_species_types=5)
+        sc_species_types=5, grad_order=grad_order)
     init_parameters(conv, torch.Generator().manual_seed(1))
     return conv.to(cuda)
 
@@ -355,3 +360,180 @@ def test_kernel_outputs_carry_autograd(model_and_batch):
     sh = data["edge_spherical"].detach().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="sh cotangent"):
         conv.full_conv(*args[:4], sh, *args[5:])
+
+
+# ------------------------------------------------------------- force path
+
+EXT_OUT = {"K4f": ("out",), "K4b": ("dx", "dsh", "dw", "dwsel"),
+           "K4g": ("c_x", "c_s", "c_w", "c_m", "c_g")}
+
+
+def _ext_case(conv, cuda, N, E, seed, pad=40):
+    """Seeded operands and cotangents of the three K4 kernels, with padded
+    edges (src = dst = the last node, unit sh, zero weights) at the end."""
+    g = torch.Generator().manual_seed(seed)
+    fused = conv.full_conv.fused
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    x, cx = rnd(N, fused.irreps_in.dim), rnd(N, fused.irreps_in.dim)
+    sh, csh = rnd(E + pad, fused.J_dim), rnd(E + pad, fused.J_dim)
+    w, cw = rnd(E + pad, fused.weight_numel), rnd(E + pad, fused.weight_numel)
+    sh[E:] = 0.0
+    sh[E:, 0] = 1.0
+    w[E:] = 0.0
+    src = torch.cat([torch.randint(0, N - 1, (E,), generator=g),
+                     torch.full((pad,), N - 1)]).to(cuda)
+    dst = torch.cat([torch.randint(0, N - 1, (E,), generator=g),
+                     torch.full((pad,), N - 1)]).to(cuda)
+    wsel = conv.full_conv.flat_wsel(conv.tp.linear, 0.3).detach()
+    gout = rnd(N, conv.full_conv.out_dim)
+    return dict(x=x, cx=cx, sh=sh, csh=csh, w=w, cw=cw, wsel=wsel, src=src,
+                dst=dst, N=N, gout=gout)
+
+
+def _ext_calls(fc, c, plain=True):
+    """Results of K4f, K4b and K4g on one case, or of their plain
+    contracts."""
+    args = (c["x"], c["sh"], c["w"], c["wsel"], c["src"], c["dst"], c["N"])
+    g2 = (c["x"], c["cx"], c["sh"], c["csh"], c["w"], c["cw"], c["wsel"],
+          c["src"], c["dst"], c["N"], c["gout"])
+    with torch.no_grad():
+        if plain:
+            return {"K4f": (fc.plain_forward(*args),),
+                    "K4b": fc.plain_backward(*args, c["gout"]),
+                    "K4g": fc.plain_grad2(*g2)}
+        return {"K4f": (ext_mod.launch_forward(fc, *args),),
+                "K4b": ext_mod.launch_backward(fc, *args, c["gout"]),
+                "K4g": ext_mod.launch_grad2(fc, *g2)}
+
+
+@pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (32, 130, 4099),
+                                       (64, 300, 5003)])
+def test_ext_kernels_match_plain(cuda, n_dim, N, E):
+    """K4f, K4b and K4g against their plain contracts, padded edges
+    included, at narrow and full multiplicities and sizes off every tile."""
+    conv = _small_conv(cuda, n_dim, grad_order=2)
+    before = (FullConvExt.launches_fwd, FullConvExt.launches_bwd,
+              FullConvExt.launches_grad2)
+    case = _ext_case(conv, cuda, N, E, seed=10)
+    got = _ext_calls(conv.full_conv, case, plain=False)
+    torch.cuda.synchronize()
+    assert (FullConvExt.launches_fwd, FullConvExt.launches_bwd,
+            FullConvExt.launches_grad2) == tuple(b + 1 for b in before)
+    want = _ext_calls(conv.full_conv, case)
+    for name in got:
+        _assert_all_close(got[name], want[name],
+                          [f"{name} {o}" for o in EXT_OUT[name]])
+
+
+def test_ext_kernels_skip_out_of_range_edges(cuda):
+    conv = _small_conv(cuda, 8, grad_order=2)
+    c = _ext_case(conv, cuda, 20, 300, seed=11, pad=0)
+    src, dst = c["src"].clone(), c["dst"].clone()
+    src[::7] = c["N"] + 5
+    dst[3::11] = -1
+    keep = (src < c["N"]) & (dst >= 0)
+    got = _ext_calls(conv.full_conv, dict(c, src=src, dst=dst), plain=False)
+    kept = dict(c, src=src[keep], dst=dst[keep])
+    for k in ("sh", "csh", "w", "cw"):
+        kept[k] = c[k][keep]
+    want = _ext_calls(conv.full_conv, kept)
+    for name in got:
+        outs = list(got[name])
+        if name != "K4f":  # per-edge outputs: dropped edges give zeros
+            for i in (1, 2):
+                assert float(outs[i][~keep].abs().max()) == 0.0
+                outs[i] = outs[i][keep]
+        _assert_all_close(outs, want[name],
+                          [f"{name} {o}" for o in EXT_OUT[name]])
+
+
+def test_ext_bwd_function_routes(cuda):
+    """The second backward takes K4g when the cotangents of dx, dsh and dw
+    are live, and the pairing rule (one K4b and one K4f per live slot) when
+    dx's is absent."""
+    conv = _small_conv(cuda, 8, grad_order=2)
+    c = _ext_case(conv, cuda, 37, 1001, seed=12)
+    for wrt, want in ((("x", "sh", "w"), (1, 1, 1)),
+                      (("sh", "w"), (3, 3, 0))):
+        ins = {k: c[k].clone().requires_grad_(True) for k in ("x", "sh", "w")}
+        before = (FullConvExt.launches_fwd, FullConvExt.launches_bwd,
+                  FullConvExt.launches_grad2)
+        out = conv.full_conv(conv.tp.linear, ins["x"], ins["sh"], ins["w"],
+                             c["src"], c["dst"], c["N"], pre_scale=0.3)
+        inner = torch.autograd.grad((out * c["gout"]).sum(),
+                                    [ins[k] for k in wrt], create_graph=True)
+        tot = sum((g * g.detach()).sum() for g in inner)
+        torch.autograd.grad(tot, list(ins.values()) + list(
+            conv.tp.linear.parameters()), allow_unused=True)
+        torch.cuda.synchronize()
+        got = (FullConvExt.launches_fwd - before[0],
+               FullConvExt.launches_bwd - before[1],
+               FullConvExt.launches_grad2 - before[2])
+        assert got == want, (wrt, got)
+
+
+def _fragments(n_mol, seed=0):
+    """Protein-fragment-like molecules (8-23 atoms of 20 species, r_max 5)
+    with N(0, 1) energy and force labels."""
+    rng = np.random.default_rng(seed)
+    mols = []
+    for _ in range(n_mol):
+        n = int(rng.integers(8, 24))
+        d = {"pos": rng.normal(size=(n, 3)) * 1.6,
+             "species": rng.integers(0, 20, size=(n, 1)),
+             "energy": rng.normal(size=(1, 1)),
+             "forces": rng.normal(size=(n, 3))}
+        d["atom_types"] = d["species"]
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+                 "atom_types": ("node", "1x0e"), "energy": ("graph", "1x0e"),
+                 "forces": ("node", "1x1o")}
+        out, attrs = computeEdgeIndex(d, attrs, r_max=5.0)
+        d.update(out)
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+def test_force_model_matches_cpu(cuda):
+    """Full-width ``config_energy_force``: energies and forces, and one
+    training step's gradient of every parameter (through K4f, K4b and K4g
+    on every layer), on the card against the plain path on the CPU."""
+    cfg = get_config("config_energy_force")
+    mc = cfg["model_config"]
+    gb = _batch(_fragments(16), cuda)
+    card = build_model(mc, cuda, torch.Generator().manual_seed(0))
+    cpu = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got = card(gb)
+        want = cpu(gb.to("cpu"))
+    for key in ("energy", "forces"):
+        assert torch.isfinite(got[key]).all(), key
+        assert _rel(got[key].cpu(), want[key]) <= TOL, (key, _rel(
+            got[key].cpu(), want[key]))
+
+    def step(model, batch):
+        model.zero_grad()
+        out = model(batch)
+        loss, _ = Loss(cfg["loss_coeffs"])(out.data, batch.data)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu() for n, p in
+                             model.named_parameters()}
+
+    before = (FullConvExt.launches_fwd, FullConvExt.launches_bwd,
+              FullConvExt.launches_grad2)
+    loss, got = step(card, gb)
+    torch.cuda.synchronize()
+    n_layers = mc["num_layers"]
+    # layer 0 pairs (2 K4b + 2 K4f); the others take K4g
+    assert (FullConvExt.launches_fwd - before[0],
+            FullConvExt.launches_bwd - before[1],
+            FullConvExt.launches_grad2 - before[2]) == (
+        n_layers + 2, 2 * n_layers + 2, n_layers - 1)
+    want_loss, want = step(cpu, gb.to("cpu"))
+    assert abs(loss - want_loss) <= TOL * abs(want_loss)
+    for name in want:
+        assert torch.isfinite(got[name]).all(), name
+        assert _rel(got[name], want[name]) <= TOL, (name, _rel(got[name],
+                                                               want[name]))

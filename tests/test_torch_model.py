@@ -59,7 +59,7 @@ def _attrs():
 
 def _port_batch(mols, N=128, E=1024):
     host = Batch.from_data_list([Data(_attrs(), **m) for m in mols])
-    gb = GraphBatch.from_batch(host, N, E, len(mols))
+    gb = GraphBatch.from_batch(host, N, E, len(mols), "cpu")
     assert gb.dropped == 0
     return gb
 
@@ -137,7 +137,7 @@ def test_evaluate_keeps_real_graphs(port_and_params):
     mols = _molecules(seed=4)
     batches = [GraphBatch.from_batch(
         Batch.from_data_list([Data(_attrs(), **m) for m in mols[:3]]),
-        128, 1024, 5)]
+        128, 1024, 5, "cpu")]
     batches.append(_port_batch(mols[3:]))
     res = evaluate(model, batches, ["total_energy"])
     assert len(res) == len(mols)

@@ -20,7 +20,7 @@ from equivariant_nn_zoo_tpu_torch.utils import (
 def full_width():
     jparams = jax_build(jax_get_config("config_energy").model_config).init(
         jax.random.PRNGKey(0))
-    model = build_model(get_config("config_energy")["model_config"])
+    model = build_model(get_config("config_energy")["model_config"], "cpu")
     return jparams, model
 
 
@@ -59,7 +59,8 @@ def test_seeded_init_is_device_independent():
     device or build order, and different seeds differ."""
     mc = get_config("config_energy")["model_config"]
     a = build_model(mc, "cpu", torch.Generator().manual_seed(7))
-    b = init_parameters(build_model(mc), torch.Generator().manual_seed(7))
+    b = init_parameters(build_model(mc, "cpu"),
+                        torch.Generator().manual_seed(7))
     c = build_model(mc, "cpu", torch.Generator().manual_seed(8))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
@@ -67,3 +68,24 @@ def test_seeded_init_is_device_independent():
     assert torch.equal(
         sa["radial_basis.basis.bessel_weights"],
         torch.tensor(np.linspace(1.0, 8.0, 8) * np.pi, dtype=torch.float32))
+
+
+def test_entry_points_default_to_the_card():
+    """``build_model`` and ``GraphBatch.from_batch`` aim at the card unless
+    the caller asks for the CPU; without a card the default raises instead
+    of running on the CPU."""
+    import inspect
+
+    from equivariant_nn_zoo_tpu_torch.data import Batch, Data, GraphBatch
+
+    for fn in (build_model, GraphBatch.from_batch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    d = {"pos": np.zeros((2, 3)), "species": np.ones((2, 1), np.int64)}
+    host = Batch.from_data_list([Data(
+        {"pos": ("node", "1x1o"), "species": ("node", "1x0e")}, **d)])
+    with pytest.raises((AssertionError, RuntimeError)):
+        GraphBatch.from_batch(host, 4, 4, 1)
+    with pytest.raises((AssertionError, RuntimeError)):
+        build_model(get_config("config_energy")["model_config"])

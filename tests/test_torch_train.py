@@ -76,7 +76,7 @@ def _molecules(seed=0, n_mol=6):
 
 def _port_batch(mols):
     host = Batch.from_data_list([Data(dict(ATTRS), **m) for m in mols])
-    gb = GraphBatch.from_batch(host, 128, 1024, N_GRAPHS)
+    gb = GraphBatch.from_batch(host, 128, 1024, N_GRAPHS, "cpu")
     assert gb.dropped == 0
     return gb
 
