@@ -50,10 +50,28 @@ Phases, in order; any failure exits non-zero before the last line:
              force labels; K4f, K4b and K4g must each launch at least once
              per step; then ms per step and graphs/s over 12 steps;
 13. force train parity — one step's gradient of every parameter on a
-             16-graph cut, card against the CPU plain path.
+             16-graph cut, card against the CPU plain path;
+14. K5, K6  — the hamiltonian head's pairwise expansion and per-edge conv
+             against their plain versions at the full-width head's shapes
+             (a 512-molecule synthetic H2O batch: ``tp_off`` on the 3072
+             edges, ``tp`` on the 1537 node rows): each kernel on its own
+             contract (K5: left, weighted right, mix matrices; K6: x, sh,
+             radial weights, mix matrices) and each wrapper against the
+             plain forward (``expand``, ``FusedUVUConv(reduce=False)``);
+             then K1 and K3 against plain at the trunk's hot layer, whose
+             irreps reach l = 4;
+15. hamiltonian serve — full-width ``config_hamiltonian`` (seeded weights,
+             ``build_model`` with no device argument) serves 4 batches of
+             16 and 4 batches of 512 molecules through
+             ``inference.evaluate``; one forward must launch K1 and K3 once
+             per layer, K6 once and K5 twice; the matrices must be finite
+             and symmetric to 1e-5, and a 16-molecule cut must match the
+             CPU plain path.
 
 Phase 12 also traces 4 force training steps with ``torch.profiler`` and
-writes their kernel-time table to ``chiprun_out/force_step_profile.txt``.
+writes their kernel-time table to ``chiprun_out/force_step_profile.txt``;
+phase 15 does the same for 4 serving forwards at each batch size
+(``chiprun_out/hamiltonian_serve_profile_{16,512}.txt``).
 
 TF32 is off, so the plain versions compute in float32; the kernels sum with
 atomics in a varying order, hence rel-linf 1e-4 of max|plain| (per tensor).
@@ -74,6 +92,7 @@ import numpy as np
 TOL = 1e-4
 N_BATCHES, BATCH = 4, 128
 FORCE_BATCH, FORCE_CUT = 64, 16
+H2O_BATCHES, H2O_CUT = (16, 512), 16   # the config's batch, a serving batch
 HOT_LAYER = "layer3"
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 CUDA cores, HBM3
 
@@ -126,6 +145,25 @@ def synthetic_fragments(n_mol, rng):
                  "atom_types": ("node", "1x0e"), "energy": ("graph", "1x0e"),
                  "forces": ("node", "1x1o")}
         out, attrs = computeEdgeIndex(d, attrs, r_max=5.0)
+        d.update(out)
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+def synthetic_h2o(n_mol, rng):
+    """Water molecules: the equilibrium geometry plus N(0, 0.03^2) noise,
+    r_max 4 (all six ordered pairs are edges)."""
+    from equivariant_nn_zoo_tpu_torch.data import Data, computeEdgeIndex
+
+    base = np.array([[0, 0, 0], [0.96, 0, 0], [-0.24, 0.93, 0]])
+    mols = []
+    for _ in range(n_mol):
+        d = {"pos": base + rng.normal(scale=0.03, size=(3, 3)),
+             "species": np.array([[8], [1], [1]])}
+        d["atom_types"] = d["species"]
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+                 "atom_types": ("node", "1x0e")}
+        out, attrs = computeEdgeIndex(d, attrs, r_max=4.0)
         d.update(out)
         mols.append(Data(attrs, **d))
     return mols
@@ -288,20 +326,19 @@ def worst_rel(got, want):
                 / max(float(want[k].abs().max()), 1e-30), k) for k in want)
 
 
-def profile_force_step(trainer, train):
-    """``torch.profiler`` over one pass of training steps: kernel time by
-    name, written to ``chiprun_out/force_step_profile.txt``."""
+def profile_kernels(what, run, n_items, filename):
+    """``torch.profiler`` over ``run()`` (``n_items`` steps or batches):
+    kernel time by name, written to ``chiprun_out/<filename>``; returns the
+    kernel time per item in ms (the span itself is stretched by the
+    profiler, so a busy share is taken against an unprofiled run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for gb in train[:2]:
-        trainer.batch_step(gb)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for gb in train:
-            trainer.batch_step(gb)
+        run()
         torch.cuda.synchronize()
     span = time.perf_counter() - t0
     rows = []
@@ -312,16 +349,26 @@ def profile_force_step(trainer, train):
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    lines = [f"{len(train)} steps: kernel time {total:.3f} ms "
-             f"({total / len(train):.3f} ms per step) over a {1e3 * span:.3f}"
-             f" ms span, busy share {total / (1e3 * span):.4f}"]
+    lines = [f"{n_items} {what}: kernel time {total:.3f} ms "
+             f"({total / n_items:.3f} ms each, "
+             f"{sum(r[1] for r in rows) / n_items:.0f} launches each) over a "
+             f"{1e3 * span:.3f} ms profiled span"]
     lines += [f"{ms:10.3f} ms {100 * ms / max(total, 1e-30):6.2f} % "
               f"{n:6d} x {name}" for ms, n, name in rows]
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "force_step_profile.txt"),
-              "w") as f:
+    with open(os.path.join("chiprun_out", filename), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("profile: " + "\n  ".join(lines[:16]))
+    return total / n_items
+
+
+def profile_force_step(trainer, train):
+    """Trace one pass of training steps after two warm-up steps."""
+    for gb in train[:2]:
+        trainer.batch_step(gb)
+    profile_kernels("force training steps",
+                    lambda: [trainer.batch_step(gb) for gb in train],
+                    len(train), "force_step_profile.txt")
 
 
 def force_phases(dev):
@@ -544,6 +591,247 @@ def force_phases(dev):
                       train_launches["full_conv_ext_grad2"], k4g,
                       *costs["K4g"]),
     ]
+
+
+def head_launches():
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
+        FullConv,
+        PairwiseTP,
+        SpeciesScalarFCTP,
+        UVUConv,
+    )
+
+    return {"full_conv": FullConv.launches,
+            "species_sc": SpeciesScalarFCTP.launches,
+            "uvu_conv": UVUConv.launches,
+            "pairwise_tp": PairwiseTP.launches}
+
+
+def reset_head_launches():
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
+        FullConv,
+        PairwiseTP,
+        SpeciesScalarFCTP,
+        UVUConv,
+    )
+
+    FullConv.launches = SpeciesScalarFCTP.launches = 0
+    UVUConv.launches = PairwiseTP.launches = 0
+
+
+def hamiltonian_phases(dev):
+    """Phases 14-15 of the module docstring (the ``config_hamiltonian``
+    serving path); returns the K5 and K6 records and what K1 and K3 did on
+    this path (their times at the l = 4 hot layer, their launches)."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
+
+    mc = get_config("config_hamiltonian")["model_config"]
+    n_layers = mc["num_layers"]
+    # no device argument: the entry point builds on the card by default
+    model = build_model(mc, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    if next(model.parameters()).device.type != "cuda":
+        fail("build_model without a device did not build on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    mols = synthetic_h2o(N_BATCHES * max(H2O_BATCHES),
+                         np.random.default_rng(20))
+    batches = {size: make_batches(mols[:N_BATCHES * size], dev, size)
+               for size in H2O_BATCHES}
+    big = batches[max(H2O_BATCHES)][0]
+
+    # ------------------------------------- the kernels' inputs in one forward
+    head = model.pairwise
+    conv = getattr(model, HOT_LAYER).conv
+    seen = {"K5": [], "K6": [], "trunk": []}
+    hooks = [
+        head.pairwise_tp.register_forward_pre_hook(
+            lambda mod, args: seen["K5"].append(args)),
+        head.conv.full_conv.register_forward_pre_hook(
+            lambda mod, args: seen["K6"].append(args)),
+        conv.register_forward_pre_hook(
+            lambda mod, args: seen["trunk"].append(args[0]))]
+    with torch.no_grad():
+        model(big)
+    for h in hooks:
+        h.remove()
+    tpk, uvu = head.pairwise_tp, head.conv.full_conv
+    print(f"hamiltonian: {n_params} parameters; head K5 paths={tpk.n_paths} "
+          f"R={tpk.R} K={tpk.KM // tpk.mul} nz={tpk.nz_count} "
+          f"wsel={tpk.wsel_len}; K6 paths={uvu.n_paths} "
+          f"K={uvu.fused.K_dim} nz={uvu.nz_idx.numel()} "
+          f"P*mul={uvu.fused.weight_numel}; batch of {big.n_graphs}: "
+          f"N={big.node_capacity} E={big.edge_capacity}")
+
+    # ------------------------------------------------------------------ K6
+    linear, x, sh, w, src = seen["K6"][0]
+    E = sh.shape[0]
+    with torch.no_grad():
+        wsel6 = uvu.flat_wsel(linear)
+    k6 = compare("K6 uvu_conv",
+                 lambda: k6_ops.launch_forward(uvu, x, sh, w, wsel6, src),
+                 lambda: uvu.fused(linear, x, src, None, sh, w, x.shape[0],
+                                   reduce=False))
+    cc = conv_counts(uvu, E, E)
+    k6_cost = (cc["cg"] + cc["rows"] + cc["mix"],
+               nbytes(x, sh, w, wsel6, src) + E * uvu.out_dim * 4)
+
+    # ------------------------------------------------------------------ K5
+    # tp_off runs on the edges (the record's shapes), tp on the node rows
+    k5 = k5_cost = None
+    for which, (tpe, left, right) in zip(("tp_off", "tp"), seen["K5"]):
+        M = left.shape[0]
+        with torch.no_grad():
+            bw = tpk.weighted_right(tpe.tp.weight, right)
+            wsel5 = tpk.flat_wsel(tpe.linear)
+        rec = compare(
+            f"K5 pairwise_tp ({which}, M={M}; kernel on left, bw, wsel)",
+            lambda: k5_ops.launch_forward(tpk, left, bw, wsel5),
+            lambda: tpk.plain_forward(left, bw, wsel5))
+        del bw
+        whole = compare(
+            f"K5 wrapper ({which}, M={M}; stage 1 in PyTorch + kernel "
+            f"against expand)",
+            lambda: tpk.launch(tpe, left, right),
+            lambda: tpe.expand(left, right))
+        rec.update(wrapper_ms=whole["ms"], expand_ms=whole["plain_ms"])
+        if k5 is None:
+            pr = tpk.prob_rows.astype(np.int64)
+            k5 = rec
+            k5_cost = (2 * M * tpk.mul * tpk.nz_count
+                       + 2 * M * int((pr[:, 1] * pr[:, 3]).sum()),
+                       nbytes(left, wsel5) + M * tpk.R * tpk.mul * 4
+                       + M * tpk.out_dim * 4)
+
+    # ------------------------------------------- K1, K3 at the l = 4 layer
+    data = seen["trunk"][0]
+    with torch.inference_mode():
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    fc = conv.full_conv
+    print(f"hamiltonian hot layer {HOT_LAYER}: in={fc.fused.irreps_in} "
+          f"max_d1={fc.max_d1} J={fc.fused.J_dim} K={fc.fused.K_dim} "
+          f"paths={fc.n_paths} P*mul={fc.fused.weight_numel} "
+          f"MLP={fc.fc_dims} out_dim={fc.out_dim}")
+    k1_args = (conv.fc, conv.tp.linear, x1, er, data["edge_spherical"],
+               data["edge_index"][0], data["edge_index"][1], x1.shape[0],
+               1.0 / conv.avg_num_neighbors ** 0.5)
+    k1 = compare("K1 full_conv at l = 4", lambda: fc.launch(*k1_args),
+                 lambda: fc.plain(*k1_args))
+    k3_args = (conv.sc, data["input_features"], data["node_attrs"],
+               data["species"])
+    k3 = compare("K3 species_sc at l = 4",
+                 lambda: conv.species_sc.launch(*k3_args),
+                 lambda: conv.species_sc.plain(*k3_args))
+    del seen, data, x1, er, k1_args, k3_args, x, sh, w, left, right
+
+    # ------------------------------------------------------------- serving
+    with torch.no_grad():
+        model(batches[H2O_BATCHES[0]][0])  # warm-up
+        torch.cuda.synchronize()
+        reset_head_launches()
+        model(big)
+        torch.cuda.synchronize()
+    per_forward = head_launches()
+    want = {"full_conv": n_layers, "species_sc": n_layers, "uvu_conv": 1,
+            "pairwise_tp": 2}
+    print(f"hamiltonian launches per forward: {per_forward}")
+    if per_forward != want:
+        fail(f"hamiltonian: one forward launched {per_forward}, want {want}")
+
+    def forward_ms(size):
+        """ms per forward over 3 passes of the batches of this size."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                for gb in batches[size]:
+                    model(gb)
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (3 * N_BATCHES)
+
+    serve_launches = {}
+    results = {}
+    for size in H2O_BATCHES:
+        evaluate(model, batches[size][:1], ["hamiltonian"])  # warm-up
+        torch.cuda.synchronize()
+        reset_head_launches()
+        t0 = time.perf_counter()
+        res = evaluate(model, batches[size], ["hamiltonian"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        serve_launches[size] = head_launches()
+        print(f"hamiltonian serve, batch {size}: {len(res)} graphs in "
+              f"{dt:.4f} s through evaluate ({len(res) / dt:.1f} graphs/s); "
+              f"launches {serve_launches[size]}")
+        if len(res) != N_BATCHES * size:
+            fail(f"hamiltonian serve: evaluate returned {len(res)} graphs")
+        H = res["hamiltonian"]
+        if H.shape != (N_BATCHES * size, 576) or not np.isfinite(H).all():
+            fail(f"hamiltonian serve: output of shape {H.shape}, or not "
+                 f"finite")
+        H = H.reshape(-1, 24, 24)
+        asym = float(np.abs(H - H.transpose(0, 2, 1)).max()
+                     / np.abs(H).max())
+        print(f"hamiltonian serve, batch {size}: max|H|={np.abs(H).max():.3e}"
+              f" asymmetry rel {asym:.3e}")
+        if asym > 1e-5:
+            fail(f"hamiltonian serve: the matrices are not symmetric "
+                 f"(rel {asym:.3e})")
+        for name, n in want.items():
+            if serve_launches[size][name] != n * N_BATCHES:
+                fail(f"hamiltonian serve: {name} launched "
+                     f"{serve_launches[size][name]} times, want "
+                     f"{n * N_BATCHES}")
+        results[size] = res["hamiltonian"]
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = forward_ms(size)
+        with torch.no_grad():
+            kernel_ms = profile_kernels(
+                f"hamiltonian forwards of {size} graphs",
+                lambda: [model(gb) for gb in batches[size]], N_BATCHES,
+                f"hamiltonian_serve_profile_{size}.txt")
+        print(f"hamiltonian serve forward, batch {size}: "
+              f"{1e3 * size / fwd_ms:.1f} graphs/s ({fwd_ms:.3f} ms per "
+              f"batch, host clock around synchronize, 12 forwards); "
+              f"{kernel_ms:.3f} ms of kernels per batch under the profiler:"
+              f" device busy share {kernel_ms / fwd_ms:.4f}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    again = forward_ms(H2O_BATCHES[0])
+    print(f"hamiltonian serve forward, batch {H2O_BATCHES[0]}, once more "
+          f"after the larger batch: {1e3 * H2O_BATCHES[0] / again:.1f} "
+          f"graphs/s ({again:.3f} ms per batch)")
+
+    # ---------------------------------------------- CPU plain-path recompute
+    small = cut_batch(mols, H2O_CUT)
+    cpu_model = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got = model(small.to(dev))["hamiltonian"].cpu()
+        ref = cpu_model(small)["hamiltonian"]
+    first = torch.as_tensor(results[H2O_BATCHES[0]][:H2O_CUT])
+    if float((got - first).abs().max()) > TOL * float(first.abs().max()):
+        fail(f"the {H2O_CUT}-graph cut disagrees with the batched run")
+    rel = worst_rel({"hamiltonian": got}, {"hamiltonian": ref})[0]
+    print(f"hamiltonian serve, card vs CPU plain path ({H2O_CUT} graphs): "
+          f"rel {rel:.3e}")
+    if rel > TOL:
+        fail(f"hamiltonian: card and CPU plain path disagree (rel {rel:.3e})")
+
+    total = {k: sum(serve_launches[s][k] for s in H2O_BATCHES) for k in want}
+    records = [
+        kernel_record("uvu_conv", "uvu_conv.cu", "fused_conv.py:233",
+                      total["uvu_conv"], k6, *k6_cost),
+        dict(kernel_record("pairwise_tp", "pairwise_tp.cu", "pairwise.py:410",
+                           total["pairwise_tp"], k5, *k5_cost),
+             wrapper_ms=k5["wrapper_ms"], expand_ms=k5["expand_ms"]),
+    ]
+    trunk = {"full_conv": dict(k1, launches=total["full_conv"]),
+             "species_sc": dict(k3, launches=total["species_sc"])}
+    return records, trunk
 
 
 def main():
@@ -814,18 +1102,23 @@ def main():
 
     del cpu_model, model, batches
     force_records = force_phases(dev)
+    head_records, l4 = hamiltonian_phases(dev)
 
+    # K1 and K3 also carry what they did on the hamiltonian path (l = 4)
     kernels = [
-        kernel_record("full_conv", "full_conv.cu", "fused_conv.py:926",
-                      launches["full_conv"], k1, *costs["K1"]),
-        kernel_record("species_sc", "species_sc.cu", "sc.py:181",
-                      launches["species_sc"], k3, *costs["K3"]),
+        dict(kernel_record("full_conv", "full_conv.cu", "fused_conv.py:926",
+                           launches["full_conv"], k1, *costs["K1"]),
+             hamiltonian=l4["full_conv"]),
+        dict(kernel_record("species_sc", "species_sc.cu", "sc.py:181",
+                           launches["species_sc"], k3, *costs["K3"]),
+             hamiltonian=l4["species_sc"]),
         kernel_record("full_conv_bwd", "full_conv_bwd.cu",
                       "fused_conv.py:1051", train_launches["full_conv_bwd"],
                       k2, *costs["K2"]),
         kernel_record("species_sc_bwd", "species_sc.cu", "sc.py:208",
                       train_launches["species_sc_bwd"], k3b, *costs["K3b"]),
         *force_records,
+        *head_records,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

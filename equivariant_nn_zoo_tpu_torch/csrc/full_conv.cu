@@ -22,7 +22,8 @@
 //    scratch [N, K * mul] with atomicAdd (one atomic per edge, CG row and
 //    channel).  Rows are component-major inside each output-irrep group so
 //    the mix reads contiguous columns.
-// 2. full_conv_mix_kernel: a 64x64-tiled shared-memory product
+// 2. rowmix::mix_rows_kernel (row_mix.cuh, shared with the per-edge conv
+//    and the pairwise expansion): a 64x64-tiled shared-memory product
 //    [N, n_paths * mul] x [n_paths * mul, mul_out] per (output-irrep group,
 //    component, output slot), written straight into the irreps columns.
 //
@@ -39,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_mix.cuh"
+
 namespace {
 
 constexpr int kEdgeGroups = 4;     // blockDim.y of the edge kernel
@@ -48,9 +51,6 @@ constexpr int kMaxHidden = 64;
 constexpr int kMaxRadial = 16;
 constexpr int kMaxSh = 16;
 constexpr int kPathFields = 9;
-constexpr int kProbFields = 6;
-constexpr int kTile = 64;
-constexpr int kTileK = 16;
 
 __device__ __forceinline__ float ssp(float v, float cst) {
   // (softplus(v) - log 2) * cst, softplus as max(v, 0) + log1p(exp(-|v|))
@@ -168,65 +168,6 @@ __global__ void full_conv_edge_kernel(
   }
 }
 
-// out[n, c_off + w * c_stride] =
-//     sum_k scratch[n, a_col + k] * wsel[b_off + k * wo + w]
-__global__ void full_conv_mix_kernel(
-    const float* __restrict__ scratch, int N, int KM,
-    const float* __restrict__ wsel, const int* __restrict__ probs,
-    float* __restrict__ out, int out_dim) {
-  const int* pr = probs + blockIdx.y * kProbFields;
-  const int a_col = pr[0], kdim = pr[1], b_off = pr[2], wo = pr[3];
-  const int c_off = pr[4], c_stride = pr[5];
-  const int n0 = blockIdx.x * kTile, w0 = blockIdx.z * kTile;
-  if (w0 >= wo) return;
-
-  __shared__ float As[kTileK][kTile + 1];
-  __shared__ float Bs[kTileK][kTile];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < kdim; k0 += kTileK) {
-    for (int i = threadIdx.x; i < kTile * kTileK; i += blockDim.x) {
-      int r = i / kTileK, c = i % kTileK, n = n0 + r, k = k0 + c;
-      As[c][r] = (n < N && k < kdim) ? scratch[(size_t)n * KM + a_col + k]
-                                     : 0.f;
-    }
-    for (int i = threadIdx.x; i < kTile * kTileK; i += blockDim.x) {
-      int r = i / kTile, c = i % kTile, k = k0 + r, wc = w0 + c;
-      Bs[r][c] = (k < kdim && wc < wo) ? wsel[b_off + (size_t)k * wo + wc]
-                                       : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int wc = w0 + tx * 4 + j;
-      if (wc < wo) out[(size_t)n * out_dim + c_off + wc * c_stride] = acc[i][j];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int full_conv_fwd(
@@ -256,10 +197,6 @@ extern "C" int full_conv_fwd(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (N > 0 && n_probs > 0) {
-    dim3 grid((N + kTile - 1) / kTile, n_probs, (max_wo + kTile - 1) / kTile);
-    full_conv_mix_kernel<<<grid, 256, 0, s>>>(scratch, N, KM, wsel, probs,
-                                              out, out_dim);
-  }
-  return (int)cudaGetLastError();
+  return (int)rowmix::mix_rows(scratch, N, KM, wsel, probs, n_probs, max_wo,
+                               out, out_dim, s);
 }

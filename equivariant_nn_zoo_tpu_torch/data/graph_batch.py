@@ -58,7 +58,13 @@ class GraphBatch:
                           self.dropped)
 
     def to(self, device) -> "GraphBatch":
-        return GraphBatch({k: v.to(device) for k, v in self.data.items()},
+        def move(v):
+            # a head may leave a dict of tensors (the hamiltonian blocks)
+            if isinstance(v, dict):
+                return {k: move(t) for k, t in v.items()}
+            return v.to(device)
+
+        return GraphBatch({k: move(v) for k, v in self.data.items()},
                           dict(self.attrs), self.n_graphs,
                           self.node_capacity, self.edge_capacity,
                           self.dropped)
@@ -138,8 +144,10 @@ class GraphBatch:
         return cls(tensors, dict(batch.attrs), G, N, E, dropped=dropped)
 
     def to_batch(self) -> Batch:
-        """Trim padding and return a host-side numpy Batch."""
-        data = {k: v.detach().cpu().numpy() for k, v in self.data.items()}
+        """Trim padding and return a host-side numpy Batch.  Entries that
+        are not tensors (a head's dict of blocks) are left out."""
+        data = {k: v.detach().cpu().numpy() for k, v in self.data.items()
+                if isinstance(v, torch.Tensor)}
         g = int(data["_graph_mask"][:, 0].sum())
         n_sel = data["_node_mask"][:, 0] > 0
         e_sel = data["_edge_mask"][:, 0] > 0

@@ -1,5 +1,5 @@
-"""Named workload configs of the port (``config_energy`` and
-``config_energy_force``) and the function that builds a model from a seeded
+"""Named workload configs of the port (``config_energy``,
+``config_energy_force`` and ``config_hamiltonian``) and the function that builds a model from a seeded
 generator."""
 
 import torch
@@ -8,9 +8,11 @@ from ..utils.params import init_parameters
 from ..utils.utils import build
 from .config_energy import get_config as config_energy
 from .config_energy_force import get_config as config_energy_force
+from .config_hamiltonian import get_config as config_hamiltonian
 
 CONFIG_REGISTRY = {"config_energy": config_energy,
-                   "config_energy_force": config_energy_force}
+                   "config_energy_force": config_energy_force,
+                   "config_hamiltonian": config_hamiltonian}
 
 
 def get_config(name: str):

@@ -1,8 +1,8 @@
-"""Functions that assemble the layer configs of the ``config_energy`` and
-``config_energy_force`` models, as plain dicts.
+"""Functions that assemble the layer configs of the ``config_energy``,
+``config_energy_force`` and ``config_hamiltonian`` models, as plain dicts.
 
 PyTorch counterparts of ``featureModel``, ``embedCategorial``,
-``addEnergyOutput`` and ``addForceOutput`` in
+``addEnergyOutput``, ``addForceOutput`` and ``addMatrixOutput`` in
 ``equivariant_nn_zoo_tpu/models/layer_configs.py``:
 the same layer names, irreps, key wiring and hyperparameters, naming the
 port's classes.
@@ -18,12 +18,14 @@ from ..nn import (
     GradientOutput,
     MessagePassing,
     OneHotEncoding,
+    Pairwise,
     PerTypeScaleShift,
     PointwiseLinear,
     Pooling,
     RadialBasisEncoding,
     SequentialGraphNetwork,
     SphericalEncoding,
+    TensorProductContraction,
 )
 from ..ops.irreps import Irreps, tp_path_exists
 
@@ -164,4 +166,32 @@ def addForceOutput(config, gradients="forces", y="energy", sign=-1.0):
     config["func"] = {"module": config.pop("module"), "layers": layers}
     config.update(module=GradientOutput, x=("1x1o", "pos"), y=("1x0e", y),
                   gradients=("1x1o", gradients), sign=sign)
+    return config
+
+
+def addMatrixOutput(config, tp_l, tp_r):
+    """Pairwise features, then tensor-product matrix blocks per atom
+    (``hamiltonian_diagonal``) and per atom pair (``hamiltonian_off``): the
+    Hamiltonian head."""
+    features = config["node_features"]
+    layers = {}
+    layers["pairwise"] = {
+        "module": Pairwise,
+        "node_features": features,
+        "edge_radial": config["edge_radial"],
+        "edge_spherical": config["edge_spherical"],
+        "diagonal": features,
+        "off_diagonal": features,
+        "conv": "auto",
+    }
+    for name, source, key in (
+            ("irreps2tp_diagonal", "diagonal", "hamiltonian_diagonal"),
+            ("irreps2tp_off", "off_diagonal", "hamiltonian_off")):
+        layers[name] = {
+            "module": TensorProductContraction,
+            "irreps_in": (features, source),
+            "tp_l": (tp_l, key),
+            "tp_r": (tp_r, key),
+        }
+    config["layers"] = config["layers"] + list(layers.items())
     return config

@@ -7,9 +7,14 @@ from .embedding import (
     RadialBasisEncoding,
     SphericalEncoding,
 )
-from .pointwise import PointwiseLinear, TensorProductExpansion
+from .pointwise import PointwiseLinear, ResBlock, TensorProductExpansion
 from .scaling import PerTypeScaleShift
-from .output import GradientOutput, Pooling
+from .output import (
+    GradientOutput,
+    Pairwise,
+    Pooling,
+    TensorProductContraction,
+)
 from .message_passing import FactorizedConvolution, MessagePassing
 
 __all__ = [
@@ -22,9 +27,12 @@ __all__ = [
     "SphericalEncoding",
     "PointwiseLinear",
     "TensorProductExpansion",
+    "ResBlock",
     "PerTypeScaleShift",
     "Pooling",
     "GradientOutput",
+    "Pairwise",
+    "TensorProductContraction",
     "FactorizedConvolution",
     "MessagePassing",
 ]

@@ -1,8 +1,9 @@
 """NequIP-style factorized convolution + gated message-passing block.
 
 PyTorch counterpart of ``equivariant_nn_zoo_tpu/nn/message_passing.py`` for
-the trunk of ``config_energy`` and ``config_energy_force`` (``reduce=True``;
-no resnet, no layer norm).  Per layer, on the first-order path:
+the trunks of ``config_energy``, ``config_energy_force`` and
+``config_hamiltonian`` (no resnet, no layer norm) and the hamiltonian
+head's per-edge conv.  Per layer, on the first-order path:
 
     sc  = SpeciesScalarFCTP(x, node_attrs, species)      K3
     x   = linear_1(x)
@@ -16,6 +17,14 @@ whose training loss differentiates twice through it):
     x   = linear_1(x)
     w   = MLP(edge_radial * edge_mask)                   plain PyTorch
     out = FullConvExt(x, sh, w) / sqrt(avg_num_neighbors) + sc   K4f/K4b/K4g
+
+and with ``reduce=False`` (the hamiltonian head's neighbor conv: per-edge
+output, no self-connection, no node attributes, no neighbor-count
+normalisation):
+
+    x   = linear_1(x)
+    w   = MLP(edge_radial * edge_mask)                   plain PyTorch
+    out[e] = UVUConv(x, sh, w)                           K6
 
 The species-table kernel is first-order only, and the MLP stays outside the
 kernels so that autograd differentiates it to any order, as in the JAX
@@ -34,6 +43,7 @@ from typing import Dict
 from ..ops.cuda.full_conv import FullConv
 from ..ops.cuda.full_conv_ext import FullConvExt
 from ..ops.cuda.species_sc import SpeciesScalarFCTP
+from ..ops.cuda.uvu_conv import UVUConv
 from ..ops.fused_tp import FusedScalarFCTP
 from ..ops.gate import Gate, activations
 from ..ops.irreps import Irreps, tp_path_exists
@@ -48,9 +58,11 @@ class FactorizedConvolution(Module):
     def __init__(self, input_features, output_features, node_attrs,
                  edge_radial, edge_spherical, invariant_layers=1,
                  invariant_neurons=8, avg_num_neighbors=None, use_sc=True,
-                 sc_species_types: int = None, grad_order: int = 1):
+                 sc_species_types: int = None, grad_order: int = 1,
+                 reduce: bool = True):
         super().__init__()
         self.grad_order = int(grad_order)
+        self.reduce = bool(reduce)
         self.init_irreps(
             input_features=input_features, output_features=output_features,
             node_attrs=node_attrs, edge_radial=edge_radial,
@@ -74,7 +86,13 @@ class FactorizedConvolution(Module):
             + [self.tp.tp.weight_numel],
             activations["ssp"],
         )
-        if self.grad_order >= 2:
+        if not self.reduce:
+            if self.use_sc or self.grad_order >= 2:
+                raise NotImplementedError(
+                    "the per-edge conv (reduce=False) is first-order and "
+                    "has no self-connection")
+            self.full_conv = UVUConv(self.tp)
+        elif self.grad_order >= 2:
             self.full_conv = FullConvExt(self.tp)
         else:
             self.full_conv = FullConv(self.tp, self.fc)
@@ -106,6 +124,12 @@ class FactorizedConvolution(Module):
             sc = self.species_sc(self.sc, x, data["node_attrs"],
                                  data["species"])
         x = self.linear_1(x)
+        if not self.reduce:
+            out = self.full_conv(self.tp.linear, x, data["edge_spherical"],
+                                 self.fc(edge_radial), edge_index[0])
+            return ({"output_features": out},
+                    {"output_features": (attrs["input_features"][0],
+                                         self.irreps_out["output_features"])})
         pre = (1.0 / self.avg_num_neighbors ** 0.5
                if self.avg_num_neighbors is not None else None)
         if self.grad_order >= 2:

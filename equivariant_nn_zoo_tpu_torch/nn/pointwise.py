@@ -1,16 +1,22 @@
-"""Pointwise equivariant layers: ``PointwiseLinear`` and the
-``TensorProductExpansion`` the convolution is built from.
+"""Pointwise equivariant layers: ``PointwiseLinear``, the
+``TensorProductExpansion`` the convolution and the hamiltonian head are
+built from, and ``ResBlock``.
 
-PyTorch counterparts of the ``config_energy`` parts of
-``equivariant_nn_zoo_tpu/nn/pointwise.py``.
+PyTorch counterparts of ``equivariant_nn_zoo_tpu/nn/pointwise.py``
+(``LayerNormalization``, ``Concat`` and ``Split`` are not ported yet).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
+import torch
+
+from ..ops.gate import NormActivation, resolve_activation
 from ..ops.irreps import Irreps
 from ..ops.tensor_product import Linear, TensorProduct
+from ..ops.wigner import wigner_3j
 from .module import Module
 
 
@@ -34,8 +40,12 @@ class TensorProductExpansion(Module):
     (``tp``), then an equivariant linear mix into the output (``linear``).
 
     The two are kept separate so the convolution can run the mix after the
-    edge sum (they commute).  Only construction is needed on the
-    ``config_energy`` path: the convolution's kernels consume the structure.
+    edge sum (they commute); the convolution's kernels consume the
+    structure only.  ``expand`` is the forward: with internal weights and
+    more than four all-uvu paths it takes the mid-fused lowering, which
+    mixes each path's chunk right after its CG contraction and never builds
+    the full mid tensor (the plain version of the pairwise kernel,
+    ``ops/cuda/pairwise_tp.py``).
     """
 
     def __init__(self, left, right, output, instruction="uvu",
@@ -70,3 +80,133 @@ class TensorProductExpansion(Module):
         )
         self.linear = Linear(self.irreps_mid.simplify(), irreps_out,
                              biases=False)
+        self._fuse_plan = self._build_fuse_plan()
+
+    def _build_fuse_plan(self):
+        """Plan of the mid-fused lowering, or None when it does not apply.
+        When the mix is a slot bijection (simplified mid irreps and output
+        irreps both unique, no bias) the row block of the mix ``Linear``
+        that each TP path feeds is known statically.  Per (i1, i2) pair:
+        ``(instruction, weight offset, row rank in the simplified block,
+        linear input slot, linear output slot or None)``."""
+        tp, lin = self.tp, self.linear
+        if not self.internal_weight:
+            return None
+        if len(tp.instructions) <= 4 or not all(
+                ins.mode == "uvu" and ins.has_weight
+                for ins in tp.instructions):
+            return None
+        simplified = self.irreps_mid.simplify()
+        if len({mi.ir for mi in simplified}) != len(simplified):
+            return None
+        if len({mo.ir for mo in lin.irreps_out}) != len(lin.irreps_out):
+            return None
+        if lin.bias_slots:
+            return None
+        ii_of_ir = {mi.ir: i for i, mi in enumerate(simplified)}
+        io_of_ir = {mo.ir: i for i, mo in enumerate(lin.irreps_out)}
+        rank, counter = {}, {}
+        for slot, mi in enumerate(tp.irreps_out):
+            rank[slot] = counter.get(mi.ir, 0)
+            counter[mi.ir] = rank[slot] + mi.mul
+        groups: Dict = {}
+        ofs = 0
+        for ins in tp.instructions:
+            ir3 = tp.irreps_out[ins.i_out].ir
+            groups.setdefault((ins.i_in1, ins.i_in2), []).append(
+                (ins, ofs, rank[ins.i_out], ii_of_ir[ir3],
+                 io_of_ir.get(ir3)))
+            ofs += int(np.prod(tp._weight_shape(ins)))
+        return groups
+
+    def _expand_fused(self, left, right):
+        tp, lin = self.tp, self.linear
+        weight = tp.weight
+        slices1, slices2 = tp.irreps_in1.slices(), tp.irreps_in2.slices()
+        mix_bins: Dict[int, list] = {}   # io -> [(chunk, mix rows, mul1)]
+        for (i1, i2), items in self._fuse_plan.items():
+            live = [it for it in items if it[4] is not None]
+            if not live:
+                continue  # the mix reads no mid irrep of this pair
+            mi1, mi2 = tp.irreps_in1[i1], tp.irreps_in2[i2]
+            mul1, d1, mul2, d2 = mi1.mul, mi1.ir.dim, mi2.mul, mi2.ir.dim
+            a = left[..., slices1[i1]].reshape(left.shape[:-1] + (mul1, d1))
+            b = right[..., slices2[i2]].reshape(
+                right.shape[:-1] + (mul2, d2))
+            W = torch.stack([weight[o: o + mul1 * mul2].reshape(mul1, mul2)
+                             for _, o, _, _, _ in live])      # [L, u, v]
+            bw = torch.einsum("...vj,Luv->...Luj", b, W)
+            dims3 = [tp.irreps_out[ins.i_out].ir.dim for ins, *_ in live]
+            C = np.zeros((len(live), d1, d2, max(dims3)), np.float32)
+            for p, (ins, *_) in enumerate(live):
+                l3 = tp.irreps_out[ins.i_out].ir.l
+                C[p, :, :, : 2 * l3 + 1] = (
+                    wigner_3j(mi1.ir.l, mi2.ir.l, l3) * ins.path_weight)
+            chunk = torch.einsum(
+                "...ui,...Luj,LijK->...LuK", a, bw,
+                torch.as_tensor(C, dtype=left.dtype, device=left.device))
+            for p, (ins, _, rk, ii, io) in enumerate(live):
+                rows = lin.weight(ii, io)[rk: rk + mul1]
+                mix_bins.setdefault(io, []).append(
+                    (chunk[..., p, :, : dims3[p]], rows, mul1))
+        out_chunks: Dict[int, torch.Tensor] = {}
+        for io, entries in mix_bins.items():
+            if len(entries) > 1 and len({u for *_, u in entries}) == 1:
+                ch = torch.stack([c for c, _, _ in entries], dim=-3)
+                ws = torch.stack([w for _, w, _ in entries])   # [P, u, w]
+                out_chunks[io] = torch.einsum("...Puk,Puw->...wk", ch, ws)
+            else:  # mixed path multiplicities: accumulate per path
+                out_chunks[io] = sum(
+                    torch.einsum("...uk,uw->...wk", c, w)
+                    for c, w, _ in entries)
+        lead = torch.broadcast_shapes(left.shape[:-1], right.shape[:-1])
+        outs = []
+        for io, mo in enumerate(lin.irreps_out):
+            if io in out_chunks:
+                ch = out_chunks[io]
+                outs.append(ch.reshape(ch.shape[:-2] + (mo.dim,)).expand(
+                    lead + (mo.dim,)))
+            else:
+                outs.append(left.new_zeros(lead + (mo.dim,)))
+        return torch.cat(outs, dim=-1)
+
+    def expand(self, left, right, weight=None):
+        """``tp`` (with external per-element weights when given) then the
+        linear mix."""
+        if weight is None and self._fuse_plan is not None:
+            return self._expand_fused(left, right)
+        return self.linear(self.tp(left, right, weight))
+
+    def forward(self, data: Dict, attrs: Dict):
+        out = self.expand(data["left"], data["right"], data.get("weight"))
+        return ({"output": out},
+                {"output": (attrs["left"][0], self.irreps_out["output"])})
+
+
+class ResBlock(Module):
+    """Equivariant residual block: ``x + linear_1(norm_act(x))``, then
+    ``linear_2`` when the output irreps differ.  ``block`` applies it to a
+    tensor."""
+
+    def __init__(self, irreps_in, irreps_out, activation="silu", biases=True,
+                 **kwargs):
+        super().__init__()
+        self.init_irreps(input=irreps_in, output=irreps_out,
+                         output_keys=["output"])
+        ir_in = Irreps(self.irreps_in["input"])
+        ir_out = Irreps(self.irreps_out["output"])
+        self.same = ir_in == ir_out
+        self.linear_1 = Linear(ir_in, ir_in, biases=biases)
+        if not self.same:
+            self.linear_2 = Linear(ir_in, ir_out, biases=biases)
+        self.act = NormActivation(ir_in, resolve_activation(activation))
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        out = x + self.linear_1(self.act(x))
+        if not self.same:
+            out = self.linear_2(out)
+        return out
+
+    def forward(self, data: Dict, attrs: Dict):
+        return ({"output": self.block(data["input"])},
+                {"output": (attrs["input"][0], self.irreps_out["output"])})

@@ -6,6 +6,8 @@ built from ``csrc/`` at first use, never at import.
 """
 
 from .full_conv import FullConv
+from .pairwise_tp import PairwiseTP
 from .species_sc import SpeciesScalarFCTP
+from .uvu_conv import UVUConv
 
-__all__ = ["FullConv", "SpeciesScalarFCTP"]
+__all__ = ["FullConv", "PairwiseTP", "SpeciesScalarFCTP", "UVUConv"]

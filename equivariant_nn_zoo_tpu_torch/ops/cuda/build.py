@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 ``nvcc`` compiles every ``csrc/*.cu`` of the package (``full_conv.cu``,
-``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``) for
-``sm_90a`` (one compiler process per source, all started together) and
-links the objects into one shared library with a plain C interface under
-``build/kernels/`` at the repository root (listed in ``.gitignore``);
-``ctypes`` loads it at first use.  The library's file name carries a hash
-of the sources and flags, so an edited source is rebuilt and a current one
-is reused.  A failed build raises with the compiler's output.  Nothing here runs at import time.
+``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``,
+``uvu_conv.cu``, ``pairwise_tp.cu``; the mix stage in ``row_mix.cuh`` is
+shared by three of them) for ``sm_90a`` (one compiler process per source,
+all started together) and links the objects into one shared library with a
+plain C interface under ``build/kernels/`` at the repository root (listed
+in ``.gitignore``); ``ctypes`` loads it at first use.  The library's file
+name carries a hash of the sources, headers and flags, so an edited source
+is rebuilt and a current one is reused.  A failed build raises with the
+compiler's output.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -82,6 +84,24 @@ SIGNATURES = {
         _P, _P, _P, _I,        # dx, d edge_radial, d hidden weights, length
         _P, _P, _P,            # d last layer, d mix matrices, stream
     ],
+    "uvu_conv_fwd": [
+        _P, _I, _I,            # x, N, in_dim
+        _P, _I,                # sh, J
+        _P, _I,                # radial weights, their columns P * mul
+        _P, _I,                # src, E
+        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I,            # scratch, K * mul, mul
+        _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
+        _P, _I, _I, _P,        # out, out_dim, zero it first, stream
+    ],
+    "pairwise_tp_fwd": [
+        _P, _I, _I,            # left, M, its columns
+        _P, _I,                # weighted right [M, R, mul], R
+        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I,            # scratch, K * mul, mul
+        _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
+        _P, _I, _I, _P,        # out, out_dim, zero it first, stream
+    ],
     "full_conv_ext_fwd": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, sh, w, wsel
         _P, _P, _P,            # scratch, out, stream
@@ -117,7 +137,7 @@ def build() -> Tuple[Path, str]:
     if not sources:
         raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode() + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"libe3kernels_{digest.hexdigest()[:16]}.so"

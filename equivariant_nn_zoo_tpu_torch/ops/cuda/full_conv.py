@@ -38,6 +38,21 @@ from .build import check, check_tensor, load_library
 MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 7
 
 
+def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
+    """The mix stage of the conv and pairwise kernels in plain PyTorch: per
+    problem row ``(a_col, kdim, b_off, wo, c_off, c_stride)``,
+    ``out[:, c_off + w * c_stride] = scratch[:, a_col: a_col + kdim] @
+    wsel[b_off: b_off + kdim * wo].reshape(kdim, wo)``; columns of no
+    problem are zero."""
+    out = scratch.new_zeros((scratch.shape[0], out_dim))
+    for a_col, kdim, b_off, wo, c_off, c_stride in prob_rows:
+        blk = scratch[:, a_col: a_col + kdim] @ wsel[
+            b_off: b_off + kdim * wo].reshape(kdim, wo)
+        cols = c_off + c_stride * torch.arange(wo, device=scratch.device)
+        out = out.index_add(1, cols, blk)
+    return out
+
+
 class ConvTables(torch.nn.Module):
     """Constant tables of one uvu ``TensorProductExpansion`` for the conv
     kernels (K1, K2 and the external-weight K4 family): the CG paths with
@@ -56,6 +71,7 @@ class ConvTables(torch.nn.Module):
         # Scratch rows are component-major inside each output-irrep group:
         # row(g, m3, m) = k0_g + m3 * n_paths_g + m
         paths, nz_idx, nz_c = [], [], []
+        rows_complete = True
         for ir, k0, n_paths, d, p0 in fused.groups:
             for m in range(n_paths):
                 ins = fused.paths[p0 + m]
@@ -63,6 +79,8 @@ class ConvTables(torch.nn.Module):
                 mi2 = fused.irreps_sh[ins.i_in2]
                 cg = wigner_3j(mi1.ir.l, mi2.ir.l, ir.l) * ins.path_weight
                 nz0 = len(nz_idx)
+                rows_complete &= bool(
+                    (np.abs(cg) > 1e-10).any(axis=(0, 1)).all())
                 for m3 in range(ir.dim):
                     for m1 in range(mi1.ir.dim):
                         for m2 in range(mi2.ir.dim):
@@ -77,6 +95,9 @@ class ConvTables(torch.nn.Module):
                 ])
         self.n_paths = len(paths)
         self.KM = fused.K_dim * mul
+        # every (path, component) has a CG non-zero: a kernel that stores
+        # each scratch row as it closes a component then writes all of them
+        self.rows_complete = rows_complete
 
         # mix problems: one per (group, component, output slot)
         linear_out = fused.irreps_out
@@ -92,6 +113,9 @@ class ConvTables(torch.nn.Module):
                 b_off += n_paths * mul * wo
         self.wsel_len = b_off
         self.mix_plan = plan
+        # every output column belongs to a mix problem
+        self.covers_output = {io for _, io in plan} == {
+            io for io, mo in enumerate(linear_out) if mo.dim}
         self.n_probs = len(probs)
         # the backward's host builds its products from the problem table
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
@@ -127,13 +151,7 @@ class ConvTables(torch.nn.Module):
             block = block * w3[:, getattr(fused, f"widx{g}")][:, :, None]
             rows.append(block.transpose(1, 2).reshape(E, -1))
         scratch = segment_sum(torch.cat(rows, 1), edge_dst, int(num_nodes))
-        out = x.new_zeros((int(num_nodes), self.out_dim))
-        for a_col, kdim, b_off, wo, c_off, c_stride in self.prob_rows:
-            blk = scratch[:, a_col: a_col + kdim] @ wsel[
-                b_off: b_off + kdim * wo].reshape(kdim, wo)
-            cols = c_off + c_stride * torch.arange(wo, device=x.device)
-            out = out.index_add(1, cols, blk)
-        return out, scratch
+        return mix_rows(scratch, wsel, self.prob_rows, self.out_dim), scratch
 
     def flat_wsel(self, linear, pre_scale=None) -> torch.Tensor:
         """The mix matrices of every problem (alphas and ``pre_scale``
@@ -276,8 +294,28 @@ class FullConvFunction(torch.autograd.Function):
         return (None, *grads, None, None, None, None)
 
 
+def check_structure(conv, backward: bool = False) -> None:
+    """Raise unless the kernels take this layer's sizes.  The forward has
+    no per-irrep storage, so it takes left irreps of any degree (l = 4 in
+    the hamiltonian trunk); the backward holds one register row per
+    component of the left irrep, ``MAX_D`` of them."""
+    fused = conv.fused
+    R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
+    n_hidden = len(conv.fc_dims) - 2
+    if not (R <= MAX_RADIAL and H <= MAX_HIDDEN and n_hidden >= 1
+            and fused.J_dim <= MAX_SH and fused.mul * 4 <= 1024
+            and all(h == H for h in conv.fc_dims[1:-1])
+            and PC == fused.weight_numel):
+        raise ValueError(f"FullConv kernel does not take MLP dims "
+                         f"{conv.fc_dims}, J={fused.J_dim}, "
+                         f"mul={fused.mul}")
+    if backward and conv.max_d1 > MAX_D:
+        raise ValueError(f"the FullConv backward takes left irreps up to "
+                         f"l = 3, got d = {conv.max_d1}")
+
+
 def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
-                  w_out, wsel, num_nodes):
+                  w_out, wsel, num_nodes, backward=False):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"FullConv kernel needs CUDA tensors, got {dev}")
@@ -290,14 +328,7 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     check_tensor(edge_radial, "edge_radial", (E, R), torch.float32, dev)
     check_tensor(edge_src, "edge_src", (E,), torch.int64, dev)
     check_tensor(edge_dst, "edge_dst", (E,), torch.int64, dev)
-    if not (R <= MAX_RADIAL and H <= MAX_HIDDEN and n_hidden >= 1
-            and fused.J_dim <= MAX_SH and fused.mul * 4 <= 1024
-            and conv.max_d1 <= MAX_D
-            and all(h == H for h in conv.fc_dims[1:-1])
-            and PC == fused.weight_numel):
-        raise ValueError(f"FullConv kernel does not take MLP dims "
-                         f"{conv.fc_dims}, J={fused.J_dim}, "
-                         f"mul={fused.mul}")
+    check_structure(conv, backward)
     if conv.path_table.device != dev:
         raise ValueError("FullConv tables are not on the input's device")
     n_w = R * H + (n_hidden - 1) * H * H
@@ -342,7 +373,8 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     """Launch K2: ``(dx, d edge_radial, dw_hidden, dw_out, dwsel)``, all
     float32, from the forward's inputs, its scratch and ``gout``."""
     dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
-                              w_hidden, w_out, wsel, num_nodes)
+                              w_hidden, w_out, wsel, num_nodes,
+                              backward=True)
     check_tensor(scratch, "scratch", (N, conv.KM), torch.float32, dev)
     check_tensor(gout, "gout", (N, conv.out_dim), torch.float32, dev)
     fused = conv.fused

@@ -4,7 +4,9 @@ PyTorch counterparts of ``equivariant_nn_zoo_tpu/ops/fused_tp.py``.  They
 are the plain versions of the port's conv and self-connection kernels
 (``ops/cuda/full_conv.py``, ``ops/cuda/full_conv_ext.py`` and
 ``ops/cuda/species_sc.py``): the kernels' wrappers call them for tensors on
-the CPU, and the tests hold them against the JAX package.  On the force
+the CPU, and the tests hold them against the JAX package; with
+``reduce=False`` ``FusedUVUConv`` is the plain version of the per-edge conv
+kernel (``ops/cuda/uvu_conv.py``).  On the force
 path (``grad_order >= 2``) ``FusedScalarFCTP`` is itself the
 self-connection, on every device, as in the JAX package: the species-table
 kernel is first-order only.  The JAX package's ``apply_blocks`` (a
@@ -152,9 +154,12 @@ class FusedUVUConv(torch.nn.Module):
     def forward(self, linear, x: torch.Tensor, edge_src: torch.Tensor,
                 edge_dst: torch.Tensor, sh: torch.Tensor,
                 weight: torch.Tensor, num_nodes: int,
-                pre_scale: Optional[float] = None) -> torch.Tensor:
+                pre_scale: Optional[float] = None,
+                reduce: bool = True) -> torch.Tensor:
         """x [N, in_dim] (already linear_1'd), sh [E, J], weight
-        [E, weight_numel] -> node-summed mixed output [N, out_dim]."""
+        [E, weight_numel] -> node-summed mixed output [N, out_dim], or with
+        ``reduce=False`` the per-edge mixed output [E, out_dim] (the
+        hamiltonian head's neighbor conv; ``edge_dst`` is not read)."""
         E = sh.shape[0]
         mul = self.mul
         mid = self.edge_mid(x, edge_src, sh)              # [E, K, mul]
@@ -178,6 +183,8 @@ class FusedUVUConv(torch.nn.Module):
         edge_out = torch.cat(outs, dim=-1)
         if pre_scale is not None:
             edge_out = edge_out * pre_scale
+        if not reduce:
+            return edge_out
         return segment_sum(edge_out, edge_dst, num_nodes)
 
 

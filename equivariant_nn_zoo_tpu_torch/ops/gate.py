@@ -1,7 +1,8 @@
 """Equivariant nonlinearities: activation registry, ``normalize2mom``, Gate.
 
 PyTorch counterpart of ``equivariant_nn_zoo_tpu/ops/gate.py`` (the parts the
-``config_energy`` forward runs).  ``normalize2mom`` computes the same
+ported models run: ``Gate`` in the trunk, ``NormActivation`` in the
+hamiltonian head's ``ResBlock``).  ``normalize2mom`` computes the same
 Gauss-Hermite second moment on the float32 activation, so the rescaling
 constants agree with the JAX package to float32 rounding.
 """
@@ -112,4 +113,43 @@ class Gate:
             outs.append((chunk * gate[..., None]).reshape(lead + (mi.dim,)))
             gofs += mi_g.dim
             ofs += mi.dim
+        return torch.cat(outs, dim=-1)
+
+
+class NormActivation:
+    """Norm-based nonlinearity: ``x -> x / |x| * f(|x|)`` per irrep channel
+    (``normalize=True``), with ``|x| = sqrt(sum of squares + epsilon)``,
+    epsilon 1e-24 by default, as the JAX package's ``NormActivation``."""
+
+    def __init__(self, irreps_in, scalar_nonlinearity,
+                 normalize: bool = True, epsilon: float = None):
+        self.irreps_in = Irreps(irreps_in)
+        self.irreps_out = self.irreps_in
+        self.act = normalize2mom(scalar_nonlinearity)
+        self.normalize = normalize
+        self.epsilon = 1e-24 if epsilon is None else epsilon
+        # consecutive slots of equal dimension share one [.., sum mul, d]
+        # chunk: the norm is per channel
+        self._runs = []  # (col0, col1, total mul, d)
+        ofs = 0
+        for mi in self.irreps_in:
+            d = mi.ir.dim
+            if self._runs and self._runs[-1][3] == d:
+                c0, _, m, _ = self._runs[-1]
+                self._runs[-1] = (c0, ofs + mi.dim, m + mi.mul, d)
+            else:
+                self._runs.append((ofs, ofs + mi.dim, mi.mul, d))
+            ofs += mi.dim
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        outs = []
+        for c0, c1, m, d in self._runs:
+            chunk = x[..., c0:c1].reshape(lead + (m, d))
+            norm = torch.sqrt((chunk * chunk).sum(-1, keepdim=True)
+                              + self.epsilon)
+            scale = self.act(norm)
+            if self.normalize:
+                scale = scale / norm
+            outs.append((chunk * scale).reshape(lead + (c1 - c0,)))
         return torch.cat(outs, dim=-1)

@@ -3,7 +3,11 @@ versions, at full ``config_energy`` width: K1 and K3 forward, K2 and K3b
 backward, and a whole training step's gradients against the CPU plain path;
 and for the force path (``config_energy_force``): K4f, K4b and K4g against
 their plain contracts, the routes of the second backward, and forces and a
-training step's gradients against the CPU plain path.
+training step's gradients against the CPU plain path; and for the
+hamiltonian serving path (``config_hamiltonian``): K5 and K6 against their
+plain versions, K1 and K3 at the trunk's l = 4 layer, the full-width forward
+against the CPU plain path, and the two forward-only kernels refusing a call
+that needs a gradient.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -537,3 +541,207 @@ def test_force_model_matches_cpu(cuda):
         assert torch.isfinite(got[name]).all(), name
         assert _rel(got[name], want[name]) <= TOL, (name, _rel(got[name],
                                                                want[name]))
+
+
+# ------------------------------------------------------- hamiltonian path
+
+def _water(n_mol, seed=0):
+    """Synthetic H2O: the equilibrium geometry plus N(0, 0.03^2) noise."""
+    rng = np.random.default_rng(seed)
+    base = np.array([[0, 0, 0], [0.96, 0, 0], [-0.24, 0.93, 0]])
+    mols = []
+    for _ in range(n_mol):
+        d = {"pos": base + rng.normal(scale=0.03, size=(3, 3)),
+             "species": np.array([[8], [1], [1]])}
+        d["atom_types"] = d["species"]
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+                 "atom_types": ("node", "1x0e")}
+        out, attrs = computeEdgeIndex(d, attrs, r_max=4.0)
+        d.update(out)
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+@pytest.fixture(scope="module")
+def hamiltonian(cuda):
+    """Full-width ``config_hamiltonian`` on the card, a 16-molecule batch,
+    and the positional arguments with which one forward calls K5 (twice:
+    ``tp_off``, then ``tp``) and K6."""
+    model = build_model(get_config("config_hamiltonian")["model_config"],
+                        cuda, torch.Generator().manual_seed(0))
+    model.eval()
+    gb = _batch(_water(16), cuda, extra_edges=0)
+    head = model.pairwise
+    seen = {"K5": [], "K6": []}
+    hooks = [
+        head.pairwise_tp.register_forward_pre_hook(
+            lambda mod, args: seen["K5"].append(args)),
+        head.conv.full_conv.register_forward_pre_hook(
+            lambda mod, args: seen["K6"].append(args))]
+    with torch.no_grad():
+        model(gb)
+    for h in hooks:
+        h.remove()
+    return model, gb, seen
+
+
+def _small_expansion(cuda, n_dim, l_max=2):
+    from equivariant_nn_zoo_tpu_torch.nn.pointwise import (
+        TensorProductExpansion,
+    )
+    from equivariant_nn_zoo_tpu_torch.utils import init_parameters
+
+    feats = "+".join(f"{n_dim}x{l}{p}" for l in range(l_max + 1)
+                     for p in "eo")
+    tpe = TensorProductExpansion(feats, feats, feats, "uvu")
+    init_parameters(tpe, torch.Generator().manual_seed(1))
+    return tpe.to(cuda)
+
+
+@pytest.mark.parametrize("n_dim,M", [(8, 41), (32, 301), (64, 130)])
+def test_pairwise_kernel_matches_plain(cuda, n_dim, M):
+    """K5 against ``expand`` and against the plain walk over its own
+    tables, at narrow and full multiplicities and ragged sizes."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import PairwiseTP
+
+    tpe = _small_expansion(cuda, n_dim)
+    tpk = PairwiseTP(tpe).to(cuda)
+    g = torch.Generator().manual_seed(13)
+    a = torch.randn(M, tpk.irreps_a.dim, generator=g).to(cuda)
+    b = torch.randn(M, tpk.irreps_b.dim, generator=g).to(cuda)
+    before = PairwiseTP.launches
+    with torch.no_grad():
+        got = tpk(tpe, a, b)
+        want = tpe.expand(a, b)
+        contract = tpk.plain_forward(
+            a, tpk.weighted_right(tpe.tp.weight, b),
+            tpk.flat_wsel(tpe.linear))
+        torch.cuda.synchronize()
+    assert PairwiseTP.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL
+    assert _rel(got, contract) <= TOL
+
+
+@pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (64, 130, 4099)])
+def test_uvu_conv_kernel_matches_plain(cuda, n_dim, N, E):
+    """K6 against ``FusedUVUConv(reduce=False)`` and its plain contract."""
+    from equivariant_nn_zoo_tpu_torch.nn.message_passing import (
+        FactorizedConvolution,
+    )
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.uvu_conv import UVUConv
+    from equivariant_nn_zoo_tpu_torch.utils import init_parameters
+
+    feats = "+".join(f"{n_dim}x{l}{p}" for l in range(3) for p in "eo")
+    conv = FactorizedConvolution(
+        input_features=feats, output_features=feats, node_attrs=None,
+        edge_radial="8x0e", edge_spherical="1x0e+1x1o+1x2e",
+        invariant_layers=2, invariant_neurons=16, avg_num_neighbors=1,
+        use_sc=False, reduce=False)
+    init_parameters(conv, torch.Generator().manual_seed(1))
+    conv = conv.to(cuda)
+    fc = conv.full_conv
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(N, fc.fused.irreps_in.dim, generator=g).to(cuda)
+    sh = torch.randn(E, 9, generator=g).to(cuda)
+    w = torch.randn(E, fc.fused.weight_numel, generator=g).to(cuda)
+    src = torch.randint(0, N, (E,), generator=g).to(cuda)
+    before = UVUConv.launches
+    with torch.no_grad():
+        got = fc(conv.tp.linear, x, sh, w, src)
+        want = fc.fused(conv.tp.linear, x, src, None, sh, w, N, reduce=False)
+        contract = fc.plain_forward(x, sh, w, fc.flat_wsel(conv.tp.linear),
+                                    src)
+        torch.cuda.synchronize()
+    assert UVUConv.launches == before + 1
+    assert got.shape == (E, fc.out_dim) and torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL
+    assert _rel(got, contract) <= TOL
+
+
+def test_head_kernels_match_plain_at_full_width(hamiltonian):
+    """K5 (``tp_off`` on the edges, ``tp`` on the nodes) and K6 at the
+    full-width head's shapes, on the inputs one forward gives them."""
+    model, _, seen = hamiltonian
+    head = model.pairwise
+    assert len(seen["K5"]) == 2 and len(seen["K6"]) == 1
+    with torch.no_grad():
+        for tpe, left, right in seen["K5"]:
+            got = head.pairwise_tp.launch(tpe, left, right)
+            want = tpe.expand(left, right)
+            assert got.shape == (left.shape[0], 3200)
+            assert _rel(got, want) <= TOL
+        linear, x, sh, w, src = seen["K6"][0]
+        fc = head.conv.full_conv
+        got = fc.launch(linear, x, sh, w, src)
+        want = fc.fused(linear, x, src, None, sh, w, x.shape[0],
+                        reduce=False)
+        torch.cuda.synchronize()
+    assert got.shape == (sh.shape[0], 3200)
+    assert _rel(got, want) <= TOL
+
+
+def test_trunk_kernels_take_l4(hamiltonian):
+    """K1 and K3 at the hamiltonian trunk's hot layer (l = 4 in and out,
+    16 sh components, 3 hidden layers of 64)."""
+    model, gb, _ = hamiltonian
+    conv = model.layer3.conv
+    assert conv.full_conv.max_d1 == 9
+    data = _layer3_inputs(model, gb)
+    with torch.inference_mode():
+        x = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+        k1 = (conv.fc, conv.tp.linear, x, er, data["edge_spherical"],
+              data["edge_index"][0], data["edge_index"][1], x.shape[0],
+              conv.avg_num_neighbors ** -0.5)
+        got1 = conv.full_conv.launch(*k1)
+        want1 = conv.full_conv.plain(*k1)
+        k3 = (conv.sc, data["input_features"], data["node_attrs"],
+              data["species"])
+        got3 = conv.species_sc.launch(*k3)
+        want3 = conv.species_sc.plain(*k3)
+        torch.cuda.synchronize()
+    assert _rel(got1, want1) <= TOL
+    assert _rel(got3, want3) <= TOL
+
+
+def test_hamiltonian_model_matches_cpu(hamiltonian):
+    """The full-width forward on the card against the plain path on the
+    CPU; one forward launches K1 and K3 once per layer, K6 once, K5 twice."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import PairwiseTP, UVUConv
+
+    model, gb, _ = hamiltonian
+    mc = get_config("config_hamiltonian")["model_config"]
+    cpu = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    before = (FullConv.launches, SpeciesScalarFCTP.launches,
+              UVUConv.launches, PairwiseTP.launches)
+    with torch.no_grad():
+        got = model(gb)["hamiltonian"]
+        torch.cuda.synchronize()
+        after = (FullConv.launches, SpeciesScalarFCTP.launches,
+                 UVUConv.launches, PairwiseTP.launches)
+        want = cpu(gb.to("cpu"))["hamiltonian"]
+    n_layers = mc["num_layers"]
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        n_layers, n_layers, 1, 2)
+    assert got.shape == (16, 576) and torch.isfinite(got).all()
+    assert _rel(got.cpu(), want) <= TOL
+    H = got.reshape(16, 24, 24)
+    assert float((H - H.transpose(1, 2)).abs().max()) <= 1e-5 * float(
+        H.abs().max())
+
+
+def test_head_kernels_raise_when_a_gradient_is_needed(hamiltonian):
+    """K5 and K6 are forward-only: a training forward on the card raises
+    instead of returning detached features."""
+    model, gb, seen = hamiltonian
+    head = model.pairwise
+    tpe, left, right = seen["K5"][0]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        head.pairwise_tp(tpe, left, right)     # parameters need gradients
+    linear, x, sh, w, src = seen["K6"][0]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        head.conv.full_conv(linear, x.clone().requires_grad_(True), sh, w,
+                            src)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        model(gb)
