@@ -66,12 +66,35 @@ Phases, in order; any failure exits non-zero before the last line:
              ``inference.evaluate``; one forward must launch K1 and K3 once
              per layer, K6 once and K5 twice; the matrices must be finite
              and symmetric to 1e-5, and a 16-molecule cut must match the
-             CPU plain path.
+             CPU plain path;
+16. K6b, K5m, K5a, K5b, K2 and K3b at l = 4 — the hamiltonian path's
+             backward kernels against their plain versions (autograd of
+             the plain forwards) with seeded cotangents, per output, at
+             the shapes of the 512-molecule batch (K6b and ``tp_off`` on
+             3072 edges, ``tp`` on 1537 node rows, the trunk's hot layer)
+             and of the config's batch of 16 (96 edges, 49 node rows); the
+             pairwise backward is one entry, so each of its three kernels
+             (dwsel, d left, dbw) is also launched, checked and timed
+             alone;
+17. hamiltonian train — a ``run.Trainer`` with ``config_hamiltonian``'s
+             own settings (loss 1e5 * MSE on ``hamiltonian``, Adam lr 1e-2,
+             EMA 0.99 with num_updates, ReduceLROnPlateau patience 8 factor
+             0.8, batch 16) runs 2 epochs over 4 training batches and 1
+             validation batch of synthetic H2O with seeded N(0, 1) targets
+             ``[G, 576]``; one step must launch exactly 5 K1, 5 K2, 5 K3,
+             5 K3b, 1 K6, 1 K6b, 2 K5 and 2 K5 backward entries; then 12
+             timed steps at batch 16 and at batch 128 (ms per step,
+             graphs/s, peak memory, device busy share); the loss on a fixed
+             batch must be finite and lower after the steps;
+18. hamiltonian train parity — one step's gradient of every parameter on
+             a 16-molecule cut, card against the CPU plain path.
 
 Phase 12 also traces 4 force training steps with ``torch.profiler`` and
 writes their kernel-time table to ``chiprun_out/force_step_profile.txt``;
 phase 15 does the same for 4 serving forwards at each batch size
-(``chiprun_out/hamiltonian_serve_profile_{16,512}.txt``).
+(``chiprun_out/hamiltonian_serve_profile_{16,512}.txt``) and phase 17 for 4
+training steps at each batch size
+(``chiprun_out/hamiltonian_step_profile{,_128}.txt``).
 
 TF32 is off, so the plain versions compute in float32; the kernels sum with
 atomics in a varying order, hence rel-linf 1e-4 of max|plain| (per tensor).
@@ -83,6 +106,7 @@ second-to-last line is the kernels' JSON, the last the device JSON.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +117,7 @@ TOL = 1e-4
 N_BATCHES, BATCH = 4, 128
 FORCE_BATCH, FORCE_CUT = 64, 16
 H2O_BATCHES, H2O_CUT = (16, 512), 16   # the config's batch, a serving batch
+H2O_TRAIN_BATCHES = (16, 128)          # the config's batch, a larger one
 HOT_LAYER = "layer3"
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 CUDA cores, HBM3
 
@@ -150,9 +175,10 @@ def synthetic_fragments(n_mol, rng):
     return mols
 
 
-def synthetic_h2o(n_mol, rng):
+def synthetic_h2o(n_mol, rng, labels=False):
     """Water molecules: the equilibrium geometry plus N(0, 0.03^2) noise,
-    r_max 4 (all six ordered pairs are edges)."""
+    r_max 4 (all six ordered pairs are edges); with ``labels``, an N(0, 1)
+    ``hamiltonian`` target of 576 entries per molecule."""
     from equivariant_nn_zoo_tpu_torch.data import Data, computeEdgeIndex
 
     base = np.array([[0, 0, 0], [0.96, 0, 0], [-0.24, 0.93, 0]])
@@ -163,6 +189,9 @@ def synthetic_h2o(n_mol, rng):
         d["atom_types"] = d["species"]
         attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
                  "atom_types": ("node", "1x0e")}
+        if labels:
+            d["hamiltonian"] = rng.normal(size=(1, 576)).astype(np.float32)
+            attrs["hamiltonian"] = ("graph", 576)
         out, attrs = computeEdgeIndex(d, attrs, r_max=4.0)
         d.update(out)
         mols.append(Data(attrs, **d))
@@ -280,6 +309,31 @@ def conv_counts(tables, N, E):
                 mix=2 * N * int((pr[:, 1] * pr[:, 3]).sum()))
 
 
+def trunk_costs(conv, x1, er, edges, flat, x_in, attrs, tables, spec, g3):
+    """Operations and bytes of K1, K3, K2 and K3b at one layer's shapes:
+    ``x1`` the conv's input, ``er`` the masked radial basis, ``edges`` (sh,
+    src, dst), ``flat`` the kernels' flat weights, ``x_in`` / ``attrs`` /
+    ``tables`` / ``spec`` / ``g3`` the self-connection's operands."""
+    fconv, ssc = conv.full_conv, conv.species_sc
+    N0, E0 = x1.shape[0], er.shape[0]
+    cc = conv_counts(fconv, N0, E0)
+    dims = fconv.fc_dims
+    mlp = 2 * E0 * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+    items = ssc.bwd_item_table.cpu().numpy().reshape(-1, 6).astype(np.int64)
+    sc_flops = 2 * N0 * int((items[:, 1] * items[:, 4] * items[:, 5]).sum())
+    out_bytes = N0 * fconv.out_dim * 4
+    return {
+        "K1": (mlp + cc["cg"] + 2 * cc["rows"] + cc["mix"],
+               nbytes(x1, er, *edges, *flat) + out_bytes),
+        "K3": (sc_flops, nbytes(x_in, attrs, spec, conv.sc.weight)
+               + N0 * ssc.irreps_out.dim * 4),
+        "K2": (3 * mlp + 2 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
+               2 * nbytes(x1, er, *flat) + nbytes(*edges)
+               + N0 * fconv.KM * 4 + out_bytes),
+        "K3b": (2 * sc_flops, 2 * nbytes(x_in, tables) + nbytes(spec, g3)),
+    }
+
+
 def kernel_record(name, source, replaces, launches, measured, flops,
                   n_bytes):
     b = bound(flops, n_bytes)
@@ -326,6 +380,39 @@ def worst_rel(got, want):
                 / max(float(want[k].abs().max()), 1e-30), k) for k in want)
 
 
+def worst_gradient_rel(got, want):
+    """``worst_rel`` for gradients: a tensor that is zero by symmetry comes
+    out as rounding noise on both sides, so one under 1e-12 of the largest
+    gradient is held to be as small in ``got`` and left out of the ratio."""
+    floor = 1e-12 * max(float(w.abs().max()) for w in want.values())
+    live = {}
+    for k, w in want.items():
+        if float(w.abs().max()) >= floor:
+            live[k] = w
+        elif float(got[k].abs().max()) >= floor:
+            fail(f"{k}: gradient {float(got[k].abs().max()):.3e} where the "
+                 f"plain path has noise under {floor:.3e}")
+    return worst_rel(got, live), len(want) - len(live)
+
+
+# kernel families of a profile, first match wins: (label, regex on the name)
+PROFILE_FAMILIES = (
+    ("K2 edge kernel", "k2_edge_kernel"),
+    ("K4 edge sweeps", "ext_edge_kernel"),
+    ("tiled products of the backward (rowmix::tile_gemm_kernel)",
+     "tile_gemm_kernel"),
+    ("Adam (profiler range)", r"Optimizer\.step"),
+    ("K1 edge kernel", "full_conv_edge_kernel"),
+    ("forward mix (rowmix::mix_rows_kernel)", "mix_rows_kernel"),
+    ("K5 sweeps (cg, da, dbw)", "pairwise_"),
+    ("K6 and K6b sweeps", "uvu_"),
+    ("K3 and K3b", "species_sc"),
+    ("sorts and index backward", "RadixSort|indexing_backward|cub::"),
+    ("cuBLAS and CUTLASS products", "cublas|cutlass|gemm|gemv|splitK"),
+    ("other PyTorch kernels, copies, memsets", "."),
+)
+
+
 def profile_kernels(what, run, n_items, filename):
     """``torch.profiler`` over ``run()`` (``n_items`` steps or batches):
     kernel time by name, written to ``chiprun_out/<filename>``; returns the
@@ -353,12 +440,24 @@ def profile_kernels(what, run, n_items, filename):
              f"({total / n_items:.3f} ms each, "
              f"{sum(r[1] for r in rows) / n_items:.0f} launches each) over a "
              f"{1e3 * span:.3f} ms profiled span"]
+    families = {}
+    for ms, n, name in rows:
+        label = next(lab for lab, pat in PROFILE_FAMILIES
+                     if re.search(pat, name))
+        fam = families.setdefault(label, [0.0, 0])
+        fam[0] += ms
+        fam[1] += n
+    lines += [f"  family {label}: {ms / n_items:.3f} ms each "
+              f"({100 * ms / max(total, 1e-30):.2f} %), "
+              f"{n / n_items:.1f} launches each"
+              for label, (ms, n) in sorted(families.items(),
+                                           key=lambda kv: -kv[1][0])]
     lines += [f"{ms:10.3f} ms {100 * ms / max(total, 1e-30):6.2f} % "
               f"{n:6d} x {name}" for ms, n, name in rows]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", filename), "w") as f:
         f.write("\n".join(lines) + "\n")
-    print("profile: " + "\n  ".join(lines[:16]))
+    print("profile: " + "\n  ".join(lines[:24]))
     return total / n_items
 
 
@@ -593,7 +692,9 @@ def force_phases(dev):
     ]
 
 
-def head_launches():
+def head_counters():
+    """(class, attribute) of every launch counter on the hamiltonian path,
+    by the kernel's C entry."""
     from equivariant_nn_zoo_tpu_torch.ops.cuda import (
         FullConv,
         PairwiseTP,
@@ -601,28 +702,158 @@ def head_launches():
         UVUConv,
     )
 
-    return {"full_conv": FullConv.launches,
-            "species_sc": SpeciesScalarFCTP.launches,
-            "uvu_conv": UVUConv.launches,
-            "pairwise_tp": PairwiseTP.launches}
+    return {"full_conv": (FullConv, "launches"),
+            "full_conv_bwd": (FullConv, "backward_launches"),
+            "species_sc": (SpeciesScalarFCTP, "launches"),
+            "species_sc_bwd": (SpeciesScalarFCTP, "backward_launches"),
+            "uvu_conv": (UVUConv, "launches"),
+            "uvu_conv_bwd": (UVUConv, "backward_launches"),
+            "pairwise_tp": (PairwiseTP, "launches"),
+            "pairwise_tp_bwd": (PairwiseTP, "backward_launches")}
+
+
+def head_launches():
+    return {k: getattr(cls, attr) for k, (cls, attr) in
+            head_counters().items()}
 
 
 def reset_head_launches():
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
-        FullConv,
-        PairwiseTP,
-        SpeciesScalarFCTP,
-        UVUConv,
-    )
+    for cls, attr in head_counters().values():
+        setattr(cls, attr, 0)
 
-    FullConv.launches = SpeciesScalarFCTP.launches = 0
-    UVUConv.launches = PairwiseTP.launches = 0
+
+def capture_head_inputs(model, gb):
+    """One forward of ``gb`` with hooks: the arguments of the two K5 calls
+    (``tp_off``, then ``tp``), of K6, and the data dict that reaches the
+    trunk's hot layer."""
+    import torch
+
+    head = model.pairwise
+    seen = {"K5": [], "K6": [], "trunk": []}
+    hooks = [
+        head.pairwise_tp.register_forward_pre_hook(
+            lambda mod, args: seen["K5"].append(args)),
+        head.conv.full_conv.register_forward_pre_hook(
+            lambda mod, args: seen["K6"].append(args)),
+        getattr(model, HOT_LAYER).conv.register_forward_pre_hook(
+            lambda mod, args: seen["trunk"].append(args[0]))]
+    with torch.no_grad():
+        model(gb)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def backward_checks(model, seen, dev, alone):
+    """Phase 16 at one batch's shapes: K6b, the pairwise backward (both
+    calls) and K2 / K3b at the l = 4 hot layer against their plain
+    versions, per output.  With ``alone`` each of K5m, K5a and K5b is also
+    launched, checked and timed by itself on ``tp_off``'s inputs.  Returns
+    measured records and (flops, bytes) costs by kernel."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
+
+    head = model.pairwise
+    tpk, uvu = head.pairwise_tp, head.conv.full_conv
+    conv = getattr(model, HOT_LAYER).conv
+    gen = torch.Generator().manual_seed(5)
+    rec, cost = {}, {}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    # ----------------------------------------------------------------- K6b
+    linear, x, sh, w, src = seen["K6"][0]
+    E = sh.shape[0]
+    with torch.no_grad():
+        wsel6 = uvu.flat_wsel(linear)
+        _, scratch = k6_ops.launch_forward(uvu, x, sh, w, wsel6, src)
+    args6 = (x, sh, w, wsel6, src, scratch, rnd(E, uvu.out_dim))
+    rec["K6b"] = compare_grads(
+        f"K6b uvu_conv_bwd (E={E})",
+        lambda: k6_ops.launch_backward(uvu, *args6),
+        lambda: uvu.plain_backward(*args6), ("dx", "dsh", "dw", "dwsel"))
+    cc = conv_counts(uvu, E, E)
+    cost["K6b"] = (3 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
+                   2 * nbytes(x, sh, w, wsel6) + nbytes(src, scratch, args6[-1]))
+    del args6, scratch
+
+    # ------------------------------------------------- K5m, K5a, K5b (one entry)
+    pr = tpk.prob_rows.astype(np.int64)
+    mix = 2 * int((pr[:, 1] * pr[:, 3]).sum())       # per element
+    cg = 2 * tpk.mul * tpk.nz_count                   # per element
+    names5 = ("d left", "dbw", "dwsel")
+    for which, (tpe, left, right) in zip(("tp_off", "tp"), seen["K5"]):
+        M = left.shape[0]
+        with torch.no_grad():
+            bw = tpk.weighted_right(tpe.tp.weight, right)
+            wsel5 = tpk.flat_wsel(tpe.linear)
+        args5 = (left, bw, wsel5, rnd(M, tpk.out_dim))
+        whole = compare_grads(
+            f"K5 backward, one entry ({which}, M={M}: K5m + K5a + K5b)",
+            lambda: k5_ops.launch_backward(tpk, *args5),
+            lambda: tpk.plain_backward(*args5), names5)
+        if which == "tp_off":
+            rec["K5 backward"] = whole
+            if alone:
+                for key, i in (("K5a", 0), ("K5b", 1), ("K5m", 2)):
+                    wanted = tuple(j == i for j in range(3))
+                    rec[key] = compare_grads(
+                        f"{key} alone ({which}, M={M})",
+                        lambda: (k5_ops.launch_backward(
+                            tpk, *args5, wanted)[i],),
+                        lambda: (tpk.plain_backward(*args5, wanted)[i],),
+                        names5[i: i + 1])
+            io = nbytes(args5[-1])
+            cost["K5m"] = (M * (cg + mix), nbytes(left, bw) + io
+                           + nbytes(wsel5))
+            cost["K5a"] = (M * (mix + 3 * cg // 2), nbytes(bw, wsel5) + io
+                           + nbytes(left))
+            cost["K5b"] = (M * (mix + 3 * cg // 2), nbytes(left, wsel5) + io
+                           + nbytes(bw))
+        del bw, args5
+
+    # ------------------------------------------- K2, K3b at the l = 4 layer
+    data = seen["trunk"][0]
+    fconv, ssc = conv.full_conv, conv.species_sc
+    pre = 1.0 / conv.avg_num_neighbors ** 0.5
+    edges = (data["edge_spherical"], data["edge_index"][0],
+             data["edge_index"][1])
+    with torch.no_grad():
+        flat = fconv.flat_weights(conv.fc, conv.tp.linear, pre)
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+        N = x1.shape[0]
+        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat, N)
+        spec = data["species"].reshape(-1)
+        tables = ssc.tables(conv.sc, data["node_attrs"], spec)
+    k2_args = (x1, er, *edges, *flat, N, scratch, rnd(N, fconv.out_dim))
+    rec["K2"] = compare_grads(
+        f"K2 full_conv_bwd at l = 4 (N={N}, E={er.shape[0]})",
+        lambda: conv_ops.launch_backward(fconv, *k2_args),
+        lambda: fconv.plain_backward(*k2_args),
+        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
+    g3 = rnd(N, ssc.irreps_out.dim)
+    k3b_args = (data["input_features"], spec, tables, g3)
+    rec["K3b"] = compare_grads(
+        f"K3b species_sc_bwd at l = 4 (N={N})",
+        lambda: sc_ops.launch_backward(ssc, *k3b_args),
+        lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
+    cost.update({k: v for k, v in trunk_costs(
+        conv, x1, er, edges, flat, data["input_features"],
+        data["node_attrs"], tables, spec, g3).items() if k in ("K2", "K3b")})
+    return rec, cost
 
 
 def hamiltonian_phases(dev):
-    """Phases 14-15 of the module docstring (the ``config_hamiltonian``
-    serving path); returns the K5 and K6 records and what K1 and K3 did on
-    this path (their times at the l = 4 hot layer, their launches)."""
+    """Phases 14-18 of the module docstring (the ``config_hamiltonian``
+    path, served and trained); returns the records of K5, K6 and their
+    backward kernels, and what K1, K3, K2 and K3b did on this path (their
+    times at the l = 4 hot layer, their launches)."""
     import torch
 
     from equivariant_nn_zoo_tpu_torch.inference import evaluate
@@ -630,7 +861,8 @@ def hamiltonian_phases(dev):
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
 
-    mc = get_config("config_hamiltonian")["model_config"]
+    cfg = get_config("config_hamiltonian")
+    mc = cfg["model_config"]
     n_layers = mc["num_layers"]
     # no device argument: the entry point builds on the card by default
     model = build_model(mc, generator=torch.Generator().manual_seed(0))
@@ -647,18 +879,7 @@ def hamiltonian_phases(dev):
     # ------------------------------------- the kernels' inputs in one forward
     head = model.pairwise
     conv = getattr(model, HOT_LAYER).conv
-    seen = {"K5": [], "K6": [], "trunk": []}
-    hooks = [
-        head.pairwise_tp.register_forward_pre_hook(
-            lambda mod, args: seen["K5"].append(args)),
-        head.conv.full_conv.register_forward_pre_hook(
-            lambda mod, args: seen["K6"].append(args)),
-        conv.register_forward_pre_hook(
-            lambda mod, args: seen["trunk"].append(args[0]))]
-    with torch.no_grad():
-        model(big)
-    for h in hooks:
-        h.remove()
+    seen = capture_head_inputs(model, big)
     tpk, uvu = head.pairwise_tp, head.conv.full_conv
     print(f"hamiltonian: {n_params} parameters; head K5 paths={tpk.n_paths} "
           f"R={tpk.R} K={tpk.KM // tpk.mul} nz={tpk.nz_count} "
@@ -673,7 +894,7 @@ def hamiltonian_phases(dev):
     with torch.no_grad():
         wsel6 = uvu.flat_wsel(linear)
     k6 = compare("K6 uvu_conv",
-                 lambda: k6_ops.launch_forward(uvu, x, sh, w, wsel6, src),
+                 lambda: k6_ops.launch_forward(uvu, x, sh, w, wsel6, src)[0],
                  lambda: uvu.fused(linear, x, src, None, sh, w, x.shape[0],
                                    reduce=False))
     cc = conv_counts(uvu, E, E)
@@ -727,7 +948,14 @@ def hamiltonian_phases(dev):
     k3 = compare("K3 species_sc at l = 4",
                  lambda: conv.species_sc.launch(*k3_args),
                  lambda: conv.species_sc.plain(*k3_args))
-    del seen, data, x1, er, k1_args, k3_args, x, sh, w, left, right
+    del data, x1, er, k1_args, k3_args, x, sh, w, left, right
+
+    # --------------------------- the backward kernels, at both batches' shapes
+    bwd, bwd_cost = backward_checks(model, seen, dev, alone=True)
+    del seen
+    bwd_small, _ = backward_checks(
+        model, capture_head_inputs(model, batches[H2O_BATCHES[0]][0]), dev,
+        alone=False)
 
     # ------------------------------------------------------------- serving
     with torch.no_grad():
@@ -736,9 +964,9 @@ def hamiltonian_phases(dev):
         reset_head_launches()
         model(big)
         torch.cuda.synchronize()
-    per_forward = head_launches()
     want = {"full_conv": n_layers, "species_sc": n_layers, "uvu_conv": 1,
             "pairwise_tp": 2}
+    per_forward = {k: v for k, v in head_launches().items() if k in want}
     print(f"hamiltonian launches per forward: {per_forward}")
     if per_forward != want:
         fail(f"hamiltonian: one forward launched {per_forward}, want {want}")
@@ -764,7 +992,8 @@ def hamiltonian_phases(dev):
         res = evaluate(model, batches[size], ["hamiltonian"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        serve_launches[size] = head_launches()
+        serve_launches[size] = {k: v for k, v in head_launches().items()
+                                if k in want}
         print(f"hamiltonian serve, batch {size}: {len(res)} graphs in "
               f"{dt:.4f} s through evaluate ({len(res) / dt:.1f} graphs/s); "
               f"launches {serve_launches[size]}")
@@ -821,17 +1050,180 @@ def hamiltonian_phases(dev):
     if rel > TOL:
         fail(f"hamiltonian: card and CPU plain path disagree (rel {rel:.3e})")
 
+    del model, batches, results
+    train_launches = hamiltonian_train(dev, cfg, cpu_model, n_layers)
+
     total = {k: sum(serve_launches[s][k] for s in H2O_BATCHES) for k in want}
+    # the pairwise backward is one C entry: its three kernels share a count
+    entries = (
+        ("uvu_conv_bwd", "uvu_conv.cu", "fused_conv.py:278", "uvu_conv_bwd",
+         "K6b", "rowmix::tile_gemm_kernel + uvu_bwd_edge_kernel"),
+        ("pairwise_tp_bwd_dwsel", "pairwise_tp.cu", "pairwise.py:504",
+         "pairwise_tp_bwd", "K5m",
+         "pairwise_cg_kernel + rowmix::tile_gemm_kernel (S^T gout)"),
+        ("pairwise_tp_bwd_da", "pairwise_tp.cu", "pairwise.py:556",
+         "pairwise_tp_bwd", "K5a",
+         "rowmix::tile_gemm_kernel (dS) + pairwise_da_kernel"),
+        ("pairwise_tp_bwd_dbw", "pairwise_tp.cu", "pairwise.py:591",
+         "pairwise_tp_bwd", "K5b",
+         "rowmix::tile_gemm_kernel (dS) + pairwise_dbw_kernel"),
+    )
     records = [
-        kernel_record("uvu_conv", "uvu_conv.cu", "fused_conv.py:233",
-                      total["uvu_conv"], k6, *k6_cost),
+        dict(kernel_record("uvu_conv", "uvu_conv.cu", "fused_conv.py:233",
+                           total["uvu_conv"], k6, *k6_cost),
+             train_launches=train_launches["uvu_conv"]),
         dict(kernel_record("pairwise_tp", "pairwise_tp.cu", "pairwise.py:410",
                            total["pairwise_tp"], k5, *k5_cost),
-             wrapper_ms=k5["wrapper_ms"], expand_ms=k5["expand_ms"]),
+             wrapper_ms=k5["wrapper_ms"], expand_ms=k5["expand_ms"],
+             train_launches=train_launches["pairwise_tp"]),
     ]
-    trunk = {"full_conv": dict(k1, launches=total["full_conv"]),
-             "species_sc": dict(k3, launches=total["species_sc"])}
+    for name, source, replaces, counter, key, kernels in entries:
+        extra = dict(kernels=kernels)
+        if key == "K6b":
+            extra["batch16_ms"] = bwd_small[key]["ms"]
+        else:
+            extra.update(entry_ms=bwd["K5 backward"]["ms"],
+                         entry_plain_ms=bwd["K5 backward"]["plain_ms"],
+                         batch16_entry_ms=bwd_small["K5 backward"]["ms"])
+        records.append(dict(kernel_record(
+            name, source, replaces, train_launches[counter], bwd[key],
+            *bwd_cost[key]), **extra))
+    trunk = {
+        "full_conv": dict(k1, launches=total["full_conv"],
+                          train_launches=train_launches["full_conv"]),
+        "species_sc": dict(k3, launches=total["species_sc"],
+                           train_launches=train_launches["species_sc"]),
+        "full_conv_bwd": dict(
+            bwd["K2"], launches=train_launches["full_conv_bwd"],
+            batch16_ms=bwd_small["K2"]["ms"], **bound(*bwd_cost["K2"])),
+        "species_sc_bwd": dict(
+            bwd["K3b"], launches=train_launches["species_sc_bwd"],
+            batch16_ms=bwd_small["K3b"]["ms"], **bound(*bwd_cost["K3b"])),
+    }
     return records, trunk
+
+
+def hamiltonian_train(dev, cfg, cpu_model, n_layers):
+    """Phases 17-18 of the module docstring; returns the launches counted
+    over the two training epochs (every counter set to 0 just before
+    them)."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
+
+    mc = cfg["model_config"]
+    small_size, big_size = H2O_TRAIN_BATCHES
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    if cfg["batch_size"] != small_size:
+        fail(f"the config's batch is {cfg['batch_size']}, not {small_size}")
+    labelled = synthetic_h2o(5 * small_size + N_BATCHES * big_size,
+                             np.random.default_rng(21), labels=True)
+    small = make_batches(labelled[:5 * small_size], dev, small_size)
+    train, val = small[:4], small[4:]
+    trainer = Trainer(build_model(mc, generator=torch.Generator().manual_seed(
+        0)), **settings)
+    loss_fn = Loss(settings["loss_coeffs"])
+
+    def fixed_loss():
+        with torch.no_grad():
+            out = trainer.model(train[0])
+            return loss_fn(out.data, train[0].data)[0].item()
+
+    loss_before = fixed_loss()
+    n_epochs = 2
+    torch.cuda.synchronize()
+    reset_head_launches()
+    t0 = time.perf_counter()
+    for epoch in range(n_epochs):
+        trainer.epoch_step(train, val)
+        md = trainer.mae_dict
+        print(f"hamiltonian train epoch {epoch}: training_loss "
+              f"{md['training_loss']} validation_loss "
+              f"{md['validation_loss']} validation_hamiltonian_mae "
+              f"{md['validation_hamiltonian_mae']} LR {trainer.current_lr}")
+        for key in ("training_loss", "validation_loss"):
+            if not np.isfinite(md[key]):
+                fail(f"hamiltonian train: non-finite {key} in epoch {epoch}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    train_launches = head_launches()
+    print(f"hamiltonian train: {n_epochs} epochs of {len(train)} steps + "
+          f"{len(val)} validation batch in {dt:.4f} s; launches "
+          f"{train_launches}")
+    for name, n in train_launches.items():
+        if n < 1:
+            fail(f"hamiltonian train: {name} was never launched")
+
+    want = {"full_conv": n_layers, "full_conv_bwd": n_layers,
+            "species_sc": n_layers, "species_sc_bwd": n_layers,
+            "uvu_conv": 1, "uvu_conv_bwd": 1, "pairwise_tp": 2,
+            "pairwise_tp_bwd": 2}
+    reset_head_launches()
+    trainer.batch_step(train[0])
+    torch.cuda.synchronize()
+    per_step = head_launches()
+    print(f"hamiltonian train launches per step: {per_step}")
+    if per_step != want:
+        fail(f"hamiltonian train: one step launched {per_step}, want {want}")
+
+    big = make_batches(labelled[5 * small_size:], dev, big_size)
+    reps = 3
+    for size, group, tag in ((small_size, train, ""),
+                             (big_size, big, f"_{big_size}")):
+        trainer.batch_step(group[0])  # warm-up at this size
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for gb in group:
+                trainer.batch_step(gb)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / (reps * len(group))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not np.isfinite(trainer.batch_losses["loss"].item()):
+            fail(f"hamiltonian train: non-finite loss at batch {size}")
+        kernel_ms = profile_kernels(
+            f"hamiltonian training steps of {size} graphs",
+            lambda: [trainer.batch_step(gb) for gb in group], len(group),
+            f"hamiltonian_step_profile{tag}.txt")
+        print(f"hamiltonian train step, batch {size}: {step_ms:.3f} ms per "
+              f"step, {1e3 * size / step_ms:.1f} graphs/s (host clock around "
+              f"synchronize, {reps * len(group)} steps; N="
+              f"{group[0].node_capacity} E={group[0].edge_capacity}); "
+              f"{kernel_ms:.3f} ms of kernels per step under the profiler: "
+              f"device busy share {kernel_ms / step_ms:.4f}; peak device "
+              f"memory {peak:.3f} GiB")
+        if size == small_size:
+            loss_after = fixed_loss()
+            print(f"hamiltonian train: loss on the first training batch "
+                  f"{loss_before} before, {loss_after} after "
+                  f"{trainer.ema_num_updates} steps")
+            if not (np.isfinite(loss_after) and loss_after < loss_before):
+                fail("hamiltonian train: the loss on a fixed batch did not "
+                     "fall")
+    del trainer, small, big, train, val
+
+    # ------------------------------------------- hamiltonian train parity
+    cut = cut_batch(labelled, H2O_CUT)
+    card_loss, card = step_gradients(
+        build_model(mc, dev, torch.Generator().manual_seed(0)), cut.to(dev),
+        loss_fn)
+    cpu_loss, plain = step_gradients(cpu_model, cut, loss_fn)
+    worst, n_noise = worst_gradient_rel(card, plain)
+    print(f"hamiltonian train parity ({H2O_CUT} graphs): loss card "
+          f"{card_loss} CPU {cpu_loss}; worst gradient rel {worst[0]:.3e} "
+          f"({worst[1]}) over {len(plain) - n_noise} tensors, {n_noise} more "
+          f"are zero by symmetry on both sides")
+    if abs(card_loss - cpu_loss) > TOL * abs(cpu_loss):
+        fail("hamiltonian train parity: the loss differs")
+    if any(not torch.isfinite(card[n]).all() for n in card):
+        fail("hamiltonian train parity: non-finite gradients on the card")
+    if worst[0] > TOL:
+        fail(f"hamiltonian train parity: {worst[1]} gradient rel "
+             f"{worst[0]:.3e} > {TOL}")
+    return train_launches
 
 
 def main():
@@ -940,25 +1332,9 @@ def main():
         lambda: sc_ops.launch_backward(ssc, *k3b_args),
         lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
 
-    # operations and bytes of each call at these shapes
-    N0, E0 = x1.shape[0], er.shape[0]
-    cc = conv_counts(fconv, N0, E0)
-    dims = fconv.fc_dims
-    mlp = 2 * E0 * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
-    items = ssc.bwd_item_table.cpu().numpy().reshape(-1, 6).astype(np.int64)
-    sc_flops = 2 * N0 * int((items[:, 1] * items[:, 4] * items[:, 5]).sum())
-    out_bytes = N0 * fconv.out_dim * 4
-    costs = {
-        "K1": (mlp + cc["cg"] + 2 * cc["rows"] + cc["mix"],
-               nbytes(x1, er, *k1_args[4:7], *flat) + out_bytes),
-        "K3": (sc_flops, nbytes(*k3_args[1:], conv.sc.weight)
-               + N0 * ssc.irreps_out.dim * 4),
-        "K2": (3 * mlp + 2 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
-               2 * nbytes(x1, er, *flat) + nbytes(*k1_args[4:7])
-               + N0 * fconv.KM * 4 + out_bytes),
-        "K3b": (2 * sc_flops, 2 * nbytes(data["input_features"], tables)
-                + nbytes(spec, g3)),
-    }
+    costs = trunk_costs(conv, x1, er, k1_args[4:7], flat,
+                        data["input_features"], data["node_attrs"], tables,
+                        spec, g3)
 
     # --------------------------------------------------------------- slice
     evaluate(model, batches[:1], ["total_energy"])  # warm-up
@@ -1104,7 +1480,8 @@ def main():
     force_records = force_phases(dev)
     head_records, l4 = hamiltonian_phases(dev)
 
-    # K1 and K3 also carry what they did on the hamiltonian path (l = 4)
+    # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
+    # (l = 4)
     kernels = [
         dict(kernel_record("full_conv", "full_conv.cu", "fused_conv.py:926",
                            launches["full_conv"], k1, *costs["K1"]),
@@ -1112,11 +1489,15 @@ def main():
         dict(kernel_record("species_sc", "species_sc.cu", "sc.py:181",
                            launches["species_sc"], k3, *costs["K3"]),
              hamiltonian=l4["species_sc"]),
-        kernel_record("full_conv_bwd", "full_conv_bwd.cu",
-                      "fused_conv.py:1051", train_launches["full_conv_bwd"],
-                      k2, *costs["K2"]),
-        kernel_record("species_sc_bwd", "species_sc.cu", "sc.py:208",
-                      train_launches["species_sc_bwd"], k3b, *costs["K3b"]),
+        dict(kernel_record("full_conv_bwd", "full_conv_bwd.cu",
+                           "fused_conv.py:1051",
+                           train_launches["full_conv_bwd"], k2,
+                           *costs["K2"]),
+             hamiltonian=l4["full_conv_bwd"]),
+        dict(kernel_record("species_sc_bwd", "species_sc.cu", "sc.py:208",
+                           train_launches["species_sc_bwd"], k3b,
+                           *costs["K3b"]),
+             hamiltonian=l4["species_sc_bwd"]),
         *force_records,
         *head_records,
     ]

@@ -18,7 +18,8 @@
 // this entry computes dx, d er, dW_hidden, dW_out and dwsel in three stages
 // of hand-written kernels on the caller's stream:
 //
-// a. node stage (k2_gemm_kernel, one batch of descriptors per mix problem):
+// a. node stage (rowmix::mix_products in row_mix.cuh, the mix backward
+//    shared with the per-edge conv and the pairwise expansion):
 //    dS = gout_q @ wsel_q^T, added over the problems that read the same
 //    scratch columns, and dwsel_q = S^T @ gout_q, split over node chunks.
 // b. edge stage (k2_edge_kernel): a block takes 16 edges, recomputes the
@@ -29,7 +30,8 @@
 //    dw[e, p, u] = sum_m3 dS * mid in w_out's column order, and adds
 //    w * sum_m3 dS * C * sh into dx[src] with atomics (the mirror of the
 //    forward's scatter).
-// c. MLP stage (k2_gemm_kernel and k2_act_grad_kernel): dW_out = h_L^T dw
+// c. MLP stage (rowmix::tile_gemm_kernel and k2_act_grad_kernel): dW_out =
+//    h_L^T dw
 //    (split over edge chunks), dh = dw W_out^T, then per hidden layer from
 //    the last: dz = dh * ssp'(z) (ssp' = sigmoid * act_cst), dW_i = h_i^T dz,
 //    dh_i = dz W_i^T, the last of which is d er.
@@ -44,13 +46,24 @@
 // pass and the order of summation varies from run to run.  Padded edges
 // need no special case (zero edge_radial, bias-free MLP); edges with an
 // endpoint outside [0, N), skipped by the forward, get zero dw.
+//
+// The edge kernel keeps one register row per component of the left irrep
+// (the dx partial sums of a path) and is compiled for 7 rows (l <= 3) and
+// for 9 (l = 4, the hamiltonian trunk); the host picks by the layer's
+// widest left irrep, so a layer of l <= 3 runs the code it always had.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "row_mix.cuh"
+
 namespace {
+
+using rowmix::gemm_desc;
+using rowmix::GemmDesc;
+using rowmix::run_gemms;
 
 constexpr int kEdgeGroups = 4;     // blockDim.y of the edge kernel
 constexpr int kEdgesPerThread = 4;
@@ -58,97 +71,12 @@ constexpr int kEdgesPerBlock = kEdgeGroups * kEdgesPerThread;
 constexpr int kMaxHidden = 64;
 constexpr int kMaxRadial = 16;
 constexpr int kMaxSh = 16;
-constexpr int kMaxD = 7;           // components of an l <= 3 irrep
 constexpr int kPathFields = 9;
-constexpr int kProbFields = 6;
-constexpr int kTile = 64;
-constexpr int kTileK = 16;
-constexpr int kMaxBatch = 24;      // GEMM descriptors per launch
-constexpr int kSplitRows = 256;    // reduction rows per split-K block
 
 __device__ __forceinline__ float ssp(float v, float cst) {
   // (softplus(v) - log 2) * cst, softplus as max(v, 0) + log1p(exp(-|v|))
   float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
   return (sp - 0.69314718055994530942f) * cst;
-}
-
-// C(m, n) += sum_k A(m, k) B(k, n), element (i, j) of X at X + i*s0 + j*s1
-struct GemmDesc {
-  const float* A;
-  const float* B;
-  float* C;
-  int M, N, K, k_chunk;
-  int sam, sak, sbk, sbn, scm, scn;
-};
-
-struct GemmBatch {
-  int count;
-  GemmDesc d[kMaxBatch];
-};
-
-// grid: (M tiles * N tiles, descriptor, K chunks); 256 threads, 4x4 each
-__global__ void k2_gemm_kernel(const GemmBatch batch) {
-  const GemmDesc& g = batch.d[blockIdx.y];
-  const int tiles_n = (g.N + kTile - 1) / kTile;
-  const int m0 = (blockIdx.x / tiles_n) * kTile;
-  const int n0 = (blockIdx.x % tiles_n) * kTile;
-  const int k_begin = blockIdx.z * g.k_chunk;
-  if (m0 >= g.M || k_begin >= g.K) return;
-  const int k_end = min(g.K, k_begin + g.k_chunk);
-
-  __shared__ float As[kTileK][kTile + 1];
-  __shared__ float Bs[kTileK][kTile + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
-    for (int i = threadIdx.x; i < kTile * kTileK; i += blockDim.x) {
-      // neighbouring threads walk the operand's unit-stride axis
-      int r, c;
-      if (g.sak == 1) { r = i / kTileK; c = i % kTileK; }
-      else { c = i / kTile; r = i % kTile; }
-      const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < g.M && k < k_end)
-                     ? g.A[(size_t)m * g.sam + (size_t)k * g.sak] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kTile * kTileK; i += blockDim.x) {
-      int r, c;
-      if (g.sbn == 1) { r = i / kTile; c = i % kTile; }
-      else { c = i / kTileK; r = i % kTileK; }
-      const int k = k0 + r, n = n0 + c;
-      Bs[r][c] = (k < k_end && n < g.N)
-                     ? g.B[(size_t)k * g.sbk + (size_t)n * g.sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < g.N)
-        atomicAdd(g.C + (size_t)m * g.scm + (size_t)n * g.scn, acc[i][j]);
-    }
-  }
 }
 
 // dz = dh * ssp'(z), ssp'(v) = sigmoid(v) * act_cst
@@ -160,6 +88,8 @@ __global__ void k2_act_grad_kernel(const float* __restrict__ dh,
     dz[i] = dh[i] * act_cst / (1.f + expf(-z[i]));
 }
 
+// kD: register rows, the components of the widest left irrep
+template <int kD>
 __global__ void k2_edge_kernel(
     const float* __restrict__ x, int in_dim,
     const float* __restrict__ sh, int J,
@@ -251,9 +181,9 @@ __global__ void k2_edge_kernel(
       if (e_src[q] < 0) continue;
       const float* xs = x + (size_t)e_src[q] * in_dim + x_off + u * d1;
       const float* grow = dS + (size_t)e_dst[q] * KM + u;
-      float dxl[kMaxD];
+      float dxl[kD];
 #pragma unroll
-      for (int i = 0; i < kMaxD; ++i) dxl[i] = 0.f;
+      for (int i = 0; i < kD; ++i) dxl[i] = 0.f;
       float dwv = 0.f, mid = 0.f, gv = 0.f;
       int m3_cur = -1;
       for (int z = nz0; z < nz1; ++z) {
@@ -269,51 +199,17 @@ __global__ void k2_edge_kernel(
         mid += cs * __ldg(xs + m1);
         const float v = cs * gv;
 #pragma unroll
-        for (int i = 0; i < kMaxD; ++i)
+        for (int i = 0; i < kD; ++i)
           if (i == m1) dxl[i] += v;
       }
       dwv += gv * mid;
       dw[(size_t)(e0 + el) * PC + wcol + u] = dwv;
       float* dxs = dx + (size_t)e_src[q] * in_dim + x_off + u * d1;
 #pragma unroll
-      for (int i = 0; i < kMaxD; ++i)
+      for (int i = 0; i < kD; ++i)
         if (i < d1) atomicAdd(dxs + i, w[q] * dxl[i]);
     }
   }
-}
-
-// Launch the descriptors in batches of kMaxBatch.
-cudaError_t run_gemms(const GemmDesc* descs, int count, cudaStream_t s) {
-  for (int b0 = 0; b0 < count; b0 += kMaxBatch) {
-    GemmBatch batch;
-    batch.count = std::min(kMaxBatch, count - b0);
-    int tiles = 0, splits = 0;
-    for (int i = 0; i < batch.count; ++i) {
-      GemmDesc g = descs[b0 + i];
-      if (g.k_chunk <= 0) g.k_chunk = g.K > 0 ? g.K : 1;
-      batch.d[i] = g;
-      tiles = std::max(tiles, ((g.M + kTile - 1) / kTile) *
-                                  ((g.N + kTile - 1) / kTile));
-      splits = std::max(splits, (g.K + g.k_chunk - 1) / g.k_chunk);
-    }
-    if (tiles == 0 || splits == 0) continue;
-    dim3 grid(tiles, batch.count, splits);
-    k2_gemm_kernel<<<grid, 256, 0, s>>>(batch);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-GemmDesc desc(const float* A, int sam, int sak, const float* B, int sbk,
-              int sbn, float* C, int scm, int scn, int M, int N, int K,
-              bool split) {
-  GemmDesc g;
-  g.A = A; g.B = B; g.C = C;
-  g.M = M; g.N = N; g.K = K;
-  g.k_chunk = split ? kSplitRows : K;
-  g.sam = sam; g.sak = sak; g.sbk = sbk; g.sbn = sbn; g.scm = scm; g.scn = scn;
-  return g;
 }
 
 }  // namespace
@@ -328,7 +224,7 @@ extern "C" int full_conv_bwd(
     const long long* src, const long long* dst, int E,
     const float* w_hidden, int H, int n_hidden,
     const float* w_out, int PC, float act_cst,
-    const int* paths, int P, const int* nz_idx, const float* nz_c,
+    const int* paths, int P, int max_d1, const int* nz_idx, const float* nz_c,
     const float* scratch, int KM, int mul,
     const float* wsel, int wsel_len, const int* probs_host, int n_probs,
     const float* gout, int out_dim,
@@ -336,6 +232,7 @@ extern "C" int full_conv_bwd(
     float* dx, float* der, float* dw_hidden, int w_hidden_len,
     float* dw_out, float* dwsel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (max_d1 > 9) return (int)cudaErrorInvalidValue;
   const size_t f = sizeof(float);
   struct { void* p; size_t n; } zero[] = {
       {dS, (size_t)N * KM}, {dw, (size_t)E * PC}, {dh, (size_t)E * H},
@@ -348,36 +245,25 @@ extern "C" int full_conv_bwd(
   }
 
   // a. node stage: dS and dwsel per mix problem
-  if (N > 0 && n_probs > 0) {
-    GemmDesc descs[2 * kMaxBatch];
-    int count = 0;
-    for (int q = 0; q < n_probs; ++q) {
-      const int* pr = probs_host + q * kProbFields;
-      const int a_col = pr[0], kdim = pr[1], b_off = pr[2], wo = pr[3];
-      const int c_off = pr[4], c_stride = pr[5];
-      // dS[n, a_col + k] += sum_w gout[n, c_off + w*c_stride] wsel[k*wo + w]
-      descs[count++] = desc(gout + c_off, out_dim, c_stride, wsel + b_off, 1,
-                            wo, dS + a_col, KM, 1, N, kdim, wo, false);
-      // dwsel[k*wo + w] += sum_n S[n, a_col + k] gout[n, c_off + w*c_stride]
-      descs[count++] = desc(scratch + a_col, 1, KM, gout + c_off, out_dim,
-                            c_stride, dwsel + b_off, wo, 1, kdim, wo, N, true);
-      if (count == 2 * kMaxBatch || q == n_probs - 1) {
-        cudaError_t err = run_gemms(descs, count, s);
-        if (err != cudaSuccess) return (int)err;
-        count = 0;
-      }
-    }
-  }
+  cudaError_t err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs,
+                                         N, KM, out_dim, nullptr, wsel, gout,
+                                         dS, s);
+  if (err != cudaSuccess) return (int)err;
+  err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, N, KM,
+                             out_dim, scratch, nullptr, gout, dwsel, s);
+  if (err != cudaSuccess) return (int)err;
 
   // b. edge stage
   if (E > 0 && P > 0) {
     dim3 block(mul, kEdgeGroups);
     dim3 grid((E + kEdgesPerBlock - 1) / kEdgesPerBlock);
-    k2_edge_kernel<<<grid, block, 0, s>>>(
+    auto kernel = k2_edge_kernel<7>;
+    if (max_d1 > 7) kernel = k2_edge_kernel<9>;
+    kernel<<<grid, block, 0, s>>>(
         x, in_dim, sh, J, er, R, src, dst, E, N, w_hidden, H, n_hidden,
         w_out, PC, act_cst, paths, P, nz_idx, nz_c, dS, KM, z_all, h_all, dw,
         dx);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (E == 0) return (int)cudaGetLastError();
@@ -387,10 +273,10 @@ extern "C" int full_conv_bwd(
   const float* h_last = h_all + (size_t)(n_hidden - 1) * EH;
   GemmDesc last[2] = {
       // dW_out[h, c] = sum_e h_last[e, h] dw[e, c]
-      desc(h_last, 1, H, dw, PC, 1, dw_out, PC, 1, H, PC, E, true),
+      gemm_desc(h_last, 1, H, dw, PC, 1, dw_out, PC, 1, H, PC, E, true),
       // dh[e, h] = sum_c dw[e, c] W_out[h, c]
-      desc(dw, PC, 1, w_out, 1, PC, dh, H, 1, E, H, PC, false)};
-  cudaError_t err = run_gemms(last, 2, s);
+      gemm_desc(dw, PC, 1, w_out, 1, PC, dh, H, 1, E, H, PC, false)};
+  err = run_gemms(last, 2, s);
   if (err != cudaSuccess) return (int)err;
 
   size_t w_ofs = (size_t)R * H + (size_t)(n_hidden - 1) * H * H;
@@ -411,11 +297,11 @@ extern "C" int full_conv_bwd(
     }
     GemmDesc layer[2] = {
         // dW_i[k, h] = sum_e a_in[e, k] dz[e, h]
-        desc(a_in, 1, fan, dz, H, 1, dw_hidden + w_ofs, H, 1, fan, H, E,
-             true),
+        gemm_desc(a_in, 1, fan, dz, H, 1, dw_hidden + w_ofs, H, 1, fan, H, E,
+                  true),
         // d a_in[e, k] = sum_h dz[e, h] W_i[k, h]
-        desc(dz, H, 1, w_hidden + w_ofs, 1, H, d_in, fan, 1, E, fan, H,
-             false)};
+        gemm_desc(dz, H, 1, w_hidden + w_ofs, 1, H, d_in, fan, 1, E, fan, H,
+                  false)};
     err = run_gemms(layer, 2, s);
     if (err != cudaSuccess) return (int)err;
   }

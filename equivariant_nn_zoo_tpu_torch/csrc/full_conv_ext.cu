@@ -50,16 +50,22 @@
 // The design keeps mid and the CG outer products in registers, gathers
 // dS[dst] instead of scattering, and reduces dsh per edge in the block, so
 // the only global atomics are K1's scatter and the dx adds.  The node-stage
-// products are one 64x64-tiled shared-memory kernel over descriptors (as
-// in full_conv_bwd.cu), summing with atomics into zeroed outputs; atomics
-// make the order of summation vary from run to run.
+// products are rowmix::mix_products (row_mix.cuh, shared with the other
+// backward kernels): one 64x64-tiled shared-memory kernel over descriptors,
+// summing with atomics into zeroed outputs; atomics make the order of
+// summation vary from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "row_mix.cuh"
 
 namespace {
+
+using rowmix::kMixRows;
+using rowmix::kMixScatter;
+using rowmix::kMixWeights;
+using rowmix::mix_products;
 
 constexpr int kEdgeGroups = 4;     // blockDim.y of the edge kernel
 constexpr int kEdgesPerThread = 4;
@@ -67,11 +73,6 @@ constexpr int kEdgesPerBlock = kEdgeGroups * kEdgesPerThread;
 constexpr int kMaxSh = 16;
 constexpr int kMaxD = 7;           // components of an l <= 3 irrep
 constexpr int kPathFields = 9;
-constexpr int kProbFields = 6;
-constexpr int kTile = 64;
-constexpr int kTileK = 16;
-constexpr int kMaxBatch = 24;      // GEMM descriptors per launch
-constexpr int kSplitRows = 256;    // reduction rows per split-K block
 
 enum Mode { kFwd = 0, kBwd = 1, kGrad2 = 2 };
 
@@ -252,139 +253,6 @@ __global__ void ext_edge_kernel(const EdgeArgs a) {
   }
 }
 
-// C(m, n) += sum_k A(m, k) B(k, n), element (i, j) of X at X + i*s0 + j*s1
-struct GemmDesc {
-  const float* A;
-  const float* B;
-  float* C;
-  int M, N, K, k_chunk;
-  int sam, sak, sbk, sbn, scm, scn;
-};
-
-struct GemmBatch {
-  int count;
-  GemmDesc d[kMaxBatch];
-};
-
-// grid: (M tiles * N tiles, descriptor, K chunks); 256 threads, 4x4 each
-__global__ void ext_gemm_kernel(const GemmBatch batch) {
-  const GemmDesc& g = batch.d[blockIdx.y];
-  const int tiles_n = (g.N + kTile - 1) / kTile;
-  const int m0 = (blockIdx.x / tiles_n) * kTile;
-  const int n0 = (blockIdx.x % tiles_n) * kTile;
-  const int k_begin = blockIdx.z * g.k_chunk;
-  if (m0 >= g.M || k_begin >= g.K) return;
-  const int k_end = min(g.K, k_begin + g.k_chunk);
-
-  __shared__ float As[kTileK][kTile + 1];
-  __shared__ float Bs[kTileK][kTile + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
-    for (int i = threadIdx.x; i < kTile * kTileK; i += blockDim.x) {
-      // neighbouring threads walk the operand's unit-stride axis
-      int r, c;
-      if (g.sak == 1) { r = i / kTileK; c = i % kTileK; }
-      else { c = i / kTile; r = i % kTile; }
-      const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < g.M && k < k_end)
-                     ? g.A[(size_t)m * g.sam + (size_t)k * g.sak] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kTile * kTileK; i += blockDim.x) {
-      int r, c;
-      if (g.sbn == 1) { r = i / kTile; c = i % kTile; }
-      else { c = i / kTileK; r = i % kTileK; }
-      const int k = k0 + r, n = n0 + c;
-      Bs[r][c] = (k < k_end && n < g.N)
-                     ? g.B[(size_t)k * g.sbk + (size_t)n * g.sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < g.N)
-        atomicAdd(g.C + (size_t)m * g.scm + (size_t)n * g.scn, acc[i][j]);
-    }
-  }
-}
-
-GemmDesc desc(const float* A, int sam, int sak, const float* B, int sbk,
-              int sbn, float* C, int scm, int scn, int M, int N, int K,
-              bool split) {
-  GemmDesc g;
-  g.A = A; g.B = B; g.C = C;
-  g.M = M; g.N = N; g.K = K;
-  g.k_chunk = split ? kSplitRows : (K > 0 ? K : 1);
-  g.sam = sam; g.sak = sak; g.sbk = sbk; g.sbn = sbn; g.scm = scm; g.scn = scn;
-  return g;
-}
-
-// The per-problem products of the node stage, kMaxBatch descriptors per
-// launch.  ``which``: 0 the mix out += S @ wsel, 1 dS += gout @ wsel^T,
-// 2 dwsel += S^T @ gout (split over node chunks).
-cudaError_t node_products(int which, const int* probs, int n_probs, int N,
-                          int KM, int out_dim, const float* S,
-                          const float* wsel, const float* gout, float* C,
-                          cudaStream_t s) {
-  if (N <= 0) return cudaSuccess;
-  for (int q0 = 0; q0 < n_probs; q0 += kMaxBatch) {
-    GemmBatch batch;
-    batch.count = std::min(kMaxBatch, n_probs - q0);
-    int tiles = 0, splits = 0;
-    for (int i = 0; i < batch.count; ++i) {
-      const int* pr = probs + (q0 + i) * kProbFields;
-      const int a_col = pr[0], kdim = pr[1], b_off = pr[2], wo = pr[3];
-      const int c_off = pr[4], c_stride = pr[5];
-      GemmDesc g;
-      // 0: out[n, c_off + w c_stride] += S[n, a_col + k] wsel[k, w]
-      // 1: dS[n, a_col + k] += gout[n, c_off + w c_stride] wsel[k, w]
-      // 2: dwsel[k, w] += S[n, a_col + k] gout[n, c_off + w c_stride]
-      if (which == 0)
-        g = desc(S + a_col, KM, 1, wsel + b_off, wo, 1, C + c_off, out_dim,
-                 c_stride, N, wo, kdim, false);
-      else if (which == 1)
-        g = desc(gout + c_off, out_dim, c_stride, wsel + b_off, 1, wo,
-                 C + a_col, KM, 1, N, kdim, wo, false);
-      else
-        g = desc(S + a_col, 1, KM, gout + c_off, out_dim, c_stride,
-                 C + b_off, wo, 1, kdim, wo, N, true);
-      batch.d[i] = g;
-      tiles = std::max(tiles, ((g.M + kTile - 1) / kTile) *
-                                  ((g.N + kTile - 1) / kTile));
-      splits = std::max(splits, (g.K + g.k_chunk - 1) / g.k_chunk);
-    }
-    if (tiles == 0 || splits == 0) continue;
-    dim3 grid(tiles, batch.count, splits);
-    ext_gemm_kernel<<<grid, 256, 0, s>>>(batch);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 template <int MODE>
 cudaError_t edge_sweep(const EdgeArgs& a, int mul, cudaStream_t s) {
   if (a.E <= 0 || a.P <= 0 || a.N <= 0) return cudaSuccess;
@@ -435,8 +303,8 @@ extern "C" int full_conv_ext_fwd(EXT_COMMON, const float* x, const float* sh,
                          nz_c, KM);
   a.x = x; a.sh = sh; a.w = w; a.S = scratch;
   EXT_TRY(edge_sweep<kFwd>(a, mul, s));
-  EXT_TRY(node_products(0, probs_host, n_probs, N, KM, out_dim, scratch,
-                        wsel, nullptr, out, s));
+  EXT_TRY(mix_products(kMixScatter, probs_host, n_probs, N, KM, out_dim,
+                       scratch, wsel, nullptr, out, s));
   return (int)cudaGetLastError();
 }
 
@@ -452,15 +320,15 @@ extern "C" int full_conv_ext_bwd(EXT_COMMON, const float* x, const float* sh,
   EXT_TRY(zero(s, dsh, (size_t)E * J));
   EXT_TRY(zero(s, dw, (size_t)E * PC));
   EXT_TRY(zero(s, dwsel, (size_t)wsel_len));
-  EXT_TRY(node_products(1, probs_host, n_probs, N, KM, out_dim, nullptr,
-                        wsel, gout, dS, s));
+  EXT_TRY(mix_products(kMixRows, probs_host, n_probs, N, KM, out_dim, nullptr,
+                       wsel, gout, dS, s));
   EdgeArgs a = edge_args(N, in_dim, J, src, dst, E, PC, paths, P, nz_idx,
                          nz_c, KM);
   a.x = x; a.sh = sh; a.w = w; a.dS = dS; a.S = scratch;
   a.dx = dx; a.dsh = dsh; a.dw = dw;
   EXT_TRY(edge_sweep<kBwd>(a, mul, s));
-  EXT_TRY(node_products(2, probs_host, n_probs, N, KM, out_dim, scratch,
-                        nullptr, gout, dwsel, s));
+  EXT_TRY(mix_products(kMixWeights, probs_host, n_probs, N, KM, out_dim,
+                       scratch, nullptr, gout, dwsel, s));
   return (int)cudaGetLastError();
 }
 
@@ -477,16 +345,16 @@ extern "C" int full_conv_ext_grad2(
   EXT_TRY(zero(s, c_w, (size_t)E * PC));
   EXT_TRY(zero(s, c_m, (size_t)wsel_len));
   EXT_TRY(zero(s, c_g, (size_t)N * out_dim));
-  EXT_TRY(node_products(1, probs_host, n_probs, N, KM, out_dim, nullptr,
-                        wsel, gout, dS, s));
+  EXT_TRY(mix_products(kMixRows, probs_host, n_probs, N, KM, out_dim, nullptr,
+                       wsel, gout, dS, s));
   EdgeArgs a = edge_args(N, in_dim, J, src, dst, E, PC, paths, P, nz_idx,
                          nz_c, KM);
   a.x = x; a.cx = cx; a.sh = sh; a.csh = csh; a.w = w; a.cw = cw;
   a.dS = dS; a.S = scratch; a.dx = c_x; a.dsh = c_s; a.dw = c_w;
   EXT_TRY(edge_sweep<kGrad2>(a, mul, s));
-  EXT_TRY(node_products(0, probs_host, n_probs, N, KM, out_dim, scratch,
-                        wsel, nullptr, c_g, s));
-  EXT_TRY(node_products(2, probs_host, n_probs, N, KM, out_dim, scratch,
-                        nullptr, gout, c_m, s));
+  EXT_TRY(mix_products(kMixScatter, probs_host, n_probs, N, KM, out_dim,
+                       scratch, wsel, nullptr, c_g, s));
+  EXT_TRY(mix_products(kMixWeights, probs_host, n_probs, N, KM, out_dim,
+                       scratch, nullptr, gout, c_m, s));
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// Internal-weight all-uvu tensor-product expansion of the hamiltonian head
-// (K5): outer product, CG contraction and mix of PairwiseTP.
+// Internal-weight all-uvu tensor-product expansion of the hamiltonian head:
+// outer product, CG contraction and mix of PairwiseTP, forward (K5) and
+// backward (K5m, K5a, K5b).
 //
-// Replaces the TPU kernel PallasPairwiseTP._fwd_kernel in
+// The forward replaces the TPU kernel PallasPairwiseTP._fwd_kernel in
 // equivariant_nn_zoo_tpu/ops/pallas/pairwise.py (the body at :410, launched
 // from _pallas_fn at :642).  As there, stage 1 -- the per-path weighting of
 // the right operand, bw_p[m, u, j] = sum_v W_p[u, v] b[m, v, j] -- is a
@@ -35,6 +36,36 @@
 // read, as many of S written and read again: 384 KB each per element).
 // Keeping S in shared memory per output-irrep group, and tensor cores for
 // the mix, are the next steps.
+//
+// The backward replaces the three TPU kernels _bwd_kernel_dws,
+// _bwd_kernel_da and _bwd_kernel_dbw (pairwise.py:504, :556, :591; launched
+// at :655, :670, :684).  Given gout = dL/dout it returns dwsel, da [M, a_dim]
+// and dbw [M, R, mul] from one C entry:
+//
+// 0. pairwise_cg_kernel again: S is recomputed, not saved (1.05 MFLOP per
+//    element against 12.3 for the mix, and a saved S would double what a
+//    training step keeps per element beside bw).
+// 1. K5m, rowmix::mix_products (row_mix.cuh): dwsel_q = S_q^T @ gout_q,
+//    split over chunks of elements and summed with atomics; the same
+//    tiled kernel gives dS = gout_q @ wsel_q^T, which K5a and K5b read
+//    (on the TPU each of them recomputes it per section).
+// 2. K5a, pairwise_da_kernel: da[m, m1, u] = sum over the paths with this
+//    left irrep, sum_nz C * bw[m, r0(p) + m2, u] * dS[m, row(p, m3), u].
+//    The columns of a left irrep are shared by all its paths, so a block
+//    row takes one left irrep (blockIdx.y) and thread (u, element) walks
+//    that irrep's paths with the d1 <= 9 sums in registers and stores them
+//    once: no atomics, whatever M is.
+// 3. K5b, pairwise_dbw_kernel: dbw[m, r0(p) + m2, u] = sum_nz C *
+//    a[m, m1, u] * dS[m, row(p, m3), u].  Every bw row belongs to one path,
+//    so thread (u, element) keeps the d2 <= 9 sums of a path in registers
+//    and stores them once; paths are split over blockIdx.y as in the
+//    forward.
+//
+// dS[row(m3)] is read once per run of equal m3 (the non-zeros are sorted by
+// m3 for the forward's one-store-per-row trick; the same order serves the
+// adjoint).  What bounds the backward: the two mix products (2 x 12.3 MFLOP
+// per element on CUDA cores) and four scratch-sized streams (S, dS, bw,
+// dbw: 384 KB per element each).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +75,8 @@
 namespace {
 
 constexpr int kPathFields = 9;
+constexpr int kSlotFields = 4;     // x_off, d1, first and last+1 slot path
+constexpr int kMaxD = 9;           // components of an l <= 4 irrep
 constexpr int kRows = rowmix::kRowsPerBlock;
 
 __global__ void pairwise_cg_kernel(
@@ -87,6 +120,100 @@ __global__ void pairwise_cg_kernel(
   }
 }
 
+// K5a.  grid: (element rows, left irreps); slot_paths lists the paths of
+// each left irrep.
+__global__ void pairwise_da_kernel(
+    const float* __restrict__ bw, int M, int R,
+    const float* __restrict__ dS, int KM,
+    const int* __restrict__ paths, const int* __restrict__ slots,
+    const int* __restrict__ slot_paths,
+    const int* __restrict__ nz_idx, const float* __restrict__ nz_c,
+    float* __restrict__ da, int a_dim) {
+  const int mul = blockDim.x;
+  const int u = threadIdx.x;
+  const int m = blockIdx.x * kRows + threadIdx.y;
+  if (m >= M) return;
+  const int* sl = slots + blockIdx.y * kSlotFields;
+  const int x_off = sl[0], d1 = sl[1];
+  const float* brow = bw + (size_t)m * R * mul + u;
+  const float* grow = dS + (size_t)m * KM + u;
+  float dal[kMaxD];
+#pragma unroll
+  for (int i = 0; i < kMaxD; ++i) dal[i] = 0.f;
+
+  for (int k = sl[2]; k < sl[3]; ++k) {
+    const int* pi = paths + slot_paths[k] * kPathFields;
+    const int r0 = pi[2], row_base = pi[4], row_stride = pi[5];
+    const int nz0 = pi[7], nz1 = pi[8];
+    const float* bs = brow + (size_t)r0 * mul;
+    int m3_cur = -1;
+    float gv = 0.f;
+    for (int z = nz0; z < nz1; ++z) {
+      const int code = nz_idx[z];
+      const int m1 = code & 0xff, m2 = (code >> 8) & 0xff, m3 = code >> 16;
+      if (m3 != m3_cur) {
+        m3_cur = m3;
+        gv = __ldg(grow + (size_t)(row_base + m3 * row_stride) * mul);
+      }
+      const float v = nz_c[z] * gv * __ldg(bs + m2 * mul);
+#pragma unroll
+      for (int i = 0; i < kMaxD; ++i)
+        if (i == m1) dal[i] += v;
+    }
+  }
+  float* out = da + (size_t)m * a_dim + x_off + u * d1;
+#pragma unroll
+  for (int i = 0; i < kMaxD; ++i)
+    if (i < d1) out[i] = dal[i];
+}
+
+// K5b.  grid: (element rows, path chunks).
+__global__ void pairwise_dbw_kernel(
+    const float* __restrict__ a, int M, int a_dim,
+    const float* __restrict__ dS, int KM,
+    const int* __restrict__ paths, int P, int paths_per_block,
+    const int* __restrict__ nz_idx, const float* __restrict__ nz_c,
+    float* __restrict__ dbw, int R) {
+  const int mul = blockDim.x;
+  const int u = threadIdx.x;
+  const int m = blockIdx.x * kRows + threadIdx.y;
+  if (m >= M) return;
+  const float* arow = a + (size_t)m * a_dim;
+  const float* grow = dS + (size_t)m * KM + u;
+  float* drow = dbw + (size_t)m * R * mul + u;
+
+  const int p_begin = blockIdx.y * paths_per_block;
+  const int p_end = min(P, p_begin + paths_per_block);
+  for (int p = p_begin; p < p_end; ++p) {
+    const int* pi = paths + p * kPathFields;
+    const int x_off = pi[0], d1 = pi[1], r0 = pi[2], d2 = pi[3];
+    const int row_base = pi[4], row_stride = pi[5];
+    const int nz0 = pi[7], nz1 = pi[8];
+    const float* as = arow + x_off + u * d1;
+    float dbl[kMaxD];
+#pragma unroll
+    for (int i = 0; i < kMaxD; ++i) dbl[i] = 0.f;
+    int m3_cur = -1;
+    float gv = 0.f;
+    for (int z = nz0; z < nz1; ++z) {
+      const int code = nz_idx[z];
+      const int m1 = code & 0xff, m2 = (code >> 8) & 0xff, m3 = code >> 16;
+      if (m3 != m3_cur) {
+        m3_cur = m3;
+        gv = __ldg(grow + (size_t)(row_base + m3 * row_stride) * mul);
+      }
+      const float v = nz_c[z] * gv * __ldg(as + m1);
+#pragma unroll
+      for (int i = 0; i < kMaxD; ++i)
+        if (i == m2) dbl[i] += v;
+    }
+    float* out = drow + (size_t)r0 * mul;
+#pragma unroll
+    for (int i = 0; i < kMaxD; ++i)
+      if (i < d2) out[(size_t)i * mul] = dbl[i];
+  }
+}
+
 }  // namespace
 
 extern "C" int pairwise_tp_fwd(
@@ -115,4 +242,63 @@ extern "C" int pairwise_tp_fwd(
   }
   return (int)rowmix::mix_rows(scratch, M, KM, wsel, probs, n_probs, max_wo,
                                out, out_dim, s);
+}
+
+// probs_host: the mix problem table, on the host.  slots / slot_paths: the
+// left irreps with their paths (device).  S and dS: work buffers
+// [M, K * mul].  parts: which cotangents to compute, 1 dwsel (K5m),
+// 2 d left (K5a), 4 dbw (K5b); the others' buffers are left untouched.
+// Every bw row belongs to a path, so dbw needs no zero fill.
+extern "C" int pairwise_tp_bwd(
+    const float* a, int M, int a_dim,
+    const float* bw, int R,
+    const int* paths, int P, const int* nz_idx, const float* nz_c,
+    const int* slots, int n_slots, const int* slot_paths,
+    int KM, int mul,
+    const float* wsel, int wsel_len, const int* probs_host, int n_probs,
+    const float* gout, int out_dim,
+    float* S, float* dS, float* da, float* dbw, float* dwsel, int parts,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool want_m = parts & 1, want_a = parts & 2, want_b = parts & 4;
+  const size_t f = sizeof(float);
+  cudaError_t err = cudaSuccess;
+  if (want_m) err = cudaMemsetAsync(dwsel, 0, (size_t)wsel_len * f, s);
+  if (err == cudaSuccess && want_a)
+    err = cudaMemsetAsync(da, 0, (size_t)M * a_dim * f, s);
+  if (err == cudaSuccess && want_b && P <= 0)
+    err = cudaMemsetAsync(dbw, 0, (size_t)M * R * mul * f, s);
+  if (err != cudaSuccess) return (int)err;
+  if (M <= 0 || P <= 0) return (int)cudaGetLastError();
+  const int ppb = rowmix::paths_per_block(M, P);
+  const dim3 block(mul, kRows);
+  const unsigned row_blocks = (M + kRows - 1) / kRows;
+  const dim3 by_path(row_blocks, (P + ppb - 1) / ppb);
+  if (want_m) {
+    pairwise_cg_kernel<<<by_path, block, 0, s>>>(a, M, a_dim, bw, R, paths, P,
+                                                 ppb, nz_idx, nz_c, S, KM);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, M, KM,
+                               out_dim, S, nullptr, gout, dwsel, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (want_a || want_b) {
+    err = cudaMemsetAsync(dS, 0, (size_t)M * KM * f, s);
+    if (err != cudaSuccess) return (int)err;
+    err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs, M, KM,
+                               out_dim, nullptr, wsel, gout, dS, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (want_a && n_slots > 0) {
+    pairwise_da_kernel<<<dim3(row_blocks, n_slots), block, 0, s>>>(
+        bw, M, R, dS, KM, paths, slots, slot_paths, nz_idx, nz_c, da, a_dim);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (want_b)
+    pairwise_dbw_kernel<<<by_path, block, 0, s>>>(a, M, a_dim, dS, KM, paths,
+                                                  P, ppb, nz_idx, nz_c, dbw,
+                                                  R);
+  return (int)cudaGetLastError();
 }

@@ -32,7 +32,9 @@
 //      sum over the instructions reading that input slot, sum_w
 //      g[n, out_off + w*d + m] * A[species_n, a_off + u*mul_out + w];
 //    a block takes 8 nodes and one input slot, thread (node, u) keeps the
-//    d <= 7 components in registers and writes its row once (no atomics).
+//    components in registers and writes its row once (no atomics); compiled
+//    for 7 register rows (l <= 3) and for 9 (l = 4, the hamiltonian trunk),
+//    the host picks by the widest irrep.
 // 2. species_sc_dA_kernel: dA[t, a_off + u*mul_out + w] =
 //      sum_{n: species_n = t} sum_m x[n, x_off + u*d + m] * g[n, out_off +
 //      w*d + m],
@@ -87,13 +89,14 @@ __global__ void species_sc_kernel(
   }
 }
 
-constexpr int kMaxD = 7;           // components of an l <= 3 irrep
 constexpr int kBwdItemFields = 6;  // x_off, mul1, a_off, out_off, d, mul_out
 constexpr int kInFields = 5;       // x_off, d, mul1, item begin, item end
 constexpr int kChunk = 128;        // nodes per dA block
 constexpr int kTile = 64;
 constexpr int kTileK = 16;
 
+// kD: register rows, the components of the widest irrep
+template <int kD>
 __global__ void species_sc_dx_kernel(
     const float* __restrict__ g, int N, int out_dim,
     const long long* __restrict__ species, int types,
@@ -107,9 +110,9 @@ __global__ void species_sc_dx_kernel(
     const int n = n0 + i / mul1, u = i % mul1;
     if (n >= N) continue;
     const long long t = species[n];
-    float acc[kMaxD];
+    float acc[kD];
 #pragma unroll
-    for (int m = 0; m < kMaxD; ++m) acc[m] = 0.f;
+    for (int m = 0; m < kD; ++m) acc[m] = 0.f;
     if (t >= 0 && t < types) {
       for (int it = it0; it < it1; ++it) {
         const int* pt = items + it * kBwdItemFields;
@@ -119,14 +122,14 @@ __global__ void species_sc_dx_kernel(
         for (int w = 0; w < mo; ++w) {
           const float a = __ldg(A + w);
 #pragma unroll
-          for (int m = 0; m < kMaxD; ++m)
+          for (int m = 0; m < kD; ++m)
             if (m < d) acc[m] += __ldg(gr + w * d + m) * a;
         }
       }
     }
     float* out = dx + (size_t)n * in_dim + x_off + u * d;
 #pragma unroll
-    for (int m = 0; m < kMaxD; ++m)
+    for (int m = 0; m < kD; ++m)
       if (m < d) out[m] = acc[m];
   }
 }
@@ -233,8 +236,9 @@ extern "C" int species_sc_bwd(
     const float* x, int N, int in_dim, const long long* species, int types,
     const float* tables, int a_stride, const float* g, int out_dim,
     const int* ins, int n_ins, const int* items, int n_items, int max_mul1,
-    int max_mo, float* dx, float* dA, void* stream) {
+    int max_mo, int max_d, float* dx, float* dA, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (max_d > 9) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(
       dx, 0, (size_t)N * (size_t)in_dim * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
@@ -243,9 +247,10 @@ extern "C" int species_sc_bwd(
   if (err != cudaSuccess) return (int)err;
   if (N > 0 && n_ins > 0) {
     dim3 grid((N + kNodesPerBlock - 1) / kNodesPerBlock, n_ins);
-    species_sc_dx_kernel<<<grid, 256, 0, s>>>(g, N, out_dim, species, types,
-                                              tables, a_stride, ins, items,
-                                              dx, in_dim);
+    auto kernel = species_sc_dx_kernel<7>;
+    if (max_d > 7) kernel = species_sc_dx_kernel<9>;
+    kernel<<<grid, 256, 0, s>>>(g, N, out_dim, species, types, tables,
+                                a_stride, ins, items, dx, in_dim);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

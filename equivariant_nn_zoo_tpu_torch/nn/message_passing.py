@@ -24,13 +24,15 @@ normalisation):
 
     x   = linear_1(x)
     w   = MLP(edge_radial * edge_mask)                   plain PyTorch
-    out[e] = UVUConv(x, sh, w)                           K6
+    out[e] = UVUConv(x, sh, w)                           K6 (backward K6b:
+                                                         dx, dsh, dw, dwsel)
 
-The species-table kernel is first-order only, and the MLP stays outside the
-kernels so that autograd differentiates it to any order, as in the JAX
-package (``message_passing.py:194-195, 224-241, 274-290``).  The mix runs
-after the edge sum (a shared bias-free linear commutes with it).  Each
-wrapper takes its kernel for CUDA tensors and its plain PyTorch version for
+The species-table kernel is first-order only, and on the last two paths the
+MLP stays outside the kernels so that autograd differentiates it (to any
+order on the force path; the per-edge conv's backward hands it ``dw``), as
+in the JAX package (``message_passing.py:194-195, 224-241, 274-290``).  The
+mix runs after the edge sum (a shared bias-free linear commutes with it).
+Each wrapper takes its kernel for CUDA tensors and its plain PyTorch version for
 CPU tensors, so the layer has one code path per order.  Padded-edge
 messages vanish because ``edge_radial`` is masked and the radial MLP has no
 bias.

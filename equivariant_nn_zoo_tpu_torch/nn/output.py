@@ -104,9 +104,10 @@ class Pairwise(Module):
     ``f_ii = res(f_i) + tp(f_i, f_i)`` per node and
     ``f_ij = res(f_i) + tp(f_i, conv_j(Ylm))`` per edge, ``i`` the edge's
     destination.  With ``conv="auto"`` the neighbor features come from a
-    per-edge ``FactorizedConvolution`` (K6), else from a plain gather.  The
-    two expansions run through one ``PairwiseTP`` (K5), which takes the
-    kernel for CUDA tensors and ``expand`` on the CPU."""
+    per-edge ``FactorizedConvolution`` (K6, K6b in the backward), else from
+    a plain gather.  The two expansions run through one ``PairwiseTP`` (K5;
+    K5m, K5a and K5b in the backward), which takes the kernels for CUDA
+    tensors and ``expand`` under autograd on the CPU."""
 
     def __init__(self, node_features, edge_radial, edge_spherical, diagonal,
                  off_diagonal, invariant_layers=2, invariant_neurons=16,

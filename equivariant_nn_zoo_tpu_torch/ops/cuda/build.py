@@ -2,9 +2,9 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` of the package (``full_conv.cu``,
 ``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``,
-``uvu_conv.cu``, ``pairwise_tp.cu``; the mix stage in ``row_mix.cuh`` is
-shared by three of them) for ``sm_90a`` (one compiler process per source,
-all started together) and links the objects into one shared library with a
+``uvu_conv.cu``, ``pairwise_tp.cu``; the mix stage and its backward in
+``row_mix.cuh`` are shared by five of them) for ``sm_90a`` (one compiler
+process per source, all started together) and links the objects into one shared library with a
 plain C interface under ``build/kernels/`` at the repository root (listed
 in ``.gitignore``); ``ctypes`` loads it at first use.  The library's file
 name carries a hash of the sources, headers and flags, so an edited source
@@ -67,6 +67,7 @@ SIGNATURES = {
         _P, _I,                # g, out_dim
         _P, _I,                # input slots, count
         _P, _I, _I, _I,        # backward items, count, max mul1, max mul_out
+        _I,                    # widest irrep (register rows)
         _P, _P, _P,            # dx, dtables, stream
     ],
     "full_conv_bwd": [
@@ -76,7 +77,8 @@ SIGNATURES = {
         _P, _P, _I,            # src, dst, E
         _P, _I, _I,            # hidden MLP weights, H, n_hidden
         _P, _I, _F,            # last MLP layer, its width, activation scale
-        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I, _P, _P,    # path table, P, widest left irrep, CG codes,
+                               # values
         _P, _I, _I,            # forward scratch, K * mul, mul
         _P, _I, _P, _I,        # mix matrices, their length, host problems, n
         _P, _I,                # gout, out_dim
@@ -94,6 +96,18 @@ SIGNATURES = {
         _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
         _P, _I, _I, _P,        # out, out_dim, zero it first, stream
     ],
+    "uvu_conv_bwd": [
+        _P, _I, _I,            # x, N, in_dim
+        _P, _I,                # sh, J
+        _P, _I,                # radial weights, their columns P * mul
+        _P, _I,                # src, E
+        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I,            # forward scratch, K * mul, mul
+        _P, _I, _P, _I,        # mix matrices, their length, host problems, n
+        _P, _I,                # gout, out_dim
+        _P,                    # work: dS
+        _P, _P, _P, _P, _P,    # dx, dsh, dw, dwsel, stream
+    ],
     "pairwise_tp_fwd": [
         _P, _I, _I,            # left, M, its columns
         _P, _I,                # weighted right [M, R, mul], R
@@ -101,6 +115,18 @@ SIGNATURES = {
         _P, _I, _I,            # scratch, K * mul, mul
         _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
         _P, _I, _I, _P,        # out, out_dim, zero it first, stream
+    ],
+    "pairwise_tp_bwd": [
+        _P, _I, _I,            # left, M, its columns
+        _P, _I,                # weighted right [M, R, mul], R
+        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _P,            # left irreps, count, their paths
+        _I, _I,                # K * mul, mul
+        _P, _I, _P, _I,        # mix matrices, their length, host problems, n
+        _P, _I,                # gout, out_dim
+        _P, _P,                # work: S, dS
+        _P, _P, _P,            # d left, d weighted right, dwsel
+        _I, _P,                # which of them (1 dwsel, 2 d left, 4 dbw), stream
     ],
     "full_conv_ext_fwd": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, sh, w, wsel

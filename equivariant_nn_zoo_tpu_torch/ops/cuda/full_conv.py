@@ -35,7 +35,7 @@ from ..segment import segment_sum
 from ..wigner import wigner_3j
 from .build import check, check_tensor, load_library
 
-MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 7
+MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 9
 
 
 def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
@@ -120,6 +120,7 @@ class ConvTables(torch.nn.Module):
         # the backward's host builds its products from the problem table
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
         self.max_d1 = max((p[1] for p in paths), default=0)
+        self.max_d2 = max((p[3] for p in paths), default=0)
         self.max_wo = max((p[3] for p in probs), default=0)
         self.out_dim = linear_out.dim
 
@@ -296,9 +297,9 @@ class FullConvFunction(torch.autograd.Function):
 
 def check_structure(conv, backward: bool = False) -> None:
     """Raise unless the kernels take this layer's sizes.  The forward has
-    no per-irrep storage, so it takes left irreps of any degree (l = 4 in
-    the hamiltonian trunk); the backward holds one register row per
-    component of the left irrep, ``MAX_D`` of them."""
+    no per-irrep storage, so it takes left irreps of any degree; the
+    backward holds one register row per component of the left irrep, up to
+    ``MAX_D`` of them (l = 4, the hamiltonian trunk)."""
     fused = conv.fused
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     n_hidden = len(conv.fc_dims) - 2
@@ -311,7 +312,7 @@ def check_structure(conv, backward: bool = False) -> None:
                          f"mul={fused.mul}")
     if backward and conv.max_d1 > MAX_D:
         raise ValueError(f"the FullConv backward takes left irreps up to "
-                         f"l = 3, got d = {conv.max_d1}")
+                         f"l = 4, got d = {conv.max_d1}")
 
 
 def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
@@ -401,7 +402,7 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             edge_src.data_ptr(), edge_dst.data_ptr(), E,
             w_hidden.data_ptr(), H, n_hidden,
             w_out.data_ptr(), PC, conv.act_cst,
-            conv.path_table.data_ptr(), conv.n_paths,
+            conv.path_table.data_ptr(), conv.n_paths, conv.max_d1,
             conv.nz_idx.data_ptr(), conv.nz_c.data_ptr(),
             scratch.data_ptr(), conv.KM, fused.mul,
             wsel.data_ptr(), conv.wsel_len,

@@ -47,7 +47,9 @@ from typing import Optional
 import torch
 
 from .build import check, check_tensor, load_library
-from .full_conv import MAX_D, MAX_SH, ConvTables
+from .full_conv import MAX_SH, ConvTables
+
+MAX_D = 7  # components of an l <= 3 irrep (the edge sweep's register rows)
 
 
 class FullConvExt(ConvTables):

@@ -1,11 +1,12 @@
-"""K5: the internal-weight all-uvu tensor-product expansion of the
-hamiltonian head (``Pairwise``'s ``tp`` and ``tp_off``), around
-``csrc/pairwise_tp.cu``.
+"""K5 and its backward (K5m, K5a, K5b): the internal-weight all-uvu
+tensor-product expansion of the hamiltonian head (``Pairwise``'s ``tp`` and
+``tp_off``), around ``csrc/pairwise_tp.cu``.
 
-The kernel replaces the TPU kernel ``PallasPairwiseTP._fwd_kernel``
-(``equivariant_nn_zoo_tpu/ops/pallas/pairwise.py:410``).  For one
-``TensorProductExpansion`` with internal weights it computes
-``expand(left, right)``:
+The kernels replace the TPU kernels ``PallasPairwiseTP._fwd_kernel``,
+``_bwd_kernel_dws``, ``_bwd_kernel_da`` and ``_bwd_kernel_dbw``
+(``equivariant_nn_zoo_tpu/ops/pallas/pairwise.py:410, :504, :556, :591``).
+For one ``TensorProductExpansion`` with internal weights the forward
+computes ``expand(left, right)``:
 
     out[m] = Mix( sum_p CG_p( left[m] (x) bw_p[m] ) ),
     bw_p[m, u, j] = sum_v W_p[u, v] right[m, v, j]
@@ -18,17 +19,23 @@ over host-built wigner_3j non-zeros (path weights folded in) and the mix
 (the ``Linear``'s alphas folded into the flat matrices ``wsel``).  ``bw`` is
 ``R * mul`` floats per element (384 KB at the full-width head, as wide as
 the mid), so the wrapper runs elements in chunks of ``CHUNK``; each chunk is
-one launch.
+one launch, forward and backward.
 
 One instance serves every expansion of the same structure (``tp`` and
 ``tp_off``): the expansion whose parameters to use is passed at call time.
 For tensors on the CPU the wrapper runs the plain version
 (``TensorProductExpansion.expand``, the mid-fused lowering) and autograd
-differentiates it.  For CUDA tensors it launches the kernel or raises.  The
-kernel is forward-only: a CUDA call under grad mode with an input or
-parameter that needs a gradient raises instead of returning a detached
-tensor.  ``plain_forward`` is a plain PyTorch version of the kernel's
-contract that walks the same tables, for the tests and the on-card checks.
+differentiates it.  For CUDA tensors it goes, chunk by chunk, through
+``PairwiseTPFunction`` on ``(left, bw, wsel)``, whose forward launches K5
+and whose backward launches the three cotangents' kernels from one entry
+(``dwsel``: K5m, ``d left``: K5a, ``dbw``: K5b), or raises.  Stage 1 and
+``flat_wsel`` are PyTorch, so autograd carries ``dbw`` back to
+``tp.weight`` and ``right`` and ``dwsel`` (summed over the chunks) to the
+mix ``Linear``.  The backward recomputes the unmixed scratch instead of
+saving it: what a training step keeps per element is ``bw`` alone.
+``plain_forward`` and ``plain_backward`` are plain PyTorch versions of the
+kernels' contracts that walk the same tables, for the tests and the
+on-card checks.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 
 from ..wigner import wigner_3j
 from .build import check, check_tensor, load_library
-from .full_conv import mix_rows
+from .full_conv import MAX_D, mix_rows
 
 
 class PairwiseTP(torch.nn.Module):
@@ -47,8 +54,9 @@ class PairwiseTP(torch.nn.Module):
 
     #: kernel launches, over all instances (the main path's proof of use)
     launches = 0
+    backward_launches = 0
     #: elements per launch (bounds ``bw`` and the scratch: 2 x 1.5 GiB at
-    #: the full-width head)
+    #: the full-width head; the backward holds four such buffers)
     CHUNK = 4096
 
     def __init__(self, tpe):
@@ -141,6 +149,19 @@ class PairwiseTP(torch.nn.Module):
                               r0_of[p0 + m], mi2.ir.dim, k0 + m, n_paths, 0,
                               nz0, len(nz_idx)])
 
+        # the paths of each left irrep, for the backward's d left: a block
+        # row sums one left irrep over all its paths
+        by_left = {}
+        for q, row in enumerate(table):
+            by_left.setdefault((row[0], row[1]), []).append(q)
+        slot_rows, slot_paths = [], []
+        for (x_off, d1), qs in sorted(by_left.items()):
+            slot_rows.append([x_off, d1, len(slot_paths),
+                              len(slot_paths) + len(qs)])
+            slot_paths += qs
+        self.n_slots = len(slot_rows)
+        self.max_d = max((max(row[1], row[3]) for row in table), default=0)
+
         # mix problems: one per (group, component, output slot); mix rows of
         # the simplified Linear input in (path, u) order
         simplified = mid.simplify()
@@ -177,7 +198,9 @@ class PairwiseTP(torch.nn.Module):
         self.nz_codes = np.asarray(nz_idx, np.int64)
         for name, rows in (("path_table", self.path_rows),
                            ("prob_table", self.prob_rows),
-                           ("nz_idx", np.asarray(nz_idx, np.int32))):
+                           ("nz_idx", np.asarray(nz_idx, np.int32)),
+                           ("slot_table", np.asarray(slot_rows, np.int32)),
+                           ("slot_paths", np.asarray(slot_paths, np.int32))):
             self.register_buffer(name, torch.tensor(rows.reshape(-1)),
                                  persistent=False)
         self.register_buffer(
@@ -195,19 +218,19 @@ class PairwiseTP(torch.nn.Module):
 
     def launch(self, tpe, left, right):
         """The kernel path: the flat mix matrices and, per chunk of
-        elements, the weighted right operand in plain PyTorch, then K5."""
+        elements, the weighted right operand in plain PyTorch, then K5,
+        through ``PairwiseTPFunction`` (K5m, K5a, K5b in the backward) when
+        a gradient is wanted."""
         weight = tpe.tp.weight
         wsel = self.flat_wsel(tpe.linear)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (left, right, weight, wsel)):
-            raise NotImplementedError(
-                "PairwiseTP: the pairwise kernel has no backward yet; call "
-                "it under torch.no_grad() or on the CPU")
-        outs = [
-            launch_forward(self, left[m0: m0 + self.CHUNK].contiguous(),
-                           self.weighted_right(
-                               weight, right[m0: m0 + self.CHUNK]), wsel)
-            for m0 in range(0, left.shape[0], self.CHUNK)]
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (left, right, weight, wsel))
+        outs = []
+        for m0 in range(0, left.shape[0], self.CHUNK):
+            a = left[m0: m0 + self.CHUNK].contiguous()
+            bw = self.weighted_right(weight, right[m0: m0 + self.CHUNK])
+            outs.append(PairwiseTPFunction.apply(self, a, bw, wsel)
+                        if needs_grad else launch_forward(self, a, bw, wsel))
         if not outs:
             return left.new_zeros((0, self.out_dim))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -250,9 +273,39 @@ class PairwiseTP(torch.nn.Module):
         return mix_rows(S.reshape(M, self.KM), wsel, self.prob_rows,
                         self.out_dim)
 
+    def plain_backward(self, a, bw, wsel, gout, wanted=(True, True, True)):
+        """Plain PyTorch version of the backward kernels' contract:
+        ``(d left, dbw, dwsel)`` for the cotangent ``gout``, by autograd of
+        ``plain_forward``; None where ``wanted`` is false."""
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip((a, bw, wsel), wanted)]
+            grads = iter(torch.autograd.grad(
+                self.plain_forward(*ins),
+                [t for t, need in zip(ins, wanted) if need], gout))
+            return tuple(next(grads) if need else None for need in wanted)
 
-def launch_forward(tpk, a, bw, wsel):
-    """Launch K5 on one chunk: ``out [M, out_dim]``."""
+
+class PairwiseTPFunction(torch.autograd.Function):
+    """K5 forward; K5m, K5a and K5b backward, on one chunk of elements.
+    Differentiable inputs: ``left``, the weighted right operand ``bw`` and
+    the flat mix matrices.  (``needs_input_grad`` does not see grad mode,
+    so ``PairwiseTP.launch`` calls this under grad mode only.)"""
+
+    @staticmethod
+    def forward(ctx, tpk, a, bw, wsel):
+        ctx.save_for_backward(a, bw, wsel)
+        ctx.tpk = tpk
+        return launch_forward(tpk, a, bw, wsel)
+
+    @staticmethod
+    def backward(ctx, gout):
+        return (None, *launch_backward(ctx.tpk, *ctx.saved_tensors,
+                                       gout.contiguous(),
+                                       ctx.needs_input_grad[1:]))
+
+
+def _check_inputs(tpk, a, bw, wsel):
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"PairwiseTP kernel needs CUDA tensors, got {dev}")
@@ -264,6 +317,12 @@ def launch_forward(tpk, a, bw, wsel):
         raise ValueError(f"PairwiseTP kernel does not take mul={tpk.mul}")
     if tpk.path_table.device != dev:
         raise ValueError("PairwiseTP tables are not on the input's device")
+    return dev, M
+
+
+def launch_forward(tpk, a, bw, wsel):
+    """Launch K5 on one chunk: ``out [M, out_dim]``."""
+    dev, M = _check_inputs(tpk, a, bw, wsel)
     scratch = torch.empty((M, tpk.KM), dtype=torch.float32, device=dev)
     out = torch.empty((M, tpk.out_dim), dtype=torch.float32, device=dev)
     lib = load_library()
@@ -282,3 +341,50 @@ def launch_forward(tpk, a, bw, wsel):
     check(err, "pairwise_tp_fwd")
     PairwiseTP.launches += 1
     return out
+
+
+def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
+    """Launch the backward on one chunk: ``(d left [M, dim_a] (K5a),
+    dbw [M, R, mul] (K5b), dwsel (K5m))``, all float32, from the forward's
+    inputs and ``gout [M, out_dim]``; None where ``wanted`` is false (that
+    kernel is not launched)."""
+    dev, M = _check_inputs(tpk, a, bw, wsel)
+    check_tensor(gout, "gout", (M, tpk.out_dim), torch.float32, dev)
+    if tpk.max_d > MAX_D:
+        raise ValueError(f"the PairwiseTP backward takes irreps up to "
+                         f"l = 4, got d = {tpk.max_d}")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    want_a, want_b, want_m = wanted
+    da = empty(*a.shape) if want_a else None
+    dbw = empty(*bw.shape) if want_b else None
+    dwsel = empty(tpk.wsel_len) if want_m else None
+    # work: the recomputed unmixed scratch (for dwsel) and its cotangent
+    S = empty(M, tpk.KM) if want_m else None
+    dS = empty(M, tpk.KM) if want_a or want_b else None
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pairwise_tp_bwd(
+            a.data_ptr(), M, tpk.irreps_a.dim,
+            bw.data_ptr(), tpk.R,
+            tpk.path_table.data_ptr(), tpk.n_paths,
+            tpk.nz_idx.data_ptr(), tpk.nz_c.data_ptr(),
+            tpk.slot_table.data_ptr(), tpk.n_slots,
+            tpk.slot_paths.data_ptr(),
+            tpk.KM, tpk.mul,
+            wsel.data_ptr(), tpk.wsel_len,
+            tpk.prob_rows.ctypes.data, tpk.n_probs,
+            gout.data_ptr(), tpk.out_dim,
+            ptr(S), ptr(dS), ptr(da), ptr(dbw), ptr(dwsel),
+            int(want_m) | int(want_a) << 1 | int(want_b) << 2, stream,
+        )
+    check(err, "pairwise_tp_bwd")
+    PairwiseTP.backward_launches += 1
+    return da, dbw, dwsel

@@ -31,7 +31,7 @@ import torch
 from ..fused_tp import FusedScalarFCTP
 from .build import check, check_tensor, load_library
 
-MAX_D = 7  # components of an l <= 3 irrep (the backward's register rows)
+MAX_D = 9  # components of an l <= 4 irrep (the backward's register rows)
 
 
 class SpeciesScalarFCTP(torch.nn.Module):
@@ -266,7 +266,7 @@ def launch_backward(sc, x, species, tables, g):
     dev, N = _check_inputs(sc, x, species, tables)
     check_tensor(g, "g", (N, sc.irreps_out.dim), torch.float32, dev)
     if sc.max_d > MAX_D:
-        raise ValueError(f"the K3 backward takes irreps up to l = 3, got "
+        raise ValueError(f"the K3 backward takes irreps up to l = 4, got "
                          f"d = {sc.max_d}")
     dx = torch.empty((N, sc.in_dim), dtype=torch.float32, device=dev)
     dtables = torch.empty((sc.num_types, sc.table_width),
@@ -279,7 +279,7 @@ def launch_backward(sc, x, species, tables, g):
             tables.data_ptr(), sc.table_width, g.data_ptr(),
             sc.irreps_out.dim, sc.in_table.data_ptr(), sc.n_ins,
             sc.bwd_item_table.data_ptr(), sc.n_bwd_items, sc.max_mul1,
-            sc.max_mo, dx.data_ptr(), dtables.data_ptr(), stream,
+            sc.max_mo, sc.max_d, dx.data_ptr(), dtables.data_ptr(), stream,
         )
     check(err, "species_sc_bwd")
     SpeciesScalarFCTP.backward_launches += 1

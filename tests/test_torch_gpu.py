@@ -4,10 +4,11 @@ backward, and a whole training step's gradients against the CPU plain path;
 and for the force path (``config_energy_force``): K4f, K4b and K4g against
 their plain contracts, the routes of the second backward, and forces and a
 training step's gradients against the CPU plain path; and for the
-hamiltonian serving path (``config_hamiltonian``): K5 and K6 against their
-plain versions, K1 and K3 at the trunk's l = 4 layer, the full-width forward
-against the CPU plain path, and the two forward-only kernels refusing a call
-that needs a gradient.
+hamiltonian path (``config_hamiltonian``): K5 and K6 against their plain
+versions, their backward kernels (K5m, K5a, K5b; K6b) per output against the
+plain backward and, through the autograd Functions, against the CPU, K1, K2,
+K3 and K3b at the trunk's l = 4 layer, the full-width forward and a training
+step's gradients against the CPU plain path.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -650,8 +651,8 @@ def test_uvu_conv_kernel_matches_plain(cuda, n_dim, N, E):
     with torch.no_grad():
         got = fc(conv.tp.linear, x, sh, w, src)
         want = fc.fused(conv.tp.linear, x, src, None, sh, w, N, reduce=False)
-        contract = fc.plain_forward(x, sh, w, fc.flat_wsel(conv.tp.linear),
-                                    src)
+        contract, _ = fc.plain_forward(x, sh, w,
+                                       fc.flat_wsel(conv.tp.linear), src)
         torch.cuda.synchronize()
     assert UVUConv.launches == before + 1
     assert got.shape == (E, fc.out_dim) and torch.isfinite(got).all()
@@ -682,8 +683,9 @@ def test_head_kernels_match_plain_at_full_width(hamiltonian):
 
 
 def test_trunk_kernels_take_l4(hamiltonian):
-    """K1 and K3 at the hamiltonian trunk's hot layer (l = 4 in and out,
-    16 sh components, 3 hidden layers of 64)."""
+    """K1 and K3, then K2 and K3b (nine register rows), at the hamiltonian
+    trunk's hot layer (l = 4 in and out, 16 sh components, 3 hidden layers
+    of 64)."""
     model, gb, _ = hamiltonian
     conv = model.layer3.conv
     assert conv.full_conv.max_d1 == 9
@@ -703,6 +705,22 @@ def test_trunk_kernels_take_l4(hamiltonian):
         torch.cuda.synchronize()
     assert _rel(got1, want1) <= TOL
     assert _rel(got3, want3) <= TOL
+    with torch.no_grad():
+        x = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    k2 = _k2_case(conv, x, er, *k1[4:7], x.shape[0], k1[-1], seed=21)
+    before = FullConv.backward_launches
+    got = full_conv_mod.launch_backward(conv.full_conv, *k2)
+    torch.cuda.synchronize()
+    assert FullConv.backward_launches == before + 1
+    _assert_all_close(got, conv.full_conv.plain_backward(*k2), K2_OUT)
+    k3b = _k3b_case(conv, data["input_features"], data["node_attrs"],
+                    data["species"], seed=22)
+    assert conv.species_sc.max_d == 9
+    got = species_sc_mod.launch_backward(conv.species_sc, *k3b)
+    torch.cuda.synchronize()
+    _assert_all_close(got, conv.species_sc.plain_backward(*k3b),
+                      ("dx", "dtables"))
 
 
 def test_hamiltonian_model_matches_cpu(hamiltonian):
@@ -731,17 +749,188 @@ def test_hamiltonian_model_matches_cpu(hamiltonian):
         H.abs().max())
 
 
-def test_head_kernels_raise_when_a_gradient_is_needed(hamiltonian):
-    """K5 and K6 are forward-only: a training forward on the card raises
-    instead of returning detached features."""
-    model, gb, seen = hamiltonian
+K5_OUT = ("d left", "dbw", "dwsel")
+K6_OUT = ("dx", "dsh", "dw", "dwsel")
+
+
+def _cotangent(rows, cols, seed, device):
+    return torch.randn(rows, cols, generator=torch.Generator().manual_seed(
+        seed)).to(device)
+
+
+def _function_grads_match_cpu(fn_card, fn_cpu, leaves, params, cpu_params):
+    """Gradients of ``sum(fn * cos)`` through the card path against the
+    same through a CPU copy's plain path."""
+    def grads(fn, tensors, ps):
+        ts = [t.detach().clone().requires_grad_(True) for t in tensors]
+        out = fn(*ts)
+        weight = torch.cos(torch.arange(out.numel(), device=out.device,
+                                        dtype=torch.float32)).reshape(
+            out.shape)
+        return torch.autograd.grad((out * weight).sum(), [*ts, *ps])
+
+    got = grads(fn_card, leaves, params)
+    want = grads(fn_cpu, [t.cpu() for t in leaves], cpu_params)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all(), i
+        assert _rel(g.cpu(), w) <= TOL, (i, _rel(g.cpu(), w))
+
+
+@pytest.mark.parametrize("n_dim,M", [(8, 41), (32, 301), (64, 130)])
+def test_pairwise_backward_kernels_match_plain(cuda, n_dim, M):
+    """K5m (dwsel), K5a (d left) and K5b (dbw) against the plain backward
+    on ``(left, bw, wsel)``, then ``PairwiseTPFunction`` end to end (left,
+    right and every parameter) against autograd of ``expand`` on the CPU."""
+    import copy
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import PairwiseTP
+
+    tpe = _small_expansion(cuda, n_dim)
+    cpu_tpe = copy.deepcopy(tpe).cpu()
+    tpk = PairwiseTP(tpe).to(cuda)
+    g = torch.Generator().manual_seed(15)
+    a = torch.randn(M, tpk.irreps_a.dim, generator=g).to(cuda)
+    b = torch.randn(M, tpk.irreps_b.dim, generator=g).to(cuda)
+    with torch.no_grad():
+        bw = tpk.weighted_right(tpe.tp.weight, b)
+        wsel = tpk.flat_wsel(tpe.linear)
+    gout = _cotangent(M, tpk.out_dim, 16, cuda)
+    before = PairwiseTP.backward_launches
+    got = k5_mod.launch_backward(tpk, a, bw, wsel, gout)
+    torch.cuda.synchronize()
+    assert PairwiseTP.backward_launches == before + 1
+    _assert_all_close(got, tpk.plain_backward(a, bw, wsel, gout), K5_OUT)
+    _function_grads_match_cpu(
+        lambda a_, b_: tpk(tpe, a_, b_), cpu_tpe.expand, (a, b),
+        list(tpe.parameters()), list(cpu_tpe.parameters()))
+    assert PairwiseTP.backward_launches == before + 2
+
+
+@pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (64, 130, 4099)])
+def test_uvu_conv_backward_kernel_matches_plain(cuda, n_dim, N, E):
+    """K6b (dx, dsh, dw, dwsel) against the plain backward, then
+    ``UVUConvFunction`` end to end against ``FusedUVUConv(reduce=False)``
+    under autograd on the CPU.  Several edges share each source, so the dx
+    atomics and the per-edge dsh reduction are both exercised."""
+    import copy
+
+    from equivariant_nn_zoo_tpu_torch.nn.message_passing import (
+        FactorizedConvolution,
+    )
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_mod
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.uvu_conv import UVUConv
+    from equivariant_nn_zoo_tpu_torch.utils import init_parameters
+
+    feats = "+".join(f"{n_dim}x{l}{p}" for l in range(3) for p in "eo")
+    conv = FactorizedConvolution(
+        input_features=feats, output_features=feats, node_attrs=None,
+        edge_radial="8x0e", edge_spherical="1x0e+1x1o+1x2e",
+        invariant_layers=2, invariant_neurons=16, avg_num_neighbors=1,
+        use_sc=False, reduce=False)
+    init_parameters(conv, torch.Generator().manual_seed(1))
+    cpu_conv = copy.deepcopy(conv)
+    conv = conv.to(cuda)
+    fc, lin = conv.full_conv, conv.tp.linear
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(N, fc.fused.irreps_in.dim, generator=g).to(cuda)
+    sh = torch.randn(E, 9, generator=g).to(cuda)
+    w = torch.randn(E, fc.fused.weight_numel, generator=g).to(cuda)
+    src = torch.randint(0, N, (E,), generator=g).to(cuda)
+    with torch.no_grad():
+        wsel = fc.flat_wsel(lin)
+        _, scratch = k6_mod.launch_forward(fc, x, sh, w, wsel, src)
+    gout = _cotangent(E, fc.out_dim, 18, cuda)
+    before = UVUConv.backward_launches
+    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, scratch, gout)
+    torch.cuda.synchronize()
+    assert UVUConv.backward_launches == before + 1
+    _assert_all_close(
+        got, fc.plain_backward(x, sh, w, wsel, src, scratch, gout), K6_OUT)
+    cpu_fc, cpu_lin, cpu_src = cpu_conv.full_conv, cpu_conv.tp.linear, \
+        src.cpu()
+    _function_grads_match_cpu(
+        lambda x_, sh_, w_: fc(lin, x_, sh_, w_, src),
+        lambda x_, sh_, w_: cpu_fc(cpu_lin, x_, sh_, w_, cpu_src),
+        (x, sh, w), list(lin.parameters()), list(cpu_lin.parameters()))
+    assert UVUConv.backward_launches == before + 2
+
+
+def test_head_backward_kernels_match_plain_at_full_width(hamiltonian):
+    """K5m, K5a, K5b (``tp_off`` on the edges, ``tp`` on the nodes) and
+    K6b at the full-width head's shapes, on the inputs one forward gives
+    them, each output against the plain backward."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_mod
+
+    model, _, seen = hamiltonian
     head = model.pairwise
-    tpe, left, right = seen["K5"][0]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        head.pairwise_tp(tpe, left, right)     # parameters need gradients
+    tpk, fc = head.pairwise_tp, head.conv.full_conv
+    dev = seen["K6"][0][1].device
+    for i, (tpe, left, right) in enumerate(seen["K5"]):
+        with torch.no_grad():
+            bw = tpk.weighted_right(tpe.tp.weight, right)
+            wsel = tpk.flat_wsel(tpe.linear)
+        gout = _cotangent(left.shape[0], tpk.out_dim, 30 + i, dev)
+        got = k5_mod.launch_backward(tpk, left, bw, wsel, gout)
+        torch.cuda.synchronize()
+        _assert_all_close(got, tpk.plain_backward(left, bw, wsel, gout),
+                          K5_OUT)
     linear, x, sh, w, src = seen["K6"][0]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        head.conv.full_conv(linear, x.clone().requires_grad_(True), sh, w,
-                            src)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model(gb)
+    with torch.no_grad():
+        wsel = fc.flat_wsel(linear)
+        _, scratch = k6_mod.launch_forward(fc, x, sh, w, wsel, src)
+    gout = _cotangent(sh.shape[0], fc.out_dim, 32, dev)
+    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, scratch, gout)
+    torch.cuda.synchronize()
+    _assert_all_close(
+        got, fc.plain_backward(x, sh, w, wsel, src, scratch, gout), K6_OUT)
+
+
+def test_hamiltonian_train_step_gradients_match_cpu(hamiltonian):
+    """One step of the config's loss (1e5 * MSE on N(0, 1) targets) at
+    full width: every parameter's gradient on the card against the CPU
+    plain path, with 5 K1, 5 K2, 5 K3, 5 K3b, 1 K6, 1 K6b, 2 K5 and 2
+    K5-backward launches."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import PairwiseTP, UVUConv
+
+    model, gb, _ = hamiltonian
+    cfg = get_config("config_hamiltonian")
+    mc = cfg["model_config"]
+    target = torch.randn(gb.n_graphs, 576,
+                         generator=torch.Generator().manual_seed(33))
+    cpu_gb = gb.to("cpu").replace(hamiltonian=target)
+    gb = gb.replace(hamiltonian=target.to(gb["pos"].device))
+    loss_fn = Loss(cfg["loss_coeffs"])
+
+    def counts():
+        return (FullConv.launches, FullConv.backward_launches,
+                SpeciesScalarFCTP.launches,
+                SpeciesScalarFCTP.backward_launches, UVUConv.launches,
+                UVUConv.backward_launches, PairwiseTP.launches,
+                PairwiseTP.backward_launches)
+
+    def step(m, batch):
+        m.zero_grad()
+        loss, _ = loss_fn(m(batch).data, batch.data)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu()
+                             for n, p in m.named_parameters()}
+
+    before = counts()
+    loss, got = step(model, gb)
+    torch.cuda.synchronize()
+    n = mc["num_layers"]
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        n, n, n, n, 1, 1, 2, 2)
+    cpu = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    want_loss, want = step(cpu, cpu_gb)
+    assert abs(loss - want_loss) <= TOL * abs(want_loss)
+    floor = 1e-12 * max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        assert torch.isfinite(got[name]).all(), name
+        if float(w.abs().max()) < floor:    # zero by symmetry: noise
+            assert float(got[name].abs().max()) < floor, name
+        else:
+            assert _rel(got[name], w) <= TOL, (name, _rel(got[name], w))

@@ -13,6 +13,15 @@ batch padded to 4 graphs.  Parameters come from the JAX ``init`` through
 - the port's card path for the head (K5 and K6 launches routed to their
   plain contracts) gives the same matrices, with 2 K5 and 1 K6 launches per
   forward;
+- training: every parameter's one-step gradient of the config's loss
+  (1e5 * MSE on ``hamiltonian``, N(0, 1) labels) against ``jax.grad`` on
+  the default CPU path and once more with the TPU pairwise kernel's
+  backward passes in interpret mode, at rel-linf 1e-4 (2e-4 against the
+  interpret-mode kernels); the routed card path (every kernel's launches
+  replaced by its plain contract) gives the plain path's gradients with
+  3 K1, 3 K2, 3 K3, 3 K3b, 1 K6, 1 K6b, 2 K5 and 2 K5-backward launches per
+  step; one ``Trainer`` step with the config's settings (Adam 1e-2, EMA
+  0.99 with num_updates) against optax on the same gradients;
 - symmetry, covariance under a random rotation (as
   ``tests/test_hamiltonian.py``), padded graphs change nothing, ``evaluate``
   returns the real graphs only;
@@ -23,6 +32,7 @@ batch padded to 4 graphs.  Parameters come from the JAX ``init`` through
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -37,6 +47,8 @@ from equivariant_nn_zoo_tpu.nn.output import \
     TensorProductContraction as JContraction
 from equivariant_nn_zoo_tpu.nn.pointwise import ResBlock as JResBlock
 from equivariant_nn_zoo_tpu.ops.gate import NormActivation as JNormActivation
+from equivariant_nn_zoo_tpu.run import loss as jloss
+from equivariant_nn_zoo_tpu.run.trainer import make_ema_update
 from equivariant_nn_zoo_tpu.utils import build as jbuild
 from equivariant_nn_zoo_tpu_torch.data import (
     Batch,
@@ -57,12 +69,19 @@ from equivariant_nn_zoo_tpu_torch.nn.output import (
 )
 from equivariant_nn_zoo_tpu_torch.nn.pointwise import ResBlock
 from equivariant_nn_zoo_tpu_torch.ops import Irreps, irreps_d, rand_matrix
+from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as pairwise_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as uvu_mod
 from equivariant_nn_zoo_tpu_torch.ops.gate import NormActivation
+from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 from equivariant_nn_zoo_tpu_torch.utils import build, load_jax_params
+from equivariant_nn_zoo_tpu_torch.utils.params import params_from_jax
 
 TOL = 1e-5
+GRAD_TOL = 1e-4        # gradients: longer sums, other orders
+INTERPRET_TOL = 2e-4   # against the interpret-mode kernels' own VJPs
+LOSS = {"hamiltonian": [1e5, "MSELoss"]}
 MODEL_KW = dict(n_dim=4, l_max=4, edge_spherical="1x0e+1x1o+1x2e+1x3o",
                 node_attrs="8x0e", edge_radial="8x0e", num_types=9,
                 num_layers=3, r_max=4.0)
@@ -93,12 +112,22 @@ def _molecules(seed=0, n_mol=N_MOL):
     return mols
 
 
-def _attrs():
-    return dict(ATTRS, _n_edges=("graph", "1x0e"))
+def _labelled(mols, seed=7):
+    """The molecules with N(0, 1) ``hamiltonian`` targets."""
+    rng = np.random.default_rng(seed)
+    return [dict(m, hamiltonian=rng.normal(size=(1, 576)).astype(np.float32))
+            for m in mols]
+
+
+def _attrs(mol=()):
+    attrs = dict(ATTRS, _n_edges=("graph", "1x0e"))
+    if "hamiltonian" in mol:
+        attrs["hamiltonian"] = ("graph", 576)
+    return attrs
 
 
 def _port_batch(mols, N=16, E=32, G=4):
-    host = Batch.from_data_list([Data(_attrs(), **m) for m in mols])
+    host = Batch.from_data_list([Data(_attrs(m), **m) for m in mols])
     gb = GraphBatch.from_batch(host, N, E, G, "cpu")
     assert gb.dropped == 0
     return gb
@@ -144,23 +173,41 @@ def _port_forward(model, gb):
 
 @pytest.fixture
 def routed(monkeypatch):
-    """Send the head's two kernels down their card path with each launch
-    replaced by its plain contract; count the launches."""
-    calls = {"K5": 0, "K6": 0}
+    """Send every kernel wrapper of the model down its card path with each
+    launch replaced by its plain contract.  The returned dict counts the
+    forward launches of the head's kernels (K5, K6); its ``more`` attribute
+    counts the trunk's forwards and every backward kernel."""
 
-    def k5(tpk, *args):
-        calls["K5"] += 1
-        return tpk.plain_forward(*args)
+    class Calls(dict):
+        pass
 
-    def k6(conv, *args):
-        calls["K6"] += 1
-        return conv.plain_forward(*args)
+    calls = Calls(K5=0, K6=0)
+    more = calls.more = {"K1": 0, "K2": 0, "K3": 0, "K3b": 0, "K6b": 0,
+                         "K5 backward": 0}
 
-    monkeypatch.setattr(pairwise_mod.PairwiseTP, "forward",
-                        pairwise_mod.PairwiseTP.launch)
-    monkeypatch.setattr(pairwise_mod, "launch_forward", k5)
-    monkeypatch.setattr(uvu_mod.UVUConv, "forward", uvu_mod.UVUConv.launch)
-    monkeypatch.setattr(uvu_mod, "launch_forward", k6)
+    def counting(table, key, attr):
+        def launch(mod, *args):
+            table[key] += 1
+            return getattr(mod, attr)(*args)
+        return launch
+
+    routes = (
+        (pairwise_mod, pairwise_mod.PairwiseTP,
+         counting(calls, "K5", "plain_forward"),
+         counting(more, "K5 backward", "plain_backward")),
+        (uvu_mod, uvu_mod.UVUConv, counting(calls, "K6", "plain_forward"),
+         counting(more, "K6b", "plain_backward")),
+        (full_conv_mod, full_conv_mod.FullConv,
+         counting(more, "K1", "plain_forward"),
+         counting(more, "K2", "plain_backward")),
+        (species_sc_mod, species_sc_mod.SpeciesScalarFCTP,
+         counting(more, "K3", "table_product"),
+         counting(more, "K3b", "plain_backward")),
+    )
+    for mod, cls, fwd, bwd in routes:
+        monkeypatch.setattr(cls, "forward", cls.launch)
+        monkeypatch.setattr(mod, "launch_forward", fwd)
+        monkeypatch.setattr(mod, "launch_backward", bwd)
     return calls
 
 
@@ -207,11 +254,140 @@ def test_card_path_of_the_head_matches(slice_, routed):
     assert _rel(got[:N_MOL], ref["hamiltonian"][:N_MOL]) < TOL
 
 
-def test_card_path_refuses_a_training_forward(slice_, routed):
-    model, _, mols, _ = slice_
-    with pytest.raises(NotImplementedError, match="no backward"):
-        model(_port_batch(mols))
-    assert routed == {"K5": 0, "K6": 0}
+# ------------------------------------------------------------------ training
+
+def _jax_step(jmodel, params, mols):
+    """Loss and every parameter's gradient of one step on the JAX model
+    (jitted), the gradients as a flat ``state_dict``."""
+    host = JBatch.from_data_list([JData(_attrs(m), **m) for m in mols])
+    jgb = JGraphBatch.from_batch(host, 16, 32, 4)
+    loss = jloss.Loss(LOSS)
+
+    def f(p):
+        return loss(jmodel.apply(p, jgb).data, jgb.data)[0]
+
+    value, grads = jax.jit(jax.value_and_grad(f))(params)
+    return float(value), params_from_jax(jax.device_get(grads))
+
+
+def _port_step(model, gb):
+    model.zero_grad()
+    loss, _ = Loss(LOSS)(model(gb).data, gb.data)
+    loss.backward()
+    return loss.item(), {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+
+
+@pytest.fixture(scope="module")
+def train_ref(slice_):
+    """Labelled molecules, and the JAX default CPU path's loss and
+    gradients of one step on them."""
+    _, params, mols, _ = slice_
+    mols = _labelled(mols)
+    return (mols, *_jax_step(jbuild(_jax_config()), params, mols))
+
+
+def _assert_gradients(got, want, tol):
+    """Each tensor at rel-linf ``tol`` of its own max.  A gradient that is
+    zero by symmetry comes out as rounding noise (1e-17 beside 1e-2 here):
+    such a tensor, under 1e-12 of the largest gradient, is held to be as
+    small in the port."""
+    assert set(got) == set(want)
+    floor = 1e-12 * max(float(w.abs().max()) for w in want.values())
+    assert floor > 0
+    for name, w in want.items():
+        if float(w.abs().max()) < floor:
+            assert float(got[name].abs().max()) < floor, name
+        else:
+            assert _rel(got[name].numpy(), w.numpy()) < tol, name
+
+
+def test_step_gradients_match_jax(slice_, train_ref):
+    """Every parameter of the slice (the l = 4 trunk, ``pairwise.*``,
+    ``irreps2tp*.linear.*``) gets JAX's gradient: the name mapping of
+    ``load_jax_params`` and the port's backward hold together."""
+    model, _, _, _ = slice_
+    mols, want_loss, want = train_ref
+    loss, got = _port_step(model, _port_batch(mols))
+    assert _rel(loss, want_loss) < TOL
+    assert any(n.startswith("pairwise.tp_off.") for n in want)
+    assert any(n.startswith("irreps2tp_off.linear.") for n in want)
+    _assert_gradients(got, want, GRAD_TOL)
+
+
+def test_step_gradients_match_jax_with_the_pairwise_kernel(
+        slice_, train_ref, monkeypatch):
+    """JAX with ``PallasPairwiseTP`` forced on differentiates through its
+    three backward kernels (interpret mode, float32)."""
+    model, params, _, _ = slice_
+    mols, _, _ = train_ref
+    monkeypatch.setenv("E3_PALLAS_PAIRWISE", "force")
+    monkeypatch.setenv("E3_COMPUTE_DTYPE", "float32")
+    jmodel = jbuild(_jax_config())
+    assert dict(jmodel.layers)["pairwise"]._pairwise_kernel is not None
+    want_loss, want = _jax_step(jmodel, params, mols)
+    loss, got = _port_step(model, _port_batch(mols))
+    assert _rel(loss, want_loss) < TOL
+    _assert_gradients(got, want, INTERPRET_TOL)
+
+
+@pytest.fixture(scope="module")
+def plain_step(slice_, train_ref):
+    """The port's loss and gradients of one step on its plain CPU path
+    (module-scoped: computed before any test routes the wrappers)."""
+    return _port_step(slice_[0], _port_batch(train_ref[0]))
+
+
+def test_card_path_trains(slice_, train_ref, plain_step, routed):
+    """The routed card path (autograd Functions over the plain contracts)
+    gives the plain path's loss and gradients, with one K6b and two
+    K5-backward launches per step beside the trunk's."""
+    want_loss, want = plain_step
+    loss, got = _port_step(slice_[0], _port_batch(train_ref[0]))
+    assert routed == {"K5": 2, "K6": 1}
+    assert routed.more == {"K1": 3, "K2": 3, "K3": 3, "K3b": 3, "K6b": 1,
+                           "K5 backward": 2}
+    assert _rel(loss, want_loss) < 1e-6
+    _assert_gradients(got, want, TOL)
+
+
+def test_trainer_step_matches_optax(slice_, train_ref):
+    """One ``Trainer.batch_step`` with the config's settings on the
+    ``hamiltonian`` key: the loss is JAX's, and the parameters and their
+    EMA move as ``optax.adam(1e-2)`` and the JAX package's EMA move them on
+    the same gradients; the ``hamiltonian`` mae is accumulated."""
+    _, params, _, _ = slice_
+    mols, want_loss, _ = train_ref
+    model = load_jax_params(build(_port_config()), params)
+    trainer = Trainer(
+        model, LOSS, metrics_components={"hamiltonian": ["mae"]},
+        learning_rate=1e-2, use_ema=True, ema_decay=0.99,
+        ema_use_num_updates=True, optimizer_name="Adam",
+        lr_scheduler_name="ReduceLROnPlateau", lr_scheduler_patience=8,
+        lr_scheduler_factor=0.8)
+    before = {n: jnp.asarray(p.detach().numpy().copy())
+              for n, p in model.named_parameters()}
+    gb = _port_batch(mols)
+    trainer.batch_step(gb)
+    assert _rel(float(trainer.batch_losses["loss"]), want_loss) < TOL
+    grads = {n: jnp.asarray(p.grad.numpy().copy())
+             for n, p in model.named_parameters()}
+    opt = optax.adam(1e-2)
+    updates, _ = opt.update(grads, opt.init(before), before)
+    after = optax.apply_updates(before, updates)
+    ema = make_ema_update(0.99, True)(
+        {"params": before, "num_updates": jnp.zeros((), jnp.int32)}, after)
+    ema_params = dict(trainer.ema_model.named_parameters())
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), after[n], rtol=0,
+                                   atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(ema_params[n].numpy(), ema["params"][n],
+                                   rtol=0, atol=1e-6, err_msg=n)
+    trainer.batch_step(gb, validation=True)
+    flat, _ = trainer.metrics.flatten_metrics(
+        trainer.metrics.current_result())
+    assert set(flat) == {"hamiltonian_mae"}
+    assert np.isfinite(flat["hamiltonian_mae"]) and flat["hamiltonian_mae"] > 0
 
 
 def test_hamiltonian_symmetric(slice_):

@@ -89,3 +89,37 @@ def test_entry_points_default_to_the_card():
         GraphBatch.from_batch(host, 4, 4, 1)
     with pytest.raises((AssertionError, RuntimeError)):
         build_model(get_config("config_energy")["model_config"])
+
+
+def _c_entries():
+    """``{name: parameter kinds}`` of every ``extern "C"`` entry point in
+    ``csrc/``: P for a pointer, F for a float, I for an int."""
+    import re
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import CSRC_DIR
+
+    src = "".join(p.read_text() for p in sorted(CSRC_DIR.glob("*.cu")))
+    common = re.search(r"#define EXT_COMMON\s+\\\n((?:.*\\\n)*.*)\n",
+                       src).group(1).replace("\\\n", " ")
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(\s*(.*?)\)\s*\{',
+                                   src, re.S):
+        params = params.replace("EXT_COMMON", common)
+        entries[name] = "".join(
+            "P" if "*" in p else "F" if p.strip().startswith("float") else "I"
+            for p in params.split(",") if p.strip())
+    return entries
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """A pointer passed where ``argtypes`` ends is cut to 32 bits: every C
+    entry point has a signature of its own length and kinds."""
+    import ctypes
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import SIGNATURES
+
+    kinds = {ctypes.c_void_p: "P", ctypes.c_float: "F", ctypes.c_int: "I"}
+    entries = _c_entries()
+    assert set(entries) == set(SIGNATURES)
+    for name, want in entries.items():
+        assert "".join(kinds[t] for t in SIGNATURES[name]) == want, name

@@ -1,5 +1,5 @@
-"""The per-edge conv (K6, ``ops/cuda/uvu_conv.py``) on the CPU, at a small
-size (8 channels of l <= 2, the layer of ``tests/test_pallas.py``):
+"""The per-edge conv (K6 and K6b, ``ops/cuda/uvu_conv.py``) on the CPU, at
+a small size (8 channels of l <= 2, the layer of ``tests/test_pallas.py``):
 
 - its plain version, ``FusedUVUConv`` with ``reduce=False``, against the
   TPU kernel ``PallasUVUConv`` in interpret mode (``tile=32``, float32,
@@ -8,11 +8,17 @@ size (8 channels of l <= 2, the layer of ``tests/test_pallas.py``):
 - the ``reduce=False`` branch of ``FactorizedConvolution`` (``linear_1``,
   the radial MLP, the conv; no self-connection, no normalisation) against
   the JAX layer on the same parameters;
-- the card path (flat mix matrices, the launch counter's place) with the
-  launch routed to ``plain_forward``; a call that would need a gradient
-  raises on that path;
-- K1's size check: the forward takes an l = 4 layer (nine components), the
-  backward refuses it.
+- the card path (flat mix matrices, the launch counters' place) with the
+  launches routed to ``plain_forward`` and ``plain_backward``: values, and
+  the gradients through ``UVUConvFunction`` against autograd of the plain
+  version;
+- dx, dsh, dw and the mix ``Linear``'s gradients against the VJP of the TPU
+  kernel in interpret mode (as ``tests/test_pallas.py`` differentiates it,
+  with ``reduce=False``) at rel-linf 2e-4, and ``plain_backward`` (K6b's
+  contract: dx, dsh, dw, dwsel) against autograd of the plain version at
+  1e-4;
+- the size check of K1 and K2: both take an l = 4 layer (nine components),
+  the backward refuses l = 5.
 """
 
 import jax
@@ -30,9 +36,14 @@ from equivariant_nn_zoo_tpu_torch.nn.message_passing import \
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as uvu_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda.uvu_conv import UVUConv
-from equivariant_nn_zoo_tpu_torch.utils.params import load_jax_params
+from equivariant_nn_zoo_tpu_torch.utils.params import (
+    load_jax_params,
+    params_from_jax,
+)
 
 TOL = 1e-5
+GRAD_TOL = 1e-4        # gradients: longer sums, other orders
+INTERPRET_TOL = 2e-4   # against the interpret-mode kernel's own VJP
 SPEC = "8x0e+8x0o+8x1e+8x1o+8x2e+8x2o"
 KW = dict(
     input_features=SPEC,
@@ -77,16 +88,27 @@ def convs():
 
 @pytest.fixture
 def routed(monkeypatch):
-    """Send ``UVUConv`` down its card path with the launch replaced by the
-    plain contract; count the launches."""
-    calls = []
+    """Send ``UVUConv`` down its card path with the launches replaced by
+    the plain contracts.  The returned list holds the edge count of every
+    forward launch; its ``backward`` attribute counts the backward
+    launches."""
+
+    class Calls(list):
+        backward = 0
+
+    calls = Calls()
 
     def launch(conv, *args):
         calls.append(args[1].shape[0])
         return conv.plain_forward(*args)
 
+    def launch_backward(conv, *args):
+        calls.backward += 1
+        return conv.plain_backward(*args)
+
     monkeypatch.setattr(UVUConv, "forward", UVUConv.launch)
     monkeypatch.setattr(uvu_mod, "launch_forward", launch)
+    monkeypatch.setattr(uvu_mod, "launch_backward", launch_backward)
     return calls
 
 
@@ -152,22 +174,99 @@ def test_kernel_contract_matches_plain(convs, routed):
     assert _rel(got, want) < TOL
 
 
-@pytest.mark.parametrize("needs", ["parameter", "x", "sh", "w"])
-def test_launch_raises_when_a_gradient_is_needed(convs, routed, needs):
-    _, _, tconv, i = convs
-    tconv.requires_grad_(needs == "parameter")
-    args = [torch.tensor(i[k], requires_grad=needs == k)
+def _leaves(tconv, i, needs):
+    """The layer's differentiable inputs as fresh leaves; ``needs`` names
+    the ones that ask for a gradient (``parameter``: the mix Linear)."""
+    tconv.requires_grad_("parameter" in needs)
+    return [torch.tensor(i[k], requires_grad=k in needs)
             for k in ("x", "sh", "w")]
+
+
+def _cotangent(shape):
+    return torch.tensor(np.cos(np.arange(int(np.prod(shape)))).reshape(
+        shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("needs", ["parameter", "x", "sh", "w"])
+def test_routed_function_gradients_match_plain(convs, routed, needs):
+    """Whatever asks for a gradient, the card path goes through
+    ``UVUConvFunction`` (one K6, one K6b) and returns autograd's gradient
+    of the plain version; without grad mode it launches K6 alone."""
+    _, _, tconv, i = convs
+    src = torch.tensor(i["src"])
     try:
-        with pytest.raises(NotImplementedError, match="no backward"):
-            tconv.full_conv(tconv.tp.linear, *args, torch.tensor(i["src"]))
-        assert routed == []
+        args = _leaves(tconv, i, (needs,))
+        out = tconv.full_conv(tconv.tp.linear, *args, src)
+        wanted = [t for t in (*args, *tconv.tp.linear.parameters())
+                  if t.requires_grad]
+        got = torch.autograd.grad(out, wanted, _cotangent(out.shape))
+        assert routed == [E] and routed.backward == 1
+        args = _leaves(tconv, i, (needs,))
+        ref = tconv.full_conv.fused(tconv.tp.linear, args[0], src, None,
+                                    args[1], args[2], N, reduce=False)
+        wanted = [t for t in (*args, *tconv.tp.linear.parameters())
+                  if t.requires_grad]
+        want = torch.autograd.grad(ref, wanted, _cotangent(ref.shape))
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert _rel(g.numpy(), w.numpy()) < GRAD_TOL
         with torch.no_grad():
-            out = tconv.full_conv(tconv.tp.linear, *args,
-                                  torch.tensor(i["src"]))
-        assert torch.isfinite(out).all() and routed == [E]
+            tconv.full_conv(tconv.tp.linear, *args, src)
+        assert routed == [E, E] and routed.backward == 1
     finally:
         tconv.requires_grad_(True)
+
+
+def test_gradients_match_interpret_mode_kernel(convs, routed):
+    """dx, dsh, dw and the mix Linear's gradients through the routed
+    Function against ``jax.grad`` through the TPU kernel in interpret mode
+    (its own backward kernel), ``reduce=False``."""
+    jconv, params, tconv, i = convs
+    kern = PallasUVUConv(jconv.tp, compute_dtype=jnp.float32, tile=32)
+    src, dst = (jnp.asarray(i[k], jnp.int32) for k in ("src", "dst"))
+
+    def loss(lp, x, sh, w):
+        out = kern(lp, x, src, dst, sh, w, N, reduce=False)
+        return jnp.sum(out * jnp.cos(jnp.arange(out.size).reshape(
+            out.shape)))
+
+    ref = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        params["tp"]["linear"], *(jnp.asarray(i[k])
+                                  for k in ("x", "sh", "w")))
+    args = _leaves(tconv, i, ("parameter", "x", "sh", "w"))
+    out = tconv.full_conv(tconv.tp.linear, *args, torch.tensor(i["src"]))
+    lin = dict(tconv.tp.linear.named_parameters())
+    got = torch.autograd.grad(out, [*args, *lin.values()],
+                              _cotangent(out.shape))
+    assert routed.backward == 1
+    for name, g, want in zip(("dx", "dsh", "dw"), got, ref[1:]):
+        assert _rel(g.numpy(), want) < INTERPRET_TOL, name
+    want_lin = params_from_jax(jax.device_get(ref[0]))
+    assert set(want_lin) == set(lin)
+    for name, g in zip(lin, got[3:]):
+        assert _rel(g.numpy(), want_lin[name].numpy()) < INTERPRET_TOL, name
+
+
+def test_plain_backward_matches_autograd(convs):
+    """K6b's plain contract (dx, dsh, dw, dwsel on the flat mix matrices)
+    against autograd of ``FusedUVUConv(reduce=False)``; ``dwsel`` is
+    carried to the Linear's parameters through ``flat_wsel``."""
+    _, _, tconv, i = convs
+    conv, lin = tconv.full_conv, tconv.tp.linear
+    src = torch.tensor(i["src"])
+    args = _leaves(tconv, i, ("parameter", "x", "sh", "w"))
+    wsel = conv.flat_wsel(lin)
+    with torch.no_grad():
+        out, scratch = conv.plain_forward(*args, wsel, src)
+    gout = _cotangent(out.shape)
+    dx, dsh, dw, dwsel = conv.plain_backward(*args, wsel, src, scratch, gout)
+    assert dwsel.shape == (conv.wsel_len,)
+    d_lin = torch.autograd.grad(wsel, list(lin.parameters()), dwsel)
+    ref = conv.fused(lin, args[0], src, None, args[1], args[2], N,
+                     reduce=False)
+    want = torch.autograd.grad(ref, [*args, *lin.parameters()], gout)
+    for g, w in zip((dx, dsh, dw, *d_lin), want):
+        assert _rel(g.numpy(), w.numpy()) < GRAD_TOL
 
 
 def test_reduce_false_takes_no_self_connection():
@@ -178,24 +277,27 @@ def test_reduce_false_takes_no_self_connection():
         TConv(**KW, grad_order=2)
 
 
-def test_k1_forward_takes_l4_and_backward_refuses():
-    """The hamiltonian trunk's layers have l = 4 inputs (nine components):
-    the forward kernel holds no per-irrep rows and takes them; the backward
-    kernels hold ``MAX_D`` = 7 register rows and refuse."""
-    conv = TConv(
-        input_features="4x0e+4x1o+4x2e+4x3o+4x4e",
-        output_features="4x0e+4x1o+4x2e+4x3o+4x4e", node_attrs="4x0e",
+def _trunk_layer(l_max):
+    spec = "+".join(f"4x{l}{'eo'[l % 2]}" for l in range(l_max + 1))
+    return TConv(
+        input_features=spec, output_features=spec, node_attrs="4x0e",
         edge_radial="8x0e", edge_spherical="1x0e+1x1o+1x2e+1x3o",
         invariant_layers=3, invariant_neurons=4, avg_num_neighbors=10,
         sc_species_types=9)
-    assert conv.full_conv.max_d1 == 9 > full_conv_mod.MAX_D
+
+
+def test_k1_forward_takes_l4_and_backward_refuses():
+    """The hamiltonian trunk's layers have l = 4 inputs (nine components):
+    the forward kernel holds no per-irrep rows and takes any degree; the
+    backward kernels hold up to ``MAX_D`` = 9 register rows, so they take
+    l = 4 and refuse l = 5 (eleven components)."""
+    conv = _trunk_layer(4)
+    assert conv.full_conv.max_d1 == 9 == full_conv_mod.MAX_D
     full_conv_mod.check_structure(conv.full_conv)
+    full_conv_mod.check_structure(conv.full_conv, backward=True)
+    wide = _trunk_layer(5)
+    assert wide.full_conv.max_d1 == 11
+    full_conv_mod.check_structure(wide.full_conv)
     with pytest.raises(ValueError, match="backward takes left irreps"):
-        full_conv_mod.check_structure(conv.full_conv, backward=True)
-    small = TConv(
-        input_features="4x0e+4x1o+4x2e+4x3o",
-        output_features="4x0e+4x1o+4x2e+4x3o", node_attrs="4x0e",
-        edge_radial="8x0e", edge_spherical="1x0e+1x1o+1x2e",
-        invariant_layers=3, invariant_neurons=4, avg_num_neighbors=10,
-        sc_species_types=9)
-    full_conv_mod.check_structure(small.full_conv, backward=True)
+        full_conv_mod.check_structure(wide.full_conv, backward=True)
+    full_conv_mod.check_structure(_trunk_layer(3).full_conv, backward=True)
