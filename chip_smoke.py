@@ -2,6 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --conv-times     # K1 and K2 alone, see conv_times
+    python3 chip_smoke.py --walk-ablation  # their walks' parts, see there
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -13,7 +15,8 @@ Phases, in order; any failure exits non-zero before the last line:
 4. K3      — the species self-connection kernel, likewise;
 5. K2      — the convolution's backward kernel against the plain backward
              (autograd of the plain forward) on K1's saved scratch and a
-             seeded cotangent: dx, d edge_radial, dW (MLP) and dwsel;
+             seeded cotangent: dx, d edge_radial, dW (MLP) and dwsel; K1
+             and K2 walk one edge order, built once as on the main path;
 6. K3b     — the self-connection's backward kernel (dx, dtables), likewise;
 7. slice   — full-width ``config_energy`` (random weights from a seeded
              generator) serves 4 batches of 128 graphs through
@@ -27,7 +30,8 @@ Phases, in order; any failure exits non-zero before the last line:
              training batches and 1 validation batch of 128 graphs labelled
              ``sum of per-species shifts + N(0, 1)``; losses must be finite
              and each of K1, K2, K3 and K3b must launch at least
-             ``num_layers x steps`` times; then ms per step and graphs/s;
+             ``num_layers x steps`` times; then ms per step and graphs/s
+             and a ``torch.profiler`` table of 4 steps;
 9. train parity — one step's gradient of every parameter on a 32-graph
              cut, card against the CPU plain path, from the same seeded
              weights (labels N(0, 1), so the float32 residual is
@@ -58,8 +62,8 @@ Phases, in order; any failure exits non-zero before the last line:
              contract (K5: left, weighted right, mix matrices; K6: x, sh,
              radial weights, mix matrices) and each wrapper against the
              plain forward (``expand``, ``FusedUVUConv(reduce=False)``);
-             then K1 and K3 against plain at the trunk's hot layer, whose
-             irreps reach l = 4;
+             then K3 against plain at the trunk's hot layer, whose irreps
+             reach l = 4;
 15. hamiltonian serve — full-width ``config_hamiltonian`` (seeded weights,
              ``build_model`` with no device argument) serves 4 batches of
              16 and 4 batches of 512 molecules through
@@ -67,12 +71,13 @@ Phases, in order; any failure exits non-zero before the last line:
              per layer, K6 once and K5 twice; the matrices must be finite
              and symmetric to 1e-5, and a 16-molecule cut must match the
              CPU plain path;
-16. K6b, K5m, K5a, K5b, K2 and K3b at l = 4 — the hamiltonian path's
-             backward kernels against their plain versions (autograd of
-             the plain forwards) with seeded cotangents, per output, at
-             the shapes of the 512-molecule batch (K6b and ``tp_off`` on
-             3072 edges, ``tp`` on 1537 node rows, the trunk's hot layer)
-             and of the config's batch of 16 (96 edges, 49 node rows); the
+16. K6b, K5m, K5a, K5b, K1, K2 and K3b at l = 4 — the hamiltonian
+             path's backward kernels (and K1) against their plain versions
+             (autograd of the plain forwards) with seeded cotangents, per
+             output, at the shapes of the 512-molecule batch (K6b and
+             ``tp_off`` on 3072 edges, ``tp`` on 1537 node rows, the
+             trunk's hot layer) and of the config's batch of 16 (96 edges,
+             49 node rows); the
              pairwise backward is one entry, so each of its three kernels
              (dwsel, d left, dbw) is also launched, checked and timed
              alone;
@@ -89,15 +94,18 @@ Phases, in order; any failure exits non-zero before the last line:
 18. hamiltonian train parity — one step's gradient of every parameter on
              a 16-molecule cut, card against the CPU plain path.
 
-Phase 12 also traces 4 force training steps with ``torch.profiler`` and
-writes their kernel-time table to ``chiprun_out/force_step_profile.txt``;
+Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
+their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
+12 does the same for 4 force training steps
+(``chiprun_out/force_step_profile.txt``);
 phase 15 does the same for 4 serving forwards at each batch size
 (``chiprun_out/hamiltonian_serve_profile_{16,512}.txt``) and phase 17 for 4
 training steps at each batch size
 (``chiprun_out/hamiltonian_step_profile{,_128}.txt``).
 
-TF32 is off, so the plain versions compute in float32; the kernels sum with
-atomics in a varying order, hence rel-linf 1e-4 of max|plain| (per tensor).
+TF32 is off, so the plain versions compute in float32; the kernels sum in
+another order, some with atomics in a varying order, hence rel-linf 1e-4
+of max|plain| (per tensor).
 Each kernel's bound is the larger of its operations over 67 TFLOP/s (f32
 outside the tensor cores) and its bytes (each input read once, each output
 written once) over 3.35 TB/s, the H100 SXM's published peaks.  The
@@ -397,12 +405,14 @@ def worst_gradient_rel(got, want):
 
 # kernel families of a profile, first match wins: (label, regex on the name)
 PROFILE_FAMILIES = (
-    ("K2 edge kernel", "k2_edge_kernel"),
+    ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
     ("K4 edge sweeps", "ext_edge_kernel"),
     ("tiled products of the backward (rowmix::tile_gemm_kernel)",
      "tile_gemm_kernel"),
     ("Adam (profiler range)", r"Optimizer\.step"),
-    ("K1 edge kernel", "full_conv_edge_kernel"),
+    ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
+    ("K1/K2 radial hidden layers, piece sums, dx sums",
+     "mlp_hidden_kernel|walk_piece_sum_kernel|k2_dx_kernel"),
     ("forward mix (rowmix::mix_rows_kernel)", "mix_rows_kernel"),
     ("K5 sweeps (cg, da, dbw)", "pairwise_"),
     ("K6 and K6b sweeps", "uvu_"),
@@ -746,12 +756,14 @@ def capture_head_inputs(model, gb):
 
 def backward_checks(model, seen, dev, alone):
     """Phase 16 at one batch's shapes: K6b, the pairwise backward (both
-    calls) and K2 / K3b at the l = 4 hot layer against their plain
-    versions, per output.  With ``alone`` each of K5m, K5a and K5b is also
-    launched, checked and timed by itself on ``tp_off``'s inputs.  Returns
+    calls), K1 and K2 / K3b at the l = 4 hot layer against their plain
+    versions, per output (K2 on the forward's edge order).  With ``alone``
+    each of K5m, K5a and K5b is also launched, checked and timed by itself
+    on ``tp_off``'s inputs.  Returns
     measured records and (flops, bytes) costs by kernel."""
     import torch
 
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
@@ -831,10 +843,15 @@ def backward_checks(model, seen, dev, alone):
         _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat, N)
         spec = data["species"].reshape(-1)
         tables = ssc.tables(conv.sc, data["node_attrs"], spec)
+    k1_args = (conv.fc, conv.tp.linear, x1, er, *edges, N, pre)
+    rec["K1"] = compare(f"K1 full_conv at l = 4 (N={N}, E={er.shape[0]})",
+                        lambda: fconv.launch(*k1_args),
+                        lambda: fconv.plain(*k1_args))
+    order = edge_order.shared(edges[1], edges[2], N)
     k2_args = (x1, er, *edges, *flat, N, scratch, rnd(N, fconv.out_dim))
     rec["K2"] = compare_grads(
         f"K2 full_conv_bwd at l = 4 (N={N}, E={er.shape[0]})",
-        lambda: conv_ops.launch_backward(fconv, *k2_args),
+        lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
         lambda: fconv.plain_backward(*k2_args),
         ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
     g3 = rnd(N, ssc.irreps_out.dim)
@@ -845,7 +862,8 @@ def backward_checks(model, seen, dev, alone):
         lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
     cost.update({k: v for k, v in trunk_costs(
         conv, x1, er, edges, flat, data["input_features"],
-        data["node_attrs"], tables, spec, g3).items() if k in ("K2", "K3b")})
+        data["node_attrs"], tables, spec, g3).items()
+        if k in ("K1", "K2", "K3b")})
     return rec, cost
 
 
@@ -928,7 +946,7 @@ def hamiltonian_phases(dev):
                        nbytes(left, wsel5) + M * tpk.R * tpk.mul * 4
                        + M * tpk.out_dim * 4)
 
-    # ------------------------------------------- K1, K3 at the l = 4 layer
+    # ----------------------------------------------- K3 at the l = 4 layer
     data = seen["trunk"][0]
     with torch.inference_mode():
         x1 = conv.linear_1(data["input_features"])
@@ -938,17 +956,12 @@ def hamiltonian_phases(dev):
           f"max_d1={fc.max_d1} J={fc.fused.J_dim} K={fc.fused.K_dim} "
           f"paths={fc.n_paths} P*mul={fc.fused.weight_numel} "
           f"MLP={fc.fc_dims} out_dim={fc.out_dim}")
-    k1_args = (conv.fc, conv.tp.linear, x1, er, data["edge_spherical"],
-               data["edge_index"][0], data["edge_index"][1], x1.shape[0],
-               1.0 / conv.avg_num_neighbors ** 0.5)
-    k1 = compare("K1 full_conv at l = 4", lambda: fc.launch(*k1_args),
-                 lambda: fc.plain(*k1_args))
     k3_args = (conv.sc, data["input_features"], data["node_attrs"],
                data["species"])
     k3 = compare("K3 species_sc at l = 4",
                  lambda: conv.species_sc.launch(*k3_args),
                  lambda: conv.species_sc.plain(*k3_args))
-    del data, x1, er, k1_args, k3_args, x, sh, w, left, right
+    del data, x1, er, k3_args, x, sh, w, left, right
 
     # --------------------------- the backward kernels, at both batches' shapes
     bwd, bwd_cost = backward_checks(model, seen, dev, alone=True)
@@ -1089,8 +1102,10 @@ def hamiltonian_phases(dev):
             name, source, replaces, train_launches[counter], bwd[key],
             *bwd_cost[key]), **extra))
     trunk = {
-        "full_conv": dict(k1, launches=total["full_conv"],
-                          train_launches=train_launches["full_conv"]),
+        "full_conv": dict(bwd["K1"], launches=total["full_conv"],
+                          train_launches=train_launches["full_conv"],
+                          batch16_ms=bwd_small["K1"]["ms"],
+                          **bound(*bwd_cost["K1"])),
         "species_sc": dict(k3, launches=total["species_sc"],
                            train_launches=train_launches["species_sc"]),
         "full_conv_bwd": dict(
@@ -1238,6 +1253,7 @@ def main():
         FullConv,
         SpeciesScalarFCTP,
     )
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
@@ -1311,10 +1327,11 @@ def main():
             fconv, x1g, erg, *k1_args[4:7], *flat, x1g.shape[0])
     gout = torch.randn(x1g.shape[0], fconv.out_dim,
                        generator=torch.Generator().manual_seed(1)).to(dev)
+    order = edge_order.shared(*k1_args[5:8])
     k2_args = (x1g, erg, *k1_args[4:7], *flat, x1g.shape[0], scratch, gout)
     k2 = compare_grads(
         "K2 full_conv_bwd",
-        lambda: conv_ops.launch_backward(fconv, *k2_args),
+        lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
         lambda: fconv.plain_backward(*k2_args),
         ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
     del scratch, k2_args
@@ -1451,6 +1468,12 @@ def main():
           f"synchronize, {reps * len(train)} steps)")
     if not np.isfinite(trainer.batch_losses["loss"].item()):
         fail("train: non-finite loss in the timed steps")
+    kernel_ms = profile_kernels(
+        "energy training steps",
+        lambda: [trainer.batch_step(gb) for gb in train], len(train),
+        "energy_step_profile.txt")
+    print(f"train step: {kernel_ms:.3f} ms of kernels per step under the "
+          f"profiler: device busy share {kernel_ms / step_ms:.4f}")
     del trainer, train_batches, train, val
 
     # --------------------------------------------------------- train parity
@@ -1507,6 +1530,174 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def kernel_split(fn, n=6):
+    """Device ms per call of each kernel that ``fn`` launches, by name
+    (``torch.profiler`` over ``n`` calls after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            key = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            name = re.match(r"[\w:]*", key).group(0).split("::")[-1] or key
+            split[name] = split.get(name, 0.0) + us / 1e3 / n
+    return {k: round(v, 4) for k, v in
+            sorted(split.items(), key=lambda kv: -kv[1])}
+
+
+def conv_times():
+    """``python3 chip_smoke.py --conv-times``: K1 and K2 of the package in
+    the current directory (run it from two checkouts in turn to compare them
+    on one card), ms per call with CUDA events at ``config_energy``'s hot
+    layer (the first 128-graph batch of phase 7) and at the l = 4 hot layer
+    of a 512- and a 16-molecule batch (phases 14-16), each C entry through
+    ``launch_forward`` / ``launch_backward``, with each kernel's device ms
+    per call (``kernel_split``); one JSON line.  K2 gets the forward's edge
+    order where the package has one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    import equivariant_nn_zoo_tpu_torch as pkg
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+
+    try:
+        from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    except ImportError:
+        edge_order = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    energy = synthetic_qm9(N_BATCHES * BATCH, np.random.default_rng(0))
+    water = synthetic_h2o(N_BATCHES * max(H2O_BATCHES),
+                          np.random.default_rng(20))
+    cases = (("energy", "config_energy", energy, BATCH),
+             ("l4_3072", "config_hamiltonian", water, max(H2O_BATCHES)),
+             ("l4_96", "config_hamiltonian", water, min(H2O_BATCHES)))
+    times, models = {}, {}
+    for key, name, mols, size in cases:
+        if name not in models:
+            models[name] = build_model(get_config(name)["model_config"], dev,
+                                       torch.Generator().manual_seed(0))
+        model = models[name]
+        gb = make_batches(mols[:N_BATCHES * size], dev, size)[0]
+        conv = getattr(model, HOT_LAYER).conv
+        fconv, seen = conv.full_conv, {}
+        hook = conv.register_forward_pre_hook(
+            lambda mod, args: seen.update(data=args[0]))
+        with torch.no_grad():
+            model(gb)
+            hook.remove()
+            data = seen["data"]
+            x1 = conv.linear_1(data["input_features"])
+            er = data["edge_radial"] * data["_edge_mask"]
+            pre = 1.0 / conv.avg_num_neighbors ** 0.5
+            edges = (data["edge_spherical"], data["edge_index"][0],
+                     data["edge_index"][1])
+            N = x1.shape[0]
+            flat = [t.detach() for t in fconv.flat_weights(
+                conv.fc, conv.tp.linear, pre)]
+            kw = {} if edge_order is None else {
+                "order": edge_order.shared(edges[1], edges[2], N)}
+            _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
+                                                 N, **kw)
+            gout = torch.randn(N, fconv.out_dim, generator=torch.Generator(
+            ).manual_seed(1)).to(dev)
+
+            def k1():
+                return conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
+                                               N, **kw)
+
+            def k2():
+                return conv_ops.launch_backward(fconv, x1, er, *edges, *flat,
+                                                N, scratch, gout, **kw)
+
+            rec = {"K1_ms": cuda_ms(k1), "K2_ms": cuda_ms(k2), "N": N,
+                   "E": int(er.shape[0]), "K1_kernels": kernel_split(k1),
+                   "K2_kernels": kernel_split(k2)}
+        times[key] = rec
+        print(f"{key}: N={N} E={rec['E']} K1 {rec['K1_ms']:.4f} ms "
+              f"{rec['K1_kernels']}, K2 {rec['K2_ms']:.4f} ms "
+              f"{rec['K2_kernels']}")
+    print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                      "card": torch.cuda.get_device_name(0),
+                      "conv_times": times}))
+
+
+# the walk ablation: each part of both walk kernels as the (pattern,
+# replacement) that leaves it out of their sources, and the variants timed,
+# as (label, parts left out); a variant computes wrong results and is only
+# timed
+WALK_PARTS = {
+    "radial weights": (r"\n *radial_weights\(st, [^;]*;", ""),
+    "CG matrices": (r"\n *cg_matrices<kRows>\(st, [^;]*;", ""),
+    "per-edge products": (r"for \(int q = 0; q < nq; \+\+q\)",
+                          "for (int q = 0; q < 0; ++q)"),
+}
+WALK_ABLATIONS = (
+    ("without the radial weights", ["radial weights"]),
+    ("without the CG matrices", ["CG matrices"]),
+    ("without the per-edge products", ["per-edge products"]),
+    ("staging only", list(WALK_PARTS)),
+)
+
+
+def walk_ablation():
+    """``python3 chip_smoke.py --walk-ablation``: where the time of the walk
+    kernels (K1, K2; ``csrc/edge_walk.cuh``) goes, without a profiler that
+    reads the card's counters: copies of the package in
+    ``build/walk_ablation/`` (gitignored) each leave out parts of both
+    walks (``WALK_ABLATIONS``), and ``--conv-times`` times each copy after
+    the package itself.  A part costs about the time that its absence
+    saves."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "equivariant_nn_zoo_tpu_torch")
+    runs = [("package as it is", root)]
+    for i, (label, parts) in enumerate(WALK_ABLATIONS):
+        dest = os.path.join(root, "build", "walk_ablation", str(i))
+        shutil.rmtree(dest, ignore_errors=True)
+        shutil.copytree(pkg, os.path.join(dest, os.path.basename(pkg)),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for src in ("full_conv.cu", "full_conv_bwd.cu"):
+            path = os.path.join(dest, os.path.basename(pkg), "csrc", src)
+            with open(path) as f:
+                text = f.read()
+            for part in parts:
+                text, n = re.subn(*WALK_PARTS[part], text)
+                if n != 1:
+                    fail(f"walk ablation: '{part}' matched {n} times in {src}")
+            with open(path, "w") as f:
+                f.write(text)
+        runs.append((label, dest))
+    for label, cwd in runs:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--conv-times"], cwd=cwd, capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"walk ablation, {label}:\n{res.stdout}{res.stderr}")
+        for line in res.stdout.splitlines()[:-1]:
+            print(f"{label}: {line}")
+
+
 if __name__ == "__main__":
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    main()
+    if sys.argv[1:] == ["--conv-times"]:
+        sys.path.insert(0, os.getcwd())
+        conv_times()
+    elif sys.argv[1:] == ["--walk-ablation"]:
+        walk_ablation()
+    else:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        main()

@@ -15,69 +15,73 @@
 //
 // and, given gout = dL/dout and the forward's f32 scratch S (saved, the
 // card's counterpart of the TPU kernel's save_mid; per node, not per edge),
-// this entry computes dx, d er, dW_hidden, dW_out and dwsel in three stages
+// this entry computes dx, d er, dW_hidden, dW_out and dwsel in four stages
 // of hand-written kernels on the caller's stream:
 //
 // a. node stage (rowmix::mix_products in row_mix.cuh, the mix backward
 //    shared with the per-edge conv and the pairwise expansion):
 //    dS = gout_q @ wsel_q^T, added over the problems that read the same
 //    scratch columns, and dwsel_q = S^T @ gout_q, split over node chunks.
-// b. edge stage (k2_edge_kernel): a block takes 16 edges, recomputes the
-//    MLP's hidden layers in shared memory as the forward does and stores
-//    the pre-activations z and activations h; then per CG path, thread
-//    (u, edge group) recomputes w[p, u], gathers dS[dst] (no atomics),
-//    recomputes mid[m3] over the path's wigner_3j non-zeros, writes
-//    dw[e, p, u] = sum_m3 dS * mid in w_out's column order, and adds
-//    w * sum_m3 dS * C * sh into dx[src] with atomics (the mirror of the
-//    forward's scatter).
+// b. edge stage: walk::mlp_hidden_kernel (edge_walk.cuh) recomputes the
+//    MLP's hidden layers per edge and stores the pre-activations z and
+//    activations h; k2_walk_kernel walks the edges source-major (the
+//    mirror of K1's destination-major walk): a block takes one work item
+//    (the runs of a few source nodes, at most 4 * cap edges) and a chunk of
+//    up to four CG paths of one left irrep, split over blockIdx.y.  Per
+//    edge it gathers dS[dst], stores dw[e, p, u] in w_out's column order
+//    with a plain store, and sums w * M^T dS over the node's outgoing
+//    edges in registers; when the source changes it stores the node's
+//    per-path dx row once, with a plain store, into a path-major work
+//    buffer dxp [N, sum_p d1(p) * mul].  Long runs are walked in pieces
+//    and summed in item order by walk::walk_piece_sum_kernel (as in K1: a
+//    second small pass, not atomics, so the order of summation is fixed);
+//    k2_dx_kernel then adds each left irrep's paths in path order into dx.
+//    No dx atomics, no dx zero fill (unless some input column is read by
+//    no path), and dx repeats bit for bit.  M^T dS is a dense product over
+//    compile-time register indices, so no channel selects its left
+//    component at run time.
 // c. MLP stage (rowmix::tile_gemm_kernel and k2_act_grad_kernel): dW_out =
-//    h_L^T dw
-//    (split over edge chunks), dh = dw W_out^T, then per hidden layer from
-//    the last: dz = dh * ssp'(z) (ssp' = sigmoid * act_cst), dW_i = h_i^T dz,
-//    dh_i = dz W_i^T, the last of which is d er.
+//    h_L^T dw (split over edge chunks), dh = dw W_out^T, then per hidden
+//    layer from the last: dz = dh * ssp'(z) (ssp' = sigmoid * act_cst),
+//    dW_i = h_i^T dz, dh_i = dz W_i^T, the last of which is d er.
 //
-// What bounds it on the card: the edge stage's dx atomics (E * mul * sum_p
-// d1(p), ~300 M per hot layer) and its f32 FMAs, as in the forward; then
-// the f32 products of the MLP stage (2 * E * 64 * 3072 FMAs for dW_out and
-// dh) and the per-edge cotangent dw, [E, P * mul] in f32 (~300 MB at
-// E = 24386, written once and read twice).  The products are a plain
-// 64x64-tiled shared-memory kernel on CUDA cores; every output is summed
-// with atomics into a zeroed buffer, so split reductions need no second
-// pass and the order of summation varies from run to run.  Padded edges
-// need no special case (zero edge_radial, bias-free MLP); edges with an
-// endpoint outside [0, N), skipped by the forward, get zero dw.
+// What bounds it on the card: the edge walk and the MLP stage's tiled
+// products take about half each at config_energy's hot layer (E = 24386).
+// The walk is bound as K1's is (instruction issue at 16 warps per SM:
+// the radial weights recomputed, H * P * mul FMAs per edge, and the dense
+// products with M, fed by shared-memory loads) plus the dS gathers, K *
+// mul floats per edge read through L2 (an edge's destination rows are its
+// molecule's).  Left out one at a time (chip_smoke.py --walk-ablation,
+// H100), the parts of the walk's 2.07 ms there cost: the per-edge products
+// with the gathers and dw stores 43 %, radial weights 29 %, CG matrices
+// 15 %, staging and syncs alone 12 %.  The products are a plain 64x64-tiled shared-memory kernel
+// on CUDA cores (2 * E * 64 * 3072 FMAs for dW_out and dh) that sums its
+// outputs with atomics into zeroed buffers, so split reductions need no
+// second pass, and the order of summation of those outputs varies from
+// run to run; the per-edge cotangent dw, [E, P * mul] in f32 (~300 MB at
+// E = 24386), is written once and read twice.  Padded edges need no
+// special case (zero edge_radial, bias-free MLP); edges with an endpoint
+// outside [0, N), skipped by the forward, get zero dw.
 //
-// The edge kernel keeps one register row per component of the left irrep
-// (the dx partial sums of a path) and is compiled for 7 rows (l <= 3) and
-// for 9 (l = 4, the hamiltonian trunk); the host picks by the layer's
-// widest left irrep, so a layer of l <= 3 runs the code it always had.
+// The walk keeps the dx sums of one left irrep in registers, up to nine
+// of them (l <= 4, the hamiltonian trunk); the host refuses wider left
+// irreps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "edge_walk.cuh"
 #include "row_mix.cuh"
+
+using namespace walk;
 
 namespace {
 
 using rowmix::gemm_desc;
 using rowmix::GemmDesc;
 using rowmix::run_gemms;
-
-constexpr int kEdgeGroups = 4;     // blockDim.y of the edge kernel
-constexpr int kEdgesPerThread = 4;
-constexpr int kEdgesPerBlock = kEdgeGroups * kEdgesPerThread;
-constexpr int kMaxHidden = 64;
-constexpr int kMaxRadial = 16;
-constexpr int kMaxSh = 16;
-constexpr int kPathFields = 9;
-
-__device__ __forceinline__ float ssp(float v, float cst) {
-  // (softplus(v) - log 2) * cst, softplus as max(v, 0) + log1p(exp(-|v|))
-  float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-  return (sp - 0.69314718055994530942f) * cst;
-}
 
 // dz = dh * ssp'(z), ssp'(v) = sigmoid(v) * act_cst
 __global__ void k2_act_grad_kernel(const float* __restrict__ dh,
@@ -88,135 +92,153 @@ __global__ void k2_act_grad_kernel(const float* __restrict__ dh,
     dz[i] = dh[i] * act_cst / (1.f + expf(-z[i]));
 }
 
-// kD: register rows, the components of the widest left irrep
-template <int kD>
-__global__ void k2_edge_kernel(
+// The source-major walk (edge_walk.cuh) of the edge stage.  Thread (u, g)
+// owns channel u of the chunk's g-th path (all of one left irrep) and, per
+// staged edge e with source s = the walk's key, with the stage's radial
+// weights w and CG matrices M[m3][m1] = sum_m2 C sh[e, m2]:
+//   g[m3]  = dS[dst_e, row(p, m3), u]                    (a gather)
+//   t[m1]  = sum_m3 M[m3][m1] * g[m3]
+//   dw[e, wcol + u] = sum_m1 x[s, m1, u] * t[m1]         (plain store)
+//   dxp[s, dcol(p) + m1 * mul + u] += w * t[m1]          (registers until s
+//                                                         changes, then one
+//                                                         plain store)
+// kRows: register rows of g, at least the widest irrep on either side (7:
+// l <= 3; 9: l <= 4; 16: output irreps up to l = 7); the left irrep has at
+// most kMaxD components.
+template <int kRows>
+__global__ void __launch_bounds__(256, 2) k2_walk_kernel(
     const float* __restrict__ x, int in_dim,
     const float* __restrict__ sh, int J,
-    const float* __restrict__ er, int R,
     const long long* __restrict__ src, const long long* __restrict__ dst,
-    int E, int N,
-    const float* __restrict__ w_hidden, int H, int n_hidden,
-    const float* __restrict__ w_out, int PC, float act_cst,
-    const int* __restrict__ paths, int P,
-    const int* __restrict__ nz_idx, const float* __restrict__ nz_c,
+    const int* __restrict__ perm, const int* __restrict__ ptr, int N, int E,
+    int cap, int T,
+    const float* __restrict__ h_last, int H,
+    const float* __restrict__ w_out, int PC,
+    const int* __restrict__ walk_tab, const int* __restrict__ chunks,
+    const int* __restrict__ cells, const float2* __restrict__ nz,
     const float* __restrict__ dS, int KM,
-    float* __restrict__ z_all, float* __restrict__ h_all,
-    float* __restrict__ dw, float* __restrict__ dx) {
-  __shared__ float s_h[2][kEdgesPerBlock][kMaxHidden];
-  __shared__ float s_er[kEdgesPerBlock][kMaxRadial];
-  __shared__ float s_sh[kEdgesPerBlock][kMaxSh];
+    float* __restrict__ dw, float* __restrict__ dxp,
+    float* __restrict__ pieces, int KMd) {
+  // kL: register rows of the left irrep (at most kMaxD)
+  constexpr int kL = kRows < kMaxD ? kRows : kMaxD;
+  constexpr int kP = pitch(kRows), kD = pitch(kL);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int mul = blockDim.x, u = threadIdx.x, g = threadIdx.y;
+  const int tid = g * mul + u, nthr = mul * kGroups;
+  const int t = blockIdx.x;
+  const int c0 = chunks[2 * blockIdx.y], cn = chunks[2 * blockIdx.y + 1];
+  const int* first = walk_tab + (size_t)c0 * kWalkFields;
+  const int* last = walk_tab + (size_t)(c0 + cn - 1) * kWalkFields;
+  const int x_off = first[kXOff], d1 = first[kD1], xw = d1 * mul;
+  const int k0 = first[kCell0], k1 = last[kCell0] + last[kD3] * d1 + 1;
+  const int z0 = cells[k0], z1 = cells[k1 - 1];
+  const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr);
+  stage_chunk(st, nz, z0, z1, cells, k0, k1, tid, nthr);
+  const bool x_vec = x_vectors(x, in_dim, x_off, xw);
 
-  const int mul = blockDim.x;
-  const int u = threadIdx.x;
-  const int eg = threadIdx.y;
-  const int tid = eg * mul + u;
-  const int nthr = mul * kEdgeGroups;
-  const int e0 = blockIdx.x * kEdgesPerBlock;
-  const size_t EH = (size_t)E * H;
+  const bool active = g < cn;
+  const int* pi = walk_tab + (size_t)(c0 + (active ? g : 0)) * kWalkFields;
+  const int j0 = pi[kJ0], d3 = pi[kD3];
+  const int row_base = pi[kRowBase], row_stride = pi[kRowStride];
+  const int wcol_u = pi[kWCol] + u, dcol_u = pi[kDCol] + u;
+  const int* my_cells = st.cells + (pi[kCell0] - k0);
 
-  for (int i = tid; i < kEdgesPerBlock * R; i += nthr) {
-    int el = i / R, r = i % R, e = e0 + el;
-    s_er[el][r] = e < E ? er[(size_t)e * R + r] : 0.f;
-  }
-  for (int i = tid; i < kEdgesPerBlock * J; i += nthr) {
-    int el = i / J, j = i % J, e = e0 + el;
-    s_sh[el][j] = e < E ? sh[(size_t)e * J + j] : 0.f;
-  }
-  __syncthreads();
+  const Item it = item_walk(ptr, N, t, T, cap);
+  float dxv[kL];
+#pragma unroll
+  for (int m = 0; m < kL; ++m) dxv[m] = 0.f;
+  int cur = it.first;
+  auto flush = [&](int n) {
+    float* row = (n == it.head ? pieces + (size_t)t * KMd
+                               : dxp + (size_t)n * KMd) + dcol_u;
+#pragma unroll
+    for (int m = 0; m < kL; ++m) {
+      if (m < d1) row[(size_t)m * mul] = dxv[m];
+      dxv[m] = 0.f;
+    }
+  };
 
-  // hidden layers, as the forward computes them; z and h kept for stage c
-  int cur = 0;
-  const float* wl = w_hidden;
-  for (int layer = 0; layer < n_hidden; ++layer) {
-    const int fan = layer == 0 ? R : H;
-    for (int i = tid; i < kEdgesPerBlock * H; i += nthr) {
-      int el = i / H, hh = i % H, e = e0 + el;
-      float acc = 0.f;
-      if (layer == 0)
-        for (int k = 0; k < fan; ++k) acc += s_er[el][k] * wl[k * H + hh];
-      else
-        for (int k = 0; k < fan; ++k) acc += s_h[cur][el][k] * wl[k * H + hh];
-      const float hv = ssp(acc, act_cst);
-      s_h[layer == 0 ? 0 : cur ^ 1][el][hh] = hv;
-      if (e < E) {
-        z_all[layer * EH + (size_t)e * H + hh] = acc;
-        h_all[layer * EH + (size_t)e * H + hh] = hv;
-      }
+  for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
+    const int nq = min(kStage, it.e_hi - pos0);
+    stage_edges(st, pos0, nq, perm, src, dst, false, h_last, H, sh, J, x,
+                in_dim, x_off, xw, x_vec, tid, nthr);
+    if (active) {
+      cg_matrices<kRows>(st, nq, g, my_cells, d1, d3, j0, u, mul);
+      radial_weights(st, w_out, H, PC, wcol_u, tid, nthr);
     }
     __syncthreads();
-    if (layer > 0) cur ^= 1;
-    wl += fan * H;
-  }
-
-  long long e_src[kEdgesPerThread], e_dst[kEdgesPerThread];
+    if (!active) continue;
+    for (int q = 0; q < nq; ++q) {
+      const int nd = st.node[q];
+      for (; cur < nd; ++cur) flush(cur);
+      const float* grow = dS + (size_t)st.other[q] * KM +
+                          (size_t)row_base * mul + u;
+      float gv[kRows];
 #pragma unroll
-  for (int q = 0; q < kEdgesPerThread; ++q) {
-    int e = e0 + eg + kEdgeGroups * q;
-    e_src[q] = e < E ? src[e] : -1;
-    e_dst[q] = e < E ? dst[e] : -1;
-    if (e_src[q] < 0 || e_src[q] >= N || e_dst[q] < 0 || e_dst[q] >= N)
-      e_src[q] = -1;
-  }
-
-  for (int p = 0; p < P; ++p) {
-    const int* pi = paths + p * kPathFields;
-    const int x_off = pi[0], d1 = pi[1], j0 = pi[2];
-    const int row_base = pi[4], row_stride = pi[5], wcol = pi[6];
-    const int nz0 = pi[7], nz1 = pi[8];
-
-    float w[kEdgesPerThread];
+      for (int m3 = 0; m3 < kRows; ++m3)
+        gv[m3] = m3 < d3 ? __ldg(grow + (size_t)m3 * row_stride * mul) : 0.f;
+      float tv[kD];
 #pragma unroll
-    for (int q = 0; q < kEdgesPerThread; ++q) w[q] = 0.f;
-    for (int hh = 0; hh < H; ++hh) {
-      float wv = __ldg(w_out + (size_t)hh * PC + wcol + u);
+      for (int m = 0; m < kD; ++m) tv[m] = 0.f;
+      const float4* mq = reinterpret_cast<const float4*>(
+          st.m + (q * kGroups + g) * kRows * kP);
 #pragma unroll
-      for (int q = 0; q < kEdgesPerThread; ++q)
-        w[q] += s_h[cur][eg + kEdgeGroups * q][hh] * wv;
-    }
-
+      for (int m3 = 0; m3 < kRows; ++m3) {
+        if (m3 >= d3) break;
 #pragma unroll
-    for (int q = 0; q < kEdgesPerThread; ++q) {
-      const int el = eg + kEdgeGroups * q;
-      if (e_src[q] < 0) continue;
-      const float* xs = x + (size_t)e_src[q] * in_dim + x_off + u * d1;
-      const float* grow = dS + (size_t)e_dst[q] * KM + u;
-      float dxl[kD];
-#pragma unroll
-      for (int i = 0; i < kD; ++i) dxl[i] = 0.f;
-      float dwv = 0.f, mid = 0.f, gv = 0.f;
-      int m3_cur = -1;
-      for (int z = nz0; z < nz1; ++z) {
-        const int code = nz_idx[z];
-        const int m1 = code & 0xff, m2 = (code >> 8) & 0xff, m3 = code >> 16;
-        if (m3 != m3_cur) {
-          dwv += gv * mid;
-          m3_cur = m3;
-          mid = 0.f;
-          gv = __ldg(grow + (size_t)(row_base + m3 * row_stride) * mul);
+        for (int k = 0; k < kD / 4; ++k) {
+          if (4 * k >= d1) break;
+          const float4 v = mq[m3 * (kP / 4) + k];
+          tv[4 * k] += v.x * gv[m3];
+          tv[4 * k + 1] += v.y * gv[m3];
+          tv[4 * k + 2] += v.z * gv[m3];
+          tv[4 * k + 3] += v.w * gv[m3];
         }
-        const float cs = nz_c[z] * s_sh[el][j0 + m2];
-        mid += cs * __ldg(xs + m1);
-        const float v = cs * gv;
-#pragma unroll
-        for (int i = 0; i < kD; ++i)
-          if (i == m1) dxl[i] += v;
       }
-      dwv += gv * mid;
-      dw[(size_t)(e0 + el) * PC + wcol + u] = dwv;
-      float* dxs = dx + (size_t)e_src[q] * in_dim + x_off + u * d1;
+      float xr[kD];
+      load_x<kL>(xr, st.x + q * xw + u * d1, d1);
+      const float w = st.w[q * nthr + tid];
+      float dwv = 0.f;
 #pragma unroll
-      for (int i = 0; i < kD; ++i)
-        if (i < d1) atomicAdd(dxs + i, w[q] * dxl[i]);
+      for (int m = 0; m < kL; ++m) {
+        dwv += xr[m] * tv[m];
+        dxv[m] += w * tv[m];
+      }
+      dw[(size_t)st.edge[q] * PC + wcol_u] = dwv;
     }
+  }
+  if (!active) return;
+  for (; cur < it.end; ++cur) flush(cur);
+  // edges outside [0, N) are walked by no one: their dw is zero
+  const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
+  for (int pos = lo; pos < hi; ++pos)
+    dw[(size_t)perm[pos] * PC + wcol_u] = 0.f;
+}
+
+// dx[n, x_off + u * d1 + m1] = sum over the left irrep's paths of
+// dxp[n, dcol + m1 * mul + u], in path order.  grid (N, left irreps).
+__global__ void k2_dx_kernel(const float* __restrict__ dxp, int KMd,
+                             const int* __restrict__ irreps, int mul,
+                             float* __restrict__ dx, int in_dim) {
+  const int n = blockIdx.x;
+  const int* ir = irreps + 4 * blockIdx.y;
+  const int x_off = ir[0], d1 = ir[1], dcol = ir[2], np = ir[3];
+  const int width = d1 * mul;
+  const float* row = dxp + (size_t)n * KMd + dcol;
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < np; ++k) s += row[(size_t)k * width + c];
+    dx[(size_t)n * in_dim + x_off + (c % mul) * d1 + c / mul] = s;
   }
 }
 
 }  // namespace
 
-// probs_host: the mix problem table of the forward, on the host.
-// work buffers (f32, uninitialised): dS [N, KM], dw [E, PC],
-// z_all and h_all [n_hidden, E, H], dh and dz [E, H].
+// probs_host: the mix problem table of the forward, on the host; walk_tab,
+// chunks, nz, irreps: the walk tables (ConvTables); perm, ptr: the
+// source-major edge order.  Work buffers (f32, uninitialised): dS [N, KM],
+// dw [E, PC], z_all and h_all [n_hidden, E, H], dh and dz [E, H], dxp
+// [N, KMd], pieces [T, KMd].
 extern "C" int full_conv_bwd(
     const float* x, int N, int in_dim,
     const float* sh, int J,
@@ -224,22 +246,28 @@ extern "C" int full_conv_bwd(
     const long long* src, const long long* dst, int E,
     const float* w_hidden, int H, int n_hidden,
     const float* w_out, int PC, float act_cst,
-    const int* paths, int P, int max_d1, const int* nz_idx, const float* nz_c,
+    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
+    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
+    const int* irreps, int n_irreps, int KMd, int dx_covered,
+    const int* perm, const int* ptr, int cap, int T,
     const float* scratch, int KM, int mul,
     const float* wsel, int wsel_len, const int* probs_host, int n_probs,
     const float* gout, int out_dim,
     float* dS, float* dw, float* z_all, float* h_all, float* dh, float* dz,
+    float* dxp, float* pieces,
     float* dx, float* der, float* dw_hidden, int w_hidden_len,
     float* dw_out, float* dwsel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (max_d1 > 9) return (int)cudaErrorInvalidValue;
+  if (max_d1 > kMaxD || max_d3 > 16 || cap < 1 || T < 1)
+    return (int)cudaErrorInvalidValue;
   const size_t f = sizeof(float);
   struct { void* p; size_t n; } zero[] = {
-      {dS, (size_t)N * KM}, {dw, (size_t)E * PC}, {dh, (size_t)E * H},
-      {dx, (size_t)N * in_dim}, {der, (size_t)E * R},
+      {dS, (size_t)N * KM}, {dh, (size_t)E * H},
+      {dx, dx_covered ? 0 : (size_t)N * in_dim}, {der, (size_t)E * R},
       {dw_hidden, (size_t)w_hidden_len}, {dw_out, (size_t)H * PC},
       {dwsel, (size_t)wsel_len}};
   for (auto& b : zero) {
+    if (b.n == 0) continue;
     cudaError_t err = cudaMemsetAsync(b.p, 0, b.n * f, s);
     if (err != cudaSuccess) return (int)err;
   }
@@ -254,22 +282,43 @@ extern "C" int full_conv_bwd(
   if (err != cudaSuccess) return (int)err;
 
   // b. edge stage
-  if (E > 0 && P > 0) {
-    dim3 block(mul, kEdgeGroups);
-    dim3 grid((E + kEdgesPerBlock - 1) / kEdgesPerBlock);
-    auto kernel = k2_edge_kernel<7>;
-    if (max_d1 > 7) kernel = k2_edge_kernel<9>;
-    kernel<<<grid, block, 0, s>>>(
-        x, in_dim, sh, J, er, R, src, dst, E, N, w_hidden, H, n_hidden,
-        w_out, PC, act_cst, paths, P, nz_idx, nz_c, dS, KM, z_all, h_all, dw,
-        dx);
+  const size_t EH = (size_t)E * H;
+  if (E > 0) {
+    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
+    mlp_hidden_kernel<<<blocks, 256, 0, s>>>(er, R, E, w_hidden, H, n_hidden,
+                                             act_cst, z_all, h_all, 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+  }
+  if (n_chunks > 0) {  // with N = 0 it still zeroes every edge's dw
+    const int kr = walk_rows(max_d1 > max_d3 ? max_d1 : max_d3);
+    const size_t bytes =
+        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul,
+                    mul * kGroups, kr);
+    auto kernel = kr == 16      ? k2_walk_kernel<16>
+                  : kr == kMaxD ? k2_walk_kernel<kMaxD>
+                                : k2_walk_kernel<7>;
+    err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(T, n_chunks), dim3(mul, kGroups), bytes, s>>>(
+        x, in_dim, sh, J, src, dst, perm, ptr, N, E, cap, T,
+        h_all + (size_t)(n_hidden - 1) * EH, H, w_out, PC, walk_tab, chunks,
+        cells, reinterpret_cast<const float2*>(nz), dS, KM, dw, dxp, pieces,
+        KMd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = sum_pieces(ptr, N, T, cap, pieces, KMd, dxp, s);
+    if (err != cudaSuccess) return (int)err;
+    if (N > 0 && n_irreps > 0) {
+      k2_dx_kernel<<<dim3(N, n_irreps), 256, 0, s>>>(dxp, KMd, irreps, mul,
+                                                     dx, in_dim);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   if (E == 0) return (int)cudaGetLastError();
 
   // c. MLP stage: last layer, then the hidden layers from the last
-  const size_t EH = (size_t)E * H;
   const float* h_last = h_all + (size_t)(n_hidden - 1) * EH;
   GemmDesc last[2] = {
       // dW_out[h, c] = sum_e h_last[e, h] dw[e, c]

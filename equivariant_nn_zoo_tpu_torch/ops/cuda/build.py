@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``csrc/*.cu`` of the package (``full_conv.cu``,
 ``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``,
 ``uvu_conv.cu``, ``pairwise_tp.cu``; the mix stage and its backward in
-``row_mix.cuh`` are shared by five of them) for ``sm_90a`` (one compiler
+``row_mix.cuh`` are shared by five of them, the node-major walk in
+``edge_walk.cuh`` by the first two) for ``sm_90a`` (one compiler
 process per source, all started together) and links the objects into one shared library with a
 plain C interface under ``build/kernels/`` at the repository root (listed
 in ``.gitignore``); ``ctypes`` loads it at first use.  The library's file
@@ -39,6 +40,13 @@ _EXT_COMMON = [
     _I, _I,                    # K * mul, mul
     _P, _I, _I,                # host mix problems, count, out_dim
 ]
+# the node-major walk's arguments of K1 and K2 (csrc/edge_walk.cuh)
+_WALK = [
+    _P, _P, _I, _P, _P,        # walk table, chunks, count, cells, CG
+                               # non-zeros
+    _I, _I, _I,                # most non-zeros of a chunk, widest d1, d3
+    _P, _P, _I, _I,            # edge order, its row pointers, cap, items
+]
 # C signatures of the entry points (pointers and the stream as c_void_p)
 SIGNATURES = {
     "full_conv_fwd": [
@@ -48,7 +56,8 @@ SIGNATURES = {
         _P, _P, _I,            # src, dst, E
         _P, _I, _I,            # hidden MLP weights, H, n_hidden
         _P, _I, _F,            # last MLP layer, its width, activation scale
-        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        *_WALK,
+        _P, _P,                # work: last hidden layer, long-run pieces
         _P, _I, _I,            # scratch, K * mul, mul
         _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
         _P, _I, _P,            # out, out_dim, stream
@@ -77,12 +86,14 @@ SIGNATURES = {
         _P, _P, _I,            # src, dst, E
         _P, _I, _I,            # hidden MLP weights, H, n_hidden
         _P, _I, _F,            # last MLP layer, its width, activation scale
-        _P, _I, _I, _P, _P,    # path table, P, widest left irrep, CG codes,
-                               # values
+        *_WALK[:8],
+        _P, _I, _I, _I,        # left irreps, count, dx row width, dx covered
+        *_WALK[8:],
         _P, _I, _I,            # forward scratch, K * mul, mul
         _P, _I, _P, _I,        # mix matrices, their length, host problems, n
         _P, _I,                # gout, out_dim
-        _P, _P, _P, _P, _P, _P,  # work: dS, dw, z, h, dh, dz
+        _P, _P, _P, _P, _P, _P,  # work: dS, dw, z, h, dh, dz,
+        _P, _P,                # per-path dx rows, long-run pieces
         _P, _P, _P, _I,        # dx, d edge_radial, d hidden weights, length
         _P, _P, _P,            # d last layer, d mix matrices, stream
     ],

@@ -33,9 +33,14 @@ from ..fused_tp import FusedUVUConv
 from ..gate import ScaledActivation, shifted_softplus
 from ..segment import segment_sum
 from ..wigner import wigner_3j
+from . import edge_order
 from .build import check, check_tensor, load_library
 
 MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 9
+# the walk (csrc/edge_walk.cuh): paths per block, the widest irrep K1
+# takes on either side (l = 7), fields per path of the walk table
+WALK_GROUPS, WALK_ROWS, WALK_FIELDS = 4, 16, 9
+WALK_BLOCKS = 2048   # blocks the walk's grid aims at (walk_items)
 
 
 def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
@@ -70,7 +75,7 @@ class ConvTables(torch.nn.Module):
         # per-path table (our path order) and its sorted CG non-zeros.
         # Scratch rows are component-major inside each output-irrep group:
         # row(g, m3, m) = k0_g + m3 * n_paths_g + m
-        paths, nz_idx, nz_c = [], [], []
+        paths, nz_idx, nz_c, cgs, d3s = [], [], [], [], []
         rows_complete = True
         for ir, k0, n_paths, d, p0 in fused.groups:
             for m in range(n_paths):
@@ -93,6 +98,8 @@ class ConvTables(torch.nn.Module):
                     k0 + m, n_paths, fused.path_w_offset[p0 + m],
                     nz0, len(nz_idx),
                 ])
+                cgs.append(cg)
+                d3s.append(ir.dim)
         self.n_paths = len(paths)
         self.KM = fused.K_dim * mul
         # every (path, component) has a CG non-zero: a kernel that stores
@@ -135,6 +142,64 @@ class ConvTables(torch.nn.Module):
         self.register_buffer(
             "nz_c", torch.tensor(np.asarray(nz_c, np.float32)),
             persistent=False)
+        self._walk_tables(paths, cgs, d3s, mul, int_buffer)
+
+    def _walk_tables(self, paths, cgs, d3s, mul, int_buffer):
+        """The node-major walk's tables (K1 and K2, ``csrc/edge_walk.cuh``):
+        the paths sorted by left irrep; their CG non-zeros sorted by
+        (m3, m1, m2), the value and the sh index m2 of each; per path the
+        bounds of each cell (m3, m1), d3 * d1 + 1 entries of ``walk_cells``;
+        chunks of at most ``WALK_GROUPS`` paths of one left irrep (a block's
+        paths); per left irrep the columns of its paths in K2's path-major
+        dx rows."""
+        order = sorted(range(len(paths)), key=lambda p: paths[p][0])
+        rows, nz, cells, chunks, irreps = [], [], [], [], []
+        dcol = 0
+        for p in order:
+            x_off, d1, j0, _, row_base, row_stride, wcol = paths[p][:7]
+            cg, d3 = cgs[p], d3s[p]
+            rows.append([x_off, d1, j0, d3, row_base, row_stride, wcol, dcol,
+                         len(cells)])
+            for m3 in range(d3):
+                for m1 in range(d1):
+                    cells.append(len(nz))
+                    nz += [(cg[m1, m2, m3], m2) for m2 in range(cg.shape[1])
+                           if abs(cg[m1, m2, m3]) > 1e-10]
+            cells.append(len(nz))
+            if not irreps or irreps[-1][0] != x_off:
+                irreps.append([x_off, d1, dcol, 0])
+            irreps[-1][3] += 1
+            dcol += d1 * mul
+        p0 = 0
+        for _, _, _, n in irreps:
+            k = -(-n // WALK_GROUPS)
+            for i in range(k):
+                size = n // k + (i < n % k)
+                chunks.append([p0, size])
+                p0 += size
+        int_buffer("walk_table", rows)
+        int_buffer("walk_cells", cells)
+        int_buffer("walk_chunks", chunks)
+        int_buffer("walk_irreps", irreps)
+        a = np.zeros((max(len(nz), 1), 2), np.float32)
+        if nz:
+            a[:len(nz), 0] = [c for c, _ in nz]
+            a[:len(nz), 1] = np.asarray([m2 for _, m2 in nz],
+                                        np.int32).view(np.float32)
+        self.register_buffer("walk_nz", torch.tensor(a), persistent=False)
+        self.n_chunks = len(chunks)
+        self.n_walk_irreps = len(irreps)
+        self.KMd = dcol               # K2's path-major dx row width
+        # the most non-zeros of a chunk (the kernels stage them)
+        self.max_chunk_nz = max(
+            [cells[rows[c0 + n - 1][8] + rows[c0 + n - 1][3] * rows[c0][1]]
+             - cells[rows[c0][8]] for c0, n in chunks] + [0])
+        self.max_d3 = max(d3s, default=0)
+        # every input column is read by some path: K2's dx needs no zeros
+        covered = np.zeros(self.fused.irreps_in.dim, bool)
+        for x_off, d1, *_ in irreps:
+            covered[x_off: x_off + d1 * mul] = True
+        self.dx_covered = bool(covered.all())
 
     def plain_core(self, x, sh, w, wsel, edge_src, edge_dst, num_nodes):
         """The conv core on per-edge radial weights ``w [E, P * mul]``
@@ -204,18 +269,20 @@ class FullConv(ConvTables):
 
     def launch(self, fc, linear, x, edge_radial, sh, edge_src, edge_dst,
                num_nodes, pre_scale=None):
-        """The kernel path: flat weights in plain PyTorch, then K1, through
-        ``FullConvFunction`` (K2 in the backward) when a gradient is
-        wanted."""
+        """The kernel path: the edge orders (``edge_order.shared``: one per
+        set of edges, so once per model forward), flat weights in plain
+        PyTorch, then K1, through ``FullConvFunction`` (K2 in the backward)
+        when a gradient is wanted."""
+        order = edge_order.shared(edge_src, edge_dst, num_nodes)
         if not torch.is_grad_enabled():
             return launch_forward(self, x, edge_radial, sh, edge_src,
                                   edge_dst, *self.flat_weights(
                                       fc, linear, pre_scale),
-                                  int(num_nodes))[0]
+                                  int(num_nodes), order=order)[0]
         w_hidden, w_out, wsel = self.flat_weights(fc, linear, pre_scale)
         return FullConvFunction.apply(self, x, edge_radial, w_hidden, w_out,
                                       wsel, sh, edge_src, edge_dst,
-                                      int(num_nodes))
+                                      int(num_nodes), order)
 
     def flat_weights(self, fc, linear, pre_scale=None):
         """The kernels' weights: hidden MLP layers (each divided by
@@ -263,43 +330,45 @@ class FullConv(ConvTables):
 
 
 class FullConvFunction(torch.autograd.Function):
-    """K1 forward, K2 backward.  Differentiable inputs: ``x``,
-    ``edge_radial`` and the flat weights.  An ``sh`` that needs a gradient
-    is refused: that cotangent is the force path's kernel, and this one
-    must not stand in for it with zeros.  (``needs_input_grad`` does not
+    """K1 forward, K2 backward, on one edge order (saved for the backward).
+    Differentiable inputs: ``x``, ``edge_radial`` and the flat weights.  An
+    ``sh`` that needs a gradient is refused: that cotangent is the force
+    path's kernel, and this one must not stand in for it with zeros.  (``needs_input_grad`` does not
     see grad mode, so ``FullConv.launch`` calls this under grad mode
     only.)"""
 
     @staticmethod
     def forward(ctx, conv, x, edge_radial, w_hidden, w_out, wsel, sh,
-                edge_src, edge_dst, num_nodes):
+                edge_src, edge_dst, num_nodes, order):
         if ctx.needs_input_grad[6]:
             raise NotImplementedError(
                 "FullConv: the sh cotangent (forces through positions) is "
                 "not computed by this kernel; sh must not need a gradient")
         out, scratch = launch_forward(conv, x, edge_radial, sh, edge_src,
                                       edge_dst, w_hidden, w_out, wsel,
-                                      num_nodes)
+                                      num_nodes, order=order)
         ctx.save_for_backward(x, edge_radial, w_hidden, w_out, wsel, sh,
-                              edge_src, edge_dst, scratch)
+                              edge_src, edge_dst, scratch, *order)
         ctx.conv, ctx.num_nodes = conv, num_nodes
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        x, er, w_hidden, w_out, wsel, sh, src, dst, scratch = \
+        x, er, w_hidden, w_out, wsel, sh, src, dst, scratch, *order = \
             ctx.saved_tensors
         grads = launch_backward(ctx.conv, x, er, sh, src, dst, w_hidden,
                                 w_out, wsel, ctx.num_nodes, scratch,
-                                gout.contiguous())
-        return (None, *grads, None, None, None, None)
+                                gout.contiguous(),
+                                order=edge_order.EdgeOrder(*order))
+        return (None, *grads, None, None, None, None, None)
 
 
 def check_structure(conv, backward: bool = False) -> None:
-    """Raise unless the kernels take this layer's sizes.  The forward has
-    no per-irrep storage, so it takes left irreps of any degree; the
-    backward holds one register row per component of the left irrep, up to
-    ``MAX_D`` of them (l = 4, the hamiltonian trunk)."""
+    """Raise unless the kernels take this layer's sizes.  The forward keeps
+    a node's sums and the left irrep's components in registers, up to
+    ``WALK_ROWS`` of them (irreps up to l = 7 on either side); the backward
+    holds one register row per component of the left irrep, up to ``MAX_D``
+    of them (l = 4, the hamiltonian trunk)."""
     fused = conv.fused
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     n_hidden = len(conv.fc_dims) - 2
@@ -310,6 +379,9 @@ def check_structure(conv, backward: bool = False) -> None:
         raise ValueError(f"FullConv kernel does not take MLP dims "
                          f"{conv.fc_dims}, J={fused.J_dim}, "
                          f"mul={fused.mul}")
+    if max(conv.max_d1, conv.max_d3) > WALK_ROWS:
+        raise ValueError(f"the FullConv kernels take irreps up to l = 7, "
+                         f"got d = {max(conv.max_d1, conv.max_d3)}")
     if backward and conv.max_d1 > MAX_D:
         raise ValueError(f"the FullConv backward takes left irreps up to "
                          f"l = 4, got d = {conv.max_d1}")
@@ -339,15 +411,43 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     return dev, N, E
 
 
+def walk_items(E: int, n_chunks: int):
+    """``(cap, T)`` of the node-major walk: T = ceil(E / cap) work items of
+    cap edges (a node with more is walked in pieces), cap chosen so that
+    the grid of T items by ``n_chunks`` path chunks holds about
+    ``WALK_BLOCKS`` blocks, within [2, 64]."""
+    cap = min(64, max(2, E * n_chunks // WALK_BLOCKS))
+    return cap, max(1, -(-E // cap))
+
+
+def _order(order, edge_src, edge_dst, N):
+    """The given edge order, checked, or a new one."""
+    if order is None:
+        return edge_order.build(edge_src, edge_dst, N)
+    E, dev = edge_src.shape[0], edge_src.device
+    for name in ("dst", "src"):
+        check_tensor(getattr(order, f"{name}_perm"), f"{name}_perm", (E,),
+                     torch.int32, dev)
+        check_tensor(getattr(order, f"{name}_ptr"), f"{name}_ptr", (N + 1,),
+                     torch.int32, dev)
+    return order
+
+
 def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
-                   w_out, wsel, num_nodes):
-    """Launch K1: ``(out [N, out_dim], scratch [N, K * mul])``."""
+                   w_out, wsel, num_nodes, order=None):
+    """Launch K1: ``(out [N, out_dim], scratch [N, K * mul])``.  ``order``:
+    the edges' ``EdgeOrder``, built here when not given."""
     dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
                               w_hidden, w_out, wsel, num_nodes)
+    order = _order(order, edge_src, edge_dst, N)
     fused = conv.fused
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
+    cap, T = walk_items(E, conv.n_chunks)
     scratch = torch.empty((N, conv.KM), dtype=torch.float32, device=dev)
     out = torch.empty((N, conv.out_dim), dtype=torch.float32, device=dev)
+    # work: the last hidden layer per edge, the long runs' pieces
+    h_work = torch.empty((E, H), dtype=torch.float32, device=dev)
+    pieces = torch.empty((T, conv.KM), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -358,8 +458,12 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             edge_src.data_ptr(), edge_dst.data_ptr(), E,
             w_hidden.data_ptr(), H, len(conv.fc_dims) - 2,
             w_out.data_ptr(), PC, conv.act_cst,
-            conv.path_table.data_ptr(), conv.n_paths,
-            conv.nz_idx.data_ptr(), conv.nz_c.data_ptr(),
+            conv.walk_table.data_ptr(), conv.walk_chunks.data_ptr(),
+            conv.n_chunks, conv.walk_cells.data_ptr(),
+            conv.walk_nz.data_ptr(), conv.max_chunk_nz,
+            conv.max_d1, conv.max_d3,
+            order.dst_perm.data_ptr(), order.dst_ptr.data_ptr(), cap, T,
+            h_work.data_ptr(), pieces.data_ptr(),
             scratch.data_ptr(), conv.KM, fused.mul,
             wsel.data_ptr(), conv.prob_table.data_ptr(), conv.n_probs,
             conv.max_wo, out.data_ptr(), conv.out_dim, stream,
@@ -370,12 +474,15 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
 
 
 def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
-                    w_out, wsel, num_nodes, scratch, gout):
+                    w_out, wsel, num_nodes, scratch, gout, order=None):
     """Launch K2: ``(dx, d edge_radial, dw_hidden, dw_out, dwsel)``, all
-    float32, from the forward's inputs, its scratch and ``gout``."""
+    float32, from the forward's inputs, its scratch and ``gout``.
+    ``order``: the edges' ``EdgeOrder``, built here when not given."""
     dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
                               w_hidden, w_out, wsel, num_nodes,
                               backward=True)
+    order = _order(order, edge_src, edge_dst, N)
+    cap, T = walk_items(E, conv.n_chunks)
     check_tensor(scratch, "scratch", (N, conv.KM), torch.float32, dev)
     check_tensor(gout, "gout", (N, conv.out_dim), torch.float32, dev)
     fused = conv.fused
@@ -389,9 +496,11 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     dw_hidden, dw_out, dwsel = empty(w_hidden.numel()), empty(H, PC), \
         empty(conv.wsel_len)
     # work buffers: node cotangent of the scratch, per-edge radial-weight
-    # cotangent, the MLP's pre-activations and activations, and two rows
+    # cotangent, the MLP's pre-activations and activations, two rows, the
+    # per-path dx rows and the long runs' pieces of them
     work = [empty(N, conv.KM), empty(E, PC), empty(n_hidden, E, H),
-            empty(n_hidden, E, H), empty(E, H), empty(E, H)]
+            empty(n_hidden, E, H), empty(E, H), empty(E, H),
+            empty(N, conv.KMd), empty(T, conv.KMd)]
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -402,8 +511,13 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             edge_src.data_ptr(), edge_dst.data_ptr(), E,
             w_hidden.data_ptr(), H, n_hidden,
             w_out.data_ptr(), PC, conv.act_cst,
-            conv.path_table.data_ptr(), conv.n_paths, conv.max_d1,
-            conv.nz_idx.data_ptr(), conv.nz_c.data_ptr(),
+            conv.walk_table.data_ptr(), conv.walk_chunks.data_ptr(),
+            conv.n_chunks, conv.walk_cells.data_ptr(),
+            conv.walk_nz.data_ptr(), conv.max_chunk_nz,
+            conv.max_d1, conv.max_d3,
+            conv.walk_irreps.data_ptr(), conv.n_walk_irreps, conv.KMd,
+            int(conv.dx_covered),
+            order.src_perm.data_ptr(), order.src_ptr.data_ptr(), cap, T,
             scratch.data_ptr(), conv.KM, fused.mul,
             wsel.data_ptr(), conv.wsel_len,
             conv.prob_rows.ctypes.data, conv.n_probs,

@@ -239,9 +239,9 @@ def _route_launches_to_plain(monkeypatch):
     monkeypatch.setattr(species_sc_mod.SpeciesScalarFCTP, "forward",
                         species_sc_mod.SpeciesScalarFCTP.launch)
     monkeypatch.setattr(full_conv_mod, "launch_forward",
-                        lambda conv, *a: conv.plain_forward(*a))
+                        lambda conv, *a, order=None: conv.plain_forward(*a))
     monkeypatch.setattr(full_conv_mod, "launch_backward",
-                        lambda conv, *a: conv.plain_backward(*a))
+                        lambda conv, *a, order=None: conv.plain_backward(*a))
     monkeypatch.setattr(species_sc_mod, "launch_forward",
                         lambda sc, *a: sc.table_product(*a))
     monkeypatch.setattr(species_sc_mod, "launch_backward",

@@ -13,8 +13,9 @@ step's gradients against the CPU plain path.
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
 skips (the decision is taken inside the fixture, never at import).
-TF32 is off, so both sides compute in float32; the kernel sums with
-atomics in a varying order, so agreement is rel-linf 1e-4 of max|plain|.
+TF32 is off, so both sides compute in float32; the kernels sum in another
+order than the plain versions, some with atomics in a varying order, so
+agreement is rel-linf 1e-4 of max|plain|.
 """
 
 import numpy as np
@@ -310,6 +311,68 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, n_dim, N, E):
     want = conv.species_sc.plain_backward(*args)
     torch.cuda.synchronize()
     _assert_all_close(got, want, ("dx", "dtables"))
+
+
+def _edges(kind, N, E, g):
+    """Edges of one hard case for the node-major walk (K1, K2), shuffled:
+    ``padded`` sends 2,000 more edges to the dummy node N - 1, ``hub``
+    gives node 5 a run of 1,500 edges each way, ``out_of_range`` points
+    some endpoints outside [0, N)."""
+    src = torch.randint(0, N - 1, (E,), generator=g)
+    dst = torch.randint(0, N - 1, (E,), generator=g)
+    if kind == "padded":
+        src = torch.cat([src, torch.full((2000,), N - 1)])
+        dst = torch.cat([dst, torch.full((2000,), N - 1)])
+    elif kind == "hub":
+        src = torch.cat([src, torch.full((1500,), 5),
+                         torch.randint(0, N, (1500,), generator=g)])
+        dst = torch.cat([dst, torch.randint(0, N, (1500,), generator=g),
+                         torch.full((1500,), 5)])
+    elif kind == "out_of_range":
+        src[::7] = N + 5
+        dst[3::11] = -1
+    perm = torch.randperm(src.shape[0], generator=g)
+    return src[perm], dst[perm]
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "padded", "hub",
+                                  "out_of_range"])
+def test_walk_kernels_match_plain_on_hard_edge_orders(model_and_batch, kind):
+    """K1 and K2 at full config_energy width (layer3) on shuffled edges,
+    a long run at the dummy node, a hub, and out-of-range endpoints
+    (dropped: compared with the plain versions on the kept edges; their
+    d edge_radial is zero).  K1's output and scratch and K2's dx are also
+    bitwise equal over two launches: every sum of the walk, the long runs'
+    pieces included, runs in a fixed order."""
+    model, _ = model_and_batch
+    conv = model.layer3.conv
+    fc = conv.full_conv
+    N, g = 211, torch.Generator().manual_seed(30)
+    src, dst = _edges(kind, N, 3001, g)
+    E = src.shape[0]
+    dev = next(conv.parameters()).device
+    x = torch.randn(N, fc.fused.irreps_in.dim, generator=g).to(dev)
+    sh = torch.randn(E, fc.fused.J_dim, generator=g).to(dev)
+    er = torch.randn(E, fc.fc_dims[0], generator=g).to(dev)
+    keep = ((src >= 0) & (src < N) & (dst >= 0) & (dst < N)).to(dev)
+    src, dst = src.to(dev), dst.to(dev)
+    args = _k2_case(conv, x, er, sh, src, dst, N, 0.3, seed=31)
+    kept = _k2_case(conv, x, er[keep], sh[keep], src[keep], dst[keep], N,
+                    0.3, seed=31)
+    w = args[5:8]
+    with torch.no_grad():
+        out1, s1 = full_conv_mod.launch_forward(fc, *args[:5], *w, N)
+        out2, s2 = full_conv_mod.launch_forward(fc, *args[:5], *w, N)
+        want_out, want_s = fc.plain_forward(*kept[:5], *w, N)
+    got = full_conv_mod.launch_backward(fc, *args)
+    again = full_conv_mod.launch_backward(fc, *args)
+    want = fc.plain_backward(*kept)
+    torch.cuda.synchronize()
+    assert _rel(out1, want_out) <= TOL and _rel(s1, want_s) <= TOL
+    assert torch.equal(out1, out2) and torch.equal(s1, s2)
+    assert torch.equal(got[0], again[0])
+    assert not got[1][~keep].any()
+    _assert_all_close((got[0], got[1][keep], *got[2:]), want, K2_OUT)
 
 
 def _step_gradients(model, gb):
@@ -685,11 +748,13 @@ def test_head_kernels_match_plain_at_full_width(hamiltonian):
 def test_trunk_kernels_take_l4(hamiltonian):
     """K1 and K3, then K2 and K3b (nine register rows), at the hamiltonian
     trunk's hot layer (l = 4 in and out, 16 sh components, 3 hidden layers
-    of 64)."""
+    of 64) on the config's batch (96 edges); K1's output and scratch and
+    K2's dx repeat bit for bit."""
     model, gb, _ = hamiltonian
     conv = model.layer3.conv
     assert conv.full_conv.max_d1 == 9
     data = _layer3_inputs(model, gb)
+    assert data["edge_index"].shape[1] == 96      # the config's batch of 16
     with torch.inference_mode():
         x = conv.linear_1(data["input_features"])
         er = data["edge_radial"] * data["_edge_mask"]
@@ -711,9 +776,14 @@ def test_trunk_kernels_take_l4(hamiltonian):
     k2 = _k2_case(conv, x, er, *k1[4:7], x.shape[0], k1[-1], seed=21)
     before = FullConv.backward_launches
     got = full_conv_mod.launch_backward(conv.full_conv, *k2)
+    again = full_conv_mod.launch_backward(conv.full_conv, *k2)
+    out1, s1 = full_conv_mod.launch_forward(conv.full_conv, *k2[:-2])
+    out2, s2 = full_conv_mod.launch_forward(conv.full_conv, *k2[:-2])
     torch.cuda.synchronize()
-    assert FullConv.backward_launches == before + 1
+    assert FullConv.backward_launches == before + 2
     _assert_all_close(got, conv.full_conv.plain_backward(*k2), K2_OUT)
+    assert torch.equal(got[0], again[0])
+    assert torch.equal(out1, out2) and torch.equal(s1, s2)
     k3b = _k3b_case(conv, data["input_features"], data["node_attrs"],
                     data["species"], seed=22)
     assert conv.species_sc.max_d == 9

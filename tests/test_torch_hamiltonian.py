@@ -186,7 +186,7 @@ def routed(monkeypatch):
                          "K5 backward": 0}
 
     def counting(table, key, attr):
-        def launch(mod, *args):
+        def launch(mod, *args, order=None):   # K1 and K2 take the order
             table[key] += 1
             return getattr(mod, attr)(*args)
         return launch

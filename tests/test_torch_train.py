@@ -194,9 +194,9 @@ def test_functions_match_plain_autograd(reference, monkeypatch):
                      (species_sc_mod.SpeciesScalarFCTP, species_sc_mod)):
         monkeypatch.setattr(cls, "forward", cls.launch)
     monkeypatch.setattr(full_conv_mod, "launch_forward",
-                        lambda conv, *a: conv.plain_forward(*a))
+                        lambda conv, *a, order=None: conv.plain_forward(*a))
     monkeypatch.setattr(full_conv_mod, "launch_backward",
-                        lambda conv, *a: conv.plain_backward(*a))
+                        lambda conv, *a, order=None: conv.plain_backward(*a))
     monkeypatch.setattr(species_sc_mod, "launch_forward",
                         lambda sc, *a: sc.table_product(*a))
     monkeypatch.setattr(species_sc_mod, "launch_backward",
