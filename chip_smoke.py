@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-times     # K1 and K2 alone, see conv_times
     python3 chip_smoke.py --walk-ablation  # their walks' parts, see there
+    python3 chip_smoke.py --mix-times      # the mix GEMM's product sets,
+                                           # see mix_times
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -18,6 +20,12 @@ Phases, in order; any failure exits non-zero before the last line:
              seeded cotangent: dx, d edge_radial, dW (MLP) and dwsel; K1
              and K2 walk one edge order, built once as on the main path;
 6. K3b     — the self-connection's backward kernel (dx, dtables), likewise;
+   row_mix — the mix GEMM of ``csrc/row_mix.cuh`` on its own at the same
+             layer: K1's forward mix on K1's scratch, and K2's node-stage
+             products (dS, dwsel) on that scratch and the cotangent,
+             against their plain version (``row_mix.run_plan``), with
+             ``torch.matmul`` on contiguous copies of each problem's
+             operands as the library's time; dwsel must repeat bit for bit;
 7. slice   — full-width ``config_energy`` (random weights from a seeded
              generator) serves 4 batches of 128 graphs through
              ``inference.evaluate``; the K1/K3 launch counters must rise
@@ -30,8 +38,10 @@ Phases, in order; any failure exits non-zero before the last line:
              training batches and 1 validation batch of 128 graphs labelled
              ``sum of per-species shifts + N(0, 1)``; losses must be finite
              and each of K1, K2, K3 and K3b must launch at least
-             ``num_layers x steps`` times; then ms per step and graphs/s
-             and a ``torch.profiler`` table of 4 steps;
+             ``num_layers x steps`` times, and the mix GEMM (forward mix
+             and backward products, counted by the kernel library) at
+             least once; then ms per step and graphs/s and a
+             ``torch.profiler`` table of 4 steps;
 9. train parity — one step's gradient of every parameter on a 32-graph
              cut, card against the CPU plain path, from the same seeded
              weights (labels N(0, 1), so the float32 residual is
@@ -104,12 +114,15 @@ training steps at each batch size
 (``chiprun_out/hamiltonian_step_profile{,_128}.txt``).
 
 TF32 is off, so the plain versions compute in float32; the kernels sum in
-another order, some with atomics in a varying order, hence rel-linf 1e-4
-of max|plain| (per tensor).
+another order (the mix GEMM in 3xTF32 on the tensor cores), some with
+atomics in a varying order, hence rel-linf 1e-4 of max|plain| (per
+tensor).
 Each kernel's bound is the larger of its operations over 67 TFLOP/s (f32
 outside the tensor cores) and its bytes (each input read once, each output
-written once) over 3.35 TB/s, the H100 SXM's published peaks.  The
-second-to-last line is the kernels' JSON, the last the device JSON.
+written once) over 3.35 TB/s, the H100 SXM's published peaks; for the mix
+GEMM, its three TF32 products per product over 495 TFLOP/s (the float32
+bound beside it as ``bound_f32_ms``).  The second-to-last line is the
+kernels' JSON, the last the device JSON.
 """
 
 import json
@@ -128,6 +141,7 @@ H2O_BATCHES, H2O_CUT = (16, 512), 16   # the config's batch, a serving batch
 H2O_TRAIN_BATCHES = (16, 128)          # the config's batch, a larger one
 HOT_LAYER = "layer3"
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 CUDA cores, HBM3
+PEAK_TF32 = 495e12                       # H100 SXM: TF32 tensor cores, dense
 
 
 def fail(msg):
@@ -357,6 +371,106 @@ def kernel_record(name, source, replaces, launches, measured, flops,
                 library_ms=None, **b)
 
 
+def mix_bound(flops, n_bytes):
+    """Bounds of products computed in 3xTF32: three TF32 products per
+    product over the tensor cores' rate, or bytes; the float32 bound
+    (CUDA cores) beside it."""
+    t3, t32, tb = 3 * flops / PEAK_TF32, flops / PEAK_FLOPS, \
+        n_bytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t3, tb),
+                bound_by="operations" if t3 >= tb else "bytes",
+                bound_f32_ms=1e3 * max(t32, tb))
+
+
+def mix_flops(prob_rows, rows):
+    """Operations of one mix product over ``rows`` rows (one multiply-add
+    = 2)."""
+    pr = np.asarray(prob_rows, np.int64)
+    return 2 * rows * int((pr[:, 1] * pr[:, 3]).sum())
+
+
+def mix_operands(prob_rows, S, wsel, gout):
+    """Contiguous copies of every mix problem's operands: (S block
+    [rows, kdim], wsel_q [kdim, wo], gout columns [rows, wo]), the
+    library's inputs; a None operand stays None."""
+    ops = []
+    for a_col, kdim, b_off, wo, c_off, cs in np.asarray(prob_rows).tolist():
+        ops.append((
+            None if S is None else S[:, a_col: a_col + kdim].contiguous(),
+            wsel[b_off: b_off + kdim * wo].reshape(kdim, wo).contiguous(),
+            None if gout is None
+            else gout[:, c_off: c_off + cs * wo: cs].contiguous()))
+    return ops
+
+
+def library_forward(ops):
+    import torch
+
+    return [torch.matmul(s, w) for s, w, _ in ops]
+
+
+def library_backward(ops):
+    """dS and dwsel of every problem, one torch.matmul each."""
+    import torch
+
+    return [(torch.matmul(g, w.T), torch.matmul(s.T, g)) for s, w, g in ops]
+
+
+def row_mix_phase(fconv, scratch, wsel, gout):
+    """The mix GEMM alone at one conv layer: K1's forward mix of its
+    scratch and K2's node-stage products (dS, dwsel) against the plain
+    version, with the library's time and the bounds; returns the two
+    records."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
+
+    pr, KM, od = fconv.prob_rows, fconv.KM, fconv.out_dim
+    N, wl = scratch.shape[0], fconv.wsel_len
+
+    def products():
+        return (rm.launch_backward(rm.ROWS, pr, KM, gout, wsel=wsel),
+                rm.launch_backward(rm.WEIGHTS, pr, KM, gout, S=scratch,
+                                   wsel_len=wl))
+
+    fwd = compare(
+        "row_mix forward mix (K1's mix)",
+        lambda: rm.launch_forward(scratch, wsel, pr, od),
+        lambda: rm.run_plan(rm.FORWARD, pr, N, KM, od, S=scratch, wsel=wsel))
+    bwd = compare_grads(
+        "row_mix backward products (K2's dS, dwsel)", products,
+        lambda: (rm.run_plan(rm.ROWS, pr, N, KM, od, wsel=wsel, gout=gout),
+                 rm.run_plan(rm.WEIGHTS, pr, N, KM, od, S=scratch, gout=gout,
+                             wsel_len=wl)), ("dS", "dwsel"))
+    with torch.no_grad():
+        a, b = products(), products()
+        torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        fail("row_mix: dS or dwsel differ between two launches")
+    ops = mix_operands(pr, scratch, wsel, gout)
+    fwd["library_ms"] = cuda_ms(lambda: library_forward(ops))
+    bwd["library_ms"] = cuda_ms(lambda: library_backward(ops))
+    del ops
+    flops = mix_flops(pr, N)
+    fwd.update(mix_bound(flops, nbytes(scratch, wsel) + N * od * 4))
+    bwd.update(mix_bound(2 * flops, nbytes(scratch, wsel, gout)
+                         + N * KM * 4 + wl * 4))
+    for name, rec in (("forward mix", fwd), ("backward products", bwd)):
+        print(f"row_mix {name}: kernel {rec['ms']:.4f} ms, torch.matmul "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"by {rec['bound_by']} (float32 {rec['bound_f32_ms']:.4f})")
+    return fwd, bwd
+
+
+def mix_record(name, replaces, launches, rec):
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_f32_ms")
+    return dict(name=name, route="cuda",
+                source="equivariant_nn_zoo_tpu_torch/csrc/row_mix.cuh",
+                replaces=f"equivariant_nn_zoo_tpu/ops/pallas/{replaces}",
+                launches=launches, **{k: rec[k] for k in keys})
+
+
 def step_gradients(model, gb, loss_fn):
     """Loss and every parameter's gradient (on the host) of one step."""
     model.zero_grad()
@@ -407,13 +521,14 @@ def worst_gradient_rel(got, want):
 PROFILE_FAMILIES = (
     ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
     ("K4 edge sweeps", "ext_edge_kernel"),
-    ("tiled products of the backward (rowmix::tile_gemm_kernel)",
-     "tile_gemm_kernel"),
+    ("forward mix (rowmix::gemm_kernel<true, false>)",
+     r"gemm_kernel<true, false>|mix_rows_kernel"),
+    ("backward's tiled products (rowmix::gemm_kernel, its split sum and "
+     "gout's copy)", r"rowmix::"),
     ("Adam (profiler range)", r"Optimizer\.step"),
     ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
     ("K1/K2 radial hidden layers, piece sums, dx sums",
      "mlp_hidden_kernel|walk_piece_sum_kernel|k2_dx_kernel"),
-    ("forward mix (rowmix::mix_rows_kernel)", "mix_rows_kernel"),
     ("K5 sweeps (cg, da, dbw)", "pairwise_"),
     ("K6 and K6b sweeps", "uvu_"),
     ("K3 and K3b", "species_sc"),
@@ -1070,16 +1185,16 @@ def hamiltonian_phases(dev):
     # the pairwise backward is one C entry: its three kernels share a count
     entries = (
         ("uvu_conv_bwd", "uvu_conv.cu", "fused_conv.py:278", "uvu_conv_bwd",
-         "K6b", "rowmix::tile_gemm_kernel + uvu_bwd_edge_kernel"),
+         "K6b", "rowmix::gemm_kernel + uvu_bwd_edge_kernel"),
         ("pairwise_tp_bwd_dwsel", "pairwise_tp.cu", "pairwise.py:504",
          "pairwise_tp_bwd", "K5m",
-         "pairwise_cg_kernel + rowmix::tile_gemm_kernel (S^T gout)"),
+         "pairwise_cg_kernel + rowmix::gemm_kernel (S^T gout)"),
         ("pairwise_tp_bwd_da", "pairwise_tp.cu", "pairwise.py:556",
          "pairwise_tp_bwd", "K5a",
-         "rowmix::tile_gemm_kernel (dS) + pairwise_da_kernel"),
+         "rowmix::gemm_kernel (dS) + pairwise_da_kernel"),
         ("pairwise_tp_bwd_dbw", "pairwise_tp.cu", "pairwise.py:591",
          "pairwise_tp_bwd", "K5b",
-         "rowmix::tile_gemm_kernel (dS) + pairwise_dbw_kernel"),
+         "rowmix::gemm_kernel (dS) + pairwise_dbw_kernel"),
     )
     records = [
         dict(kernel_record("uvu_conv", "uvu_conv.cu", "fused_conv.py:233",
@@ -1255,6 +1370,7 @@ def main():
     )
     from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
     from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
@@ -1334,6 +1450,7 @@ def main():
         lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
         lambda: fconv.plain_backward(*k2_args),
         ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
+    mix_fwd, mix_bwd = row_mix_phase(fconv, scratch, flat[2], gout)
     del scratch, k2_args
 
     # ----------------------------------------------------------------- K3b
@@ -1429,6 +1546,7 @@ def main():
     torch.cuda.synchronize()
     FullConv.launches = FullConv.backward_launches = 0
     SpeciesScalarFCTP.launches = SpeciesScalarFCTP.backward_launches = 0
+    rm_ops.reset_launches()
     t0 = time.perf_counter()
     for epoch in range(n_epochs):
         trainer.epoch_step(train, val)
@@ -1454,6 +1572,10 @@ def main():
         if n < n_layers * steps:
             fail(f"train: {name} launched {n} times, want >= "
                  f"{n_layers * steps}")
+    mix_launches = rm_ops.launches()
+    print(f"train: the mix GEMM launched {mix_launches}")
+    if min(mix_launches.values()) < 1:
+        fail(f"train: the mix GEMM was not launched ({mix_launches})")
 
     reps = 3
     torch.cuda.synchronize()
@@ -1523,6 +1645,10 @@ def main():
              hamiltonian=l4["species_sc_bwd"]),
         *force_records,
         *head_records,
+        mix_record("row_mix_forward", "fused_conv.py:926",
+                   mix_launches["forward"], mix_fwd),
+        mix_record("row_mix_products", "pairwise.py:504",
+                   mix_launches["backward"], mix_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1635,6 +1761,210 @@ def conv_times():
                       "conv_times": times}))
 
 
+# the kernels of the mix GEMM's family in kernel_split's names: the
+# redesigned GEMM, its split reduction and gout's component-major copy,
+# and the earlier tiled kernels (a parent checkout's)
+MIX_KERNELS = ("gemm_kernel", "reduce_kernel", "deinterleave_kernel",
+               "tile_gemm_kernel", "mix_rows_kernel")
+
+
+def mix_set(name, fn, library, flops, n_bytes):
+    """One product set of ``--mix-times``: the C entry's ms (CUDA events),
+    each kernel's device ms, the mix GEMM family's and the memsets' share,
+    torch.matmul's ms on the products' operands, and the bounds."""
+    split = kernel_split(fn)
+    rec = dict(ms=cuda_ms(fn), kernels=split,
+               products_ms=round(sum(v for k, v in split.items()
+                                     if k in MIX_KERNELS), 4),
+               memset_ms=round(sum(v for k, v in split.items()
+                                   if "emset" in k), 4),
+               library_ms=cuda_ms(library), gflop=flops / 1e9,
+               mbytes=n_bytes / 1e6, **mix_bound(flops, n_bytes))
+    print(f"{name}: entry {rec['ms']:.4f} ms, products {rec['products_ms']} "
+          f"ms, memsets {rec['memset_ms']} ms, torch.matmul "
+          f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+          f"{rec['bound_by']} (float32 {rec['bound_f32_ms']:.4f}); {split}",
+          flush=True)
+    return rec
+
+
+def mix_times():
+    """``python3 chip_smoke.py --mix-times``: the product sets of the mix
+    GEMM (``csrc/row_mix.cuh``) in the package of the current directory
+    (run it from two checkouts in turn to compare them on one card), each
+    through its C entry at full width, ms per call with CUDA events and
+    each kernel's device ms (``kernel_split``):
+
+    - K2 at ``config_energy``'s hot layer (its node-stage products and its
+      radial-MLP stage);
+    - the K5 backward entry and the K5 forward (with its mix) on the
+      ``tp_off`` call of a 512-molecule ``config_hamiltonian`` batch
+      (M = 3072), and K6b on its 3072 edges;
+    - the energy training step's kernel ms (``torch.profiler``, 2 passes
+      of 4 steps) and host ms.
+
+    Beside each product set, ``library_ms``: one ``torch.matmul`` per
+    product (TF32 off) on contiguous copies of operands of the same shapes
+    (the copies are made before the timing), and the bounds of the
+    products alone (``mix_bound``).  One JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    import equivariant_nn_zoo_tpu_torch as pkg
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    try:
+        from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    except ImportError:
+        edge_order = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    sets = {}
+    # ------------------------------------------- K2 at the energy hot layer
+    mc = get_config("config_energy")["model_config"]
+    model = build_model(mc, dev, torch.Generator().manual_seed(0))
+    gb = make_batches(synthetic_qm9(BATCH, np.random.default_rng(0)), dev)[0]
+    conv = getattr(model, HOT_LAYER).conv
+    fconv, seen = conv.full_conv, {}
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    with torch.no_grad():
+        model(gb)
+        hook.remove()
+        data = seen["data"]
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+        edges = (data["edge_spherical"], data["edge_index"][0],
+                 data["edge_index"][1])
+        N, E = x1.shape[0], er.shape[0]
+        flat = [t.detach() for t in fconv.flat_weights(
+            conv.fc, conv.tp.linear, 1.0 / conv.avg_num_neighbors ** 0.5)]
+        kw = {} if edge_order is None else {
+            "order": edge_order.shared(edges[1], edges[2], N)}
+        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat, N,
+                                             **kw)
+        gout = rnd(N, fconv.out_dim)
+        dims = fconv.fc_dims
+        R, H, PC = dims[0], dims[1], dims[-1]
+        # the radial-MLP stage's operands: per layer (a_in^T, dz) and
+        # (dz, W_i^T), the last layer (h^T, dw) and (dw, W_out^T)
+        pairs = [(rnd(H, E), rnd(E, PC)), (rnd(E, PC), flat[1].T.contiguous())]
+        ofs, mlp_flops = 0, 2 * 2 * E * H * PC
+        mlp_bytes = 4 * (2 * E * H + E * PC + 2 * H * PC)
+        for i in range(len(dims) - 2):
+            fan = R if i == 0 else H
+            W = flat[0][ofs: ofs + fan * H].reshape(fan, H)
+            pairs += [(rnd(fan, E), rnd(E, H)), (rnd(E, H), W.T.contiguous())]
+            ofs += fan * H
+            mlp_flops += 2 * 2 * E * fan * H
+            mlp_bytes += 4 * (2 * E * fan + E * H + 2 * fan * H)
+        ops = mix_operands(fconv.prob_rows, scratch, flat[2], gout)
+
+        def library():
+            library_backward(ops)
+            return [torch.matmul(a, b) for a, b in pairs]
+
+        sets["K2_energy"] = mix_set(
+            f"K2 energy {HOT_LAYER} (N={N}, E={E})",
+            lambda: conv_ops.launch_backward(fconv, x1, er, *edges, *flat, N,
+                                             scratch, gout, **kw),
+            library, 2 * mix_flops(fconv.prob_rows, N) + mlp_flops,
+            nbytes(scratch, gout, flat[2]) + N * fconv.KM * 4
+            + fconv.wsel_len * 4 + mlp_bytes)
+        sets["K2_energy"].update(N=N, E=E)
+        del ops, pairs, scratch
+
+    # --------------------------------------- the hamiltonian head at 3072
+    hmodel = build_model(get_config("config_hamiltonian")["model_config"],
+                         dev, torch.Generator().manual_seed(0))
+    hmodel.eval()
+    size = max(H2O_BATCHES)
+    big = make_batches(synthetic_h2o(size, np.random.default_rng(20)), dev,
+                       size)[0]
+    seen = capture_head_inputs(hmodel, big)
+    head = hmodel.pairwise
+    tpk, uvu = head.pairwise_tp, head.conv.full_conv
+    with torch.no_grad():
+        tpe, left, right = seen["K5"][0]
+        M = left.shape[0]
+        bw = tpk.weighted_right(tpe.tp.weight, right)
+        wsel5 = tpk.flat_wsel(tpe.linear)
+        g5 = rnd(M, tpk.out_dim)
+        S5 = rnd(M, tpk.KM)
+        ops = mix_operands(tpk.prob_rows, S5, wsel5, g5)
+        f5 = mix_flops(tpk.prob_rows, M)
+        sets["K5_backward"] = mix_set(
+            f"K5 backward entry (M={M})",
+            lambda: k5_ops.launch_backward(tpk, left, bw, wsel5, g5),
+            lambda: library_backward(ops), 2 * f5,
+            nbytes(S5, g5, wsel5) + M * tpk.KM * 4 + tpk.wsel_len * 4)
+        sets["K5_forward"] = mix_set(
+            f"K5 forward with its mix (M={M})",
+            lambda: k5_ops.launch_forward(tpk, left, bw, wsel5),
+            lambda: library_forward(ops), f5,
+            nbytes(S5, wsel5) + M * tpk.out_dim * 4)
+        del ops, S5, bw
+        linear, x, sh, w, src = seen["K6"][0]
+        E6 = sh.shape[0]
+        wsel6 = uvu.flat_wsel(linear)
+        _, scratch6 = k6_ops.launch_forward(uvu, x, sh, w, wsel6, src)
+        g6 = rnd(E6, uvu.out_dim)
+        ops = mix_operands(uvu.prob_rows, scratch6, wsel6, g6)
+        sets["K6b"] = mix_set(
+            f"K6b (E={E6})",
+            lambda: k6_ops.launch_backward(uvu, x, sh, w, wsel6, src,
+                                           scratch6, g6),
+            lambda: library_backward(ops), 2 * mix_flops(uvu.prob_rows, E6),
+            nbytes(scratch6, g6, wsel6) + E6 * uvu.KM * 4 + uvu.wsel_len * 4)
+        del ops, scratch6, seen
+    del hmodel
+
+    # ------------------------------------------------- the energy step
+    cfg = get_config("config_energy")
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    train = make_batches(synthetic_qm9(4 * BATCH, np.random.default_rng(11),
+                                       labels=True), dev)
+    trainer = Trainer(build_model(mc, dev, torch.Generator().manual_seed(0)),
+                      **settings)
+
+    def steps():
+        for b in train:
+            trainer.batch_step(b)
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        steps()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / (3 * len(train))
+    split = kernel_split(steps, n=2)
+    sets["energy_step"] = dict(
+        host_ms=host_ms, kernel_ms=sum(split.values()) / len(train),
+        products_ms=sum(v for k, v in split.items() if k in MIX_KERNELS)
+        / len(train))
+    print(f"energy step: host {host_ms:.3f} ms, kernels "
+          f"{sets['energy_step']['kernel_ms']:.3f} ms, mix GEMM family "
+          f"{sets['energy_step']['products_ms']:.3f} ms per step", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                      "card": smi.stdout.strip(), "mix_times": sets}))
+
+
 # the walk ablation: each part of both walk kernels as the (pattern,
 # replacement) that leaves it out of their sources, and the variants timed,
 # as (label, parts left out); a variant computes wrong results and is only
@@ -1696,6 +2026,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--conv-times"]:
         sys.path.insert(0, os.getcwd())
         conv_times()
+    elif sys.argv[1:] == ["--mix-times"]:
+        sys.path.insert(0, os.getcwd())
+        mix_times()
     elif sys.argv[1:] == ["--walk-ablation"]:
         walk_ablation()
     else:

@@ -35,10 +35,11 @@
 //    into a pieces buffer [T, K * mul], summed in item order.  A second
 //    small pass and not atomics into zeroed rows: the sums keep a fixed
 //    order, and only the long nodes' rows are read twice.
-// 4. rowmix::mix_rows_kernel (row_mix.cuh, shared with the per-edge conv
-//    and the pairwise expansion): a 64x64-tiled shared-memory product
+// 4. rowmix::gemm_kernel (row_mix.cuh, the tensor-core GEMM shared with
+//    every other conv and pairwise kernel): the mix, a product
 //    [N, n_paths * mul] x [n_paths * mul, mul_out] per (output-irrep group,
-//    component, output slot), written straight into the irreps columns.
+//    component, output slot) in 3xTF32, written straight into the irreps
+//    columns with plain stores, one owner per tile.
 //
 // What bounds it on the card: instruction issue in the walk, at 16 warps
 // per SM (two blocks of ~80 KB of shared memory and 128 registers).  The
@@ -158,7 +159,8 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
 
 // walk_tab, chunks, nz: the walk tables (ConvTables); perm, ptr: the
 // destination-major edge order; h_work [E, H] and pieces [T, KM]: work
-// buffers (f32, uninitialised).
+// buffers (f32, uninitialised); probs_host: the mix problem table, on the
+// host.
 extern "C" int full_conv_fwd(
     const float* x, int N, int in_dim,
     const float* sh, int J,
@@ -171,14 +173,12 @@ extern "C" int full_conv_fwd(
     const int* perm, const int* ptr, int cap, int T,
     float* h_work, float* pieces,
     float* scratch, int KM, int mul,
-    const float* wsel, const int* probs, int n_probs, int max_wo,
+    const float* wsel, const int* probs_host, int n_probs,
     float* out, int out_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
   if (rows > 16 || cap < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, (size_t)N * (size_t)out_dim * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = cudaSuccess;
   if (E > 0) {
     const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
     mlp_hidden_kernel<<<blocks, 256, 0, s>>>(er, R, E, w_hidden, H, n_hidden,
@@ -205,6 +205,6 @@ extern "C" int full_conv_fwd(
     err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)rowmix::mix_rows(scratch, N, KM, wsel, probs, n_probs, max_wo,
+  return (int)rowmix::mix_rows(scratch, N, KM, wsel, probs_host, n_probs,
                                out, out_dim, s);
 }

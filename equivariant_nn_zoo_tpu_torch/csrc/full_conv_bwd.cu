@@ -18,10 +18,12 @@
 // this entry computes dx, d er, dW_hidden, dW_out and dwsel in four stages
 // of hand-written kernels on the caller's stream:
 //
-// a. node stage (rowmix::mix_products in row_mix.cuh, the mix backward
-//    shared with the per-edge conv and the pairwise expansion):
-//    dS = gout_q @ wsel_q^T, added over the problems that read the same
-//    scratch columns, and dwsel_q = S^T @ gout_q, split over node chunks.
+// a. node stage (rowmix::mix_products in row_mix.cuh, the tensor-core GEMM
+//    shared with every conv and pairwise kernel): per block of scratch
+//    columns dS = sum over the problems that read it of gout_q @ wsel_q^T,
+//    one owner per tile; per mix matrix dwsel_q = sum over its d components
+//    of S^T @ gout_q, split over node chunks as far as the card needs
+//    blocks, the partial tiles added in split order by a second pass.
 // b. edge stage: walk::mlp_hidden_kernel (edge_walk.cuh) recomputes the
 //    MLP's hidden layers per edge and stores the pre-activations z and
 //    activations h; k2_walk_kernel walks the edges source-major (the
@@ -40,10 +42,11 @@
 //    no path), and dx repeats bit for bit.  M^T dS is a dense product over
 //    compile-time register indices, so no channel selects its left
 //    component at run time.
-// c. MLP stage (rowmix::tile_gemm_kernel and k2_act_grad_kernel): dW_out =
-//    h_L^T dw (split over edge chunks), dh = dw W_out^T, then per hidden
-//    layer from the last: dz = dh * ssp'(z) (ssp' = sigmoid * act_cst),
-//    dW_i = h_i^T dz, dh_i = dz W_i^T, the last of which is d er.
+// c. MLP stage (rowmix::matmul, the same GEMM, and k2_act_grad_kernel):
+//    dW_out = h_L^T dw (split over edge chunks), dh = dw W_out^T, then per
+//    hidden layer from the last: dz = dh * ssp'(z) (ssp' = sigmoid *
+//    act_cst), dW_i = h_i^T dz, dh_i = dz W_i^T, the last of which is d er.
+//    Each output tile has one owner, so none of them is zero-filled.
 //
 // What bounds it on the card: the edge walk and the MLP stage's tiled
 // products take about half each at config_energy's hot layer (E = 24386).
@@ -54,12 +57,12 @@
 // molecule's).  Left out one at a time (chip_smoke.py --walk-ablation,
 // H100), the parts of the walk's 2.07 ms there cost: the per-edge products
 // with the gathers and dw stores 43 %, radial weights 29 %, CG matrices
-// 15 %, staging and syncs alone 12 %.  The products are a plain 64x64-tiled shared-memory kernel
-// on CUDA cores (2 * E * 64 * 3072 FMAs for dW_out and dh) that sums its
-// outputs with atomics into zeroed buffers, so split reductions need no
-// second pass, and the order of summation of those outputs varies from
-// run to run; the per-edge cotangent dw, [E, P * mul] in f32 (~300 MB at
-// E = 24386), is written once and read twice.  Padded edges need no
+// 15 %, staging and syncs alone 12 %.  The products run on the tensor
+// cores in 3xTF32 (2 * E * 64 * 3072 FMAs for dW_out and dh, bound at a
+// third of the TF32 rate) with plain stores and a fixed order of
+// summation, so every output repeats bit for bit; the per-edge cotangent
+// dw, [E, P * mul] in f32 (~300 MB at E = 24386), is written once and read
+// twice.  Padded edges need no
 // special case (zero edge_radial, bias-free MLP); edges with an endpoint
 // outside [0, N), skipped by the forward, get zero dw.
 //
@@ -79,9 +82,7 @@ using namespace walk;
 
 namespace {
 
-using rowmix::gemm_desc;
-using rowmix::GemmDesc;
-using rowmix::run_gemms;
+using rowmix::matmul;
 
 // dz = dh * ssp'(z), ssp'(v) = sigmoid(v) * act_cst
 __global__ void k2_act_grad_kernel(const float* __restrict__ dh,
@@ -238,7 +239,8 @@ __global__ void k2_dx_kernel(const float* __restrict__ dxp, int KMd,
 // chunks, nz, irreps: the walk tables (ConvTables); perm, ptr: the
 // source-major edge order.  Work buffers (f32, uninitialised): dS [N, KM],
 // dw [E, PC], z_all and h_all [n_hidden, E, H], dh and dz [E, H], dxp
-// [N, KMd], pieces [T, KMd].
+// [N, KMd], pieces [T, KMd]; ws [ws_len]: the split products' partial
+// tiles.
 extern "C" int full_conv_bwd(
     const float* x, int N, int in_dim,
     const float* sh, int J,
@@ -256,29 +258,23 @@ extern "C" int full_conv_bwd(
     float* dS, float* dw, float* z_all, float* h_all, float* dh, float* dz,
     float* dxp, float* pieces,
     float* dx, float* der, float* dw_hidden, int w_hidden_len,
-    float* dw_out, float* dwsel, void* stream) {
+    float* dw_out, float* dwsel, float* ws, int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (max_d1 > kMaxD || max_d3 > 16 || cap < 1 || T < 1)
     return (int)cudaErrorInvalidValue;
   const size_t f = sizeof(float);
-  struct { void* p; size_t n; } zero[] = {
-      {dS, (size_t)N * KM}, {dh, (size_t)E * H},
-      {dx, dx_covered ? 0 : (size_t)N * in_dim}, {der, (size_t)E * R},
-      {dw_hidden, (size_t)w_hidden_len}, {dw_out, (size_t)H * PC},
-      {dwsel, (size_t)wsel_len}};
-  for (auto& b : zero) {
-    if (b.n == 0) continue;
-    cudaError_t err = cudaMemsetAsync(b.p, 0, b.n * f, s);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = cudaSuccess;
+  if (!dx_covered) err = cudaMemsetAsync(dx, 0, (size_t)N * in_dim * f, s);
+  if (err != cudaSuccess) return (int)err;
 
-  // a. node stage: dS and dwsel per mix problem
-  cudaError_t err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs,
-                                         N, KM, out_dim, nullptr, wsel, gout,
-                                         dS, s);
+  // a. node stage: dS and dwsel
+  err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs, N, KM,
+                             out_dim, nullptr, wsel, gout, dS, wsel_len, ws,
+                             ws_len, s);
   if (err != cudaSuccess) return (int)err;
   err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, N, KM,
-                             out_dim, scratch, nullptr, gout, dwsel, s);
+                             out_dim, scratch, nullptr, gout, dwsel, wsel_len,
+                             ws, ws_len, s);
   if (err != cudaSuccess) return (int)err;
 
   // b. edge stage
@@ -316,16 +312,24 @@ extern "C" int full_conv_bwd(
       if (err != cudaSuccess) return (int)err;
     }
   }
-  if (E == 0) return (int)cudaGetLastError();
+  if (E == 0) {  // no edge: the MLP's gradients are zero
+    struct { void* p; size_t n; } zero[] = {
+        {dw_hidden, (size_t)w_hidden_len}, {dw_out, (size_t)H * PC}};
+    for (auto& b : zero) {
+      err = cudaMemsetAsync(b.p, 0, b.n * f, s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
+  }
 
   // c. MLP stage: last layer, then the hidden layers from the last
   const float* h_last = h_all + (size_t)(n_hidden - 1) * EH;
-  GemmDesc last[2] = {
-      // dW_out[h, c] = sum_e h_last[e, h] dw[e, c]
-      gemm_desc(h_last, 1, H, dw, PC, 1, dw_out, PC, 1, H, PC, E, true),
-      // dh[e, h] = sum_c dw[e, c] W_out[h, c]
-      gemm_desc(dw, PC, 1, w_out, 1, PC, dh, H, 1, E, H, PC, false)};
-  err = run_gemms(last, 2, s);
+  // dW_out[h, c] = sum_e h_last[e, h] dw[e, c]
+  err = matmul(h_last, false, dw, false, dw_out, H, PC, E, true, ws, ws_len,
+               s);
+  if (err != cudaSuccess) return (int)err;
+  // dh[e, h] = sum_c dw[e, c] W_out[h, c]
+  err = matmul(dw, true, w_out, true, dh, E, H, PC, false, nullptr, 0, s);
   if (err != cudaSuccess) return (int)err;
 
   size_t w_ofs = (size_t)R * H + (size_t)(n_hidden - 1) * H * H;
@@ -338,20 +342,13 @@ extern "C" int full_conv_bwd(
                                               act_cst, dz);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    float* d_in = der;
-    if (i > 0) {
-      err = cudaMemsetAsync(dh, 0, EH * f, s);
-      if (err != cudaSuccess) return (int)err;
-      d_in = dh;
-    }
-    GemmDesc layer[2] = {
-        // dW_i[k, h] = sum_e a_in[e, k] dz[e, h]
-        gemm_desc(a_in, 1, fan, dz, H, 1, dw_hidden + w_ofs, H, 1, fan, H, E,
-                  true),
-        // d a_in[e, k] = sum_h dz[e, h] W_i[k, h]
-        gemm_desc(dz, H, 1, w_hidden + w_ofs, 1, H, d_in, fan, 1, E, fan, H,
-                  false)};
-    err = run_gemms(layer, 2, s);
+    // dW_i[k, h] = sum_e a_in[e, k] dz[e, h]
+    err = matmul(a_in, false, dz, false, dw_hidden + w_ofs, fan, H, E, true,
+                 ws, ws_len, s);
+    if (err != cudaSuccess) return (int)err;
+    // d a_in[e, k] = sum_h dz[e, h] W_i[k, h]
+    err = matmul(dz, true, w_hidden + w_ofs, true, i == 0 ? der : dh, E, fan,
+                 H, false, nullptr, 0, s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

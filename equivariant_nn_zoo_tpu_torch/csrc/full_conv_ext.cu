@@ -17,7 +17,7 @@
 // sequence of kernels on the caller's stream:
 //
 // K4f  full_conv_ext_fwd(x, sh, w, wsel) -> out: the edge kernel scatters
-//      mid * w into the f32 scratch S with atomics; the mix products give
+//      mid * w into the f32 scratch S with atomics; the forward mix gives
 //      out.
 // K4b  full_conv_ext_bwd(x, sh, w, wsel, gout) -> dx, dsh, dw, dwsel:
 //      node stage dS = mix^T(gout); edge stage gathers dS[dst], recomputes
@@ -49,11 +49,13 @@
 // layer of a 64-graph protein batch) are read and written once per call.
 // The design keeps mid and the CG outer products in registers, gathers
 // dS[dst] instead of scattering, and reduces dsh per edge in the block, so
-// the only global atomics are K1's scatter and the dx adds.  The node-stage
-// products are rowmix::mix_products (row_mix.cuh, shared with the other
-// backward kernels): one 64x64-tiled shared-memory kernel over descriptors,
-// summing with atomics into zeroed outputs; atomics make the order of
-// summation vary from run to run.
+// the only global atomics are the scatter into S and the dx adds (so S, dx
+// and what is computed from S vary in their last bits from run to run).
+// The mix and the node-stage products are row_mix.cuh's tensor-core GEMM
+// (3xTF32, shared with every conv and pairwise kernel): the forward mix
+// (out, c_g) and dS with one owner per output tile and plain stores, dwsel
+// split over node chunks and added in split order; none of these outputs
+// is zero-filled first, and their summation order is fixed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,9 +65,9 @@
 namespace {
 
 using rowmix::kMixRows;
-using rowmix::kMixScatter;
 using rowmix::kMixWeights;
 using rowmix::mix_products;
+using rowmix::mix_rows;
 
 constexpr int kEdgeGroups = 4;     // blockDim.y of the edge kernel
 constexpr int kEdgesPerThread = 4;
@@ -298,13 +300,12 @@ extern "C" int full_conv_ext_fwd(EXT_COMMON, const float* x, const float* sh,
                                  float* scratch, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   EXT_TRY(zero(s, scratch, (size_t)N * KM));
-  EXT_TRY(zero(s, out, (size_t)N * out_dim));
   EdgeArgs a = edge_args(N, in_dim, J, src, dst, E, PC, paths, P, nz_idx,
                          nz_c, KM);
   a.x = x; a.sh = sh; a.w = w; a.S = scratch;
   EXT_TRY(edge_sweep<kFwd>(a, mul, s));
-  EXT_TRY(mix_products(kMixScatter, probs_host, n_probs, N, KM, out_dim,
-                       scratch, wsel, nullptr, out, s));
+  EXT_TRY(mix_rows(scratch, N, KM, wsel, probs_host, n_probs, out, out_dim,
+                   s));
   return (int)cudaGetLastError();
 }
 
@@ -312,23 +313,23 @@ extern "C" int full_conv_ext_bwd(EXT_COMMON, const float* x, const float* sh,
                                  const float* w, const float* wsel,
                                  const float* gout, float* scratch, float* dS,
                                  float* dx, float* dsh, float* dw,
-                                 float* dwsel, int wsel_len, void* stream) {
+                                 float* dwsel, int wsel_len, float* ws,
+                                 int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   EXT_TRY(zero(s, scratch, (size_t)N * KM));
-  EXT_TRY(zero(s, dS, (size_t)N * KM));
   EXT_TRY(zero(s, dx, (size_t)N * in_dim));
   EXT_TRY(zero(s, dsh, (size_t)E * J));
   EXT_TRY(zero(s, dw, (size_t)E * PC));
-  EXT_TRY(zero(s, dwsel, (size_t)wsel_len));
   EXT_TRY(mix_products(kMixRows, probs_host, n_probs, N, KM, out_dim, nullptr,
-                       wsel, gout, dS, s));
+                       wsel, gout, dS, wsel_len, ws, ws_len, s));
   EdgeArgs a = edge_args(N, in_dim, J, src, dst, E, PC, paths, P, nz_idx,
                          nz_c, KM);
   a.x = x; a.sh = sh; a.w = w; a.dS = dS; a.S = scratch;
   a.dx = dx; a.dsh = dsh; a.dw = dw;
   EXT_TRY(edge_sweep<kBwd>(a, mul, s));
   EXT_TRY(mix_products(kMixWeights, probs_host, n_probs, N, KM, out_dim,
-                       scratch, nullptr, gout, dwsel, s));
+                       scratch, nullptr, gout, dwsel, wsel_len, ws, ws_len,
+                       s));
   return (int)cudaGetLastError();
 }
 
@@ -336,25 +337,23 @@ extern "C" int full_conv_ext_grad2(
     EXT_COMMON, const float* x, const float* cx, const float* sh,
     const float* csh, const float* w, const float* cw, const float* wsel,
     const float* gout, float* scratch, float* dS, float* c_x, float* c_s,
-    float* c_w, float* c_m, float* c_g, int wsel_len, void* stream) {
+    float* c_w, float* c_m, float* c_g, int wsel_len, float* ws, int ws_len,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   EXT_TRY(zero(s, scratch, (size_t)N * KM));
-  EXT_TRY(zero(s, dS, (size_t)N * KM));
   EXT_TRY(zero(s, c_x, (size_t)N * in_dim));
   EXT_TRY(zero(s, c_s, (size_t)E * J));
   EXT_TRY(zero(s, c_w, (size_t)E * PC));
-  EXT_TRY(zero(s, c_m, (size_t)wsel_len));
-  EXT_TRY(zero(s, c_g, (size_t)N * out_dim));
   EXT_TRY(mix_products(kMixRows, probs_host, n_probs, N, KM, out_dim, nullptr,
-                       wsel, gout, dS, s));
+                       wsel, gout, dS, wsel_len, ws, ws_len, s));
   EdgeArgs a = edge_args(N, in_dim, J, src, dst, E, PC, paths, P, nz_idx,
                          nz_c, KM);
   a.x = x; a.cx = cx; a.sh = sh; a.csh = csh; a.w = w; a.cw = cw;
   a.dS = dS; a.S = scratch; a.dx = c_x; a.dsh = c_s; a.dw = c_w;
   EXT_TRY(edge_sweep<kGrad2>(a, mul, s));
-  EXT_TRY(mix_products(kMixScatter, probs_host, n_probs, N, KM, out_dim,
-                       scratch, wsel, nullptr, c_g, s));
+  EXT_TRY(mix_rows(scratch, N, KM, wsel, probs_host, n_probs, c_g, out_dim,
+                   s));
   EXT_TRY(mix_products(kMixWeights, probs_host, n_probs, N, KM, out_dim,
-                       scratch, nullptr, gout, c_m, s));
+                       scratch, nullptr, gout, c_m, wsel_len, ws, ws_len, s));
   return (int)cudaGetLastError();
 }

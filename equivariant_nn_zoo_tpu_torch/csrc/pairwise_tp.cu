@@ -28,14 +28,15 @@
 //    written once with a plain store (each (path, m3) has a non-zero,
 //    checked on the host).  Paths are split over blockIdx.y so that a
 //    48-element batch still fills the card.
-// 2. rowmix::mix_rows_kernel (row_mix.cuh): the mix, plain stores.
+// 2. rowmix::gemm_kernel (row_mix.cuh): the mix on the tensor cores
+//    (3xTF32), one owner per output tile, plain stores.
 //
-// What bounds it on the card: f32 FMAs on CUDA cores (2 * mul per CG
-// non-zero and 2 * mul * mul_out per scratch row: ~19 MFLOP per element at
-// the full-width head) and the scratch round trip (R * mul floats of bw
-// read, as many of S written and read again: 384 KB each per element).
-// Keeping S in shared memory per output-irrep group, and tensor cores for
-// the mix, are the next steps.
+// What bounds it on the card: the scratch round trip (R * mul floats of bw
+// read, as many of S written and read again: 384 KB each per element) and
+// the CG sweep's f32 FMAs on CUDA cores (2 * mul per CG non-zero); the mix
+// (2 * mul * mul_out per scratch row, ~12 MFLOP per element at the
+// full-width head) runs on the tensor cores.  Keeping S in shared memory
+// per output-irrep group is the next step.
 //
 // The backward replaces the three TPU kernels _bwd_kernel_dws,
 // _bwd_kernel_da and _bwd_kernel_dbw (pairwise.py:504, :556, :591; launched
@@ -45,10 +46,13 @@
 // 0. pairwise_cg_kernel again: S is recomputed, not saved (1.05 MFLOP per
 //    element against 12.3 for the mix, and a saved S would double what a
 //    training step keeps per element beside bw).
-// 1. K5m, rowmix::mix_products (row_mix.cuh): dwsel_q = S_q^T @ gout_q,
-//    split over chunks of elements and summed with atomics; the same
-//    tiled kernel gives dS = gout_q @ wsel_q^T, which K5a and K5b read
-//    (on the TPU each of them recomputes it per section).
+// 1. K5m, rowmix::mix_products (row_mix.cuh, the tensor-core GEMM):
+//    dwsel_q = S_q^T @ gout_q over the d components of a (group, slot),
+//    split over chunks of elements as far as the card needs blocks, the
+//    partial tiles added in split order (no atomics, a fixed order); the
+//    same GEMM gives dS = gout_q @ wsel_q^T with one owner per tile,
+//    which K5a and K5b read (on the TPU each of them recomputes it per
+//    section).
 // 2. K5a, pairwise_da_kernel: da[m, m1, u] = sum over the paths with this
 //    left irrep, sum_nz C * bw[m, r0(p) + m2, u] * dS[m, row(p, m3), u].
 //    The columns of a left irrep are shared by all its paths, so a block
@@ -63,9 +67,9 @@
 //
 // dS[row(m3)] is read once per run of equal m3 (the non-zeros are sorted by
 // m3 for the forward's one-store-per-row trick; the same order serves the
-// adjoint).  What bounds the backward: the two mix products (2 x 12.3 MFLOP
-// per element on CUDA cores) and four scratch-sized streams (S, dS, bw,
-// dbw: 384 KB per element each).
+// adjoint).  What bounds the backward: four scratch-sized streams (S, dS,
+// bw, dbw: 384 KB per element each) and the two mix products (2 x 12.3
+// MFLOP per element, on the tensor cores in 3xTF32).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,16 +225,10 @@ extern "C" int pairwise_tp_fwd(
     const float* bw, int R,
     const int* paths, int P, const int* nz_idx, const float* nz_c,
     float* scratch, int KM, int mul,
-    const float* wsel, const int* probs, int n_probs, int max_wo,
-    float* out, int out_dim, int zero_out, void* stream) {
+    const float* wsel, const int* probs_host, int n_probs,
+    float* out, int out_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0) return (int)cudaGetLastError();
-  if (zero_out) {
-    // some output columns belong to no mix problem: they stay zero
-    cudaError_t err = cudaMemsetAsync(
-        out, 0, (size_t)M * (size_t)out_dim * sizeof(float), s);
-    if (err != cudaSuccess) return (int)err;
-  }
   if (P > 0) {
     const int ppb = rowmix::paths_per_block(M, P);
     dim3 block(mul, kRows);
@@ -240,14 +238,15 @@ extern "C" int pairwise_tp_fwd(
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)rowmix::mix_rows(scratch, M, KM, wsel, probs, n_probs, max_wo,
+  return (int)rowmix::mix_rows(scratch, M, KM, wsel, probs_host, n_probs,
                                out, out_dim, s);
 }
 
 // probs_host: the mix problem table, on the host.  slots / slot_paths: the
 // left irreps with their paths (device).  S and dS: work buffers
-// [M, K * mul].  parts: which cotangents to compute, 1 dwsel (K5m),
-// 2 d left (K5a), 4 dbw (K5b); the others' buffers are left untouched.
+// [M, K * mul]; ws [ws_len]: the split products' partial tiles.  parts:
+// which cotangents to compute, 1 dwsel (K5m), 2 d left (K5a), 4 dbw (K5b);
+// the others' buffers are left untouched.
 // Every bw row belongs to a path, so dbw needs no zero fill.
 extern "C" int pairwise_tp_bwd(
     const float* a, int M, int a_dim,
@@ -258,12 +257,13 @@ extern "C" int pairwise_tp_bwd(
     const float* wsel, int wsel_len, const int* probs_host, int n_probs,
     const float* gout, int out_dim,
     float* S, float* dS, float* da, float* dbw, float* dwsel, int parts,
-    void* stream) {
+    float* ws, int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool want_m = parts & 1, want_a = parts & 2, want_b = parts & 4;
   const size_t f = sizeof(float);
   cudaError_t err = cudaSuccess;
-  if (want_m) err = cudaMemsetAsync(dwsel, 0, (size_t)wsel_len * f, s);
+  if (want_m && (M <= 0 || P <= 0))
+    err = cudaMemsetAsync(dwsel, 0, (size_t)wsel_len * f, s);
   if (err == cudaSuccess && want_a)
     err = cudaMemsetAsync(da, 0, (size_t)M * a_dim * f, s);
   if (err == cudaSuccess && want_b && P <= 0)
@@ -280,14 +280,14 @@ extern "C" int pairwise_tp_bwd(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, M, KM,
-                               out_dim, S, nullptr, gout, dwsel, s);
+                               out_dim, S, nullptr, gout, dwsel, wsel_len, ws,
+                               ws_len, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (want_a || want_b) {
-    err = cudaMemsetAsync(dS, 0, (size_t)M * KM * f, s);
-    if (err != cudaSuccess) return (int)err;
     err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs, M, KM,
-                               out_dim, nullptr, wsel, gout, dS, s);
+                               out_dim, nullptr, wsel, gout, dS, wsel_len, ws,
+                               ws_len, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (want_a && n_slots > 0) {

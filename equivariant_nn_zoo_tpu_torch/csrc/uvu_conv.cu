@@ -27,12 +27,13 @@
 //    tables are built), so the scratch needs no zero fill and no atomics.
 //    Paths are split over blockIdx.y so that a 96-edge batch still fills
 //    the card.  An edge whose source lies outside [0, N) reads x as zero.
-// 2. rowmix::mix_rows_kernel (row_mix.cuh): the per-edge mix, plain stores.
+// 2. rowmix::gemm_kernel (row_mix.cuh): the per-edge mix on the tensor
+//    cores (3xTF32), one owner per output tile, plain stores.
 //
 // What bounds it on the card: the scratch round trip (K * mul floats per
 // edge written and read: 143 KB per edge at the hamiltonian head, K = 560,
-// mul = 64) and the f32 FMAs of the mix (2 * mul * mul_out * K per edge) on
-// CUDA cores; the radial weights [E, P * mul] are read once.  Fusing the mix
+// mul = 64) and the mix (2 * mul * mul_out * K FLOPs per edge) on the
+// tensor cores; the radial weights [E, P * mul] are read once.  Fusing the mix
 // into the edge kernel would drop the round trip.
 //
 // The backward replaces PallasUVUConv._bwd_kernel (fused_conv.py:278,
@@ -40,8 +41,11 @@
 // weighted, unmixed rows, saved: the forward writes them anyway) it returns
 // dx [N, in_dim], dsh [E, J], dw [E, P * mul] and dwsel:
 //
-// 1. rowmix::mix_products (row_mix.cuh): dS = gout_q @ wsel_q^T per edge
-//    and dwsel_q = S_q^T @ gout_q, split over chunks of edges.
+// 1. rowmix::mix_products (row_mix.cuh, the tensor-core GEMM): dS = gout_q
+//    @ wsel_q^T per edge, one owner per tile of each block of scratch
+//    columns, and dwsel_q = S_q^T @ gout_q over the d components of a
+//    (group, slot), split over chunks of edges as far as the card needs
+//    blocks and added in split order: plain stores, a fixed order.
 // 2. uvu_bwd_edge_kernel: the forward's sweep run backwards.  Thread
 //    (u, edge) walks a chunk of the paths; per path it reads dS[e, row(m3)]
 //    once per component, recomputes mid[m3] over the non-zeros, stores
@@ -55,8 +59,10 @@
 // The TPU kernel recomputes mid from the dense C2 operator and streams the
 // adjoint through C2T per output group; here the adjoint is the same walk
 // over the non-zeros with two more multiply-adds each.  What bounds the
-// backward: the two mix products (4 * mul * mul_out * K FLOPs per edge on
-// CUDA cores, summed with atomics) and the dS round trip (as wide as S).
+// backward: the dS round trip (as wide as S, written by the mix product
+// and read by the sweep) and the two mix products (4 * mul * mul_out * K
+// FLOPs per edge, on the tensor cores in 3xTF32); dx and dsh are the only
+// outputs summed with atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -241,16 +247,10 @@ extern "C" int uvu_conv_fwd(
     const long long* src, int E,
     const int* paths, int P, const int* nz_idx, const float* nz_c,
     float* scratch, int KM, int mul,
-    const float* wsel, const int* probs, int n_probs, int max_wo,
-    float* out, int out_dim, int zero_out, void* stream) {
+    const float* wsel, const int* probs_host, int n_probs,
+    float* out, int out_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E <= 0) return (int)cudaGetLastError();
-  if (zero_out) {
-    // some output columns belong to no mix problem: they stay zero
-    cudaError_t err = cudaMemsetAsync(
-        out, 0, (size_t)E * (size_t)out_dim * sizeof(float), s);
-    if (err != cudaSuccess) return (int)err;
-  }
   if (P > 0) {
     const int ppb = rowmix::paths_per_block(E, P);
     dim3 block(mul, kRows);
@@ -261,12 +261,13 @@ extern "C" int uvu_conv_fwd(
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)rowmix::mix_rows(scratch, E, KM, wsel, probs, n_probs, max_wo,
+  return (int)rowmix::mix_rows(scratch, E, KM, wsel, probs_host, n_probs,
                                out, out_dim, s);
 }
 
 // probs_host: the mix problem table, on the host.  scratch: the forward's
-// weighted, unmixed rows [E, K * mul].  dS: work buffer of that shape.
+// weighted, unmixed rows [E, K * mul].  dS: work buffer of that shape; ws
+// [ws_len]: the split products' partial tiles.
 extern "C" int uvu_conv_bwd(
     const float* x, int N, int in_dim,
     const float* sh, int J,
@@ -276,23 +277,25 @@ extern "C" int uvu_conv_bwd(
     const float* scratch, int KM, int mul,
     const float* wsel, int wsel_len, const int* probs_host, int n_probs,
     const float* gout, int out_dim,
-    float* dS, float* dx, float* dsh, float* dw, float* dwsel, void* stream) {
+    float* dS, float* dx, float* dsh, float* dw, float* dwsel, float* ws,
+    int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t f = sizeof(float);
   struct { void* p; size_t n; } zero[] = {
-      {dS, (size_t)E * KM}, {dx, (size_t)N * in_dim}, {dsh, (size_t)E * J},
-      {dwsel, (size_t)wsel_len}};
+      {dx, (size_t)N * in_dim}, {dsh, (size_t)E * J}};
   for (auto& b : zero) {
     cudaError_t err = cudaMemsetAsync(b.p, 0, b.n * f, s);
     if (err != cudaSuccess) return (int)err;
   }
-  if (E <= 0) return (int)cudaGetLastError();
-  cudaError_t err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs,
-                                         E, KM, out_dim, nullptr, wsel, gout,
-                                         dS, s);
+  // dwsel (zero when there is no edge), then dS
+  cudaError_t err = rowmix::mix_products(
+      rowmix::kMixWeights, probs_host, n_probs, E, KM, out_dim, scratch,
+      nullptr, gout, dwsel, wsel_len, ws, ws_len, s);
   if (err != cudaSuccess) return (int)err;
-  err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, E, KM,
-                             out_dim, scratch, nullptr, gout, dwsel, s);
+  if (E <= 0) return (int)cudaGetLastError();
+  err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs, E, KM,
+                             out_dim, nullptr, wsel, gout, dS, wsel_len, ws,
+                             ws_len, s);
   if (err != cudaSuccess) return (int)err;
   if (P > 0) {
     const int ppb = rowmix::paths_per_block(E, P);

@@ -2,9 +2,10 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` of the package (``full_conv.cu``,
 ``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``,
-``uvu_conv.cu``, ``pairwise_tp.cu``; the mix stage and its backward in
-``row_mix.cuh`` are shared by five of them, the node-major walk in
-``edge_walk.cuh`` by the first two) for ``sm_90a`` (one compiler
+``uvu_conv.cu``, ``pairwise_tp.cu``, ``row_mix.cu``; the tensor-core GEMM
+of the mix and of the backwards' products in ``row_mix.cuh`` is shared by
+six of them, the node-major walk in ``edge_walk.cuh`` by the first two)
+for ``sm_90a`` (one compiler
 process per source, all started together) and links the objects into one shared library with a
 plain C interface under ``build/kernels/`` at the repository root (listed
 in ``.gitignore``); ``ctypes`` loads it at first use.  The library's file
@@ -59,7 +60,7 @@ SIGNATURES = {
         *_WALK,
         _P, _P,                # work: last hidden layer, long-run pieces
         _P, _I, _I,            # scratch, K * mul, mul
-        _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
+        _P, _P, _I,            # mix matrices, host mix problems, count
         _P, _I, _P,            # out, out_dim, stream
     ],
     "species_sc_fwd": [
@@ -95,7 +96,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,  # work: dS, dw, z, h, dh, dz,
         _P, _P,                # per-path dx rows, long-run pieces
         _P, _P, _P, _I,        # dx, d edge_radial, d hidden weights, length
-        _P, _P, _P,            # d last layer, d mix matrices, stream
+        _P, _P,                # d last layer, d mix matrices
+        _P, _I, _P,            # workspace, its length, stream
     ],
     "uvu_conv_fwd": [
         _P, _I, _I,            # x, N, in_dim
@@ -104,8 +106,8 @@ SIGNATURES = {
         _P, _I,                # src, E
         _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
         _P, _I, _I,            # scratch, K * mul, mul
-        _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
-        _P, _I, _I, _P,        # out, out_dim, zero it first, stream
+        _P, _P, _I,            # mix matrices, host mix problems, count
+        _P, _I, _P,            # out, out_dim, stream
     ],
     "uvu_conv_bwd": [
         _P, _I, _I,            # x, N, in_dim
@@ -117,15 +119,16 @@ SIGNATURES = {
         _P, _I, _P, _I,        # mix matrices, their length, host problems, n
         _P, _I,                # gout, out_dim
         _P,                    # work: dS
-        _P, _P, _P, _P, _P,    # dx, dsh, dw, dwsel, stream
+        _P, _P, _P, _P,        # dx, dsh, dw, dwsel
+        _P, _I, _P,            # workspace, its length, stream
     ],
     "pairwise_tp_fwd": [
         _P, _I, _I,            # left, M, its columns
         _P, _I,                # weighted right [M, R, mul], R
         _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
         _P, _I, _I,            # scratch, K * mul, mul
-        _P, _P, _I, _I,        # mix matrices, mix problems, count, max width
-        _P, _I, _I, _P,        # out, out_dim, zero it first, stream
+        _P, _P, _I,            # mix matrices, host mix problems, count
+        _P, _I, _P,            # out, out_dim, stream
     ],
     "pairwise_tp_bwd": [
         _P, _I, _I,            # left, M, its columns
@@ -137,7 +140,8 @@ SIGNATURES = {
         _P, _I,                # gout, out_dim
         _P, _P,                # work: S, dS
         _P, _P, _P,            # d left, d weighted right, dwsel
-        _I, _P,                # which of them (1 dwsel, 2 d left, 4 dbw), stream
+        _I,                    # which of them (1 dwsel, 2 d left, 4 dbw)
+        _P, _I, _P,            # workspace, its length, stream
     ],
     "full_conv_ext_fwd": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, sh, w, wsel
@@ -147,14 +151,32 @@ SIGNATURES = {
         _P, _P, _P, _P, _P,    # x, sh, w, wsel, gout
         _P, _P,                # work: scratch, dS
         _P, _P, _P, _P, _I,    # dx, dsh, dw, dwsel, its length
-        _P,                    # stream
+        _P, _I, _P,            # workspace, its length, stream
     ],
     "full_conv_ext_grad2": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, cx, sh, csh
         _P, _P, _P, _P,        # w, cw, wsel, gout
         _P, _P,                # work: scratch, dS
         _P, _P, _P, _P, _P,    # c_x, c_s, c_w, c_m, c_g
-        _I, _P,                # wsel length, stream
+        _I,                    # wsel length
+        _P, _I, _P,            # workspace, its length, stream
+    ],
+    "row_mix_forward": [
+        _P, _I, _I,            # scratch, rows, K * mul
+        _P, _P, _I,            # mix matrices, host mix problems, count
+        _P, _I, _P,            # out, out_dim, stream
+    ],
+    "row_mix_backward": [
+        _I, _P, _I,            # which (1 dS, 2 dwsel), host problems, count
+        _I, _I, _I,            # rows, K * mul, out_dim
+        _P, _P, _P,            # scratch, mix matrices, gout
+        _P, _I,                # the product, the mix matrices' length
+        _P, _I, _P,            # workspace, its length, stream
+    ],
+    "row_mix_matmul": [
+        _P, _I, _P, _I,        # A, A stored [M, K], B, B stored [N, K]
+        _P, _I, _I, _I,        # C [M, N], M, N, K
+        _I, _P, _I, _P,        # split K, workspace, its length, stream
     ],
 }
 

@@ -33,7 +33,7 @@ from ..fused_tp import FusedUVUConv
 from ..gate import ScaledActivation, shifted_softplus
 from ..segment import segment_sum
 from ..wigner import wigner_3j
-from . import edge_order
+from . import edge_order, row_mix
 from .build import check, check_tensor, load_library
 
 MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 9
@@ -120,15 +120,11 @@ class ConvTables(torch.nn.Module):
                 b_off += n_paths * mul * wo
         self.wsel_len = b_off
         self.mix_plan = plan
-        # every output column belongs to a mix problem
-        self.covers_output = {io for _, io in plan} == {
-            io for io, mo in enumerate(linear_out) if mo.dim}
         self.n_probs = len(probs)
-        # the backward's host builds its products from the problem table
+        # the kernels' host code builds its products from the problem table
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
         self.max_d1 = max((p[1] for p in paths), default=0)
         self.max_d2 = max((p[3] for p in paths), default=0)
-        self.max_wo = max((p[3] for p in probs), default=0)
         self.out_dim = linear_out.dim
 
         def int_buffer(name, rows):
@@ -138,7 +134,6 @@ class ConvTables(torch.nn.Module):
 
         int_buffer("path_table", paths)
         int_buffer("nz_idx", nz_idx)
-        int_buffer("prob_table", probs)
         self.register_buffer(
             "nz_c", torch.tensor(np.asarray(nz_c, np.float32)),
             persistent=False)
@@ -465,8 +460,8 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             order.dst_perm.data_ptr(), order.dst_ptr.data_ptr(), cap, T,
             h_work.data_ptr(), pieces.data_ptr(),
             scratch.data_ptr(), conv.KM, fused.mul,
-            wsel.data_ptr(), conv.prob_table.data_ptr(), conv.n_probs,
-            conv.max_wo, out.data_ptr(), conv.out_dim, stream,
+            wsel.data_ptr(), conv.prob_rows.ctypes.data, conv.n_probs,
+            out.data_ptr(), conv.out_dim, stream,
         )
     check(err, "full_conv_fwd")
     FullConv.launches += 1
@@ -501,6 +496,7 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     work = [empty(N, conv.KM), empty(E, PC), empty(n_hidden, E, H),
             empty(n_hidden, E, H), empty(E, H), empty(E, H),
             empty(N, conv.KMd), empty(T, conv.KMd)]
+    ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -524,7 +520,8 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             gout.data_ptr(), conv.out_dim,
             *(t.data_ptr() for t in work),
             dx.data_ptr(), der.data_ptr(), dw_hidden.data_ptr(),
-            w_hidden.numel(), dw_out.data_ptr(), dwsel.data_ptr(), stream,
+            w_hidden.numel(), dw_out.data_ptr(), dwsel.data_ptr(),
+            ws.data_ptr(), ws.numel(), stream,
         )
     check(err, "full_conv_bwd")
     FullConv.backward_launches += 1

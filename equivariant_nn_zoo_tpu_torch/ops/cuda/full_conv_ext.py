@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from . import row_mix
 from .build import check, check_tensor, load_library
 from .full_conv import MAX_SH, ConvTables
 
@@ -258,9 +259,10 @@ def launch_backward(conv, x, sh, w, wsel, edge_src, edge_dst, num_nodes,
     scratch, dS = _empty(dev, N, conv.KM), _empty(dev, N, conv.KM)
     dx, dsh = _empty(dev, *x.shape), _empty(dev, *sh.shape)
     dw, dwsel = _empty(dev, *w.shape), _empty(dev, conv.wsel_len)
+    ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
     _call("full_conv_ext_bwd", conv, dev, edge_src, edge_dst, N, E,
           x, sh, w, wsel, gout, scratch, dS, dx, dsh, dw, dwsel,
-          conv.wsel_len)
+          conv.wsel_len, ws, ws.numel())
     FullConvExt.launches_bwd += 1
     return dx, dsh, dw, dwsel
 
@@ -278,8 +280,9 @@ def launch_grad2(conv, x, cx, sh, csh, w, cw, wsel, edge_src, edge_dst,
     c_x, c_s = _empty(dev, *x.shape), _empty(dev, *sh.shape)
     c_w, c_m = _empty(dev, *w.shape), _empty(dev, conv.wsel_len)
     c_g = _empty(dev, N, conv.out_dim)
+    ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
     _call("full_conv_ext_grad2", conv, dev, edge_src, edge_dst, N, E,
           x, cx, sh, csh, w, cw, wsel, gout, scratch, dS, c_x, c_s, c_w,
-          c_m, c_g, conv.wsel_len)
+          c_m, c_g, conv.wsel_len, ws, ws.numel())
     FullConvExt.launches_grad2 += 1
     return c_x, c_s, c_w, c_m, c_g

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..wigner import wigner_3j
+from . import row_mix
 from .build import check, check_tensor, load_library
 from .full_conv import MAX_D, mix_rows
 
@@ -187,9 +188,6 @@ class PairwiseTP(torch.nn.Module):
                 b_off += n_paths * mul * wo
         self.wsel_len = b_off
         self.n_probs = len(probs)
-        self.max_wo = max((p[3] for p in probs), default=0)
-        self.covers_output = {io for _, _, io in self.mix_plan} == {
-            io for io, mo in enumerate(lin.irreps_out) if mo.dim}
         self.nz_count = len(nz_idx)
 
         # host copies for the plain contract, device buffers for the kernel
@@ -197,7 +195,6 @@ class PairwiseTP(torch.nn.Module):
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
         self.nz_codes = np.asarray(nz_idx, np.int64)
         for name, rows in (("path_table", self.path_rows),
-                           ("prob_table", self.prob_rows),
                            ("nz_idx", np.asarray(nz_idx, np.int32)),
                            ("slot_table", np.asarray(slot_rows, np.int32)),
                            ("slot_paths", np.asarray(slot_paths, np.int32))):
@@ -334,9 +331,8 @@ def launch_forward(tpk, a, bw, wsel):
             tpk.path_table.data_ptr(), tpk.n_paths,
             tpk.nz_idx.data_ptr(), tpk.nz_c.data_ptr(),
             scratch.data_ptr(), tpk.KM, tpk.mul,
-            wsel.data_ptr(), tpk.prob_table.data_ptr(), tpk.n_probs,
-            tpk.max_wo, out.data_ptr(), tpk.out_dim,
-            int(not tpk.covers_output), stream,
+            wsel.data_ptr(), tpk.prob_rows.ctypes.data, tpk.n_probs,
+            out.data_ptr(), tpk.out_dim, stream,
         )
     check(err, "pairwise_tp_fwd")
     PairwiseTP.launches += 1
@@ -364,6 +360,7 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
     # work: the recomputed unmixed scratch (for dwsel) and its cotangent
     S = empty(M, tpk.KM) if want_m else None
     dS = empty(M, tpk.KM) if want_a or want_b else None
+    ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -383,7 +380,8 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
             tpk.prob_rows.ctypes.data, tpk.n_probs,
             gout.data_ptr(), tpk.out_dim,
             ptr(S), ptr(dS), ptr(da), ptr(dbw), ptr(dwsel),
-            int(want_m) | int(want_a) << 1 | int(want_b) << 2, stream,
+            int(want_m) | int(want_a) << 1 | int(want_b) << 2,
+            ws.data_ptr(), ws.numel(), stream,
         )
     check(err, "pairwise_tp_bwd")
     PairwiseTP.backward_launches += 1

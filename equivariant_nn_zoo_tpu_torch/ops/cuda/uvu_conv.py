@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from . import row_mix
 from .build import check, check_tensor, load_library
 from .full_conv import MAX_D, MAX_SH, ConvTables
 
@@ -144,9 +145,8 @@ def launch_forward(conv, x, sh, w, wsel, edge_src):
             conv.path_table.data_ptr(), conv.n_paths,
             conv.nz_idx.data_ptr(), conv.nz_c.data_ptr(),
             scratch.data_ptr(), conv.KM, fused.mul,
-            wsel.data_ptr(), conv.prob_table.data_ptr(), conv.n_probs,
-            conv.max_wo, out.data_ptr(), conv.out_dim,
-            int(not conv.covers_output), stream,
+            wsel.data_ptr(), conv.prob_rows.ctypes.data, conv.n_probs,
+            out.data_ptr(), conv.out_dim, stream,
         )
     check(err, "uvu_conv_fwd")
     UVUConv.launches += 1
@@ -175,6 +175,7 @@ def launch_backward(conv, x, sh, w, wsel, edge_src, scratch, gout):
     dx, dsh = empty(N, fused.irreps_in.dim), empty(E, fused.J_dim)
     dw, dwsel = empty(E, fused.weight_numel), empty(conv.wsel_len)
     dS = empty(E, conv.KM)          # work: cotangent of the scratch
+    ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -190,7 +191,7 @@ def launch_backward(conv, x, sh, w, wsel, edge_src, scratch, gout):
             conv.prob_rows.ctypes.data, conv.n_probs,
             gout.data_ptr(), conv.out_dim,
             dS.data_ptr(), dx.data_ptr(), dsh.data_ptr(), dw.data_ptr(),
-            dwsel.data_ptr(), stream,
+            dwsel.data_ptr(), ws.data_ptr(), ws.numel(), stream,
         )
     check(err, "uvu_conv_bwd")
     UVUConv.backward_launches += 1

@@ -13,9 +13,12 @@ step's gradients against the CPU plain path.
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
 skips (the decision is taken inside the fixture, never at import).
-TF32 is off, so both sides compute in float32; the kernels sum in another
-order than the plain versions, some with atomics in a varying order, so
-agreement is rel-linf 1e-4 of max|plain|.
+TF32 is off, so the plain versions compute in float32; the kernels sum in
+another order (the mix GEMM of ``csrc/row_mix.cuh`` in 3xTF32 on the tensor
+cores), some with atomics in a varying order, so agreement is rel-linf
+1e-4 of max|plain|.  The mix GEMM (forward mix, dS, dwsel and the radial
+MLP's products) is also checked on its own at ragged shapes, and the
+outputs it makes repeatable are checked to repeat bit for bit.
 """
 
 import numpy as np
@@ -1004,3 +1007,151 @@ def test_hamiltonian_train_step_gradients_match_cpu(hamiltonian):
             assert float(got[name].abs().max()) < floor, name
         else:
             assert _rel(got[name], w) <= TOL, (name, _rel(got[name], w))
+
+
+# ------------------------------------------------- the mix GEMM (row_mix)
+
+def _mix_table(groups, mul):
+    """A problem table as ``ConvTables`` builds one: per group (paths, d,
+    output slot widths) the problems of each slot and component; returns
+    ``(prob_rows, KM, out_dim, wsel_len)``."""
+    rows, a_col, b_off, start, starts = [], 0, 0, 0, []
+    for _, d, wos in groups:
+        starts.append([])
+        for wo in wos:
+            starts[-1].append(start)
+            start += wo * d
+    for (n_paths, d, wos), slot_starts in zip(groups, starts):
+        kdim = n_paths * mul
+        for wo, s0 in zip(wos, slot_starts):
+            for dd in range(d):
+                rows.append([a_col + dd * kdim, kdim, b_off, wo, s0 + dd, d])
+            b_off += kdim * wo
+        a_col += d * kdim
+    return np.asarray(rows, np.int32).reshape(-1, 6), a_col, start, b_off
+
+
+# every c_stride 1-9 and slot widths 1, 64 and 384, several slots per group
+MIX_TABLES = {
+    "narrow": ([(3, 1, [1, 4]), (2, 2, [1]), (1, 3, [4]), (2, 4, [1]),
+                (1, 5, [3]), (2, 6, [1]), (1, 7, [4]), (1, 8, [2]),
+                (5, 9, [4, 3])], 4),
+    "wide": ([(3, 1, [64, 384]), (4, 3, [64]), (2, 5, [64]), (1, 7, [64]),
+              (6, 9, [64, 64])], 64),
+    "single": ([(1, 1, [1]), (2, 7, [1])], 1),
+}
+
+
+@pytest.mark.parametrize("rows", [1, 49, 65, 3072])
+@pytest.mark.parametrize("table", list(MIX_TABLES))
+def test_row_mix_products_match_plain_and_repeat(cuda, table, rows):
+    """The forward mix, dS and dwsel of the GEMM against their plain
+    version (``row_mix.run_plan``), at ragged rows and slot widths; each
+    repeats bit for bit."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
+
+    pr, KM, out_dim, wsel_len = _mix_table(*MIX_TABLES[table])
+    g = torch.Generator().manual_seed(rows)
+    S = torch.randn(rows, KM, generator=g).to(cuda)
+    gout = torch.randn(rows, out_dim, generator=g).to(cuda)
+    wsel = torch.randn(wsel_len, generator=g).to(cuda)
+    before = rm.launches()
+    for kind in (rm.FORWARD, rm.ROWS, rm.WEIGHTS):
+        def run():
+            if kind == rm.FORWARD:
+                return rm.launch_forward(S, wsel, pr, out_dim)
+            return rm.launch_backward(kind, pr, KM, gout, S=S, wsel=wsel,
+                                      wsel_len=wsel_len)
+        got, again = run(), run()
+        want = rm.run_plan(kind, pr, rows, KM, out_dim, S=S, wsel=wsel,
+                           gout=gout, wsel_len=wsel_len)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), kind
+        assert _rel(got, want) <= TOL, (kind, _rel(got, want))
+        assert torch.equal(got, again), kind
+    after = rm.launches()
+    assert after["forward"] > before["forward"]
+    assert after["backward"] > before["backward"]
+
+
+@pytest.mark.parametrize("M,N,K,a_t,b_t,split", [
+    (64, 3072, 24386, True, False, True),    # dW_out = h^T dw
+    (24386, 64, 3072, False, True, False),   # dh = dw W_out^T
+    (8, 64, 4099, True, False, True),        # dW_0 = er^T dz
+    (4099, 8, 64, False, True, False),       # d er = dz W_0^T
+    (5, 7, 3, False, False, True),
+    (65, 49, 1, True, True, False)])
+def test_row_mix_matmul_matches_torch_and_repeats(cuda, M, N, K, a_t, b_t,
+                                                  split):
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
+
+    g = torch.Generator().manual_seed(M + N + K)
+    A = torch.randn(*((K, M) if a_t else (M, K)), generator=g).to(cuda)
+    B = torch.randn(*((N, K) if b_t else (K, N)), generator=g).to(cuda)
+    got = rm.launch_matmul(A, B, a_t, b_t, split)
+    again = rm.launch_matmul(A, B, a_t, b_t, split)
+    want = (A.T if a_t else A) @ (B.T if b_t else B)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    assert _rel(got, want) <= TOL
+    assert torch.equal(got, again)
+
+
+def test_backward_products_repeat_bit_for_bit(model_and_batch, hamiltonian):
+    """The outputs that the GEMM's plain stores and fixed order of
+    summation make repeatable: K2's dW and dwsel, K6b's dwsel, K5's dwsel,
+    d left and dbw, and the forward mix of K4f's problem table (K4f's
+    edge sweep itself still scatters its scratch with atomics)."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_mod
+
+    def twice(fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        return a, b
+
+    model, gb = model_and_batch
+    conv = model.layer3.conv
+    data = _layer3_inputs(model, gb)
+    with torch.no_grad():
+        x = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    args = _k2_case(conv, x, er, data["edge_spherical"],
+                    data["edge_index"][0], data["edge_index"][1],
+                    x.shape[0], 0.1 ** 0.5, seed=4)
+    a, b = twice(lambda: full_conv_mod.launch_backward(conv.full_conv, *args))
+    for name, u, v in zip(K2_OUT, a, b):
+        if name in ("dw_hidden", "dw_out", "dwsel"):
+            assert torch.equal(u, v), f"K2 {name}"
+
+    hmodel, _, seen = hamiltonian
+    head = hmodel.pairwise
+    tpk, fc = head.pairwise_tp, head.conv.full_conv
+    dev = seen["K6"][0][1].device
+    for i, (tpe, left, right) in enumerate(seen["K5"]):
+        with torch.no_grad():
+            bw = tpk.weighted_right(tpe.tp.weight, right)
+            wsel = tpk.flat_wsel(tpe.linear)
+        gout = _cotangent(left.shape[0], tpk.out_dim, 40 + i, dev)
+        a, b = twice(lambda: k5_mod.launch_backward(tpk, left, bw, wsel,
+                                                    gout))
+        for name, u, v in zip(K5_OUT, a, b):
+            assert torch.equal(u, v), f"K5 {name}"
+    linear, x6, sh, w, src = seen["K6"][0]
+    with torch.no_grad():
+        wsel = fc.flat_wsel(linear)
+        _, scratch = k6_mod.launch_forward(fc, x6, sh, w, wsel, src)
+    gout = _cotangent(sh.shape[0], fc.out_dim, 42, dev)
+    a, b = twice(lambda: k6_mod.launch_backward(fc, x6, sh, w, wsel, src,
+                                                scratch, gout))
+    assert torch.equal(a[3], b[3]), "K6b dwsel"
+
+    ext = _small_conv(dev, 64, grad_order=2).full_conv
+    S4 = torch.randn(300, ext.KM, generator=torch.Generator().manual_seed(
+        12)).to(dev)
+    wsel4 = torch.randn(ext.wsel_len, generator=torch.Generator(
+    ).manual_seed(13)).to(dev)
+    a, b = twice(lambda: rm.launch_forward(S4, wsel4, ext.prob_rows,
+                                           ext.out_dim))
+    assert torch.equal(a, b), "K4f mix"

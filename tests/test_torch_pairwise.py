@@ -149,7 +149,10 @@ def test_kernel_tables_sizes():
     dense = sum(tp.irreps_in1[i.i_in1].ir.dim * tp.irreps_in2[i.i_in2].ir.dim
                 * tp.irreps_out[i.i_out].ir.dim for i in reach)
     assert 0 < tpk.nz_count < dense
-    assert tpk.covers_output
+    # every output column belongs to a mix problem
+    cols = {c_off + cs * w for _, _, _, wo, c_off, cs in tpk.prob_rows
+            for w in range(wo)}
+    assert cols == set(range(tpk.out_dim))
 
 
 def test_launch_runs_in_chunks(routed, monkeypatch):
