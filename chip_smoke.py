@@ -6,6 +6,9 @@
     python3 chip_smoke.py --walk-ablation  # their walks' parts, see there
     python3 chip_smoke.py --mix-times      # the mix GEMM's product sets,
                                            # see mix_times
+    python3 chip_smoke.py --ext-times      # K4f, K4b, K4g alone and the
+                                           # force step, see ext_times
+    python3 chip_smoke.py --ext-calls      # K4f, K4b, K4g alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -47,10 +50,13 @@ Phases, in order; any failure exits non-zero before the last line:
              weights (labels N(0, 1), so the float32 residual is
              well-conditioned);
 10. K4f, K4b, K4g — the force path's external-weight conv core, its VJP
-             and its one-pass second-order backward against their plain
-             versions, at ``config_energy_force``'s hot-layer shapes (layer3
-             of a 64-graph synthetic protein-fragment batch) with seeded
-             cotangents;
+             (on K4f's saved scratch, as the main path calls it, and with
+             the scratch recomputed, as the pairing rule calls it) and its
+             one-pass second-order backward against their plain versions,
+             at ``config_energy_force``'s hot-layer shapes (layer3 of a
+             64-graph synthetic protein-fragment batch) with seeded
+             cotangents, on one edge order; every output of each must
+             repeat bit for bit over two launches;
 11. force serve — full-width ``config_energy_force`` (seeded weights)
              serves 4 batches of 64 graphs through ``inference.evaluate``
              (energies and forces); K4f and K4b must launch at least once
@@ -520,15 +526,16 @@ def worst_gradient_rel(got, want):
 # kernel families of a profile, first match wins: (label, regex on the name)
 PROFILE_FAMILIES = (
     ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
-    ("K4 edge sweeps", "ext_edge_kernel"),
+    ("K4 walks (ext_dst_walk_kernel, ext_src_walk_kernel, "
+     "ext_chunk_sum_kernel)", "ext_"),
     ("forward mix (rowmix::gemm_kernel<true, false>)",
      r"gemm_kernel<true, false>|mix_rows_kernel"),
     ("backward's tiled products (rowmix::gemm_kernel, its split sum and "
      "gout's copy)", r"rowmix::"),
     ("Adam (profiler range)", r"Optimizer\.step"),
     ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
-    ("K1/K2 radial hidden layers, piece sums, dx sums",
-     "mlp_hidden_kernel|walk_piece_sum_kernel|k2_dx_kernel"),
+    ("the walks' radial hidden layers (K1/K2), piece sums, dx sums",
+     "mlp_hidden_kernel|walk_piece_sum_kernel|walk_dx_kernel"),
     ("K5 sweeps (cg, da, dbw)", "pairwise_"),
     ("K6 and K6b sweeps", "uvu_"),
     ("K3 and K3b", "species_sc"),
@@ -538,11 +545,11 @@ PROFILE_FAMILIES = (
 )
 
 
-def profile_kernels(what, run, n_items, filename):
-    """``torch.profiler`` over ``run()`` (``n_items`` steps or batches):
-    kernel time by name, written to ``chiprun_out/<filename>``; returns the
-    kernel time per item in ms (the span itself is stretched by the
-    profiler, so a busy share is taken against an unprofiled run)."""
+def kernel_rows(run):
+    """``torch.profiler`` over ``run()``: ``(rows, families, span)``, the
+    kernels' (ms, launches, name) from the most time down, the same summed
+    by ``PROFILE_FAMILIES`` label as {label: [ms, launches]}, and the
+    profiled span in s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -560,11 +567,6 @@ def profile_kernels(what, run, n_items, filename):
                          getattr(e, "self_cuda_time_total", 0))
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    lines = [f"{n_items} {what}: kernel time {total:.3f} ms "
-             f"({total / n_items:.3f} ms each, "
-             f"{sum(r[1] for r in rows) / n_items:.0f} launches each) over a "
-             f"{1e3 * span:.3f} ms profiled span"]
     families = {}
     for ms, n, name in rows:
         label = next(lab for lab, pat in PROFILE_FAMILIES
@@ -572,6 +574,21 @@ def profile_kernels(what, run, n_items, filename):
         fam = families.setdefault(label, [0.0, 0])
         fam[0] += ms
         fam[1] += n
+    return rows, families, span
+
+
+def profile_kernels(what, run, n_items, filename):
+    """``torch.profiler`` over ``run()`` (``n_items`` steps or batches):
+    kernel time by name, written to ``<filename>`` in the output directory
+    (see below); returns the kernel time per item in ms (the span itself
+    is stretched by the profiler, so a busy share is taken against an
+    unprofiled run)."""
+    rows, families, span = kernel_rows(run)
+    total = sum(r[0] for r in rows)
+    lines = [f"{n_items} {what}: kernel time {total:.3f} ms "
+             f"({total / n_items:.3f} ms each, "
+             f"{sum(r[1] for r in rows) / n_items:.0f} launches each) over a "
+             f"{1e3 * span:.3f} ms profiled span"]
     lines += [f"  family {label}: {ms / n_items:.3f} ms each "
               f"({100 * ms / max(total, 1e-30):.2f} %), "
               f"{n / n_items:.1f} launches each"
@@ -595,6 +612,41 @@ def profile_force_step(trainer, train):
                     len(train), "force_step_profile.txt")
 
 
+def force_hot_layer(model, gb, dev):
+    """The K4 kernels' operands at the force hot layer of ``model`` on
+    ``gb``, and seeded cotangents: ``(fc, (x, sh, w, wsel, src, dst, N, cx,
+    csh, cw, gout))``."""
+    import torch
+
+    conv = getattr(model.func, HOT_LAYER).conv
+    seen = {}
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    with torch.no_grad():
+        model(gb)
+    hook.remove()
+    data = {k: v.detach() for k, v in seen["data"].items()}
+    fc = conv.full_conv
+    with torch.no_grad():
+        x = conv.linear_1(data["input_features"])
+        w = conv.fc(data["edge_radial"] * data["_edge_mask"])
+        wsel = fc.flat_wsel(conv.tp.linear, conv.avg_num_neighbors ** -0.5)
+    sh = data["edge_spherical"]
+    src, dst = data["edge_index"][0], data["edge_index"][1]
+    N = x.shape[0]
+    gen = torch.Generator().manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    cx, csh, cw = rnd(*x.shape), rnd(*sh.shape), rnd(*w.shape)
+    gout = rnd(N, fc.out_dim)
+    print(f"force hot layer {HOT_LAYER}: N={N} E={sh.shape[0]} "
+          f"in={fc.fused.irreps_in} K={fc.fused.K_dim} paths={fc.n_paths} "
+          f"P*mul={fc.fused.weight_numel} out_dim={fc.out_dim}")
+    return fc, (x, sh, w, wsel, src, dst, N, cx, csh, cw, gout)
+
+
 def force_phases(dev):
     """Phases 10-13 of the module docstring (the ``config_energy_force``
     path); returns the K4 kernels' records."""
@@ -602,6 +654,7 @@ def force_phases(dev):
 
     from equivariant_nn_zoo_tpu_torch.inference import evaluate
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext
     from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 
@@ -615,55 +668,59 @@ def force_phases(dev):
     model.eval()
 
     # --------------------------------------------------- K4f, K4b, K4g
-    conv = getattr(model.func, HOT_LAYER).conv
-    seen = {}
-    hook = conv.register_forward_pre_hook(
-        lambda mod, args: seen.update(data=args[0]))
-    with torch.no_grad():
-        model(batches[0])
-    hook.remove()
-    data = {k: v.detach() for k, v in seen["data"].items()}
-    fc = conv.full_conv
-    with torch.no_grad():
-        x = conv.linear_1(data["input_features"])
-        w = conv.fc(data["edge_radial"] * data["_edge_mask"])
-        wsel = fc.flat_wsel(conv.tp.linear, conv.avg_num_neighbors ** -0.5)
-    sh = data["edge_spherical"]
-    src, dst = data["edge_index"][0], data["edge_index"][1]
-    N, E = x.shape[0], sh.shape[0]
-    gen = torch.Generator().manual_seed(4)
-
-    def rnd(*shape):
-        return torch.randn(*shape, generator=gen).to(dev)
-
-    cx, csh, cw = rnd(*x.shape), rnd(*sh.shape), rnd(*w.shape)
-    gout = rnd(N, fc.out_dim)
-    print(f"force hot layer {HOT_LAYER}: N={N} E={E} "
-          f"in={fc.fused.irreps_in} K={fc.fused.K_dim} paths={fc.n_paths} "
-          f"P*mul={fc.fused.weight_numel} out_dim={fc.out_dim}")
+    fc, (x, sh, w, wsel, src, dst, N, cx, csh, cw, gout) = force_hot_layer(
+        model, batches[0], dev)
+    E = sh.shape[0]
     fa = (x, sh, w, wsel, src, dst, N)
     ga = (x, cx, sh, csh, w, cw, wsel, src, dst, N, gout)
+    # one edge order for all calls, as one forward builds it for its layers
+    order = edge_order.shared(src, dst, N)
+    with torch.no_grad():
+        saved = ext.launch_forward(fc, *fa, order=order)[1]
+    calls = {
+        "K4f": lambda: ext.launch_forward(fc, *fa, order=order),
+        "K4b": lambda: ext.launch_backward(fc, *fa, gout, order=order,
+                                           scratch=saved),
+        "K4b recomputed": lambda: ext.launch_backward(fc, *fa, gout,
+                                                      order=order),
+        "K4g": lambda: ext.launch_grad2(fc, *ga, order=order),
+    }
     k4f = compare_grads(
-        "K4f full_conv_ext_fwd", lambda: (ext.launch_forward(fc, *fa),),
+        "K4f full_conv_ext_fwd", lambda: calls["K4f"]()[:1],
         lambda: (fc.plain_forward(*fa),), ("out",))
     k4b = compare_grads(
-        "K4b full_conv_ext_bwd", lambda: ext.launch_backward(fc, *fa, gout),
+        "K4b full_conv_ext_bwd, on K4f's saved scratch", calls["K4b"],
+        lambda: fc.plain_backward(*fa, gout), ("dx", "dsh", "dw", "dwsel"))
+    k4b_re = compare_grads(
+        "K4b full_conv_ext_bwd, scratch recomputed", calls["K4b recomputed"],
         lambda: fc.plain_backward(*fa, gout), ("dx", "dsh", "dw", "dwsel"))
     k4g = compare_grads(
-        "K4g full_conv_ext_grad2", lambda: ext.launch_grad2(fc, *ga),
+        "K4g full_conv_ext_grad2", calls["K4g"],
         lambda: fc.plain_grad2(*ga), ("c_x", "c_s", "c_w", "c_m", "c_g"))
+    # the walks sum in a fixed order and store each node once: every
+    # output repeats bit for bit
+    with torch.no_grad():
+        for name, fn in calls.items():
+            a, b = fn(), fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                fail(f"{name}: outputs differ between two launches")
+    print("K4f, K4b (both branches), K4g: every output repeats bit for bit")
     cc = conv_counts(fc, N, E)
     ops, edges = nbytes(x, sh, w, wsel), nbytes(src, dst)
     out_bytes = N * fc.out_dim * 4
     costs = {
         "K4f": (cc["cg"] + 2 * cc["rows"] + cc["mix"],
                 ops + edges + out_bytes),
-        "K4b": (3 * cc["cg"] + 4 * cc["rows"] + 2 * cc["mix"],
-                2 * ops + edges + out_bytes),
+        # the main path's K4b reads K4f's scratch instead of recomputing it
+        "K4b": (2 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
+                2 * ops + edges + out_bytes + nbytes(saved)),
+        "K4b recomputed": (3 * cc["cg"] + 4 * cc["rows"] + 2 * cc["mix"],
+                           2 * ops + edges + out_bytes),
         "K4g": (7 * cc["cg"] + 6 * cc["rows"] + 3 * cc["mix"],
                 2 * ops + nbytes(cx, csh, cw) + edges + 2 * out_bytes),
     }
-    del data, x, w, sh, cx, csh, cw, gout, fa, ga
+    del x, w, sh, cx, csh, cw, gout, fa, ga, saved, calls
 
     # ------------------------------------------------------- force serve
     keys = ["energy", "forces"]
@@ -806,10 +863,11 @@ def force_phases(dev):
                       "fused_conv.py:1348",
                       train_launches["full_conv_ext_fwd"], k4f,
                       *costs["K4f"]),
-        kernel_record("full_conv_ext_bwd", "full_conv_ext.cu",
-                      "fused_conv.py:1432",
-                      train_launches["full_conv_ext_bwd"], k4b,
-                      *costs["K4b"]),
+        dict(kernel_record("full_conv_ext_bwd", "full_conv_ext.cu",
+                           "fused_conv.py:1432",
+                           train_launches["full_conv_ext_bwd"], k4b,
+                           *costs["K4b"]),
+             recomputed=dict(k4b_re, **bound(*costs["K4b recomputed"]))),
         kernel_record("full_conv_ext_grad2", "full_conv_ext.cu",
                       "fused_conv.py:1618",
                       train_launches["full_conv_ext_grad2"], k4g,
@@ -1761,6 +1819,133 @@ def conv_times():
                       "conv_times": times}))
 
 
+def ext_times(calls_only=False):
+    """``python3 chip_smoke.py --ext-times``: the force path's three C
+    entries (K4f, K4b, K4g) of the package in the current directory (run it
+    from two checkouts in turn to compare them on one card), at
+    ``config_energy_force``'s hot layer (phase 10's shapes and seeds), ms
+    per call with CUDA events and each kernel's device ms
+    (``kernel_split``); K4b both on K4f's saved scratch and with the
+    scratch recomputed where the package has both (an older one only
+    recomputes).  Then the force training step (``run.Trainer`` with the
+    config's settings on phase 12's batches: host ms per step around
+    ``synchronize`` over 12 steps, peak memory, and kernel ms per step by
+    family over 4 profiled steps) and force serving (energies and forces of
+    phase 11's 4 batches: host ms per batch, kernel ms per batch by
+    family).  One JSON line.  ``--ext-calls`` times the three entries
+    alone (``calls_only``)."""
+    import inspect
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    import equivariant_nn_zoo_tpu_torch as pkg
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("config_energy_force")
+    mc = cfg["model_config"]
+    batches = make_batches(synthetic_fragments(
+        N_BATCHES * FORCE_BATCH, np.random.default_rng(10)), dev, FORCE_BATCH)
+    model = build_model(mc, dev, torch.Generator().manual_seed(0))
+    model.eval()
+    fc, (x, sh, w, wsel, src, dst, N, cx, csh, cw, gout) = force_hot_layer(
+        model, batches[0], dev)
+    fa = (x, sh, w, wsel, src, dst, N)
+    ga = (x, cx, sh, csh, w, cw, wsel, src, dst, N, gout)
+    walks = "order" in inspect.signature(ext.launch_backward).parameters
+    rec = {"N": N, "E": int(sh.shape[0]), "walks": walks}
+    with torch.no_grad():
+        entries = {}
+        if walks:
+            from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+
+            kw = {"order": edge_order.shared(src, dst, N)}
+            saved = ext.launch_forward(fc, *fa, **kw)[1]
+            entries["K4f"] = lambda: ext.launch_forward(fc, *fa, **kw)
+            entries["K4b"] = lambda: ext.launch_backward(
+                fc, *fa, gout, scratch=saved, **kw)
+            entries["K4b_recomputed"] = lambda: ext.launch_backward(
+                fc, *fa, gout, **kw)
+            entries["K4g"] = lambda: ext.launch_grad2(fc, *ga, **kw)
+        else:
+            entries["K4f"] = lambda: ext.launch_forward(fc, *fa)
+            entries["K4b_recomputed"] = lambda: ext.launch_backward(
+                fc, *fa, gout)
+            entries["K4g"] = lambda: ext.launch_grad2(fc, *ga)
+        for name, fn in entries.items():
+            rec[name] = {"ms": cuda_ms(fn), "kernels": kernel_split(fn)}
+            print(f"{name}: {rec[name]['ms']:.4f} ms {rec[name]['kernels']}",
+                  flush=True)
+    del entries, fa, ga, x, sh, w, cx, csh, cw, gout
+    if walks:
+        del saved, kw
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if calls_only:
+        print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                          "card": smi.stdout.strip(), "ext_times": rec}))
+        return
+
+    def families(run, n):
+        rows, fams, _ = kernel_rows(run)
+        return (round(sum(r[0] for r in rows) / n, 4),
+                round(sum(r[1] for r in rows) / n, 1),
+                {k: round(v[0] / n, 4) for k, v in sorted(
+                    fams.items(), key=lambda kv: -kv[1][0])})
+
+    # ------------------------------------------------------- force serve
+    def serve():
+        with torch.no_grad():
+            for gb in batches:
+                model(gb)
+
+    serve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        serve()
+    torch.cuda.synchronize()
+    host = 1e3 * (time.perf_counter() - t0) / (3 * len(batches))
+    kms, launches, fams = families(serve, len(batches))
+    rec["serve"] = {"host_ms": host, "kernel_ms": kms, "launches": launches,
+                    "families": fams}
+    print(f"force serve: {host:.3f} ms per {FORCE_BATCH}-graph batch (host),"
+          f" {kms} ms of kernels in {launches} launches; {fams}", flush=True)
+
+    # ------------------------------------------------------- force train
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    train = make_batches(synthetic_fragments(
+        5 * FORCE_BATCH, np.random.default_rng(11)), dev, FORCE_BATCH)[:4]
+    trainer = Trainer(build_model(mc, dev, torch.Generator().manual_seed(0)),
+                      **settings)
+    for gb in train[:2]:
+        trainer.batch_step(gb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for gb in train:
+            trainer.batch_step(gb)
+    torch.cuda.synchronize()
+    host = 1e3 * (time.perf_counter() - t0) / (3 * len(train))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kms, launches, fams = families(
+        lambda: [trainer.batch_step(gb) for gb in train], len(train))
+    rec["step"] = {"host_ms": host, "kernel_ms": kms, "launches": launches,
+                   "peak_gib": peak, "families": fams}
+    print(f"force step: {host:.3f} ms (host), {kms} ms of kernels in "
+          f"{launches} launches, peak {peak:.3f} GiB; {fams}", flush=True)
+    print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                      "card": smi.stdout.strip(), "ext_times": rec}))
+
+
 # the kernels of the mix GEMM's family in kernel_split's names: the
 # redesigned GEMM, its split reduction and gout's component-major copy,
 # and the earlier tiled kernels (a parent checkout's)
@@ -1965,61 +2150,84 @@ def mix_times():
                       "card": smi.stdout.strip(), "mix_times": sets}))
 
 
-# the walk ablation: each part of both walk kernels as the (pattern,
-# replacement) that leaves it out of their sources, and the variants timed,
-# as (label, parts left out); a variant computes wrong results and is only
-# timed
+# the walk ablation: each part of the walk kernels as, per source, the
+# (pattern, replacement, matches) edits that leave it out, and the
+# variants timed, as (label, parts left out); a variant computes wrong
+# results and is only timed.  K1 and K2 (full_conv.cu, full_conv_bwd.cu)
+# are timed by --conv-times, the K4 walks (full_conv_ext.cu) by --ext-calls.
+WALK_CG = (r"\n *(if \(kTwo\)\n *)?cg_matrices<kRows>\(st, [^;]*;", "")
+WALK_EDGES = (r"for \(int q = 0; q < nq; \+\+q\)",
+              "for (int q = 0; q < 0; ++q)")
 WALK_PARTS = {
-    "radial weights": (r"\n *radial_weights\(st, [^;]*;", ""),
-    "CG matrices": (r"\n *cg_matrices<kRows>\(st, [^;]*;", ""),
-    "per-edge products": (r"for \(int q = 0; q < nq; \+\+q\)",
-                          "for (int q = 0; q < 0; ++q)"),
+    "radial weights": {
+        src: [(r"\n *radial_weights\(st, [^;]*;", "", 1)]
+        for src in ("full_conv.cu", "full_conv_bwd.cu")},
+    "CG matrices": {"full_conv.cu": [(*WALK_CG, 1)],
+                    "full_conv_bwd.cu": [(*WALK_CG, 1)],
+                    "full_conv_ext.cu": [(*WALK_CG, 4)]},
+    "per-edge products": {"full_conv.cu": [(*WALK_EDGES, 1)],
+                          "full_conv_bwd.cu": [(*WALK_EDGES, 1)],
+                          "full_conv_ext.cu": [(*WALK_EDGES, 2)]},
+    "dsh lane sums": {"full_conv_ext.cu": [
+        (r"if \(dv > 4\) \{", "if (false) {", 1),
+        (r"\} else if \(dv > 1\) \{", "} else if (false) {", 1),
+        (r"sum = lane_sums<1>\(r1, lanes, lane\);", "sum = r1[0];", 1)]},
 }
 WALK_ABLATIONS = (
     ("without the radial weights", ["radial weights"]),
     ("without the CG matrices", ["CG matrices"]),
     ("without the per-edge products", ["per-edge products"]),
-    ("staging only", list(WALK_PARTS)),
+    ("without the dsh lane sums", ["dsh lane sums"]),
+    ("staging only", ["radial weights", "CG matrices", "per-edge products"]),
 )
 
 
 def walk_ablation():
     """``python3 chip_smoke.py --walk-ablation``: where the time of the walk
-    kernels (K1, K2; ``csrc/edge_walk.cuh``) goes, without a profiler that
-    reads the card's counters: copies of the package in
-    ``build/walk_ablation/`` (gitignored) each leave out parts of both
-    walks (``WALK_ABLATIONS``), and ``--conv-times`` times each copy after
-    the package itself.  A part costs about the time that its absence
-    saves."""
+    kernels (K1, K2 and the K4 family; ``csrc/edge_walk.cuh``) goes,
+    without a profiler that reads the card's counters: copies of the
+    package in ``build/walk_ablation/`` (gitignored) each leave out parts
+    of the walks (``WALK_ABLATIONS``), and ``--conv-times`` (K1, K2) and
+    ``--ext-calls`` (K4f, K4b, K4g) time each copy that the edits touch,
+    after the package itself.  A part costs about the time that its
+    absence saves."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "equivariant_nn_zoo_tpu_torch")
-    runs = [("package as it is", root)]
+    runs = [("package as it is", root, {"full_conv.cu", "full_conv_ext.cu"})]
     for i, (label, parts) in enumerate(WALK_ABLATIONS):
         dest = os.path.join(root, "build", "walk_ablation", str(i))
         shutil.rmtree(dest, ignore_errors=True)
         shutil.copytree(pkg, os.path.join(dest, os.path.basename(pkg)),
                         ignore=shutil.ignore_patterns("__pycache__"))
-        for src in ("full_conv.cu", "full_conv_bwd.cu"):
-            path = os.path.join(dest, os.path.basename(pkg), "csrc", src)
-            with open(path) as f:
-                text = f.read()
-            for part in parts:
-                text, n = re.subn(*WALK_PARTS[part], text)
-                if n != 1:
-                    fail(f"walk ablation: '{part}' matched {n} times in {src}")
-            with open(path, "w") as f:
-                f.write(text)
-        runs.append((label, dest))
-    for label, cwd in runs:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--conv-times"], cwd=cwd, capture_output=True,
-                             text=True, timeout=600)
-        if res.returncode != 0:
-            fail(f"walk ablation, {label}:\n{res.stdout}{res.stderr}")
-        for line in res.stdout.splitlines()[:-1]:
-            print(f"{label}: {line}")
+        touched = set()
+        for part in parts:
+            for src, edits in WALK_PARTS[part].items():
+                path = os.path.join(dest, os.path.basename(pkg), "csrc", src)
+                with open(path) as f:
+                    text = f.read()
+                for pattern, repl, want in edits:
+                    text, n = re.subn(pattern, repl, text)
+                    if n != want:
+                        fail(f"walk ablation: '{part}' matched {n} times in "
+                             f"{src}, want {want}")
+                with open(path, "w") as f:
+                    f.write(text)
+                touched.add(src)
+        runs.append((label, dest, touched))
+    for label, cwd, touched in runs:
+        modes = (["--conv-times"] if touched & {"full_conv.cu",
+                                                "full_conv_bwd.cu"} else []) \
+            + (["--ext-calls"] if "full_conv_ext.cu" in touched else [])
+        for mode in modes:
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  mode], cwd=cwd, capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                fail(f"walk ablation, {label}:\n{res.stdout}{res.stderr}")
+            for line in res.stdout.splitlines()[:-1]:
+                print(f"{label}: {line}", flush=True)
 
 
 if __name__ == "__main__":
@@ -2029,6 +2237,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--mix-times"]:
         sys.path.insert(0, os.getcwd())
         mix_times()
+    elif sys.argv[1:] in (["--ext-times"], ["--ext-calls"]):
+        sys.path.insert(0, os.getcwd())
+        ext_times(calls_only=sys.argv[1] == "--ext-calls")
     elif sys.argv[1:] == ["--walk-ablation"]:
         walk_ablation()
     else:

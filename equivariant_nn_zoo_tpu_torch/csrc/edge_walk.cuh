@@ -1,5 +1,6 @@
 // The node-major edge walk shared by the whole-convolution forward (K1,
-// full_conv.cu) and its backward (K2, full_conv_bwd.cu).
+// full_conv.cu) and its backward (K2, full_conv_bwd.cu), and by the force
+// path's external-weight kernels (K4f, K4b, K4g, full_conv_ext.cu).
 //
 // An edge order (ops/cuda/edge_order.py, built once per model forward in
 // plain PyTorch) lists the edges sorted by one endpoint, the key (the
@@ -31,19 +32,20 @@
 // Inside a block, thread (u, g) owns channel u of the chunk's g-th path
 // (all paths of a chunk share one left irrep) and walks the item's edges in
 // key order, keeping the node's running sums in registers until the key
-// changes.  The edges are staged kStage at a time (hidden activations, sh,
-// the x[src] slice: contiguous rows, copied with cp.async so that all of a
+// changes.  The edges are staged kStage at a time (hidden activations or
+// external radial weights, sh, the x[src] slice, and for K4g a second sh
+// and x operand: contiguous rows, copied with cp.async so that all of a
 // stage's gathers are in flight together), then per stage:
-// - the radial weights w[q] = h_L[q] . W_out[:, wcol + u] of all staged
-//   edges at once, kStage independent sums per thread, each W_out element
-//   read once per stage (through L1/L2) and used for kStage edges;
+// - K1 and K2's radial weights w[q] = h_L[q] . W_out[:, wcol + u] of all
+//   staged edges at once, kStage independent sums per thread, each W_out
+//   element read once per stage (through L1/L2) and used for kStage
+//   edges (the K4 kernels stage their own column of w instead);
 // - per (edge, path) the CG matrix contracted with sh,
 //   M[q][m3][m1] = sum_m2 C[m1, m2, m3] sh[q, m2], built once by the
 //   path's 64 threads from the wigner_3j non-zeros (by cell (m3, m1)),
 //   so that each channel's work is a small dense product with
 //   compile-time register indices: K1 adds w * M x into its d3 sums, K2
 //   forms t = M^T g from the gathered cotangent rows.
-
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -62,9 +64,10 @@ constexpr int kPieceThreads = 256;
 // per-path fields of the walk table (ConvTables.walk_table): the paths in
 // walk order (sorted by left irrep); kCell0 is the path's first entry in
 // the cell table, whose d3 * d1 + 1 entries bound the path's wigner_3j
-// non-zeros (sorted by m3, m1, m2) of each cell (m3, m1), absolute
+// non-zeros (sorted by m3, m1, m2) of each cell (m3, m1), absolute; kD2
+// the components of the path's sh irrep
 enum {
-  kXOff = 0, kD1, kJ0, kD3, kRowBase, kRowStride, kWCol, kDCol, kCell0,
+  kXOff = 0, kD1, kJ0, kD3, kRowBase, kRowStride, kWCol, kDCol, kCell0, kD2,
   kWalkFields
 };
 
@@ -184,8 +187,11 @@ static __global__ void walk_piece_sum_kernel(
 
 // Shared memory of the walk kernels, carved from one dynamic buffer: the
 // chunk's CG non-zeros and cell bounds, then per staged edge its hidden
-// activations, sh and x slice, the edge indices, each thread's radial
-// weights and each (edge, path) CG matrix [kRows][pitch(kRows)].
+// activations (K1 and K2 only), sh and x slice (twice for K4g: sh and csh,
+// x and cx), the edge indices, each thread's radial weights (twice for
+// K4g: w and cw) and each (edge, path) CG matrix [kRows][pitch(kRows)]
+// (twice for K4g: of sh and of csh).  ``sets`` is 1, or 2 for K4g's second
+// operands; a region a kernel does not use holds no bytes.
 __host__ __device__ constexpr int pitch(int rows) { return (rows + 3) & ~3; }
 
 struct Stage {
@@ -193,12 +199,17 @@ struct Stage {
   int* cells;    // the chunk's cell bounds, relative to its first non-zero
   float* h;      // [kStage][kMaxHidden], zero past H
   float* sh;     // [kStage][kMaxSh]
+  float* sh2;    // [kStage][kMaxSh], sets = 2
   float* x;      // [kStage][xw]
+  float* x2;     // [kStage][xw], sets = 2
   int* edge;     // [kStage] edge ids
   int* node;     // [kStage] the walk's key node
   int* other;    // [kStage] the other endpoint
   float* w;      // [kStage][threads]
+  float* w2;     // [kStage][threads], sets = 2
   float* m;      // [kStage][kGroups][rows][pitch]
+  float* m2;     // [kStage][kGroups][rows][pitch], sets = 2
+  float* end;    // first float past the stage (16-byte aligned)
 };
 
 // the non-zeros are padded to an even count so the float4 reads of what
@@ -213,45 +224,79 @@ static __host__ __device__ inline int chunk_cells(int d1, int d3) {
 
 static __host__ __device__ inline size_t stage_bytes(int max_nz, int max_d1,
                                                      int max_d3, int xw,
-                                                     int threads, int rows) {
+                                                     int threads, int rows,
+                                                     int sets = 1,
+                                                     bool hidden = true) {
   return (size_t)even(max_nz) * sizeof(float2) +
          (size_t)chunk_cells(max_d1, max_d3) * sizeof(int) +
-         (size_t)kStage * (kMaxHidden + kMaxSh + xw + 3 + threads +
-                           kGroups * rows * pitch(rows)) * sizeof(float);
+         (size_t)kStage * ((hidden ? kMaxHidden : 0) + 3 +
+                           sets * (kMaxSh + xw + threads +
+                                   kGroups * rows * pitch(rows))) *
+             sizeof(float);
 }
 
 __device__ __forceinline__ Stage carve(void* base, int n_nz, int n_cells,
-                                       int xw, int threads) {
+                                       int xw, int threads, int rows = 0,
+                                       int sets = 1, bool hidden = true) {
   Stage st;
+  const int two = sets > 1 ? 1 : 0;
   st.nz = static_cast<float2*>(base);
   st.cells = reinterpret_cast<int*>(st.nz + even(n_nz));
   st.h = reinterpret_cast<float*>(st.cells + pitch(n_cells));
-  st.sh = st.h + kStage * kMaxHidden;
-  st.x = st.sh + kStage * kMaxSh;
-  st.edge = reinterpret_cast<int*>(st.x + kStage * xw);
+  st.sh = st.h + (hidden ? kStage * kMaxHidden : 0);
+  st.sh2 = st.sh + kStage * kMaxSh;
+  st.x = st.sh2 + two * kStage * kMaxSh;
+  st.x2 = st.x + kStage * xw;
+  st.edge = reinterpret_cast<int*>(st.x2 + two * kStage * xw);
   st.node = st.edge + kStage;
   st.other = st.node + kStage;
   // every region above holds a multiple of 4 words (kStage = 16), so the
   // M rows' float4 reads stay 16-byte aligned
   st.w = reinterpret_cast<float*>(st.other + kStage);
-  st.m = st.w + kStage * threads;
+  st.w2 = st.w + kStage * threads;
+  st.m = st.w2 + two * kStage * threads;
+  st.m2 = st.m + kStage * kGroups * rows * pitch(rows);
+  st.end = st.m2 + two * kStage * kGroups * rows * pitch(rows);
   return st;
 }
 
+// What stage_edges copies for each staged edge besides its indices: the
+// last hidden layer's activations (h_last, H; none when H = 0), sh and a
+// second sh operand (sh2), the x slice [x_off, x_off + xw) of the edge's
+// source and a second x operand (x2; none when x is null), and this
+// thread's column ``col`` of the external radial weights and of a second
+// weight operand (w, w2; w null when the kernel computes them).  The second
+// operands are read only by stage_edges<true>.
+struct Staged {
+  const float* h_last;
+  int H;
+  const float* sh;
+  const float* sh2;
+  int J;
+  const float* x;
+  const float* x2;
+  int in_dim, x_off, xw;
+  bool x_vec;
+  const float* w;
+  const float* w2;
+  int PC, col;
+};
+
 // Stage positions [pos0, pos0 + nq) of the order: edge ids, key and other
-// endpoints, the last hidden layer's activations, sh, and the x[src] slice
-// [x_off, x_off + xw).  ``key_is_dst`` picks the walk's key.  Every thread
-// of the block calls it; it first waits for the previous stage's readers.
-// The gathers are asynchronous copies (cp.async), all in flight at once:
-// the stage waits for one round trip to memory, not one per element.  h
-// and x go in 16-byte pieces when H, resp. the x slice, allow it
-// (``x_vec``); st.h's columns past H stay as stage_chunk zeroed them.
+// endpoints, then what ``op`` names (kTwo: its second operands too, K4g's;
+// a compile-time flag, so K1 and K2 keep their one-operand loops).
+// ``key_is_dst`` picks the walk's key.
+// Every thread of the block calls it; it first waits for the previous
+// stage's readers.  The gathers are asynchronous copies (cp.async), all in
+// flight at once: the stage waits for one round trip to memory, not one
+// per element.  h and x go in 16-byte pieces when H, resp. the x slice,
+// allow it (``x_vec``); st.h's columns past H stay as stage_chunk zeroed
+// them.
+template <bool kTwo = false>
 __device__ __forceinline__ void stage_edges(
     const Stage& st, int pos0, int nq, const int* __restrict__ perm,
     const long long* __restrict__ src, const long long* __restrict__ dst,
-    bool key_is_dst, const float* __restrict__ h_last, int H,
-    const float* __restrict__ sh, int J, const float* __restrict__ x,
-    int in_dim, int x_off, int xw, bool x_vec, int tid, int nthr) {
+    bool key_is_dst, const Staged& op, int tid, int nthr) {
   __syncthreads();
   for (int i = tid; i < nq; i += nthr) {
     const int e = perm[pos0 + i];
@@ -260,35 +305,55 @@ __device__ __forceinline__ void stage_edges(
     st.other[i] = (int)(key_is_dst ? src[e] : dst[e]);
   }
   __syncthreads();
+  const int H = op.H;
   if (H % 4 == 0) {
     const int h4 = H / 4;
     for (int i = tid; i < nq * h4; i += nthr) {
       const int q = i / h4, c = i - q * h4;
       __pipeline_memcpy_async(st.h + q * kMaxHidden + 4 * c,
-                              h_last + (size_t)st.edge[q] * H + 4 * c, 16);
+                              op.h_last + (size_t)st.edge[q] * H + 4 * c, 16);
     }
   } else {
     for (int i = tid; i < nq * H; i += nthr) {
       const int q = i / H, c = i - q * H;
       __pipeline_memcpy_async(st.h + q * kMaxHidden + c,
-                              h_last + (size_t)st.edge[q] * H + c, 4);
+                              op.h_last + (size_t)st.edge[q] * H + c, 4);
     }
   }
+  const int J = op.J;
   for (int i = tid; i < nq * J; i += nthr) {
     const int q = i / J, j = i - q * J;
-    __pipeline_memcpy_async(st.sh + q * kMaxSh + j,
-                            sh + (size_t)st.edge[q] * J + j, 4);
+    const size_t at = (size_t)st.edge[q] * J + j;
+    __pipeline_memcpy_async(st.sh + q * kMaxSh + j, op.sh + at, 4);
+    if (kTwo)
+      __pipeline_memcpy_async(st.sh2 + q * kMaxSh + j, op.sh2 + at, 4);
   }
-  const int n = x_vec ? xw / 4 : xw;
-  for (int q = 0; q < nq; ++q) {
-    const int s = key_is_dst ? st.other[q] : st.node[q];
-    const float* xs = x + (size_t)s * in_dim + x_off;
-    float* xd = st.x + q * xw;
-    for (int c = tid; c < n; c += nthr) {
-      if (x_vec)
-        __pipeline_memcpy_async(xd + 4 * c, xs + 4 * c, 16);
-      else
-        __pipeline_memcpy_async(xd + c, xs + c, 4);
+  if (op.x) {
+    const int xw = op.xw, n = op.x_vec ? xw / 4 : xw;
+    for (int q = 0; q < nq; ++q) {
+      const int s = key_is_dst ? st.other[q] : st.node[q];
+      const size_t at = (size_t)s * op.in_dim + op.x_off;
+      for (int c = tid; c < n; c += nthr) {
+        if (op.x_vec) {
+          __pipeline_memcpy_async(st.x + q * xw + 4 * c, op.x + at + 4 * c,
+                                  16);
+          if (kTwo)
+            __pipeline_memcpy_async(st.x2 + q * xw + 4 * c,
+                                    op.x2 + at + 4 * c, 16);
+        } else {
+          __pipeline_memcpy_async(st.x + q * xw + c, op.x + at + c, 4);
+          if (kTwo)
+            __pipeline_memcpy_async(st.x2 + q * xw + c, op.x2 + at + c, 4);
+        }
+      }
+    }
+  }
+  if (op.w) {
+    for (int q = 0; q < nq; ++q) {
+      const size_t at = (size_t)st.edge[q] * op.PC + op.col;
+      __pipeline_memcpy_async(st.w + q * nthr + tid, op.w + at, 4);
+      if (kTwo)
+        __pipeline_memcpy_async(st.w2 + q * nthr + tid, op.w2 + at, 4);
     }
   }
   __pipeline_commit();
@@ -332,14 +397,17 @@ __device__ __forceinline__ void radial_weights(const Stage& st,
 }
 
 // This path's CG matrices of the nq staged edges, M[q][m3][m1] = sum over
-// the cell's non-zeros of C * sh[q, j0 + m2], for m3 < d3 and m1 <
+// the cell's non-zeros of C * shs[q, j0 + m2], for m3 < d3 and m1 <
 // pitch(d1) (zero past d1: the products read whole float4s of a row and
-// stop at pitch(d1)); built by the path's ``mul`` threads.  ``cells``:
-// the path's cell bounds in st.cells.
+// stop at pitch(d1)), into ``ms`` (st.m, or st.m2 for K4g's csh); built by
+// the path's ``mul`` threads from the staged sh rows ``shs`` (st.sh or
+// st.sh2).  ``cells``: the path's cell bounds in st.cells.
 template <int kRows>
-__device__ __forceinline__ void cg_matrices(const Stage& st, int nq, int g,
-                                            const int* cells, int d1, int d3,
-                                            int j0, int u, int mul) {
+__device__ __forceinline__ void cg_matrices(const Stage& st,
+                                            const float* shs, float* ms,
+                                            int nq, int g, const int* cells,
+                                            int d1, int d3, int j0, int u,
+                                            int mul) {
   constexpr int kCells = kRows * pitch(kRows);
   const int cols = pitch(d1), per_edge = d3 * cols;
   for (int i = u; i < nq * per_edge; i += mul) {
@@ -348,13 +416,13 @@ __device__ __forceinline__ void cg_matrices(const Stage& st, int nq, int g,
     float v = 0.f;
     if (m1 < d1) {
       const int c = m3 * d1 + m1;
-      const float* shq = st.sh + q * kMaxSh + j0;
+      const float* shq = shs + q * kMaxSh + j0;
       for (int z = cells[c]; z < cells[c + 1]; ++z) {
         const float2 e = st.nz[z];
         v += e.x * shq[__float_as_int(e.y)];
       }
     }
-    st.m[(q * kGroups + g) * kCells + m3 * pitch(kRows) + m1] = v;
+    ms[(q * kGroups + g) * kCells + m3 * pitch(kRows) + m1] = v;
   }
 }
 
@@ -368,16 +436,18 @@ __device__ __forceinline__ void load_x(float (&xr)[pitch(kRows)],
 
 // Once per block: copy the chunk's CG non-zeros [z0, z1) and its cell
 // bounds [c0, c1) (made relative to z0) into shared memory, and zero the
-// staged hidden activations (their columns past H are never copied).
+// staged hidden activations (their columns past H are never copied) when
+// the stage holds them.
 __device__ __forceinline__ void stage_chunk(const Stage& st,
                                             const float2* __restrict__ nz,
                                             int z0, int z1,
                                             const int* __restrict__ cells,
                                             int c0, int c1, int tid,
-                                            int nthr) {
+                                            int nthr, bool hidden = true) {
   for (int z = z0 + tid; z < z1; z += nthr) st.nz[z - z0] = nz[z];
   for (int c = c0 + tid; c < c1; c += nthr) st.cells[c - c0] = cells[c] - z0;
-  for (int i = tid; i < kStage * kMaxHidden; i += nthr) st.h[i] = 0.f;
+  if (hidden)
+    for (int i = tid; i < kStage * kMaxHidden; i += nthr) st.h[i] = 0.f;
 }
 
 // Launch the piece sum when some item may hold a piece (T > 1).
@@ -388,6 +458,34 @@ static inline cudaError_t sum_pieces(const int* ptr, int N, int T, int cap,
   const dim3 grid(T, (width + kPieceThreads - 1) / kPieceThreads);
   walk_piece_sum_kernel<<<grid, kPieceThreads, 0, s>>>(ptr, N, T, cap,
                                                        pieces, width, rows);
+  return cudaGetLastError();
+}
+
+// dx[n, x_off + u * d1 + m1] = sum over the left irrep's paths of
+// dxp[n, dcol + m1 * mul + u], in path order: the per-path dx rows of a
+// source-major walk (K2, K4b, K4g) added up.  grid (N, left irreps);
+// ``irreps``: ConvTables.walk_irreps (x_off, d1, dcol, paths).
+static __global__ void walk_dx_kernel(const float* __restrict__ dxp, int KMd,
+                                      const int* __restrict__ irreps, int mul,
+                                      float* __restrict__ dx, int in_dim) {
+  const int n = blockIdx.x;
+  const int* ir = irreps + 4 * blockIdx.y;
+  const int x_off = ir[0], d1 = ir[1], dcol = ir[2], np = ir[3];
+  const int width = d1 * mul;
+  const float* row = dxp + (size_t)n * KMd + dcol;
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < np; ++k) s += row[(size_t)k * width + c];
+    dx[(size_t)n * in_dim + x_off + (c % mul) * d1 + c / mul] = s;
+  }
+}
+
+static inline cudaError_t sum_dx(const float* dxp, int N, int KMd,
+                                 const int* irreps, int n_irreps, int mul,
+                                 float* dx, int in_dim, cudaStream_t s) {
+  if (N <= 0 || n_irreps <= 0) return cudaSuccess;
+  walk_dx_kernel<<<dim3(N, n_irreps), 256, 0, s>>>(dxp, KMd, irreps, mul,
+                                                   dx, in_dim);
   return cudaGetLastError();
 }
 

@@ -94,7 +94,9 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
   const int z0 = cells[k0], z1 = cells[k1 - 1];
   const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr);
   stage_chunk(st, nz, z0, z1, cells, k0, k1, tid, nthr);
-  const bool x_vec = x_vectors(x, in_dim, x_off, xw);
+  const Staged staged = {h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off,
+                         xw, x_vectors(x, in_dim, x_off, xw), nullptr,
+                         nullptr, 0, 0};
 
   const bool active = g < cn;
   const int* pi = walk_tab + (size_t)(c0 + (active ? g : 0)) * kWalkFields;
@@ -120,10 +122,10 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
 
   for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
     const int nq = min(kStage, it.e_hi - pos0);
-    stage_edges(st, pos0, nq, perm, src, dst, true, h_last, H, sh, J, x,
-                in_dim, x_off, xw, x_vec, tid, nthr);
+    stage_edges(st, pos0, nq, perm, src, dst, true, staged, tid, nthr);
     if (active) {
-      cg_matrices<kRows>(st, nq, g, my_cells, d1, d3, j0, u, mul);
+      cg_matrices<kRows>(st, st.sh, st.m, nq, g, my_cells, d1, d3, j0, u,
+                         mul);
       radial_weights(st, w_out, H, PC, pi[kWCol] + u, tid, nthr);
     }
     __syncthreads();

@@ -37,7 +37,8 @@
 //    buffer dxp [N, sum_p d1(p) * mul].  Long runs are walked in pieces
 //    and summed in item order by walk::walk_piece_sum_kernel (as in K1: a
 //    second small pass, not atomics, so the order of summation is fixed);
-//    k2_dx_kernel then adds each left irrep's paths in path order into dx.
+//    walk::walk_dx_kernel then adds each left irrep's paths in path order
+//    into dx.
 //    No dx atomics, no dx zero fill (unless some input column is read by
 //    no path), and dx repeats bit for bit.  M^T dS is a dense product over
 //    compile-time register indices, so no channel selects its left
@@ -135,7 +136,9 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
   const int z0 = cells[k0], z1 = cells[k1 - 1];
   const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr);
   stage_chunk(st, nz, z0, z1, cells, k0, k1, tid, nthr);
-  const bool x_vec = x_vectors(x, in_dim, x_off, xw);
+  const Staged staged = {h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off,
+                         xw, x_vectors(x, in_dim, x_off, xw), nullptr,
+                         nullptr, 0, 0};
 
   const bool active = g < cn;
   const int* pi = walk_tab + (size_t)(c0 + (active ? g : 0)) * kWalkFields;
@@ -161,10 +164,10 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
 
   for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
     const int nq = min(kStage, it.e_hi - pos0);
-    stage_edges(st, pos0, nq, perm, src, dst, false, h_last, H, sh, J, x,
-                in_dim, x_off, xw, x_vec, tid, nthr);
+    stage_edges(st, pos0, nq, perm, src, dst, false, staged, tid, nthr);
     if (active) {
-      cg_matrices<kRows>(st, nq, g, my_cells, d1, d3, j0, u, mul);
+      cg_matrices<kRows>(st, st.sh, st.m, nq, g, my_cells, d1, d3, j0, u,
+                         mul);
       radial_weights(st, w_out, H, PC, wcol_u, tid, nthr);
     }
     __syncthreads();
@@ -214,23 +217,6 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
   const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
   for (int pos = lo; pos < hi; ++pos)
     dw[(size_t)perm[pos] * PC + wcol_u] = 0.f;
-}
-
-// dx[n, x_off + u * d1 + m1] = sum over the left irrep's paths of
-// dxp[n, dcol + m1 * mul + u], in path order.  grid (N, left irreps).
-__global__ void k2_dx_kernel(const float* __restrict__ dxp, int KMd,
-                             const int* __restrict__ irreps, int mul,
-                             float* __restrict__ dx, int in_dim) {
-  const int n = blockIdx.x;
-  const int* ir = irreps + 4 * blockIdx.y;
-  const int x_off = ir[0], d1 = ir[1], dcol = ir[2], np = ir[3];
-  const int width = d1 * mul;
-  const float* row = dxp + (size_t)n * KMd + dcol;
-  for (int c = threadIdx.x; c < width; c += blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < np; ++k) s += row[(size_t)k * width + c];
-    dx[(size_t)n * in_dim + x_off + (c % mul) * d1 + c / mul] = s;
-  }
 }
 
 }  // namespace
@@ -305,12 +291,8 @@ extern "C" int full_conv_bwd(
     if (err != cudaSuccess) return (int)err;
     err = sum_pieces(ptr, N, T, cap, pieces, KMd, dxp, s);
     if (err != cudaSuccess) return (int)err;
-    if (N > 0 && n_irreps > 0) {
-      k2_dx_kernel<<<dim3(N, n_irreps), 256, 0, s>>>(dxp, KMd, irreps, mul,
-                                                     dx, in_dim);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
+    err = sum_dx(dxp, N, KMd, irreps, n_irreps, mul, dx, in_dim, s);
+    if (err != cudaSuccess) return (int)err;
   }
   if (E == 0) {  // no edge: the MLP's gradients are zero
     struct { void* p; size_t n; } zero[] = {

@@ -4,7 +4,7 @@
 ``full_conv_bwd.cu``, ``full_conv_ext.cu``, ``species_sc.cu``,
 ``uvu_conv.cu``, ``pairwise_tp.cu``, ``row_mix.cu``; the tensor-core GEMM
 of the mix and of the backwards' products in ``row_mix.cuh`` is shared by
-six of them, the node-major walk in ``edge_walk.cuh`` by the first two)
+six of them, the node-major walk in ``edge_walk.cuh`` by the first three)
 for ``sm_90a`` (one compiler
 process per source, all started together) and links the objects into one shared library with a
 plain C interface under ``build/kernels/`` at the repository root (listed
@@ -32,21 +32,27 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# leading arguments of the three external-weight conv entries (K4f/b/g)
-_EXT_COMMON = [
-    _I, _I, _I,                # N, in_dim, J
-    _P, _P, _I,                # src, dst, E
-    _I,                        # radial-weight columns P * mul
-    _P, _I, _P, _P,            # path table, P, CG non-zero codes, values
-    _I, _I,                    # K * mul, mul
-    _P, _I, _I,                # host mix problems, count, out_dim
-]
 # the node-major walk's arguments of K1 and K2 (csrc/edge_walk.cuh)
 _WALK = [
     _P, _P, _I, _P, _P,        # walk table, chunks, count, cells, CG
                                # non-zeros
     _I, _I, _I,                # most non-zeros of a chunk, widest d1, d3
     _P, _P, _I, _I,            # edge order, its row pointers, cap, items
+]
+# leading arguments of the three external-weight conv entries (K4f/b/g)
+_EXT_COMMON = [
+    _I, _I, _I,                # N, in_dim, J
+    _P, _P, _I,                # src, dst, E
+    _I,                        # radial-weight columns P * mul
+    _P, _P, _I, _P, _I,        # walk table, chunks, count, the source-
+                               # major walk's chunks, count
+    _P, _P,                    # cells, CG non-zeros
+    _I, _I, _I, _I,            # most non-zeros of a chunk, widest d1, d2, d3
+    _P, _I, _I, _I,            # left irreps, count, dx row width, dx covered
+    _P, _P, _P, _P, _I, _I,    # both edge orders and their row pointers,
+                               # cap, items
+    _I, _I,                    # K * mul, mul
+    _P, _I, _I,                # host mix problems, count, out_dim
 ]
 # C signatures of the entry points (pointers and the stream as c_void_p)
 SIGNATURES = {
@@ -145,18 +151,21 @@ SIGNATURES = {
     ],
     "full_conv_ext_fwd": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, sh, w, wsel
-        _P, _P, _P,            # scratch, out, stream
+        _P, _P, _P, _P,        # scratch, work: long-run pieces, out, stream
     ],
     "full_conv_ext_bwd": _EXT_COMMON + [
         _P, _P, _P, _P, _P,    # x, sh, w, wsel, gout
-        _P, _P,                # work: scratch, dS
+        _P,                    # K4f's saved scratch, or null
+        _P, _P, _P, _P, _P,    # work: scratch, dS, per-path dx rows, pieces,
+                               # the chunks' dsh rows
         _P, _P, _P, _P, _I,    # dx, dsh, dw, dwsel, its length
         _P, _I, _P,            # workspace, its length, stream
     ],
     "full_conv_ext_grad2": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, cx, sh, csh
         _P, _P, _P, _P,        # w, cw, wsel, gout
-        _P, _P,                # work: scratch, dS
+        _P, _P, _P, _P, _P,    # work: scratch, dS, per-path dx rows, pieces,
+                               # the chunks' dsh rows
         _P, _P, _P, _P, _P,    # c_x, c_s, c_w, c_m, c_g
         _I,                    # wsel length
         _P, _I, _P,            # workspace, its length, stream

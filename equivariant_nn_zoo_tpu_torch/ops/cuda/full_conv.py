@@ -39,7 +39,7 @@ from .build import check, check_tensor, load_library
 MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 9
 # the walk (csrc/edge_walk.cuh): paths per block, the widest irrep K1
 # takes on either side (l = 7), fields per path of the walk table
-WALK_GROUPS, WALK_ROWS, WALK_FIELDS = 4, 16, 9
+WALK_GROUPS, WALK_ROWS, WALK_FIELDS = 4, 16, 10
 WALK_BLOCKS = 2048   # blocks the walk's grid aims at (walk_items)
 
 
@@ -140,21 +140,24 @@ class ConvTables(torch.nn.Module):
         self._walk_tables(paths, cgs, d3s, mul, int_buffer)
 
     def _walk_tables(self, paths, cgs, d3s, mul, int_buffer):
-        """The node-major walk's tables (K1 and K2, ``csrc/edge_walk.cuh``):
-        the paths sorted by left irrep; their CG non-zeros sorted by
+        """The node-major walk's tables (K1, K2 and the K4 family,
+        ``csrc/edge_walk.cuh``): the paths sorted by left irrep, each with
+        its sh irrep's width d2 last; their CG non-zeros sorted by
         (m3, m1, m2), the value and the sh index m2 of each; per path the
         bounds of each cell (m3, m1), d3 * d1 + 1 entries of ``walk_cells``;
         chunks of at most ``WALK_GROUPS`` paths of one left irrep (a block's
-        paths); per left irrep the columns of its paths in K2's path-major
-        dx rows."""
+        paths), and for the K4 family's source-major walk, which does not
+        stage x, chunks of at most as many consecutive paths of left irreps
+        of one width (``walk_src_chunks``: fewer idle path slots); per left
+        irrep the columns of its paths in K2's path-major dx rows."""
         order = sorted(range(len(paths)), key=lambda p: paths[p][0])
         rows, nz, cells, chunks, irreps = [], [], [], [], []
         dcol = 0
         for p in order:
-            x_off, d1, j0, _, row_base, row_stride, wcol = paths[p][:7]
+            x_off, d1, j0, d2, row_base, row_stride, wcol = paths[p][:7]
             cg, d3 = cgs[p], d3s[p]
             rows.append([x_off, d1, j0, d3, row_base, row_stride, wcol, dcol,
-                         len(cells)])
+                         len(cells), d2])
             for m3 in range(d3):
                 for m1 in range(d1):
                     cells.append(len(nz))
@@ -165,16 +168,30 @@ class ConvTables(torch.nn.Module):
                 irreps.append([x_off, d1, dcol, 0])
             irreps[-1][3] += 1
             dcol += d1 * mul
-        p0 = 0
-        for _, _, _, n in irreps:
-            k = -(-n // WALK_GROUPS)
-            for i in range(k):
-                size = n // k + (i < n % k)
-                chunks.append([p0, size])
-                p0 += size
+        def cut(runs):
+            """Chunks of at most WALK_GROUPS paths, as even as may be, of
+            each run of consecutive paths."""
+            out, p0 = [], 0
+            for n in runs:
+                k = -(-n // WALK_GROUPS)
+                for i in range(k):
+                    size = n // k + (i < n % k)
+                    out.append([p0, size])
+                    p0 += size
+            return out
+
+        chunks = cut([n for *_, n in irreps])
+        widths = []          # runs of consecutive left irreps of one width
+        for _, d1, _, n in irreps:
+            if widths and widths[-1][0] == d1:
+                widths[-1][1] += n
+            else:
+                widths.append([d1, n])
+        src_chunks = cut([n for _, n in widths])
         int_buffer("walk_table", rows)
         int_buffer("walk_cells", cells)
         int_buffer("walk_chunks", chunks)
+        int_buffer("walk_src_chunks", src_chunks)
         int_buffer("walk_irreps", irreps)
         a = np.zeros((max(len(nz), 1), 2), np.float32)
         if nz:
@@ -183,12 +200,14 @@ class ConvTables(torch.nn.Module):
                                         np.int32).view(np.float32)
         self.register_buffer("walk_nz", torch.tensor(a), persistent=False)
         self.n_chunks = len(chunks)
+        self.n_src_chunks = len(src_chunks)
         self.n_walk_irreps = len(irreps)
         self.KMd = dcol               # K2's path-major dx row width
-        # the most non-zeros of a chunk (the kernels stage them)
+        # the most non-zeros of a chunk of either table (the kernels stage
+        # them)
         self.max_chunk_nz = max(
             [cells[rows[c0 + n - 1][8] + rows[c0 + n - 1][3] * rows[c0][1]]
-             - cells[rows[c0][8]] for c0, n in chunks] + [0])
+             - cells[rows[c0][8]] for c0, n in chunks + src_chunks] + [0])
         self.max_d3 = max(d3s, default=0)
         # every input column is read by some path: K2's dx needs no zeros
         covered = np.zeros(self.fused.irreps_in.dim, bool)

@@ -152,10 +152,12 @@ def _narrow_conv():
     return conv
 
 
-def _walk(fc, order_perm, order_ptr, key, other, E, N, body, flush, width):
+def _walk(fc, order_perm, order_ptr, key, other, E, N, body, flush, width,
+          chunks=None):
     """Every (item, chunk, path) of a walk kernel: ``body(p, e, node_acc)``
     per walked edge, ``flush(p, n, acc, row)`` per node; returns the
-    direct rows [N, width] and the piece-summed long rows over them."""
+    direct rows [N, width] and the piece-summed long rows over them.
+    ``chunks``: the walk's chunk table (K1's and K2's when None)."""
     tab = fc.walk_table.numpy().reshape(-1, F).astype(np.int64)
     cap, T = full_conv_mod.walk_items(E, fc.n_chunks)
     ptr = order_ptr.numpy().astype(np.int64)
@@ -165,7 +167,8 @@ def _walk(fc, order_perm, order_ptr, key, other, E, N, body, flush, width):
     heads = []
     for t in range(T):
         e_lo, e_hi, first, end, head = item_walk(ptr, N, t, T, cap)
-        for c0, cn in fc.walk_chunks.numpy().reshape(-1, 2):
+        for c0, cn in (fc.walk_chunks if chunks is None
+                       else chunks).numpy().reshape(-1, 2):
             for p in tab[c0: c0 + cn]:
                 acc, cur = None, first
                 for pos in range(e_lo, e_hi):

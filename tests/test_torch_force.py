@@ -88,21 +88,27 @@ def convs():
     return jconv, params, tconv
 
 
-def route_to_plain(monkeypatch):
+def route_to_plain(monkeypatch, seen=None):
     """Send the port's conv through its autograd Functions (the card path)
-    with every launch replaced by its plain contract; count the calls."""
+    with every launch replaced by its plain contract (K4f's: ``plain_core``,
+    which also returns the scratch); count the calls, and append each
+    call's keyword arguments (the edge order, K4b's saved scratch) and
+    result to ``seen[kind]`` when a dict is given."""
     calls = {"fwd": 0, "bwd": 0, "grad2": 0}
 
     def counted(kind, plain):
-        def launch(conv, *args):
+        def launch(conv, *args, **kw):
             calls[kind] += 1
-            return getattr(conv, plain)(*args)
+            out = getattr(conv, plain)(*args)
+            if seen is not None:
+                seen.setdefault(kind, []).append((kw, out))
+            return out
         return launch
 
     monkeypatch.setattr(ext_mod.FullConvExt, "forward",
                         ext_mod.FullConvExt.launch)
     monkeypatch.setattr(ext_mod, "launch_forward",
-                        counted("fwd", "plain_forward"))
+                        counted("fwd", "plain_core"))
     monkeypatch.setattr(ext_mod, "launch_backward",
                         counted("bwd", "plain_backward"))
     monkeypatch.setattr(ext_mod, "launch_grad2",

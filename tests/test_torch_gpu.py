@@ -15,9 +15,9 @@ Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 skips (the decision is taken inside the fixture, never at import).
 TF32 is off, so the plain versions compute in float32; the kernels sum in
 another order (the mix GEMM of ``csrc/row_mix.cuh`` in 3xTF32 on the tensor
-cores), some with atomics in a varying order, so agreement is rel-linf
-1e-4 of max|plain|.  The mix GEMM (forward mix, dS, dwsel and the radial
-MLP's products) is also checked on its own at ragged shapes, and the
+cores), some (K3b, K6b) with atomics in a varying order, so agreement is
+rel-linf 1e-4 of max|plain|.  The mix GEMM (forward mix, dS, dwsel and the
+radial MLP's products) is also checked on its own at ragged shapes, and the
 outputs it makes repeatable are checked to repeat bit for bit.
 """
 
@@ -34,6 +34,7 @@ from equivariant_nn_zoo_tpu_torch.data import (
 from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
 from equivariant_nn_zoo_tpu_torch.models.config_energy import SHIFTS
 from equivariant_nn_zoo_tpu_torch.ops.cuda import FullConv, SpeciesScalarFCTP
+from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
@@ -436,6 +437,7 @@ def test_kernel_outputs_carry_autograd(model_and_batch):
 # ------------------------------------------------------------- force path
 
 EXT_OUT = {"K4f": ("out",), "K4b": ("dx", "dsh", "dw", "dwsel"),
+           "K4b saved": ("dx", "dsh", "dw", "dwsel"),
            "K4g": ("c_x", "c_s", "c_w", "c_m", "c_g")}
 
 
@@ -465,19 +467,25 @@ def _ext_case(conv, cuda, N, E, seed, pad=40):
 
 
 def _ext_calls(fc, c, plain=True):
-    """Results of K4f, K4b and K4g on one case, or of their plain
-    contracts."""
+    """Results of K4f, K4b (with the scratch recomputed, and on K4f's
+    saved scratch) and K4g on one case, on one edge order, or of their
+    plain contracts."""
     args = (c["x"], c["sh"], c["w"], c["wsel"], c["src"], c["dst"], c["N"])
     g2 = (c["x"], c["cx"], c["sh"], c["csh"], c["w"], c["cw"], c["wsel"],
           c["src"], c["dst"], c["N"], c["gout"])
     with torch.no_grad():
         if plain:
-            return {"K4f": (fc.plain_forward(*args),),
-                    "K4b": fc.plain_backward(*args, c["gout"]),
-                    "K4g": fc.plain_grad2(*g2)}
-        return {"K4f": (ext_mod.launch_forward(fc, *args),),
-                "K4b": ext_mod.launch_backward(fc, *args, c["gout"]),
-                "K4g": ext_mod.launch_grad2(fc, *g2)}
+            bwd = fc.plain_backward(*args, c["gout"])
+            return {"K4f": (fc.plain_forward(*args),), "K4b": bwd,
+                    "K4b saved": bwd, "K4g": fc.plain_grad2(*g2)}
+        order = edge_order.build(c["src"], c["dst"], c["N"])
+        out, scratch = ext_mod.launch_forward(fc, *args, order=order)
+        return {"K4f": (out,),
+                "K4b": ext_mod.launch_backward(fc, *args, c["gout"],
+                                               order=order),
+                "K4b saved": ext_mod.launch_backward(
+                    fc, *args, c["gout"], order=order, scratch=scratch),
+                "K4g": ext_mod.launch_grad2(fc, *g2, order=order)}
 
 
 @pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (32, 130, 4099),
@@ -492,7 +500,8 @@ def test_ext_kernels_match_plain(cuda, n_dim, N, E):
     got = _ext_calls(conv.full_conv, case, plain=False)
     torch.cuda.synchronize()
     assert (FullConvExt.launches_fwd, FullConvExt.launches_bwd,
-            FullConvExt.launches_grad2) == tuple(b + 1 for b in before)
+            FullConvExt.launches_grad2) == (before[0] + 1, before[1] + 2,
+                                            before[2] + 1)
     want = _ext_calls(conv.full_conv, case)
     for name in got:
         _assert_all_close(got[name], want[name],
@@ -511,14 +520,47 @@ def test_ext_kernels_skip_out_of_range_edges(cuda):
     for k in ("sh", "csh", "w", "cw"):
         kept[k] = c[k][keep]
     want = _ext_calls(conv.full_conv, kept)
+    _assert_ext_close(got, want, keep)
+
+
+def _assert_ext_close(got, want, keep):
+    """Every K4 output against plain, on the kept edges; the per-edge
+    outputs of the dropped edges are zero."""
     for name in got:
         outs = list(got[name])
         if name != "K4f":  # per-edge outputs: dropped edges give zeros
             for i in (1, 2):
-                assert float(outs[i][~keep].abs().max()) == 0.0
+                assert not outs[i][~keep].any(), (name, i)
                 outs[i] = outs[i][keep]
         _assert_all_close(outs, want[name],
                           [f"{name} {o}" for o in EXT_OUT[name]])
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "padded", "hub",
+                                  "out_of_range"])
+def test_ext_kernels_match_plain_on_hard_edge_orders(cuda, kind):
+    """K4f, K4b (both branches) and K4g at full width (64 channels of
+    l <= 2) on K1's hard edge orders: the walks' long runs at the dummy
+    node and at a hub, and dropped endpoints, against the plain contracts
+    on the kept edges; every output repeats bit for bit over two
+    launches."""
+    dev = cuda
+    conv = _small_conv(dev, 64, grad_order=2)
+    N, g = 211, torch.Generator().manual_seed(32)
+    src, dst = _edges(kind, N, 3001, g)
+    c = _ext_case(conv, dev, N, src.shape[0], seed=33, pad=0)
+    keep = ((src >= 0) & (src < N) & (dst >= 0) & (dst < N)).to(dev)
+    c.update(src=src.to(dev), dst=dst.to(dev))
+    got = _ext_calls(conv.full_conv, c, plain=False)
+    again = _ext_calls(conv.full_conv, c, plain=False)
+    torch.cuda.synchronize()
+    for name in got:
+        assert all(torch.equal(a, b) for a, b in zip(got[name],
+                                                     again[name])), name
+    kept = dict(c, src=c["src"][keep], dst=c["dst"][keep])
+    for k in ("sh", "csh", "w", "cw"):
+        kept[k] = c[k][keep]
+    _assert_ext_close(got, _ext_calls(conv.full_conv, kept), keep)
 
 
 def test_ext_bwd_function_routes(cuda):
@@ -1100,8 +1142,10 @@ def test_row_mix_matmul_matches_torch_and_repeats(cuda, M, N, K, a_t, b_t,
 def test_backward_products_repeat_bit_for_bit(model_and_batch, hamiltonian):
     """The outputs that the GEMM's plain stores and fixed order of
     summation make repeatable: K2's dW and dwsel, K6b's dwsel, K5's dwsel,
-    d left and dbw, and the forward mix of K4f's problem table (K4f's
-    edge sweep itself still scatters its scratch with atomics)."""
+    d left and dbw, and the forward mix of K4f's problem table; and with
+    the K4 walks' plain stores, K4b's dx and dwsel (on K4f's saved scratch
+    and recomputed) and K4g's c_x, c_m and c_g, at the force layer's full
+    width."""
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
     from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
     from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_mod
@@ -1155,3 +1199,13 @@ def test_backward_products_repeat_bit_for_bit(model_and_batch, hamiltonian):
     a, b = twice(lambda: rm.launch_forward(S4, wsel4, ext.prob_rows,
                                            ext.out_dim))
     assert torch.equal(a, b), "K4f mix"
+
+    conv4 = _small_conv(dev, 64, grad_order=2)
+    c = _ext_case(conv4, dev, 300, 5003, seed=14)
+    a, b = twice(lambda: _ext_calls(conv4.full_conv, c, plain=False))
+    for name, outs in (("K4b", ("dx", "dwsel")), ("K4b saved", ("dx",
+                                                                "dwsel")),
+                       ("K4g", ("c_x", "c_m", "c_g"))):
+        for i, what in enumerate(EXT_OUT[name]):
+            if what in outs:
+                assert torch.equal(a[name][i], b[name][i]), (name, what)
