@@ -3,9 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-times     # K1 and K2 alone, see conv_times
-    python3 chip_smoke.py --walk-ablation  # their walks' parts, see there
+    python3 chip_smoke.py --walk-ablation [source.cu ...]
+                                           # the walks' and K3/K3b's parts,
+                                           # see walk_ablation
     python3 chip_smoke.py --mix-times      # the mix GEMM's product sets,
                                            # see mix_times
+    python3 chip_smoke.py --sc-times       # K3 and K3b alone and the
+                                           # energy step, see sc_times
+    python3 chip_smoke.py --sc-calls       # K3 and K3b alone
     python3 chip_smoke.py --ext-times      # K4f, K4b, K4g alone and the
                                            # force step, see ext_times
     python3 chip_smoke.py --ext-calls      # K4f, K4b, K4g alone
@@ -17,12 +22,14 @@ Phases, in order; any failure exits non-zero before the last line:
 3. K1      — the whole-convolution kernel against its plain PyTorch version
              on the card, at ``config_energy``'s hot-layer shapes (layer3 of
              a 128-graph synthetic QM9-like batch);
-4. K3      — the species self-connection kernel, likewise;
+4. K3      — the species self-connection kernel, likewise, on the species
+             order; its output must repeat bit for bit over two launches;
 5. K2      — the convolution's backward kernel against the plain backward
              (autograd of the plain forward) on K1's saved scratch and a
              seeded cotangent: dx, d edge_radial, dW (MLP) and dwsel; K1
              and K2 walk one edge order, built once as on the main path;
-6. K3b     — the self-connection's backward kernel (dx, dtables), likewise;
+6. K3b     — the self-connection's backward kernel (dx, dtables), likewise,
+             on the same order; dx and dtables must repeat bit for bit;
    row_mix — the mix GEMM of ``csrc/row_mix.cuh`` on its own at the same
              layer: K1's forward mix on K1's scratch, and K2's node-stage
              products (dS, dwsel) on that scratch and the cotangent,
@@ -79,7 +86,7 @@ Phases, in order; any failure exits non-zero before the last line:
              radial weights, mix matrices) and each wrapper against the
              plain forward (``expand``, ``FusedUVUConv(reduce=False)``);
              then K3 against plain at the trunk's hot layer, whose irreps
-             reach l = 4;
+             reach l = 4, and repeated bit for bit;
 15. hamiltonian serve — full-width ``config_hamiltonian`` (seeded weights,
              ``build_model`` with no device argument) serves 4 batches of
              16 and 4 batches of 512 molecules through
@@ -96,7 +103,7 @@ Phases, in order; any failure exits non-zero before the last line:
              49 node rows); the
              pairwise backward is one entry, so each of its three kernels
              (dwsel, d left, dbw) is also launched, checked and timed
-             alone;
+             alone; K3b's dx and dtables must repeat bit for bit;
 17. hamiltonian train — a ``run.Trainer`` with ``config_hamiltonian``'s
              own settings (loss 1e5 * MSE on ``hamiltonian``, Adam lr 1e-2,
              EMA 0.99 with num_updates, ReduceLROnPlateau patience 8 factor
@@ -305,6 +312,20 @@ def compare_grads(name, kernel, plain, names):
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
 
 
+def repeats(name, fn):
+    """Fail unless every output of ``fn`` (a tensor or a tuple of them)
+    repeats bit for bit over two launches."""
+    import torch
+
+    with torch.no_grad():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+    a, b = ((a,), (b,)) if isinstance(a, torch.Tensor) else (a, b)
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        fail(f"{name}: outputs differ between two launches")
+    print(f"{name}: every output repeats bit for bit")
+
+
 def cut_batch(mols, cut):
     """The first ``cut`` molecules as one host-side (CPU) padded batch."""
     from equivariant_nn_zoo_tpu_torch.data import Batch, GraphBatch
@@ -342,22 +363,32 @@ def trunk_costs(conv, x1, er, edges, flat, x_in, attrs, tables, spec, g3):
     ``x1`` the conv's input, ``er`` the masked radial basis, ``edges`` (sh,
     src, dst), ``flat`` the kernels' flat weights, ``x_in`` / ``attrs`` /
     ``tables`` / ``spec`` / ``g3`` the self-connection's operands."""
-    fconv, ssc = conv.full_conv, conv.species_sc
+    fconv = conv.full_conv
     N0, E0 = x1.shape[0], er.shape[0]
     cc = conv_counts(fconv, N0, E0)
     dims = fconv.fc_dims
     mlp = 2 * E0 * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
-    items = ssc.bwd_item_table.cpu().numpy().reshape(-1, 6).astype(np.int64)
-    sc_flops = 2 * N0 * int((items[:, 1] * items[:, 4] * items[:, 5]).sum())
     out_bytes = N0 * fconv.out_dim * 4
     return {
         "K1": (mlp + cc["cg"] + 2 * cc["rows"] + cc["mix"],
                nbytes(x1, er, *edges, *flat) + out_bytes),
-        "K3": (sc_flops, nbytes(x_in, attrs, spec, conv.sc.weight)
-               + N0 * ssc.irreps_out.dim * 4),
         "K2": (3 * mlp + 2 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
                2 * nbytes(x1, er, *flat) + nbytes(*edges)
                + N0 * fconv.KM * 4 + out_bytes),
+        **sc_costs(conv, x_in, attrs, tables, spec, g3),
+    }
+
+
+def sc_costs(conv, x_in, attrs, tables, spec, g3):
+    """Operations and bytes of K3 (with its tables' operands: attrs and the
+    weight) and K3b (x, tables and g read; dx and dtables written) at one
+    layer's shapes."""
+    ssc, N0 = conv.species_sc, x_in.shape[0]
+    items = ssc.bwd_item_table.cpu().numpy().reshape(-1, 6).astype(np.int64)
+    sc_flops = 2 * N0 * int((items[:, 1] * items[:, 4] * items[:, 5]).sum())
+    return {
+        "K3": (sc_flops, nbytes(x_in, attrs, spec, conv.sc.weight)
+               + N0 * ssc.irreps_out.dim * 4),
         "K3b": (2 * sc_flops, 2 * nbytes(x_in, tables) + nbytes(spec, g3)),
     }
 
@@ -538,7 +569,7 @@ PROFILE_FAMILIES = (
      "mlp_hidden_kernel|walk_piece_sum_kernel|walk_dx_kernel"),
     ("K5 sweeps (cg, da, dbw)", "pairwise_"),
     ("K6 and K6b sweeps", "uvu_"),
-    ("K3 and K3b", "species_sc"),
+    ("K3 and K3b", r"species_sc|table_product_kernel|table_grad"),
     ("sorts and index backward", "RadixSort|indexing_backward|cub::"),
     ("cuBLAS and CUTLASS products", "cublas|cutlass|gemm|gemv|splitK"),
     ("other PyTorch kernels, copies, memsets", "."),
@@ -939,6 +970,7 @@ def backward_checks(model, seen, dev, alone):
     from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
 
@@ -1029,10 +1061,13 @@ def backward_checks(model, seen, dev, alone):
         ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
     g3 = rnd(N, ssc.irreps_out.dim)
     k3b_args = (data["input_features"], spec, tables, g3)
+    sorder = species_order.shared(spec, ssc.num_types)
     rec["K3b"] = compare_grads(
         f"K3b species_sc_bwd at l = 4 (N={N})",
-        lambda: sc_ops.launch_backward(ssc, *k3b_args),
+        lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder),
         lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
+    repeats(f"K3b species_sc_bwd at l = 4 (N={N})",
+            lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder))
     cost.update({k: v for k, v in trunk_costs(
         conv, x1, er, edges, flat, data["input_features"],
         data["node_attrs"], tables, spec, g3).items()
@@ -1134,6 +1169,8 @@ def hamiltonian_phases(dev):
     k3 = compare("K3 species_sc at l = 4",
                  lambda: conv.species_sc.launch(*k3_args),
                  lambda: conv.species_sc.plain(*k3_args))
+    repeats("K3 species_sc at l = 4",
+            lambda: conv.species_sc.launch(*k3_args))
     del data, x1, er, k3_args, x, sh, w, left, right
 
     # --------------------------- the backward kernels, at both batches' shapes
@@ -1429,6 +1466,7 @@ def main():
     from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
     from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
@@ -1489,6 +1527,13 @@ def main():
                data["species"])
     k3 = compare("K3 species_sc", lambda: conv.species_sc.launch(*k3_args),
                  lambda: conv.species_sc.plain(*k3_args))
+    ssc = conv.species_sc
+    spec = data["species"].reshape(-1)
+    sorder = species_order.shared(spec, ssc.num_types)
+    with torch.no_grad():
+        tables = ssc.tables(conv.sc, data["node_attrs"], spec)
+    repeats("K3 species_sc", lambda: sc_ops.launch_forward(
+        ssc, data["input_features"], spec, tables, order=sorder))
 
     # ------------------------------------------------------------------ K2
     fconv = conv.full_conv
@@ -1512,17 +1557,15 @@ def main():
     del scratch, k2_args
 
     # ----------------------------------------------------------------- K3b
-    ssc = conv.species_sc
-    spec = data["species"].reshape(-1)
-    with torch.no_grad():
-        tables = ssc.tables(conv.sc, data["node_attrs"], spec)
     g3 = torch.randn(spec.shape[0], ssc.irreps_out.dim,
                      generator=torch.Generator().manual_seed(2)).to(dev)
     k3b_args = (data["input_features"], spec, tables, g3)
     k3b = compare_grads(
         "K3b species_sc_bwd",
-        lambda: sc_ops.launch_backward(ssc, *k3b_args),
+        lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder),
         lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
+    repeats("K3b species_sc_bwd",
+            lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder))
 
     costs = trunk_costs(conv, x1, er, k1_args[4:7], flat,
                         data["input_features"], data["node_attrs"], tables,
@@ -1973,6 +2016,184 @@ def mix_set(name, fn, library, flops, n_bytes):
     return rec
 
 
+def sc_library(ssc, x, spec, tables, g):
+    """The library set of K3 and K3b: one ``torch.matmul`` per (species
+    present, item) on contiguous species-sorted copies, made here and not
+    timed (K3: X_t [n_t d, mul1] @ A_t; K3b: G_t @ A_t^T and X_t^T @ G_t).
+    Returns the two lists of operand pairs."""
+    fwd, bwd = [], []
+    for out_off, d, mo, it0, it1 in ssc.outs:
+        for x_off, mul1, a_off in ssc.items[it0:it1]:
+            for t in range(ssc.num_types):
+                nodes = (spec == t).nonzero().reshape(-1)
+                if nodes.numel() == 0:
+                    continue
+                X = x[nodes, x_off: x_off + mul1 * d].reshape(-1, mul1, d) \
+                    .transpose(1, 2).reshape(-1, mul1).contiguous()
+                G = g[nodes, out_off: out_off + mo * d].reshape(-1, mo, d) \
+                    .transpose(1, 2).reshape(-1, mo).contiguous()
+                A = tables[t, a_off: a_off + mul1 * mo].reshape(mul1, mo) \
+                    .contiguous()
+                fwd.append((X, A))
+                bwd += [(G, A.t().contiguous()), (X.t().contiguous(), G)]
+    return fwd, bwd
+
+
+def sc_times(calls_only=False):
+    """``python3 chip_smoke.py --sc-times``: K3 and K3b of the package in
+    the current directory (run it from two checkouts in turn to compare them
+    on one card), each C entry through ``launch_forward`` /
+    ``launch_backward`` on fixed tables (on the species order where the
+    package has one), at ``config_energy``'s hot layer (phases 4 and 6:
+    the first 128-graph batch, the cotangent's seed) and at the l = 4 hot
+    layer of a 512-molecule ``config_hamiltonian`` batch (phases 14 and
+    16): ms per call with CUDA events (and of the wrapper's whole
+    forward, ``launch``), each kernel's device ms
+    (``kernel_split``), the library set's ms (``sc_library``: a set of
+    ``torch.matmul`` calls, not one call) and the bounds (``sc_costs``);
+    then the energy training step (``energy_step_times``).  One JSON
+    line.  With ``calls_only`` (``--sc-calls``) the C entries alone, with
+    their kernels' device ms."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    import equivariant_nn_zoo_tpu_torch as pkg
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
+
+    try:
+        from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
+    except ImportError:
+        species_order = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    size = max(H2O_BATCHES)
+    cases = (("energy", "config_energy",
+              synthetic_qm9(BATCH, np.random.default_rng(0)), BATCH),
+             (f"l4_{size}", "config_hamiltonian",
+              synthetic_h2o(size, np.random.default_rng(20)), size))
+    times = {}
+    for key, name, mols, n_mol in cases:
+        model = build_model(get_config(name)["model_config"], dev,
+                            torch.Generator().manual_seed(0))
+        model.eval()
+        gb = make_batches(mols, dev, n_mol)[0]
+        conv, seen = getattr(model, HOT_LAYER).conv, {}
+        ssc = conv.species_sc
+        hook = conv.register_forward_pre_hook(
+            lambda mod, args: seen.update(data=args[0]))
+        with torch.no_grad():
+            model(gb)
+            hook.remove()
+            data = seen["data"]
+            x, spec = data["input_features"], data["species"].reshape(-1)
+            tables = ssc.tables(conv.sc, data["node_attrs"], spec) \
+                .contiguous()
+            N = x.shape[0]
+            g = torch.randn(N, ssc.irreps_out.dim, generator=torch.Generator(
+            ).manual_seed(2)).to(dev)
+            kw = {} if species_order is None else {
+                "order": species_order.shared(spec, ssc.num_types)}
+
+            def k3():
+                return sc_ops.launch_forward(ssc, x, spec, tables, **kw)
+
+            def k3b():
+                return sc_ops.launch_backward(ssc, x, spec, tables, g, **kw)
+
+            rec = {"N": N, "species_present": int(spec.unique().numel()),
+                   "K3_ms": cuda_ms(k3), "K3b_ms": cuda_ms(k3b),
+                   "K3_kernels": kernel_split(k3),
+                   "K3b_kernels": kernel_split(k3b),
+                   # the wrapper's whole forward: the tables, the order
+                   # where the package has one, K3; host-bound
+                   "K3_launch_ms": cuda_ms(lambda: ssc.launch(
+                       conv.sc, x, data["node_attrs"], data["species"]))}
+            if calls_only:
+                print(f"{key}: N={N} K3 {rec['K3_ms']:.4f} ms "
+                      f"{rec['K3_kernels']} (launch "
+                      f"{rec['K3_launch_ms']:.4f}); K3b "
+                      f"{rec['K3b_ms']:.4f} ms {rec['K3b_kernels']}",
+                      flush=True)
+                times[key] = rec
+                del model, seen, data
+                continue
+            lib_f, lib_b = sc_library(ssc, x, spec, tables, g)
+            rec.update(library_K3_ms=cuda_ms(
+                lambda: [torch.matmul(a, b) for a, b in lib_f]),
+                library_K3b_ms=cuda_ms(
+                lambda: [torch.matmul(a, b) for a, b in lib_b]),
+                library_calls=[len(lib_f), len(lib_b)])
+            costs = sc_costs(conv, x, data["node_attrs"], tables, spec, g)
+        for k in ("K3", "K3b"):
+            b = bound(*costs[k])
+            rec[f"{k}_bound_ms"], rec[f"{k}_bound_by"] = b["bound_ms"], \
+                b["bound_by"]
+        times[key] = rec
+        print(f"{key}: N={N} K3 {rec['K3_ms']:.4f} ms {rec['K3_kernels']} "
+              f"(library set {rec['library_K3_ms']:.4f}, bound "
+              f"{rec['K3_bound_ms']:.4f}); K3b {rec['K3b_ms']:.4f} ms "
+              f"{rec['K3b_kernels']} (library set "
+              f"{rec['library_K3b_ms']:.4f}, bound "
+              f"{rec['K3b_bound_ms']:.4f})", flush=True)
+        del model, lib_f, lib_b, seen, data
+    if not calls_only:
+        times["energy_step"] = energy_step_times(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                      "card": smi.stdout.strip(), "sc_times": times}))
+
+
+def energy_step_times(dev):
+    """The ``config_energy`` training step of the package in the current
+    directory at batch 128 (4 labelled batches): host ms per step over 3
+    passes after a warm-up pass, and kernel ms per step in all, of the mix
+    GEMM family and by kernel (``kernel_split`` over 2 passes)."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    cfg = get_config("config_energy")
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    train = make_batches(synthetic_qm9(4 * BATCH, np.random.default_rng(11),
+                                       labels=True), dev)
+    trainer = Trainer(build_model(cfg["model_config"], dev,
+                                  torch.Generator().manual_seed(0)),
+                      **settings)
+
+    def steps():
+        for b in train:
+            trainer.batch_step(b)
+
+    steps()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        steps()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / (3 * len(train))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = kernel_split(steps, n=2)
+    rec = dict(
+        host_ms=host_ms, peak_gib=peak,
+        kernel_ms=sum(split.values()) / len(train),
+        products_ms=sum(v for k, v in split.items() if k in MIX_KERNELS)
+        / len(train),
+        kernels={k: round(v / len(train), 4) for k, v in split.items()})
+    print(f"energy step: host {host_ms:.3f} ms, kernels "
+          f"{rec['kernel_ms']:.3f} ms, mix GEMM family "
+          f"{rec['products_ms']:.3f} ms per step, peak {peak:.3f} GiB",
+          flush=True)
+    return rec
+
+
 def mix_times():
     """``python3 chip_smoke.py --mix-times``: the product sets of the mix
     GEMM (``csrc/row_mix.cuh``) in the package of the current directory
@@ -2001,7 +2222,6 @@ def mix_times():
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
-    from equivariant_nn_zoo_tpu_torch.run import Trainer
 
     try:
         from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
@@ -2116,33 +2336,7 @@ def mix_times():
     del hmodel
 
     # ------------------------------------------------- the energy step
-    cfg = get_config("config_energy")
-    settings = {k: v for k, v in cfg.items()
-                if k not in ("model_config", "data_config", "batch_size")}
-    train = make_batches(synthetic_qm9(4 * BATCH, np.random.default_rng(11),
-                                       labels=True), dev)
-    trainer = Trainer(build_model(mc, dev, torch.Generator().manual_seed(0)),
-                      **settings)
-
-    def steps():
-        for b in train:
-            trainer.batch_step(b)
-
-    steps()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        steps()
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / (3 * len(train))
-    split = kernel_split(steps, n=2)
-    sets["energy_step"] = dict(
-        host_ms=host_ms, kernel_ms=sum(split.values()) / len(train),
-        products_ms=sum(v for k, v in split.items() if k in MIX_KERNELS)
-        / len(train))
-    print(f"energy step: host {host_ms:.3f} ms, kernels "
-          f"{sets['energy_step']['kernel_ms']:.3f} ms, mix GEMM family "
-          f"{sets['energy_step']['products_ms']:.3f} ms per step", flush=True)
+    sets["energy_step"] = energy_step_times(dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
@@ -2172,6 +2366,14 @@ WALK_PARTS = {
         (r"if \(dv > 4\) \{", "if (false) {", 1),
         (r"\} else if \(dv > 1\) \{", "} else if (false) {", 1),
         (r"sum = lane_sums<1>\(r1, lanes, lane\);", "sum = r1[0];", 1)]},
+    # the species-table kernels K3 / K3b (species_sc.cu, --sc-calls)
+    "table products": {"species_sc.cu": [
+        (r"for \(int k = 0; k < kc; k \+= 4\)",
+         "for (int k = 0; k < 0; k += 4)", 1),
+        (r"for \(int r = 0; r < rows; \+\+r\)",
+         "for (int r = 0; r < 0; ++r)", 1)]},
+    "staging copies": {"species_sc.cu": [
+        (r"\bcp_async4\(", "if (false) cp_async4(", 2)]},
 }
 WALK_ABLATIONS = (
     ("without the radial weights", ["radial weights"]),
@@ -2179,24 +2381,33 @@ WALK_ABLATIONS = (
     ("without the per-edge products", ["per-edge products"]),
     ("without the dsh lane sums", ["dsh lane sums"]),
     ("staging only", ["radial weights", "CG matrices", "per-edge products"]),
+    ("without the table products", ["table products"]),
+    ("without the staging copies", ["staging copies"]),
+    ("without both", ["table products", "staging copies"]),
 )
 
 
-def walk_ablation():
-    """``python3 chip_smoke.py --walk-ablation``: where the time of the walk
-    kernels (K1, K2 and the K4 family; ``csrc/edge_walk.cuh``) goes,
-    without a profiler that reads the card's counters: copies of the
-    package in ``build/walk_ablation/`` (gitignored) each leave out parts
-    of the walks (``WALK_ABLATIONS``), and ``--conv-times`` (K1, K2) and
-    ``--ext-calls`` (K4f, K4b, K4g) time each copy that the edits touch,
-    after the package itself.  A part costs about the time that its
-    absence saves."""
+def walk_ablation(sources=()):
+    """``python3 chip_smoke.py --walk-ablation [source.cu ...]``: where the
+    time of the walk kernels (K1, K2 and the K4 family;
+    ``csrc/edge_walk.cuh``) and of the species-table kernels (K3, K3b;
+    ``csrc/species_sc.cu``) goes, without a profiler that reads the card's
+    counters: copies of the package in ``build/walk_ablation/``
+    (gitignored) each leave out parts of the kernels (``WALK_ABLATIONS``),
+    and ``--conv-times`` (K1, K2), ``--ext-calls`` (K4f, K4b, K4g) and
+    ``--sc-calls`` (K3, K3b) time each copy that the edits touch, after
+    the package itself; with sources named, only the variants that edit
+    them.  A part costs about the time that its absence saves."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "equivariant_nn_zoo_tpu_torch")
-    runs = [("package as it is", root, {"full_conv.cu", "full_conv_ext.cu"})]
+    every = {"full_conv.cu", "full_conv_ext.cu", "species_sc.cu"}
+    runs = [("package as it is", root, set(sources) or every)]
     for i, (label, parts) in enumerate(WALK_ABLATIONS):
+        if sources and not any(set(WALK_PARTS[p]) & set(sources)
+                               for p in parts):
+            continue
         dest = os.path.join(root, "build", "walk_ablation", str(i))
         shutil.rmtree(dest, ignore_errors=True)
         shutil.copytree(pkg, os.path.join(dest, os.path.basename(pkg)),
@@ -2219,7 +2430,8 @@ def walk_ablation():
     for label, cwd, touched in runs:
         modes = (["--conv-times"] if touched & {"full_conv.cu",
                                                 "full_conv_bwd.cu"} else []) \
-            + (["--ext-calls"] if "full_conv_ext.cu" in touched else [])
+            + (["--ext-calls"] if "full_conv_ext.cu" in touched else []) \
+            + (["--sc-calls"] if "species_sc.cu" in touched else [])
         for mode in modes:
             res = subprocess.run([sys.executable, os.path.abspath(__file__),
                                   mode], cwd=cwd, capture_output=True,
@@ -2237,11 +2449,14 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--mix-times"]:
         sys.path.insert(0, os.getcwd())
         mix_times()
+    elif sys.argv[1:] in (["--sc-times"], ["--sc-calls"]):
+        sys.path.insert(0, os.getcwd())
+        sc_times(calls_only=sys.argv[1] == "--sc-calls")
     elif sys.argv[1:] in (["--ext-times"], ["--ext-calls"]):
         sys.path.insert(0, os.getcwd())
         ext_times(calls_only=sys.argv[1] == "--ext-calls")
-    elif sys.argv[1:] == ["--walk-ablation"]:
-        walk_ablation()
+    elif sys.argv[1:2] == ["--walk-ablation"]:
+        walk_ablation(sys.argv[2:])
     else:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         main()

@@ -71,19 +71,22 @@ SIGNATURES = {
     ],
     "species_sc_fwd": [
         _P, _I, _I,            # x, N, in_dim
-        _P, _I,                # species, types
+        _P, _P, _I,            # species order: perm, ptr; types
         _P, _I,                # tables, table row width
-        _P, _I, _P,            # output slots, count, items
+        _P, _P,                # output slots, items
+        _P, _P, _I,            # entries, their host copy, count
         _P, _I, _P,            # out, out_dim, stream
     ],
     "species_sc_bwd": [
         _P, _I, _I,            # x, N, in_dim
-        _P, _I,                # species, types
+        _P, _P, _I,            # species order: perm, ptr; types
         _P, _I,                # tables, table row width
         _P, _I,                # g, out_dim
-        _P, _I,                # input slots, count
-        _P, _I, _I, _I,        # backward items, count, max mul1, max mul_out
-        _I,                    # widest irrep (register rows)
+        _P, _P,                # input slots, backward items
+        _P, _P, _I,            # dx entries, their host copy, count
+        _P, _P, _I,            # dtables entries, their host copy, count
+        _I,                    # rows per dtables chunk
+        _P, _I,                # workspace, its length
         _P, _P, _P,            # dx, dtables, stream
     ],
     "full_conv_bwd": [

@@ -10,8 +10,13 @@ self-connection ``fully_connected_tp(x, node_attrs)`` is
     out_l[n] = x_l[n] @ A_l[species_n],  A_l[t] = rep_t @ W_l * pw / sqrt(d)
 
 with ``rep_t`` the attrs row of species ``t``.  The tables are built here in
-plain PyTorch (as the TPU package builds them in XLA); the per-node product
-is the kernel.  Instructions are taken one by one (no e/o slot pairing).
+plain PyTorch (as the TPU package builds them in XLA); the per-species
+products are the kernels.  They walk the nodes species-major, on the order
+of ``species_order.shared`` (built once per forward and saved for the
+backward), in tiles of one species each, so a block stages its species'
+table once; the entry tables below list the (slot, column tile) and (item,
+u tile, w tile) pieces the kernels' blocks take.  Instructions are taken
+one by one (no e/o slot pairing).
 
 For tensors on the CPU the wrapper runs the plain version
 (``FusedScalarFCTP``) and autograd differentiates it; for CUDA tensors it
@@ -25,13 +30,62 @@ on-card checks.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
 from ..fused_tp import FusedScalarFCTP
+from . import species_order
 from .build import check, check_tensor, load_library
 
-MAX_D = 9  # components of an l <= 4 irrep (the backward's register rows)
+MAX_D = 9  # components of an l <= 4 irrep, the widest the kernels are run at
+# the kernels' tiling (csrc/species_sc.cu): columns of a tile, (node,
+# component) rows of a K3 / dx tile at most, rows of a dtables staging
+# round, and the floats of a dtables tile
+COLS, TILE_ROWS, ROUND = 64, 128, 64
+TILE = COLS * COLS
+
+
+def tile_nodes(rows: int, d: int) -> int:
+    """Nodes of a tile of ``rows`` (node, component) rows."""
+    return max(1, rows // d)
+
+
+def tile_rows(reduction: int) -> int:
+    """(node, component) rows of a K3 / dx tile whose slot sums over
+    ``reduction`` (its items' mul1, or for dx their mul_out) in all: 128
+    up to one 64-long chunk, fewer for a longer sum, down to 16, so that a
+    block's work stays about one chunk's at 128 rows."""
+    if reduction <= COLS:
+        return TILE_ROWS
+    return max(16, TILE_ROWS * COLS // reduction // 16 * 16)
+
+
+def tile_bound(N: int, tn: int, runs: int) -> int:
+    """At most this many tiles of ``tn`` positions cover ``runs`` runs of
+    ``N`` positions in all (each run's last tile may be short)."""
+    return -(-N // tn) + runs
+
+
+@lru_cache(maxsize=None)
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grad_chunk_rows(N: int, grad_entries: np.ndarray, blocks: int) -> int:
+    """(node, component) rows per dtables chunk: the reduction is split so
+    that the species' chunks give about ``blocks`` blocks, in multiples of
+    64 rows (one staging round)."""
+    rows = N * int(grad_entries[:, 3].sum())
+    return max(64, -(-rows // max(1, blocks) // 64) * 64)
+
+
+def grad_blocks(N: int, types: int, grad_entries: np.ndarray,
+                chunk_rows: int) -> int:
+    """Blocks of the dtables partials (tiles of the workspace)."""
+    return sum(tile_bound(N, tile_nodes(chunk_rows, int(d)), types)
+               for d in grad_entries[:, 3])
 
 
 class SpeciesScalarFCTP(torch.nn.Module):
@@ -72,8 +126,6 @@ class SpeciesScalarFCTP(torch.nn.Module):
         col = 0
         for io, mo in enumerate(tp.irreps_out):
             mine = [it for it in instr if it["ins"].i_out == io]
-            if not mine:
-                continue
             outs.append([out_starts[io], mo.ir.dim, mo.mul, len(items),
                          len(items) + len(mine)])
             for it in mine:
@@ -90,22 +142,43 @@ class SpeciesScalarFCTP(torch.nn.Module):
                                      / np.sqrt(it["d"]), np.float32))
                 col += mul1 * mul_out
         self.table_width = col
-        self.n_outs = len(outs)
         self.outs, self.items = outs, items
         # backward tables: items grouped by input slot, with their output
-        # columns, and one row per input slot read by some item
+        # columns, and one row per input slot (an input slot no item reads,
+        # like an output slot no item writes, has an empty item range: the
+        # kernels store zeros in its columns)
         bwd, ins = [], []
-        for i_in in sorted({it["ins"].i_in1 for it in instr}):
+        for i_in, mi in enumerate(ir1):
             mine = [it for it in instr if it["ins"].i_in1 == i_in]
-            ins.append([mine[0]["x_off"], mine[0]["d"], mine[0]["shape"][0],
-                        len(bwd), len(bwd) + len(mine)])
+            ins.append([in_starts[i_in], mi.ir.dim, mi.mul, len(bwd),
+                        len(bwd) + len(mine)])
             bwd += [[it["x_off"], it["shape"][0], it["col"],
                      out_starts[it["ins"].i_out], it["d"], it["shape"][2]]
                     for it in mine]
-        self.n_ins, self.n_bwd_items = len(ins), len(bwd)
-        self.max_mul1 = max((b[1] for b in bwd), default=0)
-        self.max_mo = max((b[5] for b in bwd), default=0)
-        self.max_d = max((b[4] for b in bwd), default=0)
+        self.max_d = max((o[1] for o in outs + ins), default=0)
+        # the kernels' entries, one per 64-wide column tile: K3's (output
+        # slot, first w, d, nodes per tile), dx's (input slot, first u, d,
+        # nodes per tile) and dtables' (item, first u, first w, d); kept on
+        # the host too, where the C entries count the blocks
+        def product_entries(slots, reduction):
+            return np.asarray(
+                [[i, c, o[1], tile_nodes(tile_rows(reduction(o)), o[1])]
+                 for i, o in enumerate(slots) for c in range(0, o[2], COLS)],
+                np.int32).reshape(-1, 4)
+
+        self.fwd_entries = product_entries(
+            outs, lambda o: sum(it[1] for it in items[o[3]:o[4]]))
+        self.dx_entries = product_entries(
+            ins, lambda o: sum(b[5] for b in bwd[o[3]:o[4]]))
+        self.grad_entries = np.asarray(
+            [[i, u, w, b[4]] for i, b in enumerate(bwd)
+             for u in range(0, b[1], COLS) for w in range(0, b[5], COLS)],
+            np.int32).reshape(-1, 4)
+        for name in ("fwd_entries", "dx_entries", "grad_entries"):
+            self.register_buffer(
+                f"{name}_table",
+                torch.tensor(getattr(self, name).reshape(-1)),
+                persistent=False)
         self.register_buffer(
             "out_table", torch.tensor(np.asarray(outs, np.int32).reshape(-1)),
             persistent=False)
@@ -167,14 +240,18 @@ class SpeciesScalarFCTP(torch.nn.Module):
         return FusedScalarFCTP(tp)(x, attrs)
 
     def launch(self, tp, x, attrs, species):
-        """The kernel path: tables in plain PyTorch, then K3, through
-        ``SpeciesScalarFCTPFunction`` (K3b in the backward) when a
-        gradient is wanted."""
+        """The kernel path: the species order (``species_order.shared``:
+        one per forward), tables in plain PyTorch, then K3, through
+        ``SpeciesScalarFCTPFunction`` (K3b in the backward, on the same
+        order) when a gradient is wanted."""
         spec = species.reshape(-1)
+        order = species_order.shared(spec, self.num_types)
         tables = self.tables(tp, attrs, spec)
         if not torch.is_grad_enabled():
-            return launch_forward(self, x, spec, tables.contiguous())
-        return SpeciesScalarFCTPFunction.apply(self, x, tables, spec)
+            return launch_forward(self, x, spec, tables.contiguous(),
+                                  order=order)
+        return SpeciesScalarFCTPFunction.apply(self, x, tables, spec,
+                                               *order)
 
     def table_product(self, x, species, tables):
         """Plain PyTorch version of K3's contract: ``out[n] = x[n] @
@@ -211,22 +288,24 @@ class SpeciesScalarFCTPFunction(torch.autograd.Function):
     tables; autograd carries ``dtables`` on to the weight and attrs."""
 
     @staticmethod
-    def forward(ctx, sc, x, tables, species):
+    def forward(ctx, sc, x, tables, species, perm, ptr):
         tables = tables.contiguous()
-        out = launch_forward(sc, x, species, tables)
-        ctx.save_for_backward(x, tables, species)
+        order = species_order.SpeciesOrder(perm, ptr)
+        out = launch_forward(sc, x, species, tables, order=order)
+        ctx.save_for_backward(x, tables, species, perm, ptr)
         ctx.sc = sc
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, tables, species = ctx.saved_tensors
-        dx, dtables = launch_backward(ctx.sc, x, species, tables,
-                                      g.contiguous())
-        return None, dx, dtables, None
+        x, tables, species, perm, ptr = ctx.saved_tensors
+        dx, dtables = launch_backward(
+            ctx.sc, x, species, tables, g.contiguous(),
+            order=species_order.SpeciesOrder(perm, ptr))
+        return None, dx, dtables, None, None, None
 
 
-def _check_inputs(sc, x, species, tables):
+def _check_inputs(sc, x, species, tables, order):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(
@@ -239,31 +318,40 @@ def _check_inputs(sc, x, species, tables):
     if sc.out_table.device != dev:
         raise ValueError("SpeciesScalarFCTP tables are not on the "
                          "input's device")
-    return dev, N
+    if order is None:
+        order = species_order.build(species, sc.num_types)
+    check_tensor(order.perm, "perm", (N,), torch.int32, dev)
+    check_tensor(order.ptr, "ptr", (sc.num_types + 1,), torch.int32, dev)
+    return dev, N, order
 
 
-def launch_forward(sc, x, species, tables):
-    """Launch K3: ``out [N, out_dim]``."""
-    dev, N = _check_inputs(sc, x, species, tables)
+def launch_forward(sc, x, species, tables, order=None):
+    """Launch K3: ``out [N, out_dim]``, on ``order`` (the species order of
+    ``species``, built here when missing)."""
+    dev, N, order = _check_inputs(sc, x, species, tables, order)
     out_dim = sc.irreps_out.dim
     out = torch.empty((N, out_dim), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.species_sc_fwd(
-            x.data_ptr(), N, sc.in_dim, species.data_ptr(),
-            sc.num_types, tables.data_ptr(), sc.table_width,
-            sc.out_table.data_ptr(), sc.n_outs,
-            sc.item_table.data_ptr(), out.data_ptr(), out_dim, stream,
+            x.data_ptr(), N, sc.in_dim, order.perm.data_ptr(),
+            order.ptr.data_ptr(), sc.num_types, tables.data_ptr(),
+            sc.table_width, sc.out_table.data_ptr(),
+            sc.item_table.data_ptr(), sc.fwd_entries_table.data_ptr(),
+            sc.fwd_entries.ctypes.data, len(sc.fwd_entries),
+            out.data_ptr(), out_dim, stream,
         )
     check(err, "species_sc_fwd")
     SpeciesScalarFCTP.launches += 1
     return out
 
 
-def launch_backward(sc, x, species, tables, g):
-    """Launch K3b: ``(dx [N, in_dim], dtables [types, table_width])``."""
-    dev, N = _check_inputs(sc, x, species, tables)
+def launch_backward(sc, x, species, tables, g, order=None):
+    """Launch K3b: ``(dx [N, in_dim], dtables [types, table_width])``, on
+    ``order`` (built here when missing); the dtables partials go to a
+    workspace of ``grad_blocks`` tiles."""
+    dev, N, order = _check_inputs(sc, x, species, tables, order)
     check_tensor(g, "g", (N, sc.irreps_out.dim), torch.float32, dev)
     if sc.max_d > MAX_D:
         raise ValueError(f"the K3 backward takes irreps up to l = 4, got "
@@ -271,15 +359,27 @@ def launch_backward(sc, x, species, tables, g):
     dx = torch.empty((N, sc.in_dim), dtype=torch.float32, device=dev)
     dtables = torch.empty((sc.num_types, sc.table_width),
                           dtype=torch.float32, device=dev)
+    chunk_rows = grad_chunk_rows(N, sc.grad_entries,
+                                 2 * _multiprocessors(dev))
+    ws = torch.empty(
+        grad_blocks(N, sc.num_types, sc.grad_entries, chunk_rows) * TILE,
+        dtype=torch.float32, device=dev)
+    if ws.numel() >= 2 ** 31:
+        raise ValueError(f"the K3b workspace of {ws.numel()} floats is too "
+                         f"large")
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.species_sc_bwd(
-            x.data_ptr(), N, sc.in_dim, species.data_ptr(), sc.num_types,
-            tables.data_ptr(), sc.table_width, g.data_ptr(),
-            sc.irreps_out.dim, sc.in_table.data_ptr(), sc.n_ins,
-            sc.bwd_item_table.data_ptr(), sc.n_bwd_items, sc.max_mul1,
-            sc.max_mo, sc.max_d, dx.data_ptr(), dtables.data_ptr(), stream,
+            x.data_ptr(), N, sc.in_dim, order.perm.data_ptr(),
+            order.ptr.data_ptr(), sc.num_types, tables.data_ptr(),
+            sc.table_width, g.data_ptr(), sc.irreps_out.dim,
+            sc.in_table.data_ptr(), sc.bwd_item_table.data_ptr(),
+            sc.dx_entries_table.data_ptr(), sc.dx_entries.ctypes.data,
+            len(sc.dx_entries), sc.grad_entries_table.data_ptr(),
+            sc.grad_entries.ctypes.data, len(sc.grad_entries), chunk_rows,
+            ws.data_ptr(), ws.numel(), dx.data_ptr(), dtables.data_ptr(),
+            stream,
         )
     check(err, "species_sc_bwd")
     SpeciesScalarFCTP.backward_launches += 1

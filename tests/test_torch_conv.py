@@ -243,9 +243,9 @@ def _route_launches_to_plain(monkeypatch):
     monkeypatch.setattr(full_conv_mod, "launch_backward",
                         lambda conv, *a, order=None: conv.plain_backward(*a))
     monkeypatch.setattr(species_sc_mod, "launch_forward",
-                        lambda sc, *a: sc.table_product(*a))
+                        lambda sc, *a, order=None: sc.table_product(*a))
     monkeypatch.setattr(species_sc_mod, "launch_backward",
-                        lambda sc, *a: sc.plain_backward(*a))
+                        lambda sc, *a, order=None: sc.plain_backward(*a))
 
 
 def _conv_grads(tconv, x, sh, er, src, dst, table, species):

@@ -8,14 +8,16 @@ hamiltonian path (``config_hamiltonian``): K5 and K6 against their plain
 versions, their backward kernels (K5m, K5a, K5b; K6b) per output against the
 plain backward and, through the autograd Functions, against the CPU, K1, K2,
 K3 and K3b at the trunk's l = 4 layer, the full-width forward and a training
-step's gradients against the CPU plain path.
+step's gradients against the CPU plain path.  K3 and K3b repeat bit for
+bit, give zero rows for out-of-range species and zero dtables rows for
+absent ones, and share one species order per step.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
 skips (the decision is taken inside the fixture, never at import).
 TF32 is off, so the plain versions compute in float32; the kernels sum in
 another order (the mix GEMM of ``csrc/row_mix.cuh`` in 3xTF32 on the tensor
-cores), some (K3b, K6b) with atomics in a varying order, so agreement is
+cores), some (K6b) with atomics in a varying order, so agreement is
 rel-linf 1e-4 of max|plain|.  The mix GEMM (forward mix, dS, dwsel and the
 radial MLP's products) is also checked on its own at ragged shapes, and the
 outputs it makes repeatable are checked to repeat bit for bit.
@@ -38,6 +40,7 @@ from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
+from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.run import Loss
 
@@ -291,6 +294,70 @@ def test_species_sc_backward_kernel_matches_plain(model_and_batch):
     torch.cuda.synchronize()
     assert SpeciesScalarFCTP.backward_launches == before + 1
     _assert_all_close(got, want, ("dx", "dtables"))
+
+
+@pytest.mark.parametrize("which", ["energy", "hamiltonian"])
+def test_species_sc_kernels_repeat_and_zero_rows(model_and_batch,
+                                                 hamiltonian, which):
+    """K3 and K3b at config_energy's layer3 and config_hamiltonian's l = 4
+    layer3, on one species order: out, dx and dtables repeat bit for bit
+    over two launches, the dtables rows of species absent from the batch
+    are exactly zero, and nodes of an out-of-range species (-1, types) get
+    zero out and dx rows while the others match plain."""
+    model, gb = model_and_batch if which == "energy" else hamiltonian[:2]
+    conv = model.layer3.conv
+    sc = conv.species_sc
+    data = _layer3_inputs(model, gb)
+    x, spec, tables, g = _k3b_case(conv, data["input_features"],
+                                   data["node_attrs"], data["species"],
+                                   seed=23)
+    order = species_order.build(spec, sc.num_types)
+    with torch.no_grad():
+        outs = [species_sc_mod.launch_forward(sc, x, spec, tables,
+                                              order=order)
+                for _ in range(2)]
+        grads = [species_sc_mod.launch_backward(sc, x, spec, tables, g,
+                                                order=order)
+                 for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    _assert_all_close((outs[0], *grads[0]),
+                      (sc.table_product(x, spec, tables),
+                       *sc.plain_backward(x, spec, tables, g)),
+                      ("out", "dx", "dtables"))
+    absent = sorted(set(range(sc.num_types)) - set(spec.tolist()))
+    assert absent and not grads[0][1][absent].any()
+
+    bad = spec.clone()
+    bad[::5], bad[1::7] = -1, sc.num_types
+    valid = (bad >= 0) & (bad < sc.num_types)
+    out = species_sc_mod.launch_forward(sc, x, bad, tables)
+    dx, dtables = species_sc_mod.launch_backward(sc, x, bad, tables, g)
+    torch.cuda.synchronize()
+    assert not out[~valid].any() and not dx[~valid].any()
+    _assert_all_close(
+        (out[valid], dx[valid], dtables),
+        (sc.table_product(x[valid], bad[valid], tables),
+         *sc.plain_backward(x[valid], bad[valid], tables, g[valid])),
+        ("out", "dx", "dtables"))
+
+
+def test_one_species_order_per_step(model_and_batch):
+    """A training step of the 5-layer model builds the species order once:
+    the five K3 and five K3b launches share it."""
+    model, gb = model_and_batch
+    species_order._last = None  # forget an order of an earlier test
+    builds = species_order.builds
+    before = (SpeciesScalarFCTP.launches,
+              SpeciesScalarFCTP.backward_launches)
+    model(gb)["total_energy"].sum().backward()
+    torch.cuda.synchronize()
+    model.zero_grad()
+    n_layers = get_config("config_energy")["model_config"]["num_layers"]
+    assert SpeciesScalarFCTP.launches - before[0] == n_layers
+    assert SpeciesScalarFCTP.backward_launches - before[1] == n_layers
+    assert species_order.builds == builds + 1
 
 
 @pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (32, 130, 4099)])

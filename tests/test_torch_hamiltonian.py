@@ -186,7 +186,7 @@ def routed(monkeypatch):
                          "K5 backward": 0}
 
     def counting(table, key, attr):
-        def launch(mod, *args, order=None):   # K1 and K2 take the order
+        def launch(mod, *args, order=None):   # K1, K2, K3, K3b take an order
             table[key] += 1
             return getattr(mod, attr)(*args)
         return launch

@@ -198,9 +198,9 @@ def test_functions_match_plain_autograd(reference, monkeypatch):
     monkeypatch.setattr(full_conv_mod, "launch_backward",
                         lambda conv, *a, order=None: conv.plain_backward(*a))
     monkeypatch.setattr(species_sc_mod, "launch_forward",
-                        lambda sc, *a: sc.table_product(*a))
+                        lambda sc, *a, order=None: sc.table_product(*a))
     monkeypatch.setattr(species_sc_mod, "launch_backward",
-                        lambda sc, *a: sc.plain_backward(*a))
+                        lambda sc, *a, order=None: sc.plain_backward(*a))
     got_loss, got = _port_step_grads(model, gb)
     assert _rel(got_loss, want_loss) <= 1e-6
     for name in want:
