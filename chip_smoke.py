@@ -4,8 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-times     # K1 and K2 alone, see conv_times
     python3 chip_smoke.py --walk-ablation [source.cu ...]
-                                           # the walks' and K3/K3b's parts,
-                                           # see walk_ablation
+                                           # the walks', K3/K3b's and the
+                                           # K5 adjoint sweep's parts, see
+                                           # walk_ablation
     python3 chip_smoke.py --mix-times      # the mix GEMM's product sets,
                                            # see mix_times
     python3 chip_smoke.py --sc-times       # K3 and K3b alone and the
@@ -14,6 +15,10 @@
     python3 chip_smoke.py --ext-times      # K4f, K4b, K4g alone and the
                                            # force step, see ext_times
     python3 chip_smoke.py --ext-calls      # K4f, K4b, K4g alone
+    python3 chip_smoke.py --pw-times       # the K5 backward entry alone
+                                           # and the hamiltonian step, see
+                                           # pw_times
+    python3 chip_smoke.py --pw-calls       # the K5 backward entry alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -103,7 +108,8 @@ Phases, in order; any failure exits non-zero before the last line:
              49 node rows); the
              pairwise backward is one entry, so each of its three kernels
              (dwsel, d left, dbw) is also launched, checked and timed
-             alone; K3b's dx and dtables must repeat bit for bit;
+             alone at 3072; the pairwise backward's three outputs and
+             K3b's dx and dtables must repeat bit for bit;
 17. hamiltonian train — a ``run.Trainer`` with ``config_hamiltonian``'s
              own settings (loss 1e5 * MSE on ``hamiltonian``, Adam lr 1e-2,
              EMA 0.99 with num_updates, ReduceLROnPlateau patience 8 factor
@@ -567,7 +573,7 @@ PROFILE_FAMILIES = (
     ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
     ("the walks' radial hidden layers (K1/K2), piece sums, dx sums",
      "mlp_hidden_kernel|walk_piece_sum_kernel|walk_dx_kernel"),
-    ("K5 sweeps (cg, da, dbw)", "pairwise_"),
+    ("K5 sweeps (cg, adjoint sweep, d left sums)", "pairwise_"),
     ("K6 and K6b sweeps", "uvu_"),
     ("K3 and K3b", r"species_sc|table_product_kernel|table_grad"),
     ("sorts and index backward", "RadixSort|indexing_backward|cub::"),
@@ -606,6 +612,17 @@ def kernel_rows(run):
         fam[0] += ms
         fam[1] += n
     return rows, families, span
+
+
+def families(run, n):
+    """``torch.profiler`` over ``run()`` (``n`` steps or batches): kernel
+    ms and launches per item, and ms per item by ``PROFILE_FAMILIES``
+    label."""
+    rows, fams, _ = kernel_rows(run)
+    return (round(sum(r[0] for r in rows) / n, 4),
+            round(sum(r[1] for r in rows) / n, 1),
+            {k: round(v[0] / n, 4) for k, v in sorted(
+                fams.items(), key=lambda kv: -kv[1][0])})
 
 
 def profile_kernels(what, run, n_items, filename):
@@ -1014,6 +1031,8 @@ def backward_checks(model, seen, dev, alone):
             f"K5 backward, one entry ({which}, M={M}: K5m + K5a + K5b)",
             lambda: k5_ops.launch_backward(tpk, *args5),
             lambda: tpk.plain_backward(*args5), names5)
+        repeats(f"K5 backward ({which}, M={M})",
+                lambda: k5_ops.launch_backward(tpk, *args5))
         if which == "tp_off":
             rec["K5 backward"] = whole
             if alone:
@@ -1286,10 +1305,11 @@ def hamiltonian_phases(dev):
          "pairwise_cg_kernel + rowmix::gemm_kernel (S^T gout)"),
         ("pairwise_tp_bwd_da", "pairwise_tp.cu", "pairwise.py:556",
          "pairwise_tp_bwd", "K5a",
-         "rowmix::gemm_kernel (dS) + pairwise_da_kernel"),
+         "rowmix::gemm_kernel (dS) + pairwise_adj_kernel<true, false> + "
+         "pairwise_da_sum_kernel"),
         ("pairwise_tp_bwd_dbw", "pairwise_tp.cu", "pairwise.py:591",
          "pairwise_tp_bwd", "K5b",
-         "rowmix::gemm_kernel (dS) + pairwise_dbw_kernel"),
+         "rowmix::gemm_kernel (dS) + pairwise_adj_kernel<false, true>"),
     )
     records = [
         dict(kernel_record("uvu_conv", "uvu_conv.cu", "fused_conv.py:233",
@@ -1935,13 +1955,6 @@ def ext_times(calls_only=False):
                           "card": smi.stdout.strip(), "ext_times": rec}))
         return
 
-    def families(run, n):
-        rows, fams, _ = kernel_rows(run)
-        return (round(sum(r[0] for r in rows) / n, 4),
-                round(sum(r[1] for r in rows) / n, 1),
-                {k: round(v[0] / n, 4) for k, v in sorted(
-                    fams.items(), key=lambda kv: -kv[1][0])})
-
     # ------------------------------------------------------- force serve
     def serve():
         with torch.no_grad():
@@ -2344,6 +2357,128 @@ def mix_times():
                       "card": smi.stdout.strip(), "mix_times": sets}))
 
 
+# the K5 backward entry's CUDA-core sweeps in kernel_split's names: the
+# adjoint sweep and its ordered d left sums, and a parent checkout's two
+# sweeps
+PW_SWEEPS = ("pairwise_adj_kernel", "pairwise_da_sum_kernel",
+             "pairwise_da_kernel", "pairwise_dbw_kernel")
+PW_PARTS = {7: (True, True, True), 2: (True, False, False),
+            4: (False, True, False)}
+
+
+def pw_times(calls_only=False):
+    """``python3 chip_smoke.py --pw-times``: the K5 backward entry
+    (``pairwise_tp_bwd``: K5m, K5a, K5b) of the package in the current
+    directory (run it from two checkouts in turn to compare them on one
+    card) at the full-width hamiltonian head, on the inputs that one
+    forward of a 512- and of a 16-molecule batch gives it (phases 15-16:
+    ``tp_off`` on the edges, ``tp`` on the node rows, M = 3072, 1537, 96
+    and 49; seeded cotangents), for parts 7 (every cotangent), 2 (d left)
+    and 4 (dbw): ms per call with CUDA events, each kernel's device ms
+    (``kernel_split``), and the adjoint sweep's byte bound (dS and, for d
+    left, bw read once, for dbw a read once; dbw and d left written once)
+    and its share of the sweeps' device ms.  Then the hamiltonian training
+    step at batch 16 and 128 (phase 17's settings and batches): host ms
+    per step over 12 steps and kernel ms per step by profile family over
+    4.  One JSON line.  ``--pw-calls``: the entries alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    import equivariant_nn_zoo_tpu_torch as pkg
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("config_hamiltonian")
+    model = build_model(cfg["model_config"], dev,
+                        torch.Generator().manual_seed(0))
+    model.eval()
+    tpk = model.pairwise.pairwise_tp
+    mols = synthetic_h2o(N_BATCHES * max(H2O_BATCHES),
+                         np.random.default_rng(20))
+    gen = torch.Generator().manual_seed(5)
+    rec = {}
+    for size in sorted(H2O_BATCHES, reverse=True):
+        gb = make_batches(mols[:N_BATCHES * size], dev, size)[0]
+        for which, (tpe, left, right) in zip(
+                ("tp_off", "tp"), capture_head_inputs(model, gb)["K5"]):
+            M = left.shape[0]
+            with torch.no_grad():
+                bw = tpk.weighted_right(tpe.tp.weight, right)
+                wsel = tpk.flat_wsel(tpe.linear)
+                gout = torch.randn(M, tpk.out_dim, generator=gen).to(dev)
+                for parts, wanted in PW_PARTS.items():
+                    def entry():
+                        return k5_ops.launch_backward(tpk, left, bw, wsel,
+                                                      gout, wanted)
+
+                    split = kernel_split(entry)
+                    sweep = round(sum(v for k, v in split.items()
+                                      if k in PW_SWEEPS), 4)
+                    n_bytes = M * tpk.KM * 4 + (
+                        nbytes(bw, left) if wanted[0] else 0) + (
+                        nbytes(left, bw) if wanted[1] else 0)
+                    b = bound(3 * 2 * tpk.mul * tpk.nz_count * M
+                              * (wanted[0] + wanted[1]), n_bytes)
+                    key = f"{which}_{M}_parts{parts}"
+                    rec[key] = dict(
+                        M=M, parts=parts, ms=cuda_ms(entry), kernels=split,
+                        sweep_ms=sweep, sweep_bound_ms=b["bound_ms"],
+                        sweep_bound_by=b["bound_by"],
+                        sweep_share=b["bound_ms"] / max(sweep, 1e-9))
+                    print(f"K5 backward {key}: entry {rec[key]['ms']:.4f} "
+                          f"ms, sweeps {sweep} ms (bound "
+                          f"{b['bound_ms']:.4f} by {b['bound_by']}, share "
+                          f"{rec[key]['sweep_share']:.3f}); {split}",
+                          flush=True)
+            del bw, gout
+    del model
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if not calls_only:
+        settings = {k: v for k, v in cfg.items()
+                    if k not in ("model_config", "data_config",
+                                 "batch_size")}
+        labelled = synthetic_h2o(5 * H2O_TRAIN_BATCHES[0] + N_BATCHES
+                                 * H2O_TRAIN_BATCHES[1],
+                                 np.random.default_rng(21), labels=True)
+        trainer = Trainer(build_model(cfg["model_config"], dev,
+                                      torch.Generator().manual_seed(0)),
+                          **settings)
+        small = make_batches(labelled[:5 * H2O_TRAIN_BATCHES[0]], dev,
+                             H2O_TRAIN_BATCHES[0])[:4]
+        big = make_batches(labelled[5 * H2O_TRAIN_BATCHES[0]:], dev,
+                           H2O_TRAIN_BATCHES[1])
+        for size, group in zip(H2O_TRAIN_BATCHES, (small, big)):
+            def steps():
+                for gb in group:
+                    trainer.batch_step(gb)
+
+            steps()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                steps()
+            torch.cuda.synchronize()
+            host = 1e3 * (time.perf_counter() - t0) / (3 * len(group))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            kms, launches, fams = families(steps, len(group))
+            rec[f"step_{size}"] = dict(host_ms=host, kernel_ms=kms,
+                                       launches=launches, peak_gib=peak,
+                                       families=fams)
+            print(f"hamiltonian step, batch {size}: {host:.3f} ms (host), "
+                  f"{kms} ms of kernels in {launches} launches, peak "
+                  f"{peak:.3f} GiB; {fams}", flush=True)
+    print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                      "card": smi.stdout.strip(), "pw_times": rec}))
+
+
 # the walk ablation: each part of the walk kernels as, per source, the
 # (pattern, replacement, matches) edits that leave it out, and the
 # variants timed, as (label, parts left out); a variant computes wrong
@@ -2374,6 +2509,14 @@ WALK_PARTS = {
          "for (int r = 0; r < 0; ++r)", 1)]},
     "staging copies": {"species_sc.cu": [
         (r"\bcp_async4\(", "if (false) cp_async4(", 2)]},
+    # the adjoint sweep of the K5 backward (pairwise_tp.cu, --pw-calls)
+    "adjoint staging copies": {"pairwise_tp.cu": [
+        (r"\bbulk_copy\(d", "if (false) bulk_copy(d", 2),
+        (r"mbar_expect_tx\(bar, \(uint32_t\)",
+         "mbar_expect_tx(bar, 0 * (uint32_t)", 1),
+        (r"\bcp_async4\(dst \+ m1", "if (false) cp_async4(dst + m1", 1)]},
+    "adjoint non-zero sweeps": {"pairwise_tp.cu": [
+        (r"z < z1; \+\+z\)", "z < 0; ++z)", 2)]},
 }
 WALK_ABLATIONS = (
     ("without the radial weights", ["radial weights"]),
@@ -2384,25 +2527,32 @@ WALK_ABLATIONS = (
     ("without the table products", ["table products"]),
     ("without the staging copies", ["staging copies"]),
     ("without both", ["table products", "staging copies"]),
+    ("without the adjoint staging copies", ["adjoint staging copies"]),
+    ("without the adjoint non-zero sweeps", ["adjoint non-zero sweeps"]),
+    ("without both adjoint parts", ["adjoint staging copies",
+                                    "adjoint non-zero sweeps"]),
 )
 
 
 def walk_ablation(sources=()):
     """``python3 chip_smoke.py --walk-ablation [source.cu ...]``: where the
     time of the walk kernels (K1, K2 and the K4 family;
-    ``csrc/edge_walk.cuh``) and of the species-table kernels (K3, K3b;
-    ``csrc/species_sc.cu``) goes, without a profiler that reads the card's
-    counters: copies of the package in ``build/walk_ablation/``
+    ``csrc/edge_walk.cuh``), of the species-table kernels (K3, K3b;
+    ``csrc/species_sc.cu``) and of the K5 backward's adjoint sweep
+    (``csrc/pairwise_tp.cu``) goes, without a profiler that reads the
+    card's counters: copies of the package in ``build/walk_ablation/``
     (gitignored) each leave out parts of the kernels (``WALK_ABLATIONS``),
-    and ``--conv-times`` (K1, K2), ``--ext-calls`` (K4f, K4b, K4g) and
-    ``--sc-calls`` (K3, K3b) time each copy that the edits touch, after
+    and ``--conv-times`` (K1, K2), ``--ext-calls`` (K4f, K4b, K4g),
+    ``--sc-calls`` (K3, K3b) and ``--pw-calls`` (the K5 backward entry)
+    time each copy that the edits touch, after
     the package itself; with sources named, only the variants that edit
     them.  A part costs about the time that its absence saves."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "equivariant_nn_zoo_tpu_torch")
-    every = {"full_conv.cu", "full_conv_ext.cu", "species_sc.cu"}
+    every = {"full_conv.cu", "full_conv_ext.cu", "species_sc.cu",
+             "pairwise_tp.cu"}
     runs = [("package as it is", root, set(sources) or every)]
     for i, (label, parts) in enumerate(WALK_ABLATIONS):
         if sources and not any(set(WALK_PARTS[p]) & set(sources)
@@ -2431,7 +2581,8 @@ def walk_ablation(sources=()):
         modes = (["--conv-times"] if touched & {"full_conv.cu",
                                                 "full_conv_bwd.cu"} else []) \
             + (["--ext-calls"] if "full_conv_ext.cu" in touched else []) \
-            + (["--sc-calls"] if "species_sc.cu" in touched else [])
+            + (["--sc-calls"] if "species_sc.cu" in touched else []) \
+            + (["--pw-calls"] if "pairwise_tp.cu" in touched else [])
         for mode in modes:
             res = subprocess.run([sys.executable, os.path.abspath(__file__),
                                   mode], cwd=cwd, capture_output=True,
@@ -2455,6 +2606,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] in (["--ext-times"], ["--ext-calls"]):
         sys.path.insert(0, os.getcwd())
         ext_times(calls_only=sys.argv[1] == "--ext-calls")
+    elif sys.argv[1:] in (["--pw-times"], ["--pw-calls"]):
+        sys.path.insert(0, os.getcwd())
+        pw_times(calls_only=sys.argv[1] == "--pw-calls")
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

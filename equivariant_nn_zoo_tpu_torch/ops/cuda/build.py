@@ -143,14 +143,18 @@ SIGNATURES = {
         _P, _I, _I,            # left, M, its columns
         _P, _I,                # weighted right [M, R, mul], R
         _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
-        _P, _I, _P,            # left irreps, count, their paths
+        _P, _P,                # adjoint sweep: paths, their host copy,
+        _P, _I,                # non-zeros in two orders, their count,
+        _P, _P, _I,            # chunks, their host copy, count,
+        _P, _I, _I,            # d left sums, count, elements per block
         _I, _I,                # K * mul, mul
         _P, _I, _P, _I,        # mix matrices, their length, host problems, n
         _P, _I,                # gout, out_dim
         _P, _P,                # work: S, dS
         _P, _P, _P,            # d left, d weighted right, dwsel
         _I,                    # which of them (1 dwsel, 2 d left, 4 dbw)
-        _P, _I, _P,            # workspace, its length, stream
+        _P, _I,                # workspace, its length,
+        _P, _I, _P,            # d left partials, their length, stream
     ],
     "full_conv_ext_fwd": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, sh, w, wsel

@@ -27,8 +27,9 @@ For tensors on the CPU the wrapper runs the plain version
 (``TensorProductExpansion.expand``, the mid-fused lowering) and autograd
 differentiates it.  For CUDA tensors it goes, chunk by chunk, through
 ``PairwiseTPFunction`` on ``(left, bw, wsel)``, whose forward launches K5
-and whose backward launches the three cotangents' kernels from one entry
-(``dwsel``: K5m, ``d left``: K5a, ``dbw``: K5b), or raises.  Stage 1 and
+and whose backward launches the cotangents' kernels from one entry
+(``dwsel``: K5m; ``d left`` and ``dbw``: K5a and K5b, one adjoint sweep
+over ``AdjointTables``), or raises.  Stage 1 and
 ``flat_wsel`` are PyTorch, so autograd carries ``dbw`` back to
 ``tp.weight`` and ``right`` and ``dwsel`` (summed over the chunks) to the
 mix ``Linear``.  The backward recomputes the unmixed scratch instead of
@@ -40,6 +41,8 @@ on-card checks.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -47,6 +50,162 @@ from ..wigner import wigner_3j
 from . import row_mix
 from .build import check, check_tensor, load_library
 from .full_conv import MAX_D, mix_rows
+from .species_sc import _multiprocessors
+
+
+#: the adjoint sweep (csrc/pairwise_tp.cu, pairwise_adj_kernel): floats of
+#: a staged row (a warp's 32 lanes, two channels each), fields of a path
+#: row and of a chunk row
+ADJ_ROW = 64
+ADJ_PATH_FIELDS = 7 + 2 * (MAX_D + 1)
+ADJ_CHUNK_FIELDS = 5
+#: the two cuts of the paths into chunks, coarse (large M: fewer units
+#: and partial sums) and fine (small M: a shorter longest unit), by the
+#: number of chunks each one's balance cap aims at
+ADJ_TARGET_CHUNKS = (16, 32)
+
+
+class Chunking(NamedTuple):
+    """One cut of the adjoint sweep's paths into units of work.
+
+    - ``chunks [C, ADJ_CHUNK_FIELDS]``: ``(x_off, d1, p0, p1, ws_col)``,
+      consecutive paths ``[p0, p1)`` of one left irrep (columns ``x_off``,
+      ``mul * d1`` of them), about equal in non-zeros and at most ``cap``;
+      ``ws_col`` is -1 where the chunk is its irrep's only one (it stores
+      d left itself), else the column of its partial in the workspace
+      ``[M * ws_width]`` (partial at ``M * ws_col + m * mul * d1``);
+    - ``sums [S, 4]``: ``(x_off, width, ws_col, n)`` for each left irrep
+      that does not have exactly one chunk: its d left columns are the sum
+      of its ``n`` partials at ``ws_col + k * width`` in chunk order, or
+      zeros where ``n`` is 0 (no path reads the irrep).
+    """
+    chunks: np.ndarray
+    sums: np.ndarray
+    ws_width: int
+    cap: int
+
+
+class AdjointTables(NamedTuple):
+    """Host tables of the backward's adjoint sweep (K5a ``d left``, K5b
+    ``dbw``), built by ``adjoint_tables``.
+
+    - ``paths [P, ADJ_PATH_FIELDS]``: the paths in left-irrep order, each
+      ``(r0, d2, row_base, row_stride, d3, nz0, nz1, runs_a[MAX_D + 1],
+      runs_b[MAX_D + 1])``: its bw rows ``r0 + m2``, its scratch rows
+      ``row_base + m3 * row_stride``, its non-zeros ``[nz0, nz1)`` of
+      ``nz`` and the bounds of their runs of equal m1 (``runs_a[i]:
+      runs_a[i + 1]``, order 0) and of equal m2 (``runs_b``, order 1),
+      padded with the last bound;
+    - ``nz [2, nz, 2]`` int32: each path's non-zeros in two orders, order
+      0 m1-major (then m3, m2), order 1 m2-major (then m3, m1), as
+      ``row(first) | row(d2 + m3) << 16`` beside the coefficient's float32
+      bits, ``row(i) = 4 * ADJ_ROW * i`` the byte offset of staged row i:
+      the first operand is bw row m2 (order 0) or left row m1 (order 1),
+      and a path's stage holds its d2 bw rows, then its d3 dS rows;
+    - ``cuts``: a ``Chunking`` per ``ADJ_TARGET_CHUNKS``.
+    """
+    paths: np.ndarray
+    nz: np.ndarray
+    cuts: tuple
+
+
+def balanced_cuts(weights, cap):
+    """Cut ``weights`` (each at most ``cap``) into the fewest runs of
+    consecutive items whose sums stay within ``cap``, as even as possible:
+    the smallest cap at which cutting greedily still gives that few runs.
+    Returns the boundaries, first 0 and last ``len(weights)``."""
+    def greedy(c):
+        cuts, run = [0], 0
+        for i, w in enumerate(weights):
+            if run + w > c and run > 0:
+                cuts.append(i)
+                run = 0
+            run += w
+        return cuts + [len(weights)]
+
+    if not weights:
+        return [0, 0]
+    k = len(greedy(cap)) - 1
+    lo, hi = max(max(weights), -(-sum(weights) // k)), cap
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(greedy(mid)) - 1 <= k:
+            hi = mid
+        else:
+            lo = mid + 1
+    return greedy(lo)
+
+
+def chunking(sizes, left_paths, mul, target):
+    """The ``Chunking`` of paths with ``sizes`` non-zeros (in left-irrep
+    order) whose balance cap aims at ``target`` chunks; ``left_paths``:
+    per left irrep ``(x_off, d1, first path, path count)``."""
+    cap = max(int(max(sizes, default=1)), -(-int(sum(sizes)) // target))
+    chunks, sums, ws_width = [], [], 0
+    for x_off, d1, p0, n_p in left_paths:
+        cuts = balanced_cuts(list(sizes[p0: p0 + n_p]), cap)
+        n_chunks = len(cuts) - 1 if n_p else 0
+        width = mul * d1
+        if n_chunks != 1:
+            sums.append([x_off, width, ws_width, n_chunks])
+        for k in range(n_chunks):
+            chunks.append([x_off, d1, p0 + cuts[k], p0 + cuts[k + 1],
+                           -1 if n_chunks == 1 else ws_width + k * width])
+        ws_width += width * n_chunks if n_chunks > 1 else 0
+    return Chunking(
+        chunks=np.asarray(chunks, np.int32).reshape(-1, ADJ_CHUNK_FIELDS),
+        sums=np.asarray(sums, np.int32).reshape(-1, 4),
+        ws_width=ws_width, cap=cap)
+
+
+def adjoint_tables(path_rows, d3s, nz_codes, nz_values, left, mul):
+    """The ``AdjointTables`` of a path table (``PairwiseTP.path_rows``, the
+    output dims ``d3s`` of its paths, the non-zeros ``nz_codes`` /
+    ``nz_values``) for the left irreps ``left`` [(x_off, d1)] at
+    multiplicity ``mul``."""
+    path_rows = np.asarray(path_rows, np.int64).reshape(-1, 9)
+    paths, nz, left_paths = [], [[], []], []
+    for x_off, d1 in left:
+        qs = [q for q, row in enumerate(path_rows)
+              if (row[0], row[1]) == (x_off, d1)]
+        left_paths.append((x_off, d1, len(paths), len(qs)))
+        for q in qs:
+            _, _, r0, d2, row_base, row_stride, _, nz0, nz1 = path_rows[q]
+            code = nz_codes[nz0:nz1]
+            m1, m2, m3 = code & 0xff, (code >> 8) & 0xff, code >> 16
+            first = len(nz[0])
+            runs = []
+            for order, (lead, mid, last, d) in enumerate(
+                    ((m1, m3, m2, d1), (m2, m3, m1, d2))):
+                idx = np.lexsort((last, mid, lead))
+                bits = nz_values[nz0:nz1][idx].view(np.int32)
+                offsets = 4 * ADJ_ROW * (last[idx] | (d2 + m3[idx]) << 16)
+                nz[order] += [[int(c), int(b)] for c, b in
+                              zip(offsets, bits)]
+                bounds = first + np.searchsorted(lead[idx], np.arange(d + 1))
+                runs += list(bounds) + [bounds[-1]] * (MAX_D - d)
+            paths.append([r0, d2, row_base, row_stride, d3s[q], first,
+                          len(nz[0]), *runs])
+    paths = np.asarray(paths, np.int32).reshape(-1, ADJ_PATH_FIELDS)
+    sizes = paths[:, 6] - paths[:, 5]
+    return AdjointTables(
+        paths=paths, nz=np.asarray(nz, np.int32).reshape(2, -1, 2),
+        cuts=tuple(chunking(sizes, left_paths, mul, target)
+                   for target in ADJ_TARGET_CHUNKS))
+
+
+def adjoint_plan(M: int, cuts, mul: int, sms: int):
+    """The chunking and the elements per block of the adjoint sweep: the
+    most warps of 8, 4 and 2 (64 / ``mul`` elements each), then the
+    coarsest cut, whose tiles times chunks still give two blocks per
+    multiprocessor; else one warp on the finest cut.  Returns ``(index
+    into cuts, tile)``."""
+    per_warp = ADJ_ROW // mul
+    for warps in (8, 4, 2):
+        for k, cut in enumerate(cuts):
+            if -(-M // (warps * per_warp)) * len(cut.chunks) >= 2 * sms:
+                return k, warps * per_warp
+    return len(cuts) - 1, per_warp
 
 
 class PairwiseTP(torch.nn.Module):
@@ -127,7 +286,7 @@ class PairwiseTP(torch.nn.Module):
         self.KM = k0 * mul
 
         in_starts = [s.start for s in irreps_a.slices()]
-        table, nz_idx, nz_c = [], [], []
+        table, d3s, nz_idx, nz_c = [], [], [], []
         for ir, k0, n_paths, d, p0 in groups:
             for m in range(n_paths):
                 ins = paths[p0 + m]
@@ -149,19 +308,10 @@ class PairwiseTP(torch.nn.Module):
                 table.append([in_starts[ins.i_in1], mi1.ir.dim,
                               r0_of[p0 + m], mi2.ir.dim, k0 + m, n_paths, 0,
                               nz0, len(nz_idx)])
+                d3s.append(ir.dim)
 
-        # the paths of each left irrep, for the backward's d left: a block
-        # row sums one left irrep over all its paths
-        by_left = {}
-        for q, row in enumerate(table):
-            by_left.setdefault((row[0], row[1]), []).append(q)
-        slot_rows, slot_paths = [], []
-        for (x_off, d1), qs in sorted(by_left.items()):
-            slot_rows.append([x_off, d1, len(slot_paths),
-                              len(slot_paths) + len(qs)])
-            slot_paths += qs
-        self.n_slots = len(slot_rows)
-        self.max_d = max((max(row[1], row[3]) for row in table), default=0)
+        self.max_d = max((max(row[1], row[3], d) for row, d in
+                          zip(table, d3s)), default=0)
 
         # mix problems: one per (group, component, output slot); mix rows of
         # the simplified Linear input in (path, u) order
@@ -194,15 +344,24 @@ class PairwiseTP(torch.nn.Module):
         self.path_rows = np.asarray(table, np.int32).reshape(-1, 9)
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
         self.nz_codes = np.asarray(nz_idx, np.int64)
-        for name, rows in (("path_table", self.path_rows),
-                           ("nz_idx", np.asarray(nz_idx, np.int32)),
-                           ("slot_table", np.asarray(slot_rows, np.int32)),
-                           ("slot_paths", np.asarray(slot_paths, np.int32))):
+        self.nz_values = np.asarray(nz_c, np.float32)
+        # the backward's adjoint sweep (K5a, K5b): see adjoint_tables
+        left = [(s.start, mi.ir.dim) for s, mi in
+                zip(irreps_a.slices(), irreps_a)]
+        self.adj = adjoint_tables(self.path_rows, d3s, self.nz_codes,
+                                  self.nz_values, left, mul)
+        for name, rows in (
+                ("path_table", self.path_rows),
+                ("nz_idx", np.asarray(nz_idx, np.int32)),
+                ("adj_paths", self.adj.paths), ("adj_nz", self.adj.nz),
+                *((f"adj_chunks{k}", cut.chunks)
+                  for k, cut in enumerate(self.adj.cuts)),
+                *((f"adj_sums{k}", cut.sums)
+                  for k, cut in enumerate(self.adj.cuts))):
             self.register_buffer(name, torch.tensor(rows.reshape(-1)),
                                  persistent=False)
-        self.register_buffer(
-            "nz_c", torch.tensor(np.asarray(nz_c, np.float32)),
-            persistent=False)
+        self.register_buffer("nz_c", torch.tensor(self.nz_values),
+                             persistent=False)
 
     def forward(self, tpe, left: torch.Tensor,
                 right: torch.Tensor) -> torch.Tensor:
@@ -349,6 +508,9 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
     if tpk.max_d > MAX_D:
         raise ValueError(f"the PairwiseTP backward takes irreps up to "
                          f"l = 4, got d = {tpk.max_d}")
+    if tpk.mul < 4 or ADJ_ROW % tpk.mul:
+        raise ValueError(f"the PairwiseTP backward takes multiplicities "
+                         f"that divide {ADJ_ROW}, from 4, got {tpk.mul}")
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -357,9 +519,16 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
     da = empty(*a.shape) if want_a else None
     dbw = empty(*bw.shape) if want_b else None
     dwsel = empty(tpk.wsel_len) if want_m else None
-    # work: the recomputed unmixed scratch (for dwsel) and its cotangent
+    # work: the recomputed unmixed scratch (for dwsel), its cotangent, and
+    # the partial d left of the irreps cut into several chunks
     S = empty(M, tpk.KM) if want_m else None
     dS = empty(M, tpk.KM) if want_a or want_b else None
+    k, tile = adjoint_plan(M, tpk.adj.cuts, tpk.mul, _multiprocessors(dev))
+    cut = tpk.adj.cuts[k]
+    da_ws = empty(M * cut.ws_width) if want_a else None
+    if da_ws is not None and da_ws.numel() >= 2 ** 31:
+        raise ValueError(f"the d left workspace of {da_ws.numel()} floats "
+                         f"is too large")
     ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
 
     def ptr(t):
@@ -373,15 +542,19 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
             bw.data_ptr(), tpk.R,
             tpk.path_table.data_ptr(), tpk.n_paths,
             tpk.nz_idx.data_ptr(), tpk.nz_c.data_ptr(),
-            tpk.slot_table.data_ptr(), tpk.n_slots,
-            tpk.slot_paths.data_ptr(),
+            tpk.adj_paths.data_ptr(), tpk.adj.paths.ctypes.data,
+            tpk.adj_nz.data_ptr(), len(tpk.adj.nz[0]),
+            getattr(tpk, f"adj_chunks{k}").data_ptr(), cut.chunks.ctypes.data,
+            len(cut.chunks), getattr(tpk, f"adj_sums{k}").data_ptr(),
+            len(cut.sums), tile,
             tpk.KM, tpk.mul,
             wsel.data_ptr(), tpk.wsel_len,
             tpk.prob_rows.ctypes.data, tpk.n_probs,
             gout.data_ptr(), tpk.out_dim,
             ptr(S), ptr(dS), ptr(da), ptr(dbw), ptr(dwsel),
             int(want_m) | int(want_a) << 1 | int(want_b) << 2,
-            ws.data_ptr(), ws.numel(), stream,
+            ws.data_ptr(), ws.numel(), ptr(da_ws),
+            0 if da_ws is None else da_ws.numel(), stream,
         )
     check(err, "pairwise_tp_bwd")
     PairwiseTP.backward_launches += 1

@@ -6,7 +6,9 @@ their plain contracts, the routes of the second backward, and forces and a
 training step's gradients against the CPU plain path; and for the
 hamiltonian path (``config_hamiltonian``): K5 and K6 against their plain
 versions, their backward kernels (K5m, K5a, K5b; K6b) per output against the
-plain backward and, through the autograd Functions, against the CPU, K1, K2,
+plain backward (the adjoint sweep of K5a and K5b at the full-width head for
+every set of cotangents, repeated bit for bit, and through the wrapper's
+two chunks) and, through the autograd Functions, against the CPU, K1, K2,
 K3 and K3b at the trunk's l = 4 layer, the full-width forward and a training
 step's gradients against the CPU plain path.  K3 and K3b repeat bit for
 bit, give zero rows for out-of-range species and zero dtables rows for
@@ -988,6 +990,83 @@ def test_pairwise_backward_kernels_match_plain(cuda, n_dim, M):
         lambda a_, b_: tpk(tpe, a_, b_), cpu_tpe.expand, (a, b),
         list(tpe.parameters()), list(cpu_tpe.parameters()))
     assert PairwiseTP.backward_launches == before + 2
+
+
+@pytest.fixture(scope="module")
+def full_head_tp(cuda):
+    """The full-width head's expansion (64 channels of l <= 4) and its
+    kernel tables, on the card."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import PairwiseTP
+
+    tpe = _small_expansion(cuda, 64, l_max=4)
+    return tpe, PairwiseTP(tpe).to(cuda)
+
+
+@pytest.mark.parametrize("M", [49, 96, 1537, 3072])
+def test_pairwise_adjoint_sweep_matches_plain_and_repeats(full_head_tp, M):
+    """The adjoint sweep (d left, dbw) and K5m at the full-width head, at
+    the M of both ``Pairwise`` calls at batch 16 and 512, for every set of
+    cotangents the C entry takes, against the plain backward per output;
+    d left and dbw repeat bit for bit."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
+
+    tpe, tpk = full_head_tp
+    dev = tpk.path_table.device
+    g = torch.Generator().manual_seed(50 + M)
+    a = torch.randn(M, tpk.irreps_a.dim, generator=g).to(dev)
+    b = torch.randn(M, tpk.irreps_b.dim, generator=g).to(dev)
+    with torch.no_grad():
+        bw = tpk.weighted_right(tpe.tp.weight, b)
+        wsel = tpk.flat_wsel(tpe.linear)
+    gout = _cotangent(M, tpk.out_dim, 51, dev)
+    want = tpk.plain_backward(a, bw, wsel, gout)
+    for parts in (7, 2, 4, 6):
+        wanted = (bool(parts & 2), bool(parts & 4), bool(parts & 1))
+        got = k5_mod.launch_backward(tpk, a, bw, wsel, gout, wanted)
+        again = k5_mod.launch_backward(tpk, a, bw, wsel, gout, wanted)
+        torch.cuda.synchronize()
+        for name, w, x, y, need in zip(K5_OUT, want, got, again, wanted):
+            assert (x is None) == (not need), (parts, name)
+            if need:
+                assert torch.isfinite(x).all(), (parts, name)
+                assert _rel(x, w) <= TOL, (parts, name, _rel(x, w))
+                if name != "dwsel":
+                    assert torch.equal(x, y), (parts, name)
+    del want, bw
+
+
+def test_pairwise_wrapper_two_chunks_at_full_width(full_head_tp):
+    """4097 elements through ``PairwiseTP.launch`` under autograd: two
+    chunks (4096 and 1 elements), each one forward and one backward
+    launch; left, right and every parameter's gradient against autograd
+    of ``expand`` on the card."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import PairwiseTP
+
+    tpe, tpk = full_head_tp
+    dev = tpk.path_table.device
+    M = PairwiseTP.CHUNK + 1
+    g = torch.Generator().manual_seed(52)
+    leaves = [torch.randn(M, tpk.irreps_a.dim, generator=g).to(dev),
+              torch.randn(M, tpk.irreps_b.dim, generator=g).to(dev)]
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in leaves]
+        out = fn(*ts)
+        weight = torch.cos(torch.arange(out.numel(), device=dev,
+                                        dtype=torch.float32)).reshape(
+            out.shape)
+        return torch.autograd.grad((out * weight).sum(),
+                                   [*ts, *tpe.parameters()])
+
+    before = (PairwiseTP.launches, PairwiseTP.backward_launches)
+    got = grads(lambda a_, b_: tpk.launch(tpe, a_, b_))
+    torch.cuda.synchronize()
+    assert (PairwiseTP.launches, PairwiseTP.backward_launches) == (
+        before[0] + 2, before[1] + 2)
+    want = grads(tpe.expand)
+    for i, (x, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(x).all(), i
+        assert _rel(x, w) <= TOL, (i, _rel(x, w))
 
 
 @pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (64, 130, 4099)])

@@ -17,8 +17,9 @@
   kernel in interpret mode (as ``tests/test_pairwise_kernel.py``
   differentiates it) at rel-linf 2e-4 and against JAX ``expand`` at 1e-4;
   ``plain_backward`` (``d left``, ``dbw``, ``dwsel``) against autograd of
-  ``expand``; ``dwsel`` summed over chunks; the backward's left-irrep table
-  walked as the K5a kernel walks it.
+  ``expand``; ``dwsel`` summed over chunks; the backward's left-irrep
+  chunks walked as the K5a units walk them (the whole adjoint sweep:
+  ``tests/test_torch_pairwise_adj.py``).
 """
 
 import jax
@@ -301,18 +302,21 @@ def test_backward_runs_in_chunks_and_sums_dwsel(routed, monkeypatch):
 
 
 def test_backward_tables_reproduce_d_left():
-    """The left-irrep table of the backward (one block row per left irrep,
-    summing over that irrep's paths, as the K5a kernel walks it) gives
-    ``d left`` of the plain contract: every path sits in exactly one
-    irrep's list, and the irreps tile the left columns."""
+    """The left-irrep chunks of the backward's adjoint sweep (consecutive
+    paths of one left irrep, as the K5a units walk them: the m1-major
+    order's runs per path, a chunk's d left stored or kept as a partial,
+    the partials added in chunk order) give ``d left`` of the plain
+    contract: every path sits in exactly one chunk, and the irreps tile
+    the left columns."""
     _, _, ttpe, a, b = make(*SPECS[1], seed=9)
     tpk = PairwiseTP(ttpe)
-    M, mul = a.shape[0], tpk.mul
+    M, mul, adj = a.shape[0], tpk.mul, tpk.adj
     with torch.no_grad():
-        bw = tpk.weighted_right(ttpe.tp.weight, torch.tensor(b))
+        bw = tpk.weighted_right(ttpe.tp.weight, torch.tensor(b)).numpy()
         wsel = tpk.flat_wsel(ttpe.linear)
     gout = torch.tensor(_cos_loss_np((M, tpk.out_dim)))
-    want, _, _ = tpk.plain_backward(torch.tensor(a), bw, wsel, gout)
+    want, _, _ = tpk.plain_backward(torch.tensor(a), torch.tensor(bw), wsel,
+                                    gout)
     # dS = mix backward, per problem
     dS = np.zeros((M, tpk.KM), np.float32)
     for a_col, kdim, b_off, wo, c_off, c_stride in tpk.prob_rows:
@@ -320,24 +324,34 @@ def test_backward_tables_reproduce_d_left():
         dS[:, a_col: a_col + kdim] += \
             gout[:, c_off: c_off + wo * c_stride: c_stride].numpy() @ W.T
     dS = dS.reshape(M, -1, mul)
-    slots = tpk.slot_table.numpy().reshape(-1, 4)
-    slot_paths = tpk.slot_paths.numpy()
-    assert sorted(slot_paths) == list(range(tpk.n_paths))
-    assert sum(d1 * mul for _, d1, _, _ in slots) == tpk.irreps_a.dim
-    got = np.zeros_like(a)
-    nz_c = tpk.nz_c.numpy()
-    for x_off, d1, k0, k1 in slots:
+    cut = adj.cuts[0]
+    assert cut.chunks[0, 2] == 0 and cut.chunks[-1, 3] == tpk.n_paths
+    assert (cut.chunks[1:, 2] == cut.chunks[:-1, 3]).all()
+    # order 0: byte offsets of 64-float staged rows, bw row m2 | dS row
+    # d2 + m3 << 16
+    code, coef = adj.nz[0, :, 0], adj.nz[0, :, 1].view(np.float32)
+    row_bytes = 4 * 64
+    got = np.full_like(a, np.nan)
+    parts = {}
+    for x_off, d1, p0, p1, ws_col in cut.chunks:
         dal = np.zeros((M, mul, d1), np.float32)
-        for p in slot_paths[k0:k1]:
-            px, pd1, r0, _, row_base, row_stride, _, nz0, nz1 = \
-                tpk.path_rows[p]
-            assert (px, pd1) == (x_off, d1)
-            for z in range(nz0, nz1):
-                code = int(tpk.nz_codes[z])
-                m1, m2, m3 = code & 0xff, (code >> 8) & 0xff, code >> 16
-                dal[:, :, m1] += nz_c[z] * dS[:, row_base + m3 * row_stride] \
-                    * bw[:, r0 + m2].numpy()
-        got[:, x_off: x_off + mul * d1] = dal.reshape(M, -1)
+        for r0, d2, row_base, row_stride, *_, runs in (
+                (*row[:7], row[7: 8 + d1]) for row in adj.paths[p0:p1]):
+            for m1 in range(d1):
+                for z in range(runs[m1], runs[m1 + 1]):
+                    m2 = (code[z] & 0xffff) // row_bytes
+                    m3 = (code[z] >> 16) // row_bytes - d2
+                    dal[:, :, m1] += coef[z] * \
+                        dS[:, row_base + m3 * row_stride] * bw[:, r0 + m2]
+        if ws_col < 0:
+            got[:, x_off: x_off + mul * d1] = dal.reshape(M, -1)
+        else:
+            parts[ws_col] = dal.reshape(M, -1)
+    for x_off, width, col, n in cut.sums:
+        got[:, x_off: x_off + width] = sum(
+            (parts.pop(col + k * width) for k in range(n)),
+            np.zeros((M, width), np.float32))
+    assert not parts
     assert _rel(got, want.numpy()) < GRAD_TOL
 
 
