@@ -5,7 +5,7 @@
     python3 chip_smoke.py --conv-times     # K1 and K2 alone, see conv_times
     python3 chip_smoke.py --walk-ablation [source.cu ...]
                                            # the walks', K3/K3b's and the
-                                           # K5 adjoint sweep's parts, see
+                                           # K5 kernels' parts, see
                                            # walk_ablation
     python3 chip_smoke.py --mix-times      # the mix GEMM's product sets,
                                            # see mix_times
@@ -15,10 +15,11 @@
     python3 chip_smoke.py --ext-times      # K4f, K4b, K4g alone and the
                                            # force step, see ext_times
     python3 chip_smoke.py --ext-calls      # K4f, K4b, K4g alone
-    python3 chip_smoke.py --pw-times       # the K5 backward entry alone
-                                           # and the hamiltonian step, see
+    python3 chip_smoke.py --pw-times       # the K5 forward and backward
+                                           # entries alone, hamiltonian
+                                           # serving and the step, see
                                            # pw_times
-    python3 chip_smoke.py --pw-calls       # the K5 backward entry alone
+    python3 chip_smoke.py --pw-calls       # the two K5 entries alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -90,7 +91,8 @@ Phases, in order; any failure exits non-zero before the last line:
              contract (K5: left, weighted right, mix matrices; K6: x, sh,
              radial weights, mix matrices) and each wrapper against the
              plain forward (``expand``, ``FusedUVUConv(reduce=False)``);
-             then K3 against plain at the trunk's hot layer, whose irreps
+             K5's output must repeat bit for bit over two launches; then
+             K3 against plain at the trunk's hot layer, whose irreps
              reach l = 4, and repeated bit for bit;
 15. hamiltonian serve — full-width ``config_hamiltonian`` (seeded weights,
              ``build_model`` with no device argument) serves 4 batches of
@@ -105,7 +107,7 @@ Phases, in order; any failure exits non-zero before the last line:
              output, at the shapes of the 512-molecule batch (K6b and
              ``tp_off`` on 3072 edges, ``tp`` on 1537 node rows, the
              trunk's hot layer) and of the config's batch of 16 (96 edges,
-             49 node rows); the
+             49 node rows; there K5 too, repeated bit for bit); the
              pairwise backward is one entry, so each of its three kernels
              (dwsel, d left, dbw) is also launched, checked and timed
              alone at 3072; the pairwise backward's three outputs and
@@ -425,6 +427,20 @@ def mix_bound(flops, n_bytes):
                 bound_f32_ms=1e3 * max(t32, tb))
 
 
+def fused_bound(cg_flops, mix_flops_, n_bytes):
+    """Bounds of the fused K5 and K5m: the CG sweep's operations on the
+    f32 CUDA cores, the mix's three TF32 products per product on the
+    tensor cores (they may overlap: the larger), or bytes; the float32
+    bound of every operation on the CUDA cores beside it, as the other
+    kernels' records count."""
+    t_ops = max(cg_flops / PEAK_FLOPS, 3 * mix_flops_ / PEAK_TF32)
+    t_mem = n_bytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_mem),
+                bound_by="operations" if t_ops >= t_mem else "bytes",
+                bound_f32_ms=1e3 * max((cg_flops + mix_flops_) / PEAK_FLOPS,
+                                       t_mem))
+
+
 def mix_flops(prob_rows, rows):
     """Operations of one mix product over ``rows`` rows (one multiply-add
     = 2)."""
@@ -565,15 +581,21 @@ PROFILE_FAMILIES = (
     ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
     ("K4 walks (ext_dst_walk_kernel, ext_src_walk_kernel, "
      "ext_chunk_sum_kernel)", "ext_"),
-    ("forward mix (rowmix::gemm_kernel<true, false>)",
-     r"gemm_kernel<true, false>|mix_rows_kernel"),
+    ("K5 and K5m fused (pairwise_fwd_kernel, pairwise_dws_kernel, "
+     "pairwise_chunk_sum_kernel)", r"pairwise_(fwd|dws|chunk_sum)_kernel"),
+    ("a parent's K5 CG sweep (pairwise_cg_kernel; its mix and dwsel are "
+     "in the GEMM families)", "pairwise_cg_kernel"),
+    ("forward mix (rowmix::gemm_kernel<true, false>: K1's, K6's; a "
+     "parent's K5 mix too)", r"gemm_kernel<true, false>|mix_rows_kernel"),
     ("backward's tiled products (rowmix::gemm_kernel, its split sum and "
-     "gout's copy)", r"rowmix::"),
+     "gout's copy: K2's, K6b's, the K5 backward's dS; a parent's K5m dwsel "
+     "too)", r"rowmix::"),
     ("Adam (profiler range)", r"Optimizer\.step"),
     ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
     ("the walks' radial hidden layers (K1/K2), piece sums, dx sums",
      "mlp_hidden_kernel|walk_piece_sum_kernel|walk_dx_kernel"),
-    ("K5 sweeps (cg, adjoint sweep, d left sums)", "pairwise_"),
+    ("K5 adjoint sweep (pairwise_adj_kernel, pairwise_da_sum_kernel)",
+     "pairwise_"),
     ("K6 and K6b sweeps", "uvu_"),
     ("K3 and K3b", r"species_sc|table_product_kernel|table_grad"),
     ("sorts and index backward", "RadixSort|indexing_backward|cub::"),
@@ -1026,6 +1048,12 @@ def backward_checks(model, seen, dev, alone):
         with torch.no_grad():
             bw = tpk.weighted_right(tpe.tp.weight, right)
             wsel5 = tpk.flat_wsel(tpe.linear)
+        if not alone:   # K5 at this batch's shapes (phase 14 has 3072)
+            compare(f"K5 pairwise_tp ({which}, M={M})",
+                    lambda: k5_ops.launch_forward(tpk, left, bw, wsel5),
+                    lambda: tpk.plain_forward(left, bw, wsel5))
+            repeats(f"K5 pairwise_tp ({which}, M={M})",
+                    lambda: k5_ops.launch_forward(tpk, left, bw, wsel5))
         args5 = (left, bw, wsel5, rnd(M, tpk.out_dim))
         whole = compare_grads(
             f"K5 backward, one entry ({which}, M={M}: K5m + K5a + K5b)",
@@ -1045,7 +1073,7 @@ def backward_checks(model, seen, dev, alone):
                         lambda: (tpk.plain_backward(*args5, wanted)[i],),
                         names5[i: i + 1])
             io = nbytes(args5[-1])
-            cost["K5m"] = (M * (cg + mix), nbytes(left, bw) + io
+            cost["K5m"] = (M * cg, M * mix, nbytes(left, bw) + io
                            + nbytes(wsel5))
             cost["K5a"] = (M * (mix + 3 * cg // 2), nbytes(bw, wsel5) + io
                            + nbytes(left))
@@ -1158,6 +1186,8 @@ def hamiltonian_phases(dev):
             f"K5 pairwise_tp ({which}, M={M}; kernel on left, bw, wsel)",
             lambda: k5_ops.launch_forward(tpk, left, bw, wsel5),
             lambda: tpk.plain_forward(left, bw, wsel5))
+        repeats(f"K5 pairwise_tp ({which}, M={M})",
+                lambda: k5_ops.launch_forward(tpk, left, bw, wsel5))
         del bw
         whole = compare(
             f"K5 wrapper ({which}, M={M}; stage 1 in PyTorch + kernel "
@@ -1166,10 +1196,9 @@ def hamiltonian_phases(dev):
             lambda: tpe.expand(left, right))
         rec.update(wrapper_ms=whole["ms"], expand_ms=whole["plain_ms"])
         if k5 is None:
-            pr = tpk.prob_rows.astype(np.int64)
             k5 = rec
-            k5_cost = (2 * M * tpk.mul * tpk.nz_count
-                       + 2 * M * int((pr[:, 1] * pr[:, 3]).sum()),
+            k5_cost = (2 * M * tpk.mul * tpk.nz_count,
+                       mix_flops(tpk.prob_rows, M),
                        nbytes(left, wsel5) + M * tpk.R * tpk.mul * 4
                        + M * tpk.out_dim * 4)
 
@@ -1302,7 +1331,8 @@ def hamiltonian_phases(dev):
          "K6b", "rowmix::gemm_kernel + uvu_bwd_edge_kernel"),
         ("pairwise_tp_bwd_dwsel", "pairwise_tp.cu", "pairwise.py:504",
          "pairwise_tp_bwd", "K5m",
-         "pairwise_cg_kernel + rowmix::gemm_kernel (S^T gout)"),
+         "pairwise_dws_kernel (CG tiles in shared memory, S^T gout on the "
+         "tensor cores) + pairwise_chunk_sum_kernel"),
         ("pairwise_tp_bwd_da", "pairwise_tp.cu", "pairwise.py:556",
          "pairwise_tp_bwd", "K5a",
          "rowmix::gemm_kernel (dS) + pairwise_adj_kernel<true, false> + "
@@ -1316,12 +1346,20 @@ def hamiltonian_phases(dev):
                            total["uvu_conv"], k6, *k6_cost),
              train_launches=train_launches["uvu_conv"]),
         dict(kernel_record("pairwise_tp", "pairwise_tp.cu", "pairwise.py:410",
-                           total["pairwise_tp"], k5, *k5_cost),
+                           total["pairwise_tp"], k5,
+                           k5_cost[0] + k5_cost[1], k5_cost[2]),
+             **fused_bound(*k5_cost),
+             kernels="pairwise_fwd_kernel (CG tiles in shared memory, mixed "
+                     "there on the tensor cores)",
              wrapper_ms=k5["wrapper_ms"], expand_ms=k5["expand_ms"],
              train_launches=train_launches["pairwise_tp"]),
     ]
     for name, source, replaces, counter, key, kernels in entries:
         extra = dict(kernels=kernels)
+        cost = bwd_cost[key]
+        if key == "K5m":
+            extra.update(fused_bound(*cost))
+            cost = (cost[0] + cost[1], cost[2])
         if key == "K6b":
             extra["batch16_ms"] = bwd_small[key]["ms"]
         else:
@@ -1330,7 +1368,7 @@ def hamiltonian_phases(dev):
                          batch16_entry_ms=bwd_small["K5 backward"]["ms"])
         records.append(dict(kernel_record(
             name, source, replaces, train_launches[counter], bwd[key],
-            *bwd_cost[key]), **extra))
+            *cost), **extra))
     trunk = {
         "full_conv": dict(bwd["K1"], launches=total["full_conv"],
                           train_launches=train_launches["full_conv"],
@@ -1768,7 +1806,7 @@ def main():
         *head_records,
         mix_record("row_mix_forward", "fused_conv.py:926",
                    mix_launches["forward"], mix_fwd),
-        mix_record("row_mix_products", "pairwise.py:504",
+        mix_record("row_mix_products", "fused_conv.py:1051",
                    mix_launches["backward"], mix_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
@@ -2362,25 +2400,102 @@ def mix_times():
 # sweeps
 PW_SWEEPS = ("pairwise_adj_kernel", "pairwise_da_sum_kernel",
              "pairwise_da_kernel", "pairwise_dbw_kernel")
-PW_PARTS = {7: (True, True, True), 2: (True, False, False),
-            4: (False, True, False)}
+PW_PARTS = {7: (True, True, True), 1: (False, False, True),
+            2: (True, False, False), 4: (False, True, False)}
+
+
+def pw_serve_and_step(dev, cfg, mols, rec):
+    """--pw-times' end-to-end part: hamiltonian serving at batch 16 and
+    512 (host ms per forward over 3 passes of 4 batches, kernel ms by
+    profile family over 4, peak memory), then the training step at batch
+    16 and 128 (host ms per step over 12 steps, kernel ms by family over
+    4, peak memory), into ``rec``."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    model = build_model(cfg["model_config"], dev,
+                        torch.Generator().manual_seed(0))
+    model.eval()
+    for size in H2O_BATCHES:
+        batches = make_batches(mols[:N_BATCHES * size], dev, size)
+
+        def forwards():
+            for gb in batches:
+                model(gb)
+
+        with torch.no_grad():
+            forwards()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                forwards()
+            torch.cuda.synchronize()
+            host = 1e3 * (time.perf_counter() - t0) / (3 * len(batches))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            kms, launches, fams = families(forwards, len(batches))
+        rec[f"serve_{size}"] = dict(host_ms=host, kernel_ms=kms,
+                                    launches=launches, peak_gib=peak,
+                                    families=fams)
+        print(f"hamiltonian serve, batch {size}: {host:.3f} ms (host), "
+              f"{kms} ms of kernels in {launches} launches, peak "
+              f"{peak:.3f} GiB; {fams}", flush=True)
+        del batches
+    del model
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    labelled = synthetic_h2o(5 * H2O_TRAIN_BATCHES[0] + N_BATCHES
+                             * H2O_TRAIN_BATCHES[1],
+                             np.random.default_rng(21), labels=True)
+    trainer = Trainer(build_model(cfg["model_config"], dev,
+                                  torch.Generator().manual_seed(0)),
+                      **settings)
+    small = make_batches(labelled[:5 * H2O_TRAIN_BATCHES[0]], dev,
+                         H2O_TRAIN_BATCHES[0])[:4]
+    big = make_batches(labelled[5 * H2O_TRAIN_BATCHES[0]:], dev,
+                       H2O_TRAIN_BATCHES[1])
+    for size, group in zip(H2O_TRAIN_BATCHES, (small, big)):
+        def steps():
+            for gb in group:
+                trainer.batch_step(gb)
+
+        steps()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            steps()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0) / (3 * len(group))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kms, launches, fams = families(steps, len(group))
+        rec[f"step_{size}"] = dict(host_ms=host, kernel_ms=kms,
+                                   launches=launches, peak_gib=peak,
+                                   families=fams)
+        print(f"hamiltonian step, batch {size}: {host:.3f} ms (host), "
+              f"{kms} ms of kernels in {launches} launches, peak "
+              f"{peak:.3f} GiB; {fams}", flush=True)
 
 
 def pw_times(calls_only=False):
-    """``python3 chip_smoke.py --pw-times``: the K5 backward entry
-    (``pairwise_tp_bwd``: K5m, K5a, K5b) of the package in the current
-    directory (run it from two checkouts in turn to compare them on one
-    card) at the full-width hamiltonian head, on the inputs that one
-    forward of a 512- and of a 16-molecule batch gives it (phases 15-16:
-    ``tp_off`` on the edges, ``tp`` on the node rows, M = 3072, 1537, 96
-    and 49; seeded cotangents), for parts 7 (every cotangent), 2 (d left)
-    and 4 (dbw): ms per call with CUDA events, each kernel's device ms
-    (``kernel_split``), and the adjoint sweep's byte bound (dS and, for d
-    left, bw read once, for dbw a read once; dbw and d left written once)
-    and its share of the sweeps' device ms.  Then the hamiltonian training
-    step at batch 16 and 128 (phase 17's settings and batches): host ms
-    per step over 12 steps and kernel ms per step by profile family over
-    4.  One JSON line.  ``--pw-calls``: the entries alone."""
+    """``python3 chip_smoke.py --pw-times``: the K5 forward entry
+    (``pairwise_tp_fwd``) and backward entry (``pairwise_tp_bwd``: K5m,
+    K5a, K5b) of the package in the current directory (run it from two
+    checkouts in turn to compare them on one card) at the full-width
+    hamiltonian head, on the inputs that one forward of a 512- and of a
+    16-molecule batch gives them (phases 15-16: ``tp_off`` on the edges,
+    ``tp`` on the node rows, M = 3072, 1537, 96 and 49; seeded
+    cotangents): the forward, and the backward for parts 7 (every
+    cotangent), 1 (dwsel, K5m), 2 (d left) and 4 (dbw): ms per call with
+    CUDA events, each kernel's device ms (``kernel_split``), the forward's
+    and K5m's bounds (``fused_bound``), and the adjoint sweep's byte bound
+    (dS and, for d left, bw read once, for dbw a read once; dbw and d left
+    written once) and its share of the sweeps' device ms.  Then
+    hamiltonian serving at batch 16 and 512 and the training step at batch
+    16 and 128 (``pw_serve_and_step``).  One JSON line.  ``--pw-calls``:
+    the entries alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2388,7 +2503,6 @@ def pw_times(calls_only=False):
     import equivariant_nn_zoo_tpu_torch as pkg
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
-    from equivariant_nn_zoo_tpu_torch.run import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2398,6 +2512,8 @@ def pw_times(calls_only=False):
                         torch.Generator().manual_seed(0))
     model.eval()
     tpk = model.pairwise.pairwise_tp
+    cg = 2 * tpk.mul * tpk.nz_count            # per element
+    mix = mix_flops(tpk.prob_rows, 1)          # per element
     mols = synthetic_h2o(N_BATCHES * max(H2O_BATCHES),
                          np.random.default_rng(20))
     gen = torch.Generator().manual_seed(5)
@@ -2411,6 +2527,19 @@ def pw_times(calls_only=False):
                 bw = tpk.weighted_right(tpe.tp.weight, right)
                 wsel = tpk.flat_wsel(tpe.linear)
                 gout = torch.randn(M, tpk.out_dim, generator=gen).to(dev)
+
+                def forward():
+                    return k5_ops.launch_forward(tpk, left, bw, wsel)
+
+                split = kernel_split(forward)
+                b = fused_bound(M * cg, M * mix, nbytes(left, bw, wsel)
+                                + M * tpk.out_dim * 4)
+                key = f"{which}_{M}_forward"
+                rec[key] = dict(M=M, ms=cuda_ms(forward), kernels=split, **b)
+                print(f"K5 forward {key}: entry {rec[key]['ms']:.4f} ms "
+                      f"(bound {b['bound_ms']:.4f} by {b['bound_by']}, "
+                      f"float32 {b['bound_f32_ms']:.4f}); {split}",
+                      flush=True)
                 for parts, wanted in PW_PARTS.items():
                     def entry():
                         return k5_ops.launch_backward(tpk, left, bw, wsel,
@@ -2425,56 +2554,27 @@ def pw_times(calls_only=False):
                     b = bound(3 * 2 * tpk.mul * tpk.nz_count * M
                               * (wanted[0] + wanted[1]), n_bytes)
                     key = f"{which}_{M}_parts{parts}"
-                    rec[key] = dict(
-                        M=M, parts=parts, ms=cuda_ms(entry), kernels=split,
-                        sweep_ms=sweep, sweep_bound_ms=b["bound_ms"],
-                        sweep_bound_by=b["bound_by"],
-                        sweep_share=b["bound_ms"] / max(sweep, 1e-9))
+                    rec[key] = dict(M=M, parts=parts, ms=cuda_ms(entry),
+                                    kernels=split)
+                    if wanted[0] or wanted[1]:
+                        rec[key].update(
+                            sweep_ms=sweep, sweep_bound_ms=b["bound_ms"],
+                            sweep_bound_by=b["bound_by"],
+                            sweep_share=b["bound_ms"] / max(sweep, 1e-9))
+                    else:
+                        rec[key]["k5m_bound"] = fused_bound(
+                            M * cg, M * mix, nbytes(left, bw, gout, wsel))
                     print(f"K5 backward {key}: entry {rec[key]['ms']:.4f} "
                           f"ms, sweeps {sweep} ms (bound "
-                          f"{b['bound_ms']:.4f} by {b['bound_by']}, share "
-                          f"{rec[key]['sweep_share']:.3f}); {split}",
-                          flush=True)
+                          f"{b['bound_ms']:.4f} by {b['bound_by']}); "
+                          f"{split}", flush=True)
             del bw, gout
     del model
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     if not calls_only:
-        settings = {k: v for k, v in cfg.items()
-                    if k not in ("model_config", "data_config",
-                                 "batch_size")}
-        labelled = synthetic_h2o(5 * H2O_TRAIN_BATCHES[0] + N_BATCHES
-                                 * H2O_TRAIN_BATCHES[1],
-                                 np.random.default_rng(21), labels=True)
-        trainer = Trainer(build_model(cfg["model_config"], dev,
-                                      torch.Generator().manual_seed(0)),
-                          **settings)
-        small = make_batches(labelled[:5 * H2O_TRAIN_BATCHES[0]], dev,
-                             H2O_TRAIN_BATCHES[0])[:4]
-        big = make_batches(labelled[5 * H2O_TRAIN_BATCHES[0]:], dev,
-                           H2O_TRAIN_BATCHES[1])
-        for size, group in zip(H2O_TRAIN_BATCHES, (small, big)):
-            def steps():
-                for gb in group:
-                    trainer.batch_step(gb)
-
-            steps()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                steps()
-            torch.cuda.synchronize()
-            host = 1e3 * (time.perf_counter() - t0) / (3 * len(group))
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            kms, launches, fams = families(steps, len(group))
-            rec[f"step_{size}"] = dict(host_ms=host, kernel_ms=kms,
-                                       launches=launches, peak_gib=peak,
-                                       families=fams)
-            print(f"hamiltonian step, batch {size}: {host:.3f} ms (host), "
-                  f"{kms} ms of kernels in {launches} launches, peak "
-                  f"{peak:.3f} GiB; {fams}", flush=True)
+        pw_serve_and_step(dev, cfg, mols, rec)
     print(json.dumps({"package": os.path.dirname(pkg.__file__),
                       "card": smi.stdout.strip(), "pw_times": rec}))
 
@@ -2516,7 +2616,15 @@ WALK_PARTS = {
          "mbar_expect_tx(bar, 0 * (uint32_t)", 1),
         (r"\bcp_async4\(dst \+ m1", "if (false) cp_async4(dst + m1", 1)]},
     "adjoint non-zero sweeps": {"pairwise_tp.cu": [
-        (r"z < z1; \+\+z\)", "z < 0; ++z)", 2)]},
+        (r"- z_base; z < z1; \+\+z\)", "- z_base; z < 0; ++z)", 2)]},
+    # the fused K5 and K5m (pairwise_tp.cu, --pw-calls): their staging
+    # copies of the left, bw, wsel and gout rows, and their CG non-zero
+    # loops (the S tiles)
+    "fused staging copies": {"pairwise_tp.cu": [
+        (r"cp_async16\(dst\(l\) \+ c,", "if (false) cp_async16(dst(l) + c,",
+         1)]},
+    "fused non-zero loops": {"pairwise_tp.cu": [
+        (r"for \(; z < z1; \+\+z\)", "for (; z < 0; ++z)", 1)]},
 }
 WALK_ABLATIONS = (
     ("without the radial weights", ["radial weights"]),
@@ -2531,6 +2639,10 @@ WALK_ABLATIONS = (
     ("without the adjoint non-zero sweeps", ["adjoint non-zero sweeps"]),
     ("without both adjoint parts", ["adjoint staging copies",
                                     "adjoint non-zero sweeps"]),
+    ("without the fused staging copies", ["fused staging copies"]),
+    ("without the fused non-zero loops", ["fused non-zero loops"]),
+    ("without both fused parts", ["fused staging copies",
+                                  "fused non-zero loops"]),
 )
 
 
@@ -2538,12 +2650,13 @@ def walk_ablation(sources=()):
     """``python3 chip_smoke.py --walk-ablation [source.cu ...]``: where the
     time of the walk kernels (K1, K2 and the K4 family;
     ``csrc/edge_walk.cuh``), of the species-table kernels (K3, K3b;
-    ``csrc/species_sc.cu``) and of the K5 backward's adjoint sweep
-    (``csrc/pairwise_tp.cu``) goes, without a profiler that reads the
-    card's counters: copies of the package in ``build/walk_ablation/``
-    (gitignored) each leave out parts of the kernels (``WALK_ABLATIONS``),
-    and ``--conv-times`` (K1, K2), ``--ext-calls`` (K4f, K4b, K4g),
-    ``--sc-calls`` (K3, K3b) and ``--pw-calls`` (the K5 backward entry)
+    ``csrc/species_sc.cu``) and of the K5 kernels (the fused K5 and K5m,
+    the backward's adjoint sweep; ``csrc/pairwise_tp.cu``) goes, without
+    a profiler that reads the card's counters: copies of the package in
+    ``build/walk_ablation/`` (gitignored) each leave out parts of the
+    kernels (``WALK_ABLATIONS``), and ``--conv-times`` (K1, K2),
+    ``--ext-calls`` (K4f, K4b, K4g), ``--sc-calls`` (K3, K3b) and
+    ``--pw-calls`` (the two K5 entries)
     time each copy that the edits touch, after
     the package itself; with sources named, only the variants that edit
     them.  A part costs about the time that its absence saves."""

@@ -9,51 +9,66 @@
 // plain product outside the kernel (the wrapper's, in PyTorch); the kernel
 // computes, per element m,
 //
-//   S[m, row(p, m3), u] = sum_nz C_p * a[m, m1, u] * bw[m, r0(p) + m2, u]
-//   out[m, cols(q)]     = S[m, a_col(q) : +kdim(q)] @ wsel_q    per problem q
+//   S[m, p, m3, u]      = sum_nz C_p * a[m, m1, u] * bw[m, r0(p) + m2, u]
+//   out[m, c(io) + j*d + m3] = sum_{p in g} sum_u S[m, p, m3, u] *
+//                              wsel_{g,io}[p * mul + u, j]
 //
-// over the mix-reachable paths p, sorted by output irrep, with scratch rows
-// component-major inside each output-irrep group (K1's conventions), the
-// path weights folded into the host-built wigner_3j non-zeros C and the mix
-// Linear's alphas into wsel.  The TPU kernel's per-(i1, i2) sections, dense
-// C2 operators (229,024 entries against 52,092 non-zeros at the full-width
-// head), K8 row padding and (u, e) lane layout are MXU devices and are not
-// carried over: the contraction walks the non-zeros.
+// over the mix-reachable paths p, sorted by output irrep and cut into
+// output-irrep groups g, the path weights folded into the host-built
+// wigner_3j non-zeros C and the mix Linear's alphas into wsel.  As in the
+// TPU kernel, the unmixed S never goes to device memory: it is made one
+// path at a time and mixed at once ("only ONE section's mid is live at a
+// time", pairwise.py:418-450).  Its dense C2 operators, K8 row padding and
+// (u, e) lanes are MXU devices and are not carried over: the contraction
+// walks the non-zeros.
 //
-// Two kernels on the caller's stream from one C entry:
+// pairwise_fwd_kernel (K5): a block is one unit, (group g, output slot io,
+// a set of g's components m3, a tile of kFT elements).  Its K loop runs
+// over chunks of kFKC channels and, inside each, g's paths (a left irrep's
+// paths are consecutive, so they share its staged rows).  A step stages
+// the path's left and bw rows of those channels (cp.async, lines past M
+// and channels past mul zero-filled), its kFKC x wo slice of wsel and its
+// non-zeros, one step ahead into the other of two buffers; every thread
+// makes its part of the S tiles of the unit's components from the
+// non-zeros, held in shared memory sorted by m3 with run bounds (no table
+// load from device memory, no select per non-zero), into shared memory;
+// the tensor cores multiply the tiles there into one register accumulator
+// per component (3xTF32 mma.sync, row_mix.cuh's fragments).  At the end
+// each output column is stored once (the unit's components of one j side
+// by side): one owner, no atomics, no memset.  The units hold whole groups
+// at large M; at small M the components are split over units (no sum
+// needed: they own disjoint columns), so that 49 elements still give 200
+// blocks.
 //
-// 1. pairwise_cg_kernel: thread (u, element) walks a chunk of the paths;
-//    a is read through L1 (d1 neighbouring floats per thread), bw
-//    [M, R, mul] coalesced over u; every scratch row of the element is
-//    written once with a plain store (each (path, m3) has a non-zero,
-//    checked on the host).  Paths are split over blockIdx.y so that a
-//    48-element batch still fills the card.
-// 2. rowmix::gemm_kernel (row_mix.cuh): the mix on the tensor cores
-//    (3xTF32), one owner per output tile, plain stores.
-//
-// What bounds it on the card: the scratch round trip (R * mul floats of bw
-// read, as many of S written and read again: 384 KB each per element) and
-// the CG sweep's f32 FMAs on CUDA cores (2 * mul per CG non-zero); the mix
-// (2 * mul * mul_out per scratch row, ~12 MFLOP per element at the
-// full-width head) runs on the tensor cores.  Keeping S in shared memory
-// per output-irrep group is the next step.
+// What bounds it on the card: bw (R * mul floats per element, 384 KB at
+// the full-width head) read once, and the mix on the tensor cores in
+// 3xTF32 (12.3 MFLOP per element, three TF32 products each); the CG sweep
+// (2 * mul FLOPs per non-zero) runs on the CUDA cores from shared memory.
+// Measured, neither: the staging copies (left rows again per group, the
+// wsel slices once per tile) and the non-zero loops take turns instead of
+// overlapping, and each unit's steps wait at two barriers
+// (chip_smoke.py --walk-ablation pairwise_tp.cu).
 //
 // The backward replaces the three TPU kernels _bwd_kernel_dws,
 // _bwd_kernel_da and _bwd_kernel_dbw (pairwise.py:504, :556, :591; launched
 // at :655, :670, :684).  Given gout = dL/dout it returns dwsel, da [M, a_dim]
 // and dbw [M, R, mul] from one C entry:
 //
-// 0. pairwise_cg_kernel again: S is recomputed, not saved (1.05 MFLOP per
-//    element against 12.3 for the mix, and a saved S would double what a
-//    training step keeps per element beside bw).
-// 1. K5m, rowmix::mix_products (row_mix.cuh, the tensor-core GEMM):
-//    dwsel_q = S_q^T @ gout_q over the d components of a (group, slot),
-//    split over chunks of elements as far as the card needs blocks, the
-//    partial tiles added in split order (no atomics, a fixed order); the
-//    same GEMM gives dS = gout_q @ wsel_q^T with one owner per tile,
-//    which K5a and K5b read (on the TPU each of them recomputes it per
-//    section).
-// 2. K5a and K5b, pairwise_adj_kernel, one sweep for both cotangents:
+// 1. K5m, pairwise_dws_kernel: dwsel_{g,io}[p * mul + u, j] =
+//    sum_m sum_m3 S[m, p, m3, u] * gout[m, c(io) + j * d + m3], S made
+//    again tile by tile as in the forward (1.05 MFLOP per element against
+//    12.3 for the mix; a saved S would double what a training step keeps).
+//    A block is one unit, (path p, slot io, kMKC channels, a chunk of
+//    elements): per tile of kMT elements it stages the path's rows and
+//    gout's block of the slot, makes the path's d3 tiles S[m3] in shared
+//    memory and adds S[m3]^T gout[m3] on the tensor cores (3xTF32) into a
+//    register tile; the tile is stored once per chunk, into dwsel or, where
+//    the elements are cut into several chunks, into a workspace whose
+//    chunks pairwise_chunk_sum_kernel adds in chunk order.  No atomics.
+// 2. rowmix::mix_products (row_mix.cuh, the tensor-core GEMM): dS =
+//    gout_q @ wsel_q^T with one owner per tile, which K5a and K5b read (on
+//    the TPU each of them recomputes it per section).
+// 3. K5a and K5b, pairwise_adj_kernel, one sweep for both cotangents:
 //
 //      da[m, m1, u]            = sum_p sum_nz C * bw[m, r0(p) + m2, u]
 //                                              * dS[m, row(p, m3), u]
@@ -68,7 +83,7 @@
 //    the launch.  A unit reads dS, bw and a once for both cotangents,
 //    stores each of its dbw rows once and its irrep's d left, or its
 //    partial in a workspace where the irrep has several chunks; then
-// 3. pairwise_da_sum_kernel adds those partials in chunk order (zeros for
+// 4. pairwise_da_sum_kernel adds those partials in chunk order (zeros for
 //    an irrep no path reads).  No atomics, no memsets: da and dbw repeat
 //    bit for bit.
 //
@@ -79,10 +94,10 @@
 //    select per non-zero.  The operands are read from shared memory at the
 //    non-zeros' offsets.
 //
-// What bounds the backward: the scratch-sized streams (S, dS, bw, dbw: 384
-// KB per element each) and the two mix products (2 x 12.3 MFLOP per
-// element, on the tensor cores in 3xTF32).  The adjoint sweep alone moves
-// dS, bw and dbw once (1.08 ms of bytes at M = 3072 on an H100); its
+// What bounds the backward: the scratch-sized streams (dS, bw, dbw: 384
+// KB per element each) and the mix products (2 x 12.3 MFLOP per element,
+// on the tensor cores in 3xTF32).  The adjoint sweep alone moves dS, bw
+// and dbw once (1.08 ms of bytes at M = 3072 on an H100); its
 // shared-memory reads (two operands per non-zero, order and channel) come
 // close, and its speed follows the warps a multiprocessor holds, which its
 // shared memory bounds (chip_smoke.py --pw-times, --walk-ablation).
@@ -96,13 +111,51 @@
 
 namespace {
 
+using rowmix::cp_async16;
 using rowmix::cp_async4;
 using rowmix::cp_async_commit;
 using rowmix::cp_async_wait;
+using rowmix::mma_tf32;
+using rowmix::split_tf32;
 
-constexpr int kPathFields = 9;
 constexpr int kMaxD = 9;           // components of an l <= 4 irrep
-constexpr int kRows = rowmix::kRowsPerBlock;
+
+// The forward (K5) and K5m: threads of a block, elements x channels of a
+// step, and the fields of their tables (ops/cuda/pairwise_tp.py,
+// FusedTables).
+constexpr int kFThreads = 128, kFWarps = kFThreads / 32;  // K5's blocks
+constexpr int kMThreads = 256, kMWarps = kMThreads / 32;  // K5m's blocks
+constexpr int kFBlocks = 3, kMBlocks = 2;  // blocks a multiprocessor holds
+constexpr int kFT = 16, kFKC = 16;   // K5: elements of a tile, channels a step
+constexpr int kMT = 8, kMKC = 64;    // K5m: elements of a tile, channels a unit
+constexpr int kMaxWo = 64;           // output multiplicity, at most
+// A thread makes kFV (K5) or kMV (K5m) values of a step's S tiles: element
+// t / kFQ, channels t % kFQ + kFQ * i (K5m: kMQ).
+constexpr int kFV = kFT * kFKC / kFThreads, kFQ = kFKC / kFV;
+constexpr int kMV = kMT * kMKC / kMThreads, kMQ = kMKC / kMV;
+static_assert(kFV >= 1 && kMV >= 1 && kFQ <= 32 && kMQ <= 32,
+              "a step's S tiles need a value for every thread");
+// K5's warps own kFN 8-wide column tiles each; K5m's warps a row block of
+// 16 of its channels and kMN column tiles
+constexpr int kFN = 8 / kFWarps;
+constexpr int kMRows = kMKC / 16, kMN = 8 * kMRows / kMWarps;
+// Row pitches (floats) of the tiles that the fragments read: the S tiles
+// (K5: rows (component, element), 20 mod 32; K5m: rows (component,
+// element) read transposed, 8 mod 32) and K5's wsel slice (rows u, 8 mod
+// 32), so that a warp's fragment loads hit 32 distinct banks.  The staged
+// left and bw rows take pitches of kFQ (K5) and kMQ (K5m) mod 32: the
+// producer's lanes then read distinct banks at every non-zero (the left
+// rows at channel stride d1, odd).
+constexpr int kFSPitch = kFKC + 4;
+constexpr int kMSPitch = kMKC + 8;
+constexpr int kWPitch = kMaxWo + 8;
+// a path row: x_off, d1, r0, d2, d3, z0, n_z, then the bounds of its runs
+// of equal m3, relative to z0 (padded with the last)
+constexpr int kFRuns = 7;
+constexpr int kFPathFields = kFRuns + kMaxD + 1;
+constexpr int kFUnitFields = 8;  // p0, n_paths, d3, m3_0, nm3, out_col, wo, b_off
+constexpr int kMUnitFields = 5;  // path, out_col, wo, b_off, u0
+
 // the adjoint sweep: floats of a staged row, rows of a warp's ring, threads
 // per block at most, and the fields of its tables (ops/cuda/pairwise_tp.py,
 // AdjointTables)
@@ -121,44 +174,436 @@ constexpr int kAdjPathFields = kAdjRunsB + kMaxD + 1;
 constexpr int kAdjChunkFields = 5;         // x_off, d1, p0, p1, ws_col
 constexpr int kAdjSumFields = 4;           // x_off, width, ws_col, n
 
-__global__ void pairwise_cg_kernel(
-    const float* __restrict__ a, int M, int a_dim,
-    const float* __restrict__ bw, int R,
-    const int* __restrict__ paths, int P, int paths_per_block,
-    const int* __restrict__ nz_idx, const float* __restrict__ nz_c,
-    float* __restrict__ S, int KM) {
-  const int mul = blockDim.x;
-  const int u = threadIdx.x;
-  const int m = blockIdx.x * kRows + threadIdx.y;
-  if (m >= M) return;
-  const float* arow = a + (size_t)m * a_dim;
-  const float* brow = bw + (size_t)m * R * mul + u;
-  float* srow = S + (size_t)m * KM + u;
+struct FusedArgs {
+  const float* a;
+  const float* bw;
+  const float* wsel;
+  const float* gout;
+  const int* paths;     // [P, kFPathFields]
+  const int2* nz;       // (m1 | m2 << 8, coefficient bits), sorted by m3
+  const int* units;     // K5: [U, kFUnitFields]; K5m: [U, kMUnitFields]
+  float* out;           // K5: out; K5m: dwsel, or the chunks' workspace
+  int M, a_dim, R, mul, out_dim, wsel_len;
+  int max_nz, max_paths, a_pitch, b_pitch, g_pitch, chunk_tiles;
+};
 
-  const int p_begin = blockIdx.y * paths_per_block;
-  const int p_end = min(P, p_begin + paths_per_block);
-  for (int p = p_begin; p < p_end; ++p) {
-    const int* pi = paths + p * kPathFields;
-    const int x_off = pi[0], d1 = pi[1], r0 = pi[2];
-    const int row_base = pi[4], row_stride = pi[5];
-    const int nz0 = pi[7], nz1 = pi[8];
-    const float* as = arow + x_off + u * d1;
-    const float* bs = brow + (size_t)r0 * mul;
-    int m3_cur = -1;
-    float acc = 0.f;
-    for (int z = nz0; z < nz1; ++z) {
-      const int code = nz_idx[z];
-      const int m1 = code & 0xff, m2 = (code >> 8) & 0xff, m3 = code >> 16;
-      if (m3 != m3_cur) {
-        if (m3_cur >= 0)
-          srow[(size_t)(row_base + m3_cur * row_stride) * mul] = acc;
-        m3_cur = m3;
-        acc = 0.f;
-      }
-      acc += nz_c[z] * __ldg(as + m1) * __ldg(bs + m2 * mul);
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// the pitch of staged rows of `floats` floats: the least at or above it
+// that is r or 32 - r mod 32 (either keeps the lanes' banks apart)
+static inline int row_pitch(int floats, int r) {
+  const int p = (floats + 31) / 32 * 32 + r;
+  return r > 0 && p - 2 * r >= floats ? p - 2 * r : p;
+}
+
+// q / d for 0 <= q < 2^16 and 0 < d < 2^16 by a multiply: m = magic(d),
+// ceil(2^32 / d)
+__device__ __forceinline__ uint64_t magic(uint32_t d) {
+  return (0x100000000ull + d - 1) / d;
+}
+__device__ __forceinline__ int div_by(int q, uint64_t m) {
+  return (int)(((uint64_t)q * m) >> 32);
+}
+
+// Stage `lines` lines of `width` floats (a multiple of 4) by 16-byte
+// cp.async: line l from src(l) to dst(l).  Floats at or past `valid` of a
+// line, and every float of a line whose src is null, are zero-filled (the
+// copy reads nothing, from `any`, a valid address).
+template <class Src, class Dst>
+__device__ __forceinline__ void stage_lines(int lines, int width, int valid,
+                                            const float* any, Src src,
+                                            Dst dst) {
+  const int per = width >> 2;
+  const uint64_t m = magic(per);
+  for (int i = threadIdx.x; i < lines * per; i += blockDim.x) {
+    const int l = div_by(i, m), c = (i - l * per) << 2;
+    const float* s = src(l);
+    const bool ok = s != nullptr && c < valid;
+    cp_async16(dst(l) + c, ok ? s + c : any, ok ? 16 : 0);
+  }
+}
+
+// A path's non-zeros into zs: n_z entries from z0 (even), two a copy (the
+// host pads every path's block to an even length).
+__device__ __forceinline__ void stage_nz(int2* zs, const int2* nz, int z0,
+                                         int n_z) {
+  for (int i = threadIdx.x; i < (n_z + 1) >> 1; i += blockDim.x)
+    cp_async16(reinterpret_cast<float*>(zs + 2 * i),
+               reinterpret_cast<const float*>(nz + z0 + 2 * i), 16);
+}
+
+// One thread's V values of a path's S tile at component m3: channels c +
+// CS * i of one element, whose staged left row (at channel c, m1 minor, d1
+// a channel) is ar and bw rows (at channel c, KC a row) br, summed over the
+// path's run [z, z1) of non-zeros of this m3.
+template <int KC, int CS, int V>
+__device__ __forceinline__ void cg_run(const int2* zs, int z, int z1,
+                                       const float* ar, const float* br,
+                                       int d1, float (&acc)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (; z < z1; ++z) {
+    const int2 e = zs[z];
+    const float c = __int_as_float(e.y);
+    const float* a = ar + (e.x & 0xff);
+    const float* b = br + (e.x >> 8) * KC;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += c * a[i * CS * d1] * b[i * CS];
+  }
+}
+
+// K5, one unit: the components [m3_0, m3_0 + NM3) of group g, output slot
+// io, elements [kFT * blockIdx.x, +kFT).  K steps: channels [kFKC * c,
+// +kFKC) of path k of g, c-major, so that consecutive steps of one left
+// irrep share its staged rows.  A step's rows (left, where its irrep is
+// new; bw; the wsel slice; the non-zeros) are staged one step ahead into
+// the other of two buffers.  Thread t makes kFV values of element t / kFQ
+// of every S tile; warp w owns kFN 8-wide MMA tiles of output columns,
+// from 8 kFN w, for each of the NM3 components.
+template <int NM3>
+__device__ __forceinline__ void fwd_unit(const FusedArgs& p, float* smem,
+                                         const int* un) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p0 = un[0], n_paths = un[1], d3 = un[2], m3_0 = un[3];
+  const int out_col = un[5], wo = un[6], b_off = un[7];
+  const int m0 = blockIdx.x * kFT, live = min(kFT, p.M - m0);
+  const int steps = n_paths * ((p.mul + kFKC - 1) / kFKC);
+
+  // the unit's path rows; two buffers each of a path's non-zeros, left
+  // rows, bw rows and wsel slice; the S tiles
+  int* ps = reinterpret_cast<int*>(smem);
+  int2* zs = reinterpret_cast<int2*>(ps + round4(p.max_paths * kFPathFields));
+  float* as = reinterpret_cast<float*>(zs + 2 * p.max_nz);
+  float* bs = as + 2 * kFT * p.a_pitch;
+  float* wt = bs + 2 * kFT * p.b_pitch;
+  float* ss = wt + 2 * kFKC * kWPitch;
+
+  for (int i = tid; i < n_paths * kFPathFields; i += kFThreads)
+    ps[i] = p.paths[(size_t)p0 * kFPathFields + i];
+  __syncthreads();
+
+  // whether step s's left irrep differs from step s - 1's
+  auto new_left = [&](int s) {
+    const int k = s % n_paths;
+    return k == 0 || ps[k * kFPathFields] != ps[(k - 1) * kFPathFields];
+  };
+  // stage step s into buffer s & 1 (its left rows into buffer a_buf)
+  auto stage = [&](int s, int a_buf) {
+    const int c = s / n_paths, k = s - c * n_paths, u0 = c * kFKC;
+    const int buf = s & 1;
+    const int* pi = ps + k * kFPathFields;
+    const int x_off = pi[0], d1 = pi[1], r0 = pi[2], d2 = pi[3];
+    const int vch = min(kFKC, p.mul - u0);
+    const uint64_t md2 = magic(d2);
+    if (new_left(s)) {
+      float* ad = as + a_buf * kFT * p.a_pitch;
+      stage_lines(
+          kFT, kFKC * d1, vch * d1, p.a,
+          [&](int e) {
+            return e < live ? p.a + (size_t)(m0 + e) * p.a_dim + x_off +
+                                  u0 * d1
+                            : nullptr;
+          },
+          [&](int e) { return ad + e * p.a_pitch; });
     }
-    if (m3_cur >= 0)
-      srow[(size_t)(row_base + m3_cur * row_stride) * mul] = acc;
+    float* bd = bs + buf * kFT * p.b_pitch;
+    stage_lines(
+        kFT * d2, kFKC, vch, p.bw,
+        [&](int l) {
+          const int e = div_by(l, md2);
+          return e < live ? p.bw + ((size_t)(m0 + e) * p.R + r0 + l -
+                                    e * d2) * p.mul + u0
+                          : nullptr;
+        },
+        [&](int l) {
+          const int e = div_by(l, md2);
+          return bd + e * p.b_pitch + (l - e * d2) * kFKC;
+        });
+    const float* w0 = p.wsel + b_off + ((size_t)k * p.mul + u0) * wo;
+    float* wd = wt + buf * kFKC * kWPitch;
+    stage_lines(
+        kFKC, wo, wo, p.wsel,
+        [&](int r) { return r < vch ? w0 + (size_t)r * wo : nullptr; },
+        [&](int r) { return wd + r * kWPitch; });
+    stage_nz(zs + buf * p.max_nz, p.nz, pi[5], pi[6]);
+  };
+
+  const int e = tid / kFQ, q = tid % kFQ;
+  const int g = lane >> 2, q4 = lane & 3, n0 = 8 * kFN * warp;
+  float acc[NM3][kFN][4];
+#pragma unroll
+  for (int i = 0; i < NM3; ++i)
+#pragma unroll
+    for (int n = 0; n < kFN; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+
+  int a_buf = 0;
+  stage(0, a_buf);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const int a_cur = a_buf, buf = s & 1;
+    if (s + 1 < steps) {
+      if (new_left(s + 1)) a_buf ^= 1;
+      stage(s + 1, a_buf);
+      cp_async_commit();
+    }
+    {  // the step's S tiles, from the path's runs of its components
+      const int* pi = ps + (s % n_paths) * kFPathFields;
+      const int d1 = pi[1];
+      const float* ar = as + a_cur * kFT * p.a_pitch + e * p.a_pitch + q * d1;
+      const float* br = bs + buf * kFT * p.b_pitch + e * p.b_pitch + q;
+      const int2* zb = zs + buf * p.max_nz;
+#pragma unroll
+      for (int i = 0; i < NM3; ++i) {
+        float v[kFV];
+        cg_run<kFKC, kFQ>(zb, pi[kFRuns + m3_0 + i],
+                          pi[kFRuns + m3_0 + i + 1], ar, br, d1, v);
+        float* sr = ss + (i * kFT + e) * kFSPitch + q;
+#pragma unroll
+        for (int j = 0; j < kFV; ++j) sr[j * kFQ] = v[j];
+      }
+    }
+    __syncthreads();
+    if (n0 < wo) {
+      // acc += S tile x wsel slice, the warp's columns
+      const float* wb = wt + buf * kFKC * kWPitch;
+#pragma unroll
+      for (int kk = 0; kk < kFKC; kk += 8) {
+        uint32_t bh[kFN][2], bl[kFN][2];
+#pragma unroll
+        for (int n = 0; n < kFN; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            split_tf32(wb[(kk + q4 + 4 * h) * kWPitch + n0 + 8 * n + g],
+                       bh[n][h], bl[n][h]);
+#pragma unroll
+        for (int i = 0; i < NM3; ++i) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            split_tf32(ss[(i * kFT + g + 8 * (h & 1)) * kFSPitch + kk + q4 +
+                          4 * (h >> 1)],
+                       ah[h], al[h]);
+          // the small terms first
+#pragma unroll
+          for (int n = 0; n < kFN; ++n) {
+            mma_tf32(acc[i][n], al, bh[n]);
+            mma_tf32(acc[i][n], ah, bl[n]);
+            mma_tf32(acc[i][n], ah, bh[n]);
+          }
+        }
+      }
+    }
+  }
+
+  // each output column once: the unit's components of columns j and j + 1
+  // side by side
+#pragma unroll
+  for (int n = 0; n < kFN; ++n) {
+    const int j = n0 + 8 * n + 2 * q4;
+    if (j >= wo) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      if (r >= live) continue;
+      float* o = p.out + (size_t)(m0 + r) * p.out_dim + out_col + j * d3 +
+                 m3_0;
+#pragma unroll
+      for (int i = 0; i < NM3; ++i) {
+        o[i] = acc[i][n][2 * h];
+        o[d3 + i] = acc[i][n][2 * h + 1];
+      }
+    }
+  }
+}
+
+// grid: (element tiles, units); kFThreads threads
+__global__ void __launch_bounds__(kFThreads, kFBlocks)
+    pairwise_fwd_kernel(const FusedArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  const int* un = p.units + blockIdx.y * kFUnitFields;
+  switch (un[4]) {
+    case 1: fwd_unit<1>(p, smem, un); break;
+    case 2: fwd_unit<2>(p, smem, un); break;
+    case 3: fwd_unit<3>(p, smem, un); break;
+    case 4: fwd_unit<4>(p, smem, un); break;
+    case 5: fwd_unit<5>(p, smem, un); break;
+    case 6: fwd_unit<6>(p, smem, un); break;
+    case 7: fwd_unit<7>(p, smem, un); break;
+    case 8: fwd_unit<8>(p, smem, un); break;
+    case 9: fwd_unit<9>(p, smem, un); break;
+  }
+}
+
+// K5m, one unit: path p, output slot io, channels [u0, u0 + kMKC), the
+// element tiles [chunk_tiles * blockIdx.y, +chunk_tiles).  Per tile of kMT
+// elements: the path's d3 S tiles, then acc[u, j] += sum_m3 S[m3]^T
+// gout[m3] (one 8-deep MMA step per component).  A tile's left and bw
+// rows are staged a tile ahead into the other of two buffers, its gout
+// rows while the tile before is being made.  Thread t makes kMV values
+// of element t / kMQ of every S tile; warp w owns rows [16 (w % kMRows),
+// +16) and kMN 8-wide column tiles, from 8 kMN (w / kMRows), of the
+// unit's [kMKC x wo] tile.
+__device__ __forceinline__ void dws_unit(const FusedArgs& p, float* smem,
+                                         const int* un) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int path = un[0], out_col = un[1], wo = un[2], b_off = un[3];
+  const int u0 = un[4];
+  const int n_tiles = (p.M + kMT - 1) / kMT;
+  const int t0 = blockIdx.y * p.chunk_tiles;
+  const int t1 = min(n_tiles, t0 + p.chunk_tiles);
+
+  // the path row, its non-zeros, a tile's staged left, bw and gout rows,
+  // the S tiles
+  int* ps = reinterpret_cast<int*>(smem);
+  int2* zs = reinterpret_cast<int2*>(ps + round4(kFPathFields));
+  float* as = reinterpret_cast<float*>(zs + p.max_nz);   // two buffers
+  float* bs = as + 2 * kMT * p.a_pitch;                  // two buffers
+  float* gs = bs + 2 * kMT * p.b_pitch;
+  float* ss = gs + kMT * p.g_pitch;
+
+  const int* pg = p.paths + (size_t)path * kFPathFields;
+  if (tid < kFPathFields) ps[tid] = pg[tid];
+  const int x_off = pg[0], d1 = pg[1], r0 = pg[2], d2 = pg[3], d3 = pg[4];
+  const int vch = min(kMKC, p.mul - u0);
+  stage_nz(zs, p.nz, pg[5], pg[6]);
+
+  const uint64_t md2 = magic(d2);
+  auto stage_rows = [&](int t) {
+    const int m0 = t * kMT, live = min(kMT, p.M - m0);
+    float* ad = as + (t & 1) * kMT * p.a_pitch;
+    float* bd = bs + (t & 1) * kMT * p.b_pitch;
+    stage_lines(
+        kMT, kMKC * d1, vch * d1, p.a,
+        [&](int e) {
+          return e < live ? p.a + (size_t)(m0 + e) * p.a_dim + x_off +
+                                u0 * d1
+                          : nullptr;
+        },
+        [&](int e) { return ad + e * p.a_pitch; });
+    stage_lines(
+        kMT * d2, kMKC, vch, p.bw,
+        [&](int l) {
+          const int e = div_by(l, md2);
+          return e < live ? p.bw + ((size_t)(m0 + e) * p.R + r0 + l -
+                                    e * d2) * p.mul + u0
+                          : nullptr;
+        },
+        [&](int l) {
+          const int e = div_by(l, md2);
+          return bd + e * p.b_pitch + (l - e * d2) * kMKC;
+        });
+  };
+  auto stage_gout = [&](int t) {
+    const int m0 = t * kMT, live = min(kMT, p.M - m0);
+    stage_lines(
+        kMT, wo * d3, wo * d3, p.gout,
+        [&](int e) {
+          return e < live ? p.gout + (size_t)(m0 + e) * p.out_dim + out_col
+                          : nullptr;
+        },
+        [&](int e) { return gs + e * p.g_pitch; });
+  };
+
+  const int e = tid / kMQ, q = tid % kMQ;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int wr = 16 * (warp % kMRows), wc = 8 * kMN * (warp / kMRows);
+  float acc[kMN][4];
+#pragma unroll
+  for (int n = 0; n < kMN; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  // copy groups: rows(t0) with the non-zeros, gout(t0); then per tile
+  // rows(t + 1) while S(t) is made, gout(t + 1) after the tile's MMAs
+  if (t0 < t1) stage_rows(t0);
+  cp_async_commit();
+  if (t0 < t1) stage_gout(t0);
+  cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<1>();     // rows(t); gout(t) may still be in flight
+    __syncthreads();
+    if (t + 1 < t1) stage_rows(t + 1);
+    cp_async_commit();
+    {  // the tile's S[m3], every component of the path
+      const float* ar = as + (t & 1) * kMT * p.a_pitch + e * p.a_pitch +
+                        q * d1;
+      const float* br = bs + (t & 1) * kMT * p.b_pitch + e * p.b_pitch + q;
+      for (int m3 = 0; m3 < d3; ++m3) {
+        float v[kMV];
+        cg_run<kMKC, kMQ>(zs, ps[kFRuns + m3], ps[kFRuns + m3 + 1], ar, br,
+                          d1, v);
+        float* sr = ss + (m3 * kMT + e) * kMSPitch + q;
+#pragma unroll
+        for (int j = 0; j < kMV; ++j) sr[j * kMQ] = v[j];
+      }
+    }
+    cp_async_wait<1>();     // gout(t); rows(t + 1) may still be in flight
+    __syncthreads();
+    for (int m3 = 0; m3 < d3; ++m3) {
+      // A = S[m3]^T (rows u, columns the tile's elements), B = gout[m3]
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        split_tf32(ss[(m3 * kMT + q4 + 4 * (h >> 1)) * kMSPitch + wr + g +
+                      8 * (h & 1)],
+                   ah[h], al[h]);
+#pragma unroll
+      for (int n = 0; n < kMN; ++n) {
+        if (wc + 8 * n >= wo) continue;
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split_tf32(gs[(q4 + 4 * h) * p.g_pitch + (wc + 8 * n + g) * d3 + m3],
+                     bh[h], bl[h]);
+        mma_tf32(acc[n], al, bh);
+        mma_tf32(acc[n], ah, bl);
+        mma_tf32(acc[n], ah, bh);
+      }
+    }
+    __syncthreads();
+    if (t + 1 < t1) stage_gout(t + 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // the unit's tile, once: into dwsel or the chunk's part of the workspace
+  float* dst = p.out + (size_t)blockIdx.y * (gridDim.y > 1 ? p.wsel_len : 0) +
+               b_off;
+#pragma unroll
+  for (int n = 0; n < kMN; ++n) {
+    const int j = wc + 8 * n + 2 * q4;
+    if (j >= wo) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = u0 + wr + g + 8 * h;
+      if (u < p.mul)
+        *reinterpret_cast<float2*>(dst + (size_t)u * wo + j) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
+// grid: (units, element chunks); kMThreads threads
+__global__ void __launch_bounds__(kMThreads, kMBlocks)
+    pairwise_dws_kernel(const FusedArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  dws_unit(p, smem, p.units + blockIdx.x * kMUnitFields);
+}
+
+// out[i] = the sum of the chunks' ws[k * len + i], in chunk order
+__global__ void pairwise_chunk_sum_kernel(const float* __restrict__ ws,
+                                          int n, int len,
+                                          float* __restrict__ out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < len;
+       i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < n; ++k) s += ws[(size_t)k * len + i];
+    out[i] = s;
   }
 }
 
@@ -456,26 +901,69 @@ __global__ void pairwise_da_sum_kernel(const float* __restrict__ ws,
 
 }  // namespace
 
-extern "C" int pairwise_tp_fwd(
-    const float* a, int M, int a_dim,
-    const float* bw, int R,
-    const int* paths, int P, const int* nz_idx, const float* nz_c,
-    float* scratch, int KM, int mul,
-    const float* wsel, const int* probs_host, int n_probs,
-    float* out, int out_dim, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0) return (int)cudaGetLastError();
-  if (P > 0) {
-    const int ppb = rowmix::paths_per_block(M, P);
-    dim3 block(mul, kRows);
-    dim3 grid((M + kRows - 1) / kRows, (P + ppb - 1) / ppb);
-    pairwise_cg_kernel<<<grid, block, 0, s>>>(a, M, a_dim, bw, R, paths, P,
-                                              ppb, nz_idx, nz_c, scratch, KM);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// The shared memory of the fused kernels' blocks, from the host's table
+// dimensions dims: max d1, d2, d3, non-zeros of a path (even), wo, paths
+// of a unit; k5m: true for pairwise_dws_kernel.  Sets the pitches of `p`.
+static size_t fused_smem(FusedArgs& p, const int* dims, bool k5m) {
+  const int max_d1 = dims[0], max_d2 = dims[1], max_d3 = dims[2];
+  p.max_nz = dims[3];
+  p.max_paths = dims[5];
+  size_t floats = round4(p.max_nz * 2);
+  if (k5m) {
+    p.a_pitch = row_pitch(kMKC * max_d1, kMQ % 32);
+    p.b_pitch = row_pitch(kMKC * max_d2, kMQ % 32);
+    p.g_pitch = row_pitch(dims[4] * max_d3, 8);
+    floats += round4(kFPathFields) +
+              kMT * (size_t)(2 * p.a_pitch + 2 * p.b_pitch + p.g_pitch) +
+              (size_t)max_d3 * kMT * kMSPitch;
+  } else {
+    p.a_pitch = row_pitch(kFKC * max_d1, kFQ % 32);
+    p.b_pitch = row_pitch(kFKC * max_d2, kFQ % 32);
+    p.g_pitch = 0;
+    floats += round4(p.max_nz * 2) + round4(p.max_paths * kFPathFields) +
+              2 * (kFT * (size_t)(p.a_pitch + p.b_pitch) + kFKC * kWPitch) +
+              (size_t)max_d3 * kFT * kFSPitch;
   }
-  return (int)rowmix::mix_rows(scratch, M, KM, wsel, probs_host, n_probs,
-                               out, out_dim, s);
+  return floats * sizeof(float);
+}
+
+static bool fused_dims_ok(const int* dims, int mul) {
+  return dims[0] >= 1 && dims[0] <= kMaxD && dims[1] >= 1 &&
+         dims[1] <= kMaxD && dims[2] >= 1 && dims[2] <= kMaxD &&
+         dims[3] % 2 == 0 && dims[4] % 8 == 0 && dims[4] <= kMaxWo &&
+         mul % 4 == 0 && mul >= 4;
+}
+
+template <class Kernel>
+static cudaError_t launch_fused(Kernel kernel, dim3 grid, int threads,
+                                size_t smem, const FusedArgs& p,
+                                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// K5.  paths, nz: the fused tables (ops/cuda/pairwise_tp.py, FusedTables)
+// on the device; dims: their dimensions (kFusedDims), on the host; units
+// [n_units, kFUnitFields]: the cut of the groups' components that the
+// wrapper chose for M.  Every output column of a mix problem is stored
+// once by one unit (the wrapper zero-fills the columns of none).
+extern "C" int pairwise_tp_fwd(
+    const float* a, int M, int a_dim, const float* bw, int R, int mul,
+    const int* paths, const int* nz, const int* dims, const int* units,
+    int n_units, const float* wsel, float* out, int out_dim, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || n_units <= 0) return (int)cudaGetLastError();
+  if (!fused_dims_ok(dims, mul) || n_units > 65535)
+    return (int)cudaErrorInvalidValue;
+  FusedArgs p{a, bw, wsel, nullptr, paths,
+              reinterpret_cast<const int2*>(nz), units, out, M, a_dim, R,
+              mul, out_dim, 0};
+  const size_t smem = fused_smem(p, dims, false);
+  const dim3 grid((M + kFT - 1) / kFT, n_units);
+  return (int)launch_fused(pairwise_fwd_kernel, grid, kFThreads, smem, p, s);
 }
 
 // The adjoint sweep's launch: what the chunks need of shared memory (from
@@ -546,19 +1034,23 @@ static cudaError_t adjoint_sweep(AdjArgs p, bool want_a, bool want_b,
   return cudaGetLastError();
 }
 
-// probs_host: the mix problem table, on the host.  adj_*: the adjoint
-// sweep's tables (ops/cuda/pairwise_tp.py, AdjointTables), on the device
-// and, for the paths and chunks, on the host; tile: elements per block of
-// the sweep.  S and dS: work buffers [M, K * mul]; ws [ws_len]: the split
-// products' partial tiles; da_ws [da_ws_len]: the partial d left of the
-// irreps cut into several chunks.  parts: which cotangents to compute, 1
-// dwsel (K5m), 2 d left (K5a), 4 dbw (K5b); the others' buffers are left
-// untouched.  Every output element has one owner that stores it once: no
-// atomics, no memsets (bar dwsel with no path or element).
+// paths, nz, dims: the fused tables, as for pairwise_tp_fwd; dws_units
+// [n_dws_units, kMUnitFields]: K5m's units, over chunks of dws_chunk_tiles
+// element tiles each (dws_ws: their partial dwsel, a wsel_len floats per
+// chunk, where there are several).  probs_host: the mix problem table, on the
+// host.  adj_*: the adjoint sweep's tables (ops/cuda/pairwise_tp.py,
+// AdjointTables), on the device and, for the paths and chunks, on the
+// host; tile: elements per block of the sweep.  dS: a work buffer [M, K *
+// mul]; ws [ws_len]: gout made component-major for the dS product; da_ws
+// [da_ws_len]: the partial d left of the irreps cut into several chunks.
+// parts: which cotangents to compute, 1 dwsel (K5m), 2 d left (K5a), 4 dbw
+// (K5b); the others' buffers are left untouched.  Every output element
+// has one owner that stores it once: no atomics, no memsets (bar dwsel
+// with no path or element).
 extern "C" int pairwise_tp_bwd(
-    const float* a, int M, int a_dim,
-    const float* bw, int R,
-    const int* paths, int P, const int* nz_idx, const float* nz_c,
+    const float* a, int M, int a_dim, const float* bw, int R, int P,
+    const int* paths, const int* nz, const int* dims,
+    const int* dws_units, int n_dws_units, int dws_chunk_tiles,
     const int* adj_paths, const int* adj_paths_host,
     const int* adj_nz, int adj_n_nz,
     const int* adj_chunks, const int* adj_chunks_host, int n_chunks,
@@ -566,36 +1058,48 @@ extern "C" int pairwise_tp_bwd(
     int KM, int mul,
     const float* wsel, int wsel_len, const int* probs_host, int n_probs,
     const float* gout, int out_dim,
-    float* S, float* dS, float* da, float* dbw, float* dwsel, int parts,
-    float* ws, int ws_len, float* da_ws, int da_ws_len, void* stream) {
+    float* dS, float* da, float* dbw, float* dwsel, int parts,
+    float* ws, int ws_len, float* da_ws, int da_ws_len, float* dws_ws,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool want_m = parts & 1, want_a = parts & 2, want_b = parts & 4;
   cudaError_t err = cudaSuccess;
-  if (want_m && (M <= 0 || P <= 0))
+  if (want_m && (M <= 0 || P <= 0 || n_dws_units <= 0))
     err = cudaMemsetAsync(dwsel, 0, (size_t)wsel_len * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
   if (M <= 0) return (int)cudaGetLastError();
-  if (P > 0) {
-    const int ppb = rowmix::paths_per_block(M, P);
-    const dim3 by_path((M + kRows - 1) / kRows, (P + ppb - 1) / ppb);
-    if (want_m) {
-      pairwise_cg_kernel<<<by_path, dim3(mul, kRows), 0, s>>>(
-          a, M, a_dim, bw, R, paths, P, ppb, nz_idx, nz_c, S, KM);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, M,
-                                 KM, out_dim, S, nullptr, gout, dwsel,
-                                 wsel_len, ws, ws_len, s);
-      if (err != cudaSuccess) return (int)err;
+  if (want_m && P > 0 && n_dws_units > 0) {
+    const int tiles = (M + kMT - 1) / kMT;
+    if (!fused_dims_ok(dims, mul) || dws_chunk_tiles < 1 ||
+        (tiles + dws_chunk_tiles - 1) / dws_chunk_tiles > 65535)
+      return (int)cudaErrorInvalidValue;
+    FusedArgs p{a, bw, wsel, gout, paths, reinterpret_cast<const int2*>(nz),
+                dws_units, dwsel, M, a_dim, R, mul, out_dim, wsel_len};
+    const size_t smem = fused_smem(p, dims, true);
+    p.chunk_tiles = dws_chunk_tiles;
+    const int chunks = (tiles + p.chunk_tiles - 1) / p.chunk_tiles;
+    if (chunks > 1) {
+      if (dws_ws == nullptr) return (int)cudaErrorInvalidValue;
+      p.out = dws_ws;
     }
-    if (want_a || want_b) {
-      err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs, M, KM,
-                                 out_dim, nullptr, wsel, gout, dS, wsel_len,
-                                 ws, ws_len, s);
+    err = launch_fused(pairwise_dws_kernel, dim3(n_dws_units, chunks),
+                       kMThreads, smem, p, s);
+    if (err != cudaSuccess) return (int)err;
+    if (chunks > 1) {
+      const int blocks = std::min(1024, (wsel_len + 255) / 256);
+      pairwise_chunk_sum_kernel<<<std::max(blocks, 1), 256, 0, s>>>(
+          dws_ws, chunks, wsel_len, dwsel);
+      err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
   }
   if (!want_a && !want_b) return (int)cudaGetLastError();
+  if (P > 0) {
+    err = rowmix::mix_products(rowmix::kMixRows, probs_host, n_probs, M, KM,
+                               out_dim, nullptr, wsel, gout, dS, wsel_len,
+                               ws, ws_len, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   AdjArgs p{a, bw, dS, adj_paths, reinterpret_cast<const int2*>(adj_nz),
             adj_chunks, da, dbw, da_ws, M, a_dim, R, KM, 0, adj_n_nz};
   return (int)adjoint_sweep(p, want_a, want_b, adj_paths_host,

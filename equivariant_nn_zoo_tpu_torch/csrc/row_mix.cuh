@@ -1,16 +1,17 @@
 // The mix stage shared by the convolution and pairwise kernels, forward and
 // backward, and the backward's other tiled products: one tensor-core GEMM.
 //
-// Forward (full_conv.cu K1, uvu_conv.cu K6, pairwise_tp.cu K5, and the
-// scattered mix of full_conv_ext.cu K4f / K4g): per mix problem q
+// Forward (full_conv.cu K1, uvu_conv.cu K6, and the scattered mix of
+// full_conv_ext.cu K4f / K4g): per mix problem q
 // (output-irrep group, component, output slot)
 //
 //   out[r, c_off(q) + w * c_stride(q)] =
 //       sum_k S[r, a_col(q) + k] * wsel[b_off(q) + k * wo(q) + w]
 //
-// over the rows r of the unmixed scratch S [rows, KM] (one row per node, per
-// edge or per element).  Backward (full_conv_bwd.cu K2, full_conv_ext.cu
-// K4b / K4g, uvu_conv.cu K6b, pairwise_tp.cu K5m), the two adjoints:
+// over the rows r of the unmixed scratch S [rows, KM] (one row per node or
+// per edge).  Backward (full_conv_bwd.cu K2, full_conv_ext.cu K4b / K4g,
+// uvu_conv.cu K6b; pairwise_tp.cu's backward takes dS only, its fused
+// kernels do K5's mix and K5m's dwsel themselves), the two adjoints:
 //
 //   dS[r, a_col + k]       = sum_{q: a_col(q) = a_col} sum_w
 //                                gout[r, c(q, w)] * wsel_q[k, w]
@@ -25,8 +26,8 @@
 //
 // Replaces the mix dots of the TPU kernels (PallasFullConv._full_fwd_kernel
 // and _full_bwd_kernel, fused_conv.py:926 and :1051; PallasUVUConv,
-// fused_conv.py:233 and :278; PallasPairwiseTP._fwd_kernel and
-// _bwd_kernel_dws, pairwise.py:410 and :504), which run on the MXU.
+// fused_conv.py:233 and :278), which run on the MXU, and gives the
+// pairwise backward its dS.
 //
 // Design (gemm_kernel):
 // - One owner per output tile.  A block computes a 64x64 tile of one

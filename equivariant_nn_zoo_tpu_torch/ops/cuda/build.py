@@ -133,16 +133,16 @@ SIGNATURES = {
     ],
     "pairwise_tp_fwd": [
         _P, _I, _I,            # left, M, its columns
-        _P, _I,                # weighted right [M, R, mul], R
-        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
-        _P, _I, _I,            # scratch, K * mul, mul
-        _P, _P, _I,            # mix matrices, host mix problems, count
-        _P, _I, _P,            # out, out_dim, stream
+        _P, _I, _I,            # weighted right [M, R, mul], R, mul
+        _P, _P, _P,            # fused paths, non-zeros, host dimensions
+        _P, _I,                # units (one cut of the components), count
+        _P, _P, _I, _P,        # mix matrices, out, out_dim, stream
     ],
     "pairwise_tp_bwd": [
         _P, _I, _I,            # left, M, its columns
-        _P, _I,                # weighted right [M, R, mul], R
-        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
+        _P, _I, _I,            # weighted right [M, R, mul], R, paths
+        _P, _P, _P,            # fused paths, non-zeros, host dimensions
+        _P, _I, _I,            # K5m units, count, element tiles a chunk
         _P, _P,                # adjoint sweep: paths, their host copy,
         _P, _I,                # non-zeros in two orders, their count,
         _P, _P, _I,            # chunks, their host copy, count,
@@ -150,11 +150,12 @@ SIGNATURES = {
         _I, _I,                # K * mul, mul
         _P, _I, _P, _I,        # mix matrices, their length, host problems, n
         _P, _I,                # gout, out_dim
-        _P, _P,                # work: S, dS
+        _P,                    # work: dS
         _P, _P, _P,            # d left, d weighted right, dwsel
         _I,                    # which of them (1 dwsel, 2 d left, 4 dbw)
         _P, _I,                # workspace, its length,
-        _P, _I, _P,            # d left partials, their length, stream
+        _P, _I,                # d left partials, their length,
+        _P, _P,                # K5m's chunk partials, stream
     ],
     "full_conv_ext_fwd": _EXT_COMMON + [
         _P, _P, _P, _P,        # x, sh, w, wsel

@@ -27,13 +27,15 @@ For tensors on the CPU the wrapper runs the plain version
 (``TensorProductExpansion.expand``, the mid-fused lowering) and autograd
 differentiates it.  For CUDA tensors it goes, chunk by chunk, through
 ``PairwiseTPFunction`` on ``(left, bw, wsel)``, whose forward launches K5
-and whose backward launches the cotangents' kernels from one entry
-(``dwsel``: K5m; ``d left`` and ``dbw``: K5a and K5b, one adjoint sweep
-over ``AdjointTables``), or raises.  Stage 1 and
+(the CG contraction made path by path into shared memory and mixed there
+on the tensor cores, over ``FusedTables``) and whose backward launches the
+cotangents' kernels from one entry (``dwsel``: K5m, on the same tables;
+``d left`` and ``dbw``: K5a and K5b, one adjoint sweep over
+``AdjointTables``), or raises.  Stage 1 and
 ``flat_wsel`` are PyTorch, so autograd carries ``dbw`` back to
 ``tp.weight`` and ``right`` and ``dwsel`` (summed over the chunks) to the
-mix ``Linear``.  The backward recomputes the unmixed scratch instead of
-saving it: what a training step keeps per element is ``bw`` alone.
+mix ``Linear``.  Neither the forward nor K5m writes the unmixed scratch to
+device memory; what a training step keeps per element is ``bw`` alone.
 ``plain_forward`` and ``plain_backward`` are plain PyTorch versions of the
 kernels' contracts that walk the same tables, for the tests and the
 on-card checks.
@@ -63,6 +65,130 @@ ADJ_CHUNK_FIELDS = 5
 #: and partial sums) and fine (small M: a shorter longest unit), by the
 #: number of chunks each one's balance cap aims at
 ADJ_TARGET_CHUNKS = (16, 32)
+
+
+#: the fused forward (K5) and K5m (csrc/pairwise_tp.cu): elements of a K5
+#: tile and channels of its K step, elements of a K5m tile and channels of
+#: a K5m unit, the output multiplicity they take at most, and the fields
+#: of a path row
+FWD_TILE, FWD_KC = 16, 16
+DWS_TILE, DWS_KC = 8, 64
+MAX_WO = 64
+FUSED_PATH_FIELDS = 7 + MAX_D + 1
+#: K5's cuts of a group's components over units, by the most components a
+#: unit takes: whole groups (large M), threes, ones (small M)
+FWD_SPLITS = (MAX_D, 3, 1)
+#: K5m's blocks to aim for, per multiprocessor
+DWS_BLOCKS_PER_SM = 8
+
+
+class FusedTables(NamedTuple):
+    """Host tables of the fused forward (K5) and of K5m, built by
+    ``fused_tables``.
+
+    - ``paths [P, FUSED_PATH_FIELDS]``: the paths in the path table's order
+      (output-irrep groups contiguous), each ``(x_off, d1, r0, d2, d3, z0,
+      n_z, runs[MAX_D + 1])``: its left columns ``x_off + u * d1 + m1``, its
+      bw rows ``r0 + m2``, its non-zeros ``nz[z0: z0 + n_z]`` sorted by
+      (m3, m1, m2), ``z0`` even (every path's block is padded to an even
+      length: the kernels copy two entries at a time), and the bounds of
+      their runs of equal m3 relative to ``z0``, padded with the last;
+    - ``nz [Z, 2]`` int32: ``m1 | m2 << 8`` beside the coefficient's
+      float32 bits;
+    - ``fwd_units``: per ``FWD_SPLITS`` a table ``[U, 8]`` of ``(p0,
+      n_paths, d3, m3_0, nm3, out_col, wo, b_off)``: the paths ``[p0, p0 +
+      n_paths)`` of a group, the components ``[m3_0, m3_0 + nm3)`` of one
+      output slot, at columns ``out_col + j * d3 + m3`` for ``j < wo``, and
+      the slot's mix matrices from ``b_off`` (path k's ``[mul, wo]`` at
+      ``b_off + k * mul * wo``); heaviest first;
+    - ``dws_units [U, 5]``: ``(path, out_col, wo, b_off, u0)``: the ``[DWS_KC,
+      wo]`` block of dwsel at ``b_off + u * wo + j`` of the path's channels
+      ``u0 <= u < u0 + DWS_KC`` (below mul); heaviest first;
+    - ``dims`` int32: ``(max d1, max d2, max d3, max non-zeros of a path
+      (even), max wo, max paths of a group)``, which size the kernels'
+      shared memory.
+    """
+    paths: np.ndarray
+    nz: np.ndarray
+    fwd_units: tuple
+    dws_units: np.ndarray
+    dims: np.ndarray
+
+
+def fused_tables(path_rows, d3s, nz_codes, nz_values, slots, mul):
+    """The ``FusedTables`` of a path table (``PairwiseTP.path_rows``, the
+    output dims ``d3s`` of its paths, the non-zeros ``nz_codes`` /
+    ``nz_values``) and its output slots ``slots`` [(p0, n_paths, d3,
+    out_col, wo, b_off)] per (group, slot), at multiplicity ``mul``."""
+    paths, nz = [], []
+    for q, (x_off, d1, r0, d2, _, _, _, nz0, nz1) in enumerate(path_rows):
+        code = np.asarray(nz_codes[nz0:nz1], np.int64)
+        m1, m2, m3 = code & 0xff, (code >> 8) & 0xff, code >> 16
+        idx = np.lexsort((m2, m1, m3))
+        bits = nz_values[nz0:nz1][idx].view(np.int32)
+        z0, d3 = len(nz), d3s[q]
+        nz += [[int(c), int(b)] for c, b in zip(m1[idx] | m2[idx] << 8, bits)]
+        nz += [[0, 0]] * (len(nz) % 2)
+        runs = np.searchsorted(m3[idx], np.arange(d3 + 1))
+        paths.append([x_off, d1, r0, d2, d3, z0, nz1 - nz0, *runs,
+                      *[runs[-1]] * (MAX_D - d3)])
+    paths = np.asarray(paths, np.int32).reshape(-1, FUSED_PATH_FIELDS)
+    runs = paths[:, 7:]
+
+    # a rough cost of a unit: its non-zeros plus its MMA tiles
+    fwd_units = []
+    for split in FWD_SPLITS:
+        units = []
+        for p0, n, d3, out_col, wo, b_off in slots:
+            for m3_0 in range(0, d3, split):
+                nm3 = min(split, d3 - m3_0)
+                nz_in = int((runs[p0: p0 + n, m3_0 + nm3]
+                             - runs[p0: p0 + n, m3_0]).sum())
+                units.append((-(nz_in + n * nm3 * wo // 4),
+                              [p0, n, d3, m3_0, nm3, out_col, wo, b_off]))
+        fwd_units.append(np.asarray(
+            [u for _, u in sorted(units, key=lambda cu: cu[0])],
+            np.int32).reshape(-1, 8))
+    units = []
+    for p0, n, d3, out_col, wo, b_off in slots:
+        for k in range(n):
+            for u0 in range(0, mul, DWS_KC):
+                units.append((-(int(paths[p0 + k, 6]) + d3 * wo // 4),
+                              [p0 + k, out_col, wo, b_off + k * mul * wo,
+                               u0]))
+    dws_units = np.asarray([u for _, u in sorted(units, key=lambda cu: cu[0])],
+                           np.int32).reshape(-1, 5)
+    n_z = paths[:, 6] if len(paths) else np.zeros(1, np.int32)
+    dims = np.asarray([
+        paths[:, 1].max(initial=1), paths[:, 3].max(initial=1),
+        paths[:, 4].max(initial=1), int(n_z.max()) + int(n_z.max()) % 2,
+        max((s[4] for s in slots), default=8),
+        max((s[1] for s in slots), default=1)], np.int32)
+    return FusedTables(paths=paths,
+                       nz=np.asarray(nz, np.int32).reshape(-1, 2),
+                       fwd_units=tuple(fwd_units), dws_units=dws_units,
+                       dims=dims)
+
+
+def forward_plan(M: int, fwd_units, sms: int) -> int:
+    """K5's cut of the components (an index into ``FWD_SPLITS``) for M
+    elements: the coarsest whose element tiles times units still give two
+    blocks per multiprocessor, else the finest."""
+    tiles = -(-M // FWD_TILE)
+    for k, units in enumerate(fwd_units):
+        if tiles * len(units) >= 2 * sms:
+            return k
+    return len(fwd_units) - 1
+
+
+def dws_plan(M: int, n_units: int, sms: int):
+    """K5m's chunks of element tiles: enough for ``DWS_BLOCKS_PER_SM``
+    blocks per multiprocessor, at most one per tile.  Returns ``(chunks,
+    tiles per chunk)``."""
+    tiles = max(1, -(-M // DWS_TILE))
+    want = min(tiles, max(1, -(-DWS_BLOCKS_PER_SM * sms // max(n_units, 1))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
 
 
 class Chunking(NamedTuple):
@@ -215,8 +341,8 @@ class PairwiseTP(torch.nn.Module):
     #: kernel launches, over all instances (the main path's proof of use)
     launches = 0
     backward_launches = 0
-    #: elements per launch (bounds ``bw`` and the scratch: 2 x 1.5 GiB at
-    #: the full-width head; the backward holds four such buffers)
+    #: elements per launch (bounds ``bw``: 1.5 GiB at the full-width head;
+    #: the backward holds three such buffers, bw, dS and dbw)
     CHUNK = 4096
 
     def __init__(self, tpe):
@@ -323,6 +449,7 @@ class PairwiseTP(torch.nn.Module):
             counter[mi.ir] = slot_rank[slot] + mi.mul
         out_starts = [s.start for s in lin.irreps_out.slices()]
         probs, self.mix_plan, b_off = [], [], 0
+        slots = []   # per (group, output slot): K5's and K5m's units
         for g, (ir, k0, n_paths, d, p0) in enumerate(groups):
             rows = np.concatenate([
                 slot_rank[paths[p0 + m].i_out] + np.arange(mul)
@@ -332,6 +459,7 @@ class PairwiseTP(torch.nn.Module):
             for io in lin_out[ir]:
                 wo = lin.irreps_out[io].mul
                 self.mix_plan.append((g, lin_in_index[ir], io))
+                slots.append((p0, n_paths, d, out_starts[io], wo, b_off))
                 for dd in range(d):
                     probs.append([(k0 + dd * n_paths) * mul, n_paths * mul,
                                   b_off, wo, out_starts[io] + dd, d])
@@ -345,14 +473,23 @@ class PairwiseTP(torch.nn.Module):
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)
         self.nz_codes = np.asarray(nz_idx, np.int64)
         self.nz_values = np.asarray(nz_c, np.float32)
-        # the backward's adjoint sweep (K5a, K5b): see adjoint_tables
+        # columns of no slot (an output irrep no path reaches) are zeros
+        covered = {s[3] + c for s in slots for c in range(s[4] * s[2])}
+        self.out_covered = covered == set(range(self.out_dim))
+        # K5 and K5m: see fused_tables; the backward's adjoint sweep (K5a,
+        # K5b): see adjoint_tables
+        self.fused = fused_tables(self.path_rows, d3s, self.nz_codes,
+                                  self.nz_values, slots, mul)
         left = [(s.start, mi.ir.dim) for s, mi in
                 zip(irreps_a.slices(), irreps_a)]
         self.adj = adjoint_tables(self.path_rows, d3s, self.nz_codes,
                                   self.nz_values, left, mul)
         for name, rows in (
-                ("path_table", self.path_rows),
-                ("nz_idx", np.asarray(nz_idx, np.int32)),
+                ("fused_paths", self.fused.paths),
+                ("fused_nz", self.fused.nz),
+                *((f"fwd_units{k}", units)
+                  for k, units in enumerate(self.fused.fwd_units)),
+                ("dws_units", self.fused.dws_units),
                 ("adj_paths", self.adj.paths), ("adj_nz", self.adj.nz),
                 *((f"adj_chunks{k}", cut.chunks)
                   for k, cut in enumerate(self.adj.cuts)),
@@ -469,29 +606,48 @@ def _check_inputs(tpk, a, bw, wsel):
     check_tensor(a, "left", (M, tpk.irreps_a.dim), torch.float32, dev)
     check_tensor(bw, "bw", (M, tpk.R, tpk.mul), torch.float32, dev)
     check_tensor(wsel, "wsel", (tpk.wsel_len,), torch.float32, dev)
-    if tpk.mul * 4 > 1024:
-        raise ValueError(f"PairwiseTP kernel does not take mul={tpk.mul}")
-    if tpk.path_table.device != dev:
+    if tpk.max_d > MAX_D:
+        raise ValueError(f"the PairwiseTP kernels take irreps up to l = 4, "
+                         f"got d = {tpk.max_d}")
+    if tpk.mul % 4:
+        raise ValueError(f"the PairwiseTP kernels take multiplicities that "
+                         f"are multiples of 4, got {tpk.mul}")
+    if any(wo % 8 or wo > MAX_WO for wo in tpk.fused.fwd_units[0][:, 6]):
+        raise ValueError(f"the PairwiseTP kernels take output "
+                         f"multiplicities that are multiples of 8 up to "
+                         f"{MAX_WO}")
+    if tpk.fused_paths.device != dev:
         raise ValueError("PairwiseTP tables are not on the input's device")
+    _check_aligned(left=a, bw=bw, wsel=wsel)
     return dev, M
+
+
+def _check_aligned(**tensors):
+    """The fused kernels stage rows by 16-byte copies: every operand must
+    start on 16 bytes."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"PairwiseTP kernel needs {name} to start on "
+                             f"16 bytes")
 
 
 def launch_forward(tpk, a, bw, wsel):
     """Launch K5 on one chunk: ``out [M, out_dim]``."""
     dev, M = _check_inputs(tpk, a, bw, wsel)
-    scratch = torch.empty((M, tpk.KM), dtype=torch.float32, device=dev)
-    out = torch.empty((M, tpk.out_dim), dtype=torch.float32, device=dev)
+    k = forward_plan(M, tpk.fused.fwd_units, _multiprocessors(dev))
+    new = torch.empty if tpk.out_covered else torch.zeros
+    out = new((M, tpk.out_dim), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pairwise_tp_fwd(
             a.data_ptr(), M, tpk.irreps_a.dim,
-            bw.data_ptr(), tpk.R,
-            tpk.path_table.data_ptr(), tpk.n_paths,
-            tpk.nz_idx.data_ptr(), tpk.nz_c.data_ptr(),
-            scratch.data_ptr(), tpk.KM, tpk.mul,
-            wsel.data_ptr(), tpk.prob_rows.ctypes.data, tpk.n_probs,
-            out.data_ptr(), tpk.out_dim, stream,
+            bw.data_ptr(), tpk.R, tpk.mul,
+            tpk.fused_paths.data_ptr(), tpk.fused_nz.data_ptr(),
+            tpk.fused.dims.ctypes.data,
+            getattr(tpk, f"fwd_units{k}").data_ptr(),
+            len(tpk.fused.fwd_units[k]),
+            wsel.data_ptr(), out.data_ptr(), tpk.out_dim, stream,
         )
     check(err, "pairwise_tp_fwd")
     PairwiseTP.launches += 1
@@ -505,9 +661,7 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
     kernel is not launched)."""
     dev, M = _check_inputs(tpk, a, bw, wsel)
     check_tensor(gout, "gout", (M, tpk.out_dim), torch.float32, dev)
-    if tpk.max_d > MAX_D:
-        raise ValueError(f"the PairwiseTP backward takes irreps up to "
-                         f"l = 4, got d = {tpk.max_d}")
+    _check_aligned(gout=gout)
     if tpk.mul < 4 or ADJ_ROW % tpk.mul:
         raise ValueError(f"the PairwiseTP backward takes multiplicities "
                          f"that divide {ADJ_ROW}, from 4, got {tpk.mul}")
@@ -519,16 +673,18 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
     da = empty(*a.shape) if want_a else None
     dbw = empty(*bw.shape) if want_b else None
     dwsel = empty(tpk.wsel_len) if want_m else None
-    # work: the recomputed unmixed scratch (for dwsel), its cotangent, and
-    # the partial d left of the irreps cut into several chunks
-    S = empty(M, tpk.KM) if want_m else None
+    # work: the unmixed scratch's cotangent, the partial d left of the
+    # irreps cut into several chunks, K5m's partial dwsel per chunk
     dS = empty(M, tpk.KM) if want_a or want_b else None
-    k, tile = adjoint_plan(M, tpk.adj.cuts, tpk.mul, _multiprocessors(dev))
+    sms = _multiprocessors(dev)
+    k, tile = adjoint_plan(M, tpk.adj.cuts, tpk.mul, sms)
     cut = tpk.adj.cuts[k]
     da_ws = empty(M * cut.ws_width) if want_a else None
     if da_ws is not None and da_ws.numel() >= 2 ** 31:
         raise ValueError(f"the d left workspace of {da_ws.numel()} floats "
                          f"is too large")
+    chunks, per = dws_plan(M, len(tpk.fused.dws_units), sms)
+    dws_ws = empty(chunks * tpk.wsel_len) if want_m and chunks > 1 else None
     ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
 
     def ptr(t):
@@ -539,9 +695,10 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pairwise_tp_bwd(
             a.data_ptr(), M, tpk.irreps_a.dim,
-            bw.data_ptr(), tpk.R,
-            tpk.path_table.data_ptr(), tpk.n_paths,
-            tpk.nz_idx.data_ptr(), tpk.nz_c.data_ptr(),
+            bw.data_ptr(), tpk.R, tpk.n_paths,
+            tpk.fused_paths.data_ptr(), tpk.fused_nz.data_ptr(),
+            tpk.fused.dims.ctypes.data,
+            tpk.dws_units.data_ptr(), len(tpk.fused.dws_units), per,
             tpk.adj_paths.data_ptr(), tpk.adj.paths.ctypes.data,
             tpk.adj_nz.data_ptr(), len(tpk.adj.nz[0]),
             getattr(tpk, f"adj_chunks{k}").data_ptr(), cut.chunks.ctypes.data,
@@ -551,10 +708,10 @@ def launch_backward(tpk, a, bw, wsel, gout, wanted=(True, True, True)):
             wsel.data_ptr(), tpk.wsel_len,
             tpk.prob_rows.ctypes.data, tpk.n_probs,
             gout.data_ptr(), tpk.out_dim,
-            ptr(S), ptr(dS), ptr(da), ptr(dbw), ptr(dwsel),
+            ptr(dS), ptr(da), ptr(dbw), ptr(dwsel),
             int(want_m) | int(want_a) << 1 | int(want_b) << 2,
             ws.data_ptr(), ws.numel(), ptr(da_ws),
-            0 if da_ws is None else da_ws.numel(), stream,
+            0 if da_ws is None else da_ws.numel(), ptr(dws_ws), stream,
         )
     check(err, "pairwise_tp_bwd")
     PairwiseTP.backward_launches += 1

@@ -1007,11 +1007,11 @@ def test_pairwise_adjoint_sweep_matches_plain_and_repeats(full_head_tp, M):
     """The adjoint sweep (d left, dbw) and K5m at the full-width head, at
     the M of both ``Pairwise`` calls at batch 16 and 512, for every set of
     cotangents the C entry takes, against the plain backward per output;
-    d left and dbw repeat bit for bit."""
+    d left, dbw and dwsel repeat bit for bit."""
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
 
     tpe, tpk = full_head_tp
-    dev = tpk.path_table.device
+    dev = tpk.fused_paths.device
     g = torch.Generator().manual_seed(50 + M)
     a = torch.randn(M, tpk.irreps_a.dim, generator=g).to(dev)
     b = torch.randn(M, tpk.irreps_b.dim, generator=g).to(dev)
@@ -1020,7 +1020,7 @@ def test_pairwise_adjoint_sweep_matches_plain_and_repeats(full_head_tp, M):
         wsel = tpk.flat_wsel(tpe.linear)
     gout = _cotangent(M, tpk.out_dim, 51, dev)
     want = tpk.plain_backward(a, bw, wsel, gout)
-    for parts in (7, 2, 4, 6):
+    for parts in (7, 1, 2, 4, 6):
         wanted = (bool(parts & 2), bool(parts & 4), bool(parts & 1))
         got = k5_mod.launch_backward(tpk, a, bw, wsel, gout, wanted)
         again = k5_mod.launch_backward(tpk, a, bw, wsel, gout, wanted)
@@ -1030,9 +1030,42 @@ def test_pairwise_adjoint_sweep_matches_plain_and_repeats(full_head_tp, M):
             if need:
                 assert torch.isfinite(x).all(), (parts, name)
                 assert _rel(x, w) <= TOL, (parts, name, _rel(x, w))
-                if name != "dwsel":
-                    assert torch.equal(x, y), (parts, name)
+                assert torch.equal(x, y), (parts, name)
     del want, bw
+
+
+@pytest.mark.parametrize("M", [49, 96, 1537, 3072, 4097])
+def test_pairwise_fused_forward_matches_plain_and_repeats(full_head_tp, M):
+    """K5 (the fused CG and mix) at the full-width head, at the M of both
+    ``Pairwise`` calls at batch 16 and 512 (the components split over
+    units at the first two, whole groups at the others) and through the
+    wrapper's two chunks at 4097, against the plain forward; its output
+    repeats bit for bit."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_mod
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import PairwiseTP
+
+    tpe, tpk = full_head_tp
+    dev = tpk.fused_paths.device
+    g = torch.Generator().manual_seed(60 + M)
+    a = torch.randn(M, tpk.irreps_a.dim, generator=g).to(dev)
+    b = torch.randn(M, tpk.irreps_b.dim, generator=g).to(dev)
+    with torch.no_grad():
+        if M > PairwiseTP.CHUNK:
+            before = PairwiseTP.launches
+            got = tpk.launch(tpe, a, b)
+            again = tpk.launch(tpe, a, b)
+            assert PairwiseTP.launches == before + 4
+            want = tpe.expand(a, b)
+        else:
+            bw = tpk.weighted_right(tpe.tp.weight, b)
+            wsel = tpk.flat_wsel(tpe.linear)
+            got = k5_mod.launch_forward(tpk, a, bw, wsel)
+            again = k5_mod.launch_forward(tpk, a, bw, wsel)
+            want = tpk.plain_forward(a, bw, wsel)
+        torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL, _rel(got, want)
+    assert torch.equal(got, again)
 
 
 def test_pairwise_wrapper_two_chunks_at_full_width(full_head_tp):
@@ -1043,7 +1076,7 @@ def test_pairwise_wrapper_two_chunks_at_full_width(full_head_tp):
     from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import PairwiseTP
 
     tpe, tpk = full_head_tp
-    dev = tpk.path_table.device
+    dev = tpk.fused_paths.device
     M = PairwiseTP.CHUNK + 1
     g = torch.Generator().manual_seed(52)
     leaves = [torch.randn(M, tpk.irreps_a.dim, generator=g).to(dev),
