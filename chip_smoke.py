@@ -20,6 +20,10 @@
                                            # serving and the step, see
                                            # pw_times
     python3 chip_smoke.py --pw-calls       # the two K5 entries alone
+    python3 chip_smoke.py --uvu-times      # the K6 and K6b entries alone,
+                                           # hamiltonian serving and the
+                                           # step, see uvu_times
+    python3 chip_smoke.py --uvu-calls      # the two K6 entries alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -91,7 +95,8 @@ Phases, in order; any failure exits non-zero before the last line:
              contract (K5: left, weighted right, mix matrices; K6: x, sh,
              radial weights, mix matrices) and each wrapper against the
              plain forward (``expand``, ``FusedUVUConv(reduce=False)``);
-             K5's output must repeat bit for bit over two launches; then
+             K5's and K6's outputs must repeat bit for bit over two
+             launches; then
              K3 against plain at the trunk's hot layer, whose irreps
              reach l = 4, and repeated bit for bit;
 15. hamiltonian serve — full-width ``config_hamiltonian`` (seeded weights,
@@ -107,11 +112,13 @@ Phases, in order; any failure exits non-zero before the last line:
              output, at the shapes of the 512-molecule batch (K6b and
              ``tp_off`` on 3072 edges, ``tp`` on 1537 node rows, the
              trunk's hot layer) and of the config's batch of 16 (96 edges,
-             49 node rows; there K5 too, repeated bit for bit); the
+             49 node rows; there K5 and K6 too, repeated bit for bit); K6b
+             walks the edges' source-major order; the
              pairwise backward is one entry, so each of its three kernels
              (dwsel, d left, dbw) is also launched, checked and timed
-             alone at 3072; the pairwise backward's three outputs and
-             K3b's dx and dtables must repeat bit for bit;
+             alone at 3072; the four outputs of K6b, the pairwise
+             backward's three and K3b's dx and dtables must repeat bit for
+             bit;
 17. hamiltonian train — a ``run.Trainer`` with ``config_hamiltonian``'s
              own settings (loss 1e5 * MSE on ``hamiltonian``, Adam lr 1e-2,
              EMA 0.99 with num_updates, ReduceLROnPlateau patience 8 factor
@@ -121,7 +128,9 @@ Phases, in order; any failure exits non-zero before the last line:
              5 K3b, 1 K6, 1 K6b, 2 K5 and 2 K5 backward entries; then 12
              timed steps at batch 16 and at batch 128 (ms per step,
              graphs/s, peak memory, device busy share); the loss on a fixed
-             batch must be finite and lower after the steps;
+             batch must be finite and lower after the steps; then K6 and
+             K6b against their plain versions at batch 128's 768 edges,
+             repeated bit for bit;
 18. hamiltonian train parity — one step's gradient of every parameter on
              a 16-molecule cut, card against the CPU plain path.
 
@@ -318,6 +327,18 @@ def compare_grads(name, kernel, plain, names):
         plain_ms = cuda_ms(plain)
     print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+
+
+def digest(out):
+    """A short hash of the bytes of a tensor or of a tuple of them (None
+    skipped): two checkouts' outputs on the same inputs compare by it."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        if t is not None:
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def repeats(name, fn):
@@ -585,10 +606,10 @@ PROFILE_FAMILIES = (
      "pairwise_chunk_sum_kernel)", r"pairwise_(fwd|dws|chunk_sum)_kernel"),
     ("a parent's K5 CG sweep (pairwise_cg_kernel; its mix and dwsel are "
      "in the GEMM families)", "pairwise_cg_kernel"),
-    ("forward mix (rowmix::gemm_kernel<true, false>: K1's, K6's; a "
-     "parent's K5 mix too)", r"gemm_kernel<true, false>|mix_rows_kernel"),
+    ("forward mix (rowmix::gemm_kernel<true, false>: K1's; a parent's K6 "
+     "mix too)", r"gemm_kernel<true, false>|mix_rows_kernel"),
     ("backward's tiled products (rowmix::gemm_kernel, its split sum and "
-     "gout's copy: K2's, K6b's, the K5 backward's dS; a parent's K5m dwsel "
+     "gout's copy: K2's, the K5 backward's dS; a parent's K6b dS and dwsel "
      "too)", r"rowmix::"),
     ("Adam (profiler range)", r"Optimizer\.step"),
     ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
@@ -596,7 +617,8 @@ PROFILE_FAMILIES = (
      "mlp_hidden_kernel|walk_piece_sum_kernel|walk_dx_kernel"),
     ("K5 adjoint sweep (pairwise_adj_kernel, pairwise_da_sum_kernel)",
      "pairwise_"),
-    ("K6 and K6b sweeps", "uvu_"),
+    ("K6 and K6b (uvu_fwd_kernel, uvu_dws_kernel, uvu_adj_kernel, their "
+     "ordered sums; a parent's sweeps)", "uvu_"),
     ("K3 and K3b", r"species_sc|table_product_kernel|table_grad"),
     ("sorts and index backward", "RadixSort|indexing_backward|cub::"),
     ("cuBLAS and CUTLASS products", "cublas|cutlass|gemm|gemv|splitK"),
@@ -997,6 +1019,71 @@ def capture_head_inputs(model, gb):
     return seen
 
 
+def uvu_args(uvu, call):
+    """K6's contract arguments ``(x, sh, w, wsel, src)`` from one forward's
+    captured call of the head's conv, its mix ``Linear``, and the edges'
+    destinations (a parent checkout's call has none: the sources stand in,
+    which gives an order by source)."""
+    import torch
+
+    linear, x, sh, w, src, *rest = call
+    with torch.no_grad():
+        wsel = uvu.flat_wsel(linear)
+    return (x, sh, w, wsel, src), linear, rest[0] if rest else src
+
+
+def uvu_costs(uvu, args, gout):
+    """``(cg flops, mix flops, bytes)`` of K6 and of K6b at these inputs:
+    K6 makes S once (a multiply-add per non-zero and channel, w once per
+    row) and mixes it; K6b makes S again for dwsel and sweeps the
+    non-zeros twice more (dx; dw and dsh), with two mix products (dwsel,
+    dS); each input read once, each output written once."""
+    x, sh, w, wsel, src = args
+    E = sh.shape[0]
+    cc = conv_counts(uvu, E, E)
+    return ((cc["cg"] + cc["rows"], cc["mix"],
+             nbytes(*args) + E * uvu.out_dim * 4),
+            (3 * cc["cg"] + 2 * cc["rows"], 2 * cc["mix"],
+             2 * nbytes(x, sh, w, wsel) + nbytes(src, gout)))
+
+
+def uvu_checks(uvu, call, dev, seed, tag, forward=True):
+    """K6 (when ``forward``) and K6b on one forward's captured call of the
+    head's conv against their plain versions (K6 against
+    ``FusedUVUConv(reduce=False)``, K6b per output against autograd of the
+    plain forward, on the edges' source-major order and a seeded
+    cotangent), each repeated bit for bit; returns their records and
+    costs."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
+
+    args, linear, dst = uvu_args(uvu, call)
+    x, sh, w, wsel, src = args
+    E, N = sh.shape[0], x.shape[0]
+    rec = {}
+    if forward:
+        rec["K6"] = compare(
+            f"K6 uvu_conv ({tag}, E={E})",
+            lambda: k6_ops.launch_forward(uvu, *args),
+            lambda: uvu.fused(linear, x, src, None, sh, w, N, reduce=False))
+        repeats(f"K6 uvu_conv ({tag}, E={E})",
+                lambda: k6_ops.launch_forward(uvu, *args))
+    gout = torch.randn(E, uvu.out_dim, generator=torch.Generator(
+    ).manual_seed(seed)).to(dev)
+    order = edge_order.build(src, dst, N)
+
+    def backward():
+        return k6_ops.launch_backward(uvu, *args, gout, order=order)
+
+    rec["K6b"] = compare_grads(f"K6b uvu_conv_bwd ({tag}, E={E})", backward,
+                               lambda: uvu.plain_backward(*args, gout),
+                               ("dx", "dsh", "dw", "dwsel"))
+    repeats(f"K6b uvu_conv_bwd ({tag}, E={E})", backward)
+    return rec, uvu_costs(uvu, args, gout)
+
+
 def backward_checks(model, seen, dev, alone):
     """Phase 16 at one batch's shapes: K6b, the pairwise backward (both
     calls), K1 and K2 / K3b at the l = 4 hot layer against their plain
@@ -1011,7 +1098,6 @@ def backward_checks(model, seen, dev, alone):
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
 
     head = model.pairwise
     tpk, uvu = head.pairwise_tp, head.conv.full_conv
@@ -1022,21 +1108,10 @@ def backward_checks(model, seen, dev, alone):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
-    # ----------------------------------------------------------------- K6b
-    linear, x, sh, w, src = seen["K6"][0]
-    E = sh.shape[0]
-    with torch.no_grad():
-        wsel6 = uvu.flat_wsel(linear)
-        _, scratch = k6_ops.launch_forward(uvu, x, sh, w, wsel6, src)
-    args6 = (x, sh, w, wsel6, src, scratch, rnd(E, uvu.out_dim))
-    rec["K6b"] = compare_grads(
-        f"K6b uvu_conv_bwd (E={E})",
-        lambda: k6_ops.launch_backward(uvu, *args6),
-        lambda: uvu.plain_backward(*args6), ("dx", "dsh", "dw", "dwsel"))
-    cc = conv_counts(uvu, E, E)
-    cost["K6b"] = (3 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
-                   2 * nbytes(x, sh, w, wsel6) + nbytes(src, scratch, args6[-1]))
-    del args6, scratch
+    # ------------------------------------------- K6b (and K6 at batch 16)
+    k6, (_, cost["K6b"]) = uvu_checks(
+        uvu, seen["K6"][0], dev, 6, "phase 16", forward=not alone)
+    rec.update(k6)
 
     # ------------------------------------------------- K5m, K5a, K5b (one entry)
     pr = tpk.prob_rows.astype(np.int64)
@@ -1162,17 +1237,13 @@ def hamiltonian_phases(dev):
           f"N={big.node_capacity} E={big.edge_capacity}")
 
     # ------------------------------------------------------------------ K6
-    linear, x, sh, w, src = seen["K6"][0]
-    E = sh.shape[0]
-    with torch.no_grad():
-        wsel6 = uvu.flat_wsel(linear)
-    k6 = compare("K6 uvu_conv",
-                 lambda: k6_ops.launch_forward(uvu, x, sh, w, wsel6, src)[0],
-                 lambda: uvu.fused(linear, x, src, None, sh, w, x.shape[0],
-                                   reduce=False))
-    cc = conv_counts(uvu, E, E)
-    k6_cost = (cc["cg"] + cc["rows"] + cc["mix"],
-               nbytes(x, sh, w, wsel6, src) + E * uvu.out_dim * 4)
+    args6, linear, _ = uvu_args(uvu, seen["K6"][0])
+    k6 = compare(f"K6 uvu_conv (E={args6[1].shape[0]})",
+                 lambda: k6_ops.launch_forward(uvu, *args6),
+                 lambda: uvu.plain_forward(*args6))
+    repeats("K6 uvu_conv", lambda: k6_ops.launch_forward(uvu, *args6))
+    k6_cost = uvu_costs(uvu, args6, args6[1])[0]
+    del args6
 
     # ------------------------------------------------------------------ K5
     # tp_off runs on the edges (the record's shapes), tp on the node rows
@@ -1219,7 +1290,7 @@ def hamiltonian_phases(dev):
                  lambda: conv.species_sc.plain(*k3_args))
     repeats("K3 species_sc at l = 4",
             lambda: conv.species_sc.launch(*k3_args))
-    del data, x1, er, k3_args, x, sh, w, left, right
+    del data, x1, er, k3_args, left, right
 
     # --------------------------- the backward kernels, at both batches' shapes
     bwd, bwd_cost = backward_checks(model, seen, dev, alone=True)
@@ -1322,13 +1393,16 @@ def hamiltonian_phases(dev):
         fail(f"hamiltonian: card and CPU plain path disagree (rel {rel:.3e})")
 
     del model, batches, results
-    train_launches = hamiltonian_train(dev, cfg, cpu_model, n_layers)
+    train_launches, mid = hamiltonian_train(dev, cfg, cpu_model, n_layers)
 
     total = {k: sum(serve_launches[s][k] for s in H2O_BATCHES) for k in want}
     # the pairwise backward is one C entry: its three kernels share a count
     entries = (
         ("uvu_conv_bwd", "uvu_conv.cu", "fused_conv.py:278", "uvu_conv_bwd",
-         "K6b", "rowmix::gemm_kernel + uvu_bwd_edge_kernel"),
+         "K6b", "uvu_dws_kernel (S again in shared memory, S^T gout on the "
+         "tensor cores) + uvu_adj_kernel (dS on the tensor cores, the "
+         "non-zeros' two orders) + uvu_chunk_sum_kernel + "
+         "uvu_dx_sum_kernel"),
         ("pairwise_tp_bwd_dwsel", "pairwise_tp.cu", "pairwise.py:504",
          "pairwise_tp_bwd", "K5m",
          "pairwise_dws_kernel (CG tiles in shared memory, S^T gout on the "
@@ -1343,7 +1417,12 @@ def hamiltonian_phases(dev):
     )
     records = [
         dict(kernel_record("uvu_conv", "uvu_conv.cu", "fused_conv.py:233",
-                           total["uvu_conv"], k6, *k6_cost),
+                           total["uvu_conv"], k6, k6_cost[0] + k6_cost[1],
+                           k6_cost[2]),
+             **fused_bound(*k6_cost),
+             kernels="uvu_fwd_kernel (CG tiles in shared memory, mixed "
+                     "there on the tensor cores)",
+             batch16_ms=bwd_small["K6"]["ms"], batch128_ms=mid["K6"]["ms"],
              train_launches=train_launches["uvu_conv"]),
         dict(kernel_record("pairwise_tp", "pairwise_tp.cu", "pairwise.py:410",
                            total["pairwise_tp"], k5,
@@ -1357,11 +1436,12 @@ def hamiltonian_phases(dev):
     for name, source, replaces, counter, key, kernels in entries:
         extra = dict(kernels=kernels)
         cost = bwd_cost[key]
-        if key == "K5m":
+        if key in ("K5m", "K6b"):
             extra.update(fused_bound(*cost))
             cost = (cost[0] + cost[1], cost[2])
         if key == "K6b":
-            extra["batch16_ms"] = bwd_small[key]["ms"]
+            extra.update(batch16_ms=bwd_small[key]["ms"],
+                         batch128_ms=mid[key]["ms"])
         else:
             extra.update(entry_ms=bwd["K5 backward"]["ms"],
                          entry_plain_ms=bwd["K5 backward"]["plain_ms"],
@@ -1389,7 +1469,7 @@ def hamiltonian_phases(dev):
 def hamiltonian_train(dev, cfg, cpu_model, n_layers):
     """Phases 17-18 of the module docstring; returns the launches counted
     over the two training epochs (every counter set to 0 just before
-    them)."""
+    them), and the records of K6 and K6b at the larger batch's edges."""
     import torch
 
     from equivariant_nn_zoo_tpu_torch.models import build_model
@@ -1486,6 +1566,10 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
             if not (np.isfinite(loss_after) and loss_after < loss_before):
                 fail("hamiltonian train: the loss on a fixed batch did not "
                      "fall")
+    # K6 and K6b at the larger batch's edges
+    mid, _ = uvu_checks(trainer.model.pairwise.conv.full_conv,
+                        capture_head_inputs(trainer.model, big[0])["K6"][0],
+                        dev, 7, f"batch {big_size}")
     del trainer, small, big, train, val
 
     # ------------------------------------------- hamiltonian train parity
@@ -1506,7 +1590,7 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
     if worst[0] > TOL:
         fail(f"hamiltonian train parity: {worst[1]} gradient rel "
              f"{worst[0]:.3e} > {TOL}")
-    return train_launches
+    return train_launches, mid
 
 
 def main():
@@ -2256,7 +2340,8 @@ def mix_times():
       radial-MLP stage);
     - the K5 backward entry and the K5 forward (with its mix) on the
       ``tp_off`` call of a 512-molecule ``config_hamiltonian`` batch
-      (M = 3072), and K6b on its 3072 edges;
+      (M = 3072) (K6 and K6b make their products in their own fused
+      kernels: ``--uvu-times``);
     - the energy training step's kernel ms (``torch.profiler``, 2 passes
       of 4 steps) and host ms.
 
@@ -2272,7 +2357,6 @@ def mix_times():
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as k5_ops
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
 
     try:
         from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
@@ -2349,8 +2433,7 @@ def mix_times():
     big = make_batches(synthetic_h2o(size, np.random.default_rng(20)), dev,
                        size)[0]
     seen = capture_head_inputs(hmodel, big)
-    head = hmodel.pairwise
-    tpk, uvu = head.pairwise_tp, head.conv.full_conv
+    tpk = hmodel.pairwise.pairwise_tp
     with torch.no_grad():
         tpe, left, right = seen["K5"][0]
         M = left.shape[0]
@@ -2370,20 +2453,7 @@ def mix_times():
             lambda: k5_ops.launch_forward(tpk, left, bw, wsel5),
             lambda: library_forward(ops), f5,
             nbytes(S5, wsel5) + M * tpk.out_dim * 4)
-        del ops, S5, bw
-        linear, x, sh, w, src = seen["K6"][0]
-        E6 = sh.shape[0]
-        wsel6 = uvu.flat_wsel(linear)
-        _, scratch6 = k6_ops.launch_forward(uvu, x, sh, w, wsel6, src)
-        g6 = rnd(E6, uvu.out_dim)
-        ops = mix_operands(uvu.prob_rows, scratch6, wsel6, g6)
-        sets["K6b"] = mix_set(
-            f"K6b (E={E6})",
-            lambda: k6_ops.launch_backward(uvu, x, sh, w, wsel6, src,
-                                           scratch6, g6),
-            lambda: library_backward(ops), 2 * mix_flops(uvu.prob_rows, E6),
-            nbytes(scratch6, g6, wsel6) + E6 * uvu.KM * 4 + uvu.wsel_len * 4)
-        del ops, scratch6, seen
+        del ops, S5, bw, seen
     del hmodel
 
     # ------------------------------------------------- the energy step
@@ -2492,10 +2562,11 @@ def pw_times(calls_only=False):
     CUDA events, each kernel's device ms (``kernel_split``), the forward's
     and K5m's bounds (``fused_bound``), and the adjoint sweep's byte bound
     (dS and, for d left, bw read once, for dbw a read once; dbw and d left
-    written once) and its share of the sweeps' device ms.  Then
-    hamiltonian serving at batch 16 and 512 and the training step at batch
-    16 and 128 (``pw_serve_and_step``).  One JSON line.  ``--pw-calls``:
-    the entries alone."""
+    written once) and its share of the sweeps' device ms, and a digest of
+    each call's outputs (two checkouts whose kernels agree bit for bit give
+    the same).  Then hamiltonian serving at batch 16 and 512 and the
+    training step at batch 16 and 128 (``pw_serve_and_step``).  One JSON
+    line.  ``--pw-calls``: the entries alone."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2535,7 +2606,8 @@ def pw_times(calls_only=False):
                 b = fused_bound(M * cg, M * mix, nbytes(left, bw, wsel)
                                 + M * tpk.out_dim * 4)
                 key = f"{which}_{M}_forward"
-                rec[key] = dict(M=M, ms=cuda_ms(forward), kernels=split, **b)
+                rec[key] = dict(M=M, ms=cuda_ms(forward), kernels=split,
+                                digest=digest(forward()), **b)
                 print(f"K5 forward {key}: entry {rec[key]['ms']:.4f} ms "
                       f"(bound {b['bound_ms']:.4f} by {b['bound_by']}, "
                       f"float32 {b['bound_f32_ms']:.4f}); {split}",
@@ -2555,7 +2627,7 @@ def pw_times(calls_only=False):
                               * (wanted[0] + wanted[1]), n_bytes)
                     key = f"{which}_{M}_parts{parts}"
                     rec[key] = dict(M=M, parts=parts, ms=cuda_ms(entry),
-                                    kernels=split)
+                                    kernels=split, digest=digest(entry()))
                     if wanted[0] or wanted[1]:
                         rec[key].update(
                             sweep_ms=sweep, sweep_bound_ms=b["bound_ms"],
@@ -2577,6 +2649,114 @@ def pw_times(calls_only=False):
         pw_serve_and_step(dev, cfg, mols, rec)
     print(json.dumps({"package": os.path.dirname(pkg.__file__),
                       "card": smi.stdout.strip(), "pw_times": rec}))
+
+
+def uvu_times(calls_only=False):
+    """``python3 chip_smoke.py --uvu-times``: the K6 entry
+    (``uvu_conv_fwd``) and the K6b entry (``uvu_conv_bwd``) of the package
+    in the current directory (run it from two checkouts in turn to compare
+    them on one card; a parent checkout's entries take and return the
+    forward's scratch) at the full-width hamiltonian head, on the inputs
+    that one forward of a 512-, a 128- and a 16-molecule batch gives the
+    head's conv (E = 3072, 768, 96; a seeded cotangent, the edges'
+    source-major order): ms per call with CUDA events, each kernel's device
+    ms (``kernel_split``), the bounds (``fused_bound``: the tensor cores
+    counted, and every operation on the float32 CUDA cores) and the share
+    of each, and each entry at every cut that its plan chooses from.  Then
+    hamiltonian serving at batch 16 and 512 and the training step at
+    batch 16 and 128 (``pw_serve_and_step``).  One JSON line.
+    ``--uvu-calls``: the entries alone."""
+    import inspect
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    import equivariant_nn_zoo_tpu_torch as pkg
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("config_hamiltonian")
+    model = build_model(cfg["model_config"], dev,
+                        torch.Generator().manual_seed(0))
+    model.eval()
+    uvu = model.pairwise.conv.full_conv
+    saves = "scratch" in inspect.signature(k6_ops.launch_backward).parameters
+    mols = synthetic_h2o(max(H2O_BATCHES), np.random.default_rng(20))
+    gen = torch.Generator().manual_seed(5)
+    rec = {}
+    for size in (max(H2O_BATCHES), H2O_TRAIN_BATCHES[1], H2O_BATCHES[0]):
+        gb = make_batches(mols[:size], dev, size)[0]
+        args, _, dst = uvu_args(uvu, capture_head_inputs(model, gb)["K6"][0])
+        x, sh, w, wsel, src = args
+        E = sh.shape[0]
+        with torch.no_grad():
+            gout = torch.randn(E, uvu.out_dim, generator=gen).to(dev)
+            if saves:    # a parent checkout: the backward reads the scratch
+                scratch = k6_ops.launch_forward(uvu, *args)[1]
+
+                def backward():
+                    return k6_ops.launch_backward(uvu, *args, scratch, gout)
+            else:
+                order = edge_order.build(src, dst, x.shape[0])
+
+                def backward():
+                    return k6_ops.launch_backward(uvu, *args, gout,
+                                                  order=order)
+
+            def forward():
+                return k6_ops.launch_forward(uvu, *args)
+
+            costs = uvu_costs(uvu, args, gout)
+            for what, fn, cost in (("K6", forward, costs[0]),
+                                   ("K6b", backward, costs[1])):
+                split = kernel_split(fn)
+                ms = cuda_ms(fn)
+                b = fused_bound(*cost)
+                key = f"{what}_{E}"
+                rec[key] = dict(E=E, ms=ms, device_ms=round(sum(
+                    split.values()), 4), kernels=split, **b,
+                    share=b["bound_ms"] / ms,
+                    share_f32=b["bound_f32_ms"] / ms)
+                print(f"{what} at E={E}: entry {ms:.4f} ms (bound "
+                      f"{b['bound_ms']:.4f} by {b['bound_by']}, share "
+                      f"{rec[key]['share']:.3f}; float32 "
+                      f"{b['bound_f32_ms']:.4f}, share "
+                      f"{rec[key]['share_f32']:.3f}); {split}", flush=True)
+            # each cut that the plans choose from (K6: the components,
+            # K6b: the sweep's paths), where the package has them
+            cuts = (("K6", forward, "forward_plan",
+                     len(getattr(uvu, "fwd_tables", ((),) * 3)[2])),
+                    ("K6b", backward, "adjoint_plan",
+                     len(getattr(getattr(uvu, "adj_tables", None), "cuts",
+                                 ()))))
+            for what, fn, plan, n_cuts in cuts:
+                chosen = getattr(k6_ops, plan, None)
+                for k in range(n_cuts if chosen else 0):
+                    setattr(k6_ops, plan, lambda *a, k=k: k)
+                    try:
+                        ms = cuda_ms(fn)
+                    finally:
+                        setattr(k6_ops, plan, chosen)
+                    rec[f"{what}_{E}_cut{k}"] = ms
+                    print(f"{what} at E={E}, cut {k}: {ms:.4f} ms",
+                          flush=True)
+        del args, gout, x, sh, w, wsel, src, dst
+        if saves:
+            del scratch
+    del model
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if not calls_only:
+        pw_serve_and_step(dev, cfg, synthetic_h2o(
+            N_BATCHES * max(H2O_BATCHES), np.random.default_rng(20)), rec)
+    print(json.dumps({"package": os.path.dirname(pkg.__file__),
+                      "card": smi.stdout.strip(), "uvu_times": rec}))
 
 
 # the walk ablation: each part of the walk kernels as, per source, the
@@ -2617,14 +2797,23 @@ WALK_PARTS = {
         (r"\bcp_async4\(dst \+ m1", "if (false) cp_async4(dst + m1", 1)]},
     "adjoint non-zero sweeps": {"pairwise_tp.cu": [
         (r"- z_base; z < z1; \+\+z\)", "- z_base; z < 0; ++z)", 2)]},
-    # the fused K5 and K5m (pairwise_tp.cu, --pw-calls): their staging
-    # copies of the left, bw, wsel and gout rows, and their CG non-zero
-    # loops (the S tiles)
-    "fused staging copies": {"pairwise_tp.cu": [
+    # the fused K5 and K5m (pairwise_tp.cu, --pw-calls) and K6 and K6b's
+    # dwsel (uvu_conv.cu, --uvu-calls): their staging copies of the rows
+    # (cg_tile.cuh's, shared by both files; K6b's adjoint sweep stages its
+    # rows by them too), and their CG non-zero loops (the S tiles)
+    "fused staging copies": {"cg_tile.cuh": [
         (r"cp_async16\(dst\(l\) \+ c,", "if (false) cp_async16(dst(l) + c,",
          1)]},
-    "fused non-zero loops": {"pairwise_tp.cu": [
-        (r"for \(; z < z1; \+\+z\)", "for (; z < 0; ++z)", 1)]},
+    "fused non-zero loops": {
+        src: [(r"for \(; z < z1; \+\+z\)", "for (; z < 0; ++z)", 1)]
+        for src in ("pairwise_tp.cu", "uvu_conv.cu")},
+    # K6b's adjoint sweep (uvu_conv.cu, --uvu-calls): its non-zero sweeps
+    # (dx; dw and dsh) and its dS products on the tensor cores
+    "K6b non-zero sweeps": {"uvu_conv.cu": [
+        (r"- z_base; z < z1; \+\+z\)", "- z_base; z < 0; ++z)", 2)]},
+    "K6b dS products": {"uvu_conv.cu": [
+        (r"for \(int kk = 0; kk < wo; kk \+= 8\)",
+         "for (int kk = 0; kk < 0; kk += 8)", 1)]},
 }
 WALK_ABLATIONS = (
     ("without the radial weights", ["radial weights"]),
@@ -2643,6 +2832,9 @@ WALK_ABLATIONS = (
     ("without the fused non-zero loops", ["fused non-zero loops"]),
     ("without both fused parts", ["fused staging copies",
                                   "fused non-zero loops"]),
+    ("without K6b's non-zero sweeps", ["K6b non-zero sweeps"]),
+    ("without K6b's dS products", ["K6b dS products"]),
+    ("without both K6b parts", ["K6b non-zero sweeps", "K6b dS products"]),
 )
 
 
@@ -2650,26 +2842,31 @@ def walk_ablation(sources=()):
     """``python3 chip_smoke.py --walk-ablation [source.cu ...]``: where the
     time of the walk kernels (K1, K2 and the K4 family;
     ``csrc/edge_walk.cuh``), of the species-table kernels (K3, K3b;
-    ``csrc/species_sc.cu``) and of the K5 kernels (the fused K5 and K5m,
-    the backward's adjoint sweep; ``csrc/pairwise_tp.cu``) goes, without
-    a profiler that reads the card's counters: copies of the package in
-    ``build/walk_ablation/`` (gitignored) each leave out parts of the
-    kernels (``WALK_ABLATIONS``), and ``--conv-times`` (K1, K2),
-    ``--ext-calls`` (K4f, K4b, K4g), ``--sc-calls`` (K3, K3b) and
-    ``--pw-calls`` (the two K5 entries)
-    time each copy that the edits touch, after
-    the package itself; with sources named, only the variants that edit
-    them.  A part costs about the time that its absence saves."""
+    ``csrc/species_sc.cu``), of the K5 kernels (the fused K5 and K5m,
+    the backward's adjoint sweep; ``csrc/pairwise_tp.cu``) and of K6 and
+    K6b (``csrc/uvu_conv.cu``) goes, without a profiler that reads the
+    card's counters: copies of the package in ``build/walk_ablation/``
+    (gitignored) each leave out parts of the kernels
+    (``WALK_ABLATIONS``), and ``--conv-times`` (K1, K2), ``--ext-calls``
+    (K4f, K4b, K4g), ``--sc-calls`` (K3, K3b), ``--pw-calls`` (the two K5
+    entries) and ``--uvu-calls`` (the two K6 entries) time each copy that
+    the edits touch, after the package itself; with sources named, only
+    the variants that edit them (``cg_tile.cuh`` goes with either of
+    ``pairwise_tp.cu`` and ``uvu_conv.cu``, and its variant is timed for
+    the sources named).  A part costs about the time that its absence
+    saves."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "equivariant_nn_zoo_tpu_torch")
     every = {"full_conv.cu", "full_conv_ext.cu", "species_sc.cu",
-             "pairwise_tp.cu"}
-    runs = [("package as it is", root, set(sources) or every)]
+             "pairwise_tp.cu", "uvu_conv.cu"}
+    fused = {"pairwise_tp.cu", "uvu_conv.cu"}
+    named = set(sources) or every
+    wanted = named | ({"cg_tile.cuh"} if named & fused else set())
+    runs = [("package as it is", root, named)]
     for i, (label, parts) in enumerate(WALK_ABLATIONS):
-        if sources and not any(set(WALK_PARTS[p]) & set(sources)
-                               for p in parts):
+        if not any(set(WALK_PARTS[p]) & wanted for p in parts):
             continue
         dest = os.path.join(root, "build", "walk_ablation", str(i))
         shutil.rmtree(dest, ignore_errors=True)
@@ -2689,13 +2886,16 @@ def walk_ablation(sources=()):
                 with open(path, "w") as f:
                     f.write(text)
                 touched.add(src)
+        if "cg_tile.cuh" in touched:     # times the fused kernels named
+            touched |= named & fused
         runs.append((label, dest, touched))
     for label, cwd, touched in runs:
         modes = (["--conv-times"] if touched & {"full_conv.cu",
                                                 "full_conv_bwd.cu"} else []) \
             + (["--ext-calls"] if "full_conv_ext.cu" in touched else []) \
             + (["--sc-calls"] if "species_sc.cu" in touched else []) \
-            + (["--pw-calls"] if "pairwise_tp.cu" in touched else [])
+            + (["--pw-calls"] if "pairwise_tp.cu" in touched else []) \
+            + (["--uvu-calls"] if "uvu_conv.cu" in touched else [])
         for mode in modes:
             res = subprocess.run([sys.executable, os.path.abspath(__file__),
                                   mode], cwd=cwd, capture_output=True,
@@ -2722,6 +2922,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] in (["--pw-times"], ["--pw-calls"]):
         sys.path.insert(0, os.getcwd())
         pw_times(calls_only=sys.argv[1] == "--pw-calls")
+    elif sys.argv[1:] in (["--uvu-times"], ["--uvu-calls"]):
+        sys.path.insert(0, os.getcwd())
+        uvu_times(calls_only=sys.argv[1] == "--uvu-calls")
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

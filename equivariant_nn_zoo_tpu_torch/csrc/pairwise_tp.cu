@@ -107,16 +107,20 @@
 
 #include <algorithm>
 
+#include "cg_tile.cuh"
 #include "row_mix.cuh"
 
 namespace {
 
-using rowmix::cp_async16;
+using cgtile::div_by;
+using cgtile::magic;
+using cgtile::round4;
+using cgtile::row_pitch;
+using cgtile::stage_lines;
+using cgtile::stage_nz;
 using rowmix::cp_async4;
 using rowmix::cp_async_commit;
 using rowmix::cp_async_wait;
-using rowmix::mma_tf32;
-using rowmix::split_tf32;
 
 constexpr int kMaxD = 9;           // components of an l <= 4 irrep
 
@@ -186,51 +190,6 @@ struct FusedArgs {
   int M, a_dim, R, mul, out_dim, wsel_len;
   int max_nz, max_paths, a_pitch, b_pitch, g_pitch, chunk_tiles;
 };
-
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
-
-// the pitch of staged rows of `floats` floats: the least at or above it
-// that is r or 32 - r mod 32 (either keeps the lanes' banks apart)
-static inline int row_pitch(int floats, int r) {
-  const int p = (floats + 31) / 32 * 32 + r;
-  return r > 0 && p - 2 * r >= floats ? p - 2 * r : p;
-}
-
-// q / d for 0 <= q < 2^16 and 0 < d < 2^16 by a multiply: m = magic(d),
-// ceil(2^32 / d)
-__device__ __forceinline__ uint64_t magic(uint32_t d) {
-  return (0x100000000ull + d - 1) / d;
-}
-__device__ __forceinline__ int div_by(int q, uint64_t m) {
-  return (int)(((uint64_t)q * m) >> 32);
-}
-
-// Stage `lines` lines of `width` floats (a multiple of 4) by 16-byte
-// cp.async: line l from src(l) to dst(l).  Floats at or past `valid` of a
-// line, and every float of a line whose src is null, are zero-filled (the
-// copy reads nothing, from `any`, a valid address).
-template <class Src, class Dst>
-__device__ __forceinline__ void stage_lines(int lines, int width, int valid,
-                                            const float* any, Src src,
-                                            Dst dst) {
-  const int per = width >> 2;
-  const uint64_t m = magic(per);
-  for (int i = threadIdx.x; i < lines * per; i += blockDim.x) {
-    const int l = div_by(i, m), c = (i - l * per) << 2;
-    const float* s = src(l);
-    const bool ok = s != nullptr && c < valid;
-    cp_async16(dst(l) + c, ok ? s + c : any, ok ? 16 : 0);
-  }
-}
-
-// A path's non-zeros into zs: n_z entries from z0 (even), two a copy (the
-// host pads every path's block to an even length).
-__device__ __forceinline__ void stage_nz(int2* zs, const int2* nz, int z0,
-                                         int n_z) {
-  for (int i = threadIdx.x; i < (n_z + 1) >> 1; i += blockDim.x)
-    cp_async16(reinterpret_cast<float*>(zs + 2 * i),
-               reinterpret_cast<const float*>(nz + z0 + 2 * i), 16);
-}
 
 // One thread's V values of a path's S tile at component m3: channels c +
 // CS * i of one element, whose staged left row (at channel c, m1 minor, d1
@@ -330,7 +289,7 @@ __device__ __forceinline__ void fwd_unit(const FusedArgs& p, float* smem,
   };
 
   const int e = tid / kFQ, q = tid % kFQ;
-  const int g = lane >> 2, q4 = lane & 3, n0 = 8 * kFN * warp;
+  const int n0 = 8 * kFN * warp;
   float acc[NM3][kFN][4];
 #pragma unroll
   for (int i = 0; i < NM3; ++i)
@@ -372,53 +331,15 @@ __device__ __forceinline__ void fwd_unit(const FusedArgs& p, float* smem,
       // acc += S tile x wsel slice, the warp's columns
       const float* wb = wt + buf * kFKC * kWPitch;
 #pragma unroll
-      for (int kk = 0; kk < kFKC; kk += 8) {
-        uint32_t bh[kFN][2], bl[kFN][2];
-#pragma unroll
-        for (int n = 0; n < kFN; ++n)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            split_tf32(wb[(kk + q4 + 4 * h) * kWPitch + n0 + 8 * n + g],
-                       bh[n][h], bl[n][h]);
-#pragma unroll
-        for (int i = 0; i < NM3; ++i) {
-          uint32_t ah[4], al[4];
-#pragma unroll
-          for (int h = 0; h < 4; ++h)
-            split_tf32(ss[(i * kFT + g + 8 * (h & 1)) * kFSPitch + kk + q4 +
-                          4 * (h >> 1)],
-                       ah[h], al[h]);
-          // the small terms first
-#pragma unroll
-          for (int n = 0; n < kFN; ++n) {
-            mma_tf32(acc[i][n], al, bh[n]);
-            mma_tf32(acc[i][n], ah, bl[n]);
-            mma_tf32(acc[i][n], ah, bh[n]);
-          }
-        }
-      }
+      for (int kk = 0; kk < kFKC; kk += 8)
+        cgtile::mix_step(acc, ss, kFT, kFSPitch, wb, kWPitch, kk, n0, lane);
     }
   }
 
   // each output column once: the unit's components of columns j and j + 1
   // side by side
-#pragma unroll
-  for (int n = 0; n < kFN; ++n) {
-    const int j = n0 + 8 * n + 2 * q4;
-    if (j >= wo) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h;
-      if (r >= live) continue;
-      float* o = p.out + (size_t)(m0 + r) * p.out_dim + out_col + j * d3 +
-                 m3_0;
-#pragma unroll
-      for (int i = 0; i < NM3; ++i) {
-        o[i] = acc[i][n][2 * h];
-        o[d3 + i] = acc[i][n][2 * h + 1];
-      }
-    }
-  }
+  cgtile::store_cols(acc, p.out, p.out_dim, m0, live, out_col, d3, m3_0, wo,
+                     n0, lane);
 }
 
 // grid: (element tiles, units); kFThreads threads
@@ -510,7 +431,6 @@ __device__ __forceinline__ void dws_unit(const FusedArgs& p, float* smem,
   };
 
   const int e = tid / kMQ, q = tid % kMQ;
-  const int g = lane >> 2, q4 = lane & 3;
   const int wr = 16 * (warp % kMRows), wc = 8 * kMN * (warp / kMRows);
   float acc[kMN][4];
 #pragma unroll
@@ -544,27 +464,10 @@ __device__ __forceinline__ void dws_unit(const FusedArgs& p, float* smem,
     }
     cp_async_wait<1>();     // gout(t); rows(t + 1) may still be in flight
     __syncthreads();
-    for (int m3 = 0; m3 < d3; ++m3) {
-      // A = S[m3]^T (rows u, columns the tile's elements), B = gout[m3]
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int h = 0; h < 4; ++h)
-        split_tf32(ss[(m3 * kMT + q4 + 4 * (h >> 1)) * kMSPitch + wr + g +
-                      8 * (h & 1)],
-                   ah[h], al[h]);
-#pragma unroll
-      for (int n = 0; n < kMN; ++n) {
-        if (wc + 8 * n >= wo) continue;
-        uint32_t bh[2], bl[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          split_tf32(gs[(q4 + 4 * h) * p.g_pitch + (wc + 8 * n + g) * d3 + m3],
-                     bh[h], bl[h]);
-        mma_tf32(acc[n], al, bh);
-        mma_tf32(acc[n], ah, bl);
-        mma_tf32(acc[n], ah, bh);
-      }
-    }
+    // A = S[m3]^T (rows u, columns the tile's elements), B = gout[m3]
+    for (int m3 = 0; m3 < d3; ++m3)
+      cgtile::dws_step(acc, ss, kMT, kMSPitch, gs, p.g_pitch, d3, m3, wr, wc,
+                       wo, lane);
     __syncthreads();
     if (t + 1 < t1) stage_gout(t + 1);
     cp_async_commit();
@@ -574,18 +477,7 @@ __device__ __forceinline__ void dws_unit(const FusedArgs& p, float* smem,
   // the unit's tile, once: into dwsel or the chunk's part of the workspace
   float* dst = p.out + (size_t)blockIdx.y * (gridDim.y > 1 ? p.wsel_len : 0) +
                b_off;
-#pragma unroll
-  for (int n = 0; n < kMN; ++n) {
-    const int j = wc + 8 * n + 2 * q4;
-    if (j >= wo) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int u = u0 + wr + g + 8 * h;
-      if (u < p.mul)
-        *reinterpret_cast<float2*>(dst + (size_t)u * wo + j) =
-            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-    }
-  }
+  cgtile::store_dws(acc, dst, p.mul, u0, wr, wc, wo, lane);
 }
 
 // grid: (units, element chunks); kMThreads threads
@@ -599,12 +491,7 @@ __global__ void __launch_bounds__(kMThreads, kMBlocks)
 __global__ void pairwise_chunk_sum_kernel(const float* __restrict__ ws,
                                           int n, int len,
                                           float* __restrict__ out) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < n; ++k) s += ws[(size_t)k * len + i];
-    out[i] = s;
-  }
+  cgtile::chunk_sum(ws, n, len, out);
 }
 
 // K5a and K5b, the adjoint sweep.  A block is one unit: a tile of

@@ -1,17 +1,18 @@
 // The mix stage shared by the convolution and pairwise kernels, forward and
 // backward, and the backward's other tiled products: one tensor-core GEMM.
 //
-// Forward (full_conv.cu K1, uvu_conv.cu K6, and the scattered mix of
-// full_conv_ext.cu K4f / K4g): per mix problem q
+// Forward (full_conv.cu K1 and the scattered mix of full_conv_ext.cu K4f /
+// K4g): per mix problem q
 // (output-irrep group, component, output slot)
 //
 //   out[r, c_off(q) + w * c_stride(q)] =
 //       sum_k S[r, a_col(q) + k] * wsel[b_off(q) + k * wo(q) + w]
 //
 // over the rows r of the unmixed scratch S [rows, KM] (one row per node or
-// per edge).  Backward (full_conv_bwd.cu K2, full_conv_ext.cu K4b / K4g,
-// uvu_conv.cu K6b; pairwise_tp.cu's backward takes dS only, its fused
-// kernels do K5's mix and K5m's dwsel themselves), the two adjoints:
+// per edge).  Backward (full_conv_bwd.cu K2, full_conv_ext.cu K4b / K4g;
+// pairwise_tp.cu's backward takes dS only, its fused kernels do K5's mix
+// and K5m's dwsel themselves, and uvu_conv.cu's K6 and K6b do all of
+// theirs in their own fused kernels), the two adjoints:
 //
 //   dS[r, a_col + k]       = sum_{q: a_col(q) = a_col} sum_w
 //                                gout[r, c(q, w)] * wsel_q[k, w]
@@ -25,9 +26,8 @@
 // (dW = h^T dw, dh = dw W^T) goes through the same kernel.
 //
 // Replaces the mix dots of the TPU kernels (PallasFullConv._full_fwd_kernel
-// and _full_bwd_kernel, fused_conv.py:926 and :1051; PallasUVUConv,
-// fused_conv.py:233 and :278), which run on the MXU, and gives the
-// pairwise backward its dS.
+// and _full_bwd_kernel, fused_conv.py:926 and :1051), which run on the MXU,
+// and gives the pairwise backward its dS.
 //
 // Design (gemm_kernel):
 // - One owner per output tile.  A block computes a 64x64 tile of one
@@ -743,21 +743,6 @@ static inline cudaError_t mix_products(MixProduct which, const int* probs,
     if (err != cudaSuccess) return err;
   }
   return l.flush();
-}
-
-// How many CG paths one block of the sweep kernels walks: the paths are
-// split over blockIdx.y until the grid holds about kSweepBlocks blocks, so
-// that a small batch (tens of rows) still fills the card.  Paths write
-// disjoint scratch rows, so the split needs no synchronisation.
-constexpr int kRowsPerBlock = 4;   // blockDim.y of the sweep kernels
-constexpr int kSweepBlocks = 2048;
-
-static inline int paths_per_block(int rows, int P) {
-  const int row_blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  int chunks = (kSweepBlocks + row_blocks - 1) / row_blocks;
-  if (chunks > P) chunks = P;
-  if (chunks < 1) chunks = 1;
-  return (P + chunks - 1) / chunks;
 }
 
 }  // namespace rowmix

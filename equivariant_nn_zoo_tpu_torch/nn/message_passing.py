@@ -25,7 +25,9 @@ normalisation):
     x   = linear_1(x)
     w   = MLP(edge_radial * edge_mask)                   plain PyTorch
     out[e] = UVUConv(x, sh, w)                           K6 (backward K6b:
-                                                         dx, dsh, dw, dwsel)
+                                                         dx, dsh, dw, dwsel,
+                                                         dx on the trunk's
+                                                         edge order)
 
 The species-table kernel is first-order only, and on the last two paths the
 MLP stays outside the kernels so that autograd differentiates it (to any
@@ -128,7 +130,8 @@ class FactorizedConvolution(Module):
         x = self.linear_1(x)
         if not self.reduce:
             out = self.full_conv(self.tp.linear, x, data["edge_spherical"],
-                                 self.fc(edge_radial), edge_index[0])
+                                 self.fc(edge_radial), edge_index[0],
+                                 edge_index[1])
             return ({"output_features": out},
                     {"output_features": (attrs["input_features"][0],
                                          self.irreps_out["output_features"])})

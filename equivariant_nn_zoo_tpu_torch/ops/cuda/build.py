@@ -113,23 +113,31 @@ SIGNATURES = {
         _P, _I,                # sh, J
         _P, _I,                # radial weights, their columns P * mul
         _P, _I,                # src, E
-        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
-        _P, _I, _I,            # scratch, K * mul, mul
-        _P, _P, _I,            # mix matrices, host mix problems, count
-        _P, _I, _P,            # out, out_dim, stream
+        _P, _P, _P, _P,        # fused paths, non-zeros, host dimensions,
+                               # radial-weight columns
+        _P, _I, _I,            # units (one cut of the components), count,
+                               # mul
+        _P, _P, _I, _P,        # mix matrices, out, out_dim, stream
     ],
     "uvu_conv_bwd": [
         _P, _I, _I,            # x, N, in_dim
         _P, _I,                # sh, J
         _P, _I,                # radial weights, their columns P * mul
         _P, _I,                # src, E
-        _P, _I, _P, _P,        # path table, P, CG non-zero codes, values
-        _P, _I, _I,            # forward scratch, K * mul, mul
-        _P, _I, _P, _I,        # mix matrices, their length, host problems, n
-        _P, _I,                # gout, out_dim
-        _P,                    # work: dS
+        _P, _P, _P, _P,        # fused paths, non-zeros, host dimensions,
+                               # radial-weight columns
+        _P, _I, _I,            # dwsel units, count, edge tiles a chunk
+        _P, _P, _P,            # adjoint sweep: paths, their weight columns
+                               # and slots, the path-slots,
+        _P, _I,                # non-zeros in two orders, their count,
+        _P, _P, _I,            # chunks, units, count,
+        _P, _I, _P,            # left irreps, count, host dimensions
+        _P, _P,                # source-major edge order, its row pointers
+        _I,                    # mul
+        _P, _I, _P, _I,        # mix matrices, their length, gout, out_dim
         _P, _P, _P, _P,        # dx, dsh, dw, dwsel
-        _P, _I, _P,            # workspace, its length, stream
+        _P, _P, _P, _P,        # work: dwsel chunks, dx columns per edge,
+                               # dsh rows per unit; stream
     ],
     "pairwise_tp_fwd": [
         _P, _I, _I,            # left, M, its columns

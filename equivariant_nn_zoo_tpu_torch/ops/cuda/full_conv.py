@@ -106,20 +106,23 @@ class ConvTables(torch.nn.Module):
         # each scratch row as it closes a component then writes all of them
         self.rows_complete = rows_complete
 
-        # mix problems: one per (group, component, output slot)
+        # mix problems: one per (group, component, output slot); per
+        # (group, slot) (p0, n_paths, d, out_col, wo, b_off)
         linear_out = fused.irreps_out
         out_starts = [s.start for s in linear_out.slices()]
-        probs, plan, b_off = [], [], 0
+        probs, plan, slots, b_off = [], [], [], 0
         for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
             for io in fused.lin_out.get(ir, []):
                 wo = linear_out[io].mul
                 plan.append((g, io))
+                slots.append((p0, n_paths, d, out_starts[io], wo, b_off))
                 for dd in range(d):
                     probs.append([(k0 + dd * n_paths) * mul, n_paths * mul,
                                   b_off, wo, out_starts[io] + dd, d])
                 b_off += n_paths * mul * wo
         self.wsel_len = b_off
         self.mix_plan = plan
+        self.slots = slots
         self.n_probs = len(probs)
         # the kernels' host code builds its products from the problem table
         self.prob_rows = np.asarray(probs, np.int32).reshape(-1, 6)

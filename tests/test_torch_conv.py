@@ -32,6 +32,9 @@ from equivariant_nn_zoo_tpu_torch.nn.message_passing import \
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.utils.params import load_jax_params
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 TYPES = 5

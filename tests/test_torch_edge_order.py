@@ -14,7 +14,13 @@
 - one forward of a narrow 3-layer ``config_energy``, with the launches
   routed to the plain contracts, builds the orders once, not once per
   layer, and the backward receives them.
+
+``torch_threads_per_worker`` lives here (this file imports no JAX, so the
+card's test file can import it too); every ``tests/test_torch_*.py`` calls
+it at import.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -30,6 +36,27 @@ from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.gate import shifted_softplus
 from equivariant_nn_zoo_tpu_torch.ops.segment import segment_sum
 from equivariant_nn_zoo_tpu_torch.utils import build, init_parameters
+
+
+def torch_threads_per_worker():
+    """Give torch's intra-op threads, and the BLAS that numpy loaded, this
+    process's share of the cores: ``os.cpu_count() // workers``,
+    ``workers`` from pytest-xdist's ``PYTEST_XDIST_WORKER_COUNT`` (1
+    without it).  The walk emulations issue thousands of tiny ops; with
+    every worker's threads on every core, each op waits on the other
+    workers' spinning threads (numpy's OpenBLAS threads spin too, so
+    bounding torch alone is not enough).  JAX's threads are left alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = max(1, (os.cpu_count() or 1) // workers)
+    torch.set_num_threads(threads)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:      # no BLAS pool to bound where it is missing
+        return
+    threadpool_limits(limits=threads, user_api="blas")
+
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 F = full_conv_mod.WALK_FIELDS

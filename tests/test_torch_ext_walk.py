@@ -32,6 +32,9 @@ from equivariant_nn_zoo_tpu_torch.utils import build, init_parameters
 from test_torch_edge_order import KINDS, SHIFTS, TOL, _energy_batch, \
     _graph, _walk
 from test_torch_force import route_to_plain
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 F = full_conv_mod.WALK_FIELDS
 

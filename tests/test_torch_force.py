@@ -32,6 +32,9 @@ from equivariant_nn_zoo_tpu_torch.nn.message_passing import \
     FactorizedConvolution as TConv
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext_mod
 from equivariant_nn_zoo_tpu_torch.utils.params import load_jax_params
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 KW = dict(
     input_features="8x0e+8x0o+8x1e+8x1o+8x2e+8x2o",

@@ -46,6 +46,9 @@ from equivariant_nn_zoo_tpu_torch.utils import (
     params_from_jax,
 )
 from test_torch_force import route_to_plain
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 SHIFTS = [-0.5, -1.0, 0.0, 0.5, 1.0, 1.5, -2.0, -3.0, 2.5, 0.25]
 MODEL_KW = dict(n_dim=8, l_max=2, node_attrs="4x0e", edge_radial="4x0e",

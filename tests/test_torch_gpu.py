@@ -45,6 +45,9 @@ from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.run import Loss
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -824,14 +827,17 @@ def test_uvu_conv_kernel_matches_plain(cuda, n_dim, N, E):
     sh = torch.randn(E, 9, generator=g).to(cuda)
     w = torch.randn(E, fc.fused.weight_numel, generator=g).to(cuda)
     src = torch.randint(0, N, (E,), generator=g).to(cuda)
+    dst = torch.randint(0, N, (E,), generator=g).to(cuda)
     before = UVUConv.launches
     with torch.no_grad():
-        got = fc(conv.tp.linear, x, sh, w, src)
+        got = fc(conv.tp.linear, x, sh, w, src, dst)
         want = fc.fused(conv.tp.linear, x, src, None, sh, w, N, reduce=False)
-        contract, _ = fc.plain_forward(x, sh, w,
-                                       fc.flat_wsel(conv.tp.linear), src)
+        contract = fc.plain_forward(x, sh, w, fc.flat_wsel(conv.tp.linear),
+                                    src)
+        again = fc(conv.tp.linear, x, sh, w, src, dst)
         torch.cuda.synchronize()
-    assert UVUConv.launches == before + 1
+    assert UVUConv.launches == before + 2
+    assert torch.equal(got, again)
     assert got.shape == (E, fc.out_dim) and torch.isfinite(got).all()
     assert _rel(got, want) <= TOL
     assert _rel(got, contract) <= TOL
@@ -849,9 +855,9 @@ def test_head_kernels_match_plain_at_full_width(hamiltonian):
             want = tpe.expand(left, right)
             assert got.shape == (left.shape[0], 3200)
             assert _rel(got, want) <= TOL
-        linear, x, sh, w, src = seen["K6"][0]
+        linear, x, sh, w, src, dst = seen["K6"][0]
         fc = head.conv.full_conv
-        got = fc.launch(linear, x, sh, w, src)
+        got = fc.launch(linear, x, sh, w, src, dst)
         want = fc.fused(linear, x, src, None, sh, w, x.shape[0],
                         reduce=False)
         torch.cuda.synchronize()
@@ -1104,10 +1110,11 @@ def test_pairwise_wrapper_two_chunks_at_full_width(full_head_tp):
 
 @pytest.mark.parametrize("n_dim,N,E", [(8, 37, 1001), (64, 130, 4099)])
 def test_uvu_conv_backward_kernel_matches_plain(cuda, n_dim, N, E):
-    """K6b (dx, dsh, dw, dwsel) against the plain backward, then
-    ``UVUConvFunction`` end to end against ``FusedUVUConv(reduce=False)``
-    under autograd on the CPU.  Several edges share each source, so the dx
-    atomics and the per-edge dsh reduction are both exercised."""
+    """K6b (dx, dsh, dw, dwsel) against the plain backward, each output
+    repeated bit for bit, then ``UVUConvFunction`` end to end against
+    ``FusedUVUConv(reduce=False)`` under autograd on the CPU.  Several
+    edges share each source, so the dx sums per source and the per-edge
+    dsh sums over the units are both exercised."""
     import copy
 
     from equivariant_nn_zoo_tpu_torch.nn.message_passing import (
@@ -1132,23 +1139,26 @@ def test_uvu_conv_backward_kernel_matches_plain(cuda, n_dim, N, E):
     sh = torch.randn(E, 9, generator=g).to(cuda)
     w = torch.randn(E, fc.fused.weight_numel, generator=g).to(cuda)
     src = torch.randint(0, N, (E,), generator=g).to(cuda)
+    dst = torch.randint(0, N, (E,), generator=g).to(cuda)
     with torch.no_grad():
         wsel = fc.flat_wsel(lin)
-        _, scratch = k6_mod.launch_forward(fc, x, sh, w, wsel, src)
     gout = _cotangent(E, fc.out_dim, 18, cuda)
     before = UVUConv.backward_launches
-    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, scratch, gout)
+    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, gout)
+    again = k6_mod.launch_backward(fc, x, sh, w, wsel, src, gout)
     torch.cuda.synchronize()
-    assert UVUConv.backward_launches == before + 1
+    assert UVUConv.backward_launches == before + 2
     _assert_all_close(
-        got, fc.plain_backward(x, sh, w, wsel, src, scratch, gout), K6_OUT)
+        got, fc.plain_backward(x, sh, w, wsel, src, gout), K6_OUT)
+    for name, a, b in zip(K6_OUT, got, again):
+        assert torch.equal(a, b), name
     cpu_fc, cpu_lin, cpu_src = cpu_conv.full_conv, cpu_conv.tp.linear, \
         src.cpu()
     _function_grads_match_cpu(
-        lambda x_, sh_, w_: fc(lin, x_, sh_, w_, src),
-        lambda x_, sh_, w_: cpu_fc(cpu_lin, x_, sh_, w_, cpu_src),
+        lambda x_, sh_, w_: fc(lin, x_, sh_, w_, src, dst),
+        lambda x_, sh_, w_: cpu_fc(cpu_lin, x_, sh_, w_, cpu_src, dst.cpu()),
         (x, sh, w), list(lin.parameters()), list(cpu_lin.parameters()))
-    assert UVUConv.backward_launches == before + 2
+    assert UVUConv.backward_launches == before + 3
 
 
 def test_head_backward_kernels_match_plain_at_full_width(hamiltonian):
@@ -1171,15 +1181,54 @@ def test_head_backward_kernels_match_plain_at_full_width(hamiltonian):
         torch.cuda.synchronize()
         _assert_all_close(got, tpk.plain_backward(left, bw, wsel, gout),
                           K5_OUT)
-    linear, x, sh, w, src = seen["K6"][0]
+    linear, x, sh, w, src, dst = seen["K6"][0]
     with torch.no_grad():
         wsel = fc.flat_wsel(linear)
-        _, scratch = k6_mod.launch_forward(fc, x, sh, w, wsel, src)
     gout = _cotangent(sh.shape[0], fc.out_dim, 32, dev)
-    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, scratch, gout)
+    order = edge_order.build(src, dst, x.shape[0])
+    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, gout, order=order)
     torch.cuda.synchronize()
     _assert_all_close(
-        got, fc.plain_backward(x, sh, w, wsel, src, scratch, gout), K6_OUT)
+        got, fc.plain_backward(x, sh, w, wsel, src, gout), K6_OUT)
+
+
+@pytest.mark.parametrize("E", [96, 768, 3072])
+def test_head_conv_kernels_match_plain_at_each_batch(hamiltonian, E):
+    """K6 and K6b on the full-width head's conv at the edges of a batch of
+    16, 128 and 512 molecules (N = E / 2 + 1 node rows, two shuffled edges
+    per source node), seeded inputs: every output against its plain
+    version, repeated bit for bit over two launches."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as k6_mod
+
+    model, _, _ = hamiltonian
+    conv = model.pairwise.conv
+    fc = conv.full_conv
+    dev = next(model.parameters()).device
+    N = E // 2 + 1
+    g = torch.Generator().manual_seed(E)
+    x = torch.randn(N, fc.fused.irreps_in.dim, generator=g).to(dev)
+    sh = torch.randn(E, fc.fused.J_dim, generator=g).to(dev)
+    w = torch.randn(E, fc.fused.weight_numel, generator=g).to(dev)
+    src = (torch.randperm(E, generator=g) // 2).to(dev)
+    dst = (torch.randperm(E, generator=g) // 2).to(dev)
+    with torch.no_grad():
+        wsel = fc.flat_wsel(conv.tp.linear)
+        got = k6_mod.launch_forward(fc, x, sh, w, wsel, src)
+        again = k6_mod.launch_forward(fc, x, sh, w, wsel, src)
+        want = fc.plain_forward(x, sh, w, wsel, src)
+        torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and _rel(got, want) <= TOL
+    assert torch.equal(got, again)
+    gout = _cotangent(E, fc.out_dim, 50, dev)
+    order = edge_order.build(src, dst, N)
+    got = k6_mod.launch_backward(fc, x, sh, w, wsel, src, gout, order=order)
+    again = k6_mod.launch_backward(fc, x, sh, w, wsel, src, gout,
+                                   order=order)
+    torch.cuda.synchronize()
+    _assert_all_close(got, fc.plain_backward(x, sh, w, wsel, src, gout),
+                      K6_OUT)
+    for name, a, b in zip(K6_OUT, got, again):
+        assert torch.equal(a, b), name
 
 
 def test_hamiltonian_train_step_gradients_match_cpu(hamiltonian):
@@ -1320,7 +1369,8 @@ def test_row_mix_matmul_matches_torch_and_repeats(cuda, M, N, K, a_t, b_t,
 
 def test_backward_products_repeat_bit_for_bit(model_and_batch, hamiltonian):
     """The outputs that the GEMM's plain stores and fixed order of
-    summation make repeatable: K2's dW and dwsel, K6b's dwsel, K5's dwsel,
+    summation make repeatable: K2's dW and dwsel, every output of K6b (its
+    ordered sums), K5's dwsel,
     d left and dbw, and the forward mix of K4f's problem table; and with
     the K4 walks' plain stores, K4b's dx and dwsel (on K4f's saved scratch
     and recomputed) and K4g's c_x, c_m and c_g, at the force layer's full
@@ -1361,14 +1411,14 @@ def test_backward_products_repeat_bit_for_bit(model_and_batch, hamiltonian):
                                                     gout))
         for name, u, v in zip(K5_OUT, a, b):
             assert torch.equal(u, v), f"K5 {name}"
-    linear, x6, sh, w, src = seen["K6"][0]
+    linear, x6, sh, w, src, _ = seen["K6"][0]
     with torch.no_grad():
         wsel = fc.flat_wsel(linear)
-        _, scratch = k6_mod.launch_forward(fc, x6, sh, w, wsel, src)
     gout = _cotangent(sh.shape[0], fc.out_dim, 42, dev)
     a, b = twice(lambda: k6_mod.launch_backward(fc, x6, sh, w, wsel, src,
-                                                scratch, gout))
-    assert torch.equal(a[3], b[3]), "K6b dwsel"
+                                                gout))
+    for name, u, v in zip(K6_OUT, a, b):
+        assert torch.equal(u, v), f"K6b {name}"
 
     ext = _small_conv(dev, 64, grad_order=2).full_conv
     S4 = torch.randn(300, ext.KM, generator=torch.Generator().manual_seed(

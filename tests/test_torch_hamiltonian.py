@@ -72,11 +72,15 @@ from equivariant_nn_zoo_tpu_torch.ops import Irreps, irreps_d, rand_matrix
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import pairwise_tp as pairwise_mod
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
 from equivariant_nn_zoo_tpu_torch.ops.cuda import uvu_conv as uvu_mod
 from equivariant_nn_zoo_tpu_torch.ops.gate import NormActivation
 from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 from equivariant_nn_zoo_tpu_torch.utils import build, load_jax_params
 from equivariant_nn_zoo_tpu_torch.utils.params import params_from_jax
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 GRAD_TOL = 1e-4        # gradients: longer sums, other orders
@@ -186,7 +190,7 @@ def routed(monkeypatch):
                          "K5 backward": 0}
 
     def counting(table, key, attr):
-        def launch(mod, *args, order=None):   # K1, K2, K3, K3b take an order
+        def launch(mod, *args, order=None):   # K1-K3b and K6b take an order
             table[key] += 1
             return getattr(mod, attr)(*args)
         return launch
@@ -341,9 +345,12 @@ def plain_step(slice_, train_ref):
 def test_card_path_trains(slice_, train_ref, plain_step, routed):
     """The routed card path (autograd Functions over the plain contracts)
     gives the plain path's loss and gradients, with one K6b and two
-    K5-backward launches per step beside the trunk's."""
+    K5-backward launches per step beside the trunk's, and one edge order
+    per step: the head's K6b walks the one the trunk's layers built."""
     want_loss, want = plain_step
+    builds = edge_order.builds
     loss, got = _port_step(slice_[0], _port_batch(train_ref[0]))
+    assert edge_order.builds == builds + 1
     assert routed == {"K5": 2, "K6": 1}
     assert routed.more == {"K1": 3, "K2": 3, "K3": 3, "K3b": 3, "K6b": 1,
                            "K5 backward": 2}

@@ -29,6 +29,9 @@ from equivariant_nn_zoo_tpu_torch.inference import evaluate
 from equivariant_nn_zoo_tpu_torch.models import layer_configs as tlc
 from equivariant_nn_zoo_tpu_torch.ops import rand_matrix
 from equivariant_nn_zoo_tpu_torch.utils import build, load_jax_params
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 SHIFTS = [-0.5, -1.0, 0.0, 0.5, 1.0, 1.5, -2.0, -3.0, 2.5, 0.25]

@@ -14,6 +14,9 @@ from equivariant_nn_zoo_tpu import nn as jnn
 from equivariant_nn_zoo_tpu import ops as jops
 from equivariant_nn_zoo_tpu_torch import nn as tnn
 from equivariant_nn_zoo_tpu_torch import ops as tops
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 

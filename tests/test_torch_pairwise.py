@@ -40,6 +40,9 @@ from equivariant_nn_zoo_tpu_torch.utils.params import (
     load_jax_params,
     params_from_jax,
 )
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 GRAD_TOL = 1e-4        # gradients: longer sums, other orders

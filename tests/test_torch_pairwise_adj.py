@@ -10,7 +10,8 @@ and K5b ``dbw`` of ``ops/cuda/pairwise_tp.py``, ``pairwise_adj_kernel`` in
   the tile choice;
 - ``walk``, a plain PyTorch emulation of the kernel's units (the same
   chunks, orders, runs and partial-sum order), against ``plain_backward``
-  at rel-linf 1e-6 (float32, other summation orders) on the specs of
+  at rel-linf 1e-12 (float64 inputs cast from seeded float32 draws: only
+  the summation orders differ) on the specs of
   ``tests/test_torch_pairwise.py`` and at full width, and through the
   ``routed`` fixture of that file (the backward launches sent to ``walk``)
   against the gradients of JAX ``expand`` at its tolerance, for every
@@ -45,8 +46,11 @@ from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import (
 )
 from equivariant_nn_zoo_tpu_torch.utils import init_parameters
 from equivariant_nn_zoo_tpu_torch.utils.params import params_from_jax
+from test_torch_edge_order import torch_threads_per_worker
 
-WALK_TOL = 1e-6
+torch_threads_per_worker()
+
+WALK_TOL = 1e-12
 RUNS = (7, 7 + MAX_D + 1)       # first fields of a path's run bounds
 FEATURES = "+".join(f"64x{l}{p}" for l in range(5) for p in "eo")
 
@@ -211,7 +215,8 @@ def walk(tpk, a, bw, dS, want_a=True, want_b=True, k=0):
     (its stage: d2 bw rows, then d3 dS rows), d left summed per m1 run and
     dbw per m2 run over the two orders, the chunk's d left stored or put
     in the workspace, then the partials added in chunk order, on the
-    chunking ``tpk.adj.cuts[k]``.  Unwritten outputs stay NaN."""
+    chunking ``tpk.adj.cuts[k]``.  Unwritten outputs stay NaN; sums in
+    ``a``'s dtype."""
     adj, M, mul = tpk.adj, a.shape[0], tpk.mul
     cut = adj.cuts[k]
     codes = adj.nz[..., 0].astype(np.int64)
@@ -220,10 +225,10 @@ def walk(tpk, a, bw, dS, want_a=True, want_b=True, k=0):
     G_all = dS.reshape(M, -1, mul)
     da = torch.full_like(a, float("nan"))
     dbw = torch.full_like(bw, float("nan"))
-    ws = torch.full((M * cut.ws_width,), float("nan"))
+    ws = torch.full((M * cut.ws_width,), float("nan"), dtype=a.dtype)
     for x_off, d1, p0, p1, ws_col in cut.chunks:
         A = a[:, x_off: x_off + mul * d1].reshape(M, mul, d1)
-        dal = torch.zeros(M, mul, d1)
+        dal = torch.zeros(M, mul, d1, dtype=a.dtype)
         for row in adj.paths[p0:p1]:
             r0, d2, row_base, row_stride, d3 = row[:5]
             stage = torch.cat([bw[:, r0: r0 + d2],
@@ -235,7 +240,7 @@ def walk(tpk, a, bw, dS, want_a=True, want_b=True, k=0):
                     dal[:, :, i] += coef[0, z] * stage[:, first[0, z]] \
                         * stage[:, third[0, z]]
             for i in range(d2 if want_b else 0):
-                acc = torch.zeros(M, mul)
+                acc = torch.zeros(M, mul, dtype=a.dtype)
                 for z in range(runs_b[i], runs_b[i + 1]):
                     acc += coef[1, z] * A[:, :, first[1, z]] \
                         * stage[:, third[1, z]]
@@ -245,7 +250,7 @@ def walk(tpk, a, bw, dS, want_a=True, want_b=True, k=0):
         else:
             ws[M * ws_col: M * (ws_col + mul * d1)] = dal.reshape(-1)
     for x_off, width, col, n in cut.sums:
-        s = torch.zeros(M, width)
+        s = torch.zeros(M, width, dtype=a.dtype)
         for j in range(n):
             c0 = M * (col + j * width)
             s += ws[c0: c0 + M * width].reshape(M, width)
@@ -255,7 +260,8 @@ def walk(tpk, a, bw, dS, want_a=True, want_b=True, k=0):
 
 def _d_scratch(tpk, wsel, gout):
     """dS: the mix's cotangent on the unmixed scratch rows."""
-    S = torch.zeros(gout.shape[0], tpk.KM, requires_grad=True)
+    S = torch.zeros(gout.shape[0], tpk.KM, dtype=gout.dtype,
+                    requires_grad=True)
     with torch.enable_grad():
         return torch.autograd.grad(
             mix_rows(S, wsel, tpk.prob_rows, tpk.out_dim), S, gout)[0]
@@ -272,7 +278,8 @@ def _case(tpk, tpe, M, seed):
 
 
 def _walk_against_plain(tpk, tpe, M, seed, want_a, want_b, k):
-    a, bw, wsel, gout = _case(tpk, tpe, M, seed)
+    """The walk against ``plain_backward``, both in float64."""
+    a, bw, wsel, gout = (t.double() for t in _case(tpk, tpe, M, seed))
     got = walk(tpk, a, bw, _d_scratch(tpk, wsel, gout), want_a, want_b, k)
     want = tpk.plain_backward(a, bw, wsel, gout, (want_a, want_b, False))
     for g, w in zip(got, want[:2]):

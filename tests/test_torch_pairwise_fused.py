@@ -11,8 +11,10 @@
   unit's K steps over channel chunks and its group's paths, the S tiles of
   its components from the m3 runs; K5m: per chunk of element tiles, per
   tile and component, S^T gout, then the chunks added in order), against
-  ``plain_forward`` and ``plain_backward``'s dwsel at rel-linf 1e-6
-  (float32, other summation orders) on the specs of
+  ``plain_forward`` and ``plain_backward``'s dwsel at rel-linf 1e-12
+  (float64 inputs cast from seeded float32 draws: only the summation
+  orders differ, so the check repeats whatever the thread count) on the
+  specs of
   ``tests/test_torch_pairwise.py`` and at full width, and through that
   file's ``routed`` fixture (the launches sent to ``fused_walk``) against
   JAX ``expand`` and its gradients at ``GRAD_TOL``.
@@ -50,8 +52,11 @@ from equivariant_nn_zoo_tpu_torch.ops.cuda.pairwise_tp import (
     dws_plan,
     forward_plan,
 )
+from test_torch_edge_order import torch_threads_per_worker
 
-WALK_TOL = 1e-6
+torch_threads_per_worker()
+
+WALK_TOL = 1e-12
 SMS = 132                        # an H100's multiprocessors
 SPLITS = pytest.mark.parametrize("k", range(len(FWD_SPLITS)),
                                  ids=["groups", "threes", "ones"])
@@ -68,12 +73,12 @@ def walk_forward(tpk, a, bw, wsel, k):
     steps over channel chunks of ``FWD_KC`` and, inside each, its paths,
     each adding the S tiles of the unit's components (summed over their m3
     runs) times the path's rows of the mix matrices; each unit's columns
-    stored once.  Unwritten columns stay NaN."""
+    stored once.  Unwritten columns stay NaN; sums in ``a``'s dtype."""
     f, M, mul = tpk.fused, a.shape[0], tpk.mul
     m1, m2, coef = _codes(tpk)
-    out = torch.full((M, tpk.out_dim), float("nan"))
+    out = torch.full((M, tpk.out_dim), float("nan"), dtype=a.dtype)
     for p0, n, d3, m3_0, nm3, out_col, wo, b_off in f.fwd_units[k]:
-        acc = torch.zeros(nm3, M, wo)
+        acc = torch.zeros(nm3, M, wo, dtype=a.dtype)
         for u0 in range(0, mul, FWD_KC):
             ch = slice(u0, u0 + FWD_KC)
             for kp in range(n):
@@ -97,12 +102,12 @@ def walk_dws(tpk, a, bw, gout, sms=SMS):
     channels) and chunk of element tiles (``dws_plan``), per tile of
     ``DWS_TILE`` elements and component m3, S[m3]^T gout[m3]; each chunk's
     block stored once in the workspace, then the chunks added in order.
-    Unwritten entries stay NaN."""
+    Unwritten entries stay NaN; sums in ``a``'s dtype."""
     f, M, mul = tpk.fused, a.shape[0], tpk.mul
     m1, m2, coef = _codes(tpk)
     chunks, per = dws_plan(M, len(f.dws_units), sms)
     tiles = -(-M // DWS_TILE)
-    ws = torch.full((chunks, tpk.wsel_len), float("nan"))
+    ws = torch.full((chunks, tpk.wsel_len), float("nan"), dtype=a.dtype)
     for path, out_col, wo, b_off, u0 in f.dws_units:
         x_off, d1, r0, d2, d3, z0, _ = f.paths[path, :7]
         runs = f.paths[path, 7:]
@@ -116,7 +121,7 @@ def walk_dws(tpk, a, bw, gout, sms=SMS):
             G.append(gout[:, out_col + np.arange(wo) * d3 + m3])
         rows = b_off + np.arange(u0, ch.stop)[:, None] * wo + np.arange(wo)
         for c in range(chunks):
-            part = torch.zeros(ch.stop - u0, wo)
+            part = torch.zeros(ch.stop - u0, wo, dtype=a.dtype)
             for t in range(c * per, min(tiles, (c + 1) * per)):
                 e = slice(t * DWS_TILE, min(M, (t + 1) * DWS_TILE))
                 for m3 in range(d3):
@@ -260,7 +265,8 @@ def _case(tpk, tpe, M, seed):
 
 
 def _walk_against_plain(tpk, tpe, M, seed, k):
-    a, bw, wsel, gout = _case(tpk, tpe, M, seed)
+    """The walk against the plain contracts, both in float64."""
+    a, bw, wsel, gout = (t.double() for t in _case(tpk, tpe, M, seed))
     out, dwsel = fused_walk(tpk, a, bw, wsel, gout, k)
     assert torch.isfinite(out).all() and torch.isfinite(dwsel).all()
     with torch.no_grad():

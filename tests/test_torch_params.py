@@ -14,6 +14,9 @@ from equivariant_nn_zoo_tpu_torch.utils import (
     load_jax_params,
     params_from_jax,
 )
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 
 @pytest.fixture(scope="module")

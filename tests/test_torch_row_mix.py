@@ -26,6 +26,9 @@ import torch
 from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
 from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv import mix_rows
 from equivariant_nn_zoo_tpu_torch.utils.utils import build
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 CONFIGS = ("config_energy", "config_energy_force", "config_hamiltonian")

@@ -27,6 +27,9 @@ from equivariant_nn_zoo_tpu_torch.ops.cuda.species_sc import SpeciesScalarFCTP
 from equivariant_nn_zoo_tpu_torch.ops.fused_tp import FusedScalarFCTP
 from equivariant_nn_zoo_tpu_torch.ops.irreps import Irreps
 from equivariant_nn_zoo_tpu_torch.ops.tensor_product import fully_connected_tp
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-4
 N, TYPES, M2 = 64, 6, 16  # species drawn from 0..4: type 5 is absent

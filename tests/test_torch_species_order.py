@@ -40,6 +40,9 @@ from equivariant_nn_zoo_tpu_torch.ops.irreps import Irreps
 from equivariant_nn_zoo_tpu_torch.ops.tensor_product import fully_connected_tp
 from equivariant_nn_zoo_tpu_torch.utils import build, init_parameters
 from test_torch_edge_order import SHIFTS, _energy_batch
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 

@@ -40,6 +40,9 @@ from equivariant_nn_zoo_tpu_torch.utils.params import (
     load_jax_params,
     params_from_jax,
 )
+from test_torch_edge_order import torch_threads_per_worker
+
+torch_threads_per_worker()
 
 TOL = 1e-5
 GRAD_TOL = 1e-4        # gradients: longer sums, other orders
@@ -102,7 +105,7 @@ def routed(monkeypatch):
         calls.append(args[1].shape[0])
         return conv.plain_forward(*args)
 
-    def launch_backward(conv, *args):
+    def launch_backward(conv, *args, order=None):
         calls.backward += 1
         return conv.plain_backward(*args)
 
@@ -116,7 +119,8 @@ def _port_edge_out(tconv, i):
     with torch.no_grad():
         return tconv.full_conv(
             tconv.tp.linear, torch.tensor(i["x"]), torch.tensor(i["sh"]),
-            torch.tensor(i["w"]), torch.tensor(i["src"])).numpy()
+            torch.tensor(i["w"]), torch.tensor(i["src"]),
+            torch.tensor(i["dst"])).numpy()
 
 
 @pytest.mark.parametrize("ref_kind", ["interpret_kernel", "fused"])
@@ -193,10 +197,10 @@ def test_routed_function_gradients_match_plain(convs, routed, needs):
     ``UVUConvFunction`` (one K6, one K6b) and returns autograd's gradient
     of the plain version; without grad mode it launches K6 alone."""
     _, _, tconv, i = convs
-    src = torch.tensor(i["src"])
+    src, dst = torch.tensor(i["src"]), torch.tensor(i["dst"])
     try:
         args = _leaves(tconv, i, (needs,))
-        out = tconv.full_conv(tconv.tp.linear, *args, src)
+        out = tconv.full_conv(tconv.tp.linear, *args, src, dst)
         wanted = [t for t in (*args, *tconv.tp.linear.parameters())
                   if t.requires_grad]
         got = torch.autograd.grad(out, wanted, _cotangent(out.shape))
@@ -211,7 +215,7 @@ def test_routed_function_gradients_match_plain(convs, routed, needs):
         for g, w in zip(got, want):
             assert _rel(g.numpy(), w.numpy()) < GRAD_TOL
         with torch.no_grad():
-            tconv.full_conv(tconv.tp.linear, *args, src)
+            tconv.full_conv(tconv.tp.linear, *args, src, dst)
         assert routed == [E, E] and routed.backward == 1
     finally:
         tconv.requires_grad_(True)
@@ -234,7 +238,8 @@ def test_gradients_match_interpret_mode_kernel(convs, routed):
         params["tp"]["linear"], *(jnp.asarray(i[k])
                                   for k in ("x", "sh", "w")))
     args = _leaves(tconv, i, ("parameter", "x", "sh", "w"))
-    out = tconv.full_conv(tconv.tp.linear, *args, torch.tensor(i["src"]))
+    out = tconv.full_conv(tconv.tp.linear, *args, torch.tensor(i["src"]),
+                          torch.tensor(i["dst"]))
     lin = dict(tconv.tp.linear.named_parameters())
     got = torch.autograd.grad(out, [*args, *lin.values()],
                               _cotangent(out.shape))
@@ -257,9 +262,9 @@ def test_plain_backward_matches_autograd(convs):
     args = _leaves(tconv, i, ("parameter", "x", "sh", "w"))
     wsel = conv.flat_wsel(lin)
     with torch.no_grad():
-        out, scratch = conv.plain_forward(*args, wsel, src)
+        out = conv.plain_forward(*args, wsel, src)
     gout = _cotangent(out.shape)
-    dx, dsh, dw, dwsel = conv.plain_backward(*args, wsel, src, scratch, gout)
+    dx, dsh, dw, dwsel = conv.plain_backward(*args, wsel, src, gout)
     assert dwsel.shape == (conv.wsel_len,)
     d_lin = torch.autograd.grad(wsel, list(lin.parameters()), dwsel)
     ref = conv.fused(lin, args[0], src, None, args[1], args[2], N,
