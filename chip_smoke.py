@@ -24,6 +24,7 @@
                                            # hamiltonian serving and the
                                            # step, see uvu_times
     python3 chip_smoke.py --uvu-calls      # the two K6 entries alone
+    python3 chip_smoke.py --diffusion      # phases 19-21 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -132,7 +133,40 @@ Phases, in order; any failure exits non-zero before the last line:
              K6b against their plain versions at batch 128's 768 edges,
              repeated bit for bit;
 18. hamiltonian train parity — one step's gradient of every parameter on
-             a 16-molecule cut, card against the CPU plain path.
+             a 16-molecule cut, card against the CPU plain path;
+19. diffusion serve — full-width ``config_diffusion`` (seeded weights,
+             ``build_model`` with no device argument), spec ``""`` (a
+             direct score head), then ``"nll"`` (the score is the position
+             gradient of an energy): K1 and K2 (``""``), or K4f, K4b and
+             K4g (``"nll"``), against their plain versions at the hot
+             layer (``layer2``) of a batch of 128 synthetic
+             fully-connected molecules (as ``bench.py`` makes them; about
+             1,730 atoms and 23,000 edges) at t = 0.5, each K4 output
+             repeated bit for bit; then ``run.sde_sampling``'s PC sampler
+             (``get_sampling_fn`` on ``models/sde_config.py``'s settings:
+             Euler-Maruyama, Langevin snr 0.16, one corrector step, VP-SDE
+             beta 0.1-20, N = 1000) samples that batch: every counter set
+             to 0 just before and read just after; K1 (``""``), K4f and K4b
+             (``"nll"``) must launch at least once per layer and score
+             evaluation (2 x N evaluations), K3 and K3b never; the
+             positions must be finite; seconds per batch, molecules/s, ms
+             and launches per evaluation and the device busy share (a
+             profile of 5 sampler steps); on a 16-molecule cut, with the
+             same replayed noise, the first 10 sampler steps must match the
+             CPU plain path;
+20. diffusion train — ``run.sde_utils.get_step_fn`` with the config's
+             settings (Adam lr 1e-2, clip 1.0, grad_acc 1, EMA 0.9999 with
+             num_updates, ``reduce_mean``) on 4 batches of 128: one step
+             must launch K1 and K2 once per layer (``""``), K4f and K4b at
+             least once per layer and K4g once per layer but the first
+             (``"nll"``: layer 0's input features do not depend on the
+             positions, so its second backward takes the pairing rule), K3
+             and K3b never; then 12 timed steps (ms per step, graphs/s,
+             peak memory, busy share), finite losses, and one evaluation
+             step with the EMA model;
+21. diffusion train parity — one step's gradient of every parameter on a
+             16-molecule cut, card against the CPU plain path, on the same
+             replayed t and z, for both specs.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -141,7 +175,10 @@ their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
 phase 15 does the same for 4 serving forwards at each batch size
 (``chiprun_out/hamiltonian_serve_profile_{16,512}.txt``) and phase 17 for 4
 training steps at each batch size
-(``chiprun_out/hamiltonian_step_profile{,_128}.txt``).
+(``chiprun_out/hamiltonian_step_profile{,_128}.txt``); phase 19 traces 5
+sampler steps of each spec
+(``chiprun_out/diffusion_serve_profile{,_nll}.txt``) and phase 20 4
+training steps of each (``chiprun_out/diffusion_step_profile{,_nll}.txt``).
 
 TF32 is off, so the plain versions compute in float32; the kernels sum in
 another order (the mix GEMM in 3xTF32 on the tensor cores), some with
@@ -387,11 +424,10 @@ def conv_counts(tables, N, E):
                 mix=2 * N * int((pr[:, 1] * pr[:, 3]).sum()))
 
 
-def trunk_costs(conv, x1, er, edges, flat, x_in, attrs, tables, spec, g3):
-    """Operations and bytes of K1, K3, K2 and K3b at one layer's shapes:
-    ``x1`` the conv's input, ``er`` the masked radial basis, ``edges`` (sh,
-    src, dst), ``flat`` the kernels' flat weights, ``x_in`` / ``attrs`` /
-    ``tables`` / ``spec`` / ``g3`` the self-connection's operands."""
+def conv_costs(conv, x1, er, edges, flat):
+    """Operations and bytes of K1 and K2 at one layer's shapes: ``x1`` the
+    conv's input, ``er`` the masked radial basis, ``edges`` (sh, src,
+    dst), ``flat`` the kernels' flat weights."""
     fconv = conv.full_conv
     N0, E0 = x1.shape[0], er.shape[0]
     cc = conv_counts(fconv, N0, E0)
@@ -404,8 +440,14 @@ def trunk_costs(conv, x1, er, edges, flat, x_in, attrs, tables, spec, g3):
         "K2": (3 * mlp + 2 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
                2 * nbytes(x1, er, *flat) + nbytes(*edges)
                + N0 * fconv.KM * 4 + out_bytes),
-        **sc_costs(conv, x_in, attrs, tables, spec, g3),
     }
+
+
+def trunk_costs(conv, x1, er, edges, flat, x_in, attrs, tables, spec, g3):
+    """``conv_costs`` and the self-connection's (K3, K3b): ``x_in`` /
+    ``attrs`` / ``tables`` / ``spec`` / ``g3`` are its operands."""
+    return {**conv_costs(conv, x1, er, edges, flat),
+            **sc_costs(conv, x_in, attrs, tables, spec, g3)}
 
 
 def sc_costs(conv, x_in, attrs, tables, spec, g3):
@@ -704,13 +746,13 @@ def profile_force_step(trainer, train):
                     len(train), "force_step_profile.txt")
 
 
-def force_hot_layer(model, gb, dev):
-    """The K4 kernels' operands at the force hot layer of ``model`` on
+def force_hot_layer(model, gb, dev, layer=HOT_LAYER):
+    """The K4 kernels' operands at ``layer`` of ``model`` (a force head) on
     ``gb``, and seeded cotangents: ``(fc, (x, sh, w, wsel, src, dst, N, cx,
     csh, cw, gout))``."""
     import torch
 
-    conv = getattr(model.func, HOT_LAYER).conv
+    conv = getattr(model.func, layer).conv
     seen = {}
     hook = conv.register_forward_pre_hook(
         lambda mod, args: seen.update(data=args[0]))
@@ -733,35 +775,23 @@ def force_hot_layer(model, gb, dev):
 
     cx, csh, cw = rnd(*x.shape), rnd(*sh.shape), rnd(*w.shape)
     gout = rnd(N, fc.out_dim)
-    print(f"force hot layer {HOT_LAYER}: N={N} E={sh.shape[0]} "
+    print(f"force hot layer {layer}: N={N} E={sh.shape[0]} "
           f"in={fc.fused.irreps_in} K={fc.fused.K_dim} paths={fc.n_paths} "
           f"P*mul={fc.fused.weight_numel} out_dim={fc.out_dim}")
     return fc, (x, sh, w, wsel, src, dst, N, cx, csh, cw, gout)
 
 
-def force_phases(dev):
-    """Phases 10-13 of the module docstring (the ``config_energy_force``
-    path); returns the K4 kernels' records."""
+def ext_checks(fc, ops, tag):
+    """K4f, K4b (on K4f's saved scratch and recomputed) and K4g against
+    their plain versions on ``ops`` (``force_hot_layer``'s), on one edge
+    order, each repeated bit for bit; ``tag`` names the path in the
+    printed lines.  Returns the four records and their costs."""
     import torch
 
-    from equivariant_nn_zoo_tpu_torch.inference import evaluate
-    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
     from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext
-    from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 
-    cfg = get_config("config_energy_force")
-    mc = cfg["model_config"]
-    n_layers = mc["num_layers"]
-    mols = synthetic_fragments(N_BATCHES * FORCE_BATCH,
-                               np.random.default_rng(10))
-    batches = make_batches(mols, dev, FORCE_BATCH)
-    model = build_model(mc, dev, torch.Generator().manual_seed(0))
-    model.eval()
-
-    # --------------------------------------------------- K4f, K4b, K4g
-    fc, (x, sh, w, wsel, src, dst, N, cx, csh, cw, gout) = force_hot_layer(
-        model, batches[0], dev)
+    x, sh, w, wsel, src, dst, N, cx, csh, cw, gout = ops
     E = sh.shape[0]
     fa = (x, sh, w, wsel, src, dst, N)
     ga = (x, cx, sh, csh, w, cw, wsel, src, dst, N, gout)
@@ -778,16 +808,18 @@ def force_phases(dev):
         "K4g": lambda: ext.launch_grad2(fc, *ga, order=order),
     }
     k4f = compare_grads(
-        "K4f full_conv_ext_fwd", lambda: calls["K4f"]()[:1],
+        f"K4f full_conv_ext_fwd{tag}", lambda: calls["K4f"]()[:1],
         lambda: (fc.plain_forward(*fa),), ("out",))
     k4b = compare_grads(
-        "K4b full_conv_ext_bwd, on K4f's saved scratch", calls["K4b"],
-        lambda: fc.plain_backward(*fa, gout), ("dx", "dsh", "dw", "dwsel"))
+        f"K4b full_conv_ext_bwd{tag}, on K4f's saved scratch",
+        calls["K4b"], lambda: fc.plain_backward(*fa, gout),
+        ("dx", "dsh", "dw", "dwsel"))
     k4b_re = compare_grads(
-        "K4b full_conv_ext_bwd, scratch recomputed", calls["K4b recomputed"],
-        lambda: fc.plain_backward(*fa, gout), ("dx", "dsh", "dw", "dwsel"))
+        f"K4b full_conv_ext_bwd{tag}, scratch recomputed",
+        calls["K4b recomputed"], lambda: fc.plain_backward(*fa, gout),
+        ("dx", "dsh", "dw", "dwsel"))
     k4g = compare_grads(
-        "K4g full_conv_ext_grad2", calls["K4g"],
+        f"K4g full_conv_ext_grad2{tag}", calls["K4g"],
         lambda: fc.plain_grad2(*ga), ("c_x", "c_s", "c_w", "c_m", "c_g"))
     # the walks sum in a fixed order and store each node once: every
     # output repeats bit for bit
@@ -796,8 +828,9 @@ def force_phases(dev):
             a, b = fn(), fn()
             torch.cuda.synchronize()
             if not all(torch.equal(u, v) for u, v in zip(a, b)):
-                fail(f"{name}: outputs differ between two launches")
-    print("K4f, K4b (both branches), K4g: every output repeats bit for bit")
+                fail(f"{name}{tag}: outputs differ between two launches")
+    print(f"K4f, K4b (both branches), K4g{tag}: every output repeats bit "
+          f"for bit")
     cc = conv_counts(fc, N, E)
     ops, edges = nbytes(x, sh, w, wsel), nbytes(src, dst)
     out_bytes = N * fc.out_dim * 4
@@ -812,7 +845,30 @@ def force_phases(dev):
         "K4g": (7 * cc["cg"] + 6 * cc["rows"] + 3 * cc["mix"],
                 2 * ops + nbytes(cx, csh, cw) + edges + 2 * out_bytes),
     }
-    del x, w, sh, cx, csh, cw, gout, fa, ga, saved, calls
+    return k4f, k4b, k4b_re, k4g, costs
+
+
+def force_phases(dev):
+    """Phases 10-13 of the module docstring (the ``config_energy_force``
+    path); returns the K4 kernels' records."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
+
+    cfg = get_config("config_energy_force")
+    mc = cfg["model_config"]
+    n_layers = mc["num_layers"]
+    mols = synthetic_fragments(N_BATCHES * FORCE_BATCH,
+                               np.random.default_rng(10))
+    batches = make_batches(mols, dev, FORCE_BATCH)
+    model = build_model(mc, dev, torch.Generator().manual_seed(0))
+    model.eval()
+
+    # --------------------------------------------------- K4f, K4b, K4g
+    k4f, k4b, k4b_re, k4g, costs = ext_checks(
+        *force_hot_layer(model, batches[0], dev), "")
 
     # ------------------------------------------------------- force serve
     keys = ["energy", "forces"]
@@ -1593,6 +1649,399 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
     return train_launches, mid
 
 
+DIFF_BATCH, DIFF_CUT = 128, 16    # the config's batch, a cut for parity
+DIFF_PARITY_STEPS = 10            # sampler steps held to the CPU
+DIFF_HOT_LAYER = "layer2"
+DIFF_TRAIN_STEPS = 12
+SAMPLING_EPS = 1e-3
+
+
+def synthetic_diffusion_mols(n_mol, rng, num_types=18):
+    """Molecules for the score model as ``bench.py`` makes them: 8-19
+    atoms of 18 species, positions N(0, 0.5^2) (normalized), every ordered
+    pair an edge (r_max 9999, the config's preprocessing), a bond type in
+    0-3 per edge."""
+    from equivariant_nn_zoo_tpu_torch.data import Data, computeEdgeIndex
+
+    mols = []
+    for _ in range(n_mol):
+        n = int(rng.integers(8, 20))
+        d = {"pos": (rng.normal(size=(n, 3)) * 0.5).astype(np.float32),
+             "species": rng.integers(0, num_types, size=(n, 1))}
+        d["atom_types"] = d["species"]
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+                 "atom_types": ("node", "1x0e")}
+        out, attrs = computeEdgeIndex(d, attrs, r_max=9999.0)
+        d.update(out)
+        ne = int(np.asarray(d["edge_index"]).shape[-1])
+        d["bond_type"] = rng.integers(0, 4, size=(ne, 1))
+        attrs["bond_type"] = ("edge", "1x0e")
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+class Replay:
+    """A noise source (``run.sde_utils.Noise``'s interface) that hands out
+    given host tensors in order, each moved to ``device``: the same draws
+    on the card and on the CPU."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device = list(draws), device
+
+    def normal(self, shape):
+        a = self.draws.pop(0)
+        if tuple(a.shape) != tuple(shape):
+            fail(f"replayed draw of shape {tuple(a.shape)}, want {shape}")
+        return a.to(self.device)
+
+    uniform = normal
+
+
+def seeded_draws(seed, shapes, uniform_first=False):
+    """Host draws for ``Replay``: N(0, 1) of each shape (the first U(0, 1)
+    with ``uniform_first``), from a CPU generator seeded with ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.rand(s, generator=gen) if uniform_first and i == 0
+            else torch.randn(s, generator=gen) for i, s in enumerate(shapes)]
+
+
+def k1_k2_checks(model, gb, dev):
+    """K1 and K2 against their plain versions at the hot layer of the
+    score model on ``gb`` (``main``'s phases 3 and 5 on these operands),
+    with their costs."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+
+    conv = getattr(model, DIFF_HOT_LAYER).conv
+    seen = {}
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    with torch.no_grad():
+        model(gb)
+    hook.remove()
+    data = {k: v.detach() for k, v in seen["data"].items()}
+    fconv = conv.full_conv
+    print(f"diffusion hot layer {DIFF_HOT_LAYER}: N={gb.node_capacity} "
+          f"E={gb.edge_capacity} in={fconv.fused.irreps_in} "
+          f"K={fconv.fused.K_dim} paths={fconv.n_paths} "
+          f"out_dim={fconv.out_dim}")
+    with torch.no_grad():
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    edges = (data["edge_spherical"], data["edge_index"][0],
+             data["edge_index"][1])
+    pre = 1.0 / conv.avg_num_neighbors ** 0.5
+    k1_args = (conv.fc, conv.tp.linear, x1, er, *edges, x1.shape[0], pre)
+    k1 = compare("K1 full_conv (diffusion)",
+                 lambda: fconv.launch(*k1_args),
+                 lambda: fconv.plain(*k1_args))
+    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
+                                                   pre)]
+    with torch.no_grad():
+        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
+                                             x1.shape[0])
+    gout = torch.randn(x1.shape[0], fconv.out_dim,
+                       generator=torch.Generator().manual_seed(31)).to(dev)
+    order = edge_order.shared(*edges[1:], x1.shape[0])
+    k2_args = (x1, er, *edges, *flat, x1.shape[0], scratch, gout)
+    k2 = compare_grads(
+        "K2 full_conv_bwd (diffusion)",
+        lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
+        lambda: fconv.plain_backward(*k2_args),
+        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
+    return k1, k2, conv_costs(conv, x1, er, edges, flat)
+
+
+def conv_launches():
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
+        FullConv,
+        SpeciesScalarFCTP,
+    )
+
+    return {"full_conv": FullConv.launches,
+            "full_conv_bwd": FullConv.backward_launches,
+            "species_sc": SpeciesScalarFCTP.launches,
+            "species_sc_bwd": SpeciesScalarFCTP.backward_launches,
+            **ext_launches()}
+
+
+def reset_conv_launches():
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
+        FullConv,
+        SpeciesScalarFCTP,
+    )
+
+    FullConv.launches = FullConv.backward_launches = 0
+    SpeciesScalarFCTP.launches = SpeciesScalarFCTP.backward_launches = 0
+    reset_ext_launches()
+
+
+def diffusion_serve(dev, spec, mols, sde, sde_cfg):
+    """Phase 19 for one spec: the kernels at the hot layer against plain,
+    one batch sampled by the PC sampler at the config's N (every counter
+    set to 0 just before, read just after), the first steps of a cut
+    against the CPU plain path, and a profile.  Returns the model and what
+    the phase measured."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run.sde_sampling import (
+        get_corrector,
+        get_pc_sampler,
+        get_predictor,
+        get_sampling_fn,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import Noise, with_t
+
+    mc = get_config("config_diffusion", spec)["model_config"]
+    tag = f"diffusion {spec or 'score'}"
+    n_layers = mc["num_layers"]
+    # no device argument: the entry point builds on the card by default
+    model = build_model(mc, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    if next(model.parameters()).device.type != "cuda":
+        fail("build_model without a device did not build on the card")
+    gb = make_batches(mols, dev, DIFF_BATCH)[0]
+    n_real = int(gb["_node_mask"].sum())
+    print(f"{tag}: {sum(p.numel() for p in model.parameters())} parameters;"
+          f" a batch of {DIFF_BATCH} molecules: {n_real} atoms, "
+          f"{int(gb['_edge_mask'].sum())} edges, N={gb.node_capacity} "
+          f"E={gb.edge_capacity}")
+
+    if any(getattr(m, "species_sc", None) is not None
+           for m in model.modules()):
+        fail(f"{tag}: a self-connection took the species tables")
+    gb_t = with_t(gb, torch.full((DIFF_BATCH, 1), 0.5, device=dev))
+    if spec:
+        checks = ext_checks(*force_hot_layer(model, gb_t, dev,
+                                             DIFF_HOT_LAYER), f" ({tag})")
+    else:
+        checks = k1_k2_checks(model, gb_t, dev)
+
+    sampling = dict(sde_cfg["sampling"])
+    sampler = get_sampling_fn(sde_cfg, sde, None, SAMPLING_EPS)
+    pc = get_pc_sampler(
+        sde, get_predictor(sampling["predictor"]),
+        get_corrector(sampling["corrector"]), None, sampling["snr"],
+        sampling["n_steps_each"], eps=SAMPLING_EPS)
+    pc(model, gb, Noise(dev, 1), steps=2)     # warm-up
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    host, nfe = sampler(model, gb, Noise(dev, 2))
+    dt = time.perf_counter() - t0
+    launches = conv_launches()
+    per_eval = {k: v / nfe for k, v in launches.items() if v}
+    print(f"{tag} serve: {DIFF_BATCH} molecules sampled by the PC sampler "
+          f"(N={sde.N}, {nfe} score evaluations) in {dt:.3f} s: "
+          f"{DIFF_BATCH / dt:.3f} molecules/s, {1e3 * dt / nfe:.4f} ms per "
+          f"evaluation (host clock, to the host batch); launches "
+          f"{launches}, per evaluation {per_eval}")
+    if nfe != 2 * sde.N:
+        fail(f"{tag}: {nfe} score evaluations, want {2 * sde.N}")
+    if host["pos"].shape != (n_real, 3) or not np.isfinite(
+            host["pos"]).all():
+        fail(f"{tag}: sampled positions not finite or of shape "
+             f"{host['pos'].shape}")
+    want = ("full_conv_ext_fwd", "full_conv_ext_bwd") if spec else \
+        ("full_conv",)
+    for name in want:
+        if launches[name] < n_layers * nfe:
+            fail(f"{tag}: {name} launched {launches[name]} times in {nfe} "
+                 f"evaluations, want >= {n_layers * nfe}")
+    if launches["species_sc"] or launches["species_sc_bwd"]:
+        fail(f"{tag}: the species-table kernels launched ({launches})")
+
+    n_prof = 5    # sampler steps: two score evaluations each
+    kernel_ms = profile_kernels(
+        f"{tag} score evaluations",
+        lambda: pc(model, gb, Noise(dev, 3), steps=n_prof), 2 * n_prof,
+        f"diffusion_serve_profile{'_' + spec if spec else ''}.txt")
+    eval_ms = 1e3 * dt / nfe
+    print(f"{tag} serve: {kernel_ms:.4f} ms of kernels per score "
+          f"evaluation under the profiler: device busy share "
+          f"{kernel_ms / eval_ms:.4f}")
+
+    # the first sampler steps of a cut, card against the CPU plain path
+    small = cut_batch(mols, DIFF_CUT)
+    n_draws = 1 + DIFF_PARITY_STEPS * (sampling["n_steps_each"] + 1)
+    draws = seeded_draws(40, [(small.node_capacity, 3)] * n_draws)
+    cpu_model = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    card = pc(model, small.to(dev), Replay(draws, dev),
+              steps=DIFF_PARITY_STEPS)[0]["pos"].cpu()
+    plain = pc(cpu_model, small, Replay(draws, "cpu"),
+               steps=DIFF_PARITY_STEPS)[0]["pos"]
+    rel = float((card - plain).abs().max() / plain.abs().max())
+    print(f"{tag} serve, card vs CPU plain path, positions after "
+          f"{DIFF_PARITY_STEPS} sampler steps ({DIFF_CUT} molecules): rel "
+          f"{rel:.3e}")
+    if not torch.isfinite(card).all() or rel > TOL:
+        fail(f"{tag}: card and CPU plain path disagree after "
+             f"{DIFF_PARITY_STEPS} steps (rel {rel:.3e})")
+    return model, cpu_model, dict(
+        launches=launches, nfe=nfe, s_per_batch=dt,
+        molecules_per_s=DIFF_BATCH / dt, ms_per_evaluation=eval_ms,
+        kernel_ms_per_evaluation=kernel_ms, busy=kernel_ms / eval_ms,
+        checks=checks)
+
+
+def diffusion_train(dev, spec, model, cpu_model, sde, sde_cfg):
+    """Phases 20 and 21 for one spec: ``get_step_fn`` with the config's
+    settings over batches of 128 (launches per step, 12 timed steps, peak
+    memory, a profile), then one step's gradients on a cut, card against
+    the CPU plain path, on the same t and z."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import (
+        Noise,
+        adam,
+        get_sde_loss_fn,
+        get_step_fn,
+        init_sde_state,
+    )
+
+    cfg = get_config("config_diffusion", spec)
+    tag = f"diffusion {spec or 'score'}"
+    n_layers = cfg["model_config"]["num_layers"]
+    train = make_batches(synthetic_diffusion_mols(
+        4 * DIFF_BATCH, np.random.default_rng(22)), dev, DIFF_BATCH)
+    model.train()
+    optimizer = adam(model, cfg["learning_rate"])
+    state = init_sde_state(model, Noise(dev, 4))
+    kw = dict(reduce_mean=sde_cfg["training"]["reduce_mean"],
+              continuous=sde_cfg["training"]["continuous"],
+              likelihood_weighting=sde_cfg["training"][
+                  "likelihood_weighting"],
+              grad_clid_norm=cfg["grad_clid_norm"], grad_acc=cfg["grad_acc"],
+              ema_decay=sde_cfg["model"]["ema_rate"],
+              ema_use_num_updates=cfg["ema_use_num_updates"])
+    step = get_step_fn(sde, True, model=model, optimizer=optimizer, **kw)
+    for gb in train[:2]:                         # warm-up
+        state, loss, _ = step(state, gb)
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    state, loss, _ = step(state, train[2])
+    per_step = {k: v for k, v in conv_launches().items() if v}
+    print(f"{tag} train launches per step (all {n_layers} layers): "
+          f"{per_step}")
+    want = {"full_conv_ext_fwd": n_layers, "full_conv_ext_bwd": n_layers,
+            "full_conv_ext_grad2": n_layers - 1} if spec else \
+        {"full_conv": n_layers, "full_conv_bwd": n_layers}
+    for name, n in want.items():
+        if per_step.get(name, 0) < n:
+            fail(f"{tag} train: {name} launched {per_step.get(name, 0)} "
+                 f"times in a step, want >= {n}")
+    if "species_sc" in per_step or "species_sc_bwd" in per_step:
+        fail(f"{tag} train: the species-table kernels launched")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_conv_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(DIFF_TRAIN_STEPS):
+        state, loss, _ = step(state, train[i % len(train)])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / DIFF_TRAIN_STEPS
+    train_launches = conv_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).cpu()
+    print(f"{tag} train step: {step_ms:.3f} ms per {DIFF_BATCH}-graph "
+          f"batch, {1e3 * DIFF_BATCH / step_ms:.1f} graphs/s (host clock "
+          f"around synchronize, {DIFF_TRAIN_STEPS} steps); peak device "
+          f"memory {peak:.3f} GiB; losses {losses.tolist()}")
+    if not torch.isfinite(losses).all():
+        fail(f"{tag} train: non-finite loss")
+    kernel_ms = profile_kernels(
+        f"{tag} training steps", lambda: [step(state, gb) for gb in train],
+        len(train), f"diffusion_step_profile{'_' + spec if spec else ''}.txt")
+    print(f"{tag} train step: {kernel_ms:.3f} ms of kernels per step under "
+          f"the profiler: device busy share {kernel_ms / step_ms:.4f}")
+    _, eval_loss, _ = get_step_fn(sde, False)(state, train[0])
+    if not np.isfinite(eval_loss.item()):
+        fail(f"{tag} eval: non-finite loss of the EMA model")
+
+    # --------------------------------------------------- train parity
+    small = cut_batch(synthetic_diffusion_mols(
+        DIFF_CUT, np.random.default_rng(23)), DIFF_CUT)
+    draws = seeded_draws(41, [(DIFF_CUT, 1), (small.node_capacity, 3)],
+                         uniform_first=True)
+    loss_fn = get_sde_loss_fn(sde, True, reduce_mean=kw["reduce_mean"])
+
+    def gradients(m, d):
+        m.zero_grad(set_to_none=True)
+        value, _ = loss_fn(m, small.to(d), Replay(draws, d))
+        value.backward()
+        return value.item(), {
+            n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+            for n, p in m.named_parameters()}
+
+    card_loss, card = gradients(build_model(
+        cfg["model_config"], generator=torch.Generator().manual_seed(0)),
+        dev)
+    cpu_loss, plain = gradients(cpu_model, "cpu")
+    worst, n_small = worst_gradient_rel(card, plain)
+    print(f"{tag} train parity ({DIFF_CUT} molecules): loss card "
+          f"{card_loss} CPU {cpu_loss}; worst gradient rel {worst[0]:.3e} "
+          f"({worst[1]}) over {len(plain) - n_small} tensors ({n_small} "
+          f"zero by symmetry)")
+    if abs(card_loss - cpu_loss) > TOL * abs(cpu_loss):
+        fail(f"{tag} train parity: the loss differs")
+    if any(not torch.isfinite(g).all() for g in card.values()):
+        fail(f"{tag} train parity: non-finite gradients on the card")
+    if worst[0] > TOL:
+        fail(f"{tag} train parity: {worst[1]} gradient rel {worst[0]:.3e} "
+             f"> {TOL}")
+    return dict(launches=train_launches, per_step=per_step,
+                step_ms=step_ms, graphs_per_s=1e3 * DIFF_BATCH / step_ms,
+                peak_gib=peak, kernel_ms=kernel_ms, busy=kernel_ms / step_ms)
+
+
+def diffusion_phases(dev):
+    """Phases 19-21 of the module docstring (``config_diffusion``, both
+    specs, served by the PC sampler and trained by ``get_step_fn``);
+    returns what K1, K2 and the K4 family did on this path, by kernel
+    record name."""
+    from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+        get_config as sde_get_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import VPSDE
+
+    sde_cfg = sde_get_config()
+    sde = VPSDE({"pos": 3}, beta_min=sde_cfg["model"]["beta_min"],
+                beta_max=sde_cfg["model"]["beta_max"],
+                N=sde_cfg["model"]["num_scales"])
+    mols = synthetic_diffusion_mols(DIFF_BATCH, np.random.default_rng(21))
+    out = {}
+    for spec in ("", "nll"):
+        model, cpu_model, serve = diffusion_serve(dev, spec, mols, sde,
+                                                  sde_cfg)
+        train = diffusion_train(dev, spec, model, cpu_model, sde, sde_cfg)
+        del model, cpu_model
+        if spec:
+            k4f, k4b, _, k4g, costs = serve["checks"]
+            names = (("full_conv_ext_fwd", k4f, "K4f"),
+                     ("full_conv_ext_bwd", k4b, "K4b"),
+                     ("full_conv_ext_grad2", k4g, "K4g"))
+        else:
+            k1, k2, costs = serve["checks"]
+            names = (("full_conv", k1, "K1"), ("full_conv_bwd", k2, "K2"))
+        for name, rec, key in names:
+            out[name] = dict(
+                spec=spec, launches=serve["launches"][name],
+                per_evaluation=serve["launches"][name] / serve["nfe"],
+                train_launches=train["launches"][name],
+                per_step=train["per_step"].get(name, 0), **rec,
+                **bound(*costs[key]))
+    return out
+
+
 def main():
     import torch
 
@@ -1867,6 +2316,7 @@ def main():
     del cpu_model, model, batches
     force_records = force_phases(dev)
     head_records, l4 = hamiltonian_phases(dev)
+    diffusion = diffusion_phases(dev)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -1893,10 +2343,33 @@ def main():
         mix_record("row_mix_products", "fused_conv.py:1051",
                    mix_launches["backward"], mix_bwd),
     ]
+    # K1, K2 and the K4 family also carry what they did on the diffusion
+    # path (spec "" for K1 and K2, "nll" for the K4 family)
+    for record in kernels:
+        if record["name"] in diffusion:
+            record["diffusion"] = diffusion[record["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def diffusion_only():
+    """``python3 chip_smoke.py --diffusion``: the build, then phases 19-21
+    alone; the diffusion records as one JSON line."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"diffusion": diffusion_phases(torch.device("cuda"))}))
 
 
 def kernel_split(fn, n=6):
@@ -2925,6 +3398,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] in (["--uvu-times"], ["--uvu-calls"]):
         sys.path.insert(0, os.getcwd())
         uvu_times(calls_only=sys.argv[1] == "--uvu-calls")
+    elif sys.argv[1:] == ["--diffusion"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        diffusion_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -1,5 +1,6 @@
 """Functions that assemble the layer configs of the ``config_energy``,
-``config_energy_force`` and ``config_hamiltonian`` models, as plain dicts.
+``config_energy_force``, ``config_hamiltonian`` and ``config_diffusion``
+models, as plain dicts.
 
 PyTorch counterparts of ``featureModel``, ``embedCategorial``,
 ``addEnergyOutput``, ``addForceOutput`` and ``addMatrixOutput`` in
@@ -32,8 +33,14 @@ from ..ops.irreps import Irreps, tp_path_exists
 
 def featureModel(n_dim, l_max, edge_radial, num_types, num_layers, r_max,
                  node_attrs, edge_spherical=None, avg_num_neighbors=10,
-                 normalize=False):
-    """The NequIP-style trunk with per-layer irreps narrowing."""
+                 normalize=False, species_pure_attrs=True):
+    """The NequIP-style trunk with per-layer irreps narrowing.
+
+    ``species_pure_attrs``: ``node_attrs`` stays the species embedding of
+    ``embedCategorial``, so the self-connections may use per-species
+    tables (K3).  A config that rewrites ``node_attrs`` afterwards (the
+    diffusion configs mix in each graph's time encoding) passes False, and
+    its self-connections stay per node."""
     node_features = "+".join(
         [f"{n_dim}x{n}e+{n_dim}x{n}o" for n in range(l_max + 1)])
     if edge_spherical is None:
@@ -82,10 +89,9 @@ def featureModel(n_dim, l_max, edge_radial, num_types, num_layers, r_max,
         "use_sc": True,
         "invariant_layers": 3,
         "invariant_neurons": n_dim,
-        # node_attrs built by embedCategorial is a pure per-species
-        # embedding, so the self-connection can use per-type tables
-        "sc_species_types": num_types,
     }
+    if species_pure_attrs:
+        conv["sc_species_types"] = num_types
     mp = {
         "module": MessagePassing,
         "resnet": False,

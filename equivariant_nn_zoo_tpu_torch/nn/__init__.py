@@ -3,11 +3,17 @@ from .sequential import SequentialGraphNetwork
 from .mlp import FullyConnectedNet
 from .embedding import (
     BesselBasis,
+    Broadcast,
     OneHotEncoding,
     RadialBasisEncoding,
     SphericalEncoding,
 )
-from .pointwise import PointwiseLinear, ResBlock, TensorProductExpansion
+from .pointwise import (
+    Concat,
+    PointwiseLinear,
+    ResBlock,
+    TensorProductExpansion,
+)
 from .scaling import PerTypeScaleShift
 from .output import (
     GradientOutput,
@@ -22,10 +28,12 @@ __all__ = [
     "SequentialGraphNetwork",
     "FullyConnectedNet",
     "BesselBasis",
+    "Broadcast",
     "OneHotEncoding",
     "RadialBasisEncoding",
     "SphericalEncoding",
     "PointwiseLinear",
+    "Concat",
     "TensorProductExpansion",
     "ResBlock",
     "PerTypeScaleShift",

@@ -1,8 +1,10 @@
-"""Embedding layers: one-hot species, trainable Bessel radial basis with a
-polynomial cutoff, spherical-harmonic edge encoding.
+"""Embedding layers: one-hot encoding (of species on nodes, of bond types
+on edges), trainable Bessel radial basis with a polynomial cutoff (of edge
+lengths, or of the diffusion time on graphs), spherical-harmonic edge
+encoding, and the broadcast of graph features to nodes or edges.
 
-PyTorch counterparts of the ``config_energy`` layers of
-``equivariant_nn_zoo_tpu/nn/embedding.py``.
+PyTorch counterparts of the layers of
+``equivariant_nn_zoo_tpu/nn/embedding.py`` that the ported configs use.
 """
 
 from __future__ import annotations
@@ -125,3 +127,27 @@ class SphericalEncoding(Module):
         return ({"spherical_harmonics": sh},
                 {"spherical_harmonics": (
                     "edge", self.irreps_out["spherical_harmonics"])})
+
+
+class Broadcast(Module):
+    """Graph features -> node (``to="node"``) or edge (``to="edge"``) rows
+    by the node or edge segment, clamped to the last graph: padded slots
+    (segment ``n_graphs``) read the last graph's row, which downstream
+    masks drop."""
+
+    def __init__(self, irreps_in, irreps_out, to):
+        super().__init__()
+        self.init_irreps(input=irreps_in, output=irreps_out,
+                         output_keys=["output"])
+        if to not in ("node", "edge"):
+            raise ValueError(f"cannot broadcast to {to!r}")
+        self.to = to
+
+    def forward(self, data: Dict, attrs: Dict):
+        if attrs["input"][0] != "graph":
+            raise ValueError("Broadcast expects graph-level input")
+        x = data["input"]
+        seg = data["_node_segment" if self.to == "node" else "_edge_segment"]
+        out = x[seg.clamp(0, x.shape[0] - 1)]
+        return ({"output": out},
+                {"output": (self.to, self.irreps_out["output"])})

@@ -1,9 +1,10 @@
 """NequIP-style factorized convolution + gated message-passing block.
 
 PyTorch counterpart of ``equivariant_nn_zoo_tpu/nn/message_passing.py`` for
-the trunks of ``config_energy``, ``config_energy_force`` and
-``config_hamiltonian`` (no resnet, no layer norm) and the hamiltonian
-head's per-edge conv.  Per layer, on the first-order path:
+the trunks of ``config_energy``, ``config_energy_force``,
+``config_hamiltonian`` and ``config_diffusion`` (no resnet, no layer norm)
+and the hamiltonian head's per-edge conv.  Per layer, on the first-order
+path:
 
     sc  = SpeciesScalarFCTP(x, node_attrs, species)      K3
     x   = linear_1(x)
@@ -29,7 +30,11 @@ normalisation):
                                                          dx on the trunk's
                                                          edge order)
 
-The species-table kernel is first-order only, and on the last two paths the
+The species-table kernel is first-order only, and it needs species-pure
+node attributes (``sc_species_types``): a layer built without them (the
+diffusion configs, whose ``node_attrs`` carry each graph's time encoding)
+takes the per-node ``FusedScalarFCTP`` at every order, as the JAX class
+does when it has no tables.  On the last two paths the
 MLP stays outside the kernels so that autograd differentiates it (to any
 order on the force path; the per-edge conv's backward hands it ``dw``), as
 in the JAX package (``message_passing.py:194-195, 224-241, 274-290``).  The
@@ -100,20 +105,25 @@ class FactorizedConvolution(Module):
             self.full_conv = FullConvExt(self.tp)
         else:
             self.full_conv = FullConv(self.tp, self.fc)
+        self.species_sc = self.fused_sc = None
         if self.use_sc:
-            if self.grad_order < 2 and not sc_species_types:
-                raise ValueError(
-                    "the port's self-connection needs species-pure node "
-                    "attributes (sc_species_types)")
             self.sc = fully_connected_tp(
                 feature_irreps_in, Irreps(self.irreps_in["node_attrs"]),
                 feature_irreps_out,
             )
-            if self.grad_order >= 2:
-                self.fused_sc = FusedScalarFCTP(self.sc)
-            else:
+            if self.grad_order < 2 and sc_species_types:
                 self.species_sc = SpeciesScalarFCTP(self.sc,
                                                     sc_species_types)
+            else:
+                self.fused_sc = FusedScalarFCTP(self.sc)
+
+    def self_connection(self, x, data: Dict):
+        """The self-connection of features ``x``: on the species tables
+        (K3) where the layer has them, else per node."""
+        if self.species_sc is not None:
+            return self.species_sc(self.sc, x, data["node_attrs"],
+                                   data["species"])
+        return self.fused_sc(x, data["node_attrs"])
 
     def forward(self, data: Dict, attrs: Dict):
         edge_radial = data["edge_radial"]
@@ -122,11 +132,8 @@ class FactorizedConvolution(Module):
         x = data["input_features"]
         edge_index = data["edge_index"]
         num_nodes = x.shape[0]
-        if self.use_sc and self.grad_order >= 2:
-            sc = self.fused_sc(x, data["node_attrs"])
-        elif self.use_sc:
-            sc = self.species_sc(self.sc, x, data["node_attrs"],
-                                 data["species"])
+        if self.use_sc:
+            sc = self.self_connection(x, data)
         x = self.linear_1(x)
         if not self.reduce:
             out = self.full_conv(self.tp.linear, x, data["edge_spherical"],

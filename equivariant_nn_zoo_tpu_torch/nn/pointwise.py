@@ -1,9 +1,9 @@
-"""Pointwise equivariant layers: ``PointwiseLinear``, the
+"""Pointwise equivariant layers: ``PointwiseLinear``, ``Concat``, the
 ``TensorProductExpansion`` the convolution and the hamiltonian head are
 built from, and ``ResBlock``.
 
 PyTorch counterparts of ``equivariant_nn_zoo_tpu/nn/pointwise.py``
-(``LayerNormalization``, ``Concat`` and ``Split`` are not ported yet).
+(``LayerNormalization`` and ``Split`` are not ported yet).
 """
 
 from __future__ import annotations
@@ -33,6 +33,27 @@ class PointwiseLinear(Module):
     def forward(self, data: Dict, attrs: Dict):
         return ({"output": self.linear(data["input"])},
                 {"output": (attrs["input"][0], self.irreps_out["output"])})
+
+
+class Concat(Module):
+    """Concatenate several features (in the order of the keyword
+    arguments) and mix them with a biased ``Linear``; the output is per
+    whatever the first input is per."""
+
+    def __init__(self, irreps_out, **irreps_in):
+        super().__init__()
+        self.init_irreps(**irreps_in, output=irreps_out,
+                         output_keys=["output"])
+        cat = Irreps(None)
+        for value in self.irreps_in.values():
+            cat = cat + Irreps(value)
+        self.linear = Linear(cat, self.irreps_out["output"], biases=True)
+
+    def forward(self, data: Dict, attrs: Dict):
+        keys = list(self.irreps_in)
+        out = self.linear(torch.cat([data[k] for k in keys], dim=1))
+        return ({"output": out},
+                {"output": (attrs[keys[0]][0], self.irreps_out["output"])})
 
 
 class TensorProductExpansion(Module):

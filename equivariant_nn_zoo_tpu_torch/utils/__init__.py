@@ -4,7 +4,13 @@ from .params import (
     load_jax_params,
     params_from_jax,
 )
-from .utils import build, default_type_names, keyMap, pruneArgs
+from .utils import (
+    build,
+    default_type_names,
+    insertAfter,
+    keyMap,
+    pruneArgs,
+)
 
 __all__ = [
     "ParamModule",
@@ -13,6 +19,7 @@ __all__ = [
     "params_from_jax",
     "build",
     "default_type_names",
+    "insertAfter",
     "keyMap",
     "pruneArgs",
 ]

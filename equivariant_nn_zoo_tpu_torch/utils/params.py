@@ -4,8 +4,9 @@ Every module of the port declares its parameters under the same nested
 names and shapes as the JAX package's ``Module.init`` pytree
 (``equivariant_nn_zoo_tpu/nn/module.py:102-126``), so
 ``model.state_dict()`` keys are the pytree paths joined with ``.`` — for
-example ``layer3.conv.fc.w3`` or ``layer3.conv.tp.linear.w2_3`` — and a
-JAX-initialised or JAX-trained tree loads unchanged.
+example ``layer3.conv.fc.w3``, ``layer3.conv.tp.linear.w2_3`` or
+``concat1.linear.b0`` — and a JAX-initialised or JAX-trained tree loads
+unchanged.
 """
 
 from __future__ import annotations

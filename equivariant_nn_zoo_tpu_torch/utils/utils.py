@@ -1,4 +1,5 @@
-"""Reflection build, kwarg pruning, key mapping, type names.
+"""Reflection build, kwarg pruning, key mapping, layer-list insertion,
+type names.
 
 PyTorch-package copy of the framework-neutral helpers in
 ``equivariant_nn_zoo_tpu/utils/utils.py``; configs here are plain dicts.
@@ -43,6 +44,14 @@ def keyMap(dic: Dict, key_mapping: Dict) -> Dict:
         else:
             result[key] = value
     return result
+
+
+def insertAfter(lst, key, item):
+    """Insert a ``(name, node)`` layer entry after the layer named ``key``."""
+    for i, layer in enumerate(lst):
+        if layer[0] == key:
+            return lst[: i + 1] + [item] + lst[i + 1:]
+    raise ValueError(f"Key {key} not found.")
 
 
 ATOMIC_SYMBOLS = [

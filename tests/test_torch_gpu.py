@@ -12,7 +12,10 @@ two chunks) and, through the autograd Functions, against the CPU, K1, K2,
 K3 and K3b at the trunk's l = 4 layer, the full-width forward and a training
 step's gradients against the CPU plain path.  K3 and K3b repeat bit for
 bit, give zero rows for out-of-range species and zero dtables rows for
-absent ones, and share one species order per step.
+absent ones, and share one species order per step.  For small-molecule
+diffusion (``config_diffusion``, both specs): the PC sampler's first steps
+and the score-matching step's gradients against the CPU plain path on the
+same replayed noise, and the model's outputs repeated bit for bit.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -1438,3 +1441,123 @@ def test_backward_products_repeat_bit_for_bit(model_and_batch, hamiltonian):
         for i, what in enumerate(EXT_OUT[name]):
             if what in outs:
                 assert torch.equal(a[name][i], b[name][i]), (name, what)
+
+
+# ------------------------------------------------ small-molecule diffusion
+
+def _diffusion_molecules(n_mol, seed):
+    """Fully-connected molecules of 8-19 atoms of 18 species with a bond
+    type per edge, as ``bench.py``'s ``synthetic_diffusion_mols``."""
+    rng = np.random.default_rng(seed)
+    mols = []
+    for _ in range(n_mol):
+        n = int(rng.integers(8, 20))
+        d = {"pos": (rng.normal(size=(n, 3)) * 0.5).astype(np.float32),
+             "species": rng.integers(0, 18, size=(n, 1))}
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e")}
+        out, attrs = computeEdgeIndex(d, attrs, r_max=9999.0)
+        d.update(out)
+        d["bond_type"] = rng.integers(0, 4, size=(d["edge_index"].shape[1],
+                                                  1))
+        attrs["bond_type"] = ("edge", "1x0e")
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+class _Replay:
+    """A noise source that hands out seeded host draws in order, each
+    moved to ``device``: the same draws on the card and on the CPU."""
+
+    def __init__(self, shapes, seed, device, uniform_first=False):
+        gen = torch.Generator().manual_seed(seed)
+        self.draws = [torch.rand(s, generator=gen)
+                      if uniform_first and i == 0
+                      else torch.randn(s, generator=gen)
+                      for i, s in enumerate(shapes)]
+        self.device = device
+
+    def normal(self, shape):
+        a = self.draws.pop(0)
+        assert tuple(a.shape) == tuple(shape)
+        return a.to(self.device)
+
+    uniform = normal
+
+
+@pytest.fixture(scope="module", params=("", "nll"))
+def diffusion(cuda, request):
+    """Full-width ``config_diffusion`` of one spec on the card and on the
+    CPU from one seed, and an 8-molecule batch (with padded edges) on the
+    CPU."""
+    mc = get_config("config_diffusion", request.param)["model_config"]
+    return (request.param,
+            build_model(mc, cuda, torch.Generator().manual_seed(0)),
+            build_model(mc, "cpu", torch.Generator().manual_seed(0)),
+            _batch(_diffusion_molecules(8, seed=50), "cpu"))
+
+
+def test_diffusion_sampler_steps_match_cpu(diffusion, cuda):
+    """Three steps of the PC sampler (VP-SDE at N = 1000, from t = 1) on
+    the same replayed noise: positions on the card against the CPU plain
+    path; the conv kernels launch once per layer and score evaluation."""
+    from equivariant_nn_zoo_tpu_torch.run import sde_sampling, sde_utils
+
+    spec, card, cpu, gb = diffusion
+    sde = sde_utils.VPSDE({"pos": 3}, N=1000)
+    pc = sde_sampling.get_pc_sampler(
+        sde, sde_sampling.get_predictor("euler_maruyama"),
+        sde_sampling.get_corrector("langevin"), None, snr=0.16)
+    shapes = [(gb.node_capacity, 3)] * (1 + 3 * 2)
+    before = (FullConv.launches, FullConvExt.launches_fwd)
+    got, nfe = pc(card, gb.to(cuda), _Replay(shapes, 51, cuda), steps=3)
+    torch.cuda.synchronize()
+    launched = (FullConv.launches - before[0],
+                FullConvExt.launches_fwd - before[1])
+    assert launched == ((0, 4 * nfe) if spec else (4 * nfe, 0))
+    want, _ = pc(cpu, gb, _Replay(shapes, 51, "cpu"), steps=3)
+    assert torch.isfinite(got["pos"]).all()
+    assert _rel(got["pos"].cpu(), want["pos"]) <= TOL
+
+
+def test_diffusion_step_gradients_match_cpu(diffusion, cuda):
+    """One step of the score-matching loss on the same replayed t and z:
+    the loss and every parameter's gradient on the card against the CPU
+    plain path (tensors zero by symmetry held small on both sides)."""
+    from equivariant_nn_zoo_tpu_torch.run import sde_utils
+
+    _, card, cpu, gb = diffusion
+    sde = sde_utils.VPSDE({"pos": 3}, N=1000)
+    loss_fn = sde_utils.get_sde_loss_fn(sde, True, reduce_mean=True)
+    shapes = [(gb.n_graphs, 1), (gb.node_capacity, 3)]
+
+    def step(m, dev):
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m, gb.to(dev), _Replay(shapes, 52, dev, True))
+        loss.backward()
+        return loss.item(), {
+            n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+            for n, p in m.named_parameters()}
+
+    loss, got = step(card, cuda)
+    want_loss, want = step(cpu, "cpu")
+    assert abs(loss - want_loss) <= TOL * abs(want_loss)
+    floor = 1e-12 * max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        assert torch.isfinite(got[name]).all(), name
+        if float(w.abs().max()) < floor:    # zero by symmetry: noise
+            assert float(got[name].abs().max()) < floor, name
+        else:
+            assert _rel(got[name], w) <= TOL, (name, _rel(got[name], w))
+
+
+def test_diffusion_outputs_repeat_bit_for_bit(diffusion, cuda):
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import with_t
+
+    _, card, _, gb = diffusion
+    gb = with_t(gb.to(cuda), torch.linspace(0.05, 1.0, gb.n_graphs,
+                                            device=cuda)[:, None])
+    with torch.no_grad():
+        a, b = card(gb)["score_pos"], card(gb)["score_pos"]
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, b)
