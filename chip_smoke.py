@@ -25,6 +25,7 @@
                                            # step, see uvu_times
     python3 chip_smoke.py --uvu-calls      # the two K6 entries alone
     python3 chip_smoke.py --diffusion      # phases 19-21 alone
+    python3 chip_smoke.py --dipole         # phases 22-25 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -166,7 +167,36 @@ Phases, in order; any failure exits non-zero before the last line:
              step with the EMA model;
 21. diffusion train parity — one step's gradient of every parameter on a
              16-molecule cut, card against the CPU plain path, on the same
-             replayed t and z, for both specs.
+             replayed t and z, for both specs;
+22. dipole kernels — K1, K3, K2 and K3b against their plain versions at
+             the hot layer (``layer3``) of full-width ``config_dipole``
+             (n_dim 32, l_max 2, 5 layers, 18 species tables) on the first
+             of 4 batches of 256 synthetic molecules (as ``bench.py`` makes
+             them: 8-23 atoms, N(0, 1.4^2) positions, r_max 5; about 4,000
+             atoms and 50,000 edges), per output; K3's and K3b's outputs
+             repeated bit for bit;
+23. dipole serve — ``build_model`` with no device argument serves the 4
+             batches through ``inference.evaluate``: exactly one K1 and one
+             K3 launch per layer and batch, finite per-atom dipoles, and a
+             32-molecule cut against the CPU plain path;
+24. dipole train — the trainer path end to end: an in-memory
+             ``CondensedDataset`` of 1,280 molecules with the config's
+             preprocess (the radius graph) and settings, ``Trainer`` with a
+             workdir (``chiprun_out/dipole_wd``), ``set_dataset`` (1,024
+             training and 256 validation molecules, the loader's pinned host
+             batches copied on a side stream) and ``train()`` for 2 epochs:
+             K1, K2, K3 and K3b each at least ``num_layers x steps``
+             launches, finite losses, ``best.pt``, ``last.pt`` and
+             ``trainer.pt`` written; ``Trainer.from_file`` refuses the
+             stopped run, and with ``max_epochs`` 3 restores parameters,
+             EMA and Adam's state bit for bit and trains the third epoch;
+             ms per step through the trainer path (loader included) beside
+             12 steps on batches already on the card, the busy share, peak
+             memory and a profile; ``grad_acc`` 2 applies every second
+             step;
+25. dipole train parity — one step's gradient of every parameter on a
+             32-molecule cut (N(0, 1) dipoles), card against the CPU plain
+             path.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -178,7 +208,9 @@ training steps at each batch size
 (``chiprun_out/hamiltonian_step_profile{,_128}.txt``); phase 19 traces 5
 sampler steps of each spec
 (``chiprun_out/diffusion_serve_profile{,_nll}.txt``) and phase 20 4
-training steps of each (``chiprun_out/diffusion_step_profile{,_nll}.txt``).
+training steps of each (``chiprun_out/diffusion_step_profile{,_nll}.txt``);
+phase 24 traces 4 dipole training steps
+(``chiprun_out/dipole_step_profile.txt``).
 
 TF32 is off, so the plain versions compute in float32; the kernels sum in
 another order (the mix GEMM in 3xTF32 on the tensor cores), some with
@@ -2042,6 +2074,398 @@ def diffusion_phases(dev):
     return out
 
 
+DIPOLE_BATCH, DIPOLE_CUT = 256, 32   # the config's batch, a cut for parity
+DIPOLE_SERVE_BATCHES = 4
+DIPOLE_MOLS, DIPOLE_N_TRAIN, DIPOLE_N_VAL = 1280, 1024, 256
+DIPOLE_HOT_LAYER = "layer3"
+DIPOLE_WORKDIR = os.path.join("chiprun_out", "dipole_wd")
+DIPOLE_TIMED_STEPS = 12
+
+
+def synthetic_dipole_mols(n_mol, rng, r_max=5.0, num_types=18, edges=True):
+    """Molecules for ``config_dipole`` as ``bench.py`` makes them: 8-23
+    atoms of 18 species, positions N(0, 1.4^2), N(0, 1) per-node ``dipole``
+    targets; with ``edges``, the radius graph at ``r_max`` (without, the
+    dataset's preprocess makes it)."""
+    from equivariant_nn_zoo_tpu_torch.data import Data, computeEdgeIndex
+
+    mols = []
+    for _ in range(n_mol):
+        n = int(rng.integers(8, 24))
+        d = {"pos": rng.normal(size=(n, 3)) * 1.4,
+             "species": rng.integers(0, num_types, size=(n, 1)),
+             "dipole": rng.normal(size=(n, 3)).astype(np.float32)}
+        d["atom_types"] = d["species"]
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+                 "atom_types": ("node", "1x0e"), "dipole": ("node", "1x1o")}
+        if edges:
+            out, attrs = computeEdgeIndex(d, attrs, r_max=r_max)
+            d.update(out)
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+def trunk_checks(model, gb, dev, layer, tag, mix=False):
+    """Phases 3-6 at ``layer`` of ``model`` on ``gb``: K1, K3, K2 and K3b
+    against their plain versions (one edge order and one species order as
+    on the main path; seeded cotangents), K3's and K3b's outputs repeated
+    bit for bit; with ``mix``, the mix GEMM alone on K1's scratch and K2's
+    cotangent (``row_mix_phase``).  Returns the four records by key, their
+    costs, and the GEMM's two records (or None)."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
+
+    conv = getattr(model, layer).conv
+    seen = {}
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    with torch.no_grad():
+        model(gb)
+    hook.remove()
+    data = {k: v.detach() for k, v in seen["data"].items()}
+    fconv, ssc = conv.full_conv, conv.species_sc
+    print(f"{tag} hot layer {layer}: N={gb.node_capacity} "
+          f"E={gb.edge_capacity} in={fconv.fused.irreps_in} "
+          f"K={fconv.fused.K_dim} paths={fconv.n_paths} "
+          f"out_dim={fconv.out_dim} species={ssc.num_types}")
+    with torch.no_grad():
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    edges = (data["edge_spherical"], data["edge_index"][0],
+             data["edge_index"][1])
+    pre = 1.0 / conv.avg_num_neighbors ** 0.5
+    k1_args = (conv.fc, conv.tp.linear, x1, er, *edges, x1.shape[0], pre)
+    rec = {"K1": compare(f"K1 full_conv ({tag})",
+                         lambda: fconv.launch(*k1_args),
+                         lambda: fconv.plain(*k1_args))}
+    x_in, attrs = data["input_features"], data["node_attrs"]
+    k3_args = (conv.sc, x_in, attrs, data["species"])
+    rec["K3"] = compare(f"K3 species_sc ({tag})",
+                        lambda: ssc.launch(*k3_args),
+                        lambda: ssc.plain(*k3_args))
+    spec = data["species"].reshape(-1)
+    sorder = species_order.shared(spec, ssc.num_types)
+    with torch.no_grad():
+        tables = ssc.tables(conv.sc, attrs, spec)
+    repeats(f"K3 species_sc ({tag})", lambda: sc_ops.launch_forward(
+        ssc, x_in, spec, tables, order=sorder))
+
+    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
+                                                   pre)]
+    with torch.no_grad():
+        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
+                                             x1.shape[0])
+    gout = torch.randn(x1.shape[0], fconv.out_dim,
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+    order = edge_order.shared(*edges[1:], x1.shape[0])
+    k2_args = (x1, er, *edges, *flat, x1.shape[0], scratch, gout)
+    rec["K2"] = compare_grads(
+        f"K2 full_conv_bwd ({tag})",
+        lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
+        lambda: fconv.plain_backward(*k2_args),
+        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
+    mixes = row_mix_phase(fconv, scratch, flat[2], gout) if mix else None
+    del scratch, k2_args
+    g3 = torch.randn(spec.shape[0], ssc.irreps_out.dim,
+                     generator=torch.Generator().manual_seed(2)).to(dev)
+    k3b_args = (x_in, spec, tables, g3)
+    rec["K3b"] = compare_grads(
+        f"K3b species_sc_bwd ({tag})",
+        lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder),
+        lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
+    repeats(f"K3b species_sc_bwd ({tag})",
+            lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder))
+    return rec, trunk_costs(conv, x1, er, edges, flat, x_in, attrs, tables,
+                            spec, g3), mixes
+
+
+def dipole_serve(dev, cfg, mols):
+    """Phases 22 and 23: the trunk kernels at the dipole hot layer, then
+    serving through ``inference.evaluate`` (every counter set to 0 just
+    before, read just after) and a cut against the CPU plain path."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+
+    mc = cfg["model_config"]
+    n_layers = mc["num_layers"]
+    # no device argument: the entry point builds on the card by default
+    model = build_model(mc, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    if next(model.parameters()).device.type != "cuda":
+        fail("build_model without a device did not build on the card")
+    batches = make_batches(mols, dev, DIPOLE_BATCH)
+    gb0 = batches[0]
+    print(f"dipole: {sum(p.numel() for p in model.parameters())} parameters; "
+          f"a batch of {DIPOLE_BATCH} molecules: "
+          f"{int(gb0['_node_mask'].sum())} atoms, "
+          f"{int(gb0['_edge_mask'].sum())} edges, N={gb0.node_capacity} "
+          f"E={gb0.edge_capacity}")
+    checks = trunk_checks(model, gb0, dev, DIPOLE_HOT_LAYER, "dipole")
+
+    evaluate(model, batches[:1], ["dipole"])  # warm-up
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    res = evaluate(model, batches, ["dipole"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    n_atoms = sum(int(gb["_node_mask"].sum()) for gb in batches)
+    print(f"dipole serve: {len(res)} molecules in {dt:.4f} s through "
+          f"evaluate ({len(res) / dt:.1f} molecules/s, "
+          f"{1e3 * dt / len(batches):.3f} ms per {DIPOLE_BATCH}-molecule "
+          f"batch, host clock to the host batch); launches {launches}")
+    want = {"full_conv": n_layers * len(batches),
+            "species_sc": n_layers * len(batches)}
+    if launches != want:
+        fail(f"dipole serve: launches {launches}, want {want}")
+    if len(res) != len(batches) * DIPOLE_BATCH or \
+            res["dipole"].shape != (n_atoms, 3) or \
+            not np.isfinite(res["dipole"]).all():
+        fail(f"dipole serve: {len(res)} molecules, dipoles of shape "
+             f"{res['dipole'].shape}, want {n_atoms} finite rows")
+
+    small = cut_batch(mols, DIPOLE_CUT)
+    cpu_model = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        card = model(small.to(dev))["dipole"].cpu()
+        plain = cpu_model(small)["dipole"]
+    real = int(small["_node_mask"].sum())
+    rel = float((card - plain).abs().max() / plain.abs().max())
+    print(f"dipole serve, card vs CPU plain path ({DIPOLE_CUT} molecules): "
+          f"rel {rel:.3e}")
+    if rel > TOL or not torch.allclose(
+            card[:real], torch.as_tensor(res["dipole"][:real]), rtol=TOL,
+            atol=TOL * float(plain.abs().max())):
+        fail(f"dipole serve: the cut disagrees with the CPU plain path or "
+             f"the batched run (rel {rel:.3e})")
+    return cpu_model, checks, dict(launches=launches, s=dt,
+                                   molecules_per_s=len(res) / dt)
+
+
+def dipole_dataset(cfg, mols):
+    """An in-memory ``CondensedDataset`` of ``mols`` (no edges: the config's
+    preprocess makes them) with the config's data settings."""
+    from equivariant_nn_zoo_tpu_torch.data import Batch, CondensedDataset
+
+    host = Batch.from_data_list(mols)
+    dc = cfg["data_config"]
+    return CondensedDataset(
+        data=host.data, attrs=host.attrs, type_names=dc["type_names"],
+        preprocess=dc["preprocess"],
+        cache_preprocessed=dc["cache_preprocessed"])
+
+
+def trainer_state(trainer):
+    """Parameters, EMA and optimizer state as host tensors, by name."""
+    import torch
+
+    out = {f"param {n}": p.detach().cpu().clone()
+           for n, p in trainer.model.named_parameters()}
+    out.update({f"ema {n}": p.detach().cpu().clone()
+                for n, p in trainer.ema_model.named_parameters()})
+    for i, st in trainer.optimizer.state_dict()["state"].items():
+        out.update({f"adam {i} {k}": torch.as_tensor(v).detach().cpu().clone()
+                    for k, v in st.items()})
+    return out
+
+
+def dipole_train(dev, cfg, cpu_model):
+    """Phases 24 and 25: the trainer path end to end (dataset, loader,
+    prefetch stream, checkpoints, resume, grad_acc), its timing beside
+    steps on batches already on the card, then one step's gradients on a
+    cut, card against the CPU plain path."""
+    import shutil
+
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
+
+    mc = cfg["model_config"]
+    n_layers = mc["num_layers"]
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    data_config = dict(cfg["data_config"], n_train=DIPOLE_N_TRAIN,
+                       n_val=DIPOLE_N_VAL)
+    mols = synthetic_dipole_mols(DIPOLE_MOLS, np.random.default_rng(31),
+                                 edges=False)
+    dataset = dipole_dataset(cfg, mols)
+    shutil.rmtree(DIPOLE_WORKDIR, ignore_errors=True)
+
+    def new_trainer(seed, **kw):
+        return Trainer(build_model(
+            mc, generator=torch.Generator().manual_seed(seed)),
+            data_config=data_config, workdir=DIPOLE_WORKDIR,
+            batch_size=DIPOLE_BATCH, **{**settings, **kw})
+
+    first = new_trainer(0, max_epochs=2)
+    first.set_dataset(dataset)
+    steps = 2 * len(first.dl_train)
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    first.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    md = first.mae_dict
+    print(f"dipole train: 2 epochs of {len(first.dl_train)} steps + "
+          f"{len(first.dl_val)} validation batch through the loader in "
+          f"{dt:.3f} s (the first epoch preprocesses every molecule); "
+          f"training_loss {md['training_loss']} validation_loss "
+          f"{md['validation_loss']} validation_dipole_mae "
+          f"{md['validation_dipole_mae']}; stop: {first.stop_arg}; "
+          f"launches {launches}")
+    for name in ("full_conv", "full_conv_bwd", "species_sc",
+                 "species_sc_bwd"):
+        if launches.get(name, 0) < n_layers * steps:
+            fail(f"dipole train: {name} launched {launches.get(name, 0)} "
+                 f"times in {steps} steps, want >= {n_layers * steps}")
+    for key in ("training_loss", "validation_loss"):
+        if not np.isfinite(md[key]):
+            fail(f"dipole train: non-finite {key}")
+    for path in (first.best_model_path, first.last_model_path,
+                 first.trainer_save_path):
+        if not os.path.exists(path):
+            fail(f"dipole train: {path} was not written")
+    try:
+        Trainer.from_file(first.trainer_save_path, model=build_model(
+            mc, generator=torch.Generator().manual_seed(1)))
+        fail("dipole train: a run that stopped properly was resumed")
+    except RuntimeError as e:
+        if "properly stopped" not in str(e):
+            raise
+
+    resumed = Trainer.from_file(
+        first.trainer_save_path, max_epochs=3,
+        model=build_model(mc, generator=torch.Generator().manual_seed(1)))
+    want, got = trainer_state(first), trainer_state(resumed)
+    if set(want) != set(got):
+        fail(f"dipole resume: restored {sorted(set(got) ^ set(want))[:4]}")
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if differ:
+        fail(f"dipole resume: not bit for bit ({differ[:4]})")
+    print(f"dipole resume: {len(want)} tensors (parameters, EMA, Adam "
+          f"moments and steps) restored bit for bit at epoch "
+          f"{resumed.iepoch}")
+    resumed.set_dataset(dataset)
+    resumed.train()
+    if resumed.iepoch != 3 or resumed.stop_arg != "max epochs":
+        fail(f"dipole resume: stopped at epoch {resumed.iepoch} with "
+             f"{resumed.stop_arg!r}")
+
+    # the trainer path (loader, pinned copies on the side stream, steps)
+    # against steps on batches already on the card
+    passes = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for gb in resumed._device_prefetch(iter(resumed.dl_train)):
+            resumed.batch_step(gb)
+    torch.cuda.synchronize()
+    n_path = passes * len(resumed.dl_train)
+    path_ms = 1e3 * (time.perf_counter() - t0) / n_path
+    on_card = [gb.to(dev) for gb in resumed.dl_train]
+    resumed.batch_step(on_card[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(DIPOLE_TIMED_STEPS):
+        resumed.batch_step(on_card[i % len(on_card)])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / DIPOLE_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(resumed.batch_losses["loss"].item()):
+        fail("dipole train: non-finite loss in the timed steps")
+    kernel_ms = profile_kernels(
+        "dipole training steps",
+        lambda: [resumed.batch_step(gb) for gb in on_card], len(on_card),
+        "dipole_step_profile.txt")
+    print(f"dipole train step: trainer path {path_ms:.3f} ms per step "
+          f"({1e3 * DIPOLE_BATCH / path_ms:.1f} graphs/s, loader and copies "
+          f"included, {n_path} steps), on-card batches {step_ms:.3f} ms "
+          f"({1e3 * DIPOLE_BATCH / step_ms:.1f} graphs/s, "
+          f"{DIPOLE_TIMED_STEPS} steps); {kernel_ms:.3f} ms of kernels per "
+          f"step under the profiler: busy share {kernel_ms / step_ms:.4f} "
+          f"on-card, {kernel_ms / path_ms:.4f} on the trainer path; host "
+          f"pipeline {path_ms - step_ms:.3f} ms per step; peak device "
+          f"memory {peak:.3f} GiB")
+
+    accum = new_trainer(0, grad_acc=2)
+    first_param = next(accum.model.parameters())
+    updates = []
+    for i, gb in enumerate(on_card):
+        before = first_param.detach().clone()
+        accum.batch_step(gb)
+        moved = not torch.equal(before, first_param)
+        updates.append((accum.ema_num_updates, moved))
+    print(f"dipole grad_acc 2: (EMA updates, parameters moved) after each "
+          f"of {len(on_card)} steps: {updates}")
+    if updates != [((i + 1) // 2, i % 2 == 1) for i in range(len(on_card))]:
+        fail("dipole grad_acc 2 did not apply every second step")
+    del first, resumed, accum, on_card
+    for name in ("best.pt", "last.pt", "trainer.pt"):   # keep log.txt only
+        os.remove(os.path.join(DIPOLE_WORKDIR, name))
+
+    # ------------------------------------------------ dipole train parity
+    small = cut_batch(synthetic_dipole_mols(
+        DIPOLE_CUT, np.random.default_rng(32)), DIPOLE_CUT)
+    loss_fn = Loss(settings["loss_coeffs"])
+    card_loss, card = step_gradients(
+        build_model(mc, dev, torch.Generator().manual_seed(0)),
+        small.to(dev), loss_fn)
+    cpu_loss, plain = step_gradients(cpu_model, small, loss_fn)
+    worst, n_small = worst_gradient_rel(card, plain)
+    print(f"dipole train parity ({DIPOLE_CUT} molecules, N(0, 1) dipoles): "
+          f"loss card {card_loss} CPU {cpu_loss}; worst gradient rel "
+          f"{worst[0]:.3e} ({worst[1]}) over {len(plain) - n_small} tensors "
+          f"({n_small} zero by symmetry)")
+    if abs(card_loss - cpu_loss) > TOL * abs(cpu_loss):
+        fail("dipole train parity: the loss differs")
+    if any(not torch.isfinite(g).all() for g in card.values()):
+        fail("dipole train parity: non-finite gradients on the card")
+    if worst[0] > TOL:
+        fail(f"dipole train parity: {worst[1]} gradient rel {worst[0]:.3e} "
+             f"> {TOL}")
+    return dict(launches=launches, steps=steps, path_ms=path_ms,
+                step_ms=step_ms, kernel_ms=kernel_ms, peak_gib=peak)
+
+
+def dipole_phases(dev):
+    """Phases 22-25 of the module docstring (``config_dipole`` at full
+    width); returns what K1, K3, K2 and K3b did on this path, by kernel
+    record name."""
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
+    cfg = get_config("config_dipole")
+    if cfg["batch_size"] != DIPOLE_BATCH:
+        fail(f"the config's batch is {cfg['batch_size']}, not "
+             f"{DIPOLE_BATCH}")
+    mols = synthetic_dipole_mols(DIPOLE_SERVE_BATCHES * DIPOLE_BATCH,
+                                 np.random.default_rng(30))
+    cpu_model, (checks, costs, _), serve = dipole_serve(dev, cfg, mols)
+    train = dipole_train(dev, cfg, cpu_model)
+    out = {}
+    for name, key, launches in (
+            ("full_conv", "K1", serve["launches"]["full_conv"]),
+            ("species_sc", "K3", serve["launches"]["species_sc"]),
+            ("full_conv_bwd", "K2", train["launches"]["full_conv_bwd"]),
+            ("species_sc_bwd", "K3b", train["launches"]["species_sc_bwd"])):
+        rec = dict(checks[key], **bound(*costs[key]))
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        out[name] = dict(launches=launches, layer=DIPOLE_HOT_LAYER, **rec)
+    out["path"] = dict(serve_molecules_per_s=serve["molecules_per_s"],
+                       **{k: v for k, v in train.items() if k != "launches"})
+    return out
+
+
 def main():
     import torch
 
@@ -2054,11 +2478,7 @@ def main():
         FullConv,
         SpeciesScalarFCTP,
     )
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm_ops
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
     from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 
@@ -2089,78 +2509,10 @@ def main():
     mc = get_config("config_energy")["model_config"]
     model = build_model(mc, dev, torch.Generator().manual_seed(0))
     model.eval()
-    conv = getattr(model, HOT_LAYER).conv
-    seen = {}
-    hook = conv.register_forward_pre_hook(
-        lambda mod, args: seen.update(data=args[0]))
-    with torch.no_grad():  # the backward phases differentiate these inputs
-        model(batches[0])
-    hook.remove()
-    data = seen["data"]
-    gb0 = batches[0]
-    print(f"hot layer {HOT_LAYER}: N={gb0.node_capacity} "
-          f"E={gb0.edge_capacity} in={conv.full_conv.fused.irreps_in} "
-          f"K={conv.full_conv.fused.K_dim} paths={conv.full_conv.n_paths} "
-          f"out_dim={conv.full_conv.out_dim}")
-
-    # ------------------------------------------------------------------ K1
-    with torch.inference_mode():
-        x1 = conv.linear_1(data["input_features"])
-        er = data["edge_radial"] * data["_edge_mask"]
-    k1_args = (conv.fc, conv.tp.linear, x1, er, data["edge_spherical"],
-               data["edge_index"][0], data["edge_index"][1], x1.shape[0],
-               1.0 / conv.avg_num_neighbors ** 0.5)
-    k1 = compare("K1 full_conv", lambda: conv.full_conv.launch(*k1_args),
-                 lambda: conv.full_conv.plain(*k1_args))
-
-    # ------------------------------------------------------------------ K3
-    k3_args = (conv.sc, data["input_features"], data["node_attrs"],
-               data["species"])
-    k3 = compare("K3 species_sc", lambda: conv.species_sc.launch(*k3_args),
-                 lambda: conv.species_sc.plain(*k3_args))
-    ssc = conv.species_sc
-    spec = data["species"].reshape(-1)
-    sorder = species_order.shared(spec, ssc.num_types)
-    with torch.no_grad():
-        tables = ssc.tables(conv.sc, data["node_attrs"], spec)
-    repeats("K3 species_sc", lambda: sc_ops.launch_forward(
-        ssc, data["input_features"], spec, tables, order=sorder))
-
-    # ------------------------------------------------------------------ K2
-    fconv = conv.full_conv
-    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
-                                                   k1_args[-1])]
-    with torch.no_grad():  # K1's inputs again, as tensors autograd takes
-        x1g = conv.linear_1(data["input_features"])
-        erg = data["edge_radial"] * data["_edge_mask"]
-        _, scratch = conv_ops.launch_forward(
-            fconv, x1g, erg, *k1_args[4:7], *flat, x1g.shape[0])
-    gout = torch.randn(x1g.shape[0], fconv.out_dim,
-                       generator=torch.Generator().manual_seed(1)).to(dev)
-    order = edge_order.shared(*k1_args[5:8])
-    k2_args = (x1g, erg, *k1_args[4:7], *flat, x1g.shape[0], scratch, gout)
-    k2 = compare_grads(
-        "K2 full_conv_bwd",
-        lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
-        lambda: fconv.plain_backward(*k2_args),
-        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
-    mix_fwd, mix_bwd = row_mix_phase(fconv, scratch, flat[2], gout)
-    del scratch, k2_args
-
-    # ----------------------------------------------------------------- K3b
-    g3 = torch.randn(spec.shape[0], ssc.irreps_out.dim,
-                     generator=torch.Generator().manual_seed(2)).to(dev)
-    k3b_args = (data["input_features"], spec, tables, g3)
-    k3b = compare_grads(
-        "K3b species_sc_bwd",
-        lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder),
-        lambda: ssc.plain_backward(*k3b_args), ("dx", "dtables"))
-    repeats("K3b species_sc_bwd",
-            lambda: sc_ops.launch_backward(ssc, *k3b_args, order=sorder))
-
-    costs = trunk_costs(conv, x1, er, k1_args[4:7], flat,
-                        data["input_features"], data["node_attrs"], tables,
-                        spec, g3)
+    # ------------------------------------- K1, K3, K2, K3b and the mix GEMM
+    checks, costs, (mix_fwd, mix_bwd) = trunk_checks(
+        model, batches[0], dev, HOT_LAYER, "energy", mix=True)
+    k1, k3, k2, k3b = (checks[k] for k in ("K1", "K3", "K2", "K3b"))
 
     # --------------------------------------------------------------- slice
     evaluate(model, batches[:1], ["total_energy"])  # warm-up
@@ -2317,6 +2669,7 @@ def main():
     force_records = force_phases(dev)
     head_records, l4 = hamiltonian_phases(dev)
     diffusion = diffusion_phases(dev)
+    dipole = dipole_phases(dev)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -2348,6 +2701,10 @@ def main():
     for record in kernels:
         if record["name"] in diffusion:
             record["diffusion"] = diffusion[record["name"]]
+    # K1, K3, K2 and K3b also carry what they did on the dipole path
+    for record in kernels:
+        if record["name"] in dipole:
+            record["dipole"] = dipole[record["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2370,6 +2727,24 @@ def diffusion_only():
     print(f"build: {os.path.relpath(lib)} in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"diffusion": diffusion_phases(torch.device("cuda"))}))
+
+
+def dipole_only():
+    """``python3 chip_smoke.py --dipole``: the build, then phases 22-25
+    alone; the dipole records as one JSON line."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"dipole": dipole_phases(torch.device("cuda"))}))
 
 
 def kernel_split(fn, n=6):
@@ -3401,6 +3776,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--diffusion"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         diffusion_only()
+    elif sys.argv[1:] == ["--dipole"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        dipole_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -57,17 +57,26 @@ class GraphBatch:
                           self.node_capacity, self.edge_capacity,
                           self.dropped)
 
-    def to(self, device) -> "GraphBatch":
+    def _map(self, fn) -> "GraphBatch":
         def move(v):
             # a head may leave a dict of tensors (the hamiltonian blocks)
             if isinstance(v, dict):
                 return {k: move(t) for k, t in v.items()}
-            return v.to(device)
+            return fn(v)
 
         return GraphBatch({k: move(v) for k, v in self.data.items()},
                           dict(self.attrs), self.n_graphs,
                           self.node_capacity, self.edge_capacity,
                           self.dropped)
+
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        """Every tensor on ``device``; with ``non_blocking`` a copy from
+        pinned host memory runs asynchronously on the current stream."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """Every host tensor in page-locked memory (needs CUDA)."""
+        return self._map(lambda t: t.pin_memory())
 
     @classmethod
     def from_batch(cls, batch: Batch, node_capacity: int, edge_capacity: int,

@@ -1,5 +1,6 @@
 """Named workload configs of the port (``config_energy``,
-``config_energy_force``, ``config_hamiltonian`` and ``config_diffusion``)
+``config_energy_force``, ``config_dipole``, ``config_hamiltonian`` and
+``config_diffusion``)
 and the function that builds a model from a seeded generator."""
 
 import torch
@@ -7,19 +8,22 @@ import torch
 from ..utils.params import init_parameters
 from ..utils.utils import build
 from .config_diffusion import get_config as config_diffusion
+from .config_dipole import get_config as config_dipole
 from .config_energy import get_config as config_energy
 from .config_energy_force import get_config as config_energy_force
 from .config_hamiltonian import get_config as config_hamiltonian
 
 CONFIG_REGISTRY = {"config_energy": config_energy,
                    "config_energy_force": config_energy_force,
+                   "config_dipole": config_dipole,
                    "config_hamiltonian": config_hamiltonian,
                    "config_diffusion": config_diffusion}
 
 
 def get_config(name: str, spec=None):
     """The named config; ``spec`` selects a variant of the configs that
-    have them (``config_diffusion``: ``""`` or ``"nll"``)."""
+    have them (``config_diffusion``: ``""`` or ``"nll"``; ``config_dipole``:
+``"profiling"``)."""
     if name not in CONFIG_REGISTRY:
         raise KeyError(
             f"unknown config {name!r}; available: {sorted(CONFIG_REGISTRY)}")

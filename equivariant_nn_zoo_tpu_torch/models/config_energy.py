@@ -3,8 +3,7 @@
 Counterpart of ``equivariant_nn_zoo_tpu/models/config_energy.py``: the same
 model (n_dim 64, l_max 3, r_max 4.0, 5 layers, edge SH 1x0e+1x1o+1x2e,
 8x0e Bessel radial basis, 20x0e node attributes, 10 species) and per-species
-energy shifts.  The training fields are kept for the trainer of a later
-slice.
+energy shifts, and the same training, early-stopping and data settings.
 """
 
 from functools import partial
@@ -36,11 +35,15 @@ def get_config():
         type_names=default_type_names(num_types),
         key_map={"Z": "species", "R": "pos", "U0": "total_energy"},
         preprocess=[partial(computeEdgeIndex, r_max=r_max)],
+        cache_preprocessed=True, num_workers=4,
     )
     return dict(
         model_config=model, data_config=data, batch_size=128,
-        learning_rate=1e-2, use_ema=True, ema_decay=0.99,
-        ema_use_num_updates=True, metric_key="validation_loss",
+        epoch_subdivision=1, learning_rate=1e-2, use_ema=True,
+        ema_decay=0.99, ema_use_num_updates=True,
+        metric_key="validation_loss", max_epochs=int(1e6),
+        early_stopping_patiences={"validation_loss": 20},
+        early_stopping_lower_bounds={"LR": 1e-6},
         loss_coeffs={"total_energy": [1e3, "MSELoss"]},
         metrics_components={"total_energy": ["mae"]},
         optimizer_name="Adam", lr_scheduler_name="ReduceLROnPlateau",

@@ -4,10 +4,7 @@ Counterpart of ``equivariant_nn_zoo_tpu/models/config_energy_force.py``: the
 same model (n_dim 64, l_max 2, r_max 5.0, 5 layers, edge SH
 1x0e+1x1o+1x2e, 8x0e Bessel radial basis, 16x0e node attributes, 20
 species, per-species energy shifts) wrapped in ``GradientOutput`` (forces =
--dE/dpos), and the same training settings.  Early stopping
-(``early_stopping_patiences``, ``early_stopping_lower_bounds``), the epoch
-subdivision and the epoch limit belong to the trainer loop, which is not
-ported yet, so those fields are left out.
+-dE/dpos), and the same training, early-stopping and data settings.
 """
 
 from functools import partial
@@ -40,11 +37,15 @@ def get_config():
         path=None,  # the protein E and F HDF5 file, set by the caller
         type_names=default_type_names(num_types),
         preprocess=[partial(computeEdgeIndex, r_max=r_max)],
+        cache_preprocessed=True, num_workers=4,
     )
     return dict(
         model_config=model, data_config=data, batch_size=64,
-        learning_rate=1e-2, use_ema=True, ema_decay=0.99,
-        ema_use_num_updates=True, metric_key="training_loss",
+        epoch_subdivision=5, learning_rate=1e-2, use_ema=True,
+        ema_decay=0.99, ema_use_num_updates=True,
+        metric_key="training_loss", max_epochs=int(1e6),
+        early_stopping_patiences={"training_loss": 20},
+        early_stopping_lower_bounds={"LR": 1e-6},
         loss_coeffs={"energy": [1e3, "MSELoss"],
                      "forces": [3e4, "MSELoss"]},
         metrics_components={"energy": ["mae"], "forces": ["mae"]},

@@ -4,9 +4,8 @@ Counterpart of ``equivariant_nn_zoo_tpu/models/config_hamiltonian.py``: the
 same model (n_dim 64, l_max 4, r_max 4.0, 5 layers, edge SH
 1x0e+1x1o+1x2e+1x3o, 8x0e radial basis, 8x0e node attributes, 9 species,
 the pairwise head with ``3x0e+2x1o+1x2e`` blocks on both sides), the
-e3nn-to-ORCA basis transform, ``contractBasis`` and the same training
-settings.  Early stopping, the epoch subdivision and the epoch limit belong
-to the trainer loop, which is not ported yet, so those fields are left out.
+e3nn-to-ORCA basis transform, ``contractBasis`` and the same training,
+early-stopping and data settings.
 """
 
 from functools import partial
@@ -120,11 +119,15 @@ def get_config():
         n_train=500, n_val=500, train_val_split="random", shuffle=True,
         path="h2o.hdf5", type_names=default_type_names(num_types),
         preprocess=[partial(computeEdgeIndex, r_max=r_max)],
+        cache_preprocessed=True, num_workers=4,
     )
     return dict(
         model_config=model, data_config=data, batch_size=16,
-        learning_rate=1e-2, use_ema=True, ema_decay=0.99,
-        ema_use_num_updates=True, metric_key="validation_loss",
+        epoch_subdivision=1, learning_rate=1e-2, use_ema=True,
+        ema_decay=0.99, ema_use_num_updates=True,
+        metric_key="validation_loss", max_epochs=int(1e6),
+        early_stopping_patiences={"validation_loss": 20},
+        early_stopping_lower_bounds={"LR": 1e-6},
         loss_coeffs={"hamiltonian": [1e5, "MSELoss"]},
         metrics_components={"hamiltonian": ["mae"]},
         optimizer_name="Adam", lr_scheduler_name="ReduceLROnPlateau",

@@ -3,7 +3,20 @@ from .params import (
     init_parameters,
     load_jax_params,
     params_from_jax,
+    params_to_jax,
 )
+from .saveload import (
+    atomic_write,
+    atomic_write_group,
+    finish_all_writes,
+    load_file,
+    restore_checkpoint,
+    save_checkpoint,
+    save_file,
+    saveMol,
+    saveProtein,
+)
+from .statistics import bincount, solver
 from .utils import (
     build,
     default_type_names,
@@ -17,6 +30,18 @@ __all__ = [
     "init_parameters",
     "load_jax_params",
     "params_from_jax",
+    "params_to_jax",
+    "atomic_write",
+    "atomic_write_group",
+    "finish_all_writes",
+    "load_file",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "save_file",
+    "saveMol",
+    "saveProtein",
+    "bincount",
+    "solver",
     "build",
     "default_type_names",
     "insertAfter",

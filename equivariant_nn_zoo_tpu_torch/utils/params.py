@@ -77,6 +77,29 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
+def params_to_jax(module: torch.nn.Module) -> Dict:
+    """The inverse of ``params_from_jax``: ``module``'s parameters as a
+    JAX parameter tree, nested dicts of float32 numpy arrays (copied to
+    the host).  Every submodule without parameters gets an empty dict, as
+    ``Module.init`` gives one, so the JAX model's ``apply`` takes the tree
+    as it is."""
+    tree: Dict = {}
+
+    def node(path):
+        cur = tree
+        for key in path:
+            cur = cur.setdefault(key, {})
+        return cur
+
+    for name, _ in module.named_modules():
+        if name:
+            node(name.split("."))
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        node(path)[leaf] = p.detach().cpu().numpy().copy()
+    return tree
+
+
 @torch.no_grad()
 def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     """Copy a JAX parameter pytree into ``model``.  Raises unless the tree

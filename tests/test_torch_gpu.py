@@ -15,7 +15,10 @@ bit, give zero rows for out-of-range species and zero dtables rows for
 absent ones, and share one species order per step.  For small-molecule
 diffusion (``config_diffusion``, both specs): the PC sampler's first steps
 and the score-matching step's gradients against the CPU plain path on the
-same replayed noise, and the model's outputs repeated bit for bit.
+same replayed noise, and the model's outputs repeated bit for bit.  For
+``config_dipole`` at full width: a step's gradients against the CPU plain
+path, K3 and K3b at 18 species repeated bit for bit on every layer, and a
+two-epoch ``Trainer.train`` through the pinned loader with a resume.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -1561,3 +1564,155 @@ def test_diffusion_outputs_repeat_bit_for_bit(diffusion, cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(a).all()
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ dipole
+
+def _dipole_molecules(n_mol, seed, edges=True):
+    """``config_dipole``'s molecules as ``bench.py`` makes them: 8-23 atoms
+    of 18 species, N(0, 1.4^2) positions, N(0, 1) per-node dipoles."""
+    rng = np.random.default_rng(seed)
+    mols = []
+    for _ in range(n_mol):
+        n = int(rng.integers(8, 24))
+        d = {"pos": rng.normal(size=(n, 3)) * 1.4,
+             "species": rng.integers(0, 18, size=(n, 1)),
+             "dipole": rng.normal(size=(n, 3)).astype(np.float32)}
+        d["atom_types"] = d["species"]
+        attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+                 "atom_types": ("node", "1x0e"), "dipole": ("node", "1x1o")}
+        if edges:
+            out, attrs = computeEdgeIndex(d, attrs, r_max=5.0)
+            d.update(out)
+        mols.append(Data(attrs, **d))
+    return mols
+
+
+@pytest.fixture(scope="module")
+def dipole(cuda):
+    cfg = get_config("config_dipole")
+    mc = cfg["model_config"]
+    card = build_model(mc, cuda, torch.Generator().manual_seed(0))
+    cpu = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    host = Batch.from_data_list(_dipole_molecules(24, 5))
+    gb = GraphBatch.from_batch(host, int(host["_n_nodes"].sum()) + 1,
+                               int(host["_n_edges"].sum()), 24, "cpu")
+    return cfg, card, cpu, gb
+
+
+def test_dipole_step_gradients_match_cpu(dipole, cuda):
+    """Full-width ``config_dipole``: one step's loss (1e3 MSE on N(0, 1)
+    dipoles) and every parameter's gradient on the card against the CPU
+    plain path."""
+    cfg, card, cpu, gb = dipole
+    loss_fn = Loss(cfg["loss_coeffs"])
+
+    def step(m, dev):
+        m.zero_grad(set_to_none=True)
+        b = gb.to(dev)
+        out = m(b)
+        loss, _ = loss_fn(out.data, b.data)
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    before = (FullConv.launches, SpeciesScalarFCTP.backward_launches)
+    loss, got = step(card, cuda)
+    torch.cuda.synchronize()
+    assert (FullConv.launches - before[0],
+            SpeciesScalarFCTP.backward_launches - before[1]) == (5, 5)
+    want_loss, want = step(cpu, "cpu")
+    assert abs(loss - want_loss) <= TOL * abs(want_loss)
+    floor = 1e-12 * max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        assert torch.isfinite(got[name]).all(), name
+        if float(w.abs().max()) < floor:    # zero by symmetry: noise
+            assert float(got[name].abs().max()) < floor, name
+        else:
+            assert _rel(got[name], w) <= TOL, (name, _rel(got[name], w))
+
+
+def test_species_tables_repeat_at_18_species(dipole, cuda):
+    """K3 and K3b at ``config_dipole``'s 18 species on every layer's
+    operands: each output repeats bit for bit and agrees with the plain
+    version."""
+    _, card, _, gb = dipole
+    seen = []
+    hooks = [getattr(card, f"layer{i}").conv.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0]))) for i in range(5)]
+    with torch.no_grad():
+        card(gb.to(cuda))
+    for h in hooks:
+        h.remove()
+    for conv, data in seen:
+        ssc = conv.species_sc
+        assert ssc.num_types == 18
+        x, attrs = data["input_features"], data["node_attrs"]
+        spec = data["species"].reshape(-1)
+        order = species_order.shared(spec, 18)
+        with torch.no_grad():
+            tables = ssc.tables(conv.sc, attrs, spec)
+            g = torch.randn(x.shape[0], ssc.irreps_out.dim,
+                            generator=torch.Generator().manual_seed(3)).to(cuda)
+            outs = [species_sc_mod.launch_forward(ssc, x, spec, tables,
+                                                  order=order)
+                    for _ in range(2)]
+            grads = [species_sc_mod.launch_backward(ssc, x, spec, tables, g,
+                                                    order=order)
+                     for _ in range(2)]
+            plain = ssc.table_product(x, spec, tables)
+            plain_grads = ssc.plain_backward(x, spec, tables, g)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
+        assert _rel(outs[0], plain) <= TOL
+        for a, b in zip(grads[0], plain_grads):
+            assert _rel(a, b) <= TOL
+
+
+def test_dipole_trainer_trains_and_resumes_on_the_card(cuda, tmp_path):
+    """``CondensedDataset`` (in memory) -> ``set_dataset`` -> ``train`` for
+    two epochs through the pinned loader and the copy stream, then
+    ``from_file`` with ``max_epochs`` 3: the state comes back bit for bit
+    and the third epoch runs; the kernels launch on every step."""
+    from equivariant_nn_zoo_tpu_torch.data import CondensedDataset
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    cfg = get_config("config_dipole")
+    mc = cfg["model_config"]
+    host = Batch.from_data_list(_dipole_molecules(80, 6, edges=False))
+    dc = dict(cfg["data_config"], n_train=64, n_val=16)
+    ds = CondensedDataset(data=host.data, attrs=host.attrs,
+                          preprocess=dc["preprocess"],
+                          type_names=dc["type_names"],
+                          cache_preprocessed=True)
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    settings.update(max_epochs=2, batch_size=16, data_config=dc,
+                    workdir=str(tmp_path))
+    first = Trainer(build_model(mc, cuda, torch.Generator().manual_seed(0)),
+                    **settings)
+    first.set_dataset(ds)
+    assert first.dl_train.pin_memory
+    before = (FullConv.launches, FullConv.backward_launches)
+    first.train()
+    torch.cuda.synchronize()
+    assert FullConv.backward_launches - before[1] == 5 * 8
+    assert FullConv.launches - before[0] == 5 * 10
+    assert np.isfinite(first.mae_dict["validation_loss"])
+    resumed = Trainer.from_file(
+        first.trainer_save_path, max_epochs=3,
+        model=build_model(mc, cuda, torch.Generator().manual_seed(1)))
+    for (n, a), b in zip(first.model.named_parameters(),
+                         resumed.model.parameters()):
+        assert torch.equal(a, b), n
+    for a, b in zip(first.ema_model.parameters(),
+                    resumed.ema_model.parameters()):
+        assert torch.equal(a, b)
+    sa = first.optimizer.state_dict()["state"]
+    sb = resumed.optimizer.state_dict()["state"]
+    for i in sa:
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[i][key].cpu(), sb[i][key].cpu()), (i, key)
+    resumed.set_dataset(ds)
+    resumed.train()
+    assert resumed.iepoch == 3 and resumed.stop_arg == "max epochs"
