@@ -26,6 +26,7 @@
     python3 chip_smoke.py --uvu-calls      # the two K6 entries alone
     python3 chip_smoke.py --diffusion      # phases 19-21 alone
     python3 chip_smoke.py --dipole         # phases 22-25 alone
+    python3 chip_smoke.py --protein        # phases 26-28 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -196,6 +197,38 @@ Phases, in order; any failure exits non-zero before the last line:
              step;
 25. dipole train parity — one step's gradient of every parameter on a
              32-molecule cut (N(0, 1) dipoles), card against the CPU plain
+             path;
+26. protein kernels — K1 and K2 at the hot layer (``layer3``) of
+             full-width ``config_diffusion_CA`` (n_dim 64, l_max 2, 30
+             paths, 32-wide radial inputs, 3 hidden layers of 64) on a
+             batch of 4 synthetic globular proteins of 420-559 residues
+             through the config's preprocess (``masked2indexed``, ``crop``
+             to 384), N = 1,537, at t = 0.5 on the edges the model builds
+             in its buffer of 262,144: each against its plain version per
+             output and repeated bit for bit, with ms, the bound and its
+             share, and the live and padded edges;
+27. protein sampling — ``config_diffusion_CA``, then
+             ``config_diffusion_backbone`` (seeded weights, ``build_model``
+             with no device argument, full width and depth) sample that
+             batch, scaled by the config's scaler, by the PC sampler
+             (``sde_config``'s predictor and corrector, snr 0.16) at N =
+             50 (cut from 1,000): every counter set to 0 just before and
+             read just after, exactly 8 K1 per score evaluation and no
+             other kernel; the edge overflow of every evaluation is 0 (kept
+             on the card, read after the loop); finite positions of every
+             diffusion key, inverse-scaled and written by ``saveProtein``
+             to ``chiprun_out/sample_<config>.pdb``; ms and launches per
+             evaluation, kernel ms by family, busy, peak memory; on a cut
+             (1 protein of at most 128 residues, 8,192 edges), on replayed
+             noise and edge draws, the first 10 sampler steps match the CPU
+             plain path;
+28. protein train — ``run.sde_utils.get_step_fn`` with each config's own
+             settings (Adam lr 1e-2, grad_acc 4, clip 1.0, EMA 0.99 with
+             num_updates) on the batch: one micro-step launches exactly 8
+             K1 and 8 K2, Adam steps on every 4th, 12 timed micro-steps
+             (ms per micro-step and per applied step, peak memory, busy);
+             one micro-step's loss and gradients on the cut (the same t, z
+             and ``_edge_rand`` on both sides), card against the CPU plain
              path.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
@@ -2466,6 +2499,560 @@ def dipole_phases(dev):
     return out
 
 
+PROT_BATCH, PROT_RESIDUES = 4, 384     # the configs' batch and crop
+PROT_HOT_LAYER = "layer3"
+PROT_SAMPLE_STEPS = 50                 # the sampler's N, cut from 1000
+PROT_PROFILE_STEPS = 3
+PROT_PARITY_STEPS = 10                 # sampler steps held to the CPU
+PROT_CUT_RESIDUES, PROT_CUT_EDGES = 128, 2048   # the CPU cut: 1 protein
+PROT_TRAIN_WARMUP, PROT_TRAIN_STEPS = 4, 12     # micro-steps
+PROTEIN_CONFIGS = ("config_diffusion_CA", "config_diffusion_backbone")
+
+
+def synthetic_proteins(n_prot, rng, sizes=(420, 560)):
+    """Globular protein-like chains: CA steps of 3.8 A, each in a random
+    direction that keeps the residue inside the sphere of a globular
+    protein of the chain's length (160 A^3 a residue) and at least 3 A from
+    the chain's earlier residues (the most distant of 32 tries when none
+    does); C, N and O at 1.5, 1.5 and 2.4 A from their CA in random
+    directions; 20 residue types; the first chain of two where the
+    length is even; 5 % of the residues unresolved (``mask`` 0)."""
+    from equivariant_nn_zoo_tpu_torch.data import Data
+
+    out = []
+    for _ in range(n_prot):
+        n = int(rng.integers(*sizes))
+        radius = (3 * 160.0 * n / (4 * np.pi)) ** (1 / 3)
+        ca = np.zeros((n, 3))
+        for i in range(1, n):
+            step = rng.normal(size=(32, 3))
+            step *= 3.8 / np.linalg.norm(step, axis=1, keepdims=True)
+            cand = ca[i - 1] + step
+            inside = np.linalg.norm(cand, axis=1) < radius
+            gap = np.linalg.norm(cand[:, None] - ca[None, :i - 1], axis=-1)
+            gap = gap.min(axis=1) if i > 1 else np.full(32, 9.0)
+            score = np.where(inside, gap, gap - 100.0)
+            ok = np.flatnonzero(inside & (gap >= 3.0))
+            ca[i] = cand[ok[0] if len(ok) else int(score.argmax())]
+        d = {"CA": ca.astype(np.float32),
+             "species": rng.integers(0, 20, size=(n, 1)),
+             "chain_id": ((np.arange(n) >= n // 2) & (n % 2 == 0))
+             .astype(np.int64).reshape(-1, 1),
+             "mask": (rng.random((n, 1)) >= 0.05).astype(np.int64),
+             "_n_nodes": np.array([[n]])}
+        for atom, dist in (("C", 1.5), ("N", 1.5), ("O", 2.4)):
+            off = rng.normal(size=(n, 3))
+            off *= dist / np.linalg.norm(off, axis=1, keepdims=True)
+            d[atom] = (ca + off).astype(np.float32)
+        attrs = {"species": ("node", "1x0e"), "chain_id": ("node", "1x0e"),
+                 "mask": ("node", "1x0e"), "_n_nodes": ("graph", "1x0e")}
+        for atom in ("CA", "C", "N", "O"):
+            attrs[atom] = ("node", "1x1o")
+        out.append(Data(attrs, **d))
+    return out
+
+
+def protein_batch(cfg, prots, seed, n_cap, e_cap, batch):
+    """The proteins through the config's preprocess (``masked2indexed``,
+    then ``crop`` with a generator seeded ``seed``) in an in-memory
+    ``CondensedDataset``, and the first batch of ``batch`` of them from a
+    ``DataLoader`` at the given capacities (a host batch)."""
+    from functools import partial
+
+    from equivariant_nn_zoo_tpu_torch.data import (
+        Batch,
+        CondensedDataset,
+        DataLoader,
+    )
+
+    masked2indexed, crop = cfg["data_config"]["preprocess"]
+    crop = partial(crop.func, **crop.keywords,
+                   rng=np.random.default_rng(seed))
+    host = Batch.from_data_list(prots)
+    ds = CondensedDataset(data=host.data, attrs=host.attrs,
+                          preprocess=[masked2indexed, crop])
+    loader = DataLoader(ds, batch_size=batch, node_capacity=n_cap,
+                        edge_capacity=e_cap)
+    gb = next(iter(loader))
+    if gb.dropped or int(gb["_graph_mask"].sum()) != batch:
+        fail(f"a protein batch of {batch} holds "
+             f"{int(gb['_graph_mask'].sum())} proteins")
+    return gb
+
+
+class HostRand:
+    """The edge layer's uniform draws from a CPU generator seeded ``seed``,
+    moved to the asking device; each draw is kept (``draws``) to be
+    replayed on the CPU."""
+
+    def __init__(self, seed):
+        import torch
+
+        self.generator = torch.Generator().manual_seed(seed)
+        self.draws = []
+
+    def uniform(self, shape, device):
+        import torch
+
+        self.draws.append(torch.rand(tuple(shape), generator=self.generator))
+        return self.draws[-1].to(device)
+
+
+def float64_plain(model):
+    """A function ``run(fn, batch)`` that calls ``fn`` on a float64 copy of
+    a CPU model and the batch's floats in float64 (the default dtype
+    float64 meanwhile): the plain path's reference for two float32 runs."""
+    import copy
+
+    import torch
+
+    m64 = copy.deepcopy(model).double()
+
+    def run(fn, batch):
+        torch.set_default_dtype(torch.float64)
+        try:
+            return fn(m64, batch._map(
+                lambda v: v.double() if v.is_floating_point() else v))
+        finally:
+            torch.set_default_dtype(torch.float32)
+
+    return run
+
+
+def edge_layer(model):
+    """The ``edge_index`` layer of a protein model (a ``partial`` of
+    ``computeEdgeIndexDevice``): its ``keywords["rand"]`` is the draws'
+    source."""
+    return dict(model.layers)["edge_index"]
+
+
+def protein_hot_layer(name, model, gb, dev):
+    """Phase 26: K1 and K2 at the hot layer of a protein model on ``gb``
+    (the data's own positions at t = 0.5), each against its plain version
+    and repeated bit for bit, with the live and padded edges."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+
+    conv = getattr(model, PROT_HOT_LAYER).conv
+    seen = {}
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    with torch.no_grad():
+        out = model(gb)
+    hook.remove()
+    data = {k: v.detach() for k, v in seen["data"].items()}
+    fconv = conv.full_conv
+    E = data["edge_index"].shape[1]
+    live = int(data["_edge_mask"].sum())
+    overflow = int(out["_edge_overflow"].max())
+    print(f"protein hot layer {PROT_HOT_LAYER} ({name}): N="
+          f"{gb.node_capacity} E={E} R={fconv.fc_dims[0]} MLP "
+          f"{fconv.fc_dims} in={fconv.fused.irreps_in} "
+          f"paths={fconv.n_paths} out_dim={fconv.out_dim}; live edges "
+          f"{live} of {E} ({live / int(gb['_node_mask'].sum()):.1f} per "
+          f"residue), the walk spends {E - live} ({(E - live) / E:.4f}) on "
+          f"padded edges; overflow {overflow}")
+    if overflow:
+        fail(f"{name}: the edge buffer overflowed by {overflow}")
+    with torch.no_grad():
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    edges = (data["edge_spherical"], data["edge_index"][0],
+             data["edge_index"][1])
+    pre = 1.0 / conv.avg_num_neighbors ** 0.5
+    k1_args = (conv.fc, conv.tp.linear, x1, er, *edges, x1.shape[0], pre)
+    k1 = compare("K1 full_conv (protein)", lambda: fconv.launch(*k1_args),
+                 lambda: fconv.plain(*k1_args))
+    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
+                                                   pre)]
+    order = edge_order.shared(*edges[1:], x1.shape[0])
+    repeats("K1 full_conv (protein)", lambda: conv_ops.launch_forward(
+        fconv, x1, er, *edges, *flat, x1.shape[0], order=order))
+    with torch.no_grad():
+        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
+                                             x1.shape[0], order=order)
+    gout = torch.randn(x1.shape[0], fconv.out_dim,
+                       generator=torch.Generator().manual_seed(51)).to(dev)
+    k2_args = (x1, er, *edges, *flat, x1.shape[0], scratch, gout)
+    k2 = compare_grads(
+        "K2 full_conv_bwd (protein)",
+        lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
+        lambda: fconv.plain_backward(*k2_args),
+        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"))
+    repeats("K2 full_conv_bwd (protein)", lambda: conv_ops.launch_backward(
+        fconv, *k2_args, order=order))
+    # the bound counts the work this data needs: the live edges (packed
+    # first); a padded edge adds nothing to any output.  The bound of all
+    # the slots the kernels walk is printed beside it.
+    costs = conv_costs(conv, x1, er[:live], tuple(t[:live] for t in edges),
+                       flat)
+    slots = conv_costs(conv, x1, er, edges, flat)
+    for key, rec in (("K1", k1), ("K2", k2)):
+        rec.update(bound(*costs[key]))
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        rec["bound_ms_all_slots"] = bound(*slots[key])["bound_ms"]
+        print(f"{key} (protein): {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+              f"{rec['bound_by']} over the {live} live edges, share "
+              f"{rec['share']:.4f}; over all {E} slots "
+              f"{rec['bound_ms_all_slots']:.4f} ms, share "
+              f"{rec['bound_ms_all_slots'] / rec['ms']:.4f}")
+    del scratch, k2_args
+    return dict(K1=k1, K2=k2, E=E, live_edges=live, padded_edges=E - live,
+                layer=PROT_HOT_LAYER)
+
+
+def protein_sample(dev, name, cfg, model, gb, sde_cfg):
+    """Phase 27 for one config: PC sampling of ``gb`` (scaled) at N =
+    PROT_SAMPLE_STEPS, every counter set to 0 just before and read just
+    after (exactly 8 K1 per score evaluation, no other kernel), the edge
+    overflow of every evaluation (kept on the card, read after the loop),
+    the inverse-scaled sample written as a .pdb; a profile; then the first
+    steps of a 1-protein cut against the CPU plain path on replayed noise
+    and edge draws."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run.sde_sampling import (
+        get_corrector,
+        get_pc_sampler,
+        get_predictor,
+        get_sampling_fn,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import VPSDE, Noise
+    from equivariant_nn_zoo_tpu_torch.utils.saveload import saveProtein
+
+    dc, mc = cfg["data_config"], cfg["model_config"]
+    n_layers = mc["num_layers"]
+    sampling = dict(sde_cfg["sampling"])
+    sde = VPSDE(cfg["diffusion_keys"], beta_min=sde_cfg["model"]["beta_min"],
+                beta_max=sde_cfg["model"]["beta_max"], N=PROT_SAMPLE_STEPS)
+    pc = get_pc_sampler(
+        sde, get_predictor(sampling["predictor"]),
+        get_corrector(sampling["corrector"]), None, sampling["snr"],
+        sampling["n_steps_each"], eps=SAMPLING_EPS)
+    sampler = get_sampling_fn(sde_cfg, sde, dc["inverse_scaler"],
+                              SAMPLING_EPS)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def watch(mod, args, out):
+        torch.maximum(overflow, out["_edge_overflow"].max(), out=overflow)
+
+    hook = model.register_forward_hook(watch)
+    pc(model, gb, Noise(dev, 1), steps=1)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_conv_launches()
+    reset_head_launches()
+    t0 = time.perf_counter()
+    host, nfe = sampler(model, gb, Noise(dev, 2))
+    dt = time.perf_counter() - t0
+    launches = {**conv_launches(), **head_launches()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hook.remove()
+    overflow = int(overflow)
+    n_real = int(gb["_node_mask"].sum())
+    print(f"{name} sample: {PROT_BATCH} proteins ({n_real} residues) by the "
+          f"PC sampler (N={sde.N}, {nfe} score evaluations) in {dt:.3f} s, "
+          f"{1e3 * dt / nfe:.3f} ms per evaluation (host clock, to the host "
+          f"batch); peak device memory {peak:.3f} GiB; the largest edge "
+          f"overflow {overflow}; launches {launches}")
+    want = {k: 0 for k in launches}
+    want["full_conv"] = n_layers * nfe
+    if launches != want:
+        fail(f"{name} sample: launches {launches}, want {want}")
+    if nfe != 2 * sde.N or overflow:
+        fail(f"{name} sample: {nfe} evaluations, overflow {overflow}")
+    for key in cfg["diffusion_keys"]:
+        if host[key].shape != (n_real, 3) or not np.isfinite(
+                host[key]).all():
+            fail(f"{name} sample: {key} not finite or of shape "
+                 f"{host[key].shape}")
+    pdb = saveProtein(host, "chiprun_out", filename=f"sample_{name}")
+    with open(pdb) as f:
+        if not f.read().rstrip().endswith("END"):
+            fail(f"{name} sample: {pdb} does not end in END")
+    kernel_ms, n_kernels, fams = families(
+        lambda: pc(model, gb, Noise(dev, 3), steps=PROT_PROFILE_STEPS),
+        2 * PROT_PROFILE_STEPS)
+    eval_ms = 1e3 * dt / nfe
+    print(f"{name} sample: {kernel_ms:.4f} ms of kernels in {n_kernels} "
+          f"launches per score evaluation under the profiler, busy "
+          f"{kernel_ms / eval_ms:.4f}; by family {fams}")
+
+    # the first sampler steps of a 1-protein cut on the card; every score
+    # evaluation's input batch and edge draws again through the CPU plain
+    # path.  (A whole trajectory is not compared: on these random weights
+    # the sampler multiplies any difference 20-30 times a step, and float32
+    # rounding alone parts the two after 3 steps.)
+    small = protein_batch(cfg, synthetic_proteins(
+        1, np.random.default_rng(61), sizes=(110, 121)), 62,
+        PROT_CUT_RESIDUES + 1, PROT_CUT_EDGES, 1)
+    small = dc["scaler"](small)
+    n_draws = len(sde.irreps) * (
+        1 + PROT_PARITY_STEPS * (sampling["n_steps_each"] + 1))
+    draws = seeded_draws(63, [(small.node_capacity, 3)] * n_draws)
+    cpu_model = build_model(mc, "cpu", torch.Generator().manual_seed(0))
+    keys = [f"score_{k}" for k in sde.irreps]
+    seen = []
+    hook = model.register_forward_hook(lambda mod, args, out: seen.append(
+        (args[0].to("cpu"), {k: out[k].cpu() for k in keys + [
+            "edge_index", "_edge_overflow"]})))
+    own, rand = edge_layer(model).keywords["rand"], HostRand(64)
+    edge_layer(model).keywords["rand"] = rand
+    pc(model, small.to(dev), Replay(draws, dev), steps=PROT_PARITY_STEPS)
+    edge_layer(model).keywords["rand"] = own
+    hook.remove()
+    run64 = float64_plain(cpu_model)
+    # the card passes where it is within TOL of the float64 result or no
+    # further from it than the CPU's float32 run: in 8 normalised layers
+    # float32 rounding alone can part from float64 by more than TOL
+    worst = {w: (-1.0, "") for w in ("card-f64", "card-f32", "f32-f64")}
+    n_edges, beyond = [], 0.0
+    with torch.no_grad():
+        for (batch, card), u in zip(seen, rand.draws):
+            batch = batch.replace(_edge_rand=u)
+            plain = cpu_model(batch)
+            ref = run64(lambda m, b: m(b), batch)
+            if not (torch.equal(plain["edge_index"], card["edge_index"])
+                    and torch.equal(ref["edge_index"], card["edge_index"])) \
+                    or int(card["_edge_overflow"].max()):
+                fail(f"{name} sample: the card's edges differ from the "
+                     f"CPU's on the same positions, or overflow")
+            n_edges.append(int(plain["_n_edges"].sum()))
+            for k in keys:
+                errs = {w: worst_rel({k: a[k].double()}, {k: b[k].double()})
+                        for w, a, b in (("card-f64", card, ref),
+                                        ("card-f32", card, plain),
+                                        ("f32-f64", plain, ref))}
+                beyond = max(beyond, errs["card-f64"][0] / max(
+                    TOL, errs["f32-f64"][0]))
+                worst = {w: max(worst[w], errs[w]) for w in worst}
+    rel = worst["card-f64"]
+    print(f"{name} sample, card vs CPU plain path on each of the "
+          f"{len(seen)} score evaluations of the first {PROT_PARITY_STEPS} "
+          f"steps (1 protein, {int(small['_node_mask'].sum())} residues, "
+          f"{min(n_edges)}-{max(n_edges)} live edges of {PROT_CUT_EDGES}, "
+          f"the same edges on all three): worst rel card vs float64 "
+          f"{rel[0]:.3e} ({rel[1]}), card vs float32 "
+          f"{worst['card-f32'][0]:.3e}, float32 vs float64 "
+          f"{worst['f32-f64'][0]:.3e}; the card's error over the larger "
+          f"of {TOL} and the float32 run's, at most {beyond:.3f}")
+    if len(seen) != 2 * PROT_PARITY_STEPS or beyond > 1.0:
+        fail(f"{name} sample: the card is {rel[0]:.3e} from the float64 "
+             f"plain path, beyond both {TOL} and the CPU's float32 run "
+             f"(over {len(seen)} evaluations)")
+    return cpu_model, dict(
+        nfe=nfe, launches=launches["full_conv"], s_per_batch=dt,
+        ms_per_evaluation=eval_ms, kernel_ms_per_evaluation=kernel_ms,
+        launches_per_evaluation={k: v / nfe for k, v in launches.items()
+                                 if v},
+        kernels_per_evaluation=n_kernels, families=fams,
+        busy=kernel_ms / eval_ms, peak_gib=peak, parity_rel=rel[0],
+        parity_rel_f32=worst["card-f32"][0], f32_rel=worst["f32-f64"][0],
+        s_per_1000_steps=1e3 * dt / sde.N)
+
+
+def protein_train(dev, name, cfg, model, cpu_model, gb, sde_cfg):
+    """Phase 28 for one config: ``get_step_fn`` with the config's own
+    settings (Adam lr 1e-2, grad_acc 4, clip 1.0, EMA 0.99 with
+    num_updates): 8 K1 and 8 K2 in a micro-step, an update on every 4th,
+    12 timed micro-steps, peak memory, a profile; then one micro-step's
+    loss and gradients on the cut, card against the CPU plain path, on
+    the same t, z and edge draws."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import (
+        VPSDE,
+        Noise,
+        adam,
+        get_sde_loss_fn,
+        get_step_fn,
+        init_sde_state,
+    )
+
+    n_layers = cfg["model_config"]["num_layers"]
+    grad_acc = cfg["grad_acc"]
+    sde = VPSDE(cfg["diffusion_keys"], beta_min=sde_cfg["model"]["beta_min"],
+                beta_max=sde_cfg["model"]["beta_max"],
+                N=sde_cfg["model"]["num_scales"])
+    model.train()
+    optimizer = adam(model, cfg["learning_rate"])
+    state = init_sde_state(model, Noise(dev, 5))
+    reduce_mean = sde_cfg["training"]["reduce_mean"]
+    step = get_step_fn(
+        sde, True, model=model, optimizer=optimizer, reduce_mean=reduce_mean,
+        continuous=sde_cfg["training"]["continuous"],
+        likelihood_weighting=sde_cfg["training"]["likelihood_weighting"],
+        grad_clid_norm=cfg["grad_clid_norm"], grad_acc=grad_acc,
+        ema_decay=cfg["ema_decay"],
+        ema_use_num_updates=cfg["ema_use_num_updates"])
+    for _ in range(PROT_TRAIN_WARMUP - 1):
+        state, loss, _ = step(state, gb)
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    reset_head_launches()
+    state, loss, _ = step(state, gb)
+    per_step = {k: v for k, v in {**conv_launches(),
+                                  **head_launches()}.items() if v}
+    print(f"{name} train launches in one micro-step: {per_step}")
+    if per_step != {"full_conv": n_layers, "full_conv_bwd": n_layers}:
+        fail(f"{name} train: launches {per_step}, want {n_layers} K1 and "
+             f"{n_layers} K2")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_conv_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(PROT_TRAIN_STEPS):
+        state, loss, _ = step(state, gb)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    micro_ms = 1e3 * (time.perf_counter() - t0) / PROT_TRAIN_STEPS
+    timed = conv_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).cpu()
+    applied = {int(optimizer.state[p]["step"]) for p in model.parameters()}
+    print(f"{name} train: {micro_ms:.3f} ms per micro-step of "
+          f"{PROT_BATCH} proteins, {grad_acc * micro_ms:.3f} ms per applied "
+          f"step (grad_acc {grad_acc}; host clock around synchronize, "
+          f"{PROT_TRAIN_STEPS} micro-steps); peak device memory "
+          f"{peak:.3f} GiB; Adam steps {applied}; losses {losses.tolist()}")
+    n_micro = PROT_TRAIN_WARMUP + PROT_TRAIN_STEPS
+    if applied != {n_micro // grad_acc}:
+        fail(f"{name} train: Adam stepped {applied} times in {n_micro} "
+             f"micro-steps, want {n_micro // grad_acc}")
+    if not torch.isfinite(losses).all():
+        fail(f"{name} train: non-finite loss")
+    kernel_ms, n_kernels, fams = families(
+        lambda: [step(state, gb) for _ in range(grad_acc)], grad_acc)
+    print(f"{name} train: {kernel_ms:.3f} ms of kernels in {n_kernels} "
+          f"launches per micro-step under the profiler, busy "
+          f"{kernel_ms / micro_ms:.4f}; by family {fams}")
+
+    # one micro-step's loss and gradients on the cut, card against CPU
+    small = protein_batch(cfg, synthetic_proteins(
+        1, np.random.default_rng(65), sizes=(110, 121)), 66,
+        PROT_CUT_RESIDUES + 1, PROT_CUT_EDGES, 1)
+    small = cfg["data_config"]["scaler"](small)
+    n = small.node_capacity
+    small = small.replace(_edge_rand=torch.rand(
+        n, n, generator=torch.Generator().manual_seed(67)))
+    draws = seeded_draws(68, [(1, 1)] + [(n, 3)] * len(sde.irreps),
+                         uniform_first=True)
+    loss_fn = get_sde_loss_fn(sde, True, reduce_mean=reduce_mean)
+
+    def gradients(m, d, batch=small):
+        m.zero_grad(set_to_none=True)
+        value, _ = loss_fn(m, batch.to(d), Replay(draws, d))
+        value.backward()
+        return value.item(), {
+            k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+            for k, p in m.named_parameters()}
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+
+    card_loss, card = gradients(build_model(
+        cfg["model_config"], generator=torch.Generator().manual_seed(0)),
+        dev)
+    cpu_loss, plain = gradients(cpu_model, "cpu")
+    run64 = float64_plain(cpu_model)
+    ref_loss, ref = run64(lambda m, b: gradients(m, "cpu", b), small)
+    worst, n_small = worst_gradient_rel(card, ref)
+    f32, _ = worst_gradient_rel(plain, ref)
+    vs32, _ = worst_gradient_rel(card, plain)
+    # as in phase 27: within TOL of float64, or no further from it than
+    # the CPU's float32 run, tensor by tensor
+    floor = 1e-12 * max(float(g.abs().max()) for g in ref.values())
+    beyond = max((worst_rel({k: card[k]}, {k: ref[k]})[0] / max(
+        TOL, worst_rel({k: plain[k]}, {k: ref[k]})[0]), k)
+        for k in ref if float(ref[k].abs().max()) >= floor)
+    print(f"{name} train parity (1 protein): loss card {card_loss} CPU "
+          f"float32 {cpu_loss} float64 {ref_loss}; worst gradient rel, card "
+          f"vs float64 {worst[0]:.3e} ({worst[1]}), card vs float32 "
+          f"{vs32[0]:.3e} ({vs32[1]}), float32 vs float64 {f32[0]:.3e} "
+          f"({f32[1]}), over {len(ref) - n_small} tensors ({n_small} zero "
+          f"by symmetry); the card's error over the larger of {TOL} and "
+          f"the float32 run's, at most {beyond[0]:.3f} ({beyond[1]})")
+    if abs(card_loss - ref_loss) > max(TOL * abs(ref_loss),
+                                       abs(cpu_loss - ref_loss)):
+        fail(f"{name} train parity: the loss differs")
+    if any(not torch.isfinite(g).all() for g in card.values()):
+        fail(f"{name} train parity: non-finite gradients on the card")
+    if beyond[0] > 1.0:
+        fail(f"{name} train parity: {beyond[1]} gradient {beyond[0]:.3f} "
+             f"times the larger of {TOL} and the float32 run's error")
+    return dict(launches={k: timed[k] for k in per_step},
+                micro_step_ms=micro_ms, applied_step_ms=grad_acc * micro_ms,
+                kernel_ms_per_micro_step=kernel_ms,
+                kernels_per_micro_step=n_kernels, families=fams,
+                busy=kernel_ms / micro_ms, peak_gib=peak, per_step=per_step,
+                parity_rel=worst[0], parity_rel_f32=vs32[0],
+                f32_rel=f32[0])
+
+
+def protein_phases(dev):
+    """Phases 26-28 of the module docstring (``config_diffusion_CA``, then
+    ``config_diffusion_backbone``, at full width and depth on synthetic
+    proteins); returns what K1 and K2 did on this path, by kernel record
+    name, and the path's figures by config."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+        get_config as sde_get_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import with_t
+
+    sde_cfg = sde_get_config()
+    prots = synthetic_proteins(PROT_BATCH, np.random.default_rng(60))
+    out, path = {}, {}
+    for name in PROTEIN_CONFIGS:
+        cfg = get_config(name)
+        if cfg["batch_size"] != PROT_BATCH:
+            fail(f"{name}: batch {cfg['batch_size']}, not {PROT_BATCH}")
+        mc = cfg["model_config"]
+        # no device argument: the entry point builds on the card by default
+        model = build_model(mc, generator=torch.Generator().manual_seed(0))
+        model.eval()
+        if next(model.parameters()).device.type != "cuda":
+            fail("build_model without a device did not build on the card")
+        gb = protein_batch(cfg, prots, 60, PROT_BATCH * PROT_RESIDUES + 1,
+                           cfg["data_config"]["edge_capacity"], PROT_BATCH)
+        gb = cfg["data_config"]["scaler"](gb.to(dev))
+        print(f"{name}: {sum(p.numel() for p in model.parameters())} "
+              f"parameters; {PROT_BATCH} proteins, "
+              f"{int(gb['_node_mask'].sum())} residues, N={gb.node_capacity}"
+              f" E={gb.edge_capacity}")
+        if any(getattr(m, "species_sc", None) is not None
+               for m in model.modules()):
+            fail(f"{name}: a self-connection took the species tables")
+        hot = None
+        if name == PROTEIN_CONFIGS[0]:
+            hot = protein_hot_layer(name, model, with_t(gb, torch.full(
+                (PROT_BATCH, 1), 0.5, device=dev)), dev)
+        cpu_model, sample = protein_sample(dev, name, cfg, model, gb,
+                                           sde_cfg)
+        train = protein_train(dev, name, cfg, model, cpu_model, gb, sde_cfg)
+        path[name] = dict(sample=sample, train=train)
+        if hot is not None:
+            where = dict(config=name, layer=hot["layer"], E=hot["E"],
+                         live_edges=hot["live_edges"],
+                         padded_edges=hot["padded_edges"])
+            out["full_conv"] = dict(
+                hot["K1"], launches=sample["launches"],
+                per_evaluation=sample["launches"] / sample["nfe"], **where)
+            out["full_conv_bwd"] = dict(
+                hot["K2"], launches=train["launches"]["full_conv_bwd"],
+                per_micro_step=train["per_step"]["full_conv_bwd"], **where)
+        del model, cpu_model
+        torch.cuda.empty_cache()
+    out["path"] = path
+    return out
+
+
 def main():
     import torch
 
@@ -2670,6 +3257,7 @@ def main():
     head_records, l4 = hamiltonian_phases(dev)
     diffusion = diffusion_phases(dev)
     dipole = dipole_phases(dev)
+    protein = protein_phases(dev)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -2705,6 +3293,10 @@ def main():
     for record in kernels:
         if record["name"] in dipole:
             record["dipole"] = dipole[record["name"]]
+    # K1 and K2 also carry what they did on the protein path
+    for record in kernels:
+        if record["name"] in protein:
+            record["protein"] = protein[record["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2747,6 +3339,28 @@ def dipole_only():
     print(json.dumps({"dipole": dipole_phases(torch.device("cuda"))}))
 
 
+def protein_only():
+    """``python3 chip_smoke.py --protein``: the build, then phases 26-28
+    alone; the protein records as one JSON line."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"protein": protein_phases(torch.device("cuda"))}))
+
+
 def kernel_split(fn, n=6):
     """Device ms per call of each kernel that ``fn`` launches, by name
     (``torch.profiler`` over ``n`` calls after a warm-up call)."""
@@ -2777,11 +3391,13 @@ def conv_times():
     """``python3 chip_smoke.py --conv-times``: K1 and K2 of the package in
     the current directory (run it from two checkouts in turn to compare them
     on one card), ms per call with CUDA events at ``config_energy``'s hot
-    layer (the first 128-graph batch of phase 7) and at the l = 4 hot layer
-    of a 512- and a 16-molecule batch (phases 14-16), each C entry through
+    layer (the first 128-graph batch of phase 7), at the l = 4 hot layer
+    of a 512- and a 16-molecule batch (phases 14-16) and at the diffusion
+    and dipole hot layers (phases 19 and 22), each C entry through
     ``launch_forward`` / ``launch_backward``, with each kernel's device ms
-    per call (``kernel_split``); one JSON line.  K2 gets the forward's edge
-    order where the package has one."""
+    per call (``kernel_split``) and a digest of each entry's outputs (two
+    checkouts whose kernels compute alike print the same); one JSON line.
+    K2 gets the forward's edge order where the package has one."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2789,6 +3405,7 @@ def conv_times():
     import equivariant_nn_zoo_tpu_torch as pkg
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import with_t
 
     try:
         from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
@@ -2799,17 +3416,27 @@ def conv_times():
     energy = synthetic_qm9(N_BATCHES * BATCH, np.random.default_rng(0))
     water = synthetic_h2o(N_BATCHES * max(H2O_BATCHES),
                           np.random.default_rng(20))
-    cases = (("energy", "config_energy", energy, BATCH),
-             ("l4_3072", "config_hamiltonian", water, max(H2O_BATCHES)),
-             ("l4_96", "config_hamiltonian", water, min(H2O_BATCHES)))
+    cases = (("energy", "config_energy", energy, BATCH, HOT_LAYER),
+             ("l4_3072", "config_hamiltonian", water, max(H2O_BATCHES),
+              HOT_LAYER),
+             ("l4_96", "config_hamiltonian", water, min(H2O_BATCHES),
+              HOT_LAYER),
+             ("diffusion", "config_diffusion", synthetic_diffusion_mols(
+                 DIFF_BATCH, np.random.default_rng(21)), DIFF_BATCH,
+              DIFF_HOT_LAYER),
+             ("dipole", "config_dipole", synthetic_dipole_mols(
+                 DIPOLE_BATCH, np.random.default_rng(30)), DIPOLE_BATCH,
+              DIPOLE_HOT_LAYER))
     times, models = {}, {}
-    for key, name, mols, size in cases:
+    for key, name, mols, size, layer in cases:
         if name not in models:
             models[name] = build_model(get_config(name)["model_config"], dev,
                                        torch.Generator().manual_seed(0))
         model = models[name]
         gb = make_batches(mols[:N_BATCHES * size], dev, size)[0]
-        conv = getattr(model, HOT_LAYER).conv
+        if name == "config_diffusion":
+            gb = with_t(gb, torch.full((size, 1), 0.5, device=dev))
+        conv = getattr(model, layer).conv
         fconv, seen = conv.full_conv, {}
         hook = conv.register_forward_pre_hook(
             lambda mod, args: seen.update(data=args[0]))
@@ -2842,11 +3469,13 @@ def conv_times():
 
             rec = {"K1_ms": cuda_ms(k1), "K2_ms": cuda_ms(k2), "N": N,
                    "E": int(er.shape[0]), "K1_kernels": kernel_split(k1),
-                   "K2_kernels": kernel_split(k2)}
+                   "K2_kernels": kernel_split(k2), "K1_digest": digest(k1()),
+                   "K2_digest": digest(k2())}
         times[key] = rec
         print(f"{key}: N={N} E={rec['E']} K1 {rec['K1_ms']:.4f} ms "
-              f"{rec['K1_kernels']}, K2 {rec['K2_ms']:.4f} ms "
-              f"{rec['K2_kernels']}")
+              f"{rec['K1_kernels']} digest {rec['K1_digest']}, K2 "
+              f"{rec['K2_ms']:.4f} ms {rec['K2_kernels']} digest "
+              f"{rec['K2_digest']}")
     print(json.dumps({"package": os.path.dirname(pkg.__file__),
                       "card": torch.cuda.get_device_name(0),
                       "conv_times": times}))
@@ -3779,6 +4408,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--dipole"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         dipole_only()
+    elif sys.argv[1:] == ["--protein"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        protein_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

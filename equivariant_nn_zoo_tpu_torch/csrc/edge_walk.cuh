@@ -58,6 +58,7 @@ constexpr int kGroups = 4;       // blockDim.y: paths walked per block
 constexpr int kStage = 16;       // edges staged in shared memory at a time
 constexpr int kMaxHidden = 64;
 constexpr int kMaxSh = 16;
+constexpr int kMaxRadial = 64;   // radial MLP inputs (edge_radial's width)
 constexpr int kMaxD = 9;         // components of an l <= 4 irrep
 constexpr int kPieceThreads = 256;
 
@@ -78,7 +79,7 @@ __device__ __forceinline__ float ssp(float v, float cst) {
 }
 
 // The radial MLP's hidden layers per edge, in edge order: a block takes
-// kHiddenEdges edges.  Stores the last layer's activations into h_out
+// kHiddenEdges edges and stages their R <= kMaxRadial inputs.  Stores the last layer's activations into h_out
 // [E, H], or, with keep_all, every layer's pre-activations into z_all and
 // activations into h_out, both [n_hidden, E, H].
 constexpr int kHiddenEdges = 16;
@@ -88,7 +89,7 @@ static __global__ void mlp_hidden_kernel(
     const float* __restrict__ w_hidden, int H, int n_hidden, float act_cst,
     float* __restrict__ z_all, float* __restrict__ h_out, int keep_all) {
   __shared__ float s_h[2][kHiddenEdges][kMaxHidden];
-  __shared__ float s_er[kHiddenEdges][kMaxSh];
+  __shared__ float s_er[kHiddenEdges][kMaxRadial];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int e0 = blockIdx.x * kHiddenEdges;
   const size_t EH = (size_t)E * H;

@@ -179,7 +179,8 @@ extern "C" int full_conv_fwd(
     float* out, int out_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
-  if (rows > 16 || cap < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  if (rows > 16 || R > kMaxRadial || cap < 1 || T < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (E > 0) {
     const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;

@@ -246,7 +246,7 @@ extern "C" int full_conv_bwd(
     float* dx, float* der, float* dw_hidden, int w_hidden_len,
     float* dw_out, float* dwsel, float* ws, int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (max_d1 > kMaxD || max_d3 > 16 || cap < 1 || T < 1)
+  if (max_d1 > kMaxD || max_d3 > 16 || R > kMaxRadial || cap < 1 || T < 1)
     return (int)cudaErrorInvalidValue;
   const size_t f = sizeof(float);
   cudaError_t err = cudaSuccess;

@@ -129,6 +129,13 @@ class GraphBatch:
             out[: min(len(a), rows)] = a[: min(len(a), rows)]
             return out
 
+        if "edge_index" not in batch.data:
+            # no host-side edges: empty buffers at capacity, for a model
+            # layer that builds the edges on the device
+            # (computeEdgeIndexDevice) to fill
+            data["edge_index"] = np.full((2, E), dummy, dtype=np.int64)
+            data["_n_edges"] = np.zeros((G, 1), np.int64)
+
         for key, value in batch.data.items():
             if key in ("_node_segment", "_edge_segment"):
                 continue

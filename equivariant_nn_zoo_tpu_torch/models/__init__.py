@@ -1,13 +1,16 @@
 """Named workload configs of the port (``config_energy``,
-``config_energy_force``, ``config_dipole``, ``config_hamiltonian`` and
-``config_diffusion``)
-and the function that builds a model from a seeded generator."""
+``config_energy_force``, ``config_dipole``, ``config_hamiltonian``,
+``config_diffusion``, ``config_diffusion_CA`` and
+``config_diffusion_backbone``) and the function that builds a model from a
+seeded generator."""
 
 import torch
 
 from ..utils.params import init_parameters
 from ..utils.utils import build
 from .config_diffusion import get_config as config_diffusion
+from .config_diffusion_CA import get_config as config_diffusion_CA
+from .config_diffusion_backbone import get_config as config_diffusion_backbone
 from .config_dipole import get_config as config_dipole
 from .config_energy import get_config as config_energy
 from .config_energy_force import get_config as config_energy_force
@@ -17,7 +20,9 @@ CONFIG_REGISTRY = {"config_energy": config_energy,
                    "config_energy_force": config_energy_force,
                    "config_dipole": config_dipole,
                    "config_hamiltonian": config_hamiltonian,
-                   "config_diffusion": config_diffusion}
+                   "config_diffusion": config_diffusion,
+                   "config_diffusion_CA": config_diffusion_CA,
+                   "config_diffusion_backbone": config_diffusion_backbone}
 
 
 def get_config(name: str, spec=None):

@@ -6,12 +6,16 @@ from .embedding import (
     Broadcast,
     OneHotEncoding,
     RadialBasisEncoding,
+    RelativePositionEncoding,
     SphericalEncoding,
+    symmetric_cutoff,
 )
 from .pointwise import (
     Concat,
+    LayerNormalization,
     PointwiseLinear,
     ResBlock,
+    Split,
     TensorProductExpansion,
 )
 from .scaling import PerTypeScaleShift
@@ -31,9 +35,13 @@ __all__ = [
     "Broadcast",
     "OneHotEncoding",
     "RadialBasisEncoding",
+    "RelativePositionEncoding",
     "SphericalEncoding",
+    "symmetric_cutoff",
     "PointwiseLinear",
+    "LayerNormalization",
     "Concat",
+    "Split",
     "TensorProductExpansion",
     "ResBlock",
     "PerTypeScaleShift",

@@ -1,10 +1,12 @@
 """Embedding layers: one-hot encoding (of species on nodes, of bond types
-on edges), trainable Bessel radial basis with a polynomial cutoff (of edge
-lengths, or of the diffusion time on graphs), spherical-harmonic edge
-encoding, and the broadcast of graph features to nodes or edges.
+on edges), trainable Bessel radial basis with a polynomial or symmetric
+cutoff (of edge lengths, of the diffusion time on graphs, of residue
+offsets on edges), spherical-harmonic edge encoding, the broadcast of
+graph features to nodes or edges, and the chain-aware relative-position
+encoding of the protein configs.
 
 PyTorch counterparts of the layers of
-``equivariant_nn_zoo_tpu/nn/embedding.py`` that the ported configs use.
+``equivariant_nn_zoo_tpu/nn/embedding.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from ..ops.irreps import Irreps
 from ..ops.spherical_harmonics import SphericalHarmonics
 from ..utils.params import ParamModule
+from ..utils.utils import build
 from .module import Module
 
 
@@ -30,6 +33,18 @@ def poly_cutoff(x: torch.Tensor, factor: float, p: float = 6.0):
     out = out + p * (p + 2.0) * torch.pow(x, p + 1.0)
     out = out - (p * (p + 1.0) / 2.0) * torch.pow(x, p + 2.0)
     return out * (x < 1.0)
+
+
+def symmetric_cutoff(x: torch.Tensor, factor: float, p: float = 6.0):
+    """Symmetric bump envelope ``(x - 1)^2 (x + 1)^2`` on (-1, 1), zero
+    outside (the relative-position and time embeddings); ``p`` is unused.
+    Far outside (the cross-chain sentinel) the value is 0 and the gradient
+    a finite zero."""
+    x = x * factor
+    return (x - 1) ** 2 * (x + 1) ** 2 * (torch.abs(x) < 1.0)
+
+
+_cutoffs = {"poly": poly_cutoff, "symmetric": symmetric_cutoff}
 
 
 class BesselBasis(ParamModule):
@@ -72,16 +87,20 @@ class OneHotEncoding(Module):
 
     def forward(self, data: Dict, attrs: Dict):
         types = data["input"].reshape(-1).long()
-        one_hot = F.one_hot(types, self.num_types).to(torch.float32)
+        one_hot = F.one_hot(types, self.num_types).to(
+            torch.get_default_dtype())
         return ({"one_hot": one_hot},
                 {"one_hot": (attrs["input"][0], self.irreps_out["one_hot"])})
 
 
 class RadialBasisEncoding(Module):
-    """Bessel basis times polynomial cutoff of a positive scalar."""
+    """Bessel basis times a cutoff envelope of a scalar.  ``cutoff``: a
+    name (``"poly"``, ``"symmetric"``) or a callable ``(x, factor, p)``,
+    the polynomial envelope by default."""
 
     def __init__(self, r_max, trainable, irreps_out, r_min=0,
-                 polynomial_degree=6, irreps_in="1x0e", one_over_r=True):
+                 polynomial_degree=6, cutoff=poly_cutoff, irreps_in="1x0e",
+                 one_over_r=True):
         super().__init__()
         self.init_irreps(input=irreps_in, radial_embedding=irreps_out,
                          output_keys=["radial_embedding"])
@@ -91,11 +110,12 @@ class RadialBasisEncoding(Module):
         assert polynomial_degree >= 2.0
         self.p = float(polynomial_degree)
         self.factor = 1.0 / float(r_max)
+        self.cutoff = _cutoffs[cutoff] if isinstance(cutoff, str) else cutoff
 
     def forward(self, data: Dict, attrs: Dict):
         x = data["input"]
         x1 = x[..., 0] if x.dim() == 2 else x
-        embedded = self.basis(x1) * poly_cutoff(x1, self.factor,
+        embedded = self.basis(x1) * self.cutoff(x1, self.factor,
                                                 self.p)[:, None]
         embedded = embedded.reshape(x.shape[0], -1)
         return ({"radial_embedding": embedded},
@@ -151,3 +171,35 @@ class Broadcast(Module):
         out = x[seg.clamp(0, x.shape[0] - 1)]
         return ({"output": out},
                 {"output": (self.to, self.irreps_out["output"])})
+
+
+class RelativePositionEncoding(Module):
+    """Chain-aware sequence offset on edges: ``id[src] - id[dst]`` (the
+    node indices when no ``id`` is declared) where both ends share a
+    ``segment`` (the chain), else the sentinel 1e5, which lies outside the
+    radial encoding's cutoff; then the radial encoding ``radial_encoding``
+    (a ``RadialBasisEncoding`` config node) of that offset."""
+
+    def __init__(self, radial_encoding, segment, irreps_out, id=None):
+        super().__init__()
+        self.init_irreps(input=segment, output=irreps_out, id=id,
+                         output_keys=["output"])
+        node = dict(radial_encoding)
+        node["irreps_in"] = "1x0e"
+        node["irreps_out"] = self.irreps_out["output"]
+        self.radial = build(node)
+
+    def forward(self, data: Dict, attrs: Dict):
+        segment = data["input"]
+        src, dst = data["edge_index"]
+        dtype = torch.get_default_dtype()
+        if self.irreps_in.get("id") is not None:
+            idv = data["id"]
+            rel = (idv[src] - idv[dst]).to(dtype)
+        else:
+            rel = (src - dst).to(dtype)
+        mask = (segment[src] == segment[dst]).to(dtype).reshape(-1, 1)
+        rel = mask * rel.reshape(-1, 1) + (1 - mask) * 1e5
+        out, _ = self.radial({"input": rel}, {"input": ("edge", "1x0e")})
+        return ({"output": out["radial_embedding"]},
+                {"output": ("edge", self.irreps_out["output"])})

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``equivariant_nn_zoo_tpu/nn/message_passing.py`` for
 the trunks of ``config_energy``, ``config_energy_force``,
-``config_hamiltonian`` and ``config_diffusion`` (no resnet, no layer norm)
-and the hamiltonian head's per-edge conv.  Per layer, on the first-order
+``config_hamiltonian``, ``config_diffusion`` and ``config_dipole``, the
+protein configs' trunk (with a layer norm after each layer) and the
+hamiltonian head's per-edge conv.  Per layer, on the first-order
 path:
 
     sc  = SpeciesScalarFCTP(x, node_attrs, species)      K3
@@ -60,7 +61,7 @@ from ..ops.tensor_product import Linear, fully_connected_tp
 from ..utils.utils import build
 from .mlp import FullyConnectedNet
 from .module import Module
-from .pointwise import TensorProductExpansion
+from .pointwise import LayerNormalization, TensorProductExpansion
 
 
 class FactorizedConvolution(Module):
@@ -161,7 +162,9 @@ class FactorizedConvolution(Module):
 
 class MessagePassing(Module):
     """Convolution + gate nonlinearity, with the ``tp_path_exists``
-    narrowing of scalar and gated irreps."""
+    narrowing of scalar and gated irreps; then, in this order, the residual
+    (``resnet``, where the irreps allow it) and the layer norm
+    (``normalize``)."""
 
     def __init__(self, input_features, output_features, node_attrs,
                  edge_radial, edge_spherical, convolution,
@@ -175,10 +178,9 @@ class MessagePassing(Module):
             node_attrs=node_attrs, edge_radial=edge_radial,
             edge_spherical=edge_spherical, output_keys=["output_features"],
         )
-        if nonlinearity_type != "gate" or normalize:
+        if nonlinearity_type != "gate":
             raise NotImplementedError(
-                "the port's MessagePassing supports the gate nonlinearity "
-                "without layer norm")
+                "the port's MessagePassing supports the gate nonlinearity")
         act_scalars = {1: nonlinearity_scalars["e"],
                        -1: nonlinearity_scalars["o"]}
         act_gates = {1: nonlinearity_gates["e"], -1: nonlinearity_gates["o"]}
@@ -211,12 +213,22 @@ class MessagePassing(Module):
             edge_radial=edge_radial,
             edge_spherical=edge_spherical,
         )
+        self.normalize = bool(normalize)
+        if self.normalize:
+            out = self.irreps_out["output_features"]
+            self.norm = LayerNormalization(out, out)
 
     def forward(self, data: Dict, attrs: Dict):
         conv_out, _ = self.conv(data, attrs)
         output = self.equivariant_nonlin(conv_out["output_features"])
         if self.resnet:
             output = data["input_features"] + output
+        if self.normalize:
+            normed, _ = self.norm(
+                {"input": output},
+                {"input": (attrs["input_features"][0],
+                           self.irreps_out["output_features"])})
+            output = normed["output"]
         return ({"output_features": output},
                 {"output_features": (attrs["input_features"][0],
                                      self.irreps_out["output_features"])})

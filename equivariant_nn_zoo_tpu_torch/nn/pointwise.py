@@ -1,9 +1,9 @@
-"""Pointwise equivariant layers: ``PointwiseLinear``, ``Concat``, the
+"""Pointwise equivariant layers: ``PointwiseLinear``,
+``LayerNormalization``, ``Concat``, ``Split``, the
 ``TensorProductExpansion`` the convolution and the hamiltonian head are
 built from, and ``ResBlock``.
 
-PyTorch counterparts of ``equivariant_nn_zoo_tpu/nn/pointwise.py``
-(``LayerNormalization`` and ``Split`` are not ported yet).
+PyTorch counterparts of ``equivariant_nn_zoo_tpu/nn/pointwise.py``.
 """
 
 from __future__ import annotations
@@ -35,6 +35,44 @@ class PointwiseLinear(Module):
                 {"output": (attrs["input"][0], self.irreps_out["output"])})
 
 
+class LayerNormalization(Module):
+    """Per-irrep RMS normalisation with a learned scale: each irrep slot
+    (one ``mul x ir`` entry) of each row is divided by
+    ``sqrt(|x_slot|^2 / mul + 1e-6)`` and multiplied by its own ``std``."""
+
+    def __init__(self, irreps_in, irreps_out, **kwargs):
+        super().__init__()
+        self.init_irreps(input=irreps_in, output=irreps_out,
+                         output_keys=["output"])
+        irreps = Irreps(self.irreps_in["input"])
+        if irreps != Irreps(self.irreps_out["output"]):
+            raise ValueError("LayerNormalization keeps its irreps")
+        # consecutive slots of equal (mul, dim) are normalised as one
+        # [rows, slots, mul * dim] view: (first slot, slots, mul, dim, col)
+        runs, col = [], 0
+        for i, mi in enumerate(irreps):
+            if runs and runs[-1][2:4] == [mi.mul, mi.ir.dim]:
+                runs[-1][1] += 1
+            else:
+                runs.append([i, 1, mi.mul, mi.ir.dim, col])
+            col += mi.dim
+        self.runs = [tuple(r) for r in runs]
+        self.declare("std", (len(irreps),), "ones")
+
+    def forward(self, data: Dict, attrs: Dict):
+        x = data["input"]
+        outs = []
+        for i0, slots, mul, dim, c0 in self.runs:
+            tmp = x[:, c0: c0 + slots * mul * dim].reshape(
+                x.shape[0], slots, mul * dim)
+            norm = torch.sqrt(torch.sum(tmp * tmp, dim=-1, keepdim=True)
+                              / mul + 1e-6)
+            out = tmp / norm * self.std[i0: i0 + slots][None, :, None]
+            outs.append(out.reshape(x.shape[0], -1))
+        return ({"output": torch.cat(outs, dim=-1)},
+                {"output": (attrs["input"][0], self.irreps_out["output"])})
+
+
 class Concat(Module):
     """Concatenate several features (in the order of the keyword
     arguments) and mix them with a biased ``Linear``; the output is per
@@ -54,6 +92,30 @@ class Concat(Module):
         out = self.linear(torch.cat([data[k] for k in keys], dim=1))
         return ({"output": out},
                 {"output": (attrs[keys[0]][0], self.irreps_out["output"])})
+
+
+class Split(Module):
+    """A biased ``Linear`` into the concatenation of the outputs (in the
+    order of the keyword arguments), then cut into them along the feature
+    axis; each output is per whatever the input is per."""
+
+    def __init__(self, irreps_in, **irreps_out):
+        super().__init__()
+        self.init_irreps(input=irreps_in, **irreps_out,
+                         output_keys=list(irreps_out))
+        cat = Irreps(None)
+        self.out_dims = {}
+        for key, value in self.irreps_out.items():
+            cat = cat + Irreps(value)
+            self.out_dims[key] = Irreps(value).dim
+        self.linear = Linear(self.irreps_in["input"], cat, biases=True)
+
+    def forward(self, data: Dict, attrs: Dict):
+        parts = torch.split(self.linear(data["input"]),
+                            list(self.out_dims.values()), dim=-1)
+        per = attrs["input"][0]
+        return (dict(zip(self.out_dims, parts)),
+                {key: (per, value) for key, value in self.irreps_out.items()})
 
 
 class TensorProductExpansion(Module):

@@ -36,7 +36,7 @@ from ..wigner import wigner_3j
 from . import edge_order, row_mix
 from .build import check, check_tensor, load_library
 
-MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 16, 64, 16, 9
+MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 64, 64, 16, 9
 # the walk (csrc/edge_walk.cuh): paths per block, the widest irrep K1
 # takes on either side (l = 7), fields per path of the walk table
 WALK_GROUPS, WALK_ROWS, WALK_FIELDS = 4, 16, 10

@@ -16,9 +16,11 @@ predictor's (one per key).
 
 Edge vectors and lengths are dropped from the sampler's batch: every score
 evaluation derives them from the current positions (``computeEdgeVector``
-keeps a vector it is given).  The edge list itself is the input's, which
-fits the fully-connected molecule graphs of ``config_diffusion``; the
-in-step radius graph of the protein configs is not ported yet.
+keeps a vector it is given).  The edge list is the input's for the
+fully-connected molecule graphs of ``config_diffusion``; the protein
+configs' first layer (``computeEdgeIndexDevice``) rebuilds it from the
+current CA positions in every evaluation, into the input's static edge
+buffer, on the device.
 """
 
 from __future__ import annotations

@@ -20,9 +20,11 @@ from .statistics import bincount, solver
 from .utils import (
     build,
     default_type_names,
+    getScaler,
     insertAfter,
     keyMap,
     pruneArgs,
+    replace,
 )
 
 __all__ = [
@@ -44,7 +46,9 @@ __all__ = [
     "solver",
     "build",
     "default_type_names",
+    "getScaler",
     "insertAfter",
     "keyMap",
     "pruneArgs",
+    "replace",
 ]
