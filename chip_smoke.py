@@ -27,6 +27,7 @@
     python3 chip_smoke.py --diffusion      # phases 19-21 alone
     python3 chip_smoke.py --dipole         # phases 22-25 alone
     python3 chip_smoke.py --protein        # phases 26-28 alone
+    python3 chip_smoke.py --cli            # phases 29-32 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -229,7 +230,38 @@ Phases, in order; any failure exits non-zero before the last line:
              (ms per micro-step and per applied step, peak memory, busy);
              one micro-step's loss and gradients on the cut (the same t, z
              and ``_edge_rand`` on both sides), card against the CPU plain
-             path.
+             path;
+29. cli train — the train CLI (``equivariant_nn_zoo_tpu_torch.train.run``)
+             as two ranks on the one card (``--world_size 2``, gloo, a
+             subprocess each with its own timeout; the runner is written
+             to ``chiprun_out/cli/cli_runner.py``): full-width
+             ``config_energy`` registered over in-memory synthetic QM9-like
+             molecules (rank r's from seed r), 4 training and 1 validation
+             batches of 128 a rank, 2 epochs; both ranks exit 0 with equal
+             parameters and EMA, only rank 0 writes ``best.pt`` and
+             ``trainer.pt``, and each rank launches K1, K2, K3 and K3b at
+             least ``num_layers x steps`` times (its counts set to 0 just
+             before the run); ms per step of each rank's second epoch
+             (two processes share the card);
+30. NCCL     — one process sets up a world-size-1 NCCL group; a
+             full-width ``config_energy`` ``Trainer`` stepping through DDP
+             and one without take the same 4 steps from the same seed and
+             batches: parameters and EMA equal bit for bit (in PyTorch's
+             deterministic mode, which orders its own ``index_add_``; the
+             line says whether the plain step repeats without it); then
+             ms per step of both, in turns, 6 rounds of 4 steps;
+31. cli inference — the inference CLI (``inference.main``) on rank 0's
+             ``best.pt`` over 4 batches of 128 molecules registered in
+             memory: K1 and K3 launched once per layer and batch, finite
+             energies, a 32-molecule cut against the CPU plain path on the
+             same weights at 1e-4; the HDF5 dump where ``h5py`` imports
+             (the line says whether it did);
+32. cli diffusion — the train CLI's diffusion loop on full-width
+             ``config_diffusion`` ``""`` at batch 128 over in-memory
+             molecules (``synthetic_diffusion_mols``), 4 steps with
+             snapshot sampling at 10 scales: finite losses, K1 and K2
+             launched, ``checkpoints/4.pth`` and the sample's ``.gro``
+             (``saveMol``) written; ms per step.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -3053,6 +3085,480 @@ def protein_phases(dev):
     return out
 
 
+CLI_BATCH = 128
+CLI_TRAIN_BATCHES, CLI_VAL_BATCHES = 4, 1
+CLI_DIR = os.path.join("chiprun_out", "cli")
+CLI_TIMEOUT = 420                  # seconds, each rank subprocess
+DDP_STEPS, DDP_ROUNDS = 4, 6
+
+# A rank of phases 29 and 30, as a script of its own: written into
+# CLI_DIR and run as ``python cli_runner.py <phase> <rank> <world> <port>``
+# from the repository's root; its result is the line after "CLI_RESULT".
+CLI_RUNNER = r'''
+import json, os, sys, time
+
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+
+import chip_smoke as cs
+
+phase, rank, world, port = sys.argv[1], *map(int, sys.argv[2:5])
+
+
+def train_rank():
+    return cs.cli_train_run(rank, [
+        "--world_size", str(world), "--process_id", str(rank),
+        "--master_port", str(port)])
+
+
+def nccl_rank():
+    """Phase 30: a world-size-1 NCCL group; DDP against no DDP.  A trainer
+    built under a process group steps through DDP, so the plain trainers
+    are built before the group is set up."""
+    from equivariant_nn_zoo_tpu_torch import parallel
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("config_energy")
+    mc = cfg["model_config"]
+    settings = {{k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}}
+    batches = cs.make_batches(cs.synthetic_qm9(
+        cs.DDP_STEPS * cs.CLI_BATCH, np.random.default_rng(30),
+        labels=True), dev)
+
+    def trainer():
+        return Trainer(build_model(mc, dev, torch.Generator().manual_seed(0)),
+                       **settings)
+
+    def state(tr):
+        return [p.detach().clone() for p in tr.model.parameters()] + \
+            [p.detach().clone() for p in tr.ema_model.parameters()]
+
+    def steps(tr):
+        for gb in batches:
+            tr.batch_step(gb)
+        return state(tr)
+
+    def wrapped(tr):
+        return isinstance(tr.step_module,
+                          torch.nn.parallel.DistributedDataParallel)
+
+    repeat_a, repeat_b, plain = trainer(), trainer(), trainer()
+    if parallel.init_distributed(1, 0, "127.0.0.1", port, "cuda") != dev:
+        raise SystemExit("phase 30: the group's device is not cuda:0")
+    out = dict(backend=parallel.backend())
+    ddp = trainer()
+    out["ddp_wrapped"] = wrapped(ddp) and not any(
+        wrapped(tr) for tr in (repeat_a, repeat_b, plain))
+    # without deterministic mode: does the step repeat at all?
+    a, b = steps(repeat_a), steps(repeat_b)
+    out["plain_repeats"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    del repeat_a, repeat_b
+    # the gate, with PyTorch's own index_add_ in a fixed order
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    a, b = steps(plain), steps(ddp)
+    out["equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    out["tensors"] = len(a)
+    out["max_abs_diff"] = max(float((x - y).abs().max())
+                              for x, y in zip(a, b))
+    torch.use_deterministic_algorithms(False)
+    times = {{"plain": [], "ddp": []}}
+    order = (("plain", plain), ("ddp", ddp))
+    for i in range(cs.DDP_ROUNDS):     # in turns: plain, ddp, ddp, plain
+        for name, tr in order[::-1] if i % 2 else order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(tr)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0)
+                               / cs.DDP_STEPS)
+    out["ms_per_step"] = times
+    parallel.shutdown()
+    return out
+
+
+result = dict(train=train_rank, nccl=nccl_rank)[phase]()
+print("CLI_RESULT " + json.dumps(result), flush=True)
+'''
+
+
+def cli_energy_config(seed):
+    """Full-width ``config_energy`` over in-memory synthetic QM9-like
+    molecules from ``seed``: CLI_TRAIN_BATCHES training and CLI_VAL_BATCHES
+    validation batches of CLI_BATCH, 2 epochs."""
+    from equivariant_nn_zoo_tpu_torch.data import Batch
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
+    cfg = get_config("config_energy")
+    n_train = CLI_TRAIN_BATCHES * CLI_BATCH
+    n_val = CLI_VAL_BATCHES * CLI_BATCH
+    host = Batch.from_data_list(synthetic_qm9(
+        n_train + n_val, np.random.default_rng(seed), labels=True))
+    cfg["data_config"] = dict(cfg["data_config"], path=None,
+                              data=host.data, attrs=host.attrs,
+                              preprocess=[], n_train=n_train, n_val=n_val)
+    cfg.update(batch_size=CLI_BATCH, max_epochs=2)
+    return cfg
+
+
+def cli_train_run(seed, extra):
+    """The train CLI on ``cli_energy_config(seed)`` with the flags
+    ``extra``, its files under ``CLI_DIR/rank<seed>``: the kernels'
+    launches (counts set to 0 just before), the ms per step of the second
+    epoch's training batches (synchronised at the epoch's ends), digests
+    of the parameters and EMA, the process group's backend and the files
+    written."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch import parallel, train
+    from equivariant_nn_zoo_tpu_torch.models import register_config
+    from equivariant_nn_zoo_tpu_torch.run import trainer as trainer_mod
+
+    register_config("config_energy_cli",
+                    lambda spec=None: cli_energy_config(seed))
+    seen, spans = {}, []
+    init, run_category = (parallel.init_distributed,
+                          trainer_mod.Trainer._run_category)
+
+    def init_and_record(*args, **kwargs):
+        dev = init(*args, **kwargs)
+        seen["backend"] = parallel.backend()
+        return dev
+
+    def timed(self, category, iterable, n_batches, start=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_category(self, category, iterable, n_batches, start)
+        torch.cuda.synchronize()
+        spans.append((category, n_batches, time.perf_counter() - t0))
+
+    parallel.init_distributed = init_and_record
+    trainer_mod.Trainer._run_category = timed
+    workdir = os.path.join(CLI_DIR, f"rank{seed}")
+    try:
+        reset_conv_launches()
+        trainer = train.run(["--config", "config_energy_cli", "--workdir",
+                             workdir, "--name", "energy", "--log_period",
+                             "1000", *extra])
+    finally:
+        parallel.init_distributed = init
+        trainer_mod.Trainer._run_category = run_category
+    launches = conv_launches()
+    last = [sp for sp in spans if sp[0] == "training"][-1]
+    return dict(
+        launches={k: v for k, v in launches.items() if v},
+        steps=trainer.iepoch * len(trainer.dl_train),
+        ms_per_step=1e3 * last[2] / last[1],
+        digest=digest(tuple(trainer.model.parameters())),
+        ema_digest=digest(tuple(trainer.ema_model.parameters())),
+        backend=seen.get("backend"),
+        files=sorted(os.listdir(os.path.join(workdir, "default_project",
+                                             "energy"))),
+        iepoch=trainer.iepoch, stop=trainer.stop_arg)
+
+
+def run_cli_ranks(phase, world, env=None):
+    """Start ``world`` ranks of the runner's ``phase``, each with its own
+    timeout; fail unless every rank exits 0; return their results."""
+    import socket
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    runner = os.path.join(CLI_DIR, "cli_runner.py")
+    with open(runner, "w") as f:
+        f.write(CLI_RUNNER.format(
+            root=os.path.dirname(os.path.abspath(__file__))))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, runner, phase, str(r), str(world), str(port)],
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=CLI_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"cli {phase}: a rank ran past {CLI_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        with open(os.path.join(CLI_DIR, f"{phase}_rank{r}.log"), "w") as f:
+            f.write(out)
+        if p.returncode != 0:
+            fail(f"cli {phase}: rank {r} exited {p.returncode}:\n"
+                 f"{out[-3000:]}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("CLI_RESULT ")]
+        if not lines:
+            fail(f"cli {phase}: rank {r} printed no result:\n{out[-3000:]}")
+        results.append(json.loads(lines[-1][len("CLI_RESULT "):]))
+    return results
+
+
+def cli_train_phase(n_layers):
+    """Phase 29: the train CLI at one rank in this process, then as two
+    ranks on the one card over gloo."""
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    one = cli_train_run(2, [])
+    print(f"cli train, one rank: {one['iepoch']} epochs ({one['stop']}), "
+          f"{one['steps']} steps, launches {one['launches']}, "
+          f"{one['ms_per_step']:.3f} ms per {CLI_BATCH}-graph step in epoch "
+          f"2 (loader, prefetch stream and step), files {one['files']}")
+    if one["backend"] is not None or min(one["launches"].get(k, 0) for k in (
+            "full_conv", "full_conv_bwd", "species_sc",
+            "species_sc_bwd")) < n_layers * one["steps"]:
+        fail(f"cli train, one rank: launches {one['launches']}, group "
+             f"{one['backend']}")
+    t0 = time.perf_counter()
+    res = run_cli_ranks("train", 2)
+    dt = time.perf_counter() - t0
+    for r, rec in enumerate(res):
+        print(f"cli train rank {r}: backend {rec['backend']}, "
+              f"{rec['iepoch']} epochs ({rec['stop']}), {rec['steps']} "
+              f"steps, launches {rec['launches']}, {rec['ms_per_step']:.3f} "
+              f"ms per {CLI_BATCH}-graph step in epoch 2 (two processes "
+              f"share the card, gradients all-reduced over gloo), files "
+              f"{rec['files']}")
+        for name in ("full_conv", "full_conv_bwd", "species_sc",
+                     "species_sc_bwd"):
+            want = n_layers * rec["steps"]
+            if rec["launches"].get(name, 0) < want:
+                fail(f"cli train rank {r}: {name} launched "
+                     f"{rec['launches'].get(name, 0)} times, want >= {want}")
+    print(f"cli train: both ranks in {dt:.1f} s (start-up included)")
+    if res[0]["digest"] != res[1]["digest"] or \
+            res[0]["ema_digest"] != res[1]["ema_digest"]:
+        fail(f"cli train: the ranks' parameters differ ({res[0]['digest']} "
+             f"against {res[1]['digest']})")
+    if not {"best.pt", "trainer.pt"} <= set(res[0]["files"]):
+        fail(f"cli train: rank 0 wrote {res[0]['files']}")
+    if {"best.pt", "trainer.pt", "stdout.txt"} & set(res[1]["files"]):
+        fail(f"cli train: rank 1 wrote {res[1]['files']}")
+    return one, res
+
+
+def cli_nccl_phase():
+    """Phase 30: DDP over a world-size-1 NCCL group against no DDP."""
+    rec, = run_cli_ranks("nccl", 1, env={"CUBLAS_WORKSPACE_CONFIG":
+                                         ":4096:8"})
+    times = rec["ms_per_step"]
+    print(f"cli nccl: backend {rec['backend']}; without deterministic mode "
+          f"the plain step repeats bit for bit: {rec['plain_repeats']}; "
+          f"{DDP_STEPS} steps with DDP and without, in deterministic mode: "
+          f"{rec['tensors']} tensors (parameters, EMA) equal bit for bit: "
+          f"{rec['equal']} (max |diff| {rec['max_abs_diff']:.3e}); ms per "
+          f"step without DDP {times['plain']}, with {times['ddp']}")
+    if rec["backend"] != "nccl":
+        fail(f"cli nccl: the group took {rec['backend']}, not nccl")
+    if not rec["ddp_wrapped"]:
+        fail("cli nccl: the trainer did not wrap its step in DDP")
+    if not rec["equal"]:
+        fail("cli nccl: DDP over one rank changed the parameters or EMA")
+    return rec
+
+
+def energy_inference_config(mols):
+    """Full-width ``config_energy`` on ``mols`` held in memory."""
+    from equivariant_nn_zoo_tpu_torch.data import Batch
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
+    cfg = get_config("config_energy")
+    host = Batch.from_data_list(mols)
+    cfg["data_config"] = dict(cfg["data_config"], path=None, data=host.data,
+                              attrs=host.attrs, preprocess=[])
+    cfg["batch_size"] = CLI_BATCH
+    return cfg
+
+
+def cli_inference_phase(dev, mc, n_layers):
+    """Phase 31: the inference CLI on rank 0's ``best.pt``."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch import inference
+    from equivariant_nn_zoo_tpu_torch.models import (
+        build_model,
+        register_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.utils import load_file, load_jax_params
+
+    mols = synthetic_qm9(N_BATCHES * CLI_BATCH, np.random.default_rng(31))
+    register_config("config_energy_cli_inference",
+                    lambda spec=None: energy_inference_config(mols))
+    best = os.path.join(CLI_DIR, "rank0", "default_project", "energy",
+                        "best.pt")
+    out = os.path.join(CLI_DIR, "inference.hdf5")
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    merged = inference.main([
+        "--config", "config_energy_cli_inference", "--model_path", best,
+        "--output_path", out, "--output_keys", "total_energy"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    energies = np.asarray(merged["total_energy"])
+    try:
+        import h5py  # noqa: F401
+        dumped = os.path.exists(out)
+    except ImportError:
+        dumped = False
+    print(f"cli inference: {len(merged)} molecules in {dt:.3f} s "
+          f"(dataset, loader, model and checkpoint included); launches "
+          f"{launches}; HDF5 dump written: {dumped}")
+    if len(merged) != N_BATCHES * CLI_BATCH:
+        fail(f"cli inference: {len(merged)} graphs")
+    for name in ("full_conv", "species_sc"):
+        if launches.get(name, 0) < n_layers * N_BATCHES:
+            fail(f"cli inference: {name} launched {launches.get(name, 0)}")
+    if not np.isfinite(energies).all():
+        fail("cli inference: non-finite energies")
+    cut = 32
+    cpu_model = load_jax_params(
+        build_model(mc, "cpu", torch.Generator().manual_seed(0)),
+        load_file(best, enforced_format="pickle"))
+    with torch.no_grad():
+        want = cpu_model(cut_batch(mols, cut))["total_energy"][:, 0].numpy()
+    rel = float(np.abs(energies[:cut, 0] - want).max() /
+                np.abs(want).max())
+    print(f"cli inference: {cut}-molecule cut against the CPU plain path "
+          f"on the same weights: rel {rel:.3e}")
+    if rel > TOL:
+        fail(f"cli inference: the cut disagrees with the CPU (rel {rel:.3e})")
+    return dict(molecules=len(merged), seconds=dt, launches=launches,
+                rel=rel, dumped=dumped)
+
+
+CLI_SDE = """from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+    get_config as sde_get_config,
+)
+
+
+def get_config():
+    cfg = sde_get_config()
+    cfg["training"].update(n_iters=4, snapshot_sampling=True)
+    cfg["model"]["num_scales"] = 10
+    return cfg
+"""
+
+
+def cli_diffusion_phase():
+    """Phase 32: the diffusion loop on full-width ``config_diffusion``."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch import train
+    from equivariant_nn_zoo_tpu_torch.data import Batch
+    from equivariant_nn_zoo_tpu_torch.models import (
+        get_config,
+        register_config,
+    )
+
+    mols = synthetic_diffusion_mols(3 * DIFF_BATCH,
+                                    np.random.default_rng(32))
+    host = Batch.from_data_list(mols)
+
+    def config(spec=None):
+        cfg = get_config("config_diffusion", "")
+        cfg["batch_size"] = DIFF_BATCH
+        cfg["data_config"] = dict(
+            cfg["data_config"], path=None, data=host.data, attrs=host.attrs,
+            preprocess=[], n_train=2 * DIFF_BATCH, n_val=DIFF_BATCH)
+        return cfg
+
+    register_config("config_diffusion_cli", config)
+    sde_file = os.path.join(CLI_DIR, "sde_cli.py")
+    with open(sde_file, "w") as f:
+        f.write(CLI_SDE)
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    state = train.run([
+        "--config", "config_diffusion_cli", "--sde_config", sde_file,
+        "--workdir", CLI_DIR, "--name", "diffusion", "--log_period", "1",
+        "--eval_period", "4", "--save_period", "4"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    wd = os.path.join(CLI_DIR, "default_project", "diffusion")
+    log = state["log"]
+    train_log = [e for e in log if "total" in e]
+    losses = [e["total"] for e in train_log] + \
+        [e["total_val"] for e in log if "total_val" in e]
+    ms = 1e3 * (train_log[-1]["seconds"] - train_log[0]["seconds"]) / \
+        (train_log[-1]["step"] - train_log[0]["step"])
+    gro = sorted(n for n in os.listdir(wd) if n.endswith(".gro"))
+    print(f"cli diffusion: {state['step']} steps in {dt:.3f} s (model, "
+          f"data, sampling and checkpoints included); losses {losses}; "
+          f"{ms:.3f} ms per {DIFF_BATCH}-molecule step over steps "
+          f"{train_log[0]['step'] + 1}-{train_log[-1]['step']} (a host read "
+          f"of the losses each step); launches {launches}; molecules {gro}")
+    if not all(np.isfinite(losses)):
+        fail("cli diffusion: non-finite losses")
+    for name in ("full_conv", "full_conv_bwd"):
+        if launches.get(name, 0) < 1:
+            fail(f"cli diffusion: {name} was not launched")
+    if not os.path.exists(os.path.join(wd, "checkpoints", "4.pth")):
+        fail("cli diffusion: no checkpoints/4.pth")
+    if "4.gro" not in gro:
+        fail("cli diffusion: saveMol wrote no sample")
+    return dict(steps=state["step"], seconds=dt, ms_per_step=ms,
+                losses=losses, launches=launches, molecules=gro)
+
+
+def cli_phases(dev):
+    """Phases 29-32 of the module docstring; returns their figures and what
+    K1, K2, K3 and K3b did on the CLI path, by kernel record name."""
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
+    mc = get_config("config_energy")["model_config"]
+    n_layers = mc["num_layers"]
+    seconds = [time.perf_counter()]
+    one, ranks = cli_train_phase(n_layers)
+    seconds.append(time.perf_counter())
+    nccl = cli_nccl_phase()
+    seconds.append(time.perf_counter())
+    infer = cli_inference_phase(dev, mc, n_layers)
+    seconds.append(time.perf_counter())
+    diffusion = cli_diffusion_phase()
+    seconds.append(time.perf_counter())
+    seconds = [b - a for a, b in zip(seconds, seconds[1:])]
+    print(f"cli phases 29-32: {', '.join(f'{x:.1f}' for x in seconds)} s, "
+          f"{sum(seconds):.1f} s in all")
+    out = {name: dict(train_launches_per_rank=[r["launches"].get(name, 0)
+                                               for r in ranks])
+           for name in ("full_conv", "full_conv_bwd", "species_sc",
+                        "species_sc_bwd")}
+    for name in ("full_conv", "species_sc"):
+        out[name]["inference_launches"] = infer["launches"].get(name, 0)
+    for name in ("full_conv", "full_conv_bwd"):
+        out[name]["diffusion_launches"] = diffusion["launches"].get(name, 0)
+    # the checkpoints (~270 MB) stay out of what a call brings back
+    for root, _, names in os.walk(CLI_DIR):
+        for name in names:
+            if name.endswith((".pt", ".pth")):
+                os.remove(os.path.join(root, name))
+    out["path"] = dict(
+        seconds=seconds, train_ms_per_step_one_rank=one["ms_per_step"],
+        train_ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks],
+        ddp=dict(backend=nccl["backend"], equal=nccl["equal"],
+                 ms_per_step=nccl["ms_per_step"]),
+        inference=dict(seconds=infer["seconds"], rel=infer["rel"],
+                       dumped=infer["dumped"]),
+        diffusion=dict(ms_per_step=diffusion["ms_per_step"],
+                       seconds=diffusion["seconds"]))
+    return out
+
+
 def main():
     import torch
 
@@ -3258,6 +3764,7 @@ def main():
     diffusion = diffusion_phases(dev)
     dipole = dipole_phases(dev)
     protein = protein_phases(dev)
+    cli = cli_phases(dev)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -3293,10 +3800,14 @@ def main():
     for record in kernels:
         if record["name"] in dipole:
             record["dipole"] = dipole[record["name"]]
-    # K1 and K2 also carry what they did on the protein path
+    # K1 and K2 also carry what they did on the protein path, and K1, K2,
+    # K3 and K3b what they did on the command lines' path
     for record in kernels:
         if record["name"] in protein:
             record["protein"] = protein[record["name"]]
+        if record["name"] in cli:
+            record["cli"] = cli[record["name"]]
+    print(json.dumps({"cli": cli["path"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3359,6 +3870,27 @@ def protein_only():
     print(f"build: {os.path.relpath(lib)} in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"protein": protein_phases(torch.device("cuda"))}))
+
+
+def cli_only():
+    """``python3 chip_smoke.py --cli``: the build, then phases 29-32 alone;
+    the command lines' records as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cli": cli_phases(torch.device("cuda"))}))
 
 
 def kernel_split(fn, n=6):
@@ -4411,6 +4943,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--protein"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         protein_only()
+    elif sys.argv[1:] == ["--cli"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        cli_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -12,6 +12,12 @@ epoch carry, the thread-pool preprocess with its timeout and the prefetch
 thread.  Batches are host batches (CPU tensors); with ``pin_memory`` the
 consuming thread pins them, so that a trainer copies them to the card
 asynchronously.  No thread of the loader touches the card.
+
+With ``num_shards`` N > 1 the loader is one rank's share of a loader of
+global batches of ``batch_size``: every rank shuffles alike (the same
+seed), cuts each global batch into N consecutive parts as the JAX loader
+cuts it for the devices of its mesh, and reads, preprocesses and pads
+only part ``shard_index`` (``batch_size / N`` graphs).
 """
 
 from __future__ import annotations
@@ -95,15 +101,21 @@ class DataLoader:
                  edge_capacity: int = None, drop_last: bool = True,
                  prefetch: int = 2, num_workers: int = 0,
                  worker_timeout: float = 120.0, pin_memory: bool = False,
-                 **kwargs):
+                 num_shards: int = 1, shard_index: int = 0, **kwargs):
+        if batch_size % num_shards:
+            raise ValueError(f"batch_size {batch_size} does not divide "
+                             f"into {num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.num_shards, self.shard_index = num_shards, shard_index
+        # the graphs of this shard's part of a batch
+        self.part = batch_size // num_shards
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.collater = Collater.for_dataset(dataset)
         if node_capacity is None or edge_capacity is None:
             node_capacity, edge_capacity = estimate_capacities(
-                dataset, batch_size)
+                dataset, self.part)
         self.node_capacity = node_capacity
         self.edge_capacity = edge_capacity
         self.drop_last = drop_last
@@ -133,14 +145,16 @@ class DataLoader:
     def _make_batch_items(self, items) -> GraphBatch:
         return GraphBatch.from_batch(
             self.collater(items), self.node_capacity, self.edge_capacity,
-            self.batch_size, device="cpu")
+            self.part, device="cpu")
 
     def _index_batches(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
+        first = self.shard_index * self.part
         for b in range(len(self)):
-            yield order[b * self.batch_size: (b + 1) * self.batch_size]
+            batch = order[b * self.batch_size: (b + 1) * self.batch_size]
+            yield batch[first: first + self.part]
 
     # ------------------------------------------------ parallel item pipeline
 
@@ -159,7 +173,7 @@ class DataLoader:
         import collections
 
         # chunked tasks: per-item futures drown in pool round trips
-        chunk = max(8, self.batch_size // max(1, self.num_workers))
+        chunk = max(8, self.part // max(1, self.num_workers))
         lookahead = 2 * self.num_workers + 2
         pending: collections.deque = collections.deque()
 
@@ -205,13 +219,13 @@ class DataLoader:
         _end = object()
         for _ in range(len(self)):
             # fill from the carry first so the backlog drains
-            while len(carry) < self.batch_size:
+            while len(carry) < self.part:
                 item = next(items_it, _end)
                 if item is _end:
                     break
                 carry.append(item)
-            items = carry[: self.batch_size]
-            carry = carry[self.batch_size:]
+            items = carry[: self.part]
+            carry = carry[self.part:]
             out = self._make_batch_items(items)
             if out.dropped:
                 nd = out.dropped
@@ -337,6 +351,11 @@ def getDataIters(config: dict, seed: int = 0, process_index: int = 0,
                      num_workers=data_config.get("num_workers", 0))
     train_dl = DataLoader(train_ds, shuffle=True, **dl_kwargs)
     eval_dl = DataLoader(eval_ds, shuffle=False, **dl_kwargs)
+    for name, dl in (("training", train_dl), ("validation", eval_dl)):
+        # an endless iterator over no batch would spin without yielding
+        if len(dl) == 0:
+            raise ValueError(f"the {name} split ({len(dl.dataset)} graphs) "
+                             f"holds no batch of {batch_size}")
 
     def autoReset(dataloader):
         while True:

@@ -1,8 +1,8 @@
 """Named workload configs of the port (``config_energy``,
 ``config_energy_force``, ``config_dipole``, ``config_hamiltonian``,
 ``config_diffusion``, ``config_diffusion_CA`` and
-``config_diffusion_backbone``) and the function that builds a model from a
-seeded generator."""
+``config_diffusion_backbone``), ``register_config`` for more of them, and
+the function that builds a model from a seeded generator."""
 
 import torch
 
@@ -35,6 +35,12 @@ def get_config(name: str, spec=None):
     if spec is None:
         return CONFIG_REGISTRY[name]()
     return CONFIG_REGISTRY[name](spec)
+
+
+def register_config(name: str, fn):
+    """Make ``get_config(name, spec)`` call ``fn(spec)`` (``fn()`` without a
+    spec); a name already taken is replaced."""
+    CONFIG_REGISTRY[name] = fn
 
 
 def build_model(model_config: dict, device="cuda",

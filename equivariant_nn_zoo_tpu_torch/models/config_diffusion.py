@@ -16,8 +16,12 @@ an energy (``nll``) whose negative position gradient is ``score_pos``
 The node attributes then depend on ``t`` and are no longer a species
 embedding, so the trunk is built with ``species_pure_attrs=False``: its
 self-connections stay per node, never on the per-species tables of K3.
-The reference's ``saveMol`` (molecule files of the samples) belongs to the
-save and load utilities, which are not ported yet.
+``saveMol`` writes a sampled molecule as a ``.gro`` file
+(``utils/saveload.py``); the diffusion loop of ``train.py`` calls it for
+its snapshot samples.  Spec ``"nll"`` also sets ``find_unused_parameters``
+(not in the JAX config): a loss on the energy's position gradient gives
+the energy's output bias no gradient, and DDP must be told to look for
+such parameters (``parallel/data_parallel.py``).
 """
 
 from functools import partial
@@ -30,6 +34,7 @@ from ..nn import (
     PointwiseLinear,
     RadialBasisEncoding,
 )
+from ..utils.saveload import saveMol
 from ..utils.utils import default_type_names, insertAfter
 from .layer_configs import addEnergyOutput, addForceOutput, featureModel
 
@@ -51,6 +56,7 @@ def get_config(spec=None):
     if "profiling" in spec:
         data.update(n_train=2048, n_val=256)
 
+    extra = {}
     n_dim = model["n_dim"]
     features = "+".join(f"{n_dim}x{n}e+{n_dim}x{n}o"
                         for n in range(model["l_max"] + 1))
@@ -97,6 +103,7 @@ def get_config(spec=None):
     trunk["layers"] = layers
 
     if "nll" in spec:
+        extra["find_unused_parameters"] = True
         trunk = addForceOutput(addEnergyOutput(trunk, shifts=None,
                                                output_key="nll"),
                                y="nll", gradients="score_pos")
@@ -113,5 +120,6 @@ def get_config(spec=None):
         ema_use_num_updates=True, config_spec=spec,
         optimizer_name="Adam", lr_scheduler_name="ReduceLROnPlateau",
         lr_scheduler_patience=1, lr_scheduler_factor=0.8,
-        grad_clid_norm=1.0, grad_acc=1, diffusion_keys={"pos": 3},
+        grad_clid_norm=1.0, grad_acc=1, saveMol=saveMol,
+        diffusion_keys={"pos": 3}, **extra,
     )

@@ -5,7 +5,8 @@ from .early_stopping import EarlyStopping
 from .loss import Loss, LossStat, find_loss_function
 from .lr_scheduler import SCHEDULERS
 from .metrics import Metrics, RunningStats
-from .trainer import OPTIMIZERS, Trainer
+from .trainer import OPTIMIZERS, Trainer, TrainerWandB
 
 __all__ = ["EarlyStopping", "Loss", "LossStat", "find_loss_function",
-           "SCHEDULERS", "Metrics", "RunningStats", "OPTIMIZERS", "Trainer"]
+           "SCHEDULERS", "Metrics", "RunningStats", "OPTIMIZERS", "Trainer",
+           "TrainerWandB"]

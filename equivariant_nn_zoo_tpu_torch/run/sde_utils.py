@@ -14,6 +14,13 @@ a source that replays given arrays), in a fixed order:
 The step is eager PyTorch, one launch at a time: forward, loss, backward
 (accumulated in the parameters' ``.grad``), and every ``grad_acc``-th step
 the division, the clip, the NaN/Inf skip and Adam; the EMA on every step.
+Under a process group the loss and its backward go through
+``DistributedDataParallel`` (``no_sync`` on the micro-steps that apply
+nothing), so the gradients that the clip, the skip and Adam read are the
+mean of all ranks': every rank skips a step together.  The EMA reads the
+unwrapped model.  ``sde_state_dict`` and ``load_sde_state_dict`` turn the
+training state into a checkpoint of numpy arrays under the JAX state's
+names (``params``, ``opt_state``, ``ema``, ``step``) and back.
 """
 
 from __future__ import annotations
@@ -25,7 +32,11 @@ import numpy as np
 import torch
 
 from ..data.graph_batch import GraphBatch
-from .trainer import ADAM_DEFAULTS
+from ..parallel import data_parallel as dp
+from ..parallel import mesh
+from ..utils.params import load_jax_params, params_to_jax
+from ..utils.saveload import _numpyify
+from .trainer import ADAM_DEFAULTS, _tensors
 from .trainer import ema_decay as _ema_decay
 
 
@@ -218,11 +229,53 @@ def init_sde_state(model: torch.nn.Module, noise: Noise = None) -> dict:
             "noise": noise}
 
 
+def sde_state_dict(state: dict, model: torch.nn.Module, optimizer) -> dict:
+    """The training state as a checkpoint tree of numpy arrays: the
+    parameters and the EMA's under the JAX parameter tree's names, the
+    optimizer's state, the step and the noise generator's state.  Under a
+    process group every rank calls it: ``noise_ranks`` holds each rank's
+    generator state, so that each rank resumes its own draws."""
+    out = {"params": params_to_jax(model),
+           "opt_state": _numpyify(optimizer.state_dict()),
+           "ema": {"params": params_to_jax(state["ema"]["model"]),
+                   "num_updates": state["ema"]["num_updates"]},
+           "step": state["step"]}
+    generator = getattr(state["noise"], "generator", None)
+    noise = generator.get_state().numpy() if generator is not None else None
+    ranks = dp.gather_objects(noise)
+    if noise is not None:
+        out["noise"] = noise
+    if len(ranks) > 1:
+        out["noise_ranks"] = ranks
+    return out
+
+
+def load_sde_state_dict(tree: dict, state: dict, model: torch.nn.Module,
+                        optimizer) -> dict:
+    """Restore ``sde_state_dict``'s tree into ``model``, ``optimizer`` and
+    ``state`` (from ``init_sde_state(model)``); returns ``state``."""
+    load_jax_params(model, tree["params"])
+    optimizer.load_state_dict(_tensors(tree["opt_state"]))
+    load_jax_params(state["ema"]["model"], tree["ema"]["params"])
+    state["ema"]["num_updates"] = int(tree["ema"]["num_updates"])
+    state["step"] = int(tree["step"])
+    # this rank's draws (rank 0's in a file of one rank); a rank the file
+    # does not know keeps the stream of its own seed
+    rank = mesh.rank()
+    ranks = tree.get("noise_ranks") or [tree.get("noise")]
+    noise = ranks[rank] if rank < len(ranks) else None
+    generator = getattr(state["noise"], "generator", None)
+    if generator is not None and noise is not None:
+        generator.set_state(torch.from_numpy(np.array(noise)))
+    return state
+
+
 def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
                 reduce_mean=False, continuous=True,
                 likelihood_weighting=False, grad_clid_norm=None,
                 grad_acc: int = 1, ema_decay: float = 0.999,
-                ema_use_num_updates: bool = True) -> Callable:
+                ema_use_num_updates: bool = True,
+                find_unused_parameters: bool = False) -> Callable:
     """``step_fn(state, batch) -> (state, loss, losses)``.
 
     Training: the loss's gradient is added to ``.grad``; every
@@ -233,6 +286,9 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
     EMA updates on every step.  Evaluation: the loss of the EMA model.
     ``model`` and ``optimizer`` (``adam``) are the training model and its
     optimizer; ``state`` comes from ``init_sde_state(model)``.
+    Under a process group the training step goes through DDP,
+    ``find_unused_parameters`` telling it to look for parameters that get
+    no gradient (``parallel/data_parallel.py``).
     """
     loss_fn = get_sde_loss_fn(
         sde, train, reduce_mean=reduce_mean, continuous=continuous,
@@ -249,6 +305,8 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
         return eval_step
 
     params = list(model.parameters())
+    step_module = dp.step_module(dp.LossStep(model, loss_fn),
+                                 find_unused_parameters)
 
     def apply_gradients():
         grads = []
@@ -263,6 +321,7 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
                 torch._foreach_norm(grads)))
             torch._foreach_mul_(grads, torch.clamp(
                 grad_clid_norm / (norm + 1e-12), max=1.0))
+        # the gradients after DDP's all-reduce: every rank skips together
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         # the step's one host read, once per applied step: a captured step
         # (a CUDA graph) will have to make the skip on the device
@@ -271,8 +330,11 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
         optimizer.zero_grad(set_to_none=True)
 
     def train_step(state, batch):
-        loss, losses = loss_fn(model, batch, state["noise"])
-        loss.backward()
+        # under DDP the ranks' gradients are averaged on the step that
+        # applies
+        with dp.no_sync(step_module, (state["step"] + 1) % grad_acc == 0):
+            loss, losses = step_module(batch, state["noise"])
+            loss.backward()
         state["step"] += 1
         if state["step"] % grad_acc == 0:
             apply_gradients()

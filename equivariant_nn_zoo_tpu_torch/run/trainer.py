@@ -26,8 +26,23 @@ A trainer built without ``workdir`` writes no file, and ``epoch_step``
 also takes given iterables of batches (already on the model's device):
 one pass over each, without subdivision.  The second positional argument
 is ``loss_coeffs``; every other argument is a keyword of the JAX
-trainer's signature.  Multi-device runs and logging to wandb are not
-ported yet.
+trainer's signature, but ``mesh``, whose place the process group takes.
+
+A trainer built under a process group (``parallel.init_distributed``) is
+data parallel, as the JAX trainer is over its ``mesh``: the training
+forward and ``backward`` go through ``DistributedDataParallel`` around
+the model and the loss (``no_sync`` on the first ``grad_acc - 1``
+micro-batches),
+so every rank applies the mean gradient of all ranks; ``self.model``
+stays the unwrapped module, which the EMA, the checkpoints (the JAX
+names), the equivariance test and the parameter histograms read.  Each
+epoch takes the least number of batches of any rank (``agree_min``), and
+the losses and metrics of an epoch are averaged over the ranks before
+early stopping and the scheduler read them, so every rank stops, and
+changes its rate, at the same epoch.  Only rank 0 writes checkpoints,
+``log.txt`` and the per-batch lines; ``trainer.pt`` also holds every
+rank's split and random streams, so that a resumed rank continues its
+own.  ``TrainerWandB`` also logs to wandb from rank 0.
 """
 
 from __future__ import annotations
@@ -47,6 +62,8 @@ from ..data.dataloader import DataLoader, estimate_capacities
 from ..data.dataset import CondensedDataset
 from ..ops.irreps import Irreps
 from ..ops.wigner import irreps_d
+from ..parallel import data_parallel as dp
+from ..parallel import mesh
 from ..utils.params import load_jax_params, params_to_jax
 from ..utils.saveload import (
     _numpyify,
@@ -271,14 +288,18 @@ class Trainer:
         log_period: int = 50,
         save_period: int = 1,
         watch_freq: int = 0,
+        shard_split: bool = False,
         **kwargs,
     ):
+        """``shard_split``: ``batch_size`` is the global batch, and each
+        rank's loaders load their part of it (the CLI's ``--dp``)."""
         for key in (
             "data_config workdir seed loss_coeffs metrics_components "
             "metric_key max_epochs learning_rate lr_scheduler_name "
             "optimizer_name use_ema ema_decay ema_use_num_updates "
             "batch_size train_idcs val_idcs epoch_subdivision "
-            "equivariance_test profiling log_period save_period watch_freq"
+            "equivariance_test profiling log_period save_period watch_freq "
+            "shard_split"
         ).split():
             setattr(self, key, locals()[key])
         self.max_gradient_norm = (float(max_gradient_norm)
@@ -287,6 +308,7 @@ class Trainer:
         self.grad_acc = max(1, int(grad_acc or 1))
         self.model = model
         self.device = next(model.parameters()).device
+        self.rank, self.world_size = mesh.rank(), mesh.world_size()
         self.logger = logging.getLogger(__name__)
         self.last_model_path = self.best_model_path = None
         self.trainer_save_path = None
@@ -295,11 +317,14 @@ class Trainer:
             self.last_model_path = os.path.join(workdir, "last.pt")
             self.best_model_path = os.path.join(workdir, "best.pt")
             self.trainer_save_path = os.path.join(workdir, "trainer.pt")
-            self.logger = _workdir_logger(workdir)
+            if self.rank == 0:
+                self.logger = _workdir_logger(workdir)
 
-        # random streams, all checkpointed for an exact resume
+        # random streams, all checkpointed for an exact resume; each rank's
+        # loader shuffles with its own stream, but the ranks that share
+        # global batches (shard_split) shuffle alike
         self.split_rng = np.random.default_rng(seed)
-        self.loader_rng_seed = seed
+        self.loader_rng_seed = seed + (0 if shard_split else self.rank)
 
         self.kwargs = deepcopy(kwargs)
         self.best_metrics = float("inf")
@@ -368,6 +393,10 @@ class Trainer:
             self.ema_params = list(self.ema_model.parameters())
             self.live_params = list(self.model.parameters())
 
+        # the step's forward and backward, in DDP under a process group
+        self.step_module = dp.step_module(
+            dp.LossStep(self.model, self._forward_loss))
+
     def init_metrics(self):
         if self.metrics_components is None:
             self.metrics_components = []
@@ -407,6 +436,12 @@ class Trainer:
                 torch._foreach_add_(self.ema_params, self.live_params,
                                     alpha=1.0 - d)
 
+    def _forward_loss(self, model, data):
+        """The training forward of ``LossStep``: ``(loss, contrib, out)``."""
+        out = model(data)
+        loss, contrib = self.loss(out.data, data.data)
+        return loss, contrib, out
+
     def batch_step(self, data, validation: bool = False):
         """One training step on ``data``, or with ``validation`` one
         evaluation with the EMA parameters (the live ones without EMA).
@@ -421,9 +456,12 @@ class Trainer:
         else:
             if self._acc_count == 0:
                 self.optimizer.zero_grad(set_to_none=True)
-            out = self.model(data)
-            loss, contrib = self.loss(out.data, data.data)
-            loss.backward()
+            # under DDP the ranks' gradients are averaged on the last
+            # micro-batch
+            with dp.no_sync(self.step_module,
+                            self._acc_count + 1 >= self.grad_acc):
+                loss, contrib, out = self.step_module(data)
+                loss.backward()
             self._acc_count += 1
             if self._acc_count >= self.grad_acc:
                 if self.grad_acc > 1:
@@ -566,14 +604,18 @@ class Trainer:
         self.dataset_train = dataset.index_select(self.train_idcs)
         self.dataset_val = validation_dataset.index_select(self.val_idcs)
 
-        node_cap, edge_cap = estimate_capacities(self.dataset_train,
-                                                 self.batch_size)
+        # with shard_split each rank loads its part of every global batch
+        shards = (dict(num_shards=self.world_size, shard_index=self.rank)
+                  if self.shard_split else {})
+        node_cap, edge_cap = estimate_capacities(
+            self.dataset_train, self.batch_size // self.world_size
+            if self.shard_split else self.batch_size)
         node_cap = data_config.get("node_capacity") or node_cap
         edge_cap = data_config.get("edge_capacity") or edge_cap
         dl_kwargs = dict(
             batch_size=self.batch_size, node_capacity=node_cap,
             edge_capacity=edge_cap, drop_last=True,
-            seed=self.loader_rng_seed,
+            seed=self.loader_rng_seed, **shards,
             num_workers=data_config.get("num_workers", 0),
             pin_memory=self.device.type == "cuda")
         for dl in (self.dl_train, self.dl_val):
@@ -665,8 +707,9 @@ class Trainer:
         self.n_batches = n_batches
         for self.ibatch, batch in enumerate(iterable, start):
             self.batch_step(batch, validation=validation)
-            if (self.ibatch + 1) % self.log_period == 0 or \
-                    self.ibatch + 1 == n_batches:
+            if self.rank == 0 and (
+                    (self.ibatch + 1) % self.log_period == 0
+                    or self.ibatch + 1 == n_batches):
                 self.end_of_batch_log(batch_type=category)
         self.metrics_dict[category] = self.metrics.current_result()
         self.loss_dict[category] = self.loss_stat.current_result()
@@ -699,18 +742,20 @@ class Trainer:
         loaders = {"training": self.dl_train, "validation": self.dl_val}
         iterables = {k: self._device_prefetch(iter(dl))
                      for k, dl in loaders.items()}
+        # every rank takes as many batches as the rank with the fewest
+        lengths = {k: dp.agree_min(len(dl)) for k, dl in loaders.items()}
         for idivision in range(self.epoch_subdivision):
             self.metrics_dict, self.loss_dict = {}, {}
-            for category, dl in loaders.items():
-                split_size = max(len(dl) // self.epoch_subdivision, 1)
+            for category, n in lengths.items():
+                split_size = max(n // self.epoch_subdivision, 1)
                 start = idivision * split_size
-                stop = min((idivision + 1) * split_size, len(dl))
+                stop = min((idivision + 1) * split_size, n)
                 part = (next(iterables[category], None)
                         for _ in range(start, stop))
                 part = (b for b in part if b is not None)
                 profiling = category == "training" and self.profiling
                 prof = self._start_profile() if profiling else None
-                self._run_category(category, part, len(dl), start)
+                self._run_category(category, part, n, start)
                 if prof is not None:
                     self._write_profiling_summary(prof)
             self._end_of_division()
@@ -806,26 +851,33 @@ class Trainer:
 
     def end_of_epoch_log(self):
         """Fill ``mae_dict`` (``LR``, ``epoch``, ``wall`` and
-        ``<category>_<loss or metric>``) and log one line per category."""
+        ``<category>_<loss or metric>``, each the mean over the ranks
+        under a process group, the wall time the longest) and log one line
+        per category (rank 0)."""
         lr = self.current_lr
         wall = perf_counter() - self.wall
-        self.mae_dict = dict(LR=lr, epoch=self.iepoch, wall=wall)
-        lines = {}
+        values, shown = {}, {}
         for category in ("training", "validation"):
             met, skip_keys = self.metrics.flatten_metrics(
                 self.metrics_dict[category],
                 type_names=getattr(getattr(self, "dataset_train", None),
                                    "type_names", None))
-            lines[category] = f"{self.iepoch:10d} {wall:8.3f} {lr:8.3g}"
-            for key, value in self.loss_dict[category].items():
-                lines[category] += f" {value:12.3g}"
-                self.mae_dict[f"{category}_{key}"] = value
-            for key, value in met.items():
+            shown[category] = []
+            for key, value in list(self.loss_dict[category].items()) + \
+                    list(met.items()):
+                values[f"{category}_{key}"] = value
                 if key not in skip_keys:
-                    lines[category] += f" {value:12.3g}"
-                self.mae_dict[f"{category}_{key}"] = value
-        self.logger.info("! Train      " + lines["training"])
-        self.logger.info("! Validation " + lines["validation"])
+                    shown[category].append(f"{category}_{key}")
+        values = dp.mean_over_ranks(values)
+        wall = dp.agree_max(wall)
+        self.mae_dict = dict(LR=lr, epoch=self.iepoch, wall=wall, **values)
+        if self.rank > 0:
+            return
+        for category, label in (("training", "Train     "),
+                                ("validation", "Validation")):
+            line = f"{self.iepoch:10d} {wall:8.3f} {lr:8.3g}"
+            line += "".join(f" {values[k]:12.3g}" for k in shown[category])
+            self.logger.info(f"! {label} {line}")
 
     # ------------------------------------------------------------ save/load
 
@@ -883,20 +935,23 @@ class Trainer:
     def end_of_epoch_save(self):
         """``best.pt`` (the EMA parameters) when ``metric_key`` improved;
         every ``save_period`` epochs ``trainer.pt`` and ``last.pt``, all in
-        one atomic write group."""
+        one atomic write group.  Every rank calls it (``save`` gathers the
+        ranks' streams); rank 0 alone writes."""
+        writer = self.workdir and self.rank == 0
         with atomic_write_group():
             current = self.mae_dict[self.metric_key]
             if current < self.best_metrics:
                 self.best_metrics = current
                 self.best_epoch = self.iepoch
-                if self.workdir:
+                if writer:
                     self.save_ema_model(self.best_model_path, blocking=False)
-                self.logger.info(f"! Best model {self.best_epoch:8d} "
-                                 f"{self.best_metrics:8.3f}")
+                    self.logger.info(f"! Best model {self.best_epoch:8d} "
+                                     f"{self.best_metrics:8.3f}")
             if self.workdir and self.save_period > 0 and \
                     (self.iepoch + 1) % self.save_period == 0:
                 self.save(blocking=False)
-                self.save_model(self.last_model_path, blocking=False)
+                if writer:
+                    self.save_model(self.last_model_path, blocking=False)
 
     def save_model(self, path, blocking: bool = True):
         save_file(params_to_jax(self.model), path, enforced_format="pickle",
@@ -907,11 +962,28 @@ class Trainer:
         save_file(params_to_jax(model), path, enforced_format="pickle",
                   blocking=blocking)
 
+    def _rank_state(self) -> dict:
+        """What differs between the ranks and a resume gives back to each:
+        the split of its own data and its random streams."""
+        return {"train_idcs": self.train_idcs, "val_idcs": self.val_idcs,
+                "split_rng_state": self.split_rng.bit_generator.state,
+                "loader_state": (self.dl_train.state_dict()
+                                 if self.dl_train is not None else None)}
+
     def save(self, path=None, blocking: bool = True):
+        """``trainer.pt`` (``as_dict`` and the parameters), written by rank
+        0.  Under a process group every rank calls it: each rank's split
+        and streams go into the file (``rank_states``), so that each rank
+        resumes its own."""
         path = path or self.trainer_save_path
         if path is None:
             return None
+        rank_states = dp.gather_objects(self._rank_state())
+        if self.rank > 0:
+            return None
         state = self.as_dict(state_dict=True, training_progress=True)
+        if self.world_size > 1:
+            state["state_dict"]["rank_states"] = rank_states
         state["model_params"] = params_to_jax(self.model)
         save_file(state, path, enforced_format="pickle", blocking=blocking)
         return path
@@ -939,7 +1011,8 @@ class Trainer:
         resumed, except that one stopped at ``max_epochs`` continues when
         ``overrides`` raise ``max_epochs`` past its epoch."""
         dictionary = deepcopy(dictionary)
-        state_dict = dictionary.pop("state_dict", None)
+        state_dict = dictionary.pop("state_dict", None) or {}
+        _own_rank_state(dictionary, state_dict, overrides)
         progress = dictionary.pop("progress", {})
         params = dictionary.pop("model_params", None)
         stop_arg = progress.get("stop_arg")
@@ -987,3 +1060,62 @@ class Trainer:
         model with ``utils.load_jax_params``)."""
         return load_file(os.path.join(workdir, which),
                          enforced_format="pickle")
+
+
+def _own_rank_state(dictionary: dict, state_dict: dict, overrides: dict):
+    """Give this rank its own split and streams in a ``trainer.pt``'s
+    ``dictionary`` and ``state_dict``, in place: from ``rank_states`` where
+    the file has this rank's; a rank > 0 that the file does not know (a
+    file of fewer ranks) splits its own data and starts its streams from
+    the seed, unless the ranks share each global batch (``shard_split``),
+    where rank 0's state is every rank's."""
+    rank = mesh.rank()
+    rank_states = state_dict.pop("rank_states", None) or []
+    if rank < len(rank_states):
+        own = rank_states[rank]
+        dictionary.update(train_idcs=own["train_idcs"],
+                          val_idcs=own["val_idcs"])
+        state_dict.update(split_rng_state=own["split_rng_state"],
+                          loader_state=own["loader_state"])
+    elif rank > 0 and not overrides.get(
+            "shard_split", dictionary.get("shard_split", False)):
+        dictionary.update(train_idcs=None, val_idcs=None)
+        state_dict.pop("split_rng_state", None)
+        state_dict.pop("loader_state", None)
+
+
+class TrainerWandB(Trainer):
+    """``Trainer`` that also logs to wandb from rank 0, when a wandb run is
+    open: the number of weights once, ``mae_dict`` every epoch, and every
+    ``watch_freq`` training steps the parameter and gradient histograms
+    and norms of ``watch_stats``.  ``wandb`` is imported inside the methods
+    alone; without it they log nothing."""
+
+    @staticmethod
+    def _run():
+        try:
+            import wandb
+        except ImportError:
+            return None
+        return wandb if wandb.run is not None else None
+
+    def init_objects(self):
+        super().init_objects()
+        wandb = self._run() if self.rank == 0 else None
+        if wandb is not None:
+            wandb.log({"num_weights": self.num_weights})
+
+    def end_of_epoch_log(self):
+        super().end_of_epoch_log()
+        wandb = self._run() if self.rank == 0 else None
+        if wandb is not None:
+            wandb.log(self.mae_dict)
+
+    def watch_log(self, grads):
+        super().watch_log(grads)
+        wandb = self._run() if self.rank == 0 else None
+        if wandb is None:
+            return
+        wandb.log({k: wandb.Histogram(np_histogram=v)
+                   if isinstance(v, tuple) else v
+                   for k, v in self.watch_dict.items()})

@@ -1,5 +1,5 @@
 """Reflection build, kwarg pruning, key mapping, layer-list insertion and
-replacement, the diffusion configs' scalers, type names.
+replacement, the diffusion configs' scalers, parameter counts, type names.
 
 PyTorch-package copy of the framework-neutral helpers in
 ``equivariant_nn_zoo_tpu/utils/utils.py``; configs here are plain dicts.
@@ -139,6 +139,19 @@ def _device_scale(batch, operations):
         else:
             raise ValueError(f"unknown scaler op {op[0]!r}")
     return batch.replace(**updates)
+
+
+
+def countParameters(params) -> int:
+    """Total number of parameters of a module, or of a tree (dicts, lists
+    and tuples) of tensors or arrays such as the JAX parameter tree."""
+    if hasattr(params, "parameters"):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(countParameters(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(countParameters(v) for v in params)
+    return int(np.prod(np.shape(params)))
 
 
 ATOMIC_SYMBOLS = [
