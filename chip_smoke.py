@@ -28,6 +28,7 @@
     python3 chip_smoke.py --dipole         # phases 22-25 alone
     python3 chip_smoke.py --protein        # phases 26-28 alone
     python3 chip_smoke.py --cli            # phases 29-32 alone
+    python3 chip_smoke.py --md             # phases 33-37 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -262,6 +263,34 @@ Phases, in order; any failure exits non-zero before the last line:
              snapshot sampling at 10 scales: finite losses, K1 and K2
              launched, ``checkpoints/4.pth`` and the sample's ``.gro``
              (``saveMol``) written; ms per step.
+33. K2 with dsh — K2's sh cotangent mode (``launch_backward(...,
+             dsh=True)``) against ``plain_backward(..., dsh=True)`` at
+             ``config_energy``'s hot layer (batch 128) and at the MD
+             system's: dx, d edge_radial, the weight gradients and dsh at
+             1e-4, every output repeated bit for bit, times with and
+             without dsh;
+34. calculator — ``examples.calculator.E3Calculator`` on full-width
+             ``config_energy`` (K1, K3; K2 with dsh, K3b) and
+             ``config_energy_force`` (K4f, K4b) for the example's 12-atom
+             molecule: energy and forces against the CPU plain path at
+             1e-4, and the finite-difference line;
+35. MD     — ``examples.md_dynamics.run_md`` on 216 waters (648 atoms,
+             18.6 A cube, from the seed) under full-width
+             ``config_energy`` (node capacity 1,024, edge capacity
+             32,768; a step whose radius graph has more pairs raises):
+             ``MD_PARITY_STEPS`` steps against the CPU plain path at 1e-4
+             on positions, energies and forces, then ``MD_STEPS`` steps at
+             0.2 fs and 300 K: ms per step, launches per step, kernel ms
+             and busy share from a profiled stretch
+             (``chiprun_out/md_step_profile.txt``), peak memory, and the
+             drift ratio, which must stay under 0.2;
+36. constrained SDE — ``examples.constrained_sde.sample`` on full-width
+             ``config_diffusion``: the first 10 steps on replayed noise
+             against the CPU plain path at 1e-4, then the whole N = 100
+             run; the final distance and the finite check;
+37. entry  — ``entry.entry()`` on the card against the CPU plain path at
+             1e-4, and ``entry.dryrun_multichip(2)``: two ranks sharing
+             the card (gloo), the DDP step against one process's step.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -739,8 +768,7 @@ def worst_gradient_rel(got, want):
 # kernel families of a profile, first match wins: (label, regex on the name)
 PROFILE_FAMILIES = (
     ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
-    ("K4 walks (ext_dst_walk_kernel, ext_src_walk_kernel, "
-     "ext_chunk_sum_kernel)", "ext_"),
+    ("K4 walks (ext_dst_walk_kernel, ext_src_walk_kernel)", "ext_"),
     ("K5 and K5m fused (pairwise_fwd_kernel, pairwise_dws_kernel, "
      "pairwise_chunk_sum_kernel)", r"pairwise_(fwd|dws|chunk_sum)_kernel"),
     ("a parent's K5 CG sweep (pairwise_cg_kernel; its mix and dwsel are "
@@ -752,8 +780,8 @@ PROFILE_FAMILIES = (
      "too)", r"rowmix::"),
     ("Adam (profiler range)", r"Optimizer\.step"),
     ("K1 edge walk (k1_walk_kernel)", "k1_walk_kernel"),
-    ("the walks' radial hidden layers (K1/K2), piece sums, dx sums",
-     "mlp_hidden_kernel|walk_piece_sum_kernel|walk_dx_kernel"),
+    ("the walks' radial hidden layers (K1/K2), piece, dx and dsh chunk "
+     "sums", "mlp_hidden_kernel|walk_(piece|chunk)_sum_kernel|walk_dx_kernel"),
     ("K5 adjoint sweep (pairwise_adj_kernel, pairwise_da_sum_kernel)",
      "pairwise_"),
     ("K6 and K6b (uvu_fwd_kernel, uvu_dws_kernel, uvu_adj_kernel, their "
@@ -1861,6 +1889,7 @@ def conv_launches():
 
     return {"full_conv": FullConv.launches,
             "full_conv_bwd": FullConv.backward_launches,
+            "full_conv_bwd_dsh": FullConv.dsh_launches,
             "species_sc": SpeciesScalarFCTP.launches,
             "species_sc_bwd": SpeciesScalarFCTP.backward_launches,
             **ext_launches()}
@@ -1873,6 +1902,7 @@ def reset_conv_launches():
     )
 
     FullConv.launches = FullConv.backward_launches = 0
+    FullConv.dsh_launches = 0
     SpeciesScalarFCTP.launches = SpeciesScalarFCTP.backward_launches = 0
     reset_ext_launches()
 
@@ -2179,19 +2209,12 @@ def trunk_checks(model, gb, dev, layer, tag, mix=False):
     costs, and the GEMM's two records (or None)."""
     import torch
 
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
     from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
 
     conv = getattr(model, layer).conv
-    seen = {}
-    hook = conv.register_forward_pre_hook(
-        lambda mod, args: seen.update(data=args[0]))
-    with torch.no_grad():
-        model(gb)
-    hook.remove()
-    data = {k: v.detach() for k, v in seen["data"].items()}
+    data = conv_inputs(conv, lambda: model(gb))
     fconv, ssc = conv.full_conv, conv.species_sc
     print(f"{tag} hot layer {layer}: N={gb.node_capacity} "
           f"E={gb.edge_capacity} in={fconv.fused.irreps_in} "
@@ -2219,15 +2242,8 @@ def trunk_checks(model, gb, dev, layer, tag, mix=False):
     repeats(f"K3 species_sc ({tag})", lambda: sc_ops.launch_forward(
         ssc, x_in, spec, tables, order=sorder))
 
-    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
-                                                   pre)]
-    with torch.no_grad():
-        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
-                                             x1.shape[0])
-    gout = torch.randn(x1.shape[0], fconv.out_dim,
-                       generator=torch.Generator().manual_seed(1)).to(dev)
-    order = edge_order.shared(*edges[1:], x1.shape[0])
-    k2_args = (x1, er, *edges, *flat, x1.shape[0], scratch, gout)
+    _, _, _, flat, k2_args, order = k2_operands(conv, data, dev)
+    scratch, gout = k2_args[-2:]
     rec["K2"] = compare_grads(
         f"K2 full_conv_bwd ({tag})",
         lambda: conv_ops.launch_backward(fconv, *k2_args, order=order),
@@ -3559,6 +3575,397 @@ def cli_phases(dev):
     return out
 
 
+# ------------------------------------------------------------ phases 33-37
+MD_SIDE, MD_BOX = 6, 18.6         # 6^3 = 216 waters in an 18.6 A cube
+MD_NODE_CAP, MD_EDGE_CAP = 1024, 32768
+MD_STEPS, MD_DT_FS, MD_T = 200, 0.2, 300.0
+# MD steps held to the CPU plain path: a CPU force evaluation at 648
+# atoms takes ~12 s on the H100 host (10 steps took 146.9 s)
+MD_PARITY_STEPS = 3
+MD_PROFILE_STEPS = 5
+MD_SEED = 0
+SDE_PARITY_STEPS = 10             # constrained-SDE steps held to the CPU
+
+
+def water_cluster(rng, side=MD_SIDE, box=MD_BOX):
+    """``side``^3 waters (O-H 0.9572 A, H-O-H 104.52 degrees) on a cubic
+    grid of the box, each oxygen jittered by 0.1 A and each molecule turned
+    at random: ``(Z [n], pos [n, 3])``, O then its two H."""
+    from equivariant_nn_zoo_tpu_torch.ops import rand_matrix
+
+    half = np.deg2rad(104.52) / 2
+    hs = 0.9572 * np.array([[np.sin(half), 0.0, np.cos(half)],
+                            [-np.sin(half), 0.0, np.cos(half)]])
+    spacing = box / side
+    Z, pos = [], []
+    for cell in np.ndindex(side, side, side):
+        o = (np.asarray(cell) + 0.5) * spacing + 0.1 * rng.normal(size=3)
+        turned = hs @ rand_matrix(rng).T
+        Z += [8, 1, 1]
+        pos += [o, o + turned[0], o + turned[1]]
+    return np.asarray(Z), np.asarray(pos)
+
+
+def conv_inputs(conv, run):
+    """The inputs of ``conv`` (a ``FactorizedConvolution``) in ``run()``,
+    detached."""
+    import torch
+
+    seen = {}
+    hook = conv.register_forward_pre_hook(
+        lambda mod, args: seen.update(data=args[0]))
+    with torch.no_grad():
+        run()
+    hook.remove()
+    return {k: v.detach() for k, v in seen["data"].items()}
+
+
+def k2_operands(conv, data, dev):
+    """K2's operands at one layer's inputs ``data`` (``conv_inputs``), on
+    the main path's edge order: ``(x1, er, edges, flat, args, order)``,
+    ``args`` = (x1, er, *edges, *flat, N, scratch, gout) with K1's scratch
+    and a seeded cotangent."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+
+    fconv = conv.full_conv
+    with torch.no_grad():
+        x1 = conv.linear_1(data["input_features"])
+        er = data["edge_radial"] * data["_edge_mask"]
+    edges = (data["edge_spherical"], data["edge_index"][0],
+             data["edge_index"][1])
+    N = x1.shape[0]
+    pre = 1.0 / conv.avg_num_neighbors ** 0.5
+    flat = [t.detach() for t in fconv.flat_weights(conv.fc, conv.tp.linear,
+                                                   pre)]
+    with torch.no_grad():
+        _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat, N)
+    gout = torch.randn(N, fconv.out_dim,
+                       generator=torch.Generator().manual_seed(1)).to(dev)
+    order = edge_order.shared(*edges[1:], N)
+    return x1, er, edges, flat, (x1, er, *edges, *flat, N, scratch,
+                                 gout), order
+
+
+def dsh_check(conv, data, dev, tag):
+    """Phase 33 at one layer: K2 with the sh cotangent against
+    ``plain_backward(..., dsh=True)`` on K1's scratch and a seeded
+    cotangent, every output repeated bit for bit, K2 without it timed
+    beside; returns the record and its (operations, bytes): K2's and one
+    more CG product per edge, path and channel, dsh written."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+
+    fconv = conv.full_conv
+    x1, er, edges, flat, args, order = k2_operands(conv, data, dev)
+    N, E = x1.shape[0], er.shape[0]
+    print(f"K2 with dsh ({tag}): N={N} E={E} in={fconv.fused.irreps_in} "
+          f"paths={fconv.n_paths} J={fconv.fused.J_dim}")
+    rec = compare_grads(
+        f"K2 with dsh ({tag})",
+        lambda: conv_ops.launch_backward(fconv, *args, order=order,
+                                         dsh=True),
+        lambda: fconv.plain_backward(*args, dsh=True),
+        ("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel", "dsh"))
+    repeats(f"K2 with dsh ({tag})", lambda: conv_ops.launch_backward(
+        fconv, *args, order=order, dsh=True))
+    without = cuda_ms(lambda: conv_ops.launch_backward(fconv, *args,
+                                                       order=order))
+    print(f"K2 ({tag}): {rec['ms']:.4f} ms with dsh, {without:.4f} ms "
+          f"without")
+    flops, n_bytes = conv_costs(conv, x1, er, edges, flat)["K2"]
+    cg = conv_counts(fconv, N, E)["cg"]
+    return (dict(rec, without_dsh_ms=without, N=N, E=E),
+            (flops + cg, n_bytes + E * fconv.fused.J_dim * 4))
+
+
+def calculator_phase(dev):
+    """Phase 34: the calculator's energy and forces on the card against
+    the CPU plain path, for ``config_energy`` and
+    ``config_energy_force``; launches by kernel."""
+    from equivariant_nn_zoo_tpu_torch.examples.calculator import (
+        E3Calculator,
+        finite_difference_check,
+    )
+
+    out = {}
+    for name in ("config_energy", "config_energy_force"):
+        card, cpu = (E3Calculator.from_config(
+            name, device=d, node_capacity=64, edge_capacity=1024)
+            for d in (dev, "cpu"))
+        reset_conv_launches()
+        reset_ext_launches()
+        print(f"calculator ({name}), on the card:")
+        e, f, fd = finite_difference_check(card)
+        launches = {k: v for k, v in conv_launches().items() if v}
+        e_cpu, f_cpu, _ = finite_difference_check(cpu, log=None)
+        rel_e = abs(e - e_cpu) / abs(e_cpu)
+        rel_f = float(np.abs(f - f_cpu).max() / np.abs(f_cpu).max())
+        print(f"calculator ({name}): card vs CPU plain path: energy rel "
+              f"{rel_e:.3e}, forces rel {rel_f:.3e} (max|F| "
+              f"{np.abs(f_cpu).max():.3e}); launches in 3 evaluations "
+              f"{launches}")
+        if not (rel_e <= TOL and rel_f <= TOL):
+            fail(f"calculator ({name}): the card and the CPU plain path "
+                 f"disagree")
+        out[name] = dict(energy_rel=rel_e, forces_rel=rel_f,
+                         force00=float(f[0, 0]), finite_difference=fd,
+                         launches=launches)
+    if not out["config_energy"]["launches"].get("full_conv_bwd_dsh"):
+        fail("calculator: K2 did not run with dsh")
+    if not out["config_energy_force"]["launches"].get("full_conv_ext_bwd"):
+        fail("calculator: K4b did not run on the force model")
+    return out
+
+
+def md_phase(dev, calc, Z, pos):
+    """Phase 35: the MD's first steps against the CPU plain path, then the
+    timed run."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.data import radius_graph_fixed
+    from equivariant_nn_zoo_tpu_torch.examples.calculator import E3Calculator
+    from equivariant_nn_zoo_tpu_torch.examples.md_dynamics import (
+        drift_ratio,
+        run_md,
+    )
+    padded = calc.padded(Z, pos)
+    n_pairs = int(radius_graph_fixed(padded[0], padded[3], padded[2], 1,
+                                     calc.r_max, MD_NODE_CAP - 1)[3])
+    print(f"MD system: {len(Z)} atoms ({len(Z) // 3} waters) in a "
+          f"{MD_BOX} A cube, {n_pairs} pairs within {calc.r_max} A, edge "
+          f"capacity {MD_EDGE_CAP}")
+    # the CPU plain path walks only the slots it needs: its time grows
+    # with the edge capacity, and padded slots add nothing
+    cpu = E3Calculator.from_config("config_energy", device="cpu",
+                                   node_capacity=MD_NODE_CAP,
+                                   edge_capacity=n_pairs + 1024)
+    t0 = time.perf_counter()
+    got = run_md(calc, Z, pos, dt_fs=MD_DT_FS, n_steps=MD_PARITY_STEPS,
+                 T=MD_T, seed=MD_SEED, steps_per_block=1, log=None)
+    t1 = time.perf_counter()
+    want = run_md(cpu, Z, pos, dt_fs=MD_DT_FS, n_steps=MD_PARITY_STEPS,
+                  T=MD_T, seed=MD_SEED, steps_per_block=1, log=None)
+    t2 = time.perf_counter()
+    f_card = calc.compute(Z, got[0])[1]
+    f_cpu = cpu.compute(Z, got[0])[1]
+    rel_pos = float(np.abs(got[0] - want[0]).max()
+                    / np.abs(want[0]).max())
+    rel_e = float(np.abs(got[1] - want[1]).max() / np.abs(want[1]).max())
+    rel_f = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    print(f"MD parity, {MD_PARITY_STEPS} steps: positions rel "
+          f"{rel_pos:.3e}, energies rel {rel_e:.3e}, forces at the card's "
+          f"last positions rel {rel_f:.3e} (max|F| {np.abs(f_cpu).max():.3e} "
+          f"eV/A); card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
+    if max(rel_pos, rel_e, rel_f) > TOL:
+        fail("MD: the card and the CPU plain path disagree")
+    del cpu
+
+    reset_conv_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, e_traj = run_md(calc, Z, pos, dt_fs=MD_DT_FS, n_steps=MD_STEPS,
+                       T=MD_T, seed=MD_SEED, steps_per_block=10)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    evals = MD_STEPS + 1
+    launches = conv_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ratio = float(drift_ratio(e_traj))
+    ms = 1e3 * dt / evals
+    print(f"MD: {MD_STEPS} steps at {MD_DT_FS} fs, {MD_T} K in {dt:.3f} s: "
+          f"{ms:.3f} ms a step (host clock around synchronize, "
+          f"{evals} force evaluations); launches {launches} "
+          f"({launches['full_conv_bwd_dsh'] / evals:.2f} K2 with dsh a step); "
+          f"peak {peak:.3f} GiB; drift ratio {ratio:.5f}")
+    if not np.isfinite(e_traj).all():
+        fail("MD: non-finite energies")
+    if ratio >= 0.2:
+        fail(f"MD: NVE drift ratio {ratio:.4f} >= 0.2")
+    kernel_ms = profile_kernels(
+        "MD steps", lambda: run_md(calc, Z, pos, dt_fs=MD_DT_FS,
+                                   n_steps=MD_PROFILE_STEPS - 1, T=MD_T,
+                                   seed=MD_SEED, steps_per_block=1,
+                                   log=None),
+        MD_PROFILE_STEPS, "md_step_profile.txt")
+    print(f"MD: {kernel_ms:.3f} ms of kernels a step under the profiler: "
+          f"device busy share {kernel_ms / ms:.4f}")
+    return dict(ms_per_step=ms, kernel_ms=kernel_ms, busy=kernel_ms / ms,
+                launches=launches, evaluations=evals, peak_gib=peak,
+                drift_ratio=ratio, pairs=n_pairs, parity=dict(
+                    steps=MD_PARITY_STEPS, positions_rel=rel_pos,
+                    energies_rel=rel_e, forces_rel=rel_f,
+                    cpu_seconds=t2 - t1))
+
+
+class ReplayNoise:
+    """Given normal draws (numpy), handed out in order as tensors on
+    ``device``: the constrained SDE's noise on both devices."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device = list(draws), device
+
+    def normal(self, shape):
+        import torch
+
+        a = self.draws.pop(0)
+        if a.shape != tuple(shape):
+            fail(f"replayed noise: shape {a.shape}, want {tuple(shape)}")
+        return torch.from_numpy(a).to(self.device)
+
+
+def constrained_sde_phase(dev):
+    """Phase 36: the example's first ``SDE_PARITY_STEPS`` steps on replayed
+    noise against the CPU plain path, then the whole run."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.examples import constrained_sde as cs
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import VPSDE, Noise
+
+    cfg = get_config("config_diffusion")
+    sde = VPSDE(dict(cfg["diffusion_keys"]), N=100)
+    models = {d: build_model(cfg["model_config"], d).eval()
+              for d in (dev, "cpu")}
+    rng = np.random.default_rng(MD_SEED)
+    draws = [rng.normal(size=(16, 3)).astype(np.float32)
+             for _ in range(SDE_PARITY_STEPS + 1)]
+    got, want = (cs.sample(models[d], sde, cs.system(d), ReplayNoise(
+        draws, d), steps=SDE_PARITY_STEPS)["pos"].cpu().numpy()
+        for d in (dev, "cpu"))
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"constrained SDE: {SDE_PARITY_STEPS} steps on replayed noise, "
+          f"card vs CPU plain path: positions rel {rel:.3e}")
+    if rel > TOL:
+        fail("constrained SDE: the card and the CPU plain path disagree")
+    reset_conv_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = cs.sample(models[dev], sde, cs.system(dev), Noise(dev, 2))
+    pos = batch["pos"].cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    final = float(np.linalg.norm(pos[0] - pos[1]))
+    finite = bool(np.isfinite(pos[:8]).all())
+    print(f"constrained SDE: {sde.N} steps in {dt:.3f} s "
+          f"({1e3 * dt / sde.N:.3f} ms a step); constrained distance "
+          f"{final:.3f} (target {cs.TARGET_DIST}); finite: {finite}; "
+          f"launches {launches}")
+    if not finite:
+        fail("constrained SDE: non-finite positions")
+    if launches.get("full_conv", 0) < sde.N:
+        fail("constrained SDE: K1 was not launched in every step")
+    return dict(parity_rel=rel, seconds=dt, distance=final,
+                launches=launches)
+
+
+def entry_phase(dev):
+    """Phase 37: ``entry()`` on the card against the CPU plain path, then
+    ``dryrun_multichip(2)`` with two ranks sharing the card."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch import entry
+
+    outs = []
+    for d in (dev, "cpu"):
+        fn, args = entry.entry(d)
+        with torch.no_grad():
+            outs.append(fn(*args).cpu().numpy())
+    rel = float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max())
+    print(f"entry: forward {outs[0].shape}, card vs CPU plain path rel "
+          f"{rel:.3e}")
+    if rel > TOL or not np.isfinite(outs[0]).all():
+        fail("entry: the card and the CPU plain path disagree")
+    t0 = time.perf_counter()
+    loss = entry.dryrun_multichip(2)
+    dt = time.perf_counter() - t0
+    print(f"entry: dryrun_multichip(2) in {dt:.1f} s, loss {loss}")
+    return dict(rel=rel, dryrun_seconds=dt, dryrun_loss=loss)
+
+
+def md_phases(dev):
+    """Phases 33-37 of the module docstring; returns their figures and the
+    kernel record of K2's dsh mode (launches: the MD run's)."""
+    from equivariant_nn_zoo_tpu_torch.examples.calculator import (
+        ATTRS,
+        E3Calculator,
+    )
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+
+    seconds = [time.perf_counter()]
+    mc = get_config("config_energy")["model_config"]
+    model = build_model(mc, dev).eval()
+    mols = synthetic_qm9(BATCH, np.random.default_rng(0))
+    gb = make_batches(mols, dev, BATCH)[0]
+    conv = getattr(model, HOT_LAYER).conv
+    hot, costs = dsh_check(conv, conv_inputs(conv, lambda: model(gb)), dev,
+                           f"energy {HOT_LAYER}, batch {BATCH}")
+    del model, gb
+    Z, pos = water_cluster(np.random.default_rng(MD_SEED))
+    calc = E3Calculator.from_config("config_energy", device=dev,
+                                    node_capacity=MD_NODE_CAP,
+                                    edge_capacity=MD_EDGE_CAP)
+    md_conv = getattr(calc.model, HOT_LAYER).conv
+
+    def md_forward():
+        calc.model(calc.graph(*calc.padded(Z, pos)), dict(ATTRS))
+
+    at_md, _ = dsh_check(md_conv, conv_inputs(md_conv, md_forward), dev,
+                         f"MD {HOT_LAYER}, {len(Z)} atoms")
+    seconds.append(time.perf_counter())
+    calc_rec = calculator_phase(dev)
+    seconds.append(time.perf_counter())
+    md = md_phase(dev, calc, Z, pos)
+    seconds.append(time.perf_counter())
+    sde = constrained_sde_phase(dev)
+    seconds.append(time.perf_counter())
+    ent = entry_phase(dev)
+    seconds.append(time.perf_counter())
+    seconds = [b - a for a, b in zip(seconds, seconds[1:])]
+    print(f"phases 33-37: {', '.join(f'{x:.1f}' for x in seconds)} s, "
+          f"{sum(seconds):.1f} s in all")
+    record = kernel_record("full_conv_bwd_dsh", "full_conv_bwd.cu",
+                           "fused_conv.py:1051",
+                           md["launches"]["full_conv_bwd_dsh"], hot, *costs)
+    record.update(without_dsh_ms=hot["without_dsh_ms"], md=dict(
+        ms=at_md["ms"], plain_ms=at_md["plain_ms"],
+        without_dsh_ms=at_md["without_dsh_ms"],
+        max_abs_err=at_md["max_abs_err"], N=at_md["N"], E=at_md["E"],
+        launches_per_step=md["launches"]["full_conv_bwd_dsh"]
+        / md["evaluations"]))
+    return record, dict(seconds=seconds, calculator=calc_rec, md=md,
+                        constrained_sde=sde, entry=ent)
+
+
+def md_only():
+    """``python3 chip_smoke.py --md``: the build, then phases 33-37 alone;
+    K2's dsh record and the phases' figures as JSON lines."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib, log = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "k2_walk" in line or "spill" in line:
+            print("  " + line.strip())
+    record, figures = md_phases(torch.device("cuda"))
+    print(json.dumps({"md": figures}))
+    print(json.dumps({"kernels": [record]}))
+
+
 def main():
     import torch
 
@@ -3765,6 +4172,7 @@ def main():
     dipole = dipole_phases(dev)
     protein = protein_phases(dev)
     cli = cli_phases(dev)
+    dsh_record, md = md_phases(dev)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -3780,6 +4188,7 @@ def main():
                            train_launches["full_conv_bwd"], k2,
                            *costs["K2"]),
              hamiltonian=l4["full_conv_bwd"]),
+        dsh_record,
         dict(kernel_record("species_sc_bwd", "species_sc.cu", "sc.py:208",
                            train_launches["species_sc_bwd"], k3b,
                            *costs["K3b"]),
@@ -3808,6 +4217,7 @@ def main():
         if record["name"] in cli:
             record["cli"] = cli[record["name"]]
     print(json.dumps({"cli": cli["path"]}))
+    print(json.dumps({"md": md}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4786,7 +5196,7 @@ WALK_PARTS = {
     "per-edge products": {"full_conv.cu": [(*WALK_EDGES, 1)],
                           "full_conv_bwd.cu": [(*WALK_EDGES, 1)],
                           "full_conv_ext.cu": [(*WALK_EDGES, 2)]},
-    "dsh lane sums": {"full_conv_ext.cu": [
+    "dsh lane sums": {"edge_walk.cuh": [
         (r"if \(dv > 4\) \{", "if (false) {", 1),
         (r"\} else if \(dv > 1\) \{", "} else if (false) {", 1),
         (r"sum = lane_sums<1>\(r1, lanes, lane\);", "sum = r1[0];", 1)]},
@@ -4872,7 +5282,8 @@ def walk_ablation(sources=()):
              "pairwise_tp.cu", "uvu_conv.cu"}
     fused = {"pairwise_tp.cu", "uvu_conv.cu"}
     named = set(sources) or every
-    wanted = named | ({"cg_tile.cuh"} if named & fused else set())
+    wanted = named | ({"cg_tile.cuh"} if named & fused else set()) \
+        | ({"edge_walk.cuh"} if "full_conv_ext.cu" in named else set())
     runs = [("package as it is", root, named)]
     for i, (label, parts) in enumerate(WALK_ABLATIONS):
         if not any(set(WALK_PARTS[p]) & wanted for p in parts):
@@ -4897,6 +5308,8 @@ def walk_ablation(sources=()):
                 touched.add(src)
         if "cg_tile.cuh" in touched:     # times the fused kernels named
             touched |= named & fused
+        if "edge_walk.cuh" in touched:   # the dsh lane sums: K4b's times
+            touched |= {"full_conv_ext.cu"}
         runs.append((label, dest, touched))
     for label, cwd, touched in runs:
         modes = (["--conv-times"] if touched & {"full_conv.cu",
@@ -4946,6 +5359,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--cli"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         cli_only()
+    elif sys.argv[1:] == ["--md"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        md_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -505,4 +505,209 @@ static inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// ---------------------------------------------------------------------------
+// The sh cotangent of the source-major walks (K2 with dsh, K4b, K4g).  Per
+// outgoing edge e of the walk's key node s, thread (u, g) holds the node's
+// x as X[m3][m2] = sum_m1 C[m1, m2, m3] x[s, m1, u] (registers, built once
+// per node from a dense copy of its path's CG in shared memory) and forms
+// y[m2] = sum_m3 dS[dst_e, row(p, m3), u] X[m3][m2]; the channel's share of
+// dsh[e, j0 + m2] is w * y[m2].  The shares are summed over the lanes of
+// each path (warp shuffles, halving the values at each step), then over the
+// chunk's paths in order in shared memory, into one row per path chunk,
+// part [n_chunks, E, J], which walk_chunk_sum_kernel adds up in chunk
+// order: no atomics, so dsh repeats bit for bit.
+
+// dsh values of one (edge, path) reduced over the channels: the sh irrep's
+// components (at most 7, l <= 3), padded; also the m2 pitch of the dense CG
+constexpr int kRed = 8;
+
+// Sums v[0..kV) over each aligned group of ``lanes`` lanes (a power of
+// two, kV <= lanes <= 32) by halving: at each of the first log2(kV) steps
+// a lane keeps half of its values and adds its partner's copy of them, so
+// the kV sums take kV - 1 + log2(lanes / kV) shuffles.  Afterwards lane r
+// of a group holds in v[0] the group's sum of value r / (lanes / kV).  All
+// 32 lanes of the warp take part.
+template <int kV>
+__device__ __forceinline__ float lane_sums(float (&v)[kV], int lanes,
+                                           int lane) {
+  int off = lanes >> 1;
+#pragma unroll
+  for (int n = kV / 2; n >= 1; n /= 2) {
+    const bool hi = lane & off;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = hi ? v[i] : v[i + n];
+      const float keep = hi ? v[i + n] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    off >>= 1;
+  }
+  for (; off > 0; off >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  return v[0];
+}
+
+// The dense CG of a chunk's cn paths, cd[g][m3][m1][m2] (m1 pitch kRows,
+// m2 pitch kRed, zero past each path's widths), from the chunk's non-zeros
+// and cell bounds that stage_chunk copied; every path of the chunk has
+// left width d1.  ``tab``: the chunk's rows of the walk table, ``k0``: its
+// first cell.  Every thread of the block calls it.  (The first stage's
+// leading barrier orders the last writes before their use.)
+template <int kRows>
+__device__ __forceinline__ void dense_cg(float* cd, const Stage& st,
+                                         const int* tab, int cn, int d1,
+                                         int k0, int tid, int nthr) {
+  constexpr int kCd = kRows * kRows * kRed;
+  for (int i = tid; i < kGroups * kCd; i += nthr) cd[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < cn * kRows * kRows; i += nthr) {
+    const int gg = i / (kRows * kRows), r = i % (kRows * kRows);
+    const int m3 = r / kRows, m1 = r % kRows;
+    const int* pg = tab + (size_t)gg * kWalkFields;
+    if (m3 >= pg[kD3] || m1 >= d1) continue;
+    const int* cl = st.cells + (pg[kCell0] - k0) + m3 * d1 + m1;
+    for (int z = cl[0]; z < cl[1]; ++z) {
+      const float2 e = st.nz[z];
+      cd[gg * kCd + (m3 * kRows + m1) * kRed + __float_as_int(e.y)] = e.x;
+    }
+  }
+}
+
+// X[m3][m2] = sum_m1 C[m1, m2, m3] x[m1] of one node and channel, for m2 <
+// kCols, from the path's dense CG cd[m3][m1][m2] (dense_cg) and the node's
+// x slice xs
+template <int kRows, int kCols = kRows>
+__device__ __forceinline__ void node_matrix(float (&X)[kRows][kCols],
+                                            const float* cd,
+                                            const float* __restrict__ xs,
+                                            int d1, int d3) {
+  float xr[kRows];
+#pragma unroll
+  for (int m1 = 0; m1 < kRows; ++m1) xr[m1] = m1 < d1 ? __ldg(xs + m1) : 0.f;
+#pragma unroll
+  for (int m3 = 0; m3 < kRows; ++m3)
+#pragma unroll
+    for (int m2 = 0; m2 < kCols; ++m2) X[m3][m2] = 0.f;
+#pragma unroll
+  for (int m3 = 0; m3 < kRows; ++m3) {
+    if (m3 >= d3) break;
+#pragma unroll
+    for (int m1 = 0; m1 < kRows; ++m1) {
+      if (m1 >= d1) break;
+      const float4* c =
+          reinterpret_cast<const float4*>(cd + (m3 * kRows + m1) * kRed);
+      const float4 lo = c[0], hi = c[1];
+      const float cv[kRed] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int m2 = 0; m2 < kCols; ++m2) X[m3][m2] += cv[m2] * xr[m1];
+    }
+  }
+}
+
+// y[m2] = sum_m3 g[m3] X[m3][m2]
+template <int kRows, int kCols = kRows>
+__device__ __forceinline__ void contract(float (&y)[kCols],
+                                         const float (&X)[kRows][kCols],
+                                         const float (&gv)[kRows], int d3) {
+#pragma unroll
+  for (int m2 = 0; m2 < kCols; ++m2) y[m2] = 0.f;
+#pragma unroll
+  for (int m3 = 0; m3 < kRows; ++m3) {
+    if (m3 >= d3) break;
+#pragma unroll
+    for (int m2 = 0; m2 < kCols; ++m2) y[m2] += gv[m3] * X[m3][m2];
+  }
+}
+
+// The values a warp reduces per edge: the path's d2, or the chunk's widest
+// when paths share warps (mul < 32), so that a warp takes one branch.
+__device__ __forceinline__ int dsh_width(const int* tab, int cn, int d2,
+                                         int mul) {
+  int dv = d2;
+  if (mul < 32)
+    for (int gg = 0; gg < cn; ++gg)
+      dv = max(dv, tab[(size_t)gg * kWalkFields + kD2]);
+  return dv;
+}
+
+// One (edge, path)'s dsh shares rv summed over the path's lane group
+// (``lanes`` lanes, lane r of it; see lane_sums), stored into slot[0, d2)
+// (the group's row of the stage's shares) when ``store``.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ void lane_dsh(float (&rv)[kRed], int dv,
+                                         int lanes, int lane, int r,
+                                         bool store, int d2, float* slot) {
+  float sum;
+  int v, keep;
+  if (dv > 4) {
+    sum = lane_sums<8>(rv, lanes, lane);
+    v = r / (lanes / 8);
+    keep = r % (lanes / 8) == 0;
+  } else if (dv > 1) {
+    float r4[4] = {rv[0], rv[1], rv[2], rv[3]};
+    sum = lane_sums<4>(r4, lanes, lane);
+    v = r / (lanes / 4);
+    keep = r % (lanes / 4) == 0;
+  } else {
+    float r1[1] = {rv[0]};
+    sum = lane_sums<1>(r1, lanes, lane);
+    v = 0;
+    keep = r == 0;
+  }
+  if (store && keep && v < d2) slot[v] = sum;
+}
+
+// The chunk's dsh rows of a stage's nq edges, part[edge[q], :] (``part``:
+// the chunk's [E, J] rows): its paths' lane groups added in order from red
+// [kStage][n_grp][kRed] (nsub groups a path), zero where no path of the
+// chunk reads sh.  ``tab``: the chunk's rows of the walk table.
+__device__ __forceinline__ void dsh_rows(const float* red, const int* tab,
+                                         int cn, int nsub, int n_grp,
+                                         const int* edge, int nq, int J,
+                                         float* __restrict__ part, int tid,
+                                         int nthr) {
+  for (int i = tid; i < nq * J; i += nthr) {
+    const int q = i / J, j = i - q * J;
+    float s = 0.f;
+    for (int gg = 0; gg < cn; ++gg) {
+      const int* pg = tab + (size_t)gg * kWalkFields;
+      const int jj = j - pg[kJ0];
+      if (jj < 0 || jj >= pg[kD2]) continue;
+      for (int k = 0; k < nsub; ++k)
+        s += red[(q * n_grp + gg * nsub + k) * kRed + jj];
+    }
+    part[(size_t)edge[q] * J + j] = s;
+  }
+}
+
+// The shared memory of the dsh reduction past a walk's stage: the chunk's
+// dense CG, then the shares of a stage.
+static __host__ __device__ inline size_t dsh_bytes(int rows, int threads,
+                                                   int mul) {
+  const int lanes = mul < 32 ? mul : 32;
+  return ((size_t)kGroups * rows * rows * kRed +
+          (size_t)kStage * (threads / lanes) * kRed) * sizeof(float);
+}
+
+// out[i] = sum over the chunks of part[c][i], in chunk order
+static __global__ void walk_chunk_sum_kernel(const float* __restrict__ part,
+                                             int n_chunks, size_t count,
+                                             float* __restrict__ out) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * count + i];
+    out[i] = s;
+  }
+}
+
+static inline cudaError_t sum_chunks(const float* part, int n_chunks,
+                                     size_t count, float* out,
+                                     cudaStream_t s) {
+  if (count == 0) return cudaSuccess;
+  const unsigned blocks = (unsigned)((count + 255) / 256 < 4096
+                                         ? (count + 255) / 256 : 4096);
+  walk_chunk_sum_kernel<<<blocks, 256, 0, s>>>(part, n_chunks, count, out);
+  return cudaGetLastError();
+}
+
 }  // namespace walk

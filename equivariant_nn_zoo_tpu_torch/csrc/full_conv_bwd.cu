@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel PallasFullConv._full_bwd_kernel in
 // equivariant_nn_zoo_tpu/ops/pallas/fused_conv.py (the body at :1051,
-// launched at :2396; its contract is f_bwd, :2421-2433) with the
-// spherical-harmonics cotangent off (compute_dsh=False, the first-order
-// energy path).  The forward is
+// launched at :2396; its contract is f_bwd, :2421-2433), with its
+// spherical-harmonics cotangent (compute_dsh, :1307-1325) computed when
+// the caller asks for it: the forces of a first-order model through
+// positions.  The forward is
 //
 //   h_0 = er,  z_i = h_i W_i,  h_{i+1} = ssp(z_i)        (hidden layers)
 //   w = h_L W_out                                       [E, P * mul]
@@ -15,8 +16,8 @@
 //
 // and, given gout = dL/dout and the forward's f32 scratch S (saved, the
 // card's counterpart of the TPU kernel's save_mid; per node, not per edge),
-// this entry computes dx, d er, dW_hidden, dW_out and dwsel in four stages
-// of hand-written kernels on the caller's stream:
+// this entry computes dx, d er, dW_hidden, dW_out, dwsel and, when asked,
+// dsh in four stages of hand-written kernels on the caller's stream:
 //
 // a. node stage (rowmix::mix_products in row_mix.cuh, the tensor-core GEMM
 //    shared with every conv and pairwise kernel): per block of scratch
@@ -43,6 +44,14 @@
 //    no path), and dx repeats bit for bit.  M^T dS is a dense product over
 //    compile-time register indices, so no channel selects its left
 //    component at run time.
+//    With dsh asked for, the same walk (k2_walk_kernel<kRows, true>) also
+//    forms each node's X[m3][m2] = sum_m1 C x[src, m1, u] once, per edge
+//    y = dS[dst]^T X and the channel's share w * y of dsh[e], sums the
+//    shares over the lanes and the chunk's paths (edge_walk.cuh, the sh
+//    cotangent: K4b's scheme) into one row per path chunk, and
+//    walk::walk_chunk_sum_kernel adds the chunks' rows in chunk order:
+//    no atomics and no memset, so dsh repeats bit for bit.  Without it
+//    the walk is compiled without any of this.
 // c. MLP stage (rowmix::matmul, the same GEMM, and k2_act_grad_kernel):
 //    dW_out = h_L^T dw (split over edge chunks), dh = dw W_out^T, then per
 //    hidden layer from the last: dz = dh * ssp'(z) (ssp' = sigmoid *
@@ -104,10 +113,16 @@ __global__ void k2_act_grad_kernel(const float* __restrict__ dh,
 //   dxp[s, dcol(p) + m1 * mul + u] += w * t[m1]          (registers until s
 //                                                         changes, then one
 //                                                         plain store)
+// and with kDsh (sh needs a gradient), with X of x[s] built once per node
+// (edge_walk.cuh, the sh cotangent):
+//   y[m2]  = sum_m3 g[m3] X[m3][m2]
+//   dsh[e, j0 + m2] += w * y[m2]       (over channels and paths: shuffles,
+//                                       shared memory, then one row per
+//                                       chunk into part [n_chunks, E, J])
 // kRows: register rows of g, at least the widest irrep on either side (7:
-// l <= 3; 9: l <= 4; 16: output irreps up to l = 7); the left irrep has at
-// most kMaxD components.
-template <int kRows>
+// l <= 3; 9: l <= 4; 16: output irreps up to l = 7, not with kDsh); the
+// left irrep has at most kMaxD components.
+template <int kRows, bool kDsh>
 __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
     const float* __restrict__ x, int in_dim,
     const float* __restrict__ sh, int J,
@@ -120,37 +135,52 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
     const int* __restrict__ cells, const float2* __restrict__ nz,
     const float* __restrict__ dS, int KM,
     float* __restrict__ dw, float* __restrict__ dxp,
-    float* __restrict__ pieces, int KMd) {
-  // kL: register rows of the left irrep (at most kMaxD)
+    float* __restrict__ pieces, int KMd, float* __restrict__ part) {
+  // kL: register rows of the left irrep (at most kMaxD); kC: columns of
+  // the node matrix X (the sh irrep's components, at most 7)
   constexpr int kL = kRows < kMaxD ? kRows : kMaxD;
   constexpr int kP = pitch(kRows), kD = pitch(kL);
+  constexpr int kC = kRed - 1;
+  constexpr int kCd = kRows * kRows * kRed;  // one path's dense CG
   extern __shared__ __align__(16) unsigned char smem[];
   const int mul = blockDim.x, u = threadIdx.x, g = threadIdx.y;
   const int tid = g * mul + u, nthr = mul * kGroups;
   const int t = blockIdx.x;
   const int c0 = chunks[2 * blockIdx.y], cn = chunks[2 * blockIdx.y + 1];
-  const int* first = walk_tab + (size_t)c0 * kWalkFields;
-  const int* last = walk_tab + (size_t)(c0 + cn - 1) * kWalkFields;
-  const int x_off = first[kXOff], d1 = first[kD1], xw = d1 * mul;
-  const int k0 = first[kCell0], k1 = last[kCell0] + last[kD3] * d1 + 1;
+  const int* tab = walk_tab + (size_t)c0 * kWalkFields;
+  const int* last = tab + (size_t)(cn - 1) * kWalkFields;
+  const int x_off = tab[kXOff], d1 = tab[kD1], xw = d1 * mul;
+  const int k0 = tab[kCell0], k1 = last[kCell0] + last[kD3] * d1 + 1;
   const int z0 = cells[k0], z1 = cells[k1 - 1];
-  const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr);
+  const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr, kRows);
+  // kDsh: the chunk's dense CG [kGroups][kCd], then the dsh shares of a
+  // stage [kStage][lane groups][kRed]
+  const int lanes = mul < 32 ? mul : 32;
+  const int n_grp = nthr / lanes, nsub = mul / lanes;
+  float* cd = st.end;
+  float* red = cd + kGroups * kCd;
   stage_chunk(st, nz, z0, z1, cells, k0, k1, tid, nthr);
+  if (kDsh) dense_cg<kRows>(cd, st, tab, cn, d1, k0, tid, nthr);
   const Staged staged = {h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off,
                          xw, x_vectors(x, in_dim, x_off, xw), nullptr,
                          nullptr, 0, 0};
 
   const bool active = g < cn;
-  const int* pi = walk_tab + (size_t)(c0 + (active ? g : 0)) * kWalkFields;
-  const int j0 = pi[kJ0], d3 = pi[kD3];
+  const int* pi = tab + (size_t)(active ? g : 0) * kWalkFields;
+  const int j0 = pi[kJ0], d3 = pi[kD3], d2 = pi[kD2];
   const int row_base = pi[kRowBase], row_stride = pi[kRowStride];
   const int wcol_u = pi[kWCol] + u, dcol_u = pi[kDCol] + u;
   const int* my_cells = st.cells + (pi[kCell0] - k0);
+  const float* my_cd = cd + (active ? g : 0) * kCd;
+  const int dv = kDsh ? dsh_width(tab, cn, d2, mul) : 0;
+  const int lane = tid & 31, grp = tid / lanes, r = u % lanes;
 
   const Item it = item_walk(ptr, N, t, T, cap);
   float dxv[kL];
 #pragma unroll
   for (int m = 0; m < kL; ++m) dxv[m] = 0.f;
+  float X[kRows][kC];
+  int x_node = -1;
   int cur = it.first;
   auto flush = [&](int n) {
     float* row = (n == it.head ? pieces + (size_t)t * KMd
@@ -171,50 +201,80 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
       radial_weights(st, w_out, H, PC, wcol_u, tid, nthr);
     }
     __syncthreads();
-    if (!active) continue;
+    // with kDsh every lane takes part in the dsh sums
+    if (!active && !kDsh) continue;
     for (int q = 0; q < nq; ++q) {
-      const int nd = st.node[q];
-      for (; cur < nd; ++cur) flush(cur);
-      const float* grow = dS + (size_t)st.other[q] * KM +
-                          (size_t)row_base * mul + u;
-      float gv[kRows];
+      float rv[kRed];
 #pragma unroll
-      for (int m3 = 0; m3 < kRows; ++m3)
-        gv[m3] = m3 < d3 ? __ldg(grow + (size_t)m3 * row_stride * mul) : 0.f;
-      float tv[kD];
+      for (int m = 0; m < kRed; ++m) rv[m] = 0.f;
+      if (active) {
+        const int nd = st.node[q];
+        for (; cur < nd; ++cur) flush(cur);
+        const float* grow = dS + (size_t)st.other[q] * KM +
+                            (size_t)row_base * mul + u;
+        float gv[kRows];
 #pragma unroll
-      for (int m = 0; m < kD; ++m) tv[m] = 0.f;
-      const float4* mq = reinterpret_cast<const float4*>(
-          st.m + (q * kGroups + g) * kRows * kP);
+        for (int m3 = 0; m3 < kRows; ++m3)
+          gv[m3] = m3 < d3 ? __ldg(grow + (size_t)m3 * row_stride * mul)
+                           : 0.f;
+        float tv[kD];
 #pragma unroll
-      for (int m3 = 0; m3 < kRows; ++m3) {
-        if (m3 >= d3) break;
+        for (int m = 0; m < kD; ++m) tv[m] = 0.f;
+        const float4* mq = reinterpret_cast<const float4*>(
+            st.m + (q * kGroups + g) * kRows * kP);
 #pragma unroll
-        for (int k = 0; k < kD / 4; ++k) {
-          if (4 * k >= d1) break;
-          const float4 v = mq[m3 * (kP / 4) + k];
-          tv[4 * k] += v.x * gv[m3];
-          tv[4 * k + 1] += v.y * gv[m3];
-          tv[4 * k + 2] += v.z * gv[m3];
-          tv[4 * k + 3] += v.w * gv[m3];
+        for (int m3 = 0; m3 < kRows; ++m3) {
+          if (m3 >= d3) break;
+#pragma unroll
+          for (int k = 0; k < kD / 4; ++k) {
+            if (4 * k >= d1) break;
+            const float4 v = mq[m3 * (kP / 4) + k];
+            tv[4 * k] += v.x * gv[m3];
+            tv[4 * k + 1] += v.y * gv[m3];
+            tv[4 * k + 2] += v.z * gv[m3];
+            tv[4 * k + 3] += v.w * gv[m3];
+          }
+        }
+        float xr[kD];
+        load_x<kL>(xr, st.x + q * xw + u * d1, d1);
+        const float w = st.w[q * nthr + tid];
+        float dwv = 0.f;
+#pragma unroll
+        for (int m = 0; m < kL; ++m) {
+          dwv += xr[m] * tv[m];
+          dxv[m] += w * tv[m];
+        }
+        dw[(size_t)st.edge[q] * PC + wcol_u] = dwv;
+        if constexpr (kDsh) {
+          if (nd != x_node) {
+            node_matrix<kRows, kC>(
+                X, my_cd, x + (size_t)nd * in_dim + x_off + u * d1, d1, d3);
+            x_node = nd;
+          }
+          float y[kC];
+          contract<kRows, kC>(y, X, gv, d3);
+#pragma unroll
+          for (int m2 = 0; m2 < kC; ++m2) rv[m2] = w * y[m2];
         }
       }
-      float xr[kD];
-      load_x<kL>(xr, st.x + q * xw + u * d1, d1);
-      const float w = st.w[q * nthr + tid];
-      float dwv = 0.f;
-#pragma unroll
-      for (int m = 0; m < kL; ++m) {
-        dwv += xr[m] * tv[m];
-        dxv[m] += w * tv[m];
-      }
-      dw[(size_t)st.edge[q] * PC + wcol_u] = dwv;
+      // the path's dsh shares of edge q, summed over its lanes
+      if (kDsh)
+        lane_dsh(rv, dv, lanes, lane, r, active, d2,
+                 red + (q * n_grp + grp) * kRed);
+    }
+    if (kDsh) {
+      __syncthreads();
+      dsh_rows(red, tab, cn, nsub, n_grp, st.edge, nq, J,
+               part + (size_t)blockIdx.y * E * J, tid, nthr);
     }
   }
+  // edges outside [0, N) are walked by no one: their dw and dsh are zero
+  const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
+  if (kDsh)
+    for (int i = tid; i < (hi - lo) * J; i += nthr)
+      part[((size_t)blockIdx.y * E + perm[lo + i / J]) * J + i % J] = 0.f;
   if (!active) return;
   for (; cur < it.end; ++cur) flush(cur);
-  // edges outside [0, N) are walked by no one: their dw is zero
-  const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
   for (int pos = lo; pos < hi; ++pos)
     dw[(size_t)perm[pos] * PC + wcol_u] = 0.f;
 }
@@ -226,7 +286,10 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
 // source-major edge order.  Work buffers (f32, uninitialised): dS [N, KM],
 // dw [E, PC], z_all and h_all [n_hidden, E, H], dh and dz [E, H], dxp
 // [N, KMd], pieces [T, KMd]; ws [ws_len]: the split products' partial
-// tiles.
+// tiles.  dsh [E, J] and its chunks' rows part [n_chunks, E, J]: the sh
+// cotangent, computed when dsh is not null (left and output irreps up to
+// l = 4, sh irreps up to l = 3, mul a multiple of min(mul, 32), a power of
+// two, and at least 8).
 extern "C" int full_conv_bwd(
     const float* x, int N, int in_dim,
     const float* sh, int J,
@@ -244,13 +307,21 @@ extern "C" int full_conv_bwd(
     float* dS, float* dw, float* z_all, float* h_all, float* dh, float* dz,
     float* dxp, float* pieces,
     float* dx, float* der, float* dw_hidden, int w_hidden_len,
-    float* dw_out, float* dwsel, float* ws, int ws_len, void* stream) {
+    float* dw_out, float* dwsel, float* dsh, float* part, float* ws,
+    int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (max_d1 > kMaxD || max_d3 > 16 || R > kMaxRadial || cap < 1 || T < 1)
     return (int)cudaErrorInvalidValue;
   const size_t f = sizeof(float);
   cudaError_t err = cudaSuccess;
+  const int lanes = mul < 32 ? mul : 32;
+  if (dsh && (max_d1 > kMaxD || max_d3 > kMaxD || J > kMaxSh || mul < 8 ||
+              (lanes & (lanes - 1)) || mul % lanes))
+    return (int)cudaErrorInvalidValue;
   if (!dx_covered) err = cudaMemsetAsync(dx, 0, (size_t)N * in_dim * f, s);
+  if (err != cudaSuccess) return (int)err;
+  if (dsh && n_chunks == 0)  // no path reads sh
+    err = cudaMemsetAsync(dsh, 0, (size_t)E * J * f, s);
   if (err != cudaSuccess) return (int)err;
 
   // a. node stage: dS and dwsel
@@ -274,24 +345,29 @@ extern "C" int full_conv_bwd(
   }
   if (n_chunks > 0) {  // with N = 0 it still zeroes every edge's dw
     const int kr = walk_rows(max_d1 > max_d3 ? max_d1 : max_d3);
+    const int nthr = mul * kGroups;
     const size_t bytes =
-        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul,
-                    mul * kGroups, kr);
-    auto kernel = kr == 16      ? k2_walk_kernel<16>
-                  : kr == kMaxD ? k2_walk_kernel<kMaxD>
-                                : k2_walk_kernel<7>;
+        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul, nthr, kr) +
+        (dsh ? dsh_bytes(kr, nthr, mul) : 0);
+    auto kernel = dsh ? (kr == kMaxD ? k2_walk_kernel<kMaxD, true>
+                                     : k2_walk_kernel<7, true>)
+                  : kr == 16    ? k2_walk_kernel<16, false>
+                  : kr == kMaxD ? k2_walk_kernel<kMaxD, false>
+                                : k2_walk_kernel<7, false>;
     err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3(T, n_chunks), dim3(mul, kGroups), bytes, s>>>(
         x, in_dim, sh, J, src, dst, perm, ptr, N, E, cap, T,
         h_all + (size_t)(n_hidden - 1) * EH, H, w_out, PC, walk_tab, chunks,
         cells, reinterpret_cast<const float2*>(nz), dS, KM, dw, dxp, pieces,
-        KMd);
+        KMd, part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = sum_pieces(ptr, N, T, cap, pieces, KMd, dxp, s);
     if (err != cudaSuccess) return (int)err;
     err = sum_dx(dxp, N, KMd, irreps, n_irreps, mul, dx, in_dim, s);
+    if (err != cudaSuccess) return (int)err;
+    if (dsh) err = sum_chunks(part, n_chunks, (size_t)E * J, dsh, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (E == 0) {  // no edge: the MLP's gradients are zero

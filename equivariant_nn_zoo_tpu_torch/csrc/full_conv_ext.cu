@@ -97,10 +97,6 @@ using rowmix::kMixWeights;
 using rowmix::mix_products;
 using rowmix::mix_rows;
 
-// dsh values of one (edge, path) reduced over the channels: the sh irrep's
-// components (at most 7, l <= 3), padded; also the m2 pitch of the dense CG
-constexpr int kRed = 8;
-
 // The operands of one walk, in either direction.
 struct ExtWalk {
   const float* x;     // [N, in_dim]
@@ -244,75 +240,6 @@ __global__ void __launch_bounds__(256, 2)
     for (; cur < it.end; ++cur) flush(cur);
 }
 
-// Sums v[0..kV) over each aligned group of ``lanes`` lanes (a power of
-// two, kV <= lanes <= 32) by halving: at each of the first log2(kV) steps
-// a lane keeps half of its values and adds its partner's copy of them, so
-// the kV sums take kV - 1 + log2(lanes / kV) shuffles.  Afterwards lane r
-// of a group holds in v[0] the group's sum of value r / (lanes / kV).  All
-// 32 lanes of the warp take part.
-template <int kV>
-__device__ __forceinline__ float lane_sums(float (&v)[kV], int lanes,
-                                           int lane) {
-  int off = lanes >> 1;
-#pragma unroll
-  for (int n = kV / 2; n >= 1; n /= 2) {
-    const bool hi = lane & off;
-#pragma unroll
-    for (int i = 0; i < n; ++i) {
-      const float send = hi ? v[i] : v[i + n];
-      const float keep = hi ? v[i + n] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-    off >>= 1;
-  }
-  for (; off > 0; off >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-  return v[0];
-}
-
-// X[m3][m2] = sum_m1 C[m1, m2, m3] x[m1] of one node and channel, from the
-// path's dense CG cd[m3][m1][m2] (m2 pitch kRed) and the node's x slice xs
-template <int kRows>
-__device__ __forceinline__ void node_matrix(float (&X)[kRows][kRows],
-                                            const float* cd,
-                                            const float* __restrict__ xs,
-                                            int d1, int d3) {
-  float xr[kRows];
-#pragma unroll
-  for (int m1 = 0; m1 < kRows; ++m1) xr[m1] = m1 < d1 ? __ldg(xs + m1) : 0.f;
-#pragma unroll
-  for (int m3 = 0; m3 < kRows; ++m3)
-#pragma unroll
-    for (int m2 = 0; m2 < kRows; ++m2) X[m3][m2] = 0.f;
-#pragma unroll
-  for (int m3 = 0; m3 < kRows; ++m3) {
-    if (m3 >= d3) break;
-#pragma unroll
-    for (int m1 = 0; m1 < kRows; ++m1) {
-      if (m1 >= d1) break;
-      const float4* c =
-          reinterpret_cast<const float4*>(cd + (m3 * kRows + m1) * kRed);
-      const float4 lo = c[0], hi = c[1];
-      const float cv[kRed] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int m2 = 0; m2 < kRows; ++m2) X[m3][m2] += cv[m2] * xr[m1];
-    }
-  }
-}
-
-// y[m2] = sum_m3 g[m3] X[m3][m2]
-template <int kRows>
-__device__ __forceinline__ void contract(float (&y)[kRows],
-                                         const float (&X)[kRows][kRows],
-                                         const float (&gv)[kRows], int d3) {
-#pragma unroll
-  for (int m2 = 0; m2 < kRows; ++m2) y[m2] = 0.f;
-#pragma unroll
-  for (int m3 = 0; m3 < kRows; ++m3) {
-    if (m3 >= d3) break;
-#pragma unroll
-    for (int m2 = 0; m2 < kRows; ++m2) y[m2] += gv[m3] * X[m3][m2];
-  }
-}
 
 // The source-major walk (K2's, edge_walk.cuh) of K4b and (kTwo) K4g, on
 // its own chunk table: x is not staged, so a chunk may hold up to kGroups
@@ -357,20 +284,7 @@ __global__ void __launch_bounds__(256, 2)
   float* cd = st.end;
   float* red = cd + kGroups * kCd;
   stage_chunk(st, a.nz, z0, z1, a.cells, k0, k1, tid, nthr, false);
-  for (int i = tid; i < kGroups * kCd; i += nthr) cd[i] = 0.f;
-  __syncthreads();
-  for (int i = tid; i < cn * kRows * kRows; i += nthr) {
-    const int gg = i / (kRows * kRows), r = i % (kRows * kRows);
-    const int m3 = r / kRows, m1 = r % kRows;
-    const int* pg = tab + (size_t)gg * kWalkFields;
-    if (m3 >= pg[kD3] || m1 >= d1) continue;
-    const int* cl = st.cells + (pg[kCell0] - k0) + m3 * d1 + m1;
-    for (int z = cl[0]; z < cl[1]; ++z) {
-      const float2 e = st.nz[z];
-      cd[gg * kCd + (m3 * kRows + m1) * kRed + __float_as_int(e.y)] = e.x;
-    }
-  }
-  // (the first stage's leading barrier orders these writes before use)
+  dense_cg<kRows>(cd, st, tab, cn, d1, k0, tid, nthr);
 
   const bool active = g < cn;
   const int* pi = tab + (size_t)(active ? g : 0) * kWalkFields;
@@ -379,12 +293,7 @@ __global__ void __launch_bounds__(256, 2)
   const int wcol_u = pi[kWCol] + u, dcol_u = pi[kDCol] + u;
   const int* my_cells = st.cells + (pi[kCell0] - k0);
   const float* my_cd = cd + (active ? g : 0) * kCd;
-  // values reduced per edge: the path's d2, or the chunk's widest when
-  // the paths share warps (mul < 32), so that a warp takes one branch
-  int dv = d2;
-  if (mul < 32)
-    for (int gg = 0; gg < cn; ++gg)
-      dv = max(dv, tab[(size_t)gg * kWalkFields + kD2]);
+  const int dv = dsh_width(tab, cn, d2, mul);
   const Staged staged = {nullptr, 0, a.sh, kTwo ? a.csh : nullptr, a.J,
                          nullptr, nullptr, a.in_dim, 0, 0, false, a.w,
                          kTwo ? a.cw : nullptr, a.PC, wcol_u};
@@ -500,42 +409,13 @@ __global__ void __launch_bounds__(256, 2)
           a.dw[(size_t)st.edge[q] * a.PC + wcol_u] = dwv;
         }
         // the path's dsh shares of edge q, summed over its lanes
-        float sum;
-        int v, keep;
-        if (dv > 4) {
-          sum = lane_sums<8>(rv, lanes, lane);
-          v = r / (lanes / 8);
-          keep = r % (lanes / 8) == 0;
-        } else if (dv > 1) {
-          float r4[4] = {rv[0], rv[1], rv[2], rv[3]};
-          sum = lane_sums<4>(r4, lanes, lane);
-          v = r / (lanes / 4);
-          keep = r % (lanes / 4) == 0;
-        } else {
-          float r1[1] = {rv[0]};
-          sum = lane_sums<1>(r1, lanes, lane);
-          v = 0;
-          keep = r == 0;
-        }
-        if (active && keep && v < d2)
-          red[(q * n_grp + grp) * kRed + v] = sum;
+        lane_dsh(rv, dv, lanes, lane, r, active, d2,
+                 red + (q * n_grp + grp) * kRed);
       }
     }
     __syncthreads();
-    // the chunk's dsh rows of the stage's edges: its paths' lane groups
-    // added in order, zero where no path of the chunk reads sh
-    for (int i = tid; i < nq * a.J; i += nthr) {
-      const int q = i / a.J, j = i - q * a.J;
-      float s = 0.f;
-      for (int gg = 0; gg < cn; ++gg) {
-        const int* pg = tab + (size_t)gg * kWalkFields;
-        const int jj = j - pg[kJ0];
-        if (jj < 0 || jj >= pg[kD2]) continue;
-        for (int k = 0; k < nsub; ++k)
-          s += red[(q * n_grp + gg * nsub + k) * kRed + jj];
-      }
-      a.part[((size_t)blockIdx.y * a.E + st.edge[q]) * a.J + j] = s;
-    }
+    dsh_rows(red, tab, cn, nsub, n_grp, st.edge, nq, a.J,
+             a.part + (size_t)blockIdx.y * a.E * a.J, tid, nthr);
   }
   if (active)
     for (; cur < it.end; ++cur) flush(cur);
@@ -547,18 +427,6 @@ __global__ void __launch_bounds__(256, 2)
   for (int i = tid; i < (hi - lo) * a.J; i += nthr)
     a.part[((size_t)blockIdx.y * a.E + a.perm[lo + i / a.J]) * a.J +
            i % a.J] = 0.f;
-}
-
-// out[i] = sum over the chunks of part[c][i], in chunk order
-__global__ void ext_chunk_sum_kernel(const float* __restrict__ part,
-                                     int n_chunks, size_t count,
-                                     float* __restrict__ out) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * count + i];
-    out[i] = s;
-  }
 }
 
 // The sizes and tables every entry takes (the C entries' leading
@@ -596,12 +464,10 @@ cudaError_t src_walk(ExtWalk a, const Tables& tb, float* dx, float* dsh,
   if (tb.n_src_chunks <= 0) return cudaSuccess;  // N = 0: zeroes dw, dsh
   a.chunks = tb.src_chunks;
   const int nthr = tb.mul * kGroups;
-  const int lanes = tb.mul < 32 ? tb.mul : 32;
   const size_t bytes =
       stage_bytes(tb.max_chunk_nz, tb.max_d1, tb.max_d3, 0, nthr, tb.rows,
                   kTwo ? 2 : 1, false) +
-      ((size_t)kGroups * tb.rows * tb.rows * kRed +
-       (size_t)kStage * (nthr / lanes) * kRed) * sizeof(float);
+      dsh_bytes(tb.rows, nthr, tb.mul);
   auto kernel = tb.rows == 5 ? ext_src_walk_kernel<5, kTwo>
                              : ext_src_walk_kernel<7, kTwo>;
   cudaError_t err = allow_smem(kernel, bytes);
@@ -615,13 +481,7 @@ cudaError_t src_walk(ExtWalk a, const Tables& tb, float* dx, float* dsh,
   err = sum_dx(a.rows, a.N, a.KMd, tb.irreps, tb.n_irreps, tb.mul, dx,
                a.in_dim, s);
   if (err != cudaSuccess) return err;
-  const size_t count = (size_t)a.E * a.J;
-  if (count == 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((count + 255) / 256 < 4096
-                                         ? (count + 255) / 256 : 4096);
-  ext_chunk_sum_kernel<<<blocks, 256, 0, s>>>(a.part, tb.n_src_chunks,
-                                              count, dsh);
-  return cudaGetLastError();
+  return sum_chunks(a.part, tb.n_src_chunks, (size_t)a.E * a.J, dsh, s);
 }
 
 #define EXT_TRY(expr)                          \

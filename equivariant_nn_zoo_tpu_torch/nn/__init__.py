@@ -1,13 +1,15 @@
-from .module import Module
+from .module import Lambda, Module
 from .sequential import SequentialGraphNetwork
 from .mlp import FullyConnectedNet
 from .embedding import (
     BesselBasis,
     Broadcast,
     OneHotEncoding,
+    PolynomialCutoff,
     RadialBasisEncoding,
     RelativePositionEncoding,
     SphericalEncoding,
+    poly_cutoff,
     symmetric_cutoff,
 )
 from .pointwise import (
@@ -29,14 +31,17 @@ from .message_passing import FactorizedConvolution, MessagePassing
 
 __all__ = [
     "Module",
+    "Lambda",
     "SequentialGraphNetwork",
     "FullyConnectedNet",
     "BesselBasis",
     "Broadcast",
     "OneHotEncoding",
+    "PolynomialCutoff",
     "RadialBasisEncoding",
     "RelativePositionEncoding",
     "SphericalEncoding",
+    "poly_cutoff",
     "symmetric_cutoff",
     "PointwiseLinear",
     "LayerNormalization",

@@ -47,6 +47,21 @@ def symmetric_cutoff(x: torch.Tensor, factor: float, p: float = 6.0):
 _cutoffs = {"poly": poly_cutoff, "symmetric": symmetric_cutoff}
 
 
+class PolynomialCutoff:
+    """The envelope ``cutoff(x, 1 / r_max, p)`` as a callable, ``cutoff`` a
+    function or its name in ``_cutoffs`` (``"poly"``, ``"symmetric"``)."""
+
+    def __init__(self, r_max: float, p: float = 6, cutoff=poly_cutoff):
+        assert p >= 2.0
+        self.p = float(p)
+        self._factor = 1.0 / float(r_max)
+        self.cutoff = (_cutoffs.get(cutoff, cutoff)
+                       if isinstance(cutoff, str) else cutoff)
+
+    def __call__(self, x):
+        return self.cutoff(x, self._factor, p=self.p)
+
+
 class BesselBasis(ParamModule):
     """Radial Bessel basis ``prefactor * sin(w_n x / c) / x`` with trainable
     frequencies ``bessel_weights`` (initialised to ``n pi``)."""

@@ -10,7 +10,7 @@ from the key matching, exactly as the JAX package does.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 from ..ops.irreps import Irreps
 from ..utils.params import ParamModule
@@ -55,3 +55,14 @@ class Module(ParamModule):
 
     def forward(self, data: Dict, attrs: Dict):
         raise NotImplementedError
+
+
+class Lambda(Module):
+    """A pure function ``(data, attrs) -> (data, attrs)`` as a layer."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, data: Dict, attrs: Dict):
+        return self.fn(data, attrs)

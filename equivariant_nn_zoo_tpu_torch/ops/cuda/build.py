@@ -106,6 +106,7 @@ SIGNATURES = {
         _P, _P,                # per-path dx rows, long-run pieces
         _P, _P, _P, _I,        # dx, d edge_radial, d hidden weights, length
         _P, _P,                # d last layer, d mix matrices
+        _P, _P,                # dsh or null, its path chunks' rows
         _P, _I, _P,            # workspace, its length, stream
     ],
     "uvu_conv_fwd": [

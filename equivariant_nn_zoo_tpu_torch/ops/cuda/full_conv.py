@@ -15,11 +15,12 @@ it.  For CUDA tensors it builds the kernels' flat weights in plain PyTorch
 (scaled MLP weights, mix matrices with their alphas and ``pre_scale``) and
 goes through ``FullConvFunction``, whose forward launches K1 and whose
 backward launches K2, or raises; autograd carries the kernels' weight
-gradients back to ``fc.w*`` and ``tp.linear.*``.  The sh cotangent is not
-computed (``compute_dsh=False``, the energy path): the Function raises when
-``sh`` needs a gradient.  ``plain_forward`` and ``plain_backward`` are the
-plain PyTorch versions of the two kernels' contracts on the same flat
-inputs, for the tests and the on-card checks.
+gradients back to ``fc.w*`` and ``tp.linear.*``.  When ``sh`` needs a
+gradient (forces through positions) K2 also returns the sh cotangent (the
+TPU kernel's ``compute_dsh``); when it does not, K2 is launched without it,
+so a training step pays nothing for it.  ``plain_forward`` and
+``plain_backward`` are the plain PyTorch versions of the two kernels'
+contracts on the same flat inputs, for the tests and the on-card checks.
 """
 
 from __future__ import annotations
@@ -254,6 +255,8 @@ class FullConv(ConvTables):
     #: kernel launches, over all instances (the main path's proof of use)
     launches = 0
     backward_launches = 0
+    dsh_launches = 0     # of the backward launches, those with the sh
+                         # cotangent
 
     def __init__(self, tpe, fc):
         super().__init__(tpe)
@@ -333,34 +336,34 @@ class FullConv(ConvTables):
                                num_nodes)
 
     def plain_backward(self, x, edge_radial, sh, edge_src, edge_dst,
-                       w_hidden, w_out, wsel, num_nodes, scratch, gout):
+                       w_hidden, w_out, wsel, num_nodes, scratch, gout,
+                       dsh: bool = False):
         """Plain PyTorch version of K2's contract: ``(dx, d edge_radial,
-        dw_hidden, dw_out, dwsel)`` for the cotangent ``gout``, by autograd
-        of ``plain_forward`` (which recomputes what the kernel reads from
-        ``scratch``)."""
+        dw_hidden, dw_out, dwsel)`` for the cotangent ``gout``, and with
+        ``dsh`` the sh cotangent last, by autograd of ``plain_forward``
+        (which recomputes what the kernel reads from ``scratch``)."""
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True)
                    for t in (x, edge_radial, w_hidden, w_out, wsel)]
-            out, _ = self.plain_forward(ins[0], ins[1], sh, edge_src,
+            sh_in = sh.detach().requires_grad_(True) if dsh else sh
+            out, _ = self.plain_forward(ins[0], ins[1], sh_in, edge_src,
                                         edge_dst, *ins[2:], num_nodes)
-            return torch.autograd.grad(out, ins, gout)
+            return torch.autograd.grad(
+                out, ins + [sh_in] if dsh else ins, gout)
 
 
 class FullConvFunction(torch.autograd.Function):
     """K1 forward, K2 backward, on one edge order (saved for the backward).
-    Differentiable inputs: ``x``, ``edge_radial`` and the flat weights.  An
-    ``sh`` that needs a gradient is refused: that cotangent is the force
-    path's kernel, and this one must not stand in for it with zeros.  (``needs_input_grad`` does not
-    see grad mode, so ``FullConv.launch`` calls this under grad mode
+    Differentiable inputs: ``x``, ``edge_radial``, the flat weights and
+    ``sh``; K2 computes the sh cotangent only when ``sh`` needs a gradient.
+    The backward is a kernel of first order: differentiating it again (a
+    force loss on a first-order model) raises.  (``needs_input_grad`` does
+    not see grad mode, so ``FullConv.launch`` calls this under grad mode
     only.)"""
 
     @staticmethod
     def forward(ctx, conv, x, edge_radial, w_hidden, w_out, wsel, sh,
                 edge_src, edge_dst, num_nodes, order):
-        if ctx.needs_input_grad[6]:
-            raise NotImplementedError(
-                "FullConv: the sh cotangent (forces through positions) is "
-                "not computed by this kernel; sh must not need a gradient")
         out, scratch = launch_forward(conv, x, edge_radial, sh, edge_src,
                                       edge_dst, w_hidden, w_out, wsel,
                                       num_nodes, order=order)
@@ -370,22 +373,30 @@ class FullConvFunction(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         x, er, w_hidden, w_out, wsel, sh, src, dst, scratch, *order = \
             ctx.saved_tensors
+        # the sh cotangent only when wanted (a keyword the launches take
+        # only then)
+        kw = {"dsh": True} if ctx.needs_input_grad[6] else {}
         grads = launch_backward(ctx.conv, x, er, sh, src, dst, w_hidden,
                                 w_out, wsel, ctx.num_nodes, scratch,
                                 gout.contiguous(),
-                                order=edge_order.EdgeOrder(*order))
-        return (None, *grads, None, None, None, None, None)
+                                order=edge_order.EdgeOrder(*order), **kw)
+        dsh = grads[5] if kw else None
+        return (None, *grads[:5], dsh, None, None, None, None)
 
 
-def check_structure(conv, backward: bool = False) -> None:
+def check_structure(conv, backward: bool = False, dsh: bool = False) -> None:
     """Raise unless the kernels take this layer's sizes.  The forward keeps
     a node's sums and the left irrep's components in registers, up to
     ``WALK_ROWS`` of them (irreps up to l = 7 on either side); the backward
     holds one register row per component of the left irrep, up to ``MAX_D``
-    of them (l = 4, the hamiltonian trunk)."""
+    of them (l = 4, the hamiltonian trunk).  The sh cotangent (``dsh``)
+    holds a node matrix of every irrep up to l = 4 by each sh irrep up to
+    l = 3, and sums each path's shares over lane groups of min(mul, 32)
+    lanes (a power of two, at least 8)."""
     fused = conv.fused
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     n_hidden = len(conv.fc_dims) - 2
@@ -402,10 +413,19 @@ def check_structure(conv, backward: bool = False) -> None:
     if backward and conv.max_d1 > MAX_D:
         raise ValueError(f"the FullConv backward takes left irreps up to "
                          f"l = 4, got d = {conv.max_d1}")
+    lanes = min(fused.mul, 32)
+    if dsh and not (max(conv.max_d1, conv.max_d3) <= MAX_D
+                    and conv.max_d2 <= 7 and fused.mul >= 8
+                    and lanes & (lanes - 1) == 0 and fused.mul % lanes == 0):
+        raise ValueError(f"the FullConv sh cotangent takes irreps up to "
+                         f"l = 4, sh irreps up to l = 3 and mul a multiple "
+                         f"of a power of two >= 8; got d1 = {conv.max_d1}, "
+                         f"d3 = {conv.max_d3}, d2 = {conv.max_d2}, "
+                         f"mul = {fused.mul}")
 
 
 def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
-                  w_out, wsel, num_nodes, backward=False):
+                  w_out, wsel, num_nodes, backward=False, dsh=False):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"FullConv kernel needs CUDA tensors, got {dev}")
@@ -418,7 +438,7 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     check_tensor(edge_radial, "edge_radial", (E, R), torch.float32, dev)
     check_tensor(edge_src, "edge_src", (E,), torch.int64, dev)
     check_tensor(edge_dst, "edge_dst", (E,), torch.int64, dev)
-    check_structure(conv, backward)
+    check_structure(conv, backward, dsh)
     if conv.path_table.device != dev:
         raise ValueError("FullConv tables are not on the input's device")
     n_w = R * H + (n_hidden - 1) * H * H
@@ -491,13 +511,15 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
 
 
 def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
-                    w_out, wsel, num_nodes, scratch, gout, order=None):
+                    w_out, wsel, num_nodes, scratch, gout, order=None,
+                    dsh: bool = False):
     """Launch K2: ``(dx, d edge_radial, dw_hidden, dw_out, dwsel)``, all
-    float32, from the forward's inputs, its scratch and ``gout``.
-    ``order``: the edges' ``EdgeOrder``, built here when not given."""
+    float32, from the forward's inputs, its scratch and ``gout``; with
+    ``dsh`` the sh cotangent ``[E, J]`` last.  ``order``: the edges'
+    ``EdgeOrder``, built here when not given."""
     dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
                               w_hidden, w_out, wsel, num_nodes,
-                              backward=True)
+                              backward=True, dsh=dsh)
     order = _order(order, edge_src, edge_dst, N)
     cap, T = walk_items(E, conv.n_chunks)
     check_tensor(scratch, "scratch", (N, conv.KM), torch.float32, dev)
@@ -518,6 +540,9 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     work = [empty(N, conv.KM), empty(E, PC), empty(n_hidden, E, H),
             empty(n_hidden, E, H), empty(E, H), empty(E, H),
             empty(N, conv.KMd), empty(T, conv.KMd)]
+    # the sh cotangent and its path chunks' rows, or null pointers
+    d_sh = (empty(E, fused.J_dim), empty(conv.n_chunks, E, fused.J_dim)) \
+        if dsh else ()
     ws = row_mix.workspace(dev, gout.numel())   # see row_mix.workspace
     lib = load_library()
     with torch.cuda.device(dev):
@@ -543,8 +568,12 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             *(t.data_ptr() for t in work),
             dx.data_ptr(), der.data_ptr(), dw_hidden.data_ptr(),
             w_hidden.numel(), dw_out.data_ptr(), dwsel.data_ptr(),
+            *((t.data_ptr() for t in d_sh) if dsh else (None, None)),
             ws.data_ptr(), ws.numel(), stream,
         )
     check(err, "full_conv_bwd")
     FullConv.backward_launches += 1
+    if dsh:
+        FullConv.dsh_launches += 1
+        return dx, der, dw_hidden, dw_out, dwsel, d_sh[0]
     return dx, der, dw_hidden, dw_out, dwsel

@@ -244,7 +244,8 @@ def _route_launches_to_plain(monkeypatch):
     monkeypatch.setattr(full_conv_mod, "launch_forward",
                         lambda conv, *a, order=None: conv.plain_forward(*a))
     monkeypatch.setattr(full_conv_mod, "launch_backward",
-                        lambda conv, *a, order=None: conv.plain_backward(*a))
+                        lambda conv, *a, order=None, **kw:
+                        conv.plain_backward(*a, **kw))
     monkeypatch.setattr(species_sc_mod, "launch_forward",
                         lambda sc, *a, order=None: sc.table_product(*a))
     monkeypatch.setattr(species_sc_mod, "launch_backward",
@@ -289,20 +290,44 @@ def test_functions_match_plain_autograd(convs, monkeypatch):
         assert _rel(got[name].numpy(), want[name].numpy()) <= TOL, name
 
 
-def test_function_raises_when_sh_needs_grad(convs, monkeypatch):
-    """The sh cotangent belongs to the force path's kernel: the card path
-    raises instead of returning a zero gradient for it."""
+def test_function_returns_the_sh_cotangent(convs, monkeypatch):
+    """With ``sh`` needing a gradient (forces through positions), the card
+    path's ``FullConvFunction`` (launches routed to the plain contracts)
+    returns the sh cotangent that K2 computes in its dsh mode: equal to
+    plain autograd's, and not zero; without a gradient the forward runs."""
     _, _, tconv = convs
-    _route_launches_to_plain(monkeypatch)
     N, E = 24, 96
     x, sh, er, src, dst = _k1_inputs(9, N, E)
-    sh_t = torch.tensor(sh, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="sh cotangent"):
-        tconv.full_conv(tconv.fc, tconv.tp.linear, torch.tensor(x),
-                        torch.tensor(er), sh_t, torch.tensor(src),
-                        torch.tensor(dst), N, pre_scale=0.5)
+    cot = torch.tensor(_sin_cotangent((N, tconv.full_conv.out_dim)))
+
+    def grads():
+        tconv.zero_grad()
+        xt, ert, sht = (torch.tensor(a, requires_grad=True)
+                        for a in (x, er, sh))
+        out = tconv.full_conv(tconv.fc, tconv.tp.linear, xt, ert, sht,
+                              torch.tensor(src), torch.tensor(dst), N,
+                              pre_scale=0.5)
+        (out * cot).sum().backward()
+        got = {n: p.grad.clone() for n, p in tconv.named_parameters()
+               if p.grad is not None}
+        got.update(x=xt.grad, edge_radial=ert.grad, sh=sht.grad)
+        return got
+
+    want = grads()
+    _route_launches_to_plain(monkeypatch)
+    seen = []
+    plain = full_conv_mod.launch_backward
+    monkeypatch.setattr(full_conv_mod, "launch_backward",
+                        lambda *a, **kw: seen.append(kw) or plain(*a, **kw))
+    got = grads()
+    assert [kw.get("dsh") for kw in seen] == [True]
+    assert set(got) == set(want) and "sh" in got
+    for name in want:
+        assert _rel(got[name].numpy(), want[name].numpy()) <= TOL, name
+    assert np.abs(got["sh"].numpy()).max() > 1e-3
     with torch.no_grad():  # no gradient wanted: the forward runs
         out = tconv.full_conv(tconv.fc, tconv.tp.linear, torch.tensor(x),
-                              torch.tensor(er), sh_t, torch.tensor(src),
-                              torch.tensor(dst), N, pre_scale=0.5)
+                              torch.tensor(er), torch.tensor(sh),
+                              torch.tensor(src), torch.tensor(dst), N,
+                              pre_scale=0.5)
     assert out.shape == (N, tconv.full_conv.out_dim)

@@ -74,15 +74,23 @@ def test_seeded_init_is_device_independent():
 
 
 def test_entry_points_default_to_the_card():
-    """``build_model`` and ``GraphBatch.from_batch`` aim at the card unless
-    the caller asks for the CPU; without a card the default raises instead
-    of running on the CPU."""
+    """``build_model``, ``GraphBatch.from_batch``, the calculator (and so
+    ``run_md``, which runs on its calculator's device), ``entry`` and
+    ``dryrun_multichip`` aim at the card unless the caller asks for the
+    CPU; without a card the default raises instead of running on the
+    CPU."""
     import inspect
 
+    from equivariant_nn_zoo_tpu_torch import entry
     from equivariant_nn_zoo_tpu_torch.data import Batch, Data, GraphBatch
+    from equivariant_nn_zoo_tpu_torch.examples import md_dynamics
+    from equivariant_nn_zoo_tpu_torch.examples.calculator import E3Calculator
 
-    for fn in (build_model, GraphBatch.from_batch):
+    for fn in (build_model, GraphBatch.from_batch, E3Calculator,
+               E3Calculator.from_config, entry.entry,
+               entry.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "device" not in inspect.signature(md_dynamics.run_md).parameters
     if torch.cuda.is_available():
         return
     d = {"pos": np.zeros((2, 3)), "species": np.ones((2, 1), np.int64)}
@@ -92,6 +100,14 @@ def test_entry_points_default_to_the_card():
         GraphBatch.from_batch(host, 4, 4, 1)
     with pytest.raises((AssertionError, RuntimeError)):
         build_model(get_config("config_energy")["model_config"])
+    model = build_model(get_config("config_energy")["model_config"], "cpu")
+    for call in (lambda: E3Calculator(model, 4.0),
+                 lambda: E3Calculator.from_config("config_energy",
+                                                  model=model),
+                 lambda: md_dynamics.main([]), entry.entry,
+                 lambda: entry.dryrun_multichip(2)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def _c_entries():
