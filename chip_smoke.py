@@ -29,6 +29,7 @@
     python3 chip_smoke.py --protein        # phases 26-28 alone
     python3 chip_smoke.py --cli            # phases 29-32 alone
     python3 chip_smoke.py --md             # phases 33-37 alone
+    python3 chip_smoke.py --datasets       # phases 38-39 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -255,8 +256,9 @@ Phases, in order; any failure exits non-zero before the last line:
              ``best.pt`` over 4 batches of 128 molecules registered in
              memory: K1 and K3 launched once per layer and batch, finite
              energies, a 32-molecule cut against the CPU plain path on the
-             same weights at 1e-4; the HDF5 dump where ``h5py`` imports
-             (the line says whether it did);
+             same weights at 1e-4; the HDF5 dump, written by the port's
+             own writer, read back by its reader equal bit for bit to the
+             returned batch (fails otherwise);
 32. cli diffusion — the train CLI's diffusion loop on full-width
              ``config_diffusion`` ``""`` at batch 128 over in-memory
              molecules (``synthetic_diffusion_mols``), 4 steps with
@@ -290,7 +292,38 @@ Phases, in order; any failure exits non-zero before the last line:
              run; the final distance and the finite check;
 37. entry  — ``entry.entry()`` on the card against the CPU plain path at
              1e-4, and ``entry.dryrun_multichip(2)``: two ranks sharing
-             the card (gloo), the DDP step against one process's step.
+             the card (gloo), the DDP step against one process's step;
+38. dataset files — the port's own HDF5 code (``data/hdf5.py``; the
+             machine has no ``h5py``): a QM9-scale condensed file (133,885
+             molecules of 3-29 atoms, ``synthetic_qm9``'s recipe drawn as
+             whole arrays) written by ``hdf5.write`` and loaded by
+             ``CondensedDataset(path=...)``, every array and attribute
+             bit for bit, MB and seconds printed; the train CLI on
+             full-width ``config_energy`` with ``data_config.path`` a file
+             of 640 synthetic QM9-like molecules (2 epochs of 4 + 1
+             batches of 128): the loader's first batch equal bit for bit
+             to the in-memory loader's on the same molecules, K1, K2, K3
+             and K3b at least ``num_layers x steps`` launches, finite
+             losses; the inference CLI over that file on the run's
+             ``best.pt``: K1 and K3 once per layer and batch, its
+             ``inference.hdf5`` read back equal bit for bit;
+39. protein data — AF2 label files of 16 multimers of 1-3 chains of
+             150-450 residues (``synthetic_proteins``' geometry, a CB
+             added, about 5 % of residues missing a backbone atom, every
+             third multimer with a 4x4 operator per chain) and 4 of the
+             chains as mmCIF text (two gzipped), made from the seed; both
+             converters (``python -m ...data_processing.af2_multimer`` and
+             ``...mmcif``) write ``pdb_0.hdf5``, held bit for bit to the
+             converter's arrays and to the CA positions, masks and residue
+             types written; then the train CLI's diffusion driver on
+             full-width, full-depth ``config_diffusion_CA`` (batch 4,
+             ``grad_acc`` 4, crop 384, 262,144 edge slots) with
+             ``data_config.path`` that directory (12 training, 4
+             validation multimers) for 4 applied steps: exactly 8 K2 per
+             micro-step and 8 K1 per micro-step and evaluation, finite
+             losses, the checkpoint written, ms per applied step; the
+             first batch on the card equal bit for bit to the CPU
+             pipeline's on the same file and seeds.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -3201,23 +3234,31 @@ print("CLI_RESULT " + json.dumps(result), flush=True)
 '''
 
 
-def cli_energy_config(seed):
-    """Full-width ``config_energy`` over in-memory synthetic QM9-like
-    molecules from ``seed``: CLI_TRAIN_BATCHES training and CLI_VAL_BATCHES
-    validation batches of CLI_BATCH, 2 epochs."""
-    from equivariant_nn_zoo_tpu_torch.data import Batch
+def energy_config(path=None, host=None):
+    """Full-width ``config_energy`` for the command lines over the file at
+    ``path`` or the host ``Batch`` ``host``: CLI_TRAIN_BATCHES training
+    and CLI_VAL_BATCHES validation batches of CLI_BATCH, 2 epochs."""
     from equivariant_nn_zoo_tpu_torch.models import get_config
 
     cfg = get_config("config_energy")
-    n_train = CLI_TRAIN_BATCHES * CLI_BATCH
-    n_val = CLI_VAL_BATCHES * CLI_BATCH
-    host = Batch.from_data_list(synthetic_qm9(
-        n_train + n_val, np.random.default_rng(seed), labels=True))
-    cfg["data_config"] = dict(cfg["data_config"], path=None,
-                              data=host.data, attrs=host.attrs,
-                              preprocess=[], n_train=n_train, n_val=n_val)
+    source = dict(path=path) if path else dict(path=None, data=host.data,
+                                               attrs=host.attrs)
+    cfg["data_config"] = dict(
+        cfg["data_config"], preprocess=[], **source,
+        n_train=CLI_TRAIN_BATCHES * CLI_BATCH,
+        n_val=CLI_VAL_BATCHES * CLI_BATCH)
     cfg.update(batch_size=CLI_BATCH, max_epochs=2)
     return cfg
+
+
+def cli_energy_config(seed):
+    """``energy_config`` over in-memory synthetic QM9-like molecules from
+    ``seed``."""
+    from equivariant_nn_zoo_tpu_torch.data import Batch
+
+    n_mol = (CLI_TRAIN_BATCHES + CLI_VAL_BATCHES) * CLI_BATCH
+    return energy_config(host=Batch.from_data_list(synthetic_qm9(
+        n_mol, np.random.default_rng(seed), labels=True)))
 
 
 def cli_train_run(seed, extra):
@@ -3397,6 +3438,19 @@ def energy_inference_config(mols):
     return cfg
 
 
+def dump_equals(path, batch):
+    """Whether the HDF5 file at ``path``, read by the port's reader, holds
+    ``batch``'s arrays bit for bit (the keys ``dumpHDF5`` writes)."""
+    from equivariant_nn_zoo_tpu_torch.data import hdf5
+
+    data, _ = hdf5.read(path)
+    want = {k: np.asarray(v) for k, v in batch.data.items()
+            if k not in ("_node_segment", "_edge_segment")}
+    return set(data) == set(want) and all(
+        data[k].dtype == v.dtype and data[k].shape == v.shape
+        and data[k].tobytes() == v.tobytes() for k, v in want.items())
+
+
 def cli_inference_phase(dev, mc, n_layers):
     """Phase 31: the inference CLI on rank 0's ``best.pt``."""
     import torch
@@ -3424,14 +3478,13 @@ def cli_inference_phase(dev, mc, n_layers):
     dt = time.perf_counter() - t0
     launches = {k: v for k, v in conv_launches().items() if v}
     energies = np.asarray(merged["total_energy"])
-    try:
-        import h5py  # noqa: F401
-        dumped = os.path.exists(out)
-    except ImportError:
-        dumped = False
+    dumped = os.path.exists(out) and dump_equals(out, merged)
     print(f"cli inference: {len(merged)} molecules in {dt:.3f} s "
           f"(dataset, loader, model and checkpoint included); launches "
-          f"{launches}; HDF5 dump written: {dumped}")
+          f"{launches}; HDF5 dump written and read back equal: {dumped}")
+    if not dumped:
+        fail(f"cli inference: {out} is missing or differs from the batch "
+             f"inference.main returned")
     if len(merged) != N_BATCHES * CLI_BATCH:
         fail(f"cli inference: {len(merged)} graphs")
     for name in ("full_conv", "species_sc"):
@@ -3966,6 +4019,534 @@ def md_only():
     print(json.dumps({"kernels": [record]}))
 
 
+# ------------------------------------------------------------ phases 38-39
+DATA_DIR = os.path.join("chiprun_out", "datasets")
+QM9_MOLECULES = 133885            # the molecules of QM9
+FILE_SEED = 38                    # the 640 molecules of phase 38's file
+AF2_MULTIMERS, AF2_RESIDUES = 16, (150, 451)
+AF2_TRAIN, AF2_VAL = 12, 4        # multimers in each split (batch 4)
+CIF_CHAINS = 4                    # chains also written as mmCIF text
+CONVERTER_TIMEOUT = 300           # seconds, each converter subprocess
+PROT_APPLIED_STEPS = 4            # applied steps of the diffusion driver
+
+
+def qm9_scale(rng, n_mol=QM9_MOLECULES):
+    """A condensed QM9-scale dataset drawn as whole arrays: ``n_mol``
+    molecules of 3-29 atoms of H/C/N/O, positions N(0, 1.4^2), a
+    ``total_energy`` of the per-species shifts plus N(0, 1)
+    (``synthetic_qm9``'s recipe without its radius graphs)."""
+    from equivariant_nn_zoo_tpu_torch.models.config_energy import SHIFTS
+
+    n = rng.integers(3, 30, size=n_mol)
+    species = rng.choice([1, 6, 7, 8], size=(int(n.sum()), 1))
+    starts = np.concatenate([[0], np.cumsum(n)[:-1]])
+    energy = np.add.reduceat(np.asarray(SHIFTS)[species[:, 0]], starts) + \
+        rng.normal(size=n_mol)
+    data = {"pos": (rng.normal(size=(len(species), 3)) * 1.4).astype(
+                np.float32),
+            "species": species.astype(np.int64),
+            "total_energy": energy.reshape(-1, 1).astype(np.float32),
+            "_n_nodes": n.reshape(-1, 1).astype(np.int64)}
+    attrs = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
+             "total_energy": ("graph", "1x0e"),
+             "_n_nodes": ("graph", "1x0e")}
+    return data, attrs
+
+
+def qm9_round_trip():
+    """Phase 38's first part: the QM9-scale file written by ``hdf5.write``
+    and loaded by ``CondensedDataset(path=...)``, bit for bit."""
+    from equivariant_nn_zoo_tpu_torch.data import CondensedDataset, hdf5
+
+    data, attrs = qm9_scale(np.random.default_rng(FILE_SEED))
+    path = os.path.join(DATA_DIR, "qm9_scale.hdf5")
+    t0 = time.perf_counter()
+    hdf5.write(path, data, attrs)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = CondensedDataset(path=path)
+    load_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    same = all(ds.data[k].dtype == v.dtype and ds.data[k].shape == v.shape
+               and ds.data[k].tobytes() == v.tobytes()
+               for k, v in data.items()) and ds.attrs == attrs
+    print(f"datasets: QM9-scale file of {len(ds)} molecules, "
+          f"{len(data['pos'])} atoms: {mb:.3f} MB, written in "
+          f"{write_s:.3f} s, loaded by CondensedDataset in {load_s:.3f} s; "
+          f"every array and attribute equal bit for bit: {same}")
+    if len(ds) != QM9_MOLECULES or not same:
+        fail("datasets: the QM9-scale file does not load back as written")
+    os.remove(path)
+    return dict(molecules=len(ds), atoms=len(data["pos"]), mb=mb,
+                write_s=write_s, load_s=load_s)
+
+
+def same_batches(a, b):
+    """Two ``GraphBatch``es on the CPU: the same keys, capacities and
+    tensors, bit for bit."""
+    import torch
+
+    return set(a.data) == set(b.data) and \
+        (a.n_graphs, a.node_capacity, a.edge_capacity) == \
+        (b.n_graphs, b.node_capacity, b.edge_capacity) and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+            for k in a.data)
+
+
+def file_cli_phase(n_layers):
+    """Phase 38's second and third parts: the train CLI on full-width
+    ``config_energy`` with ``data_config.path`` a file of 640 molecules,
+    its first training batch against the in-memory loader's; the
+    inference CLI over that file, its output file read back."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch import inference, train
+    from equivariant_nn_zoo_tpu_torch.data import Batch
+    from equivariant_nn_zoo_tpu_torch.models import register_config
+    from equivariant_nn_zoo_tpu_torch.run import trainer as trainer_mod
+
+    n_mol = (CLI_TRAIN_BATCHES + CLI_VAL_BATCHES) * CLI_BATCH
+    host = Batch.from_data_list(synthetic_qm9(
+        n_mol, np.random.default_rng(FILE_SEED), labels=True))
+    path = os.path.join(DATA_DIR, f"energy_{n_mol}.hdf5")
+    host.dumpHDF5(path)
+    register_config("config_energy_file",
+                    lambda spec=None: energy_config(path=path))
+    first, spans = {}, []
+    run_category = trainer_mod.Trainer._run_category
+
+    def capture(self, category, iterable, n_batches, start=0):
+        def tee(batches):
+            for gb in batches:
+                if category == "training" and "batch" not in first:
+                    first["batch"] = gb.to("cpu")
+                yield gb
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_category(self, category, tee(iterable), n_batches, start)
+        torch.cuda.synchronize()
+        spans.append((category, n_batches, time.perf_counter() - t0))
+
+    trainer_mod.Trainer._run_category = capture
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = train.run(["--config", "config_energy_file", "--workdir",
+                             DATA_DIR, "--name", "energy", "--log_period",
+                             "1000"])
+    finally:
+        trainer_mod.Trainer._run_category = run_category
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    steps = trainer.iepoch * len(trainer.dl_train)
+    losses = [trainer.mae_dict[k] for k in ("training_loss",
+                                            "validation_loss")]
+    last = [sp for sp in spans if sp[0] == "training"][-1]
+    ms = 1e3 * last[2] / last[1]
+    # the same molecules in memory, through the same trainer set-up
+    register_config("config_energy_memory",
+                    lambda spec=None: energy_config(host=host))
+    args = train.parse_args(["--config", "config_energy_memory",
+                             "--workdir", os.path.join(DATA_DIR, "memory")])
+    memory = train.build_regression_trainer(energy_config(host=host), args)
+    want = next(iter(memory.dl_train))
+    memory.dl_train.close()
+    memory.dl_val.close()
+    same = "batch" in first and same_batches(first["batch"], want)
+    print(f"datasets: train CLI from {os.path.basename(path)} "
+          f"({os.path.getsize(path) / 1e6:.3f} MB): {trainer.iepoch} epochs "
+          f"({trainer.stop_arg}) of {len(trainer.dl_train)} steps in "
+          f"{dt:.3f} s (file, model and checkpoints included), {ms:.3f} ms "
+          f"per {CLI_BATCH}-graph step in epoch 2 (loader, prefetch stream "
+          f"and step); last losses {losses}; launches {launches}; the "
+          f"loader's first batch equals the in-memory loader's bit for bit: "
+          f"{same}")
+    if not same:
+        fail("datasets: the first batch from the file differs from the "
+             "in-memory one")
+    if not all(np.isfinite(losses)):
+        fail(f"datasets: non-finite losses {losses}")
+    for name in ("full_conv", "full_conv_bwd", "species_sc",
+                 "species_sc_bwd"):
+        if launches.get(name, 0) < n_layers * steps:
+            fail(f"datasets: train CLI from a file launched {name} "
+                 f"{launches.get(name, 0)} times, want >= "
+                 f"{n_layers * steps}")
+
+    # the inference CLI over the same file, on the run's best.pt
+    best = os.path.join(DATA_DIR, "default_project", "energy", "best.pt")
+    out = os.path.join(DATA_DIR, "inference.hdf5")
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    merged = inference.main([
+        "--config", "config_energy_file", "--model_path", best,
+        "--output_path", out, "--output_keys", "total_energy"])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_launches = {k: v for k, v in conv_launches().items() if v}
+    dumped = os.path.exists(out) and dump_equals(out, merged)
+    n_batches = -(-n_mol // CLI_BATCH)
+    print(f"datasets: inference CLI over {os.path.basename(path)}: "
+          f"{len(merged)} molecules in {infer_s:.3f} s; launches "
+          f"{infer_launches}; {os.path.basename(out)} written by the port's "
+          f"writer and read back equal bit for bit: {dumped}")
+    if len(merged) != n_mol or not dumped:
+        fail(f"datasets: inference CLI returned {len(merged)} molecules, "
+             f"its file read back equal: {dumped}")
+    if not np.isfinite(np.asarray(merged["total_energy"])).all():
+        fail("datasets: non-finite energies from the inference CLI")
+    for name in ("full_conv", "species_sc"):
+        if infer_launches.get(name, 0) < n_layers * n_batches:
+            fail(f"datasets: inference CLI launched {name} "
+                 f"{infer_launches.get(name, 0)} times")
+    return dict(train_seconds=dt, ms_per_step=ms, steps=steps,
+                losses=losses,
+                launches=launches, first_batch_equal=same,
+                inference_seconds=infer_s, inference_launches=infer_launches,
+                inference_dumped=dumped)
+
+
+def af2_chain(rng, n):
+    """AF2 labels of one chain of ``n`` residues on
+    ``synthetic_proteins``' geometry: atom37 slots N 0, CA 1, C 2, CB 3
+    (1.53 A from its CA in a random direction) and O 4, masked 1 there
+    and 0 elsewhere; a residue ``synthetic_proteins`` leaves unresolved
+    misses one of N, CA, C and O; ``aatype_index`` its species."""
+    prot, = synthetic_proteins(1, rng, sizes=(n, n + 1))
+    pos = np.zeros((n, 37, 3), np.float32)
+    mask = np.zeros((n, 37), np.float32)
+    off = rng.normal(size=(n, 3))
+    off *= 1.53 / np.linalg.norm(off, axis=1, keepdims=True)
+    for slot, atom in enumerate(("N", "CA", "C", "CB", "O")):
+        pos[:, slot] = prot["CA"] + off if atom == "CB" else prot[atom]
+        mask[:, slot] = 1
+    lost = np.flatnonzero(prot["mask"][:, 0] == 0)
+    mask[lost, rng.choice([0, 1, 2, 4], size=len(lost))] = 0
+    return {"all_atom_positions": pos, "all_atom_mask": mask,
+            "aatype_index": prot["species"][:, 0].astype(np.int64)}
+
+
+def cif_text(name, labels):
+    """An mmCIF file of one chain's labels: ``_entity_poly_seq`` and, per
+    residue whose CA is resolved, its resolved N, CA, C and O atoms."""
+    from equivariant_nn_zoo_tpu_torch.data_processing.mmcif import (
+        codification,
+    )
+
+    three = list(codification)
+    aa, pos = labels["aatype_index"], labels["all_atom_positions"]
+    mask = labels["all_atom_mask"]
+    lines = [f"data_{name}", "#", "loop_", "_entity_poly_seq.entity_id",
+             "_entity_poly_seq.num", "_entity_poly_seq.mon_id",
+             "_entity_poly_seq.hetero"]
+    lines += [f"1 {i + 1} {three[a]} n" for i, a in enumerate(aa)]
+    lines += ["#", "loop_"] + [f"_atom_site.{f}" for f in (
+        "group_PDB", "id", "type_symbol", "label_atom_id", "label_comp_id",
+        "label_asym_id", "label_entity_id", "label_seq_id", "Cartn_x",
+        "Cartn_y", "Cartn_z")]
+    atom = 0
+    for i in np.flatnonzero(mask[:, 1]):
+        for slot, name_ in ((0, "N"), (1, "CA"), (2, "C"), (4, "O")):
+            if mask[i, slot]:
+                atom += 1
+                x, y, z = pos[i, slot]
+                lines.append(f"ATOM {atom} {name_[0]} {name_} {three[aa[i]]} "
+                             f"A 1 {i + 1} {x:.3f} {y:.3f} {z:.3f}")
+    return "\n".join(lines + ["#", ""])
+
+
+def protein_inputs(root, rng):
+    """Phase 39's input files under ``root``: AF2 label files of
+    AF2_MULTIMERS multimers of 1-3 chains of 150-450 residues, every
+    third carrying a 4x4 operator per chain, the mapping JSON, and the
+    first CIF_CHAINS chains again as mmCIF text (every second gzipped).
+    Returns the mapping's path, the labels' directory, the mmCIF
+    directory and the mmCIF chains' labels."""
+    import gzip
+
+    labels_dir = os.path.join(root, "labels")
+    cif_dir = os.path.join(root, "cif")
+    os.makedirs(labels_dir)
+    os.makedirs(cif_dir)
+    mapping, cif_chains = {}, []
+    for m in range(AF2_MULTIMERS):
+        key = f"{m + 1}s{m:02d}"
+        chains = "ABC"[:int(rng.integers(1, 4))]
+        for c in chains:
+            item = af2_chain(rng, int(rng.integers(*AF2_RESIDUES)))
+            np.savez(os.path.join(labels_dir, f"{key}_{c}.npz"), **item)
+            if len(cif_chains) < CIF_CHAINS:
+                name = f"{key}{c}".lower()
+                text = cif_text(name, item)
+                if len(cif_chains) % 2:
+                    with gzip.open(os.path.join(cif_dir, f"{name}.cif.gz"),
+                                   "wt") as f:
+                        f.write(text)
+                else:
+                    with open(os.path.join(cif_dir, f"{name}.cif"),
+                              "w") as f:
+                        f.write(text)
+                cif_chains.append((name, item))
+        entry = {"chains": list(chains)}
+        if m % 3 == 2:
+            opers = []
+            for _ in chains:
+                q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+                op = np.eye(4)
+                op[:3, :3] = q * np.sign(np.linalg.det(q))
+                op[:3, 3] = rng.normal(size=3) * 10
+                opers.append(op.tolist())
+            entry["opers"] = opers
+        mapping[key] = entry
+    path = os.path.join(root, "mapping.json")
+    with open(path, "w") as f:
+        json.dump(mapping, f)
+    return path, labels_dir, cif_dir, sorted(cif_chains)
+
+
+def run_converter(module, args):
+    """``python -m equivariant_nn_zoo_tpu_torch.data_processing.<module>
+    args`` from the repository's root; its output, or a failure."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         f"equivariant_nn_zoo_tpu_torch.data_processing.{module}", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=CONVERTER_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"proteins: the {module} converter exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout.strip()
+
+
+def protein_file_config(data_dir, seed=0):
+    """Full-width, full-depth ``config_diffusion_CA`` over the files in
+    ``data_dir``: AF2_TRAIN training and AF2_VAL validation multimers, the
+    crop's generator seeded ``seed``."""
+    from functools import partial
+
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
+    cfg = get_config("config_diffusion_CA")
+    masked2indexed, crop = cfg["data_config"]["preprocess"]
+    cfg["data_config"] = dict(
+        cfg["data_config"], path=[data_dir], n_train=AF2_TRAIN,
+        n_val=AF2_VAL, preprocess=[masked2indexed, partial(
+            crop.func, **crop.keywords, rng=np.random.default_rng(seed))])
+    return cfg
+
+
+PROT_FILE_SDE = """from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+    get_config as sde_get_config,
+)
+
+
+def get_config():
+    cfg = sde_get_config()
+    cfg["training"].update(n_iters={n_iters}, snapshot_sampling=False)
+    return cfg
+"""
+
+
+def protein_file_phase():
+    """Phase 39: structures through both converters, then the diffusion
+    driver on full-width ``config_diffusion_CA`` from the converted
+    file."""
+    import importlib.util
+
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch import train
+    from equivariant_nn_zoo_tpu_torch.data import Batch, CondensedDataset
+    from equivariant_nn_zoo_tpu_torch.data import dataloader as dl_mod
+    from equivariant_nn_zoo_tpu_torch.data import hdf5
+    from equivariant_nn_zoo_tpu_torch.data_processing import af2_multimer
+    from equivariant_nn_zoo_tpu_torch.models import register_config
+
+    root = os.path.join(DATA_DIR, "proteins")
+    t0 = time.perf_counter()
+    mapping, labels_dir, cif_dir, cif_chains = protein_inputs(
+        root, np.random.default_rng(39))
+    make_s = time.perf_counter() - t0
+    h5py_absent = importlib.util.find_spec("h5py") is None
+    t0 = time.perf_counter()
+    pdb_dir, cif_out = os.path.join(root, "pdb"), os.path.join(root, "mmcif")
+    said = [run_converter("af2_multimer", [mapping, labels_dir, pdb_dir]),
+            run_converter("mmcif", [cif_dir, cif_out])]
+    convert_s = time.perf_counter() - t0
+    # the converted file against the converter's arrays made in memory
+    pdb = os.path.join(pdb_dir, "pdb_0.hdf5")
+    with open(mapping) as f:
+        lst = af2_multimer.convert(json.load(f), labels_dir, verbose=False)
+    attrs = {atom: ("node", "1x1o") for atom in af2_multimer.ATOM37_INDEX}
+    attrs.update(mask=("node", "1x0e"), species=("node", "1x0e"),
+                 chain_id=("node", "1x0e"), _n_nodes=("graph", "1x0e"))
+    want = Batch.from_data_list(lst, attrs)
+    got, got_attrs = CondensedDataset.load(pdb)
+    af2_same = len(lst) == AF2_MULTIMERS and all(
+        got[k].dtype == np.asarray(v).dtype and
+        got[k].tobytes() == np.asarray(v).tobytes()
+        for k, v in want.data.items() if not k.startswith("_")
+        or k == "_n_nodes") and all(got_attrs[k] == tuple(v)
+                                    for k, v in attrs.items())
+    # the mmCIF chains: CA positions as printed, masks, residue types
+    cif, _ = hdf5.read(os.path.join(cif_out, "pdb_0.hdf5"))
+    starts = np.concatenate([[0], np.cumsum(cif["_n_nodes"][:, 0])])
+    cif_same = len(cif["_n_nodes"]) == CIF_CHAINS
+    for i, (_, item) in enumerate(cif_chains if cif_same else ()):
+        rows = slice(starts[i], starts[i + 1])
+        ca = item["all_atom_mask"][:, 1] > 0
+        printed = np.asarray([[float(f"{x:.3f}") for x in r] for r in
+                              item["all_atom_positions"][ca, 1]], np.float32)
+        cif_same &= bool(
+            np.array_equal(cif["pos_mask"][rows, 0], (~ca).astype(np.int64))
+            and np.array_equal(cif["pos"][rows][ca], printed)
+            and np.array_equal(cif["aa_type"][rows, 0], item["aatype_index"]))
+    n_res = int(got["_n_nodes"].sum())
+    print(f"proteins: {AF2_MULTIMERS} multimers ({n_res} residues, "
+          f"{len(os.listdir(labels_dir))} chain label files) and "
+          f"{CIF_CHAINS} mmCIF files made in {make_s:.3f} s; h5py absent: "
+          f"{h5py_absent}; both converters ({said}) in {convert_s:.3f} s; "
+          f"pdb_0.hdf5 ({os.path.getsize(pdb) / 1e6:.3f} MB) equal bit for "
+          f"bit to the converter's arrays: {af2_same}; the mmCIF file's CA "
+          f"positions, masks and residue types as written: {cif_same}")
+    if not af2_same or not cif_same:
+        fail("proteins: a converted file does not hold its structures")
+
+    # the diffusion driver on the converted directory
+    register_config("config_diffusion_CA_files",
+                    lambda spec=None: protein_file_config(pdb_dir))
+    cfg = protein_file_config(pdb_dir)
+    grad_acc = cfg["grad_acc"]
+    n_iters = PROT_APPLIED_STEPS * grad_acc
+    sde_file = os.path.join(root, "sde_files.py")
+    with open(sde_file, "w") as f:
+        f.write(PROT_FILE_SDE.format(n_iters=n_iters))
+    seen, get_iters = {}, dl_mod.getDataIters
+
+    def tee_iters(*args, **kwargs):
+        train_iter, eval_iter = get_iters(*args, **kwargs)
+
+        def first_copied(it):
+            gb = next(it)
+            seen["card"] = gb.to("cuda").to("cpu")
+            yield gb
+            yield from it
+
+        return first_copied(train_iter), eval_iter
+
+    dl_mod.getDataIters = tee_iters
+    torch.cuda.synchronize()
+    reset_conv_launches()
+    t0 = time.perf_counter()
+    try:
+        state = train.run([
+            "--config", "config_diffusion_CA_files", "--sde_config",
+            sde_file, "--workdir", root, "--name", "protein",
+            "--log_period", str(grad_acc), "--eval_period", str(n_iters),
+            "--save_period", str(n_iters)])
+    finally:
+        dl_mod.getDataIters = get_iters
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in conv_launches().items() if v}
+    micro = int(state["step"])
+    evals = len(range(0, n_iters + 1, n_iters))
+    log = state["log"]
+    train_log = [e for e in log if "total" in e]
+    losses = [e["total"] for e in train_log] + \
+        [e["total_val"] for e in log if "total_val" in e]
+    ms = 1e3 * (train_log[-1]["seconds"] - train_log[0]["seconds"]) / \
+        (len(train_log) - 1)
+    wd = os.path.join(root, "default_project", "protein")
+    checkpoint = os.path.exists(os.path.join(wd, "checkpoints",
+                                             f"{n_iters}.pth"))
+    cpu = next(dl_mod.getDataIters(protein_file_config(pdb_dir),
+                                   seed=0)[0])
+    same = "card" in seen and same_batches(seen["card"], cpu)
+    print(f"proteins: the diffusion driver on full-width "
+          f"config_diffusion_CA from {os.path.basename(pdb_dir)}/: {micro} "
+          f"micro-steps ({micro // grad_acc} applied, grad_acc {grad_acc}) "
+          f"and {evals} evaluation steps in {dt:.3f} s (file, model and "
+          f"checkpoints included); losses {losses}; {ms:.3f} ms per applied "
+          f"step over steps {train_log[0]['step'] + 1}-"
+          f"{train_log[-1]['step']} (a host read of the losses each "
+          f"applied step); launches {launches}; checkpoints/{n_iters}.pth "
+          f"written: {checkpoint}; the first batch on the card equals the "
+          f"CPU pipeline's bit for bit: {same}")
+    if micro // grad_acc != PROT_APPLIED_STEPS:
+        fail(f"proteins: {micro} micro-steps")
+    if not all(np.isfinite(losses)):
+        fail(f"proteins: non-finite losses {losses}")
+    if launches.get("full_conv_bwd", 0) != 8 * micro or \
+            launches.get("full_conv", 0) != 8 * (micro + evals):
+        fail(f"proteins: launches {launches}, want 8 K2 per micro-step and "
+             f"8 K1 per micro-step and evaluation")
+    if not checkpoint:
+        fail("proteins: no checkpoint written")
+    if not same:
+        fail("proteins: the first batch differs from the CPU pipeline's")
+    return dict(multimers=AF2_MULTIMERS, residues=n_res, make_s=make_s,
+                convert_s=convert_s, h5py_absent=h5py_absent,
+                micro_steps=micro, evaluations=evals, seconds=dt,
+                ms_per_applied_step=ms, losses=losses, launches=launches,
+                first_batch_equal=same)
+
+
+def dataset_phases(n_layers):
+    """Phases 38-39 of the module docstring; returns their figures."""
+    import shutil
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    os.makedirs(DATA_DIR)
+    seconds = [time.perf_counter()]
+    qm9 = qm9_round_trip()
+    files = file_cli_phase(n_layers)
+    seconds.append(time.perf_counter())
+    proteins = protein_file_phase()
+    seconds.append(time.perf_counter())
+    seconds = [b - a for a, b in zip(seconds, seconds[1:])]
+    print(f"phases 38-39: {', '.join(f'{x:.1f}' for x in seconds)} s, "
+          f"{sum(seconds):.1f} s in all")
+    # checkpoints, labels and converted files stay out of what a call
+    # brings back
+    for root, _, names in os.walk(DATA_DIR):
+        for name in names:
+            if name.endswith((".pt", ".pth", ".npz", ".hdf5", ".gz",
+                              ".cif")):
+                os.remove(os.path.join(root, name))
+    return dict(seconds=seconds, qm9=qm9, files=files, proteins=proteins)
+
+
+def datasets_only():
+    """``python3 chip_smoke.py --datasets``: the build, then phases 38-39
+    alone; their figures as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_layers = get_config("config_energy")["model_config"]["num_layers"]
+    print(json.dumps({"datasets": dataset_phases(n_layers)}))
+
+
+
+
 def main():
     import torch
 
@@ -4173,6 +4754,7 @@ def main():
     protein = protein_phases(dev)
     cli = cli_phases(dev)
     dsh_record, md = md_phases(dev)
+    datasets = dataset_phases(n_layers)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -4216,8 +4798,20 @@ def main():
             record["protein"] = protein[record["name"]]
         if record["name"] in cli:
             record["cli"] = cli[record["name"]]
+    # K1, K2, K3 and K3b also carry what they did on the dataset files'
+    # path (phases 38-39)
+    for record in kernels:
+        name = record["name"]
+        files, proteins = datasets["files"], datasets["proteins"]
+        got = {k: v[name] for k, v in (
+            ("train_launches", files["launches"]),
+            ("inference_launches", files["inference_launches"]),
+            ("protein_launches", proteins["launches"])) if name in v}
+        if got:
+            record["datasets"] = got
     print(json.dumps({"cli": cli["path"]}))
     print(json.dumps({"md": md}))
+    print(json.dumps({"datasets": datasets}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5362,6 +5956,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--md"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         md_only()
+    elif sys.argv[1:] == ["--datasets"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        datasets_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

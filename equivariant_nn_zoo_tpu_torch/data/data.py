@@ -19,6 +19,7 @@ from typing import Dict
 
 import numpy as np
 
+from . import hdf5
 from ..ops.irreps import irreps_dim
 
 
@@ -120,17 +121,15 @@ class Data:
     # -- IO -----------------------------------------------------------------
 
     def dumpHDF5(self, path):
-        """Reference parity: data.py:226-238."""
-        import h5py
+        """Write the tensors and attributes to an HDF5 file through the
+        port's own writer (``hdf5.write``), as the JAX package's
+        ``dumpHDF5`` does through ``h5py``: the segment vectors are left
+        out and tuples of attributes become tuples of ``str``.
 
-        with h5py.File(path, "w") as f:
-            for key in self.keys():
-                if key in ("_node_segment", "_edge_segment"):
-                    continue
-                f[key] = np.asarray(self[key])
-            for key, value in self.attrs.items():
-                if key in ("_node_segment", "_edge_segment"):
-                    continue
-                f.attrs[key] = tuple(str(x) for x in value) if isinstance(
-                    value, (tuple, list)
-                ) else value
+        Reference parity: data.py:226-238."""
+        skip = ("_node_segment", "_edge_segment")
+        hdf5.write(
+            path,
+            {k: np.asarray(v) for k, v in self.data.items() if k not in skip},
+            {k: tuple(str(x) for x in v) if isinstance(v, (tuple, list))
+             else v for k, v in self.attrs.items() if k not in skip})

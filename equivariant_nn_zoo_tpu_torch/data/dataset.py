@@ -2,9 +2,9 @@
 equivariance-test fixtures and statistics.
 
 A numpy-only copy of ``equivariant_nn_zoo_tpu/data/dataset.py`` on the
-port's ``Batch``, irreps, Wigner matrices and statistics.  ``h5py`` is
-imported only where a file is read, so an in-memory dataset (``data=`` and
-``attrs=``) needs none.
+port's ``Batch``, irreps, Wigner matrices and statistics.  Files are read
+by the port's own HDF5 reader (``hdf5.read``, numpy and the standard
+library), so no ``h5py`` is needed on any machine.
 
 Reference parity: e3_layers/data/dataset.py (C3 in SURVEY.md §2): path may be
 a file, a directory, ``dir:regex`` or a list of paths; per-item preprocess
@@ -21,6 +21,7 @@ from inspect import signature
 
 import numpy as np
 
+from . import hdf5
 from .batch import Batch
 from ..ops.irreps import Irreps
 from ..ops.wigner import irreps_d, rand_matrix
@@ -55,27 +56,24 @@ class CondensedDataset(Batch):
     @staticmethod
     def load(path):
         """Reference parity: dataset.py:48-102."""
-        import h5py
 
         def loadFile(file):
             logging.info(f"Loading {file}")
             data, attrs = {}, {}
-            with h5py.File(file, "r") as f:
-                for key in f.keys():
-                    item = np.asarray(f[key][:])
-                    if item.dtype == np.int32:
-                        item = item.astype(np.int64)
-                    elif item.dtype == np.float64:
-                        item = item.astype(np.float32)
-                    data[key] = item
-                for key in f.attrs.keys():
-                    value = f.attrs[key]
-                    if isinstance(value, np.ndarray):
-                        value = tuple(
-                            v.decode() if isinstance(v, bytes) else str(v)
-                            for v in value
-                        )
-                    attrs[key] = value
+            items, values = hdf5.read(file)
+            for key, item in items.items():
+                if item.dtype == np.int32:
+                    item = item.astype(np.int64)
+                elif item.dtype == np.float64:
+                    item = item.astype(np.float32)
+                data[key] = item
+            for key, value in values.items():
+                if isinstance(value, np.ndarray):
+                    value = tuple(
+                        v.decode() if isinstance(v, bytes) else str(v)
+                        for v in value
+                    )
+                attrs[key] = value
             return data, attrs
 
         if isinstance(path, str):

@@ -4,8 +4,8 @@ HDF5, and dataset statistics (among them the per-species fit that gives
 
 PyTorch package's counterpart of ``examples/convert_datasets.py``, on this
 package's ``Batch`` and ``CondensedDataset``.  A host script: it runs no
-kernel and needs ``h5py``, which the machine with the card lacks, so it runs
-where the data are prepared and its files are copied over.
+kernel, and reads and writes HDF5 through the port's own code
+(``data/hdf5.py``), so it runs on any machine, the card's included.
 
 Usage:
 
@@ -23,6 +23,7 @@ import sys
 
 import numpy as np
 
+from ..data import hdf5
 from ..data.batch import Batch
 from ..data.dataset import CondensedDataset
 
@@ -56,11 +57,8 @@ def convert_qm9(npz_path, out_path):
 def convert_padded_hdf5(in_path, out_path, pad_key="Z", pad_value=0):
     """Padded per-molecule HDF5 -> condensed HDF5 (the rows of ``pad_key``
     equal to ``pad_value`` are padding)."""
-    import h5py
-
-    with h5py.File(in_path) as f:
-        arrays = {k: np.asarray(f[k]) for k in f.keys()}
-        attrs = {k: tuple(v) for k, v in f.attrs.items()}
+    arrays, attrs = hdf5.read(in_path)
+    attrs = {k: tuple(v) for k, v in attrs.items()}
     n_mol = len(arrays[pad_key])
     items = []
     for i in range(n_mol):

@@ -10,7 +10,8 @@ its evaluation loop as a library function, ``main`` its command line on
 asks for ``cpu``).  ``main`` loads a ``trainer.pt``, ``best.pt`` or
 ``last.pt`` of either package, or a diffusion checkpoint, evaluates the
 config's dataset in batches (the last one padded, its real graphs kept),
-writes the outputs to HDF5 where ``h5py`` imports and returns them.
+writes the outputs to HDF5 through the port's own writer
+(``data/hdf5.py``, no ``h5py``) and returns them.
 """
 
 from __future__ import annotations
@@ -93,8 +94,8 @@ def model_params(tree):
 def main(argv=None) -> Batch:
     """Evaluate ``--config``'s dataset with the weights of
     ``--model_path`` (the seeded initial weights without one), dump the
-    outputs to ``--output_path`` where ``h5py`` imports, and return them
-    as one host ``Batch`` of the real graphs."""
+    outputs to ``--output_path`` (a failure to write raises), and return
+    them as one host ``Batch`` of the real graphs."""
     from .data.dataloader import DataLoader
     from .data.dataset import CondensedDataset
     from .models import build_model, get_config
@@ -123,12 +124,6 @@ def main(argv=None) -> Batch:
                         drop_last=False, pin_memory=args.device == "cuda")
     merged = evaluate(model, (gb.to(args.device) for gb in loader),
                       [k for k in args.output_keys.split(",") if k])
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        logging.warning(f"h5py is not installed: {args.output_path} is not "
-                        f"written")
-        return merged
     merged.dumpHDF5(args.output_path)
     logging.info(f"Wrote {len(merged)} graphs to {args.output_path}")
     return merged
