@@ -30,6 +30,7 @@
     python3 chip_smoke.py --cli            # phases 29-32 alone
     python3 chip_smoke.py --md             # phases 33-37 alone
     python3 chip_smoke.py --datasets       # phases 38-39 alone
+    python3 chip_smoke.py --capture        # phase 40 alone
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -54,8 +55,11 @@ Phases, in order; any failure exits non-zero before the last line:
              operands as the library's time; dwsel must repeat bit for bit;
 7. slice   — full-width ``config_energy`` (random weights from a seeded
              generator) serves 4 batches of 128 graphs through
-             ``inference.evaluate``; the K1/K3 launch counters must rise
-             by at least one per layer and batch, energies must be finite,
+             ``inference.evaluate`` (captured: ``LaunchCounts`` counts the
+             card's launches of each kernel by name in torch.profiler's
+             device events, the wrappers' own counts, which no replay
+             moves, beside them); K1 and K3 must launch at least once per
+             layer and batch, energies must be finite,
              and a 32-graph cut of the first batch must match the CPU plain
              path;
 8. train   — a ``run.Trainer`` with ``config_energy``'s own training
@@ -64,9 +68,9 @@ Phases, in order; any failure exits non-zero before the last line:
              training batches and 1 validation batch of 128 graphs labelled
              ``sum of per-species shifts + N(0, 1)``; losses must be finite
              and each of K1, K2, K3 and K3b must launch at least
-             ``num_layers x steps`` times, and the mix GEMM (forward mix
-             and backward products, counted by the kernel library) at
-             least once; then ms per step and graphs/s and a
+             ``num_layers x steps`` times on the card, and the mix GEMM
+             (forward mix and backward products) at least once; then ms
+             per step and graphs/s and a
              ``torch.profiler`` table of 4 steps;
 9. train parity — one step's gradient of every parameter on a 32-graph
              cut, card against the CPU plain path, from the same seeded
@@ -202,7 +206,10 @@ Phases, in order; any failure exits non-zero before the last line:
              32-molecule cut (N(0, 1) dipoles), card against the CPU plain
              path;
 26. protein kernels — K1 and K2 at the hot layer (``layer3``) of
-             full-width ``config_diffusion_CA`` (n_dim 64, l_max 2, 30
+             full-width ``config_diffusion_CA`` at 4 of its 8 layers
+             (phases 26-28 are cut to ``PROT_SMOKE_LAYERS`` to keep the
+             script under 900 s; phases 39 and 40 run the full depth)
+             (n_dim 64, l_max 2, 30
              paths, 32-wide radial inputs, 3 hidden layers of 64) on a
              batch of 4 synthetic globular proteins of 420-559 residues
              through the config's preprocess (``masked2indexed``, ``crop``
@@ -212,11 +219,11 @@ Phases, in order; any failure exits non-zero before the last line:
              share, and the live and padded edges;
 27. protein sampling — ``config_diffusion_CA``, then
              ``config_diffusion_backbone`` (seeded weights, ``build_model``
-             with no device argument, full width and depth) sample that
+             with no device argument, full width, 4 layers) sample that
              batch, scaled by the config's scaler, by the PC sampler
              (``sde_config``'s predictor and corrector, snr 0.16) at N =
              50 (cut from 1,000): every counter set to 0 just before and
-             read just after, exactly 8 K1 per score evaluation and no
+             read just after, exactly 1 K1 a layer per evaluation and no
              other kernel; the edge overflow of every evaluation is 0 (kept
              on the card, read after the loop); finite positions of every
              diffusion key, inverse-scaled and written by ``saveProtein``
@@ -227,8 +234,9 @@ Phases, in order; any failure exits non-zero before the last line:
              plain path;
 28. protein train — ``run.sde_utils.get_step_fn`` with each config's own
              settings (Adam lr 1e-2, grad_acc 4, clip 1.0, EMA 0.99 with
-             num_updates) on the batch: one micro-step launches exactly 8
-             K1 and 8 K2, Adam steps on every 4th, 12 timed micro-steps
+             num_updates) on the batch: one micro-step launches exactly 1
+             K1 and 1 K2 a layer, Adam steps on every 4th, 12 timed
+             micro-steps
              (ms per micro-step and per applied step, peak memory, busy);
              one micro-step's loss and gradients on the cut (the same t, z
              and ``_edge_rand`` on both sides), card against the CPU plain
@@ -323,7 +331,34 @@ Phases, in order; any failure exits non-zero before the last line:
              micro-step and 8 K1 per micro-step and evaluation, finite
              losses, the checkpoint written, ms per applied step; the
              first batch on the card equal bit for bit to the CPU
-             pipeline's on the same file and seeds.
+             pipeline's on the same file and seeds;
+40. capture — the compiled step (``run/capture.py``, CUDA graphs in
+             ``jax.jit``'s place), which every phase above runs by default,
+             against ``capture=False`` on the same weights, batches and
+             seeds: ``config_energy`` at batch 128, 12 training steps over
+             4 distinct batches and 4 evaluations, the loss and every
+             parameter within TOL after each step, then a second captured
+             run and one resumed from a checkpoint after step 6, both bit
+             for bit equal to the first; ``config_dipole`` with
+             ``grad_acc`` 4, ``config_hamiltonian`` at 16 and 128 and
+             ``config_energy_force`` through the trainer likewise; serving
+             ``config_energy``, ``config_dipole`` and
+             ``config_hamiltonian``; the SDE step of ``config_diffusion``
+             ``""`` and ``"nll"`` with a non-finite position once (the step
+             skipped on the card, the parameters unmoved); the PC sampler's
+             first 10 steps on draws replayed from the card, then a batch
+             of 128 at N = 1000; ``config_diffusion_CA``'s first 4 steps
+             and a batch at N = 50.  The comparisons run in PyTorch's
+             deterministic mode (``index_add_`` without atomics); outside
+             it ``config_energy`` is held to a bound over the distance
+             between two eager runs (the atomics' order) and under that of
+             a run on stale sort orders.  Each
+             path's ms per step (median of 20, CUDA events), host launch
+             calls, device operations and each kernel's launches per step
+             (torch.profiler; the eager ones equal to the wrappers'
+             counts, the captured ones to the eager ones) are taken in
+             both modes outside it, printed beside the card's name and
+             power limit.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -351,6 +386,7 @@ bound beside it as ``bound_f32_ms``).  The second-to-last line is the
 kernels' JSON, the last the device JSON.
 """
 
+import gc
 import json
 import os
 import re
@@ -762,19 +798,146 @@ def step_gradients(model, gb, loss_fn):
                          for n, p in model.named_parameters()}
 
 
-def ext_launches():
+# the device kernel that marks one launch of each kernel wrapper, by the
+# name the ``kernels`` line gives it: regexes on the kernel names of
+# torch.profiler's device events.  Where a wrapper's C entry runs one of
+# several kernels, each at most once, the most launched of them counts.
+# K4f's walk also runs inside K4b when it is given no scratch (the
+# pairing rule's calls), so its device count may pass its host count.
+LAUNCH_MARKS = {
+    "full_conv": (r"k1_walk_kernel<",),
+    "full_conv_bwd": (r"k2_walk_kernel<",),
+    "full_conv_bwd_dsh": (r"k2_walk_kernel<\d+, true>",),
+    "species_sc": (r"table_product_kernel<false>",),
+    "species_sc_bwd": (r"table_product_kernel<true>",
+                       r"table_grad_sum_kernel"),
+    "full_conv_ext_fwd": (r"ext_dst_walk_kernel<\d+, false>",),
+    "full_conv_ext_bwd": (r"ext_src_walk_kernel<\d+, false>",),
+    "full_conv_ext_grad2": (r"ext_src_walk_kernel<\d+, true>",),
+    "uvu_conv": (r"uvu_fwd_kernel",),
+    "uvu_conv_bwd": (r"uvu_adj_kernel",),
+    "pairwise_tp": (r"pairwise_fwd_kernel",),
+    "pairwise_tp_bwd": (r"pairwise_dws_kernel", r"pairwise_adj_kernel"),
+    "row_mix_forward": (r"gemm_kernel<true, false>",),
+    "row_mix_products": (r"gemm_kernel<(?!true, false>)",),
+}
+EXT_KEYS = ("full_conv_ext_fwd", "full_conv_ext_bwd", "full_conv_ext_grad2")
+CONV_KEYS = ("full_conv", "full_conv_bwd", "full_conv_bwd_dsh", "species_sc",
+             "species_sc_bwd") + EXT_KEYS
+HEAD_KEYS = ("full_conv", "full_conv_bwd", "species_sc", "species_sc_bwd",
+             "uvu_conv", "uvu_conv_bwd", "pairwise_tp", "pairwise_tp_bwd")
+
+
+def launch_counters():
+    """(class, attribute) of every kernel wrapper's launch count, by the
+    name the ``kernels`` line gives the kernel (the mix GEMM's two counts
+    live in the kernel library: ``row_mix.launches``)."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
+        FullConv,
+        PairwiseTP,
+        SpeciesScalarFCTP,
+        UVUConv,
+    )
     from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
 
-    return {"full_conv_ext_fwd": FullConvExt.launches_fwd,
-            "full_conv_ext_bwd": FullConvExt.launches_bwd,
-            "full_conv_ext_grad2": FullConvExt.launches_grad2}
+    return {"full_conv": (FullConv, "launches"),
+            "full_conv_bwd": (FullConv, "backward_launches"),
+            "full_conv_bwd_dsh": (FullConv, "dsh_launches"),
+            "species_sc": (SpeciesScalarFCTP, "launches"),
+            "species_sc_bwd": (SpeciesScalarFCTP, "backward_launches"),
+            "full_conv_ext_fwd": (FullConvExt, "launches_fwd"),
+            "full_conv_ext_bwd": (FullConvExt, "launches_bwd"),
+            "full_conv_ext_grad2": (FullConvExt, "launches_grad2"),
+            "uvu_conv": (UVUConv, "launches"),
+            "uvu_conv_bwd": (UVUConv, "backward_launches"),
+            "pairwise_tp": (PairwiseTP, "launches"),
+            "pairwise_tp_bwd": (PairwiseTP, "backward_launches")}
 
 
-def reset_ext_launches():
-    from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
+def host_launches():
+    """Every wrapper's count: the launches it made where it runs (an
+    eager call or a capture; a CUDA graph's replay runs no wrapper)."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix
 
-    FullConvExt.launches_fwd = FullConvExt.launches_bwd = 0
-    FullConvExt.launches_grad2 = 0
+    out = {k: getattr(cls, attr)
+           for k, (cls, attr) in launch_counters().items()}
+    mix = row_mix.launches()
+    out.update(row_mix_forward=mix["forward"], row_mix_products=mix["backward"])
+    return out
+
+
+def kernel_counts(prof):
+    """Events by (device type, name) of the finished profiler ``prof``,
+    read from its raw kineto events: a long run holds ~10^6 of them, more
+    than ``key_averages`` parses in reasonable time."""
+    counts = {}
+    for e in prof.profiler.kineto_results.events():
+        key = (str(e.device_type()).split(".")[-1], e.name())
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def device_launches(counts):
+    """The launches of each kernel of ``LAUNCH_MARKS`` among the device
+    events of ``kernel_counts``."""
+    names = {name: n for (kind, name), n in counts.items() if kind == "CUDA"}
+    return {key: max(sum(n for name, n in names.items() if re.search(m, name))
+                     for m in marks)
+            for key, marks in LAUNCH_MARKS.items()}
+
+
+def reset_launches():
+    """Every wrapper's count (and the mix GEMM's) to 0."""
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix
+
+    for cls, attr in launch_counters().values():
+        setattr(cls, attr, 0)
+    row_mix.reset_launches()
+
+
+class LaunchCounts:
+    """The launches of every kernel in a stretch of the run, from where it
+    is made to ``read``, two ways.  ``host``: what the wrappers counted,
+    every count set to 0 first (an eager call or a capture counts, a CUDA
+    graph's replay does not).  ``device``: the kernels the card ran,
+    counted by name (``LAUNCH_MARKS``) from torch.profiler's device
+    events, every replay included; what the script checks and reports.
+    ``eager``: the stretch captures and replays nothing, so each device
+    count must equal the wrapper's (K4f's may pass it).  A stretch known to
+    be eager (the examples) reads ``host_launches`` alone."""
+
+    def __init__(self, eager=False):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.eager = eager
+        self.host = self.device = self.events = None
+        reset_launches()
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
+
+    def read(self, keys=tuple(LAUNCH_MARKS)):
+        """The device counts of ``keys`` (the profiler stops at the first
+        read)."""
+        import torch
+
+        if self.device is None:
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.host = host_launches()
+            self.events = kernel_counts(self.prof)
+            self.prof = None          # its ~10^6 raw events go now
+            self.device = device_launches(self.events)
+            if self.eager:
+                off = {k: (self.host[k], n) for k, n in self.device.items()
+                       if n < self.host[k] or (
+                           n > self.host[k] and k != "full_conv_ext_fwd")}
+                if off:
+                    fail(f"eager launches: the device ran another count "
+                         f"than the wrappers launched, (host, device): {off}")
+        return {k: self.device[k] for k in keys}
 
 
 def worst_rel(got, want):
@@ -1032,12 +1195,12 @@ def force_phases(dev):
     keys = ["energy", "forces"]
     evaluate(model, batches[:1], keys)  # warm-up
     torch.cuda.synchronize()
-    reset_ext_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     res = evaluate(model, batches, keys)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    serve_launches = ext_launches()
+    serve_launches = counts.read(EXT_KEYS)
     n_real = sum(int(gb["_node_mask"].sum()) for gb in batches)
     print(f"force serve: {len(res)} graphs ({n_real} atoms) in {dt:.4f} s "
           f"through evaluate ({len(res) / dt:.1f} graphs/s); launches "
@@ -1093,7 +1256,7 @@ def force_phases(dev):
                       **settings)
     n_epochs = 2
     torch.cuda.synchronize()
-    reset_ext_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     for epoch in range(n_epochs):
         trainer.epoch_step(train, val)
@@ -1108,7 +1271,7 @@ def force_phases(dev):
                 fail(f"force train: non-finite {key} in epoch {epoch}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    train_launches = ext_launches()
+    train_launches = counts.read(EXT_KEYS)
     steps = n_epochs * len(train)
     print(f"force train: {n_epochs} epochs of {len(train)} steps + "
           f"{len(val)} validation batch in {dt:.4f} s; launches "
@@ -1116,12 +1279,12 @@ def force_phases(dev):
     for name, n in train_launches.items():
         if n < steps:
             fail(f"force train: {name} launched {n} times in {steps} steps")
-    reset_ext_launches()
+    counts = LaunchCounts()
     trainer.batch_step(train[0])
-    per_step = ext_launches()
-    reset_ext_launches()
+    per_step = counts.read(EXT_KEYS)
+    counts = LaunchCounts()
     trainer.batch_step(val[0], validation=True)
-    per_val = ext_launches()
+    per_val = counts.read(EXT_KEYS)
     print(f"force train launches per step (all {n_layers} layers): "
           f"{per_step}; per layer and step: "
           f"{ {k: v / n_layers for k, v in per_step.items()} }; per "
@@ -1179,36 +1342,6 @@ def force_phases(dev):
                       train_launches["full_conv_ext_grad2"], k4g,
                       *costs["K4g"]),
     ]
-
-
-def head_counters():
-    """(class, attribute) of every launch counter on the hamiltonian path,
-    by the kernel's C entry."""
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
-        FullConv,
-        PairwiseTP,
-        SpeciesScalarFCTP,
-        UVUConv,
-    )
-
-    return {"full_conv": (FullConv, "launches"),
-            "full_conv_bwd": (FullConv, "backward_launches"),
-            "species_sc": (SpeciesScalarFCTP, "launches"),
-            "species_sc_bwd": (SpeciesScalarFCTP, "backward_launches"),
-            "uvu_conv": (UVUConv, "launches"),
-            "uvu_conv_bwd": (UVUConv, "backward_launches"),
-            "pairwise_tp": (PairwiseTP, "launches"),
-            "pairwise_tp_bwd": (PairwiseTP, "backward_launches")}
-
-
-def head_launches():
-    return {k: getattr(cls, attr) for k, (cls, attr) in
-            head_counters().items()}
-
-
-def reset_head_launches():
-    for cls, attr in head_counters().values():
-        setattr(cls, attr, 0)
 
 
 def capture_head_inputs(model, gb):
@@ -1517,12 +1650,12 @@ def hamiltonian_phases(dev):
     with torch.no_grad():
         model(batches[H2O_BATCHES[0]][0])  # warm-up
         torch.cuda.synchronize()
-        reset_head_launches()
+        counts = LaunchCounts(eager=True)
         model(big)
         torch.cuda.synchronize()
     want = {"full_conv": n_layers, "species_sc": n_layers, "uvu_conv": 1,
             "pairwise_tp": 2}
-    per_forward = {k: v for k, v in head_launches().items() if k in want}
+    per_forward = counts.read(want)
     print(f"hamiltonian launches per forward: {per_forward}")
     if per_forward != want:
         fail(f"hamiltonian: one forward launched {per_forward}, want {want}")
@@ -1543,13 +1676,12 @@ def hamiltonian_phases(dev):
     for size in H2O_BATCHES:
         evaluate(model, batches[size][:1], ["hamiltonian"])  # warm-up
         torch.cuda.synchronize()
-        reset_head_launches()
+        counts = LaunchCounts()
         t0 = time.perf_counter()
         res = evaluate(model, batches[size], ["hamiltonian"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        serve_launches[size] = {k: v for k, v in head_launches().items()
-                                if k in want}
+        serve_launches[size] = counts.read(want)
         print(f"hamiltonian serve, batch {size}: {len(res)} graphs in "
               f"{dt:.4f} s through evaluate ({len(res) / dt:.1f} graphs/s); "
               f"launches {serve_launches[size]}")
@@ -1711,7 +1843,7 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
     loss_before = fixed_loss()
     n_epochs = 2
     torch.cuda.synchronize()
-    reset_head_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     for epoch in range(n_epochs):
         trainer.epoch_step(train, val)
@@ -1725,7 +1857,7 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
                 fail(f"hamiltonian train: non-finite {key} in epoch {epoch}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    train_launches = head_launches()
+    train_launches = counts.read(HEAD_KEYS)
     print(f"hamiltonian train: {n_epochs} epochs of {len(train)} steps + "
           f"{len(val)} validation batch in {dt:.4f} s; launches "
           f"{train_launches}")
@@ -1737,10 +1869,9 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
             "species_sc": n_layers, "species_sc_bwd": n_layers,
             "uvu_conv": 1, "uvu_conv_bwd": 1, "pairwise_tp": 2,
             "pairwise_tp_bwd": 2}
-    reset_head_launches()
+    counts = LaunchCounts()
     trainer.batch_step(train[0])
-    torch.cuda.synchronize()
-    per_step = head_launches()
+    per_step = counts.read(HEAD_KEYS)
     print(f"hamiltonian train launches per step: {per_step}")
     if per_step != want:
         fail(f"hamiltonian train: one step launched {per_step}, want {want}")
@@ -1808,6 +1939,7 @@ def hamiltonian_train(dev, cfg, cpu_model, n_layers):
 
 
 DIFF_BATCH, DIFF_CUT = 128, 16    # the config's batch, a cut for parity
+SAMPLER_COUNTED = 4    # sampler steps whose launches the profiler counts
 DIFF_PARITY_STEPS = 10            # sampler steps held to the CPU
 DIFF_HOT_LAYER = "layer2"
 DIFF_TRAIN_STEPS = 12
@@ -1914,32 +2046,6 @@ def k1_k2_checks(model, gb, dev):
     return k1, k2, conv_costs(conv, x1, er, edges, flat)
 
 
-def conv_launches():
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
-        FullConv,
-        SpeciesScalarFCTP,
-    )
-
-    return {"full_conv": FullConv.launches,
-            "full_conv_bwd": FullConv.backward_launches,
-            "full_conv_bwd_dsh": FullConv.dsh_launches,
-            "species_sc": SpeciesScalarFCTP.launches,
-            "species_sc_bwd": SpeciesScalarFCTP.backward_launches,
-            **ext_launches()}
-
-
-def reset_conv_launches():
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
-        FullConv,
-        SpeciesScalarFCTP,
-    )
-
-    FullConv.launches = FullConv.backward_launches = 0
-    FullConv.dsh_launches = 0
-    SpeciesScalarFCTP.launches = SpeciesScalarFCTP.backward_launches = 0
-    reset_ext_launches()
-
-
 def diffusion_serve(dev, spec, mols, sde, sde_cfg):
     """Phase 19 for one spec: the kernels at the hot layer against plain,
     one batch sampled by the PC sampler at the config's N (every counter
@@ -1990,17 +2096,19 @@ def diffusion_serve(dev, spec, mols, sde, sde_cfg):
         sampling["n_steps_each"], eps=SAMPLING_EPS)
     pc(model, gb, Noise(dev, 1), steps=2)     # warm-up
     torch.cuda.synchronize()
-    reset_conv_launches()
     t0 = time.perf_counter()
     host, nfe = sampler(model, gb, Noise(dev, 2))
     dt = time.perf_counter() - t0
-    launches = conv_launches()
-    per_eval = {k: v / nfe for k, v in launches.items() if v}
+    counts = LaunchCounts()
+    _, counted = pc(model, gb, Noise(dev, 2), steps=SAMPLER_COUNTED)
+    launches = counts.read(CONV_KEYS)
+    per_eval = {k: v / counted for k, v in launches.items() if v}
     print(f"{tag} serve: {DIFF_BATCH} molecules sampled by the PC sampler "
           f"(N={sde.N}, {nfe} score evaluations) in {dt:.3f} s: "
           f"{DIFF_BATCH / dt:.3f} molecules/s, {1e3 * dt / nfe:.4f} ms per "
-          f"evaluation (host clock, to the host batch); launches "
-          f"{launches}, per evaluation {per_eval}")
+          f"evaluation (host clock, to the host batch); launches in its "
+          f"first {SAMPLER_COUNTED} steps ({counted} evaluations: warm-up, "
+          f"capture and replays) {launches}, per evaluation {per_eval}")
     if nfe != 2 * sde.N:
         fail(f"{tag}: {nfe} score evaluations, want {2 * sde.N}")
     if host["pos"].shape != (n_real, 3) or not np.isfinite(
@@ -2010,9 +2118,9 @@ def diffusion_serve(dev, spec, mols, sde, sde_cfg):
     want = ("full_conv_ext_fwd", "full_conv_ext_bwd") if spec else \
         ("full_conv",)
     for name in want:
-        if launches[name] < n_layers * nfe:
-            fail(f"{tag}: {name} launched {launches[name]} times in {nfe} "
-                 f"evaluations, want >= {n_layers * nfe}")
+        if launches[name] < n_layers * counted:
+            fail(f"{tag}: {name} launched {launches[name]} times in "
+                 f"{counted} evaluations, want >= {n_layers * counted}")
     if launches["species_sc"] or launches["species_sc_bwd"]:
         fail(f"{tag}: the species-table kernels launched ({launches})")
 
@@ -2031,8 +2139,14 @@ def diffusion_serve(dev, spec, mols, sde, sde_cfg):
     n_draws = 1 + DIFF_PARITY_STEPS * (sampling["n_steps_each"] + 1)
     draws = seeded_draws(40, [(small.node_capacity, 3)] * n_draws)
     cpu_model = build_model(mc, "cpu", torch.Generator().manual_seed(0))
-    card = pc(model, small.to(dev), Replay(draws, dev),
-              steps=DIFF_PARITY_STEPS)[0]["pos"].cpu()
+    # host draws handed out one by one: the eager loop (a captured
+    # iteration would replay its first draws)
+    pc_eager = get_pc_sampler(
+        sde, get_predictor(sampling["predictor"]),
+        get_corrector(sampling["corrector"]), None, sampling["snr"],
+        sampling["n_steps_each"], eps=SAMPLING_EPS, capture=False)
+    card = pc_eager(model, small.to(dev), Replay(draws, dev),
+                    steps=DIFF_PARITY_STEPS)[0]["pos"].cpu()
     plain = pc(cpu_model, small, Replay(draws, "cpu"),
                steps=DIFF_PARITY_STEPS)[0]["pos"]
     rel = float((card - plain).abs().max() / plain.abs().max())
@@ -2043,7 +2157,7 @@ def diffusion_serve(dev, spec, mols, sde, sde_cfg):
         fail(f"{tag}: card and CPU plain path disagree after "
              f"{DIFF_PARITY_STEPS} steps (rel {rel:.3e})")
     return model, cpu_model, dict(
-        launches=launches, nfe=nfe, s_per_batch=dt,
+        launches=launches, nfe=counted, sample_nfe=nfe, s_per_batch=dt,
         molecules_per_s=DIFF_BATCH / dt, ms_per_evaluation=eval_ms,
         kernel_ms_per_evaluation=kernel_ms, busy=kernel_ms / eval_ms,
         checks=checks)
@@ -2084,9 +2198,9 @@ def diffusion_train(dev, spec, model, cpu_model, sde, sde_cfg):
     for gb in train[:2]:                         # warm-up
         state, loss, _ = step(state, gb)
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     state, loss, _ = step(state, train[2])
-    per_step = {k: v for k, v in conv_launches().items() if v}
+    per_step = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     print(f"{tag} train launches per step (all {n_layers} layers): "
           f"{per_step}")
     want = {"full_conv_ext_fwd": n_layers, "full_conv_ext_bwd": n_layers,
@@ -2101,7 +2215,7 @@ def diffusion_train(dev, spec, model, cpu_model, sde, sde_cfg):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_conv_launches()
+    counts = LaunchCounts()
     losses = []
     t0 = time.perf_counter()
     for i in range(DIFF_TRAIN_STEPS):
@@ -2109,7 +2223,7 @@ def diffusion_train(dev, spec, model, cpu_model, sde, sde_cfg):
         losses.append(loss)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / DIFF_TRAIN_STEPS
-    train_launches = conv_launches()
+    train_launches = counts.read(CONV_KEYS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = torch.stack(losses).cpu()
     print(f"{tag} train step: {step_ms:.3f} ms per {DIFF_BATCH}-graph "
@@ -2324,12 +2438,12 @@ def dipole_serve(dev, cfg, mols):
 
     evaluate(model, batches[:1], ["dipole"])  # warm-up
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     res = evaluate(model, batches, ["dipole"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     n_atoms = sum(int(gb["_node_mask"].sum()) for gb in batches)
     print(f"dipole serve: {len(res)} molecules in {dt:.4f} s through "
           f"evaluate ({len(res) / dt:.1f} molecules/s, "
@@ -2423,12 +2537,12 @@ def dipole_train(dev, cfg, cpu_model):
     first.set_dataset(dataset)
     steps = 2 * len(first.dl_train)
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     first.train()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     md = first.mae_dict
     print(f"dipole train: 2 epochs of {len(first.dl_train)} steps + "
           f"{len(first.dl_val)} validation batch through the loader in "
@@ -2588,6 +2702,17 @@ PROT_PARITY_STEPS = 10                 # sampler steps held to the CPU
 PROT_CUT_RESIDUES, PROT_CUT_EDGES = 128, 2048   # the CPU cut: 1 protein
 PROT_TRAIN_WARMUP, PROT_TRAIN_STEPS = 4, 12     # micro-steps
 PROTEIN_CONFIGS = ("config_diffusion_CA", "config_diffusion_backbone")
+PROT_SMOKE_LAYERS = 4                  # phases 26-28's depth, cut from 8
+
+
+def protein_config(name, num_layers):
+    """The protein config ``name`` with ``num_layers`` trunk layers (its
+    module's ``get_config`` takes the depth)."""
+    import importlib
+
+    return importlib.import_module(
+        f"equivariant_nn_zoo_tpu_torch.models.{name}").get_config(
+            num_layers=num_layers)
 
 
 def synthetic_proteins(n_prot, rng, sizes=(420, 560)):
@@ -2788,11 +2913,11 @@ def protein_hot_layer(name, model, gb, dev):
 def protein_sample(dev, name, cfg, model, gb, sde_cfg):
     """Phase 27 for one config: PC sampling of ``gb`` (scaled) at N =
     PROT_SAMPLE_STEPS, every counter set to 0 just before and read just
-    after (exactly 8 K1 per score evaluation, no other kernel), the edge
-    overflow of every evaluation (kept on the card, read after the loop),
-    the inverse-scaled sample written as a .pdb; a profile; then the first
-    steps of a 1-protein cut against the CPU plain path on replayed noise
-    and edge draws."""
+    after (exactly 1 K1 a layer per score evaluation, no other kernel), the
+    edge overflow of every evaluation (kept on the card, read after the
+    loop), the inverse-scaled sample written as a .pdb; a profile; then
+    the first steps of a 1-protein cut against the CPU plain path on
+    replayed noise and edge draws."""
     import torch
 
     from equivariant_nn_zoo_tpu_torch.models import build_model
@@ -2825,13 +2950,13 @@ def protein_sample(dev, name, cfg, model, gb, sde_cfg):
     pc(model, gb, Noise(dev, 1), steps=1)     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_conv_launches()
-    reset_head_launches()
     t0 = time.perf_counter()
     host, nfe = sampler(model, gb, Noise(dev, 2))
     dt = time.perf_counter() - t0
-    launches = {**conv_launches(), **head_launches()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = LaunchCounts()
+    _, counted = pc(model, gb, Noise(dev, 2), steps=SAMPLER_COUNTED)
+    launches = counts.read(CONV_KEYS + HEAD_KEYS)
     hook.remove()
     overflow = int(overflow)
     n_real = int(gb["_node_mask"].sum())
@@ -2839,9 +2964,11 @@ def protein_sample(dev, name, cfg, model, gb, sde_cfg):
           f"PC sampler (N={sde.N}, {nfe} score evaluations) in {dt:.3f} s, "
           f"{1e3 * dt / nfe:.3f} ms per evaluation (host clock, to the host "
           f"batch); peak device memory {peak:.3f} GiB; the largest edge "
-          f"overflow {overflow}; launches {launches}")
+          f"overflow {overflow}; launches in its first {SAMPLER_COUNTED} "
+          f"steps ({counted} evaluations: warm-up, capture and replays) "
+          f"{launches}")
     want = {k: 0 for k in launches}
-    want["full_conv"] = n_layers * nfe
+    want["full_conv"] = n_layers * counted
     if launches != want:
         fail(f"{name} sample: launches {launches}, want {want}")
     if nfe != 2 * sde.N or overflow:
@@ -2883,7 +3010,13 @@ def protein_sample(dev, name, cfg, model, gb, sde_cfg):
             "edge_index", "_edge_overflow"]})))
     own, rand = edge_layer(model).keywords["rand"], HostRand(64)
     edge_layer(model).keywords["rand"] = rand
-    pc(model, small.to(dev), Replay(draws, dev), steps=PROT_PARITY_STEPS)
+    # hooks and host draws see every evaluation only in the eager loop
+    pc_eager = get_pc_sampler(
+        sde, get_predictor(sampling["predictor"]),
+        get_corrector(sampling["corrector"]), None, sampling["snr"],
+        sampling["n_steps_each"], eps=SAMPLING_EPS, capture=False)
+    pc_eager(model, small.to(dev), Replay(draws, dev),
+             steps=PROT_PARITY_STEPS)
     edge_layer(model).keywords["rand"] = own
     hook.remove()
     run64 = float64_plain(cpu_model)
@@ -2926,9 +3059,10 @@ def protein_sample(dev, name, cfg, model, gb, sde_cfg):
              f"plain path, beyond both {TOL} and the CPU's float32 run "
              f"(over {len(seen)} evaluations)")
     return cpu_model, dict(
-        nfe=nfe, launches=launches["full_conv"], s_per_batch=dt,
+        nfe=counted, sample_nfe=nfe, launches=launches["full_conv"],
+        s_per_batch=dt,
         ms_per_evaluation=eval_ms, kernel_ms_per_evaluation=kernel_ms,
-        launches_per_evaluation={k: v / nfe for k, v in launches.items()
+        launches_per_evaluation={k: v / counted for k, v in launches.items()
                                  if v},
         kernels_per_evaluation=n_kernels, families=fams,
         busy=kernel_ms / eval_ms, peak_gib=peak, parity_rel=rel[0],
@@ -2939,7 +3073,8 @@ def protein_sample(dev, name, cfg, model, gb, sde_cfg):
 def protein_train(dev, name, cfg, model, cpu_model, gb, sde_cfg):
     """Phase 28 for one config: ``get_step_fn`` with the config's own
     settings (Adam lr 1e-2, grad_acc 4, clip 1.0, EMA 0.99 with
-    num_updates): 8 K1 and 8 K2 in a micro-step, an update on every 4th,
+    num_updates): 1 K1 and 1 K2 a layer in a micro-step, an update on
+    every 4th,
     12 timed micro-steps, peak memory, a profile; then one micro-step's
     loss and gradients on the cut, card against the CPU plain path, on
     the same t, z and edge draws."""
@@ -2973,18 +3108,17 @@ def protein_train(dev, name, cfg, model, cpu_model, gb, sde_cfg):
     for _ in range(PROT_TRAIN_WARMUP - 1):
         state, loss, _ = step(state, gb)
     torch.cuda.synchronize()
-    reset_conv_launches()
-    reset_head_launches()
+    counts = LaunchCounts()
     state, loss, _ = step(state, gb)
-    per_step = {k: v for k, v in {**conv_launches(),
-                                  **head_launches()}.items() if v}
+    per_step = {k: v for k, v in counts.read(CONV_KEYS + HEAD_KEYS).items()
+                if v}
     print(f"{name} train launches in one micro-step: {per_step}")
     if per_step != {"full_conv": n_layers, "full_conv_bwd": n_layers}:
         fail(f"{name} train: launches {per_step}, want {n_layers} K1 and "
              f"{n_layers} K2")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_conv_launches()
+    counts = LaunchCounts()
     losses = []
     t0 = time.perf_counter()
     for _ in range(PROT_TRAIN_STEPS):
@@ -2992,7 +3126,7 @@ def protein_train(dev, name, cfg, model, cpu_model, gb, sde_cfg):
         losses.append(loss)
     torch.cuda.synchronize()
     micro_ms = 1e3 * (time.perf_counter() - t0) / PROT_TRAIN_STEPS
-    timed = conv_launches()
+    timed = counts.read(CONV_KEYS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = torch.stack(losses).cpu()
     applied = {int(optimizer.state[p]["step"]) for p in model.parameters()}
@@ -3076,9 +3210,9 @@ def protein_train(dev, name, cfg, model, cpu_model, gb, sde_cfg):
 
 def protein_phases(dev):
     """Phases 26-28 of the module docstring (``config_diffusion_CA``, then
-    ``config_diffusion_backbone``, at full width and depth on synthetic
-    proteins); returns what K1 and K2 did on this path, by kernel record
-    name, and the path's figures by config."""
+    ``config_diffusion_backbone``, at full width and ``PROT_SMOKE_LAYERS``
+    layers on synthetic proteins); returns what K1 and K2 did on this
+    path, by kernel record name, and the path's figures by config."""
     import torch
 
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
@@ -3091,7 +3225,7 @@ def protein_phases(dev):
     prots = synthetic_proteins(PROT_BATCH, np.random.default_rng(60))
     out, path = {}, {}
     for name in PROTEIN_CONFIGS:
-        cfg = get_config(name)
+        cfg = protein_config(name, PROT_SMOKE_LAYERS)
         if cfg["batch_size"] != PROT_BATCH:
             fail(f"{name}: batch {cfg['batch_size']}, not {PROT_BATCH}")
         mc = cfg["model_config"]
@@ -3296,14 +3430,14 @@ def cli_train_run(seed, extra):
     trainer_mod.Trainer._run_category = timed
     workdir = os.path.join(CLI_DIR, f"rank{seed}")
     try:
-        reset_conv_launches()
+        counts = LaunchCounts()
         trainer = train.run(["--config", "config_energy_cli", "--workdir",
                              workdir, "--name", "energy", "--log_period",
                              "1000", *extra])
     finally:
         parallel.init_distributed = init
         trainer_mod.Trainer._run_category = run_category
-    launches = conv_launches()
+    launches = counts.read(CONV_KEYS)
     last = [sp for sp in spans if sp[0] == "training"][-1]
     return dict(
         launches={k: v for k, v in launches.items() if v},
@@ -3469,14 +3603,14 @@ def cli_inference_phase(dev, mc, n_layers):
                         "best.pt")
     out = os.path.join(CLI_DIR, "inference.hdf5")
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     merged = inference.main([
         "--config", "config_energy_cli_inference", "--model_path", best,
         "--output_path", out, "--output_keys", "total_energy"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     energies = np.asarray(merged["total_energy"])
     dumped = os.path.exists(out) and dump_equals(out, merged)
     print(f"cli inference: {len(merged)} molecules in {dt:.3f} s "
@@ -3549,7 +3683,7 @@ def cli_diffusion_phase():
     with open(sde_file, "w") as f:
         f.write(CLI_SDE)
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     state = train.run([
         "--config", "config_diffusion_cli", "--sde_config", sde_file,
@@ -3557,7 +3691,7 @@ def cli_diffusion_phase():
         "--eval_period", "4", "--save_period", "4"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     wd = os.path.join(CLI_DIR, "default_project", "diffusion")
     log = state["log"]
     train_log = [e for e in log if "total" in e]
@@ -3747,11 +3881,11 @@ def calculator_phase(dev):
         card, cpu = (E3Calculator.from_config(
             name, device=d, node_capacity=64, edge_capacity=1024)
             for d in (dev, "cpu"))
-        reset_conv_launches()
-        reset_ext_launches()
+        reset_launches()
         print(f"calculator ({name}), on the card:")
         e, f, fd = finite_difference_check(card)
-        launches = {k: v for k, v in conv_launches().items() if v}
+        launches = {k: v for k, v in host_launches().items()
+                    if k in CONV_KEYS and v}
         e_cpu, f_cpu, _ = finite_difference_check(cpu, log=None)
         rel_e = abs(e - e_cpu) / abs(e_cpu)
         rel_f = float(np.abs(f - f_cpu).max() / np.abs(f_cpu).max())
@@ -3815,7 +3949,7 @@ def md_phase(dev, calc, Z, pos):
         fail("MD: the card and the CPU plain path disagree")
     del cpu
 
-    reset_conv_launches()
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3824,7 +3958,7 @@ def md_phase(dev, calc, Z, pos):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     evals = MD_STEPS + 1
-    launches = conv_launches()
+    launches = {k: v for k, v in host_launches().items() if k in CONV_KEYS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ratio = float(drift_ratio(e_traj))
     ms = 1e3 * dt / evals
@@ -3893,13 +4027,14 @@ def constrained_sde_phase(dev):
           f"card vs CPU plain path: positions rel {rel:.3e}")
     if rel > TOL:
         fail("constrained SDE: the card and the CPU plain path disagree")
-    reset_conv_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     batch = cs.sample(models[dev], sde, cs.system(dev), Noise(dev, 2))
     pos = batch["pos"].cpu().numpy()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in host_launches().items()
+                if k in CONV_KEYS and v}
     final = float(np.linalg.norm(pos[0] - pos[1]))
     finite = bool(np.isfinite(pos[:8]).all())
     print(f"constrained SDE: {sde.N} steps in {dt:.3f} s "
@@ -4130,7 +4265,7 @@ def file_cli_phase(n_layers):
 
     trainer_mod.Trainer._run_category = capture
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     try:
         trainer = train.run(["--config", "config_energy_file", "--workdir",
@@ -4140,7 +4275,7 @@ def file_cli_phase(n_layers):
         trainer_mod.Trainer._run_category = run_category
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     steps = trainer.iepoch * len(trainer.dl_train)
     losses = [trainer.mae_dict[k] for k in ("training_loss",
                                             "validation_loss")]
@@ -4180,14 +4315,14 @@ def file_cli_phase(n_layers):
     best = os.path.join(DATA_DIR, "default_project", "energy", "best.pt")
     out = os.path.join(DATA_DIR, "inference.hdf5")
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     merged = inference.main([
         "--config", "config_energy_file", "--model_path", best,
         "--output_path", out, "--output_keys", "total_energy"])
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
-    infer_launches = {k: v for k, v in conv_launches().items() if v}
+    infer_launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     dumped = os.path.exists(out) and dump_equals(out, merged)
     n_batches = -(-n_mol // CLI_BATCH)
     print(f"datasets: inference CLI over {os.path.basename(path)}: "
@@ -4440,7 +4575,7 @@ def protein_file_phase():
 
     dl_mod.getDataIters = tee_iters
     torch.cuda.synchronize()
-    reset_conv_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     try:
         state = train.run([
@@ -4452,7 +4587,7 @@ def protein_file_phase():
         dl_mod.getDataIters = get_iters
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in conv_launches().items() if v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     micro = int(state["step"])
     evals = len(range(0, n_iters + 1, n_iters))
     log = state["log"]
@@ -4547,19 +4682,761 @@ def datasets_only():
 
 
 
+# ------------------------------------------------------------- phase 40
+
+CAPTURE_STEPS = 12          # config_energy steps over 4 distinct batches
+CAPTURE_RESUME_AT = 6       # the resumed run starts after this step
+CAPTURE_TIMED = 20          # calls timed per path and mode (the median)
+CAPTURE_PROFILED = 2        # calls traced per path and mode
+CAPTURE_SAMPLER_STEPS = 10  # PC steps on replayed draws, both modes
+CAPTURE_INF_STEP = 3        # the SDE step given a non-finite position
+CAPTURE_EAGER_STEPS = 100   # eager PC steps timed beside a whole batch
+CAPTURE_PROTEIN_EAGER = 10  # eager protein PC steps timed likewise
+# the default mode's bound: over the atomics' own noise (two eager runs,
+# 6e-5 to 1e-3 in 12 steps) and under a stale-order run's distance (1.25)
+ATOMICS_BOUND = 1e-2
+LAUNCH_CALLS = re.compile(r"^(cudaLaunchKernel|cudaLaunchKernelExC|"
+                          r"cuLaunchKernel|cuLaunchKernelEx|cudaGraphLaunch|"
+                          r"cudaMemsetAsync|cudaMemcpyAsync)")
+
+
+class DeviceReplay:
+    """A noise source that hands out given draws (all of one shape) from a
+    table on the card at a device counter: a captured sampler iteration
+    reads the next draw on every replay, as the eager loop does
+    (``capturable``: the sampler may capture with it)."""
+
+    capturable = True
+
+    def __init__(self, draws, device):
+        import torch
+
+        self.shape = tuple(draws[0].shape)
+        self.table = torch.stack([d.reshape(-1) for d in draws]).to(device)
+        self.i = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def normal(self, shape):
+        if tuple(shape) != self.shape:
+            fail(f"replayed draw of shape {self.shape}, want {shape}")
+        out = self.table.index_select(0, self.i).reshape(self.shape)
+        self.i.add_(1)
+        return out
+
+    uniform = normal
+
+
+class deterministic:
+    """PyTorch's deterministic algorithms inside the block (``on``):
+    ``index_add_`` (the port's segment sums and the gathers' backward)
+    sums in a fixed order instead of by atomics, so that two runs can
+    agree bit for bit.  Without it a run does not repeat itself: on
+    ``config_energy``'s labels (totals of ~1e4 less residuals of ~1) the
+    atomics' order alone moves an eager run's loss and parameters by
+    ~5e-3 within four steps."""
+
+    def __init__(self, on=True):
+        self.on = on
+
+    def __enter__(self):
+        import torch
+
+        self.was = torch.are_deterministic_algorithms_enabled()
+        if self.on:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self.was, warn_only=True)
+
+
+def worst_rel_of(got, want):
+    """The largest ``max|got - want| / max|want|`` over pairs of tensors
+    (one host read)."""
+    import torch
+
+    rels = [(g.float() - w.float()).abs().max()
+            / w.float().abs().max().clamp_min(1e-30)
+            for g, w in zip(got, want)]
+    return float(torch.stack(rels).max())
+
+
+def timed_ms(run, n=CAPTURE_TIMED):
+    """The median ms of ``n`` calls of ``run()``, CUDA events around each,
+    after three calls of warm-up."""
+    import torch
+
+    for _ in range(3):
+        run()
+    pairs = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def launches_of(run, n=CAPTURE_PROFILED, eager=False):
+    """``torch.profiler`` over ``n`` calls of ``run()`` (after one more),
+    per call: the host's launch calls (kernels, graphs, memsets and
+    copies), the operations the device ran and the launches of each kernel
+    of ``LAUNCH_MARKS`` that ran (``eager``: held to its wrapper's count,
+    see ``LaunchCounts``)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    counts = LaunchCounts(eager=eager)
+    for _ in range(n):
+        run()
+    kernels = counts.read()
+    host = device = 0
+    for (kind, name), m in counts.events.items():
+        if kind == "CUDA":
+            device += m
+        elif LAUNCH_CALLS.match(name):
+            host += m
+    return host / n, device / n, {k: v / n for k, v in kernels.items() if v}
+
+
+def per_step(rec, mode, few, many, n):
+    """A sampler's launches per step into ``rec``: the difference of two
+    ``launches_of`` calls, ``many`` of them ``n`` steps longer than ``few``
+    (so each call's warm-up and capture drop out)."""
+    rec[f"{mode}_launch_calls"] = (many[0] - few[0]) / n
+    rec[f"{mode}_device_ops"] = (many[1] - few[1]) / n
+    rec[f"{mode}_kernels"] = {k: (v - few[2].get(k, 0)) / n
+                              for k, v in many[2].items()}
+
+
+def capture_record(path, worst, runs, per="step", n=CAPTURE_TIMED):
+    """Phase 40's figures of one path: ``runs`` maps ``captured`` and
+    ``eager`` to a call of one step (or evaluation); the median ms of each
+    and the launches of each from ``torch.profiler``."""
+    rec = {"path": path, "per": per, "rel": worst}
+    for mode in ("captured", "eager"):
+        rec[f"{mode}_ms"] = timed_ms(runs[mode], n)
+        (rec[f"{mode}_launch_calls"], rec[f"{mode}_device_ops"],
+         rec[f"{mode}_kernels"]) = launches_of(runs[mode],
+                                               eager=mode == "eager")
+    print(f"capture {path}: {rec['captured_ms']:.4f} ms per {per} captured, "
+          f"{rec['eager_ms']:.4f} ms eager (median of {n}, CUDA events); "
+          f"host launch calls {rec['captured_launch_calls']:.1f} captured, "
+          f"{rec['eager_launch_calls']:.1f} eager; device operations "
+          f"{rec['captured_device_ops']:.1f} / {rec['eager_device_ops']:.1f} "
+          f"per {per} (torch.profiler); the hand-written kernels per {per}, "
+          f"captured {rec['captured_kernels']}, eager "
+          f"{rec['eager_kernels']}; captured against eager rel "
+          f"{worst:.3e}", flush=True)
+    if rec["captured_kernels"] != rec["eager_kernels"]:
+        fail(f"capture {path}: the graph's replay ran other kernels than "
+             f"the eager {per}")
+    return rec
+
+
+def trainer_pair(tag, cfg, train, dev, n_steps, val=(), check=True,
+                 exact=True, modes=(None, False), tol=TOL, **overrides):
+    """Two trainers of ``cfg`` from seed 0, by ``capture`` (``modes``) the
+    default (captured) and ``capture=False``, over ``n_steps`` batches
+    cycling ``train``, then ``val``, in PyTorch's deterministic mode with
+    ``check`` and ``exact``: with ``check``, the loss and every parameter
+    after each step must agree within ``tol``.  Returns both and the worst
+    rel."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    settings.update(overrides)
+    pair = [Trainer(build_model(cfg["model_config"], dev,
+                                torch.Generator().manual_seed(0)),
+                    capture=c, **settings) for c in modes]
+    worst = 0.0
+    with deterministic(check and exact):
+        for i in range(n_steps):
+            for tr in pair:
+                tr.batch_step(train[i % len(train)])
+            worst = max(worst, worst_rel_of(
+                [pair[0].batch_losses["loss"]]
+                + [p.detach() for p in pair[0].model.parameters()],
+                [pair[1].batch_losses["loss"]]
+                + [p.detach() for p in pair[1].model.parameters()]))
+        for gb in val:
+            for tr in pair:
+                tr.batch_step(gb, validation=True)
+            worst = max(worst, worst_rel_of([pair[0].batch_losses["loss"]],
+                                            [pair[1].batch_losses["loss"]]))
+    steps = pair[0]._steps
+    print(f"capture {tag}: {n_steps} steps + {len(val)} evaluations, "
+          f"{'eager' if modes[0] is False else 'captured'} against eager"
+          f"{'' if check else ' (not held)'}, worst "
+          f"rel of the loss and parameters after each step {worst:.3e}; "
+          f"graphs captured "
+          f"{ {k: getattr(s, 'captures', 0) for k, s in steps.items()} }",
+          flush=True)
+    if not check:
+        return pair, worst
+    if not np.isfinite(worst) or worst > tol:
+        fail(f"capture {tag}: captured and eager steps differ (rel "
+             f"{worst:.3e} > {tol:.3e})")
+    if not any(getattr(s, "captures", 0) for s in steps.values()):
+        fail(f"capture {tag}: no step was captured")
+    return pair, worst
+
+
+def capture_energy(dev):
+    """Phase 40's main path: ``config_energy`` at batch 128."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+    from equivariant_nn_zoo_tpu_torch.utils.params import params_to_jax
+
+    cfg = get_config("config_energy")
+    mc = cfg["model_config"]
+    batches = make_batches(synthetic_qm9(6 * BATCH, np.random.default_rng(
+        40), labels=True), dev)
+    train, val = batches[:4], batches[4:]
+    outs = [b["total_energy"] for b in train]
+    if any(torch.equal(a, b) for a, b in zip(outs, outs[1:])):
+        fail("capture energy: two batches have equal labels")
+    with deterministic():
+        (cap, _), worst = trainer_pair("config_energy", cfg, train, dev,
+                                       CAPTURE_STEPS, val * 2)
+        # the captured run again, and resumed after CAPTURE_RESUME_AT
+        # steps from the first run's checkpoint
+        settings = {k: v for k, v in cfg.items()
+                    if k not in ("model_config", "data_config",
+                                 "batch_size")}
+        again = Trainer(build_model(mc, dev, torch.Generator().manual_seed(
+            0)), **settings)
+        saved = None
+        for i in range(CAPTURE_STEPS):
+            again.batch_step(train[i % len(train)])
+            if i + 1 == CAPTURE_RESUME_AT:
+                saved = again.as_dict(state_dict=True,
+                                      training_progress=True)
+                saved["model_params"] = params_to_jax(again.model)
+        resumed = Trainer.from_dict(saved, model=build_model(
+            mc, dev, torch.Generator().manual_seed(1)))
+        for i in range(CAPTURE_RESUME_AT, CAPTURE_STEPS):
+            resumed.batch_step(train[i % len(train)])
+    want = trainer_state(cap)
+    for what, tr in (("repeated", again), ("resumed", resumed)):
+        got = trainer_state(tr)
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        if set(got) != set(want) or differ:
+            fail(f"capture energy: the {what} captured run differs "
+                 f"({differ[:4]})")
+    print(f"capture config_energy: a second captured run and one resumed "
+          f"after step {CAPTURE_RESUME_AT} equal the first bit for bit "
+          f"({len(want)} tensors: parameters, EMA, Adam state)", flush=True)
+    held = default_mode_energy(dev, cfg, batches)
+    pair = held.pop("pair")
+    it = iter(range(10 ** 9))
+    rec = capture_record("config_energy train, batch 128", worst, {
+        mode: (lambda tr=tr: tr.batch_step(held["train"][next(it) % 4]))
+        for mode, tr in zip(("captured", "eager"), pair)})
+    del held["train"]
+    rec["default_mode"] = held
+    return rec, pair[0].model
+
+
+def default_mode_energy(dev, cfg, batches):
+    """``config_energy`` captured against eager at batch 128 outside the
+    deterministic mode, where the segment sums' ``index_add_`` sums by
+    atomics in an order that changes from run to run, on N(0, 1) labels
+    (as phase 8's parity: the shifted labels' residuals keep ~3 digits).
+    The bound, ATOMICS_BOUND, must pass the atomics' own noise (the worst
+    rel between two eager runs of the same steps) and stay under what a
+    stale replay is off by: an eager run whose sort orders stay those of
+    the second batch from then on (``frozen_orders``, the orders a capture
+    would have reused from its warm-up), against the true one.  Returns
+    the readings and the held pair (timed next)."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    normal = [gb.replace(total_energy=torch.randn(
+        tuple(gb["total_energy"].shape),
+        generator=torch.Generator().manual_seed(41 + i)).to(dev))
+        for i, gb in enumerate(batches)]
+    train, val = normal[:4], normal[4:]
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    ref, again, stale = (Trainer(build_model(
+        cfg["model_config"], dev, torch.Generator().manual_seed(0)),
+        capture=False, **settings) for _ in range(3))
+    frozen = frozen_orders()
+
+    def state(tr, validation):
+        loss = [tr.batch_losses["loss"]]
+        return loss if validation else loss + [
+            p.detach() for p in tr.model.parameters()]
+
+    floor = off = 0.0
+    steps = [(train[i % len(train)], False) for i in range(CAPTURE_STEPS)]
+    for i, (gb, validation) in enumerate(steps + [(b, True)
+                                                  for b in val * 2]):
+        for tr in (ref, again):
+            tr.batch_step(gb, validation=validation)
+        if i < 1:
+            stale.batch_step(gb, validation=validation)
+        else:
+            with frozen:
+                stale.batch_step(gb, validation=validation)
+        want = state(ref, validation)
+        floor = max(floor, worst_rel_of(state(again, validation), want))
+        off = max(off, worst_rel_of(state(stale, validation), want))
+    del ref, again, stale
+    bound = ATOMICS_BOUND
+    print(f"capture config_energy, default mode: two eager runs differ by "
+          f"rel {floor:.3e} (the atomics' order), bound {bound:.3e}; a run "
+          f"on stale sort orders is off by {off:.3e}", flush=True)
+    if not floor < bound < off:
+        fail(f"capture config_energy, default mode: the bound {bound:.3e} "
+             f"does not part the atomics' noise ({floor:.3e}) from a stale "
+             f"replay ({off:.3e})")
+    pair, worst = trainer_pair("config_energy, default mode", cfg, train,
+                               dev, CAPTURE_STEPS, val * 2, exact=False,
+                               tol=bound)
+    return dict(rel=worst, eager_floor=floor, bound=bound, stale_rel=off,
+                pair=pair, train=train)
+
+
+class frozen_orders:
+    """Inside the block the sort-order caches (``edge_order.shared``,
+    ``species_order.shared``) hand out the first orders they built in it,
+    whatever edges and species they are given: an eager stand-in for a
+    replay that walks the orders of its warm-up's batch."""
+
+    def __init__(self):
+        from equivariant_nn_zoo_tpu_torch.ops.cuda import (
+            edge_order,
+            species_order,
+        )
+
+        self.mods = (edge_order, species_order)
+        self.real = [m.shared for m in self.mods]
+        self.held = [[], []]
+
+    def __enter__(self):
+        for m, real, held in zip(self.mods, self.real, self.held):
+            def shared(*args, real=real, held=held):
+                if not held:
+                    held.append(real(*args))
+                return held[0]
+            m.shared = shared
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.mods, self.real):
+            m.shared = real
+
+
+def capture_serving(dev, name, model, batches, keys):
+    """``inference.evaluate`` captured against ``capture=False`` on the
+    same model and batches."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+
+    model.eval()
+    got = evaluate(model, batches, keys)
+    want = evaluate(model, batches, keys, capture=False)
+    worst = max(worst_rel_of([torch.as_tensor(got[k])],
+                             [torch.as_tensor(want[k])]) for k in keys)
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"capture {name} serving: captured and eager differ ({worst})")
+    it = iter(range(10 ** 9))
+    return capture_record(
+        f"{name} serving, batch {batches[0].n_graphs}", worst,
+        {mode: (lambda c=c: evaluate(model, [batches[next(it) % len(
+            batches)]], keys, capture=c))
+         for mode, c in (("captured", None), ("eager", False))},
+        per="batch")
+
+
+def capture_sde(dev, spec, mols):
+    """``get_step_fn`` on ``config_diffusion``: the default (captured) and
+    ``capture=False`` from one seed and one noise seed, 8 steps over 4
+    batches, one of them with a non-finite position; every finite loss and
+    every parameter within TOL, and the skipped step leaves the parameters
+    as they were."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+        get_config as sde_get_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import (
+        VPSDE,
+        Noise,
+        adam,
+        get_step_fn,
+        init_sde_state,
+    )
+
+    cfg, sde_cfg = get_config("config_diffusion", spec), sde_get_config()
+    sde = VPSDE({"pos": 3}, beta_min=sde_cfg["model"]["beta_min"],
+                beta_max=sde_cfg["model"]["beta_max"],
+                N=sde_cfg["model"]["num_scales"])
+    train = make_batches(mols, dev, DIFF_BATCH)
+    pos = train[1]["pos"].clone()
+    pos[0, 0] = float("inf")
+    bad = train[1].replace(pos=pos)
+    kw = dict(reduce_mean=sde_cfg["training"]["reduce_mean"],
+              continuous=sde_cfg["training"]["continuous"],
+              likelihood_weighting=sde_cfg["training"][
+                  "likelihood_weighting"],
+              grad_clid_norm=cfg["grad_clid_norm"], grad_acc=cfg["grad_acc"],
+              ema_decay=sde_cfg["model"]["ema_rate"],
+              ema_use_num_updates=cfg["ema_use_num_updates"])
+
+    def new_runs():
+        runs = []
+        for c in (None, False):
+            model = build_model(cfg["model_config"], dev,
+                                torch.Generator().manual_seed(0))
+            model.train()
+            state = init_sde_state(model, Noise(dev, 7))
+            step = get_step_fn(sde, True, model=model,
+                               optimizer=adam(model, cfg["learning_rate"]),
+                               capture=c, **kw)
+            runs.append([model, state, step])
+        return runs
+
+    runs = new_runs()
+    worst, tag = 0.0, f"config_diffusion {spec or 'score'}"
+    with deterministic():
+        for i in range(8):
+            gb = bad if i == CAPTURE_INF_STEP else train[i % len(train)]
+            before = [p.detach().clone() for p in runs[0][0].parameters()]
+            losses = []
+            for run in runs:
+                run[1], loss, _ = run[2](run[1], gb)
+                losses.append(loss)
+            params = [[p.detach() for p in run[0].parameters()]
+                      for run in runs]
+            if i == CAPTURE_INF_STEP:
+                if any(torch.isfinite(x) for x in losses):
+                    fail(f"capture {tag}: the non-finite batch gave a "
+                         f"finite loss")
+                if not all(torch.equal(a, b)
+                           for a, b in zip(before, params[0])):
+                    fail(f"capture {tag}: the skipped step moved a "
+                         f"parameter")
+                worst = max(worst, worst_rel_of(params[0], params[1]))
+            else:
+                worst = max(worst, worst_rel_of(losses[:1] + params[0],
+                                                losses[1:] + params[1]))
+    print(f"capture {tag} step: 8 steps (a non-finite position at step "
+          f"{CAPTURE_INF_STEP + 1}, skipped on the card), captured against "
+          f"eager worst rel {worst:.3e}", flush=True)
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"capture {tag}: captured and eager steps differ ({worst})")
+    runs = new_runs()     # timed outside the deterministic mode
+    it = iter(range(10 ** 9))
+    return capture_record(f"{tag} SDE step, batch {DIFF_BATCH}", worst, {
+        mode: (lambda run=run: run[2](run[1], train[next(it) % len(train)]))
+        for mode, run in zip(("captured", "eager"), runs)})
+
+
+def capture_sampler(dev, mols):
+    """The PC sampler on ``config_diffusion`` ``""``: its first steps on
+    replayed draws captured against eager, then a whole batch at the
+    config's N in each mode."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+        get_config as sde_get_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_sampling import (
+        get_corrector,
+        get_pc_sampler,
+        get_predictor,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import VPSDE, Noise
+
+    sde_cfg = sde_get_config()
+    sampling = sde_cfg["sampling"]
+    sde = VPSDE({"pos": 3}, beta_min=sde_cfg["model"]["beta_min"],
+                beta_max=sde_cfg["model"]["beta_max"],
+                N=sde_cfg["model"]["num_scales"])
+    model = build_model(get_config("config_diffusion", "")["model_config"],
+                        dev, torch.Generator().manual_seed(0))
+    model.eval()
+    gb = make_batches(mols, dev, DIFF_BATCH)[0]
+    pcs = {mode: get_pc_sampler(
+        sde, get_predictor(sampling["predictor"]),
+        get_corrector(sampling["corrector"]), None, sampling["snr"],
+        sampling["n_steps_each"], eps=SAMPLING_EPS, capture=c)
+        for mode, c in (("captured", None), ("eager", False))}
+    n_draws = 1 + CAPTURE_SAMPLER_STEPS * (sampling["n_steps_each"] + 1)
+    draws = seeded_draws(70, [(gb.node_capacity, 3)] * n_draws)
+    with deterministic():
+        out = {mode: pc(model, gb, DeviceReplay(draws, dev),
+                        steps=CAPTURE_SAMPLER_STEPS)[0]["pos"]
+               for mode, pc in pcs.items()}
+    worst = worst_rel_of([out["captured"]], [out["eager"]])
+    print(f"capture PC sampler: the first {CAPTURE_SAMPLER_STEPS} steps on "
+          f"replayed draws, captured against eager rel {worst:.3e}",
+          flush=True)
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"capture PC sampler: captured and eager differ ({worst})")
+    rec = {"path": f"config_diffusion score PC sampler, batch {DIFF_BATCH}, "
+                   f"N={sde.N}", "per": "sampler step", "rel": worst}
+    for mode, pc in pcs.items():
+        # the whole batch captured; the eager loop timed over its first
+        # CAPTURE_EAGER_STEPS steps (phases 19 and 32 sample whole batches)
+        steps = None if mode == "captured" else CAPTURE_EAGER_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, nfe = pc(model, gb, Noise(dev, 71), steps=steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.isfinite(res["pos"]).all():
+            fail(f"capture PC sampler ({mode}): non-finite positions")
+        rec[f"{mode}_ms"] = 1e3 * dt / (steps or sde.N)
+        # launches of 5 iterations: the difference of 8 and 3 steps (each
+        # call warms up two and captures the third)
+        few = launches_of(lambda: pc(model, gb, Noise(dev, 72), steps=3), 1,
+                          eager=mode == "eager")
+        many = launches_of(lambda: pc(model, gb, Noise(dev, 72), steps=8), 1,
+                           eager=mode == "eager")
+        per_step(rec, mode, few, many, 5)
+    print(f"capture PC sampler: {DIFF_BATCH} molecules at N={sde.N}: "
+          f"{rec['captured_ms']:.4f} ms per step captured (host clock over "
+          f"the whole batch), {rec['eager_ms']:.4f} eager (over its first "
+          f"{CAPTURE_EAGER_STEPS} steps); host launch calls "
+          f"{rec['captured_launch_calls']:.1f} / "
+          f"{rec['eager_launch_calls']:.1f}, device operations "
+          f"{rec['captured_device_ops']:.1f} / {rec['eager_device_ops']:.1f} "
+          f"per step; the hand-written kernels per step, captured "
+          f"{rec['captured_kernels']}, eager {rec['eager_kernels']}",
+          flush=True)
+    if rec["captured_kernels"] != rec["eager_kernels"]:
+        fail(f"capture {rec['path']}: the graph's replay ran other kernels "
+             f"than the eager step")
+    return rec
+
+
+def capture_protein_sampler(dev):
+    """``config_diffusion_CA`` sampled at N = 50 in each mode, each model
+    built from its own config (its own edge draws, seeded alike); the
+    first steps held captured against eager."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+        get_config as sde_get_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_sampling import (
+        get_corrector,
+        get_pc_sampler,
+        get_predictor,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import VPSDE, Noise
+
+    sde_cfg = sde_get_config()
+    sampling = sde_cfg["sampling"]
+    cfgs = [get_config("config_diffusion_CA") for _ in range(2)]
+    sde = VPSDE(cfgs[0]["diffusion_keys"],
+                beta_min=sde_cfg["model"]["beta_min"],
+                beta_max=sde_cfg["model"]["beta_max"], N=PROT_SAMPLE_STEPS)
+    gb = cfgs[0]["data_config"]["scaler"](protein_batch(
+        cfgs[0], synthetic_proteins(PROT_BATCH, np.random.default_rng(60)),
+        60, PROT_BATCH * PROT_RESIDUES + 1,
+        cfgs[0]["data_config"]["edge_capacity"], PROT_BATCH).to(dev))
+    out, rec = {}, {"path": f"config_diffusion_CA PC sampler, batch "
+                            f"{PROT_BATCH}, N={sde.N}",
+                    "per": "sampler step"}
+    models = {}
+    for (mode, c), cfg in zip((("captured", None), ("eager", False)), cfgs):
+        models[mode] = build_model(cfg["model_config"], dev,
+                                   torch.Generator().manual_seed(0))
+        models[mode].eval()
+        pc = get_pc_sampler(
+            sde, get_predictor(sampling["predictor"]),
+            get_corrector(sampling["corrector"]), None, sampling["snr"],
+            sampling["n_steps_each"], eps=SAMPLING_EPS, capture=c)
+        n_draws = len(sde.irreps) * (1 + 4 * (sampling["n_steps_each"] + 1))
+        draws = seeded_draws(73, [(gb.node_capacity, 3)] * n_draws)
+        with deterministic():
+            out[mode] = pc(models[mode], gb, DeviceReplay(draws, dev),
+                           steps=4)[0]
+        # the whole batch captured; the eager loop (device-bound, phase 27
+        # samples whole batches) over its first CAPTURE_PROTEIN_EAGER steps
+        steps = None if mode == "captured" else CAPTURE_PROTEIN_EAGER
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, nfe = pc(models[mode], gb, Noise(dev, 74), steps=steps)
+        torch.cuda.synchronize()
+        rec[f"{mode}_ms"] = 1e3 * (time.perf_counter() - t0) / (
+            steps or sde.N)
+        for key in cfg["diffusion_keys"]:
+            if not torch.isfinite(res[key]).all():
+                fail(f"capture protein sampler ({mode}): non-finite {key}")
+        few = launches_of(lambda: pc(models[mode], gb, Noise(dev, 75),
+                                     steps=3), 1, eager=mode == "eager")
+        many = launches_of(lambda: pc(models[mode], gb, Noise(dev, 75),
+                                      steps=8), 1, eager=mode == "eager")
+        per_step(rec, mode, few, many, 5)
+    keys = list(cfgs[0]["diffusion_keys"])
+    rec["rel"] = worst = worst_rel_of([out["captured"][k] for k in keys],
+                                      [out["eager"][k] for k in keys])
+    print(f"capture config_diffusion_CA: 4 sampler steps on replayed draws "
+          f"(edge draws from each model's own generator, registered with "
+          f"the graph), captured against eager rel {worst:.3e}; N={sde.N}: "
+          f"{rec['captured_ms']:.3f} ms per step captured (the whole batch), "
+          f"{rec['eager_ms']:.3f} eager (its first {CAPTURE_PROTEIN_EAGER} "
+          f"steps); host launch calls "
+          f"{rec['captured_launch_calls']:.1f} / "
+          f"{rec['eager_launch_calls']:.1f}, device operations "
+          f"{rec['captured_device_ops']:.1f} / {rec['eager_device_ops']:.1f} "
+          f"per step; the hand-written kernels per step, captured "
+          f"{rec['captured_kernels']}, eager {rec['eager_kernels']}",
+          flush=True)
+    if rec["captured_kernels"] != rec["eager_kernels"]:
+        fail(f"capture {rec['path']}: the graph's replay ran other kernels "
+             f"than the eager step")
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"capture config_diffusion_CA: captured and eager differ "
+             f"({worst})")
+    return rec
+
+
+def capture_phases(dev):
+    """Phase 40: every compiled entry point captured (the default) against
+    ``capture=False`` on the same weights, batches and seeds, each path's
+    ms and launches per step in both modes."""
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip()
+    records, t0 = [], time.perf_counter()
+
+    def add(rec):
+        rec["at_s"] = time.perf_counter() - t0    # phase 40's clock
+        records.append(rec)
+
+    rec, energy_model = capture_energy(dev)
+    add(rec)
+    # config_dipole through the trainer with grad_acc 4
+    cfg = get_config("config_dipole")
+    dip = make_batches(synthetic_dipole_mols(4 * DIPOLE_BATCH,
+                                             np.random.default_rng(41)),
+                       dev, DIPOLE_BATCH)
+    _, worst = trainer_pair("config_dipole grad_acc 4", cfg, dip, dev, 8,
+                            dip[:3], grad_acc=4)
+    pair, _ = trainer_pair("config_dipole grad_acc 4 (timed)", cfg, dip,
+                           dev, 8, check=False, grad_acc=4)
+    it = iter(range(10 ** 9))
+    add(capture_record(
+        f"config_dipole train (grad_acc 4 micro-steps), batch "
+        f"{DIPOLE_BATCH}", worst,
+        {mode: (lambda tr=tr: tr.batch_step(dip[next(it) % 4]))
+         for mode, tr in zip(("captured", "eager"), pair)},
+        per="micro-step"))
+    dipole_model = pair[0].model
+    # config_hamiltonian at 16 and 128
+    cfg = get_config("config_hamiltonian")
+    h2o = {}
+    for size in H2O_TRAIN_BATCHES:
+        h2o[size] = make_batches(synthetic_h2o(
+            4 * size, np.random.default_rng(42), labels=True), dev, size)
+        _, worst = trainer_pair(f"config_hamiltonian batch {size}", cfg,
+                                h2o[size], dev, 6, h2o[size][:3])
+        pair, _ = trainer_pair(f"config_hamiltonian batch {size} (timed)",
+                               cfg, h2o[size], dev, 4, check=False)
+        it = iter(range(10 ** 9))
+        add(capture_record(
+            f"config_hamiltonian train, batch {size}", worst,
+            {mode: (lambda tr=tr, b=h2o[size]: tr.batch_step(
+                b[next(it) % 4])) for mode, tr in zip(("captured", "eager"),
+                                                      pair)}))
+    hamiltonian_model = pair[0].model
+    # config_energy_force
+    cfg = get_config("config_energy_force")
+    frags = make_batches(synthetic_fragments(4 * FORCE_BATCH,
+                                             np.random.default_rng(43)),
+                         dev, FORCE_BATCH)
+    _, worst = trainer_pair("config_energy_force", cfg, frags, dev, 6,
+                            frags[:3])
+    pair, _ = trainer_pair("config_energy_force (timed)", cfg, frags, dev, 4,
+                           check=False)
+    it = iter(range(10 ** 9))
+    add(capture_record(
+        f"config_energy_force train, batch {FORCE_BATCH}", worst,
+        {mode: (lambda tr=tr: tr.batch_step(frags[next(it) % 4]))
+         for mode, tr in zip(("captured", "eager"), pair)}))
+    del pair
+    # serving
+    serve = make_batches(synthetic_qm9(4 * BATCH, np.random.default_rng(44)),
+                         dev)
+    add(capture_serving(dev, "config_energy", energy_model, serve,
+                                   ["total_energy"]))
+    add(capture_serving(dev, "config_dipole", dipole_model,
+                                   dip, ["dipole"]))
+    add(capture_serving(
+        dev, "config_hamiltonian", hamiltonian_model,
+        make_batches(synthetic_h2o(4 * H2O_BATCHES[1],
+                                   np.random.default_rng(45)), dev,
+                     H2O_BATCHES[1]), ["hamiltonian"]))
+    # the SDE steps and the samplers
+    mols = synthetic_diffusion_mols(4 * DIFF_BATCH, np.random.default_rng(46))
+    for spec in ("", "nll"):
+        add(capture_sde(dev, spec, mols))
+    add(capture_sampler(dev, mols[:DIFF_BATCH]))
+    add(capture_protein_sampler(dev))
+    print(card)
+    for r in records:
+        print(f"  {r['path']}: {r['captured_ms']:.4f} ms captured, "
+              f"{r['eager_ms']:.4f} ms eager per {r['per']}; launch calls "
+              f"{r['captured_launch_calls']:.1f} / "
+              f"{r['eager_launch_calls']:.1f}; phase 40 at "
+              f"{r['at_s']:.1f} s")
+    return {"card": card, "paths": records}
+
+
+def capture_only():
+    """``python3 chip_smoke.py --capture``: the build, then phase 40
+    alone; its figures as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"capture": capture_phases(torch.device("cuda"))}))
+
+
 def main():
     import torch
+
+    start = time.perf_counter()
 
     # -------------------------------------------------------------- device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     from equivariant_nn_zoo_tpu_torch.inference import evaluate
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import (
-        FullConv,
-        SpeciesScalarFCTP,
-    )
-    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm_ops
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
     from equivariant_nn_zoo_tpu_torch.run import Loss, Trainer
 
@@ -4598,25 +5475,27 @@ def main():
     # --------------------------------------------------------------- slice
     evaluate(model, batches[:1], ["total_energy"])  # warm-up
     torch.cuda.synchronize()
-    FullConv.launches = 0
-    SpeciesScalarFCTP.launches = 0
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     res = evaluate(model, batches, ["total_energy"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"full_conv": FullConv.launches,
-                "species_sc": SpeciesScalarFCTP.launches}
+    launches = counts.read(("full_conv", "species_sc"))
     n_layers = mc["num_layers"]
     print(f"slice: {len(res)} graphs in {dt:.4f} s through evaluate "
-          f"({len(res) / dt:.1f} graphs/s); launches {launches}")
+          f"({len(res) / dt:.1f} graphs/s, under the profiler that counts "
+          f"the launches); launches on the card {launches}, by the "
+          f"wrappers (eager and captured calls, no replay) "
+          f"{ {k: counts.host[k] for k in launches} }")
     if len(res) != N_BATCHES * BATCH:
         fail(f"evaluate returned {len(res)} graphs")
     if not np.isfinite(res["total_energy"]).all():
         fail("non-finite energies")
     for name, n in launches.items():
-        if n < n_layers * N_BATCHES:
+        if n < n_layers * N_BATCHES or counts.host[name] < 1:
             fail(f"{name} launched {n} times, want >= "
-                 f"{n_layers * N_BATCHES}")
+                 f"{n_layers * N_BATCHES} (its wrapper ran "
+                 f"{counts.host[name]} times)")
 
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -4668,10 +5547,7 @@ def main():
     trainer = Trainer(build_model(mc, dev, torch.Generator().manual_seed(0)),
                       **settings)
     n_epochs = 2
-    torch.cuda.synchronize()
-    FullConv.launches = FullConv.backward_launches = 0
-    SpeciesScalarFCTP.launches = SpeciesScalarFCTP.backward_launches = 0
-    rm_ops.reset_launches()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     for epoch in range(n_epochs):
         trainer.epoch_step(train, val)
@@ -4685,21 +5561,24 @@ def main():
                 fail(f"train: non-finite {key} in epoch {epoch}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    train_launches = {
-        "full_conv": FullConv.launches,
-        "full_conv_bwd": FullConv.backward_launches,
-        "species_sc": SpeciesScalarFCTP.launches,
-        "species_sc_bwd": SpeciesScalarFCTP.backward_launches}
+    train_launches = counts.read(("full_conv", "full_conv_bwd", "species_sc",
+                                  "species_sc_bwd"))
+    mix_launches = counts.read(("row_mix_forward", "row_mix_products"))
     steps = n_epochs * len(train)
     print(f"train: {n_epochs} epochs of {len(train)} steps + {len(val)} "
-          f"validation batch in {dt:.4f} s; launches {train_launches}")
+          f"validation batch in {dt:.4f} s (under the profiler that counts "
+          f"the launches); launches on the card {train_launches}, by the "
+          f"wrappers (eager and captured calls, no replay) "
+          f"{ {k: counts.host[k] for k in train_launches} }")
     for name, n in train_launches.items():
-        if n < n_layers * steps:
+        if n < n_layers * steps or counts.host[name] < 1:
             fail(f"train: {name} launched {n} times, want >= "
-                 f"{n_layers * steps}")
-    mix_launches = rm_ops.launches()
-    print(f"train: the mix GEMM launched {mix_launches}")
-    if min(mix_launches.values()) < 1:
+                 f"{n_layers * steps} (its wrapper ran "
+                 f"{counts.host[name]} times)")
+    print(f"train: the mix GEMM launched {mix_launches} on the card, "
+          f"{ {k: counts.host[k] for k in mix_launches} } by its C entries")
+    if min(mix_launches.values()) < 1 or min(
+            counts.host[k] for k in mix_launches) < 1:
         fail(f"train: the mix GEMM was not launched ({mix_launches})")
 
     reps = 3
@@ -4747,14 +5626,30 @@ def main():
         fail(f"train parity: {worst[1]} gradient rel {worst[0]:.3e} > {TOL}")
 
     del cpu_model, model, batches
-    force_records = force_phases(dev)
-    head_records, l4 = hamiltonian_phases(dev)
-    diffusion = diffusion_phases(dev)
-    dipole = dipole_phases(dev)
-    protein = protein_phases(dev)
-    cli = cli_phases(dev)
-    dsh_record, md = md_phases(dev)
-    datasets = dataset_phases(n_layers)
+    seconds = {"1-9": time.perf_counter() - start}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        # what a phase leaves (its trainers and graphs, the allocator's
+        # cache) goes back to the device before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t
+        print(f"phases {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    force_records = timed("10-12", force_phases, dev)
+    head_records, l4 = timed("13-18", hamiltonian_phases, dev)
+    diffusion = timed("19-21", diffusion_phases, dev)
+    dipole = timed("22-25", dipole_phases, dev)
+    protein = timed("26-28", protein_phases, dev)
+    cli = timed("29-32", cli_phases, dev)
+    dsh_record, md = timed("33-37", md_phases, dev)
+    datasets = timed("38-39", dataset_phases, n_layers)
+    captured = timed("40", capture_phases, dev)
+    print(f"phase seconds {json.dumps(seconds)}; "
+          f"{time.perf_counter() - start:.1f} s in all", flush=True)
 
     # K1, K3, K2 and K3b also carry what they did on the hamiltonian path
     # (l = 4)
@@ -4778,9 +5673,9 @@ def main():
         *force_records,
         *head_records,
         mix_record("row_mix_forward", "fused_conv.py:926",
-                   mix_launches["forward"], mix_fwd),
+                   mix_launches["row_mix_forward"], mix_fwd),
         mix_record("row_mix_products", "fused_conv.py:1051",
-                   mix_launches["backward"], mix_bwd),
+                   mix_launches["row_mix_products"], mix_bwd),
     ]
     # K1, K2 and the K4 family also carry what they did on the diffusion
     # path (spec "" for K1 and K2, "nll" for the K4 family)
@@ -4812,6 +5707,7 @@ def main():
     print(json.dumps({"cli": cli["path"]}))
     print(json.dumps({"md": md}))
     print(json.dumps({"datasets": datasets}))
+    print(json.dumps({"capture": captured}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5959,6 +6855,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--datasets"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         datasets_only()
+    elif sys.argv[1:] == ["--capture"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        capture_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -120,7 +120,10 @@ def computeEdgeIndex(data, attrs, r_max: float = None, key: str = "pos",
 class EdgeRandom:
     """The uniform draws of the in-model edge criteria where the batch
     carries none (``_edge_rand``): one ``torch.Generator`` per device,
-    seeded with ``seed``, made at its first draw there."""
+    seeded with ``seed``, made at its first draw there.  A captured step
+    registers the generators with its graphs (``run.capture.renews``)."""
+
+    capturable = True
 
     def __init__(self, seed: int = 0):
         self.seed = int(seed)

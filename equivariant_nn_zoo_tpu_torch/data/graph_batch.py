@@ -180,5 +180,7 @@ class GraphBatch:
             elif per == "edge":
                 out[key] = value[e_sel]
             else:
-                out[key] = value[:g]
+                # a copy: on the CPU ``numpy()`` shares the tensor's memory,
+                # which a captured step's next replay would overwrite
+                out[key] = value[:g].copy()
         return Batch(dict(self.attrs), **out)

@@ -11,34 +11,61 @@ asks for ``cpu``).  ``main`` loads a ``trainer.pt``, ``best.pt`` or
 ``last.pt`` of either package, or a diffusion checkpoint, evaluates the
 config's dataset in batches (the last one padded, its real graphs kept),
 writes the outputs to HDF5 through the port's own writer
-(``data/hdf5.py``, no ``h5py``) and returns them.
+(``data/hdf5.py``, no ``h5py``) and returns them.  On a CUDA device in one
+process the forward is compiled, as the JAX CLI jits its own: a CUDA graph
+per batch capacity (``run.capture``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-from typing import Iterable, Sequence
+import weakref
+from typing import Iterable, Optional, Sequence
 
 import torch
 
 from .data.batch import Batch
 from .data.graph_batch import GraphBatch
+from .run import capture as capture_mod
+
+#: each model's compiled forward, kept while the model lives (as ``jit``
+#: keeps its compilations)
+_FORWARDS = weakref.WeakKeyDictionary()
+
+
+def _forward(model, device, capture):
+    if not capture_mod.enabled(capture, device, (model,)):
+        return model
+    if model not in _FORWARDS:
+        ref = weakref.ref(model)   # the entry must not keep its key alive
+        _FORWARDS[model] = capture_mod.Step(
+            "serve", lambda gb: ref()(gb),
+            generators=lambda: capture_mod.generators(ref()))
+    return _FORWARDS[model]
 
 
 def evaluate(model: torch.nn.Module, batches: Iterable[GraphBatch],
-             output_keys: Sequence[str] = ()) -> Batch:
+             output_keys: Sequence[str] = (),
+             capture: Optional[bool] = None) -> Batch:
     """Forward every batch under ``torch.no_grad()`` and return one host
     ``Batch`` of the real graphs (``_graph_mask``), with the requested
     outputs (all public annotated keys when ``output_keys`` is empty);
     node outputs such as ``forces`` keep the real nodes.  Not
     ``inference_mode``: a force head differentiates the energy inside the
-    forward, and tensors made in inference mode cannot enter autograd."""
+    forward, and tensors made in inference mode cannot enter autograd.
+    ``capture``: the forward as a CUDA graph per batch signature, kept with
+    the model across calls (``run.capture.enabled``: by default on a CUDA
+    device in one process); ``False`` is eager.  Each batch's outputs are
+    copied to the host before the next forward."""
     results = []
     keys = list(output_keys)
+    forward = None
     with torch.no_grad():
         for gb in batches:
-            out = model(gb)
+            if forward is None:
+                forward = _forward(model, gb["_node_mask"].device, capture)
+            out = forward(gb)
             if not keys:
                 keys = [k for k in out.keys()
                         if k in out.attrs and not k.startswith("_")]

@@ -54,14 +54,17 @@ MODEL = dict(n_dim=64, l_max=2, r_max=5.0, num_layers=8,
 
 
 def protein_config(spec, diffusion_keys, scaler, inverse_scaler,
-                   keep_atoms=("CA",), backbone=False):
+                   keep_atoms=("CA",), backbone=False, num_layers=None):
     """The protein diffusion config: ``diffusion_keys`` {key: 3} with a
     ``score_<key>`` head each, in key order as the JAX config holds them;
     ``backbone`` mixes the C, N and O vectors into the node features after
-    ``layer3`` (``concat3``)."""
+    ``layer3`` (``concat3``).  ``num_layers``: the trunk's depth, when not
+    ``MODEL``'s (a shallower model at the same widths)."""
     spec = spec or ""
     diffusion_keys = dict(sorted(diffusion_keys.items()))
     model = dict(MODEL)
+    if num_layers is not None:
+        model["num_layers"] = num_layers
     num_types = 21
     data = dict(
         n_train=0.9, n_val=0.1, std=STD, scaler=scaler,
@@ -159,8 +162,8 @@ def protein_config(spec, diffusion_keys, scaler, inverse_scaler,
     )
 
 
-def get_config(spec=None):
+def get_config(spec=None, num_layers=None):
     return protein_config(
         spec, {"CA": 3},
         getScaler([("CA", ("shift", "mean")), ("CA", ("scale", 1 / STD))]),
-        getScaler([("CA", ("scale", STD))]))
+        getScaler([("CA", ("scale", STD))]), num_layers=num_layers)

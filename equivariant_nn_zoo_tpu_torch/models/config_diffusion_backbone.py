@@ -13,7 +13,7 @@ from ..utils.utils import getScaler
 from .config_diffusion_CA import STD, protein_config
 
 
-def get_config(spec=None):
+def get_config(spec=None, num_layers=None):
     return protein_config(
         spec, {"CA": 3, "C": 3, "O": 3, "N": 3},
         getScaler([
@@ -29,4 +29,5 @@ def get_config(spec=None):
             ("N", ("shift", "CA")),
             ("O", ("shift", "C")),
         ]),
-        keep_atoms=("CA", "C", "O", "N"), backbone=True)
+        keep_atoms=("CA", "C", "O", "N"), backbone=True,
+        num_layers=num_layers)

@@ -8,7 +8,7 @@ e3nn-to-ORCA basis transform, ``contractBasis`` and the same training,
 early-stopping and data settings.
 """
 
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -50,10 +50,17 @@ def orca_transform_matrix():
     return _direct_sum(S, S, S, P, P, D, S, S, P, S, S, P)
 
 
+@lru_cache(maxsize=None)
+def _orca_matrix(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``orca_transform_matrix`` on ``device``, made once: a copy from the
+    host in every forward could not be captured into a CUDA graph."""
+    return torch.as_tensor(orca_transform_matrix(), dtype=dtype,
+                           device=device)
+
+
 def transform(result: torch.Tensor) -> torch.Tensor:
     """The hamiltonian from the internal irrep basis to ORCA's."""
-    M = torch.as_tensor(orca_transform_matrix(), dtype=result.dtype,
-                        device=result.device)
+    M = _orca_matrix(result.device, result.dtype)
     return M.T @ result @ M
 
 

@@ -164,6 +164,7 @@ class TensorProductExpansion(Module):
         self.linear = Linear(self.irreps_mid.simplify(), irreps_out,
                              biases=False)
         self._fuse_plan = self._build_fuse_plan()
+        self._fused_cg = {}
 
     def _build_fuse_plan(self):
         """Plan of the mid-fused lowering, or None when it does not apply.
@@ -220,14 +221,19 @@ class TensorProductExpansion(Module):
                              for _, o, _, _, _ in live])      # [L, u, v]
             bw = torch.einsum("...vj,Luv->...Luj", b, W)
             dims3 = [tp.irreps_out[ins.i_out].ir.dim for ins, *_ in live]
-            C = np.zeros((len(live), d1, d2, max(dims3)), np.float32)
-            for p, (ins, *_) in enumerate(live):
-                l3 = tp.irreps_out[ins.i_out].ir.l
-                C[p, :, :, : 2 * l3 + 1] = (
-                    wigner_3j(mi1.ir.l, mi2.ir.l, l3) * ins.path_weight)
-            chunk = torch.einsum(
-                "...ui,...Luj,LijK->...LuK", a, bw,
-                torch.as_tensor(C, dtype=left.dtype, device=left.device))
+            # the CG table of the pair, made once per device: a copy from
+            # the host in every forward could not be captured into a graph
+            key = (i1, i2, left.device, left.dtype)
+            if key not in self._fused_cg:
+                C = np.zeros((len(live), d1, d2, max(dims3)), np.float32)
+                for p, (ins, *_) in enumerate(live):
+                    l3 = tp.irreps_out[ins.i_out].ir.l
+                    C[p, :, :, : 2 * l3 + 1] = (
+                        wigner_3j(mi1.ir.l, mi2.ir.l, l3) * ins.path_weight)
+                self._fused_cg[key] = torch.as_tensor(
+                    C, dtype=left.dtype, device=left.device)
+            chunk = torch.einsum("...ui,...Luj,LijK->...LuK", a, bw,
+                                 self._fused_cg[key])
             for p, (ins, _, rk, ii, io) in enumerate(live):
                 rows = lin.weight(ii, io)[rk: rk + mul1]
                 mix_bins.setdefault(io, []).append(

@@ -12,7 +12,12 @@ The edges need not come sorted.
 
 ``shared`` builds the orders once per set of edges: the five trunk layers
 of a model forward pass the same ``edge_index`` rows and get one order,
-which ``FullConvFunction`` saves for the backward.
+which ``FullConvFunction`` saves for the backward.  While the stream is
+being captured into a CUDA graph (``run.capture``), an order cached
+outside the capture (the warm-up's, on the same static buffers) would be
+walked by every replay whatever batch it gets: there ``shared`` builds the
+order inside the graph, shares it only within that capture, and stores
+nothing in the cache.
 """
 
 from __future__ import annotations
@@ -32,6 +37,13 @@ class EdgeOrder(NamedTuple):
 #: orders built, over the process (the tests count them)
 builds = 0
 _last: Optional[tuple] = None
+_captured: Optional[tuple] = None   # the order of the capture in progress
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def build(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -63,11 +75,18 @@ def shared(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     """``build``, reused while the same edge tensors come back unchanged.
     The last edge tensors are held, so their memory cannot pass to another
     tensor while the entry stands; an in-place write bumps their version.
-    Inference tensors carry no version and are never reused."""
-    global _last
+    Inference tensors carry no version and are never reused.  During a
+    capture the cache is neither read nor written (see the module)."""
+    global _last, _captured
     if edge_src.is_inference() or edge_dst.is_inference():
         return build(edge_src, edge_dst, num_nodes)
     key = (_signature(edge_src), _signature(edge_dst), int(num_nodes))
+    if capturing():
+        if _captured is None or _captured[0] != key:
+            _captured = (key, (edge_src, edge_dst),
+                         build(edge_src, edge_dst, num_nodes))
+        return _captured[2]
+    _captured = None
     if _last is None or _last[0] != key:
         _last = (key, (edge_src, edge_dst),
                  build(edge_src, edge_dst, num_nodes))

@@ -13,7 +13,9 @@ themselves, from ``ptr``.
 
 ``shared`` builds the order once per species tensor: the five trunk layers
 of a model forward pass the same ``species`` and get one order, which
-``SpeciesScalarFCTPFunction`` saves for the backward.
+``SpeciesScalarFCTPFunction`` saves for the backward.  During a CUDA-graph
+capture it builds the order inside the graph and stores nothing in the
+cache, as ``edge_order.shared`` does.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .edge_order import _signature
+from .edge_order import _signature, capturing
 
 
 class SpeciesOrder(NamedTuple):
@@ -33,6 +35,7 @@ class SpeciesOrder(NamedTuple):
 #: orders built, over the process (the tests count them)
 builds = 0
 _last: Optional[tuple] = None
+_captured: Optional[tuple] = None   # the order of the capture in progress
 
 
 def build(species: torch.Tensor, types: int) -> SpeciesOrder:
@@ -53,11 +56,17 @@ def shared(species: torch.Tensor, types: int) -> SpeciesOrder:
     """``build``, reused while the same species tensor comes back
     unchanged.  The last species tensor is held, so its memory cannot pass
     to another tensor while the entry stands; an in-place write bumps its
-    version.  Inference tensors carry no version and are never reused."""
-    global _last
+    version.  Inference tensors carry no version and are never reused.
+    During a capture the cache is neither read nor written."""
+    global _last, _captured
     if species.is_inference():
         return build(species, types)
     key = (_signature(species), int(types))
+    if capturing():
+        if _captured is None or _captured[0] != key:
+            _captured = (key, species, build(species, types))
+        return _captured[2]
+    _captured = None
     if _last is None or _last[0] != key:
         _last = (key, species, build(species, types))
     return _last[2]

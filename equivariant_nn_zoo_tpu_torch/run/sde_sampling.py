@@ -5,14 +5,23 @@ predictor and corrector registries, the Euler-Maruyama predictor, the
 Langevin corrector (SNR-scaled step), the ``none`` variants, the PC loop,
 the Heun-integrated probability-flow ODE and ``get_sampling_fn``.
 
-The reverse loop is eager, one score evaluation (a model forward) at a
-time, under ``torch.no_grad()`` (a ``GradientOutput`` head still takes its
-position gradient).  Its timesteps are host floats; what depends on them on
-the device (``t``, the corrector's ``alphas[timestep]``) is computed there,
-so the loop reads nothing back from the device.  The noise source
+The reverse loop runs under ``torch.no_grad()`` (a ``GradientOutput`` head
+still takes its position gradient), one iteration at a time: the PC
+sampler's corrector then predictor, the ODE sampler's two Heun drifts.  An
+iteration reads its time from a device table of the timesteps at a device
+step counter, and writes the new state back into the batch it was given,
+so it reads nothing from the host and nothing back to it.  On a CUDA
+device in one process the iteration is compiled (``capture``, by default
+on): captured once into a CUDA graph (``run.capture.Step``) and replayed
+for every step, as the JAX samplers run their loop whole in one
+``lax.fori_loop``; ``capture=False`` runs it eagerly.  The noise source
 (``sde_utils.Noise``) is drawn in a fixed order: the prior, then per step
 the corrector's normals (one per key and corrector step), then the
-predictor's (one per key).
+predictor's (one per key); a captured iteration draws from its generator
+(registered with the graph, as is the in-model edge layer's).  A source
+that a replay cannot renew (``run.capture.renews``: one that hands out
+given arrays, with no ``capturable = True``) runs the loop eagerly by
+default, and ``capture=True`` with it raises.
 
 Edge vectors and lengths are dropped from the sampler's batch: every score
 evaluation derives them from the current positions (``computeEdgeVector``
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from ..data.graph_batch import GraphBatch
+from . import capture as capture_mod
 from .sde_utils import VPSDE, Noise, _broadcast_t, get_score_fn, with_t
 
 _CORRECTORS = {}
@@ -128,8 +138,8 @@ class LangevinCorrector(Corrector):
         if t.device not in self._alphas:
             self._alphas[t.device] = torch.as_tensor(
                 sde.alphas, dtype=torch.float32, device=t.device)
-        timestep = (t.reshape(-1)[0] * (sde.N - 1) / sde.T).long()
-        alpha = self._alphas[t.device][timestep]
+        timestep = (t.reshape(-1)[:1] * (sde.N - 1) / sde.T).long()
+        alpha = self._alphas[t.device].index_select(0, timestep).reshape(())
         mask = batch["_node_mask"]
         n_real = mask.sum().clamp(min=1.0)
         for _ in range(self.n_steps):
@@ -176,13 +186,42 @@ def _noise_for(batch, noise):
     return Noise(batch["_node_mask"].device) if noise is None else noise
 
 
+def _timesteps(sde: VPSDE, eps: float, n: int, device) -> torch.Tensor:
+    """The loop's times, float32 on ``device``: ``n`` from ``sde.T`` down
+    to ``eps``."""
+    return torch.as_tensor(np.linspace(sde.T, eps, n).astype(np.float32),
+                           device=device)
+
+
+def _write_back(batch: GraphBatch, new: GraphBatch, keys) -> None:
+    """The iteration's new ``keys`` and ``t`` into ``batch``'s tensors."""
+    for k in (*keys, "t"):
+        batch[k].copy_(new[k])
+
+
+def _run_loop(name, iterate, batch, n, capture, model, noise):
+    """``iterate(batch, i)`` ``n`` times from step counter 0, compiled
+    (``capture``) or eager; returns the last batch."""
+    i = torch.zeros(1, dtype=torch.int64, device=batch["_node_mask"].device)
+    if capture_mod.enabled(capture, i.device, (noise, model)):
+        iterate = capture_mod.Step(
+            name, iterate,
+            generators=lambda: capture_mod.generators(noise, model))
+    for _ in range(n):
+        batch, i = iterate(batch, i)
+    return batch
+
+
 def get_pc_sampler(sde: VPSDE, predictor, corrector, inverse_scaler, snr,
-                   n_steps=1, continuous=False, eps=1e-3) -> Callable:
+                   n_steps=1, continuous=False, eps=1e-3,
+                   capture=None) -> Callable:
     """``pc_sampler(model, batch, noise=None, steps=None) -> (batch,
     nfe)``: ``sde.N`` steps from t = 1 to ``eps``, each a corrector then a
     predictor update; ``nfe`` counts the score evaluations.  ``steps``
     stops after the first ``steps`` of them (a check of the early steps,
-    before the reverse process amplifies rounding)."""
+    before the reverse process amplifies rounding).  ``capture``: one
+    iteration as a CUDA graph, replayed for each step
+    (``run.capture.enabled``); ``False`` is eager."""
 
     def pc_sampler(model, batch, noise=None, steps=None):
         noise = _noise_for(batch, noise)
@@ -191,32 +230,42 @@ def get_pc_sampler(sde: VPSDE, predictor, corrector, inverse_scaler, snr,
             sde, score_fn)
         corrector_obj = (NoneCorrector if corrector is None else corrector)(
             sde, score_fn, snr, n_steps)
+        n = len(range(sde.N)[:steps])
         with torch.no_grad():
             batch = _start(sde, batch, noise)
+            times = _timesteps(sde, eps, sde.N, batch["t"].device)
             ones = torch.ones_like(batch["t"])
-            timesteps = np.linspace(sde.T, eps, sde.N).astype(np.float32)
-            for t in timesteps[:steps]:
-                batch = with_t(batch, ones * float(t))
-                batch = corrector_obj.update_fn(batch, noise)
-                batch = predictor_obj.update_fn(batch, noise)
-        return batch, len(timesteps[:steps]) * (n_steps + 1)
+
+            def iterate(b, i):
+                new = with_t(b, ones * times.index_select(0, i))
+                new = corrector_obj.update_fn(new, noise)
+                new = predictor_obj.update_fn(new, noise)
+                _write_back(b, new, sde.irreps)
+                i.add_(1)
+                return b, i
+
+            batch = _run_loop("pc_sampler", iterate, batch, n, capture,
+                              model, noise)
+        return batch, n * (n_steps + 1)
 
     return pc_sampler
 
 
 def get_ode_sampler(sde: VPSDE, inverse_scaler, denoise: bool = True,
-                    eps: float = 1e-3, n_steps: int = None) -> Callable:
+                    eps: float = 1e-3, n_steps: int = None,
+                    capture=None) -> Callable:
     """Probability-flow ODE sampler (deterministic reverse dynamics):
     ``dx = [f(x, t) - g(t)^2 score(x, t) / 2] dt``, integrated with Heun's
     method over ``n_steps`` (by default ``sde.N``) times;
-    ``ode_sampler(model, batch, noise=None) -> (batch, nfe)``."""
+    ``ode_sampler(model, batch, noise=None) -> (batch, nfe)``.
+    ``capture``: one Heun step as a CUDA graph, replayed for each step
+    (``run.capture.enabled``); ``False`` is eager."""
 
     def ode_sampler(model, batch, noise=None):
         noise = _noise_for(batch, noise)
         n = n_steps or sde.N
         score_fn = get_score_fn(sde, model, train=False)
-        timesteps = np.linspace(sde.T, eps, n).astype(np.float32)
-        dt = np.float32(-(sde.T - eps) / (n - 1))
+        dt = float(np.float32(-(sde.T - eps) / (n - 1)))
 
         def drift(b):
             scores = score_fn(b)
@@ -228,34 +277,44 @@ def get_ode_sampler(sde: VPSDE, inverse_scaler, denoise: bool = True,
 
         with torch.no_grad():
             batch = _start(sde, batch, noise)
+            times = _timesteps(sde, eps, n, batch["t"].device)
             ones = torch.ones_like(batch["t"])
-            for t in timesteps[:-1]:
-                b = with_t(batch, ones * float(t))
-                d1 = drift(b)
+
+            def iterate(b, i):
+                t = times.index_select(0, i)
+                cur = with_t(b, ones * t)
+                d1 = drift(cur)
                 # Heun: the drift again at the Euler-predicted point
-                b_pred = with_t(
-                    b.replace(**{k: b[k] + float(dt) * d1[k]
-                                 for k in sde.irreps}),
-                    ones * float(t + dt))
-                d2 = drift(b_pred)
-                batch = b.replace(**{
-                    k: b[k] + 0.5 * float(dt) * (d1[k] + d2[k])
-                    for k in sde.irreps})
+                pred = with_t(
+                    cur.replace(**{k: cur[k] + dt * d1[k]
+                                   for k in sde.irreps}),
+                    ones * (t + dt))
+                d2 = drift(pred)
+                _write_back(b, cur.replace(**{
+                    k: cur[k] + 0.5 * dt * (d1[k] + d2[k])
+                    for k in sde.irreps}), sde.irreps)
+                i.add_(1)
+                return b, i
+
+            batch = _run_loop("ode_sampler", iterate, batch, n - 1, capture,
+                              model, noise)
         return batch, 2 * (n - 1)
 
     return ode_sampler
 
 
-def get_sampling_fn(config, sde, inverse_scaler, eps) -> Callable:
+def get_sampling_fn(config, sde, inverse_scaler, eps,
+                    capture=None) -> Callable:
     """The sampler that ``config["sampling"]`` (``models/sde_config.py``)
     names: ``sampling_fn(model, batch, noise=None) -> (host Batch, nfe)``,
     the host batch trimmed of padding and passed through
-    ``inverse_scaler`` when one is given."""
+    ``inverse_scaler`` when one is given; ``capture`` as the samplers'."""
     sampling = config["sampling"]
     method = sampling["method"].lower()
     if method == "ode":
         sampler = get_ode_sampler(sde=sde, inverse_scaler=inverse_scaler,
-                                  denoise=sampling["noise_removal"], eps=eps)
+                                  denoise=sampling["noise_removal"], eps=eps,
+                                  capture=capture)
     elif method == "pc":
         sampler = get_pc_sampler(
             sde=sde,
@@ -263,7 +322,8 @@ def get_sampling_fn(config, sde, inverse_scaler, eps) -> Callable:
             corrector=get_corrector(sampling["corrector"].lower()),
             inverse_scaler=inverse_scaler, snr=sampling["snr"],
             n_steps=sampling["n_steps_each"],
-            continuous=config["training"]["continuous"], eps=eps)
+            continuous=config["training"]["continuous"], eps=eps,
+            capture=capture)
     else:
         raise ValueError(f"Sampler name {sampling['method']} unknown.")
 

@@ -11,16 +11,22 @@ a source that replays given arrays), in a fixed order:
   diffusion key (``VPSDE.marginal``);
 - ``VPSDE.prior_sampling`` and ``VPSDE.sde``: one ``normal`` per key.
 
-The step is eager PyTorch, one launch at a time: forward, loss, backward
-(accumulated in the parameters' ``.grad``), and every ``grad_acc``-th step
-the division, the clip, the NaN/Inf skip and Adam; the EMA on every step.
+The step is forward, loss, backward (accumulated in place in the
+parameters' ``.grad``), and every ``grad_acc``-th step the division, the
+clip, the NaN/Inf skip and Adam; the EMA on every step.  Nothing in it
+reads the host: the skip takes the step and puts the old parameters and
+optimizer state back where the gradients are not finite (JAX's
+``lax.cond``), and the EMA's count lives on the device.  On a CUDA device
+in one process the steps are compiled (``capture``, by default on): the
+step that applies and the micro-step each run as a CUDA graph
+(``run.capture.Step``), with the noise generators registered with them.
 Under a process group the loss and its backward go through
 ``DistributedDataParallel`` (``no_sync`` on the micro-steps that apply
-nothing), so the gradients that the clip, the skip and Adam read are the
-mean of all ranks': every rank skips a step together.  The EMA reads the
-unwrapped model.  ``sde_state_dict`` and ``load_sde_state_dict`` turn the
-training state into a checkpoint of numpy arrays under the JAX state's
-names (``params``, ``opt_state``, ``ema``, ``step``) and back.
+nothing), eagerly, so the gradients that the clip, the skip and Adam read
+are the mean of all ranks': every rank skips a step together.  The EMA
+reads the unwrapped model.  ``sde_state_dict`` and ``load_sde_state_dict``
+turn the training state into a checkpoint of numpy arrays under the JAX
+state's names (``params``, ``opt_state``, ``ema``, ``step``) and back.
 """
 
 from __future__ import annotations
@@ -36,13 +42,19 @@ from ..parallel import data_parallel as dp
 from ..parallel import mesh
 from ..utils.params import load_jax_params, params_to_jax
 from ..utils.saveload import _numpyify
+from . import capture as capture_mod
 from .trainer import ADAM_DEFAULTS, _tensors
-from .trainer import ema_decay as _ema_decay
+from .trainer import adam as _adam
+from .trainer import ema_update
 
 
 class Noise:
     """The draws of the SDE stack, from one ``torch.Generator`` on
-    ``device`` seeded with ``seed``; float32, as the positions are."""
+    ``device`` seeded with ``seed``; float32, as the positions are.  A
+    captured step registers the generator with its graphs, so each replay
+    draws afresh (``capture.renews``)."""
+
+    capturable = True
 
     def __init__(self, device="cuda", seed: int = 0):
         self.device = torch.device(device)
@@ -57,13 +69,11 @@ class Noise:
                           device=self.device)
 
 
-def adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+def adam(model: torch.nn.Module, lr: float):
     """Adam with optax's defaults (``optax.adam(lr)``) on ``model``'s
-    parameters."""
-    return torch.optim.Adam(
-        model.parameters(), lr=lr,
-        betas=(ADAM_DEFAULTS["b1"], ADAM_DEFAULTS["b2"]),
-        eps=ADAM_DEFAULTS["eps"])
+    parameters (``trainer.Adam``: the rate and the count are tensors on
+    the parameters' device)."""
+    return _adam(model.parameters(), lr, **ADAM_DEFAULTS)
 
 
 def with_t(batch: GraphBatch, t: torch.Tensor) -> GraphBatch:
@@ -216,16 +226,18 @@ def get_sde_loss_fn(sde: VPSDE, train: bool, reduce_mean=True,
 
 def init_sde_state(model: torch.nn.Module, noise: Noise = None) -> dict:
     """The diffusion training state beside ``model`` and its optimizer:
-    the EMA (a copy of the model, never an alias, and its update count),
-    the step count and the noise source (by default a generator on the
-    model's device).  The gradient accumulator is the parameters'
-    ``.grad``, cleared here."""
-    model.zero_grad(set_to_none=True)
+    the EMA (a copy of the model, never an alias, and its update count, an
+    int32 tensor on the model's device), the step count (the host's) and
+    the noise source (by default a generator on the model's device).  The
+    gradient accumulator is the parameters' ``.grad``, zeroed here."""
+    model.zero_grad(set_to_none=False)
     ema = copy.deepcopy(model)
     ema.requires_grad_(False)
+    device = next(model.parameters()).device
     if noise is None:
-        noise = Noise(next(model.parameters()).device)
-    return {"ema": {"model": ema, "num_updates": 0}, "step": 0,
+        noise = Noise(device)
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    return {"ema": {"model": ema, "num_updates": count}, "step": 0,
             "noise": noise}
 
 
@@ -238,7 +250,7 @@ def sde_state_dict(state: dict, model: torch.nn.Module, optimizer) -> dict:
     out = {"params": params_to_jax(model),
            "opt_state": _numpyify(optimizer.state_dict()),
            "ema": {"params": params_to_jax(state["ema"]["model"]),
-                   "num_updates": state["ema"]["num_updates"]},
+                   "num_updates": int(state["ema"]["num_updates"])},
            "step": state["step"]}
     generator = getattr(state["noise"], "generator", None)
     noise = generator.get_state().numpy() if generator is not None else None
@@ -253,11 +265,15 @@ def sde_state_dict(state: dict, model: torch.nn.Module, optimizer) -> dict:
 def load_sde_state_dict(tree: dict, state: dict, model: torch.nn.Module,
                         optimizer) -> dict:
     """Restore ``sde_state_dict``'s tree into ``model``, ``optimizer`` and
-    ``state`` (from ``init_sde_state(model)``); returns ``state``."""
+    ``state`` (from ``init_sde_state(model)``), each value copied into the
+    tensor that holds it, so that captured steps keep reading them; where
+    the optimizer had no state yet its tensors are new, in a new state
+    dict, and a captured step built before the load captures anew.
+    Returns ``state``."""
     load_jax_params(model, tree["params"])
-    optimizer.load_state_dict(_tensors(tree["opt_state"]))
+    capture_mod.load_optimizer_state(optimizer, _tensors(tree["opt_state"]))
     load_jax_params(state["ema"]["model"], tree["ema"]["params"])
-    state["ema"]["num_updates"] = int(tree["ema"]["num_updates"])
+    state["ema"]["num_updates"].fill_(int(tree["ema"]["num_updates"]))
     state["step"] = int(tree["step"])
     # this rank's draws (rank 0's in a file of one rank); a rank the file
     # does not know keeps the stream of its own seed
@@ -270,50 +286,121 @@ def load_sde_state_dict(tree: dict, state: dict, model: torch.nn.Module,
     return state
 
 
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _put(tensors, flat: torch.Tensor) -> None:
+    """Copy ``flat`` (``_flat``'s layout) back into ``tensors``."""
+    parts = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [c.view_as(t)
+                                   for c, t in zip(parts, tensors)])
+
+
+@torch.no_grad()
+def _finite_step(optimizer, finite: torch.Tensor) -> None:
+    """The optimizer's step, kept only where ``finite`` (a device bool):
+    elsewhere the parameters and the optimizer's state, its step counts
+    too, get their old values back (JAX's ``lax.cond`` around the update).
+    A state tensor that the step itself made (Adam's first step) goes back
+    to zeros, the state Adam starts from.  One ``where`` over each dtype's
+    tensors laid end to end, not one per tensor."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def by_dtype(keep):
+        out = {}
+        for p in params:
+            for t in (p, *optimizer.state.get(p, {}).values()):
+                if torch.is_tensor(t) and keep(t):
+                    out.setdefault(t.dtype, []).append(t)
+        return out
+
+    held = by_dtype(lambda t: True)
+    old = {dt: _flat(ts) for dt, ts in held.items()}
+    ids = {id(t) for ts in held.values() for t in ts}
+    optimizer.step()
+    for dt, ts in held.items():
+        _put(ts, torch.where(finite, _flat(ts), old[dt]))
+    for ts in by_dtype(lambda t: id(t) not in ids).values():
+        new = _flat(ts)
+        _put(ts, torch.where(finite, new, torch.zeros_like(new)))
+
+
 def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
                 reduce_mean=False, continuous=True,
                 likelihood_weighting=False, grad_clid_norm=None,
                 grad_acc: int = 1, ema_decay: float = 0.999,
                 ema_use_num_updates: bool = True,
-                find_unused_parameters: bool = False) -> Callable:
+                find_unused_parameters: bool = False,
+                capture=None) -> Callable:
     """``step_fn(state, batch) -> (state, loss, losses)``.
 
     Training: the loss's gradient is added to ``.grad``; every
     ``grad_acc``-th step the sum is divided by ``grad_acc``, clipped to the
     global norm ``grad_clid_norm``, and Adam steps unless a gradient is NaN
     or Inf (then the parameters and the optimizer's state, its step count
-    too, stay as they were); the accumulator is cleared either way.  The
+    too, stay as they were); the accumulator is zeroed either way.  The
     EMA updates on every step.  Evaluation: the loss of the EMA model.
     ``model`` and ``optimizer`` (``adam``) are the training model and its
     optimizer; ``state`` comes from ``init_sde_state(model)``.
     Under a process group the training step goes through DDP,
     ``find_unused_parameters`` telling it to look for parameters that get
-    no gradient (``parallel/data_parallel.py``).
+    no gradient (``parallel/data_parallel.py``).  ``capture``: the steps
+    as CUDA graphs (``run.capture.enabled``: by default on a CUDA device in
+    one process; the device is ``model``'s, or the batch's when
+    evaluating); ``False`` is eager.  A captured step draws from
+    ``state["noise"]``'s generator, and, for a model with an in-model edge
+    layer, from its ``EdgeRandom``: they are registered with the graphs.  A
+    noise source whose draws a replay cannot renew (``capture.renews``: a
+    test's source of given arrays) runs the steps eagerly, and
+    ``capture=True`` with one raises.
     """
     loss_fn = get_sde_loss_fn(
         sde, train, reduce_mean=reduce_mean, continuous=continuous,
         likelihood_weighting=likelihood_weighting)
+    compiled = {"owners": (), "steps": {}}
+
+    def compiled_step(name, fn, *owners):
+        """``fn`` as a ``capture.Step`` bound to ``owners``, the state's
+        objects that its graphs read and draw from (a new noise source or
+        EMA model gets new steps)."""
+        if [id(o) for o in compiled["owners"]] != [id(o) for o in owners]:
+            compiled.update(owners=owners, steps={})
+        steps = compiled["steps"]
+        if name not in steps:
+            steps[name] = capture_mod.Step(
+                name, fn, generators=lambda: capture_mod.generators(*owners))
+        return steps[name]
 
     if not train:
 
-        def eval_step(state, batch):
+        def evaluate(state, batch):
             with torch.no_grad():
-                loss, losses = loss_fn(state["ema"]["model"], batch,
-                                       state["noise"])
-            return state, loss, losses
+                return loss_fn(state["ema"]["model"], batch, state["noise"])
+
+        def eval_step(state, batch):
+            if not capture_mod.enabled(capture, batch["_node_mask"].device,
+                                       (state["noise"],
+                                        state["ema"]["model"])):
+                loss, losses = evaluate(state, batch)
+                return state, loss, losses
+            step = compiled_step("sde_eval", lambda b: evaluate(state, b),
+                                 state["noise"], state["ema"]["model"])
+            loss, losses = step(batch)
+            return state, loss.clone(), {k: v.clone()
+                                         for k, v in losses.items()}
 
         return eval_step
 
     params = list(model.parameters())
     step_module = dp.step_module(dp.LossStep(model, loss_fn),
                                  find_unused_parameters)
+    # capture=True raises here where it cannot run at all; the noise source
+    # is asked about on each call (the state carries it)
+    capture_mod.enabled(capture, params[0].device, (model,))
 
     def apply_gradients():
-        grads = []
-        for p in params:
-            if p.grad is None:  # optax steps every leaf, zeros included
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+        grads = [p.grad for p in params]
         if grad_acc > 1:
             torch._foreach_div_(grads, float(grad_acc))
         if grad_clid_norm is not None:
@@ -322,30 +409,43 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
             torch._foreach_mul_(grads, torch.clamp(
                 grad_clid_norm / (norm + 1e-12), max=1.0))
         # the gradients after DDP's all-reduce: every rank skips together
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        # the step's one host read, once per applied step: a captured step
-        # (a CUDA graph) will have to make the skip on the device
-        if bool(finite):
-            optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
+        finite = torch.isfinite(_flat(grads)).all()
+        _finite_step(optimizer, finite)
+        torch._foreach_zero_(grads)
 
-    def train_step(state, batch):
+    def one_step(state, batch, applies):
         # under DDP the ranks' gradients are averaged on the step that
         # applies
-        with dp.no_sync(step_module, (state["step"] + 1) % grad_acc == 0):
+        with dp.no_sync(step_module, applies):
             loss, losses = step_module(batch, state["noise"])
             loss.backward()
-        state["step"] += 1
-        if state["step"] % grad_acc == 0:
+        if applies:
             apply_gradients()
-        ema = state["ema"]
-        ema["num_updates"] += 1
-        d = _ema_decay(ema_decay, ema["num_updates"], ema_use_num_updates)
-        with torch.no_grad():
-            ema_params = list(ema["model"].parameters())
-            torch._foreach_mul_(ema_params, d)
-            torch._foreach_add_(ema_params, params, alpha=1.0 - d)
-        return state, loss.detach(), {k: v.detach()
-                                      for k, v in losses.items()}
+        ema_update(list(state["ema"]["model"].parameters()), params,
+                   state["ema"]["num_updates"], ema_decay,
+                   ema_use_num_updates)
+        return loss.detach(), {k: v.detach() for k, v in losses.items()}
+
+    def train_step(state, batch):
+        # optax steps every leaf, zeros included: every gradient is a
+        # tensor the steps add to and zero in place
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+                compiled.update(owners=(), steps={})
+        state["step"] += 1
+        applies = state["step"] % grad_acc == 0
+        if not capture_mod.enabled(capture, params[0].device,
+                                   (state["noise"], model)):
+            loss, losses = one_step(state, batch, applies)
+            return state, loss, losses
+        name = "sde_apply" if applies else "sde_accumulate"
+        # a load that replaced the optimizer's state (it had none yet)
+        # replaced its dict too: new graphs then
+        step = compiled_step(
+            name, lambda b: one_step(state, b, applies), state["noise"],
+            state["ema"]["model"], model, optimizer.state)
+        loss, losses = step(batch)
+        return state, loss.clone(), {k: v.clone() for k, v in losses.items()}
 
     return train_step

@@ -11,9 +11,16 @@ parameter and gradient histograms (``watch_stats``), profiling, and
 best / last / trainer checkpoints written atomically, with a resume
 (``from_file``) that restores every state, random streams included.
 
-One step is eager PyTorch: forward, the masked loss, ``backward`` (through
-the convolution's and self-connection's CUDA kernels on the card), the
-optimizer's step and the EMA update.  Batches come from the loader as host
+One step is forward, the masked loss, ``backward`` (through the
+convolution's and self-connection's CUDA kernels on the card), the
+optimizer's step and the EMA update.  The JAX trainer's four jitted steps
+are four functions here (train, eval, accumulate, apply), which read
+nothing from the host: the gradients are made once, for every parameter
+(optax steps every leaf), and zeroed and summed in place, and the EMA's
+count (and on the card the optimizer's rate and counts) are tensors.  On a
+CUDA device in one process they are compiled (``capture``, by default on):
+each runs as a CUDA graph per batch signature (``run.capture.Step``);
+``capture=False`` runs them eagerly.  Batches come from the loader as host
 batches in pinned memory and are copied to the card one batch ahead on a
 side CUDA stream (``_device_prefetch``).
 
@@ -73,6 +80,7 @@ from ..utils.saveload import (
     save_file,
 )
 from ..utils.utils import pruneArgs
+from . import capture as capture_mod
 from .early_stopping import EarlyStopping
 from .loss import Loss, LossStat
 from .lr_scheduler import SCHEDULERS
@@ -89,44 +97,160 @@ def _optax_only(**options):
                                       f"{key}={value!r}")
 
 
+def _rate(learning_rate, params):
+    """The learning rate as a 0-d float32 tensor on the parameters'
+    device, on the card and on the CPU alike: a captured step reads it
+    there, and ``Trainer._set_lr`` fills it in place (a given tensor is
+    kept)."""
+    if torch.is_tensor(learning_rate):
+        return learning_rate
+    return torch.tensor(float(learning_rate), dtype=torch.float32,
+                        device=params[0].device)
+
+
+class _DeviceState(torch.optim.Optimizer):
+    """An optimizer whose state is made for every parameter when it is
+    built (``_fresh``), so that a step creates no tensor that a captured
+    step or the SDE step's on-device skip would miss."""
+
+    def _fresh(self, p, group) -> dict:
+        raise NotImplementedError
+
+    def _state(self, p, group) -> dict:
+        if not self.state[p]:
+            self.state[p].update(self._fresh(p, group))
+        return self.state[p]
+
+    def _make_state(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._state(p, group)
+
+
+class Adam(_DeviceState):
+    """``optax.adam`` in optax's own arithmetic, and ``optax.adamw`` with
+    ``weight_decay``: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,
+    the count on the parameters' device, the update mu / (1 - b1^count)
+    over sqrt(nu / (1 - b2^count)) + eps, plus ``weight_decay * param``,
+    then times minus the rate.  Not ``torch.optim.Adam``, which divides
+    sqrt(nu) by the root of the correction and folds the rate into the
+    first one: other roundings.  The state keeps torch's names (``step``,
+    ``exp_avg``, ``exp_avg_sq``)."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=None):
+        super().__init__(params, dict(lr=lr, betas=(b1, b2), eps=eps,
+                                      weight_decay=weight_decay))
+        self._make_state()
+
+    def _fresh(self, p, group):
+        return {"step": torch.zeros((), dtype=torch.float32,
+                                    device=p.device),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            b1, b2 = group["betas"]
+            states = [self._state(p, group) for p in params]
+            mu = [st["exp_avg"] for st in states]
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            square = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(square, 1.0 - b2)
+            torch._foreach_add_(nu, square)
+            torch._foreach_add_([st["step"] for st in states], 1.0)
+            count = states[0]["step"]
+            update = torch._foreach_div(mu, 1.0 - b1 ** count)
+            denom = torch._foreach_div(nu, 1.0 - b2 ** count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(update, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(update, torch._foreach_mul(
+                    params, group["weight_decay"]))
+            torch._foreach_mul_(update, -group["lr"])
+            torch._foreach_add_(params, update)
+
+
 def adam(params, learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
          mu_dtype=None, nesterov=False):
-    """``optax.adam``: mu / (sqrt(nu) + eps) with bias corrections."""
+    """``optax.adam`` (``Adam``)."""
     _optax_only(eps_root=eps_root, mu_dtype=mu_dtype, nesterov=nesterov)
-    return torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2),
-                            eps=eps)
+    params = list(params)
+    return Adam(params, _rate(learning_rate, params), b1=b1, b2=b2, eps=eps)
 
 
 def adamw(params, learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
           mu_dtype=None, weight_decay=1e-4, mask=None, nesterov=False):
-    """``optax.adamw``: Adam's update plus ``weight_decay * param``, both
-    scaled by the learning rate (optax's default decay 1e-4, not
-    ``torch.optim.AdamW``'s 1e-2)."""
+    """``optax.adamw`` (``Adam`` with ``weight_decay``, optax's default
+    1e-4, scaled by the rate with the update)."""
     _optax_only(eps_root=eps_root, mu_dtype=mu_dtype, mask=mask,
                 nesterov=nesterov)
-    return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2),
-                             eps=eps, weight_decay=weight_decay)
+    params = list(params)
+    return Adam(params, _rate(learning_rate, params), b1=b1, b2=b2, eps=eps,
+                weight_decay=weight_decay)
+
+
+class SGD(_DeviceState):
+    """``optax.sgd``: with ``momentum``, optax's trace t = g + momentum * t
+    (``nesterov``: the update g + momentum * t), then the rate.  Not
+    ``torch.optim.SGD``, which reads a tensor rate back to the host."""
+
+    def __init__(self, params, lr, momentum=None, nesterov=False):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      nesterov=nesterov))
+        self._make_state()
+
+    def _fresh(self, p, group):
+        if group["momentum"] is None:
+            return {}
+        return {"trace": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            update = grads
+            if group["momentum"] is not None:
+                trace = [self._state(p, group)["trace"] for p in params]
+                torch._foreach_mul_(trace, group["momentum"])
+                torch._foreach_add_(trace, grads)
+                update = (torch._foreach_add(grads, trace,
+                                             alpha=group["momentum"])
+                          if group["nesterov"] else trace)
+            torch._foreach_add_(params,
+                                torch._foreach_mul(update, -group["lr"]))
 
 
 def sgd(params, learning_rate, momentum=None, nesterov=False,
         accumulator_dtype=None):
-    """``optax.sgd``: with ``momentum``, optax's trace t = g + momentum * t
-    (``nesterov``: the update g + momentum * t) before the rate."""
+    """``optax.sgd`` (``SGD``)."""
     _optax_only(accumulator_dtype=accumulator_dtype)
-    if momentum is None:
-        return torch.optim.SGD(params, lr=learning_rate)
-    return torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
-                           nesterov=nesterov)
+    params = list(params)
+    return SGD(params, _rate(learning_rate, params), momentum=momentum,
+               nesterov=nesterov)
 
 
-class RMSprop(torch.optim.Optimizer):
+class RMSprop(_DeviceState):
     """``optax.rmsprop`` with its defaults: nu = decay nu + (1 - decay) g^2
     from ``initial_scale``; the update g / sqrt(nu + eps) (``eps_in_sqrt``;
     else g / (sqrt(nu) + eps)), centered on the running mean with
     ``centered``, bias-corrected with ``bias_correction``; then the rate,
     then optax's trace with ``momentum`` (so the trace holds rate-scaled
     updates).  Not ``torch.optim.RMSprop``, whose g / (sqrt(v) + eps) with
-    alpha 0.99 is another update.  ``_foreach`` over each group."""
+    alpha 0.99 is another update.  ``_foreach`` over each group; the
+    count and the rate are tensors on the parameters' device."""
 
     def __init__(self, params, lr, decay=0.9, eps=1e-8, initial_scale=0.0,
                  eps_in_sqrt=True, centered=False, momentum=None,
@@ -135,6 +259,16 @@ class RMSprop(torch.optim.Optimizer):
             lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
             eps_in_sqrt=eps_in_sqrt, centered=centered, momentum=momentum,
             nesterov=nesterov, bias_correction=bias_correction))
+        self._make_state()
+
+    def _fresh(self, p, group):
+        st = {"nu": torch.full_like(p, group["initial_scale"])}
+        if group["centered"]:
+            st["mu"] = torch.zeros_like(p)
+        if group["momentum"] is not None:
+            st["trace"] = torch.zeros_like(p)
+        st["count"] = torch.zeros((), dtype=torch.float32, device=p.device)
+        return st
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -144,15 +278,7 @@ class RMSprop(torch.optim.Optimizer):
                 continue
             grads = [p.grad for p in params]
             decay, eps = group["decay"], group["eps"]
-            states = [self.state[p] for p in params]
-            for p, st in zip(params, states):
-                if not st:
-                    st["nu"] = torch.full_like(p, group["initial_scale"])
-                    if group["centered"]:
-                        st["mu"] = torch.zeros_like(p)
-                    if group["momentum"] is not None:
-                        st["trace"] = torch.zeros_like(p)
-                    st["count"] = torch.zeros((), dtype=torch.float32)
+            states = [self._state(p, group) for p in params]
             nu = [st["nu"] for st in states]
             torch._foreach_mul_(nu, decay)
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - decay)
@@ -163,12 +289,11 @@ class RMSprop(torch.optim.Optimizer):
                 torch._foreach_add_(mu, grads, alpha=1.0 - decay)
                 mu_hat = mu
             if group["bias_correction"]:
-                for st in states:
-                    st["count"] += 1
-                count = float(states[0]["count"])
-                nu_hat = torch._foreach_div(nu, 1.0 - decay ** count)
+                torch._foreach_add_([st["count"] for st in states], 1.0)
+                correction = 1.0 - decay ** states[0]["count"]
+                nu_hat = torch._foreach_div(nu, correction)
                 if group["centered"]:
-                    mu_hat = torch._foreach_div(mu, 1.0 - decay ** count)
+                    mu_hat = torch._foreach_div(mu, correction)
             if group["centered"]:
                 nu_hat = torch._foreach_addcmul(nu_hat, mu_hat, mu_hat,
                                                 value=-1.0)
@@ -193,7 +318,9 @@ class RMSprop(torch.optim.Optimizer):
 
 
 def rmsprop(params, learning_rate, **kwargs):
-    return RMSprop(params, learning_rate, **kwargs)
+    """``optax.rmsprop`` (``RMSprop``)."""
+    params = list(params)
+    return RMSprop(params, _rate(learning_rate, params), **kwargs)
 
 
 OPTIMIZERS = {"Adam": adam, "AdamW": adamw, "SGD": sgd, "RMSprop": rmsprop}
@@ -214,12 +341,20 @@ def _prefixed(prefix: str, kwargs: dict) -> dict:
     return {k[len(head):]: v for k, v in kwargs.items() if k.startswith(head)}
 
 
-def ema_decay(decay: float, num_updates: int, use_num_updates: bool) -> float:
-    """The decay of update number ``num_updates`` (counted from 1):
-    ``min(decay, (1 + n) / (10 + n))`` with ``use_num_updates``."""
+@torch.no_grad()
+def ema_update(ema_params, params, count: torch.Tensor, decay: float,
+               use_num_updates: bool) -> None:
+    """JAX's ``make_ema_update`` on the device, in place: ``count`` (an
+    int32 tensor) += 1, then ``ema = ema d + p (1 - d)`` with ``d =
+    min(decay, (1 + count) / (10 + count))`` under ``use_num_updates``,
+    else ``decay``; no host read, so a captured step moves the decay."""
+    count.add_(1)
+    d = decay
     if use_num_updates:
-        return min(decay, (1.0 + num_updates) / (10.0 + num_updates))
-    return decay
+        n = count.to(torch.float32)
+        d = torch.clamp((1.0 + n) / (10.0 + n), max=decay)
+    torch._foreach_mul_(ema_params, d)
+    torch._foreach_add_(ema_params, torch._foreach_mul(params, 1.0 - d))
 
 
 def _numpy(x):
@@ -289,10 +424,13 @@ class Trainer:
         save_period: int = 1,
         watch_freq: int = 0,
         shard_split: bool = False,
+        capture: Optional[bool] = None,
         **kwargs,
     ):
         """``shard_split``: ``batch_size`` is the global batch, and each
-        rank's loaders load their part of it (the CLI's ``--dp``)."""
+        rank's loaders load their part of it (the CLI's ``--dp``).
+        ``capture``: the steps as CUDA graphs (``run.capture.enabled``: by
+        default on a CUDA device in one process); ``False`` is eager."""
         for key in (
             "data_config workdir seed loss_coeffs metrics_components "
             "metric_key max_epochs learning_rate lr_scheduler_name "
@@ -334,6 +472,7 @@ class Trainer:
         self._loader_state = None
         self._acc_count = 0
         self._copy_stream = None
+        self.capture = capture
 
         self.loss = Loss(loss_coeffs)
         self.loss_stat = LossStat(self.loss)
@@ -386,7 +525,8 @@ class Trainer:
 
         # the EMA parameters are a copy, never an alias of the live ones
         self.ema_model = None
-        self.ema_num_updates = 0
+        self.ema_count = torch.zeros((), dtype=torch.int32,
+                                     device=self.device)
         if self.use_ema:
             self.ema_model = copy.deepcopy(self.model)
             self.ema_model.requires_grad_(False)
@@ -396,6 +536,33 @@ class Trainer:
         # the step's forward and backward, in DDP under a process group
         self.step_module = dp.step_module(
             dp.LossStep(self.model, self._forward_loss))
+
+        # the four steps, compiled or eager; the gradients are made once,
+        # zeroed and summed in place
+        for p in self.params:
+            p.grad = torch.zeros_like(p)
+        self._param_names = [n for n, p in self.model.named_parameters()
+                             if p.requires_grad]
+        self._steps = {"train": self._train_fn, "eval": self._eval_fn,
+                       "accumulate": self._accumulate_fn,
+                       "apply": self._apply_fn}
+        if capture_mod.enabled(self.capture, self.device, (self.model,)):
+            model = self.model
+            self._steps = {name: capture_mod.Step(
+                name, fn, generators=lambda: capture_mod.generators(model))
+                for name, fn in self._steps.items()}
+
+    @property
+    def ema_num_updates(self) -> int:
+        """The EMA's update count (a host read of ``ema_count``)."""
+        return int(self.ema_count)
+
+    def drop_graphs(self):
+        """Forget the captured steps (after a load that could not copy into
+        the tensors they read); the next steps capture anew."""
+        for step in self._steps.values():
+            if hasattr(step, "drop"):    # a compiled step
+                step.drop()
 
     def init_metrics(self):
         if self.metrics_components is None:
@@ -413,7 +580,7 @@ class Trainer:
     # ------------------------------------------------------------ stepping
 
     def _grads(self):
-        return [p.grad for p in self.params if p.grad is not None]
+        return [p.grad for p in self.params]
 
     def apply_gradients(self):
         """Clip (optax's ``clip_by_global_norm``), take the optimizer's
@@ -428,13 +595,8 @@ class Trainer:
             torch._foreach_mul_(grads, scale)
         self.optimizer.step()
         if self.use_ema:
-            self.ema_num_updates += 1
-            d = ema_decay(self.ema_decay, self.ema_num_updates,
-                          self.ema_use_num_updates)
-            with torch.no_grad():
-                torch._foreach_mul_(self.ema_params, d)
-                torch._foreach_add_(self.ema_params, self.live_params,
-                                    alpha=1.0 - d)
+            ema_update(self.ema_params, self.live_params, self.ema_count,
+                       self.ema_decay, self.ema_use_num_updates)
 
     def _forward_loss(self, model, data):
         """The training forward of ``LossStep``: ``(loss, contrib, out)``."""
@@ -442,51 +604,71 @@ class Trainer:
         loss, contrib = self.loss(out.data, data.data)
         return loss, contrib, out
 
+    # the four steps (JAX's _train_step, _eval_step, _accum_step and
+    # _apply_step); nothing in them reads the host
+
+    def _train_fn(self, data):
+        grads = self._grads()
+        torch._foreach_zero_(grads)
+        loss, contrib, out = self.step_module(data)
+        loss.backward()
+        # the watch hook's gradients, before the clip (JAX returns them)
+        watched = [g.clone() for g in grads] if self.watch_freq else []
+        self.apply_gradients()
+        return loss, contrib, out, watched
+
+    def _eval_fn(self, data):
+        model = self.ema_model if self.use_ema else self.model
+        with torch.no_grad():
+            out = model(data)
+            loss, contrib = self.loss(out.data, data.data)
+        return loss, contrib, out
+
+    def _accumulate_fn(self, data):
+        # under DDP the ranks' gradients are averaged on the last
+        # micro-batch (a captured step is never under DDP)
+        with dp.no_sync(self.step_module,
+                        self._acc_count + 1 >= self.grad_acc):
+            loss, contrib, out = self.step_module(data)
+            loss.backward()
+        return loss, contrib, out
+
+    def _apply_fn(self):
+        grads = self._grads()
+        torch._foreach_div_(grads, float(self.grad_acc))
+        self.apply_gradients()
+        torch._foreach_zero_(grads)
+
     def batch_step(self, data, validation: bool = False):
         """One training step on ``data``, or with ``validation`` one
         evaluation with the EMA parameters (the live ones without EMA).
         With ``grad_acc`` K > 1 the gradients of K batches are summed in
         ``.grad`` and every K-th batch applies their mean (the EMA moves
-        only then)."""
+        only then).  The host counts the micro-batches and picks the step,
+        as the JAX trainer picks its jitted function; what a step returns
+        is read before the next one runs (a replay overwrites it)."""
+        steps, watched, apply = self._steps, [], False
         if validation:
-            model = self.ema_model if self.use_ema else self.model
-            with torch.no_grad():
-                out = model(data)
-                loss, contrib = self.loss(out.data, data.data)
+            loss, contrib, out = steps["eval"](data)
+        elif self.grad_acc == 1:
+            loss, contrib, out, watched = steps["train"](data)
         else:
-            if self._acc_count == 0:
-                self.optimizer.zero_grad(set_to_none=True)
-            # under DDP the ranks' gradients are averaged on the last
-            # micro-batch
-            with dp.no_sync(self.step_module,
-                            self._acc_count + 1 >= self.grad_acc):
-                loss, contrib, out = self.step_module(data)
-                loss.backward()
+            loss, contrib, out = steps["accumulate"](data)
             self._acc_count += 1
-            if self._acc_count >= self.grad_acc:
-                if self.grad_acc > 1:
-                    torch._foreach_div_(self._grads(), float(self.grad_acc))
-                    self.apply_gradients()
-                else:
-                    self._step_with_watch()
-                self._acc_count = 0
+            apply = self._acc_count >= self.grad_acc
+        if watched:
+            self._watch_count = getattr(self, "_watch_count", 0) + 1
+            if self._watch_count % self.watch_freq == 0:
+                self.watch_log(dict(zip(self._param_names, watched)))
         if self.equivariance_test:
             self.equivarianceTest(out.data, data)
         self.batch_losses = self.loss_stat(
-            loss.detach(), {k: v.detach() for k, v in contrib.items()})
+            loss.detach().clone(),
+            {k: v.detach().clone() for k, v in contrib.items()})
         self.batch_metrics = self.metrics(out.data, data.data)
-
-    def _step_with_watch(self):
-        grads = None
-        if self.watch_freq:
-            self._watch_count = getattr(self, "_watch_count", 0) + 1
-            if self._watch_count % self.watch_freq == 0:
-                grads = {n: p.grad.detach().clone()
-                         for n, p in self.model.named_parameters()
-                         if p.grad is not None}
-        self.apply_gradients()
-        if grads is not None:
-            self.watch_log(grads)
+        if apply:
+            steps["apply"]()
+            self._acc_count = 0
 
     # ---------------------------------------------------------- watch hook
 
@@ -822,8 +1004,12 @@ class Trainer:
             os.path.join(self.workdir, "profile", "trace.json"))
 
     def _set_lr(self, lr: float):
+        """The rate, filled into the tensor the steps read."""
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
 
     @property
     def current_lr(self) -> float:
@@ -1029,17 +1215,17 @@ class Trainer:
         init_kwargs.update(overrides)
         trainer = cls(model=model, **init_kwargs)
         if state_dict:
-            if "opt_state" in state_dict:
-                trainer.optimizer.load_state_dict(
-                    _tensors(state_dict["opt_state"]))
+            if "opt_state" in state_dict and not \
+                    capture_mod.load_optimizer_state(
+                        trainer.optimizer, _tensors(state_dict["opt_state"])):
+                trainer.drop_graphs()
             if "lr_sched" in state_dict and trainer.lr_sched is not None:
                 trainer.lr_sched.load_state_dict(state_dict["lr_sched"])
                 trainer._set_lr(trainer.lr_sched.get_last_lr()[0])
             if "ema" in state_dict and trainer.ema_model is not None:
                 load_jax_params(trainer.ema_model,
                                 state_dict["ema"]["params"])
-                trainer.ema_num_updates = int(
-                    state_dict["ema"]["num_updates"])
+                trainer.ema_count.fill_(int(state_dict["ema"]["num_updates"]))
             if "early_stopping_conds" in state_dict and \
                     trainer.early_stopping_conds is not None:
                 trainer.early_stopping_conds.load_state_dict(

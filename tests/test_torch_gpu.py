@@ -18,7 +18,10 @@ and the score-matching step's gradients against the CPU plain path on the
 same replayed noise, and the model's outputs repeated bit for bit.  For
 ``config_dipole`` at full width: a step's gradients against the CPU plain
 path, K3 and K3b at 18 species repeated bit for bit on every layer, and a
-two-epoch ``Trainer.train`` through the pinned loader with a resume.
+two-epoch ``Trainer.train`` through the pinned loader with a resume.  The
+compiled step (``run/capture.py``): a captured ``config_energy`` step
+replayed on two different batches equals the eager step on each, and a
+captured run repeats itself bit for bit.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -495,7 +498,8 @@ def test_train_step_gradients_match_cpu(model_and_batch):
 
 def test_kernel_outputs_carry_autograd(model_and_batch):
     """On the card the conv and self-connection outputs are attached to
-    autograd, and an sh that needs a gradient is refused."""
+    autograd, and an sh that needs a gradient gets its cotangent (K2's dsh
+    mode)."""
     model, gb = model_and_batch
     conv = model.layer3.conv
     data = _layer3_inputs(model, gb)
@@ -508,8 +512,10 @@ def test_kernel_outputs_carry_autograd(model_and_batch):
             data["edge_index"][0], data["edge_index"][1], x1.shape[0], 0.3)
     assert conv.full_conv(*args).grad_fn is not None
     sh = data["edge_spherical"].detach().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="sh cotangent"):
-        conv.full_conv(*args[:4], sh, *args[5:])
+    out = conv.full_conv(*args[:4], sh, *args[5:])
+    (dsh,) = torch.autograd.grad(out.square().sum(), sh)
+    assert dsh.shape == sh.shape and torch.isfinite(dsh).all()
+    assert dsh.abs().max() > 0
 
 
 # ------------------------------------------------------------- force path
@@ -1507,9 +1513,12 @@ def test_diffusion_sampler_steps_match_cpu(diffusion, cuda):
 
     spec, card, cpu, gb = diffusion
     sde = sde_utils.VPSDE({"pos": 3}, N=1000)
+    # host draws handed out one by one: the eager loop (a captured
+    # iteration would replay its first draws)
     pc = sde_sampling.get_pc_sampler(
         sde, sde_sampling.get_predictor("euler_maruyama"),
-        sde_sampling.get_corrector("langevin"), None, snr=0.16)
+        sde_sampling.get_corrector("langevin"), None, snr=0.16,
+        capture=False)
     shapes = [(gb.node_capacity, 3)] * (1 + 3 * 2)
     before = (FullConv.launches, FullConvExt.launches_fwd)
     got, nfe = pc(card, gb.to(cuda), _Replay(shapes, 51, cuda), steps=3)
@@ -1693,11 +1702,23 @@ def test_dipole_trainer_trains_and_resumes_on_the_card(cuda, tmp_path):
                     **settings)
     first.set_dataset(ds)
     assert first.dl_train.pin_memory
+    # the steps are captured (the default on the card): a replay runs the
+    # kernels without their wrappers, so the device's launches are
+    # counted by kernel name from the profiler
+    from torch.profiler import ProfilerActivity, profile
+
     before = (FullConv.launches, FullConv.backward_launches)
-    first.train()
-    torch.cuda.synchronize()
-    assert FullConv.backward_launches - before[1] == 5 * 8
-    assert FullConv.launches - before[0] == 5 * 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first.train()
+        torch.cuda.synchronize()
+    ran = {}
+    for e in prof.key_averages():
+        for name in ("k1_walk_kernel", "k2_walk_kernel"):
+            if name in e.key and str(e.device_type).endswith("CUDA"):
+                ran[name] = ran.get(name, 0) + e.count
+    assert ran == {"k1_walk_kernel": 5 * 10, "k2_walk_kernel": 5 * 8}
+    assert FullConv.launches > before[0]
+    assert FullConv.backward_launches > before[1]
     assert np.isfinite(first.mae_dict["validation_loss"])
     resumed = Trainer.from_file(
         first.trainer_save_path, max_epochs=3,
@@ -1716,3 +1737,77 @@ def test_dipole_trainer_trains_and_resumes_on_the_card(cuda, tmp_path):
     resumed.set_dataset(ds)
     resumed.train()
     assert resumed.iepoch == 3 and resumed.stop_arg == "max epochs"
+
+
+# ------------------------------------------------------ the compiled step
+
+def _energy_trainers(cuda, **kw):
+    """A captured (the default on the card) and an eager ``Trainer`` of
+    full-width ``config_energy`` from one seed."""
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    cfg = get_config("config_energy")
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    return [Trainer(build_model(cfg["model_config"], cuda,
+                                torch.Generator().manual_seed(0)),
+                    capture=c, **settings, **kw) for c in (None, False)]
+
+
+def _energy_batches(cuda, n):
+    """``n`` batches of 16 molecules at one capacity, N(0, 1) labels."""
+    hosts = [Batch.from_data_list(_molecules(16, seed=s)) for s in range(n)]
+    node_cap = max(int(h["_n_nodes"].sum()) for h in hosts) + 1
+    edge_cap = max(int(h["_n_edges"].sum()) for h in hosts) + 64
+    out = []
+    for i, h in enumerate(hosts):
+        gb = GraphBatch.from_batch(h, node_cap, edge_cap, 16, cuda)
+        out.append(gb.replace(total_energy=torch.randn(
+            16, 1, generator=torch.Generator().manual_seed(i)).to(cuda)))
+    return out
+
+
+def test_captured_step_equals_eager_on_two_batches(cuda):
+    """Past its warm-up and capture, the captured step replayed on two
+    different batches equals the eager step on each (loss, outputs and
+    every parameter after the step) at 1e-4, and the two batches' outputs
+    differ."""
+    cap, eager = _energy_trainers(cuda)
+    a, b = _energy_batches(cuda, 2)
+    seen = {}
+    for i, gb in enumerate([a, a, a, b, a, b]):
+        outs = []
+        for tr in (cap, eager):
+            tr.batch_step(gb)
+            outs.append(tr.batch_losses["loss"])
+        assert _rel(outs[0], outs[1]) <= TOL, i
+        for (n, p), q in zip(cap.model.named_parameters(),
+                             eager.model.parameters()):
+            assert _rel(p.detach(), q.detach()) <= TOL, (i, n)
+        with torch.no_grad():
+            seen[i] = cap.model(gb)["total_energy"].cpu()
+    assert cap._steps["train"].captures == 1
+    assert not torch.allclose(seen[4], seen[5])
+
+
+def test_captured_run_repeats_bit_for_bit(cuda):
+    """Two captured runs from one seed over the same batches end equal
+    bit for bit (PyTorch's deterministic algorithms on: the segment sums'
+    ``index_add_`` otherwise sums by atomics)."""
+    batches = _energy_batches(cuda, 3)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for _ in range(2):
+            tr = _energy_trainers(cuda)[0]
+            for i in range(7):
+                tr.batch_step(batches[i % 3])
+            runs.append(tr)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (n, p), q in zip(runs[0].model.named_parameters(),
+                         runs[1].model.parameters()):
+        assert torch.equal(p, q), n
+    for p, q in zip(runs[0].ema_model.parameters(),
+                    runs[1].ema_model.parameters()):
+        assert torch.equal(p, q)
