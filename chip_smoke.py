@@ -30,7 +30,10 @@
     python3 chip_smoke.py --cli            # phases 29-32 alone
     python3 chip_smoke.py --md             # phases 33-37 alone
     python3 chip_smoke.py --datasets       # phases 38-39 alone
-    python3 chip_smoke.py --capture        # phase 40 alone
+    python3 chip_smoke.py --capture        # phases 40-41 alone
+    python3 chip_smoke.py --capture-ranks [N]
+                                           # phase 41 (b) as N NCCL ranks,
+                                           # one per card
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -254,8 +257,10 @@ Phases, in order; any failure exits non-zero before the last line:
              before the run); ms per step of each rank's second epoch
              (two processes share the card);
 30. NCCL     — one process sets up a world-size-1 NCCL group; a
-             full-width ``config_energy`` ``Trainer`` stepping through DDP
-             and one without take the same 4 steps from the same seed and
+             full-width ``config_energy`` ``Trainer`` built under it (its
+             gradients all-reduced over the group inside the captured
+             step, ``parallel.GradReducer``) and one built before it take
+             the same 4 steps from the same seed and
              batches: parameters and EMA equal bit for bit (in PyTorch's
              deterministic mode, which orders its own ``index_add_``; the
              line says whether the plain step repeats without it); then
@@ -287,7 +292,8 @@ Phases, in order; any failure exits non-zero before the last line:
 35. MD     — ``examples.md_dynamics.run_md`` on 216 waters (648 atoms,
              18.6 A cube, from the seed) under full-width
              ``config_energy`` (node capacity 1,024, edge capacity
-             32,768; a step whose radius graph has more pairs raises):
+             32,768; a block whose radius graph had more pairs raises;
+             captured by default, a block of steps one CUDA graph):
              ``MD_PARITY_STEPS`` steps against the CPU plain path at 1e-4
              on positions, energies and forces, then ``MD_STEPS`` steps at
              0.2 fs and 300 K: ms per step, launches per step, kernel ms
@@ -296,11 +302,14 @@ Phases, in order; any failure exits non-zero before the last line:
              drift ratio, which must stay under 0.2;
 36. constrained SDE — ``examples.constrained_sde.sample`` on full-width
              ``config_diffusion``: the first 10 steps on replayed noise
-             against the CPU plain path at 1e-4, then the whole N = 100
-             run; the final distance and the finite check;
+             against the CPU plain path at 1e-4 (eager: host draws), then
+             the whole N = 100 run (captured by default, a step one CUDA
+             graph; K1 counted on the card); the final distance and the
+             finite check;
 37. entry  — ``entry.entry()`` on the card against the CPU plain path at
              1e-4, and ``entry.dryrun_multichip(2)``: two ranks sharing
-             the card (gloo), the DDP step against one process's step;
+             the card (gloo), the data-parallel step (the flat gradients'
+             all-reduce) against one process's step;
 38. dataset files — the port's own HDF5 code (``data/hdf5.py``; the
              machine has no ``h5py``): a QM9-scale condensed file (133,885
              molecules of 3-29 atoms, ``synthetic_qm9``'s recipe drawn as
@@ -358,7 +367,27 @@ Phases, in order; any failure exits non-zero before the last line:
              (torch.profiler; the eager ones equal to the wrappers'
              counts, the captured ones to the eager ones) are taken in
              both modes outside it, printed beside the card's name and
-             power limit.
+             power limit;
+41. the rest of the compiled step — (a) ``build_model(...,
+             kernels=False)``: one ``config_energy`` training step at batch
+             128 through every kernel's plain version on the card against
+             the kernels, both captured, the loss and every gradient
+             within TOL, no hand-written kernel launched by the plain
+             step, both step times; (b) in a subprocess under a
+             world-size-1 NCCL group, the ``config_energy`` trainer at
+             batch 128 (12 steps, ``grad_acc`` 1 and 4) and the
+             ``config_diffusion`` ``""`` SDE step, captured by default
+             with the gradients' all-reduce inside the graph, against
+             ``capture=False`` after every step in deterministic mode, and
+             the card's NCCL kernels a step; (c) the calculator on
+             ``config_energy``, two molecules in turns past the capture;
+             (d) MD on phase 35's 648 atoms: the first 10 steps captured
+             against eager, then ``MD_STEPS`` captured steps whose drift
+             ratio stays under 0.2; (e) the constrained SDE: the first 10
+             steps on draws replayed from the card, then the whole N = 100
+             run in each mode, finite.  Each path's ms per step (or
+             evaluation) and launches in both modes, as phase 40's, and
+             the phase's seconds.
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -3272,7 +3301,7 @@ CLI_BATCH = 128
 CLI_TRAIN_BATCHES, CLI_VAL_BATCHES = 4, 1
 CLI_DIR = os.path.join("chiprun_out", "cli")
 CLI_TIMEOUT = 420                  # seconds, each rank subprocess
-DDP_STEPS, DDP_ROUNDS = 4, 6
+GROUP_STEPS, GROUP_ROUNDS = 4, 6
 
 # A rank of phases 29 and 30, as a script of its own: written into
 # CLI_DIR and run as ``python cli_runner.py <phase> <rank> <world> <port>``
@@ -3296,8 +3325,9 @@ def train_rank():
 
 
 def nccl_rank():
-    """Phase 30: a world-size-1 NCCL group; DDP against no DDP.  A trainer
-    built under a process group steps through DDP, so the plain trainers
+    """Phase 30: a world-size-1 NCCL group; the gradients' mean over it
+    against no group.  A trainer built under a process group reduces its
+    gradients over it (``parallel.GradReducer``), so the plain trainers
     are built before the group is set up."""
     from equivariant_nn_zoo_tpu_torch import parallel
     from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
@@ -3309,7 +3339,7 @@ def nccl_rank():
     settings = {{k: v for k, v in cfg.items()
                 if k not in ("model_config", "data_config", "batch_size")}}
     batches = cs.make_batches(cs.synthetic_qm9(
-        cs.DDP_STEPS * cs.CLI_BATCH, np.random.default_rng(30),
+        cs.GROUP_STEPS * cs.CLI_BATCH, np.random.default_rng(30),
         labels=True), dev)
 
     def trainer():
@@ -3325,45 +3355,97 @@ def nccl_rank():
             tr.batch_step(gb)
         return state(tr)
 
-    def wrapped(tr):
-        return isinstance(tr.step_module,
-                          torch.nn.parallel.DistributedDataParallel)
-
     repeat_a, repeat_b, plain = trainer(), trainer(), trainer()
     if parallel.init_distributed(1, 0, "127.0.0.1", port, "cuda") != dev:
         raise SystemExit("phase 30: the group's device is not cuda:0")
     out = dict(backend=parallel.backend())
-    ddp = trainer()
-    out["ddp_wrapped"] = wrapped(ddp) and not any(
-        wrapped(tr) for tr in (repeat_a, repeat_b, plain))
+    group = trainer()
+    out["grouped"] = group.reducer.grouped and not any(
+        tr.reducer.grouped for tr in (repeat_a, repeat_b, plain))
     # without deterministic mode: does the step repeat at all?
     a, b = steps(repeat_a), steps(repeat_b)
     out["plain_repeats"] = all(torch.equal(x, y) for x, y in zip(a, b))
     del repeat_a, repeat_b
     # the gate, with PyTorch's own index_add_ in a fixed order
     torch.use_deterministic_algorithms(True, warn_only=True)
-    a, b = steps(plain), steps(ddp)
+    a, b = steps(plain), steps(group)
     out["equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
     out["tensors"] = len(a)
     out["max_abs_diff"] = max(float((x - y).abs().max())
                               for x, y in zip(a, b))
     torch.use_deterministic_algorithms(False)
-    times = {{"plain": [], "ddp": []}}
-    order = (("plain", plain), ("ddp", ddp))
-    for i in range(cs.DDP_ROUNDS):     # in turns: plain, ddp, ddp, plain
+    times = {{"plain": [], "group": []}}
+    order = (("plain", plain), ("group", group))
+    for i in range(cs.GROUP_ROUNDS):     # in turns: plain, group, group, plain
         for name, tr in order[::-1] if i % 2 else order:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             steps(tr)
             torch.cuda.synchronize()
             times[name].append(1e3 * (time.perf_counter() - t0)
-                               / cs.DDP_STEPS)
+                               / cs.GROUP_STEPS)
     out["ms_per_step"] = times
     parallel.shutdown()
     return out
 
 
-result = dict(train=train_rank, nccl=nccl_rank)[phase]()
+def capture_rank():
+    """Phase 41 (b) (one rank), and ``--capture-ranks`` (a rank per card):
+    under an NCCL group, the ``config_energy`` trainer at batch 128
+    (``grad_acc`` 1 and 4; each rank's batches from its own seed) and the
+    ``config_diffusion`` ``""`` SDE step, captured by default (the
+    gradients' all-reduce recorded in the graph) against
+    ``capture=False``, held after every step in deterministic mode, the
+    ranks' parameters equal; then timed outside it on fresh pairs, and
+    the card's NCCL kernels a step."""
+    from equivariant_nn_zoo_tpu_torch import parallel
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = parallel.init_distributed(world, rank, "127.0.0.1", port, "cuda")
+    out = dict(backend=parallel.backend(), device=str(dev),
+               card=torch.cuda.get_device_name(dev), paths=[],
+               nccl_kernels={{}})
+    cfg = get_config("config_energy")
+    batches = cs.make_batches(cs.synthetic_qm9(
+        4 * cs.BATCH, np.random.default_rng(411 + rank), labels=True), dev)
+    for grad_acc in (1, 4):
+        tag = f"config_energy under NCCL, grad_acc {{grad_acc}}"
+        print(f"rank {{rank}}: {{tag}}", flush=True)
+        pair, worst = cs.trainer_pair(tag, cfg, batches, dev,
+                                      cs.CAPTURE_STEPS, grad_acc=grad_acc)
+        if not all(tr.reducer.grouped for tr in pair):
+            raise SystemExit(f"{{tag}}: a trainer does not reduce over the "
+                             f"group")
+        digests = parallel.gather_objects(
+            [float(p.double().sum()) for p in pair[0].model.parameters()])
+        if any(d != digests[0] for d in digests):
+            raise SystemExit(f"{{tag}}: the ranks' parameters differ")
+        # timed on a fresh pair, captured outside the deterministic mode
+        pair, _ = cs.trainer_pair(f"{{tag}} (timed)", cfg, batches, dev, 4,
+                                  check=False, grad_acc=grad_acc)
+        it = iter(range(10 ** 9))
+        runs = {{mode: (lambda tr=tr: tr.batch_step(batches[next(it) % 4]))
+                for mode, tr in zip(("captured", "eager"), pair)}}
+        out["paths"].append(cs.capture_record(
+            f"{{tag}}, batch {{cs.BATCH}}", worst, runs,
+            per="step" if grad_acc == 1 else "micro-step"))
+        if grad_acc == 1:
+            out["nccl_kernels"] = {{mode: cs.nccl_events(run)
+                                   for mode, run in runs.items()}}
+    print(f"rank {{rank}}: the SDE step", flush=True)
+    mols = cs.synthetic_diffusion_mols(4 * cs.DIFF_BATCH,
+                                       np.random.default_rng(412 + rank))
+    rec = cs.capture_sde(dev, "", mols)
+    rec["path"] += " under NCCL"
+    out["paths"].append(rec)
+    parallel.shutdown()
+    return out
+
+
+result = dict(train=train_rank, nccl=nccl_rank, capture=capture_rank)[
+    phase]()
 print("CLI_RESULT " + json.dumps(result), flush=True)
 '''
 
@@ -3475,6 +3557,10 @@ def run_cli_ranks(phase, world, env=None):
             try:
                 outs.append(p.communicate(timeout=CLI_TIMEOUT)[0])
             except subprocess.TimeoutExpired:
+                for r, q in enumerate(procs[len(outs):], len(outs)):
+                    q.kill()
+                    print(f"rank {r}, last output:\n"
+                          f"{q.communicate()[0][-2000:]}")
                 fail(f"cli {phase}: a rank ran past {CLI_TIMEOUT} s")
     finally:
         for p in procs:
@@ -3540,22 +3626,26 @@ def cli_train_phase(n_layers):
 
 
 def cli_nccl_phase():
-    """Phase 30: DDP over a world-size-1 NCCL group against no DDP."""
+    """Phase 30: the gradients' mean over a world-size-1 NCCL group
+    against no group."""
     rec, = run_cli_ranks("nccl", 1, env={"CUBLAS_WORKSPACE_CONFIG":
                                          ":4096:8"})
     times = rec["ms_per_step"]
     print(f"cli nccl: backend {rec['backend']}; without deterministic mode "
           f"the plain step repeats bit for bit: {rec['plain_repeats']}; "
-          f"{DDP_STEPS} steps with DDP and without, in deterministic mode: "
-          f"{rec['tensors']} tensors (parameters, EMA) equal bit for bit: "
-          f"{rec['equal']} (max |diff| {rec['max_abs_diff']:.3e}); ms per "
-          f"step without DDP {times['plain']}, with {times['ddp']}")
+          f"{GROUP_STEPS} steps reduced over the group and without one, in "
+          f"deterministic mode: {rec['tensors']} tensors (parameters, EMA) "
+          f"equal bit for bit: {rec['equal']} (max |diff| "
+          f"{rec['max_abs_diff']:.3e}); ms per step without a group "
+          f"{times['plain']}, reduced over it {times['group']}")
     if rec["backend"] != "nccl":
         fail(f"cli nccl: the group took {rec['backend']}, not nccl")
-    if not rec["ddp_wrapped"]:
-        fail("cli nccl: the trainer did not wrap its step in DDP")
+    if not rec["grouped"]:
+        fail("cli nccl: the trainer built under the group does not reduce "
+             "over it, or one built before it does")
     if not rec["equal"]:
-        fail("cli nccl: DDP over one rank changed the parameters or EMA")
+        fail("cli nccl: the reduce over one rank changed the parameters or "
+             "EMA")
     return rec
 
 
@@ -3753,8 +3843,8 @@ def cli_phases(dev):
     out["path"] = dict(
         seconds=seconds, train_ms_per_step_one_rank=one["ms_per_step"],
         train_ms_per_step_two_ranks=[r["ms_per_step"] for r in ranks],
-        ddp=dict(backend=nccl["backend"], equal=nccl["equal"],
-                 ms_per_step=nccl["ms_per_step"]),
+        group=dict(backend=nccl["backend"], equal=nccl["equal"],
+                   ms_per_step=nccl["ms_per_step"]),
         inference=dict(seconds=infer["seconds"], rel=infer["rel"],
                        dumped=infer["dumped"]),
         diffusion=dict(ms_per_step=diffusion["ms_per_step"],
@@ -3917,6 +4007,8 @@ def md_phase(dev, calc, Z, pos):
         drift_ratio,
         run_md,
     )
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+
     padded = calc.padded(Z, pos)
     n_pairs = int(radius_graph_fixed(padded[0], padded[3], padded[2], 1,
                                      calc.r_max, MD_NODE_CAP - 1)[3])
@@ -3949,24 +4041,32 @@ def md_phase(dev, calc, Z, pos):
         fail("MD: the card and the CPU plain path disagree")
     del cpu
 
-    reset_launches()
+    # captured by default: a block of 10 steps one CUDA graph, so the
+    # card's launches come from the profiler's device events
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     _, e_traj = run_md(calc, Z, pos, dt_fs=MD_DT_FS, n_steps=MD_STEPS,
                        T=MD_T, seed=MD_SEED, steps_per_block=10)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     evals = MD_STEPS + 1
-    launches = {k: v for k, v in host_launches().items() if k in CONV_KEYS}
+    launches = counts.read(CONV_KEYS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ratio = float(drift_ratio(e_traj))
     ms = 1e3 * dt / evals
     print(f"MD: {MD_STEPS} steps at {MD_DT_FS} fs, {MD_T} K in {dt:.3f} s: "
           f"{ms:.3f} ms a step (host clock around synchronize, "
-          f"{evals} force evaluations); launches {launches} "
+          f"{evals} force evaluations, captured, under the profiler that "
+          f"counts the launches); launches on the card {launches} "
           f"({launches['full_conv_bwd_dsh'] / evals:.2f} K2 with dsh a step); "
           f"peak {peak:.3f} GiB; drift ratio {ratio:.5f}")
+    n_layers = get_config("config_energy")["model_config"]["num_layers"]
+    for key in ("full_conv", "full_conv_bwd_dsh", "species_sc"):
+        if launches[key] < n_layers * MD_STEPS:
+            fail(f"MD: {key} launched {launches[key]} times on the card in "
+                 f"{MD_STEPS} steps, want {n_layers} a force evaluation")
     if not np.isfinite(e_traj).all():
         fail("MD: non-finite energies")
     if ratio >= 0.2:
@@ -4027,18 +4127,20 @@ def constrained_sde_phase(dev):
           f"card vs CPU plain path: positions rel {rel:.3e}")
     if rel > TOL:
         fail("constrained SDE: the card and the CPU plain path disagree")
-    reset_launches()
+    # captured by default: the card's launches from the profiler's device
+    # events
     torch.cuda.synchronize()
+    counts = LaunchCounts()
     t0 = time.perf_counter()
     batch = cs.sample(models[dev], sde, cs.system(dev), Noise(dev, 2))
     pos = batch["pos"].cpu().numpy()
     dt = time.perf_counter() - t0
-    launches = {k: v for k, v in host_launches().items()
-                if k in CONV_KEYS and v}
+    launches = {k: v for k, v in counts.read(CONV_KEYS).items() if v}
     final = float(np.linalg.norm(pos[0] - pos[1]))
     finite = bool(np.isfinite(pos[:8]).all())
     print(f"constrained SDE: {sde.N} steps in {dt:.3f} s "
-          f"({1e3 * dt / sde.N:.3f} ms a step); constrained distance "
+          f"({1e3 * dt / sde.N:.3f} ms a step, captured, under the profiler "
+          f"that counts the launches); constrained distance "
           f"{final:.3f} (target {cs.TARGET_DIST}); finite: {finite}; "
           f"launches {launches}")
     if not finite:
@@ -5409,9 +5511,363 @@ def capture_phases(dev):
     return {"card": card, "paths": records}
 
 
+# ------------------------------------------------------------- phase 41
+
+MD_COMPARED_STEPS = 10      # MD steps captured against eager
+MD_TIMED = (50, MD_STEPS)   # captured MD runs whose difference is timed
+MD_EAGER_TIMED = (10, 30)   # eager MD runs likewise
+
+
+def nccl_events(run, n=CAPTURE_PROFILED):
+    """The card's NCCL kernels per call of ``run()`` (torch.profiler's
+    device events whose name holds ``nccl``), after one call."""
+    run()
+    counts = LaunchCounts()
+    for _ in range(n):
+        run()
+    counts.read()
+    return sum(m for (kind, name), m in counts.events.items()
+               if kind == "CUDA" and "nccl" in name.lower()) / n
+
+
+def kernels_off(dev):
+    """Phase 41 (a): one ``config_energy`` training step at batch 128 from
+    ``build_model(..., kernels=False)`` (every wrapper's plain version on
+    the card) and from the default, both captured, on the same weights and
+    batch (N(0, 1) labels): the loss and every gradient within TOL; the
+    plain step launches no hand-written kernel."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.parallel import GradReducer
+    from equivariant_nn_zoo_tpu_torch.run import Loss, capture
+
+    cfg = get_config("config_energy")
+    gb = make_batches(synthetic_qm9(BATCH, np.random.default_rng(414),
+                                    labels=True), dev)[0]
+    gb = gb.replace(total_energy=torch.randn(
+        tuple(gb["total_energy"].shape),
+        generator=torch.Generator().manual_seed(415)).to(dev))
+    loss_fn = Loss(cfg["loss_coeffs"])
+    steps, out = {}, {}
+    for kernels in (False, True):
+        model = build_model(cfg["model_config"], dev,
+                            torch.Generator().manual_seed(0),
+                            kernels=kernels)
+        grads = GradReducer(model.parameters())
+
+        def step(b, model=model, grads=grads):
+            grads.zero_()
+            loss, _ = loss_fn(model(b).data, b.data)
+            loss.backward()
+            return loss.detach()
+
+        steps[kernels] = capture.Step(f"kernels={kernels}", step)
+        for _ in range(capture.WARMUP + 2):    # the capture, then a replay
+            loss = steps[kernels](gb)
+        out[kernels] = dict(loss=loss.clone(), **{
+            n: p.grad.clone() for n, p in model.named_parameters()})
+        if steps[kernels].captures != 1:
+            fail(f"kernels off: the kernels={kernels} step was not captured")
+    worst, where = worst_rel(out[True], out[False])
+    rec = {"path": f"config_energy train step, batch {BATCH}, kernels off "
+                   f"against on", "per": "step", "rel": worst}
+    for name, kernels in (("plain", False), ("kernels", True)):
+        rec[f"{name}_ms"] = timed_ms(lambda k=kernels: steps[k](gb))
+        (rec[f"{name}_launch_calls"], rec[f"{name}_device_ops"],
+         rec[f"{name}_kernels"]) = launches_of(lambda k=kernels: steps[k](gb))
+    print(f"kernels off: config_energy step at batch {BATCH}, both "
+          f"captured: the plain versions on the card against the kernels, "
+          f"loss {float(out[False]['loss'])} / {float(out[True]['loss'])}, "
+          f"worst rel over the loss and {len(out[True]) - 1} gradients "
+          f"{worst:.3e} ({where}); {rec['plain_ms']:.4f} ms a step through "
+          f"the plain versions, {rec['kernels_ms']:.4f} through the kernels "
+          f"(median of {CAPTURE_TIMED}, CUDA events); hand-written kernels "
+          f"a step: plain {rec['plain_kernels']}, kernels "
+          f"{rec['kernels_kernels']}", flush=True)
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"kernels off: the plain path and the kernels differ ({worst} "
+             f"at {where})")
+    if rec["plain_kernels"] or not rec["kernels_kernels"]:
+        fail("kernels off: the plain step launched a hand-written kernel, "
+             "or the kernels' step launched none")
+    return rec
+
+
+def capture_calculator(dev):
+    """Phase 41 (c): ``E3Calculator.potential`` on ``config_energy``
+    captured against ``capture=False``: the example's molecule and another
+    (two position sets, in turns past the capture), energy and forces
+    within TOL, the pair counts equal."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.examples.calculator import (
+        E3Calculator,
+    )
+
+    kw = dict(node_capacity=64, edge_capacity=1024)
+    calcs = {mode: E3Calculator.from_config("config_energy", device=dev,
+                                            capture=c, **kw)
+             for mode, c in (("captured", None), ("eager", False))}
+    sets = []
+    for seed in (0, 1):
+        rng = np.random.default_rng(seed)
+        Z = rng.choice([1, 6, 7, 8], size=12)
+        sets.append(calcs["eager"].padded(Z, rng.normal(size=(12, 3)) * 1.5))
+    worst, energies = 0.0, {}
+    with deterministic():
+        for i in (0, 0, 0, 1, 0, 1):
+            got = [t.clone() for t in calcs["captured"].potential(*sets[i])]
+            want = calcs["eager"].potential(*sets[i])
+            worst = max(worst, worst_rel_of(got[:2], want[:2]))
+            if int(got[2]) != int(want[2]):
+                fail(f"capture calculator: pair counts {int(got[2])} and "
+                     f"{int(want[2])}")
+            energies[i] = float(got[0])
+    step = calcs["captured"]._potential
+    print(f"capture calculator: config_energy, two 12-atom molecules in "
+          f"turns past the capture, captured against eager worst rel "
+          f"{worst:.3e}; energies {energies}; graphs captured "
+          f"{step.captures}", flush=True)
+    if not np.isfinite(worst) or worst > TOL or step.captures != 1:
+        fail(f"capture calculator: captured and eager differ ({worst}), or "
+             f"{step.captures} captures")
+    if energies[0] == energies[1]:
+        fail("capture calculator: the two molecules gave one energy")
+    # timed on fresh calculators, captured outside the deterministic mode
+    calcs = {mode: E3Calculator.from_config("config_energy", device=dev,
+                                            capture=c, **kw)
+             for mode, c in (("captured", None), ("eager", False))}
+    it = iter(range(10 ** 9))
+    return capture_record("config_energy calculator, 12 atoms", worst, {
+        mode: (lambda c=calc: c.potential(*sets[next(it) % 2]))
+        for mode, calc in calcs.items()}, per="evaluation")
+
+
+def md_ms(calc, Z, pos, steps, capture):
+    """The host ms a step of ``run_md`` from the difference of two runs of
+    ``steps`` (few, many) steps in blocks of 10, so that the first force
+    evaluation and the warm-up and capture of the block drop out."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.examples.md_dynamics import run_md
+
+    seconds, traj = [], None
+    for n in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, traj = run_md(calc, Z, pos, dt_fs=MD_DT_FS, n_steps=n, T=MD_T,
+                         seed=MD_SEED, steps_per_block=10, log=None,
+                         capture=capture)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return 1e3 * (seconds[1] - seconds[0]) / (steps[1] - steps[0]), traj
+
+
+def capture_md(dev):
+    """Phase 41 (d): ``run_md`` on phase 35's 648 atoms, a block of steps
+    one CUDA graph: the first 10 steps (blocks of one) captured against
+    eager in deterministic mode, then ``MD_STEPS`` captured steps in
+    blocks of 10 whose drift ratio stays under 0.2; ms a step of both
+    modes, launches a step."""
+    from equivariant_nn_zoo_tpu_torch.examples.calculator import (
+        E3Calculator,
+    )
+    from equivariant_nn_zoo_tpu_torch.examples.md_dynamics import (
+        drift_ratio,
+        run_md,
+    )
+
+    Z, pos = water_cluster(np.random.default_rng(MD_SEED))
+    kw = dict(node_capacity=MD_NODE_CAP, edge_capacity=MD_EDGE_CAP)
+    calc = E3Calculator.from_config("config_energy", device=dev, **kw)
+    run = dict(dt_fs=MD_DT_FS, T=MD_T, seed=MD_SEED, log=None,
+               n_steps=MD_COMPARED_STEPS, steps_per_block=1)
+    with deterministic():
+        got, want = (run_md(calc, Z, pos, capture=c, **run)
+                     for c in (None, False))
+    worst = max(float(np.abs(got[0] - want[0]).max()
+                      / np.abs(want[0]).max()),
+                float(np.abs(got[1] - want[1]).max()
+                      / np.abs(want[1]).max()))
+    print(f"capture MD: {len(Z)} atoms, the first {MD_COMPARED_STEPS} steps "
+          f"(a graph a step past the warm-up), captured against eager rel "
+          f"{worst:.3e} on positions and energies", flush=True)
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"capture MD: captured and eager differ ({worst})")
+    rec = {"path": f"MD, {len(Z)} atoms, blocks of 10", "per": "step",
+           "rel": worst}
+    rec["captured_ms"], traj = md_ms(calc, Z, pos, MD_TIMED, None)
+    rec["eager_ms"], _ = md_ms(calc, Z, pos, MD_EAGER_TIMED, False)
+    rec["drift_ratio"] = ratio = float(drift_ratio(traj))
+    for mode, c in (("captured", None), ("eager", False)):
+        # 5 blocks of 2 steps past the warm-up and the capture
+        few, many = (launches_of(lambda n=n: run_md(
+            calc, Z, pos, dt_fs=MD_DT_FS, n_steps=n, T=MD_T, seed=MD_SEED,
+            steps_per_block=2, log=None, capture=c), 1,
+            eager=mode == "eager") for n in (6, 16))
+        per_step(rec, mode, few, many, 10)
+    print(f"capture MD: {MD_TIMED[1]} captured steps, drift ratio "
+          f"{ratio:.5f}; {rec['captured_ms']:.4f} ms a step captured, "
+          f"{rec['eager_ms']:.4f} eager (host clock, the difference of "
+          f"{MD_TIMED} and {MD_EAGER_TIMED} steps); host launch calls "
+          f"{rec['captured_launch_calls']:.1f} / "
+          f"{rec['eager_launch_calls']:.1f} a step; the hand-written "
+          f"kernels a step, captured {rec['captured_kernels']}, eager "
+          f"{rec['eager_kernels']}", flush=True)
+    if not np.isfinite(traj).all() or ratio >= 0.2:
+        fail(f"capture MD: drift ratio {ratio} over {MD_TIMED[1]} steps")
+    if rec["captured_kernels"] != rec["eager_kernels"]:
+        fail("capture MD: the graph's replay ran other kernels than the "
+             "eager steps")
+    return rec
+
+
+def capture_constrained_sde(dev):
+    """Phase 41 (e): ``constrained_sde.sample`` on ``config_diffusion``, a
+    step one CUDA graph: the first 10 steps on draws replayed from the
+    card, captured against eager, then the whole N = 100 run in each
+    mode, finite; ms and launches a step."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.examples import constrained_sde as cs
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import VPSDE, Noise
+
+    cfg = get_config("config_diffusion")
+    sde = VPSDE(dict(cfg["diffusion_keys"]), N=100)
+    model = build_model(cfg["model_config"], dev).eval()
+    draws = seeded_draws(413, [(16, 3)] * (1 + SDE_PARITY_STEPS))
+    modes = (("captured", None), ("eager", False))
+    with deterministic():
+        out = {mode: cs.sample(model, sde, cs.system(dev), DeviceReplay(
+            draws, dev), steps=SDE_PARITY_STEPS, capture=c)["pos"]
+            for mode, c in modes}
+    worst = worst_rel_of([out["captured"]], [out["eager"]])
+    rec = {"path": f"constrained SDE, config_diffusion, N={sde.N}",
+           "per": "step", "rel": worst}
+    for mode, c in modes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pos = cs.sample(model, sde, cs.system(dev), Noise(dev, 2),
+                        capture=c)["pos"]
+        torch.cuda.synchronize()
+        rec[f"{mode}_ms"] = 1e3 * (time.perf_counter() - t0) / sde.N
+        if not torch.isfinite(pos[:8]).all():
+            fail(f"capture constrained SDE ({mode}): non-finite positions")
+        rec[f"{mode}_distance"] = float(torch.linalg.norm(pos[0] - pos[1]))
+        few, many = (launches_of(lambda n=n: cs.sample(
+            model, sde, cs.system(dev), Noise(dev, 3), steps=n, capture=c),
+            1, eager=mode == "eager") for n in (3, 8))
+        per_step(rec, mode, few, many, 5)
+    print(f"capture constrained SDE: the first {SDE_PARITY_STEPS} steps on "
+          f"replayed draws, captured against eager rel {worst:.3e}; "
+          f"N={sde.N}: {rec['captured_ms']:.4f} ms a step captured, "
+          f"{rec['eager_ms']:.4f} eager (host clock over the whole run); "
+          f"distance {rec['captured_distance']:.3f} / "
+          f"{rec['eager_distance']:.3f}; host launch calls "
+          f"{rec['captured_launch_calls']:.1f} / "
+          f"{rec['eager_launch_calls']:.1f} a step; the hand-written "
+          f"kernels a step, captured {rec['captured_kernels']}, eager "
+          f"{rec['eager_kernels']}", flush=True)
+    if not np.isfinite(worst) or worst > TOL:
+        fail(f"capture constrained SDE: captured and eager differ ({worst})")
+    if rec["captured_kernels"] != rec["eager_kernels"]:
+        fail("capture constrained SDE: the graph's replay ran other kernels "
+             "than the eager step")
+    return rec
+
+
+def compiled_rest_phases(dev):
+    """Phase 41: the kernels-off step, the steps under a one-rank NCCL
+    group (a subprocess: the gradients' all-reduce captured in the graph),
+    the calculator, MD and the constrained SDE captured against eager;
+    each path's ms and launches a step in both modes."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip()
+    records, t0 = [], time.perf_counter()
+
+    def add(rec):
+        rec["at_s"] = time.perf_counter() - t0    # phase 41's clock
+        records.append(rec)
+
+    add(kernels_off(dev))
+    rank, = run_cli_ranks("capture", 1, env={"CUBLAS_WORKSPACE_CONFIG":
+                                             ":4096:8"})
+    if rank["backend"] != "nccl":
+        fail(f"capture under a group: the group took {rank['backend']}")
+    print(f"capture under a one-rank NCCL group: the card's NCCL kernels "
+          f"a step, captured / eager: {rank['nccl_kernels']}", flush=True)
+    for rec in rank["paths"]:
+        add(rec)
+    add(capture_calculator(dev))
+    add(capture_md(dev))
+    add(capture_constrained_sde(dev))
+    seconds = time.perf_counter() - t0
+    print(card)
+    for r in records:
+        modes = ("plain", "kernels") if "plain_ms" in r else ("captured",
+                                                              "eager")
+        print(f"  {r['path']}: {r[modes[0] + '_ms']:.4f} ms {modes[0]}, "
+              f"{r[modes[1] + '_ms']:.4f} ms {modes[1]} per {r['per']}; "
+              f"launch calls {r[modes[0] + '_launch_calls']:.1f} / "
+              f"{r[modes[1] + '_launch_calls']:.1f}; rel {r['rel']:.3e}; "
+              f"phase 41 at {r['at_s']:.1f} s")
+    print(f"phase 41: {seconds:.1f} s", flush=True)
+    return {"card": card, "seconds": seconds, "paths": records,
+            "nccl_kernels": rank["nccl_kernels"]}
+
+
+def capture_ranks_only(ranks=None):
+    """``python3 chip_smoke.py --capture-ranks [N]``: the build, then phase
+    41 (b) as N ranks (by default one per card) of one NCCL group, each
+    driving its own card, so that the all-reduce each captured step
+    records is a real collective; fails unless every rank exits 0 over
+    NCCL with the ranks' parameters equal; each rank's paths as one JSON
+    line."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    cards = torch.cuda.device_count()
+    ranks = ranks or cards
+    if ranks > cards:
+        fail(f"{ranks} NCCL ranks need as many cards, found {cards}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip())
+    t0 = time.perf_counter()
+    lib, _ = build()
+    print(f"build: {os.path.relpath(lib)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = run_cli_ranks("capture", ranks, env={"CUBLAS_WORKSPACE_CONFIG":
+                                               ":4096:8"})
+    print(f"{ranks} ranks on {cards} cards in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included)")
+    if any(rec["backend"] != "nccl" for rec in res):
+        fail(f"the group took {[rec['backend'] for rec in res]}")
+    for r, rec in enumerate(res):
+        print(f"rank {r} ({rec['device']}, {rec['card']}): NCCL kernels a "
+              f"step, captured / eager {rec['nccl_kernels']}")
+        for p in rec["paths"]:
+            print(f"  {p['path']}: {p['captured_ms']:.4f} ms captured, "
+                  f"{p['eager_ms']:.4f} ms eager per {p['per']}; launch "
+                  f"calls {p['captured_launch_calls']:.1f} / "
+                  f"{p['eager_launch_calls']:.1f}; captured against eager "
+                  f"rel {p['rel']:.3e}")
+    print(json.dumps({"capture_ranks": {"ranks": ranks, "cards": cards,
+                                        "results": res}}))
+
+
 def capture_only():
-    """``python3 chip_smoke.py --capture``: the build, then phase 40
-    alone; its figures as one JSON line."""
+    """``python3 chip_smoke.py --capture``: the build, then phases 40 and
+    41 alone; their figures as JSON lines."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5424,7 +5880,9 @@ def capture_only():
     lib, _ = build()
     print(f"build: {os.path.relpath(lib)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"capture": capture_phases(torch.device("cuda"))}))
+    dev = torch.device("cuda")
+    print(json.dumps({"capture": capture_phases(dev)}))
+    print(json.dumps({"compiled": compiled_rest_phases(dev)}))
 
 
 def main():
@@ -5648,6 +6106,7 @@ def main():
     dsh_record, md = timed("33-37", md_phases, dev)
     datasets = timed("38-39", dataset_phases, n_layers)
     captured = timed("40", capture_phases, dev)
+    compiled = timed("41", compiled_rest_phases, dev)
     print(f"phase seconds {json.dumps(seconds)}; "
           f"{time.perf_counter() - start:.1f} s in all", flush=True)
 
@@ -5708,6 +6167,7 @@ def main():
     print(json.dumps({"md": md}))
     print(json.dumps({"datasets": datasets}))
     print(json.dumps({"capture": captured}))
+    print(json.dumps({"compiled": compiled}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6858,6 +7318,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--capture"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         capture_only()
+    elif sys.argv[1:2] == ["--capture-ranks"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        capture_ranks_only(int(sys.argv[2]) if sys.argv[2:] else None)
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -5,8 +5,8 @@
   small padded batch, ``fn(*example_args)`` its graphs' total energies.
 - ``dryrun_multichip(n, device="cuda")``: one full-width ``config_energy``
   training step, data parallel over ``n`` ranks (``parallel``: one process
-  per rank, DDP; gloo on the CPU and when ranks share a card, NCCL with one
-  rank per card), held to one process's step on the mean of the shard
+  per rank, the gradients averaged over the ranks; gloo on the CPU and
+  when ranks share a card, NCCL with one rank per card), held to one process's step on the mean of the shard
   losses, as the JAX dryrun holds its mesh step to a single-device step.
 
 Usage: ``python -m equivariant_nn_zoo_tpu_torch.entry [--device cuda]
@@ -99,11 +99,11 @@ def _dryrun_rank(rank, n, port, device, result):
         def shard_loss(m, gb):
             return loss_fn(m(gb).data, gb.data)[0]
 
-        step = parallel.step_module(parallel.LossStep(
-            model, lambda m, gb: (shard_loss(m, gb),)))
+        grads = parallel.GradReducer(model.parameters())
         optimizer = adam(model, LR)
-        loss = step(shards[rank])[0]
+        loss = shard_loss(model, shards[rank])
         loss.backward()
+        grads.reduce()
         optimizer.step()
         loss = float(parallel.all_reduce_mean({"loss": loss.detach()})[
             "loss"])
@@ -129,9 +129,10 @@ def _dryrun_rank(rank, n, port, device, result):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> float:
-    """One full-width ``config_energy`` DDP step over ``n_devices`` ranks
-    (spawned processes; on the card the ranks share the cards as
-    ``parallel.init_distributed`` maps them), each on its own tiny batch,
+    """One full-width ``config_energy`` data-parallel step over
+    ``n_devices`` ranks (spawned processes; on the card the ranks share the
+    cards as ``parallel.init_distributed`` maps them), each on its own tiny
+    batch,
     then the parity check against one process's step on the mean of the
     shard losses (loss rtol 1e-5; parameters rtol 1e-4, atol 1e-5).
     Returns the mean loss."""

@@ -8,7 +8,12 @@ forces as ``-autograd.grad(E, pos)``.  On a first-order model
 (``config_energy``) that backward runs K2 with the sh cotangent and K3b in
 every layer; a force model (``config_energy_force``) is unwrapped to its
 energy network, whose ``grad_order=2`` layers run K4f and K4b.  The
-parameters are frozen: only the positions are differentiated.
+parameters are frozen: only the positions are differentiated.  On a CUDA
+device ``potential`` is compiled, as JAX jits its potential: a CUDA graph
+per node capacity (``run.capture``; ``capture=False`` is eager).  Nothing
+in it reads the host: it returns the graph's pair count beside the energy
+and forces, and ``compute`` holds it to the edge capacity after the call
+(``check_pairs``), so no pair is dropped unseen.
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
 
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..data.compute_edge import radius_graph_fixed
+from ..run import capture as capture_mod
 
 ATTRS = {"pos": ("node", "1x1o"), "species": ("node", "1x0e"),
          "atom_types": ("node", "1x0e")}
@@ -55,7 +61,10 @@ class E3Calculator:
 
     def __init__(self, model: torch.nn.Module, r_max: float,
                  edge_capacity: int = 4096, node_capacity: int = 256,
-                 device="cuda"):
+                 device="cuda", capture: Optional[bool] = None):
+        """``capture``: ``potential`` as a CUDA graph per node capacity
+        (``run.capture.enabled``: by default on a CUDA device); ``False``
+        is eager."""
         self.device = card_or_cpu(device)
         self.model = model.to(self.device).eval()
         for p in self.model.parameters():
@@ -63,17 +72,23 @@ class E3Calculator:
         self.r_max = float(r_max)
         self.node_capacity = int(node_capacity)
         self.edge_capacity = int(edge_capacity)
+        self._potential = self.energy_forces
+        if capture_mod.enabled(capture, self.device, (self.model,)):
+            self._potential = capture_mod.Step(
+                "calculator", self.energy_forces)
 
     @classmethod
     def from_config(cls, config_name: str, model: torch.nn.Module = None,
                     model_path: Optional[str] = None, device="cuda",
-                    **kwargs) -> "E3Calculator":
+                    kernels: bool = True, **kwargs) -> "E3Calculator":
         """The calculator of a named config: ``model``, or the config's
-        model with the seeded initial weights (``models.build_model``) and,
-        from ``model_path``, the weights of a checkpoint of this package
-        (the train CLI's ``best.pt``, as the inference CLI loads it).  A
-        force model is unwrapped to its energy network: the calculator
-        differentiates itself."""
+        model with the seeded initial weights (``models.build_model``, with
+        ``kernels``: ``False`` runs every kernel's plain version on the
+        card too) and, from ``model_path``, the weights of a checkpoint of
+        this package (the train CLI's ``best.pt``, as the inference CLI
+        loads it).  A force model is unwrapped to its energy network: the
+        calculator differentiates itself.  ``kwargs`` go to the
+        constructor (capacities, ``capture``)."""
         from ..inference import model_params
         from ..models import build_model, get_config
         from ..utils import load_file, load_jax_params
@@ -81,7 +96,7 @@ class E3Calculator:
         device = card_or_cpu(device)
         cfg = get_config(config_name)
         if model is None:
-            model = build_model(cfg["model_config"], device)
+            model = build_model(cfg["model_config"], device, kernels=kernels)
         if model_path:
             tree = model_params(load_file(model_path,
                                           enforced_format="pickle"))
@@ -113,17 +128,28 @@ class E3Calculator:
         return tuple(torch.from_numpy(a).to(self.device)
                      for a in (pos, spec, node_mask, node_segment))
 
-    def graph(self, pos, species, node_mask, node_segment) -> dict:
-        """The model's input data of the padded system: the radius graph
-        built on the device and the masks.  Raises when the graph has more
-        pairs than the edge capacity: no pair is dropped."""
-        edge_index, edge_mask, edge_segment, n_pairs = radius_graph_fixed(
-            pos, node_segment, node_mask, self.edge_capacity, self.r_max,
-            pos.shape[0] - 1)
+    def check_pairs(self, n_pairs) -> None:
+        """Raise when ``n_pairs`` (a pair count from ``potential``, or the
+        largest of several) exceeds the edge capacity: the radius graph
+        kept only the first pairs (a host read)."""
         if int(n_pairs) > self.edge_capacity:
             raise RuntimeError(
                 f"{int(n_pairs)} pairs within r_max {self.r_max} exceed the "
                 f"edge capacity {self.edge_capacity}")
+
+    def graph(self, pos, species, node_mask, node_segment) -> dict:
+        """The model's input data of the padded system: the radius graph
+        built on the device and the masks.  Raises when the graph has more
+        pairs than the edge capacity: no pair is dropped."""
+        data, n_pairs = self._graph(pos, species, node_mask, node_segment)
+        self.check_pairs(n_pairs)
+        return data
+
+    def _graph(self, pos, species, node_mask, node_segment):
+        """``graph``'s data and the pair count (a device int), unchecked."""
+        edge_index, edge_mask, edge_segment, n_pairs = radius_graph_fixed(
+            pos, node_segment, node_mask, self.edge_capacity, self.r_max,
+            pos.shape[0] - 1)
         return {
             "pos": pos,
             "species": species,
@@ -135,24 +161,34 @@ class E3Calculator:
             "_node_segment": node_segment,
             "_graph_mask": torch.ones((1, 1), device=pos.device),
             "_n_nodes": node_mask.sum().to(torch.int64).reshape(1, 1),
-        }
+        }, n_pairs
 
-    def potential(self, pos, species, node_mask, node_segment):
-        """``(energy, forces [N, 3])`` of the padded system (0-dim and
-        [N, 3] tensors on the device)."""
-        data = self.graph(pos, species, node_mask, node_segment)
+    def energy_forces(self, pos, species, node_mask, node_segment):
+        """``(energy, forces [N, 3], n_pairs)`` of the padded system,
+        eagerly: a 0-dim energy, the forces and the radius graph's pair
+        count (a device int that the caller holds to the edge capacity,
+        ``check_pairs``), all on the device."""
+        data, n_pairs = self._graph(pos, species, node_mask, node_segment)
         with torch.enable_grad():
             p = pos.detach().requires_grad_(True)
             out, _ = self.model({**data, "pos": p}, dict(ATTRS))
             key = "total_energy" if "total_energy" in out else "energy"
             energy = out[key].sum()
             (grad,) = torch.autograd.grad(energy, p)
-        return energy.detach(), -grad
+        return energy.detach(), -grad, n_pairs
+
+    def potential(self, pos, species, node_mask, node_segment):
+        """``energy_forces``, compiled where ``capture`` allows: a replay
+        overwrites what the last call returned, so read it before the next
+        call."""
+        return self._potential(pos, species, node_mask, node_segment)
 
     def compute(self, species, positions):
-        """species [n], positions [n, 3] -> (energy float, forces [n, 3])."""
+        """species [n], positions [n, 3] -> (energy float, forces [n, 3]).
+        Raises when the graph has more pairs than the edge capacity."""
         n = len(species)
-        e, f = self.potential(*self.padded(species, positions))
+        e, f, n_pairs = self.potential(*self.padded(species, positions))
+        self.check_pairs(n_pairs)
         return float(e), f[:n].cpu().numpy()
 
     # ASE Calculator protocol ------------------------------------------------

@@ -7,7 +7,12 @@ with the seeded initial weights, ``VPSDE(N=100)``, its ``reverse`` on the
 model's score, and one projection after each Euler-Maruyama step.  Every
 draw comes from one explicit noise source (``run.sde_utils.Noise``: the
 prior, then one normal per step), never from a hidden generator, so a test
-can replay another package's draws.
+can replay another package's draws.  On a CUDA device one step (the time,
+the reverse step, the projection) is compiled, as JAX jits its step: a
+CUDA graph replayed for each step with the step's time copied in and the
+noise source's generator registered with it (``run.capture``;
+``capture=False`` is eager, and so is a source whose draws a replay cannot
+renew).
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ..data import Batch, Data, GraphBatch, computeEdgeIndex
+from ..run import capture as capture_mod
 from ..run.sde_utils import VPSDE, Noise, get_score_fn, with_t
 from .calculator import card_or_cpu
 
@@ -66,25 +72,35 @@ def project(pos: torch.Tensor, target: float = TARGET_DIST,
 
 def sample(model: torch.nn.Module, sde: VPSDE, gb: GraphBatch, noise,
            steps: int = None, target: float = TARGET_DIST,
-           strength: float = RELAX_STRENGTH) -> GraphBatch:
+           strength: float = RELAX_STRENGTH, capture=None) -> GraphBatch:
     """Reverse-diffuse from the prior over the schedule ``linspace(T, 1e-3,
     N)`` (its first ``steps`` steps, all without), projecting after each
-    step; ``noise`` hands out the prior, then one normal per step."""
+    step; ``noise`` hands out the prior, then one normal per step.
+    Returns the batch with the sample's positions.  ``capture``: one step
+    as a CUDA graph (``run.capture.enabled``); ``False`` is eager."""
     batch = sde.prior_sampling(gb, noise)
+    batch = GraphBatch({k: v for k, v in batch.data.items()
+                        if k not in ("edge_vector", "edge_length", "t")},
+                       dict(batch.attrs), batch.n_graphs,
+                       batch.node_capacity, batch.edge_capacity)
     rsde = sde.reverse(get_score_fn(sde, model))
-    timesteps = np.linspace(sde.T, 1e-3, sde.N)[:steps]
-    g = batch["_graph_mask"].shape[0]
     dev = batch["pos"].device
+    times = torch.as_tensor(np.linspace(sde.T, 1e-3, sde.N)[:steps].astype(
+        np.float32), device=dev)
+    ones = torch.ones((batch["_graph_mask"].shape[0], 1), device=dev)
+
+    def step(b, t):
+        new = rsde.sde(with_t(b, ones * t), noise)
+        b["pos"].copy_(project(new["pos"], target, strength))
+        return b
+
+    if capture_mod.enabled(capture, dev, (noise, model)):
+        step = capture_mod.Step(
+            "constrained_sde", step,
+            generators=lambda: capture_mod.generators(noise, model))
     with torch.no_grad():
-        for t in timesteps:
-            data = {k: v for k, v in batch.data.items()
-                    if k not in ("edge_vector", "edge_length")}
-            batch = GraphBatch(data, dict(batch.attrs), batch.n_graphs,
-                               batch.node_capacity, batch.edge_capacity)
-            batch = with_t(batch, torch.ones((g, 1), device=dev) * float(t))
-            batch = rsde.sde(batch, noise)
-            batch = batch.replace(pos=project(batch["pos"], target,
-                                              strength))
+        for k in range(len(times)):
+            batch = step(batch, times[k: k + 1])
     return batch
 
 

@@ -4,9 +4,14 @@
 PyTorch counterpart of ``examples/md_dynamics.py``, with the same units,
 masses, Maxwell-Boltzmann draw (numpy, from ``seed``: both packages start
 from the same velocities) and kick-drift-kick step with one force
-evaluation per step.  The JAX script jits a block of steps under
-``lax.fori_loop``; here the loop is eager Python over steps, each step the
-radius graph, the model's energy and its position gradient on the card.
+evaluation per step (the radius graph, the model's energy and its position
+gradient on the card).  The JAX script jits a block of steps under
+``lax.fori_loop``; here a block of ``steps_per_block`` steps is one
+compiled step on a CUDA device (``run.capture``: a CUDA graph replayed
+once a block; ``capture=False`` is eager).  Positions, velocities, forces,
+the energy and the largest pair count of the block live in buffers on the
+device that each block updates in place; the host reads the energies and
+holds the pair count to the edge capacity once a block.
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
 
@@ -27,6 +32,7 @@ import sys
 import numpy as np
 import torch
 
+from ..run import capture as capture_mod
 from .calculator import E3Calculator
 
 # eV/(amu.Angstrom) -> Angstrom/fs^2 (ASE units convention)
@@ -47,10 +53,13 @@ def maxwell_boltzmann(rng, masses, T):
 
 
 def run_md(calc: E3Calculator, species, pos0, dt_fs=0.2, n_steps=300,
-           T=300.0, seed=0, steps_per_block=10, log=print):
+           T=300.0, seed=0, steps_per_block=10, log=print, capture=None):
     """Velocity-Verlet NVE; returns (positions [n, 3], the (potential,
     kinetic) energies [n_blocks + 1, 2] at the start and after each block
-    of ``steps_per_block`` steps)."""
+    of ``steps_per_block`` steps).  Raises after a block whose radius graph
+    had more pairs than the calculator's edge capacity.  ``capture``: each
+    block as a CUDA graph (``run.capture.enabled``: by default on a CUDA
+    device); ``False`` is eager."""
     rng = np.random.default_rng(seed)
     masses = np.array([MASSES[int(z)] for z in species])
     n = len(species)
@@ -67,22 +76,37 @@ def run_md(calc: E3Calculator, species, pos0, dt_fs=0.2, n_steps=300,
     dt = torch.tensor(dt_fs, dtype=torch.float32, device=dev)
 
     def force(p):
-        e, f = calc.potential(p, spec, node_mask, node_segment)
-        return e, f * node_mask
+        e, f, n_pairs = calc.energy_forces(p, spec, node_mask, node_segment)
+        return e, f * node_mask, n_pairs
 
     def kinetic(v):
         return float(0.5 * torch.sum(m * v * v) / EV_AMU_A)
 
-    e, f = force(pos)
-    e_traj = [(float(e), kinetic(vel))]
-    n_blocks = max(1, n_steps // steps_per_block)
-    for b in range(n_blocks):
+    def block(pos, vel, f, e, most):
+        """``steps_per_block`` steps, the state updated in place."""
         for _ in range(steps_per_block):
             # kick-drift-kick with a single force evaluation per step
             v_half = vel + 0.5 * dt * (f / m) * EV_AMU_A
-            pos = pos + dt * v_half * node_mask
-            e, f = force(pos)
-            vel = (v_half + 0.5 * dt * (f / m) * EV_AMU_A) * node_mask
+            new_pos = pos + dt * v_half * node_mask
+            e_new, f_new, n_pairs = force(new_pos)
+            vel.copy_((v_half + 0.5 * dt * (f_new / m) * EV_AMU_A)
+                      * node_mask)
+            pos.copy_(new_pos)
+            f.copy_(f_new)
+            e.copy_(e_new)
+            torch.maximum(most, n_pairs, out=most)
+        return pos, vel, f, e, most
+
+    e, f, most = force(pos)
+    e, most = e.clone(), most.clone()
+    calc.check_pairs(most)
+    if capture_mod.enabled(capture, dev, (calc.model,)):
+        block = capture_mod.Step("md_block", block)
+    e_traj = [(float(e), kinetic(vel))]
+    n_blocks = max(1, n_steps // steps_per_block)
+    for b in range(n_blocks):
+        pos, vel, f, e, most = block(pos, vel, f, e, most)
+        calc.check_pairs(most)
         e_traj.append((float(e), kinetic(vel)))
         if log and (b % max(1, n_blocks // 10) == 0):
             log(f"block {b:4d}: E_pot={e_traj[-1][0]:+.4f} eV  "

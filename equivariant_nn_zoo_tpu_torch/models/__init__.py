@@ -6,6 +6,7 @@ the function that builds a model from a seeded generator."""
 
 import torch
 
+from ..ops.cuda.build import set_kernels
 from ..utils.params import init_parameters
 from ..utils.utils import build
 from .config_diffusion import get_config as config_diffusion
@@ -44,12 +45,17 @@ def register_config(name: str, fn):
 
 
 def build_model(model_config: dict, device="cuda",
-                generator: torch.Generator = None) -> torch.nn.Module:
+                generator: torch.Generator = None,
+                kernels: bool = True) -> torch.nn.Module:
     """Build the model of ``model_config``, fill its parameters from
     ``generator`` (a CPU generator; seed 0 when omitted) and move it to
-    ``device``.  The same seed gives the same weights on every device."""
+    ``device``.  The same seed gives the same weights on every device.
+    ``kernels=False``: every kernel wrapper of the model takes its plain
+    PyTorch version on CUDA tensors too (``ops.cuda.build.set_kernels``),
+    the whole model's path without the hand-written kernels."""
     model = build(model_config)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_parameters(model, generator)
+    set_kernels(model, kernels)
     return model.to(device)

@@ -18,10 +18,10 @@ embedding, so the trunk is built with ``species_pure_attrs=False``: its
 self-connections stay per node, never on the per-species tables of K3.
 ``saveMol`` writes a sampled molecule as a ``.gro`` file
 (``utils/saveload.py``); the diffusion loop of ``train.py`` calls it for
-its snapshot samples.  Spec ``"nll"`` also sets ``find_unused_parameters``
-(not in the JAX config): a loss on the energy's position gradient gives
-the energy's output bias no gradient, and DDP must be told to look for
-such parameters (``parallel/data_parallel.py``).
+its snapshot samples.  In spec ``"nll"`` a loss on the energy's position
+gradient gives the energy's output bias no gradient: it keeps a zero
+gradient, which data parallelism averages as any other
+(``parallel/data_parallel.py``).
 """
 
 from functools import partial
@@ -56,7 +56,6 @@ def get_config(spec=None):
     if "profiling" in spec:
         data.update(n_train=2048, n_val=256)
 
-    extra = {}
     n_dim = model["n_dim"]
     features = "+".join(f"{n_dim}x{n}e+{n_dim}x{n}o"
                         for n in range(model["l_max"] + 1))
@@ -103,7 +102,6 @@ def get_config(spec=None):
     trunk["layers"] = layers
 
     if "nll" in spec:
-        extra["find_unused_parameters"] = True
         trunk = addForceOutput(addEnergyOutput(trunk, shifts=None,
                                                output_key="nll"),
                                y="nll", gradients="score_pos")
@@ -121,5 +119,5 @@ def get_config(spec=None):
         optimizer_name="Adam", lr_scheduler_name="ReduceLROnPlateau",
         lr_scheduler_patience=1, lr_scheduler_factor=0.8,
         grad_clid_norm=1.0, grad_acc=1, saveMol=saveMol,
-        diffusion_keys={"pos": 3}, **extra,
+        diffusion_keys={"pos": 3},
     )

@@ -270,6 +270,27 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+class KernelSwitch:
+    """What every module that holds a kernel wrapper shares: ``kernels``,
+    true unless ``models.build_model(..., kernels=False)`` (``set_kernels``)
+    turned it off for the model.  Off, the wrapper takes its plain version
+    on CUDA tensors too; on the CPU it always does.  Nothing turns it off
+    by itself: a kernel that fails to build or launch raises."""
+
+    kernels = True
+
+    def uses_kernel(self, x: "torch.Tensor") -> bool:
+        """Whether a call on ``x`` launches the kernel."""
+        return self.kernels and x.device.type != "cpu"
+
+
+def set_kernels(model, on: bool) -> None:
+    """Give every kernel-holding module of ``model`` ``kernels = on``."""
+    for module in model.modules():
+        if isinstance(module, KernelSwitch):
+            module.kernels = bool(on)
+
+
 def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

@@ -35,7 +35,7 @@ from ..gate import ScaledActivation, shifted_softplus
 from ..segment import segment_sum
 from ..wigner import wigner_3j
 from . import edge_order, row_mix
-from .build import check, check_tensor, load_library
+from .build import KernelSwitch, check, check_tensor, load_library
 
 MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 64, 64, 16, 9
 # the walk (csrc/edge_walk.cuh): paths per block, the widest irrep K1
@@ -59,7 +59,7 @@ def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
     return out
 
 
-class ConvTables(torch.nn.Module):
+class ConvTables(KernelSwitch, torch.nn.Module):
     """Constant tables of one uvu ``TensorProductExpansion`` for the conv
     kernels (K1, K2 and the external-weight K4 family): the CG paths with
     their host-built wigner_3j non-zeros, and the mix problems.  Parameters
@@ -274,11 +274,11 @@ class FullConv(ConvTables):
                 pre_scale: Optional[float] = None) -> torch.Tensor:
         """x [N, in_dim] (already linear_1'd), masked edge_radial [E, R],
         sh [E, J], edge_src / edge_dst [E] -> [N, out_dim]."""
-        if x.device.type == "cpu":
-            return self.plain(fc, linear, x, edge_radial, sh, edge_src,
-                              edge_dst, num_nodes, pre_scale)
-        return self.launch(fc, linear, x, edge_radial, sh, edge_src,
-                           edge_dst, num_nodes, pre_scale)
+        if self.uses_kernel(x):
+            return self.launch(fc, linear, x, edge_radial, sh, edge_src,
+                               edge_dst, num_nodes, pre_scale)
+        return self.plain(fc, linear, x, edge_radial, sh, edge_src,
+                          edge_dst, num_nodes, pre_scale)
 
     def plain(self, fc, linear, x, edge_radial, sh, edge_src, edge_dst,
               num_nodes, pre_scale=None):

@@ -85,11 +85,11 @@ class FullConvExt(ConvTables):
                 pre_scale: Optional[float] = None) -> torch.Tensor:
         """x [N, in_dim] (already linear_1'd), sh [E, J], radial weights
         w [E, P * mul], edge_src / edge_dst [E] -> [N, out_dim]."""
-        if x.device.type == "cpu":
-            return self.fused(linear, x, edge_src, edge_dst, sh, w,
-                              num_nodes, pre_scale)
-        return self.launch(linear, x, sh, w, edge_src, edge_dst, num_nodes,
-                           pre_scale)
+        if self.uses_kernel(x):
+            return self.launch(linear, x, sh, w, edge_src, edge_dst,
+                               num_nodes, pre_scale)
+        return self.fused(linear, x, edge_src, edge_dst, sh, w, num_nodes,
+                          pre_scale)
 
     def launch(self, linear, x, sh, w, edge_src, edge_dst, num_nodes,
                pre_scale=None):

@@ -50,7 +50,7 @@ import torch
 
 from ..wigner import wigner_3j
 from . import row_mix
-from .build import check, check_tensor, load_library
+from .build import KernelSwitch, check, check_tensor, load_library
 from .full_conv import MAX_D, mix_rows
 from .species_sc import _multiprocessors
 
@@ -334,7 +334,7 @@ def adjoint_plan(M: int, cuts, mul: int, sms: int):
     return len(cuts) - 1, per_warp
 
 
-class PairwiseTP(torch.nn.Module):
+class PairwiseTP(KernelSwitch, torch.nn.Module):
     """Constant tables of one internal-weight all-uvu
     ``TensorProductExpansion`` with uniform left multiplicity, and K5."""
 
@@ -505,9 +505,9 @@ class PairwiseTP(torch.nn.Module):
         """left [M, dim_a], right [M, dim_b] -> [M, out_dim], with the
         parameters of ``tpe`` (an expansion of this instance's
         structure)."""
-        if left.device.type == "cpu":
-            return tpe.expand(left, right)
-        return self.launch(tpe, left, right)
+        if self.uses_kernel(left):
+            return self.launch(tpe, left, right)
+        return tpe.expand(left, right)
 
     def launch(self, tpe, left, right):
         """The kernel path: the flat mix matrices and, per chunk of

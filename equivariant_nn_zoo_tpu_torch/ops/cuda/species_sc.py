@@ -37,7 +37,7 @@ import torch
 
 from ..fused_tp import FusedScalarFCTP
 from . import species_order
-from .build import check, check_tensor, load_library
+from .build import KernelSwitch, check, check_tensor, load_library
 
 MAX_D = 9  # components of an l <= 4 irrep, the widest the kernels are run at
 # the kernels' tiling (csrc/species_sc.cu): columns of a tile, (node,
@@ -88,7 +88,7 @@ def grad_blocks(N: int, types: int, grad_entries: np.ndarray,
                for d in grad_entries[:, 3])
 
 
-class SpeciesScalarFCTP(torch.nn.Module):
+class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
     """Self-connection by per-species tables; parameter-compatible with
     ``fully_connected_tp`` (the ``weight`` of the TensorProduct passed at
     call time)."""
@@ -229,9 +229,9 @@ class SpeciesScalarFCTP(torch.nn.Module):
                 species: torch.Tensor) -> torch.Tensor:
         """x [N, in_dim], attrs [N, mul2], species [N] or [N, 1] (int64)
         -> [N, out_dim]."""
-        if x.device.type == "cpu":
-            return self.plain(tp, x, attrs, species)
-        return self.launch(tp, x, attrs, species)
+        if self.uses_kernel(x):
+            return self.launch(tp, x, attrs, species)
+        return self.plain(tp, x, attrs, species)
 
     def plain(self, tp, x, attrs, species):
         """Plain PyTorch version: the per-node formulation

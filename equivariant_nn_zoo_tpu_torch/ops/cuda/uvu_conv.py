@@ -255,10 +255,10 @@ class UVUConv(ConvTables):
         w [E, P * mul], edge_src [E] -> per-edge output [E, out_dim].
         ``edge_dst`` [E] (not read by the forward) names the edges whose
         order ``edge_order.shared`` keeps, which the backward walks."""
-        if x.device.type == "cpu":
-            return self.fused(linear, x, edge_src, None, sh, w, x.shape[0],
-                              reduce=False)
-        return self.launch(linear, x, sh, w, edge_src, edge_dst)
+        if self.uses_kernel(x):
+            return self.launch(linear, x, sh, w, edge_src, edge_dst)
+        return self.fused(linear, x, edge_src, None, sh, w, x.shape[0],
+                          reduce=False)
 
     def launch(self, linear, x, sh, w, edge_src, edge_dst):
         """The kernel path: the flat mix matrices in plain PyTorch, then

@@ -1,16 +1,14 @@
-"""Data parallelism: one process per rank, DDP over a process group (the
-port's counterpart of the JAX package's mesh and ``shard_map`` layer)."""
+"""Data parallelism: one process per rank, the gradients' mean over a
+process group (the port's counterpart of the JAX package's mesh and
+``shard_map`` layer)."""
 
 from .data_parallel import (
     agree_max,
     agree_min,
     all_reduce_mean,
     gather_objects,
-    LossStep,
+    GradReducer,
     mean_over_ranks,
-    no_sync,
-    step_module,
-    wrap_model,
 )
 from .mesh import (
     backend,
@@ -28,11 +26,8 @@ __all__ = [
     "agree_min",
     "all_reduce_mean",
     "gather_objects",
-    "LossStep",
+    "GradReducer",
     "mean_over_ranks",
-    "no_sync",
-    "step_module",
-    "wrap_model",
     "backend",
     "device",
     "host_store",

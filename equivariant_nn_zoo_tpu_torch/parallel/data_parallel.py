@@ -3,46 +3,31 @@ package's ``parallel/data_parallel.py``.
 
 The JAX package shards one batch over a device mesh with ``shard_map`` and
 takes the mean over the ``dp`` axis of each shard's mean loss
-(``make_dp_loss_fn``); differentiating through it averages the gradients.
-The port runs one process per rank, each on its own batch, and wraps the
-module that computes the loss in ``DistributedDataParallel``, whose
-all-reduce averages the gradients over the ranks during ``backward``: the
-same mean over ranks of each rank's mean loss.  Device scalars that the
-ranks must agree on go through ``all_reduce_mean``, host metrics through
-``mean_over_ranks``, batch counts through ``agree_min`` and wall times
-through ``agree_max``.
+(``make_dp_loss_fn``); differentiating through it averages the gradients,
+a ``psum`` that ``jax.jit`` records inside the step.  The port runs one
+process per rank, each on its own batch, and keeps each parameter's
+gradient as a view of one flat buffer per dtype (``GradReducer``), made
+once and summed into in place by ``backward``; after the backward of a
+step that applies, one ``all_reduce`` of each buffer and a division by the
+world size give every rank the mean over the ranks of each rank's mean
+loss gradient.  Under NCCL that collective is recorded into the step's
+CUDA graph (``run.capture``); under gloo the steps stay eager.  A
+parameter that gets no gradient keeps its zeros and averages zeros, as
+JAX's ``psum`` does, so no config needs DDP's ``find_unused_parameters``.
+Rank 0's parameters are broadcast when the reducer is made, as DDP does
+when it wraps a module.  Device scalars that the ranks must agree on go
+through ``all_reduce_mean``, host metrics through ``mean_over_ranks``,
+batch counts through ``agree_min`` and wall times through ``agree_max``.
 
 ``stack_shards`` and ``put_sharded`` have no counterpart: with one process
 per rank each rank's loader makes its own batch, so there is no leading
 device axis to stack or place (as the loader has no tile layout, which
 exists for the TPU kernels).
-
-A training step calls its loss through ``LossStep(model, fn)``, and
-under a process group through that module in DDP (``step_module``), so
-that there is one forward and backward path with or without ranks.  The
-wrapped module must return the loss as a tensor (with its parts beside
-it): with ``find_unused_parameters`` DDP walks the autograd graph from the
-tensors of the output to find the parameters that got no gradient, and it
-cannot see inside a ``GraphBatch``.  DDP raises at the next step when a
-parameter got no gradient and it was not told to look.
-
-One training step of each of the seven configs without DDP
-(``tools/torch_unused_params.py``, every parameter at full width) leaves
-one parameter without a gradient: ``func.output_linear.linear.b0`` of
-``config_diffusion`` ``"nll"``, the bias of the energy whose position
-gradient is the score.  That config sets ``find_unused_parameters``, which
-the diffusion loop passes to ``get_step_fn``; no regression config
-needs it, and the ``Trainer`` does not read it.  Under DDP, steps of
-``config_energy`` (the CPU tests and the card's two-rank CLI run),
-``config_energy_force`` (its forces through ``autograd.grad`` inside the
-forward) and ``config_diffusion`` ``""`` (the CPU tests) have run without
-it; the other configs have not yet run under DDP.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, Dict, List
+from typing import Dict, Iterable, List
 
 import numpy as np
 import torch
@@ -51,53 +36,71 @@ import torch.distributed as dist
 from . import mesh
 
 
-class LossStep(torch.nn.Module):
-    """``fn(model, *args)`` as one module, the unit that a step calls and
-    DDP wraps: ``model`` is its one submodule, so DDP reduces exactly its
-    parameters.  ``fn`` returns the loss tensor first."""
+class GradReducer:
+    """The gradients of ``params`` as views of one flat buffer per dtype
+    (set as each parameter's ``.grad``, zeroed and summed into in place by
+    the steps), and ``reduce``, their mean over the ranks.  Whether a
+    process group exists is read once, here: under one, rank 0's
+    parameters are broadcast to every rank now and ``reduce`` all-reduces;
+    without one it does nothing."""
 
-    def __init__(self, model: torch.nn.Module, fn: Callable):
-        super().__init__()
-        self.model = model
-        self.fn = fn
+    def __init__(self, params: Iterable[torch.nn.Parameter]):
+        self.params = list(params)
+        self.grouped = dist.is_available() and dist.is_initialized()
+        groups: Dict[torch.dtype, List[torch.nn.Parameter]] = {}
+        for p in self.params:
+            groups.setdefault(p.dtype, []).append(p)
+        self.flats = []
+        with torch.no_grad():
+            for ps in groups.values():
+                flat = torch.cat([p.reshape(-1) for p in ps])
+                if self.grouped:
+                    # DDP's broadcast of rank 0's parameters at build time
+                    dist.broadcast(flat, 0)
+                    for p, part in zip(ps, _parts(flat, ps)):
+                        p.copy_(part)
+                flat.zero_()
+                for p, part in zip(ps, _parts(flat, ps)):
+                    p.grad = part
+                self.flats.append(flat)
+        self._views = [p.grad for p in self.params]
 
-    def forward(self, *args):
-        return self.fn(self.model, *args)
+    def grads(self) -> List[torch.Tensor]:
+        """The parameters' ``.grad`` as they stand."""
+        return [p.grad for p in self.params]
+
+    def attached(self) -> bool:
+        """Whether every parameter's ``.grad`` is still this reducer's
+        view (a caller may have set one to None or to another tensor)."""
+        return all(p.grad is v for p, v in zip(self.params, self._views))
+
+    def zero_(self) -> None:
+        for flat in self.flats:
+            flat.zero_()
+
+    def finite(self) -> torch.Tensor:
+        """A device bool: every gradient is finite (after ``reduce``, the
+        same on every rank)."""
+        return torch.stack([torch.isfinite(f).all()
+                            for f in self.flats]).all()
+
+    def reduce(self) -> None:
+        """The mean over the ranks of every gradient, in place: one
+        ``all_reduce`` (sum) of each flat buffer, then the division by the
+        world size, with no host read (under NCCL it is captured with the
+        step).  Nothing without a process group."""
+        if not self.grouped:
+            return
+        world = dist.get_world_size()
+        for flat in self.flats:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat.div_(world)
 
 
-def step_module(loss_step: LossStep,
-                find_unused_parameters: bool = False) -> torch.nn.Module:
-    """What a training step calls: ``loss_step`` in DDP (``wrap_model``)
-    under a process group, else ``loss_step`` itself."""
-    if not dist.is_initialized():
-        return loss_step
-    return wrap_model(loss_step,
-                      find_unused_parameters=find_unused_parameters)
-
-
-def no_sync(module: torch.nn.Module, sync: bool):
-    """``module.no_sync()`` when ``module`` is DDP and ``sync`` is false
-    (a micro-step that applies nothing), else a context that does
-    nothing."""
-    if sync or not isinstance(module,
-                              torch.nn.parallel.DistributedDataParallel):
-        return contextlib.nullcontext()
-    return module.no_sync()
-
-
-def wrap_model(module: torch.nn.Module, device=None,
-               find_unused_parameters: bool = False) -> torch.nn.Module:
-    """``module`` in ``DistributedDataParallel`` over the default process
-    group.  Buffers are constants that every rank builds alike, so they are
-    not broadcast on each forward."""
-    device = torch.device(device if device is not None
-                          else next(module.parameters()).device)
-    kwargs = dict(find_unused_parameters=find_unused_parameters,
-                  broadcast_buffers=False)
-    if device.type == "cuda":
-        kwargs["device_ids"] = [device.index if device.index is not None
-                                else torch.cuda.current_device()]
-    return torch.nn.parallel.DistributedDataParallel(module, **kwargs)
+def _parts(flat: torch.Tensor, params) -> List[torch.Tensor]:
+    """``flat``'s consecutive pieces, each shaped as one of ``params``."""
+    return [part.view_as(p) for part, p in zip(
+        flat.split([p.numel() for p in params]), params)]
 
 
 def _comm_device(like: torch.device) -> torch.device:
@@ -110,7 +113,8 @@ def all_reduce_mean(values: Dict[str, object]) -> Dict[str, object]:
     """The mean over the ranks of each scalar in ``values`` (tensors or
     numbers, summed in float64 by one all-reduce for the whole dict): a
     tensor comes back as a tensor of its dtype on its device, a number as
-    a float.  Unchanged without a process group."""
+    a float (a host read: inside a captured step pass tensors only).
+    Unchanged without a process group."""
     if not dist.is_initialized() or not values:
         return values
     keys = sorted(values)

@@ -3,7 +3,7 @@
 
 The JAX package places a one-axis ``dp`` mesh over the chips and lets XLA
 insert the gradient all-reduce.  The port runs one process per rank, as
-the reference's ``mp.spawn`` + DDP does, and keeps here what the mesh
+the reference's ``mp.spawn`` does, and keeps here what the mesh
 answered there: which rank this process is, how many ranks there are, and
 which device a rank drives.
 
@@ -83,8 +83,13 @@ def init_distributed(world_size: int, rank: int,
 
 
 def shutdown():
-    """Leave the process group (a no-op without one)."""
+    """Leave the process group (a no-op without one), after dropping every
+    captured step's graphs (``run.capture.release``): NCCL's destroy waits
+    for ever on a communicator that a live graph recorded."""
     if dist.is_initialized():
+        from ..run import capture
+
+        capture.release()
         dist.destroy_process_group()
     _STATE["device"] = None
 

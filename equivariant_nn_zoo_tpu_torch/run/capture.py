@@ -43,13 +43,19 @@ thousands of kernel launches of a training step.
   ``torch.cuda.graph`` does.
 
 ``enabled`` decides whether a step runs captured: by default on a CUDA
-device in one process.  Under a process group (DDP) the steps run eagerly:
-DDP's gradient hooks and collectives are not captured here.
+device, in one process or under an NCCL process group, whose collectives
+(the gradients' mean, ``parallel.GradReducer``) a graph records as
+``jax.jit`` records JAX's ``psum``.  Under a gloo group the steps run
+eagerly: only NCCL collectives can be recorded into a CUDA graph.  NCCL
+will not destroy a communicator while a graph that recorded one of its
+collectives lives (the destroy waits for ever), so ``release`` drops every
+step's graphs and ``parallel.shutdown`` calls it before it ends the group.
 """
 
 from __future__ import annotations
 
 import gc
+import weakref
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -59,28 +65,32 @@ from ..data.graph_batch import GraphBatch
 
 #: eager calls of a new signature before its capture
 WARMUP = 2
+#: every Step made, for ``release``
+_STEPS: "weakref.WeakSet[Step]" = weakref.WeakSet()
 
 
 def enabled(capture: Optional[bool], device, draws=()) -> bool:
     """Whether a step on ``device`` runs captured.  ``None``: on for a CUDA
-    device in one process, off on the CPU and under a process group, and
-    off where a replay could not draw afresh from one of ``draws`` (the
-    step's sources of random numbers, see ``renews``).  ``True`` raises
-    where capture cannot run; ``False`` is eager."""
+    device in one process or under an NCCL process group; off on the CPU,
+    under a gloo group, and where a replay could not draw afresh from one
+    of ``draws`` (the step's sources of random numbers, see ``renews``).
+    ``True`` raises where capture cannot run; ``False`` is eager."""
     device = torch.device(device)
-    grouped = dist.is_available() and dist.is_initialized()
+    gloo = (dist.is_available() and dist.is_initialized()
+            and dist.get_backend() != "nccl")
     if capture is False:
         return False
     if capture and device.type != "cuda":
         raise ValueError(f"capture=True needs a CUDA device, not {device}")
-    if capture and grouped:
-        raise ValueError("capture=True under a process group: the steps of "
-                         "a data-parallel run are eager")
+    if capture and gloo:
+        raise ValueError("capture=True under a gloo process group: only "
+                         "NCCL collectives can be recorded into a CUDA "
+                         "graph, so the steps of a gloo run are eager")
     if capture and not renews(*draws):
         raise ValueError("capture=True with a source of draws that a replay "
                          "cannot renew (it has no capturable = True): each "
                          "replay would reuse the draw made at the capture")
-    return device.type == "cuda" and not grouped and renews(*draws)
+    return device.type == "cuda" and not gloo and renews(*draws)
 
 
 # ------------------------------------------------------------------ trees
@@ -157,6 +167,7 @@ class Step:
         self.pool = None
         self.captures = 0
         self._stream = None
+        _STEPS.add(self)
 
     def __call__(self, *args):
         leaves: List[torch.Tensor] = []
@@ -246,6 +257,18 @@ class Step:
         if self.pool is None:
             self.pool = graph.pool()
         self.captures += 1
+
+
+def release() -> None:
+    """Drop the graphs of every ``Step`` of the process (each captures anew
+    at its next calls) once the card has finished their replays.  A
+    process group's NCCL communicator is destroyed only after the graphs
+    that recorded its collectives: ``parallel.shutdown`` calls this."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for step in list(_STEPS):
+        step.drop()
+    gc.collect()
 
 
 # ------------------------------------------------------------ state loads

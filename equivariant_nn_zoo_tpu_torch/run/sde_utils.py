@@ -16,15 +16,16 @@ parameters' ``.grad``), and every ``grad_acc``-th step the division, the
 clip, the NaN/Inf skip and Adam; the EMA on every step.  Nothing in it
 reads the host: the skip takes the step and puts the old parameters and
 optimizer state back where the gradients are not finite (JAX's
-``lax.cond``), and the EMA's count lives on the device.  On a CUDA device
-in one process the steps are compiled (``capture``, by default on): the
-step that applies and the micro-step each run as a CUDA graph
-(``run.capture.Step``), with the noise generators registered with them.
-Under a process group the loss and its backward go through
-``DistributedDataParallel`` (``no_sync`` on the micro-steps that apply
-nothing), eagerly, so the gradients that the clip, the skip and Adam read
-are the mean of all ranks': every rank skips a step together.  The EMA
-reads the unwrapped model.  ``sde_state_dict`` and ``load_sde_state_dict``
+``lax.cond``), and the EMA's count lives on the device.  On a CUDA device,
+in one process or under an NCCL process group, the steps are compiled
+(``capture``, by default on): the step that applies and the micro-step
+each run as a CUDA graph (``run.capture.Step``), with the noise
+generators registered with them.  Under a process group the gradients are
+views of flat buffers (``parallel.GradReducer``) that the step that
+applies all-reduces before the division and the clip (captured under
+NCCL, eager under gloo), so the gradients that the clip, the skip and
+Adam read are the mean of all ranks': every rank skips a step together,
+with no host read.  ``sde_state_dict`` and ``load_sde_state_dict``
 turn the training state into a checkpoint of numpy arrays under the JAX
 state's names (``params``, ``opt_state``, ``ema``, ``step``) and back.
 """
@@ -331,7 +332,6 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
                 likelihood_weighting=False, grad_clid_norm=None,
                 grad_acc: int = 1, ema_decay: float = 0.999,
                 ema_use_num_updates: bool = True,
-                find_unused_parameters: bool = False,
                 capture=None) -> Callable:
     """``step_fn(state, batch) -> (state, loss, losses)``.
 
@@ -343,11 +343,11 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
     EMA updates on every step.  Evaluation: the loss of the EMA model.
     ``model`` and ``optimizer`` (``adam``) are the training model and its
     optimizer; ``state`` comes from ``init_sde_state(model)``.
-    Under a process group the training step goes through DDP,
-    ``find_unused_parameters`` telling it to look for parameters that get
-    no gradient (``parallel/data_parallel.py``).  ``capture``: the steps
-    as CUDA graphs (``run.capture.enabled``: by default on a CUDA device in
-    one process; the device is ``model``'s, or the batch's when
+    Under a process group the step that applies averages the gradients
+    over the ranks first (``parallel.GradReducer``; a parameter that gets
+    no gradient averages zeros).  ``capture``: the steps as CUDA graphs
+    (``run.capture.enabled``: by default on a CUDA device in one process
+    or under NCCL; the device is ``model``'s, or the batch's when
     evaluating); ``False`` is eager.  A captured step draws from
     ``state["noise"]``'s generator, and, for a model with an in-model edge
     layer, from its ``EdgeRandom``: they are registered with the graphs.  A
@@ -393,14 +393,16 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
         return eval_step
 
     params = list(model.parameters())
-    step_module = dp.step_module(dp.LossStep(model, loss_fn),
-                                 find_unused_parameters)
+    # the gradients as views of flat buffers, made once (rank 0's
+    # parameters broadcast to every rank under a process group)
+    reducer = {"grads": dp.GradReducer(params)}
     # capture=True raises here where it cannot run at all; the noise source
     # is asked about on each call (the state carries it)
     capture_mod.enabled(capture, params[0].device, (model,))
 
     def apply_gradients():
-        grads = [p.grad for p in params]
+        reducer["grads"].reduce()
+        grads = reducer["grads"].grads()
         if grad_acc > 1:
             torch._foreach_div_(grads, float(grad_acc))
         if grad_clid_norm is not None:
@@ -408,17 +410,13 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
                 torch._foreach_norm(grads)))
             torch._foreach_mul_(grads, torch.clamp(
                 grad_clid_norm / (norm + 1e-12), max=1.0))
-        # the gradients after DDP's all-reduce: every rank skips together
-        finite = torch.isfinite(_flat(grads)).all()
-        _finite_step(optimizer, finite)
-        torch._foreach_zero_(grads)
+        # the gradients after the all-reduce: every rank skips together
+        _finite_step(optimizer, reducer["grads"].finite())
+        reducer["grads"].zero_()
 
     def one_step(state, batch, applies):
-        # under DDP the ranks' gradients are averaged on the step that
-        # applies
-        with dp.no_sync(step_module, applies):
-            loss, losses = step_module(batch, state["noise"])
-            loss.backward()
+        loss, losses = loss_fn(model, batch, state["noise"])
+        loss.backward()
         if applies:
             apply_gradients()
         ema_update(list(state["ema"]["model"].parameters()), params,
@@ -428,11 +426,11 @@ def get_step_fn(sde: VPSDE, train: bool, model=None, optimizer=None,
 
     def train_step(state, batch):
         # optax steps every leaf, zeros included: every gradient is a
-        # tensor the steps add to and zero in place
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-                compiled.update(owners=(), steps={})
+        # tensor the steps add to and zero in place (made again, and the
+        # graphs with them, where a caller replaced one)
+        if not reducer["grads"].attached():
+            reducer["grads"] = dp.GradReducer(params)
+            compiled.update(owners=(), steps={})
         state["step"] += 1
         applies = state["step"] % grad_acc == 0
         if not capture_mod.enabled(capture, params[0].device,

@@ -18,11 +18,12 @@ are four functions here (train, eval, accumulate, apply), which read
 nothing from the host: the gradients are made once, for every parameter
 (optax steps every leaf), and zeroed and summed in place, and the EMA's
 count (and on the card the optimizer's rate and counts) are tensors.  On a
-CUDA device in one process they are compiled (``capture``, by default on):
-each runs as a CUDA graph per batch signature (``run.capture.Step``);
-``capture=False`` runs them eagerly.  Batches come from the loader as host
-batches in pinned memory and are copied to the card one batch ahead on a
-side CUDA stream (``_device_prefetch``).
+CUDA device, in one process or under an NCCL process group, they are
+compiled (``capture``, by default on): each runs as a CUDA graph per batch
+signature (``run.capture.Step``); ``capture=False`` runs them eagerly.
+Batches come from the loader as host batches in pinned memory and are
+copied to the card one batch ahead on a side CUDA stream
+(``_device_prefetch``).
 
 Checkpoints are pickles of nested dicts of numpy arrays: the parameters
 under the JAX parameter tree's names (``utils.params``), so ``best.pt`` and
@@ -36,13 +37,13 @@ is ``loss_coeffs``; every other argument is a keyword of the JAX
 trainer's signature, but ``mesh``, whose place the process group takes.
 
 A trainer built under a process group (``parallel.init_distributed``) is
-data parallel, as the JAX trainer is over its ``mesh``: the training
-forward and ``backward`` go through ``DistributedDataParallel`` around
-the model and the loss (``no_sync`` on the first ``grad_acc - 1``
-micro-batches),
-so every rank applies the mean gradient of all ranks; ``self.model``
-stays the unwrapped module, which the EMA, the checkpoints (the JAX
-names), the equivariance test and the parameter histograms read.  Each
+data parallel, as the JAX trainer is over its ``mesh``: the gradients
+are views of flat buffers (``parallel.GradReducer``, which broadcasts
+rank 0's parameters when the trainer is built), and the steps that apply
+(train, apply) all-reduce them before the clip, so every rank applies the
+mean gradient of all ranks; the accumulating micro-steps do not (DDP's
+``no_sync``).  Under NCCL the all-reduce is part of the captured step;
+under gloo the steps run eagerly (``capture=True`` raises).  Each
 epoch takes the least number of batches of any rank (``agree_min``), and
 the losses and metrics of an epoch are averaged over the ranks before
 early stopping and the scheduler read them, so every rank stops, and
@@ -430,7 +431,8 @@ class Trainer:
         """``shard_split``: ``batch_size`` is the global batch, and each
         rank's loaders load their part of it (the CLI's ``--dp``).
         ``capture``: the steps as CUDA graphs (``run.capture.enabled``: by
-        default on a CUDA device in one process); ``False`` is eager."""
+        default on a CUDA device in one process or under NCCL); ``False``
+        is eager."""
         for key in (
             "data_config workdir seed loss_coeffs metrics_components "
             "metric_key max_epochs learning_rate lr_scheduler_name "
@@ -523,6 +525,12 @@ class Trainer:
         if self.early_stopping_conds is None and n_args > 0:
             self.early_stopping_conds = EarlyStopping(**es_kwargs)
 
+        # the gradients are made once, as views of flat buffers, zeroed
+        # and summed in place and, under a process group, averaged over
+        # the ranks where a step applies (rank 0's parameters broadcast
+        # first, so that the EMA below starts from them)
+        self.reducer = dp.GradReducer(self.params)
+
         # the EMA parameters are a copy, never an alias of the live ones
         self.ema_model = None
         self.ema_count = torch.zeros((), dtype=torch.int32,
@@ -533,14 +541,7 @@ class Trainer:
             self.ema_params = list(self.ema_model.parameters())
             self.live_params = list(self.model.parameters())
 
-        # the step's forward and backward, in DDP under a process group
-        self.step_module = dp.step_module(
-            dp.LossStep(self.model, self._forward_loss))
-
-        # the four steps, compiled or eager; the gradients are made once,
-        # zeroed and summed in place
-        for p in self.params:
-            p.grad = torch.zeros_like(p)
+        # the four steps, compiled or eager
         self._param_names = [n for n, p in self.model.named_parameters()
                              if p.requires_grad]
         self._steps = {"train": self._train_fn, "eval": self._eval_fn,
@@ -580,7 +581,7 @@ class Trainer:
     # ------------------------------------------------------------ stepping
 
     def _grads(self):
-        return [p.grad for p in self.params]
+        return self.reducer.grads()
 
     def apply_gradients(self):
         """Clip (optax's ``clip_by_global_norm``), take the optimizer's
@@ -598,9 +599,9 @@ class Trainer:
             ema_update(self.ema_params, self.live_params, self.ema_count,
                        self.ema_decay, self.ema_use_num_updates)
 
-    def _forward_loss(self, model, data):
-        """The training forward of ``LossStep``: ``(loss, contrib, out)``."""
-        out = model(data)
+    def _forward_loss(self, data):
+        """The training forward: ``(loss, contrib, out)``."""
+        out = self.model(data)
         loss, contrib = self.loss(out.data, data.data)
         return loss, contrib, out
 
@@ -608,12 +609,13 @@ class Trainer:
     # _apply_step); nothing in them reads the host
 
     def _train_fn(self, data):
-        grads = self._grads()
-        torch._foreach_zero_(grads)
-        loss, contrib, out = self.step_module(data)
+        self.reducer.zero_()
+        loss, contrib, out = self._forward_loss(data)
         loss.backward()
+        self.reducer.reduce()
         # the watch hook's gradients, before the clip (JAX returns them)
-        watched = [g.clone() for g in grads] if self.watch_freq else []
+        watched = ([g.clone() for g in self._grads()] if self.watch_freq
+                   else [])
         self.apply_gradients()
         return loss, contrib, out, watched
 
@@ -625,19 +627,16 @@ class Trainer:
         return loss, contrib, out
 
     def _accumulate_fn(self, data):
-        # under DDP the ranks' gradients are averaged on the last
-        # micro-batch (a captured step is never under DDP)
-        with dp.no_sync(self.step_module,
-                        self._acc_count + 1 >= self.grad_acc):
-            loss, contrib, out = self.step_module(data)
-            loss.backward()
+        # summed on this rank; ``_apply_fn`` averages the sum over the ranks
+        loss, contrib, out = self._forward_loss(data)
+        loss.backward()
         return loss, contrib, out
 
     def _apply_fn(self):
-        grads = self._grads()
-        torch._foreach_div_(grads, float(self.grad_acc))
+        self.reducer.reduce()
+        torch._foreach_div_(self._grads(), float(self.grad_acc))
         self.apply_gradients()
-        torch._foreach_zero_(grads)
+        self.reducer.zero_()
 
     def batch_step(self, data, validation: bool = False):
         """One training step on ``data``, or with ``validation`` one

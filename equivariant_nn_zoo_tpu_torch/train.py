@@ -15,8 +15,9 @@ loop over ``run/sde_utils.py``), any other to ``train_regression`` (the
 ``Trainer``).  Files go to ``<workdir>/<project>/<name>``, the log also to
 its ``stdout.txt`` (rank 0).
 
-Data parallelism is the reference's own: one process per rank and DDP
-(``parallel/``), where the JAX CLI builds a device mesh.
+Data parallelism is the reference's own: one process per rank and the
+gradients' mean over the ranks (``parallel/``), where the JAX CLI builds a
+device mesh.
 
 - ``--dp N`` (N > 1) starts N local ranks with
   ``torch.multiprocessing.spawn``; as the JAX CLI's in-process mesh splits
@@ -208,8 +209,8 @@ def _sde_config(args) -> dict:
 
 def train_diffusion(config: dict, args):
     """The VP-SDE training loop (the JAX CLI's ``train_diffusion``): steps
-    ``state["step"]`` to ``n_iters`` through ``get_step_fn`` (DDP under a
-    process group), an evaluation step with the EMA model every
+    ``state["step"]`` to ``n_iters`` through ``get_step_fn`` (the gradients averaged
+    over the ranks under a process group), an evaluation step with the EMA model every
     ``eval_period`` steps, and every ``save_period`` steps and at the end
     the evaluation losses' mean (over the steps and the ranks) into
     ``ReduceLROnPlateau``, whose rate is logged and, as in the JAX loop,
@@ -274,8 +275,7 @@ def train_diffusion(config: dict, args):
         continuous=training["continuous"],
         grad_clid_norm=config.get("grad_clid_norm"),
         grad_acc=config.get("grad_acc", 1),
-        ema_decay=sde_config["model"]["ema_rate"],
-        find_unused_parameters=config.get("find_unused_parameters", False))
+        ema_decay=sde_config["model"]["ema_rate"])
     eval_step_fn = sde_utils.get_step_fn(
         sde, False, model=model, reduce_mean=training["reduce_mean"],
         continuous=training["continuous"])

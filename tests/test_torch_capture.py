@@ -1,9 +1,11 @@
 """The compiled step (``run/capture.py``, CUDA-graph capture as the port's
 ``jax.jit``) and the repairs it needed, on the CPU:
 
-- ``capture.enabled``: on by default for a CUDA device in one process,
-  off on the CPU and under a (gloo) process group; ``capture=True`` raises
-  on the CPU and under a group, for every entry point;
+- ``capture.enabled``: on by default for a CUDA device in one process or
+  under an NCCL process group, off on the CPU and under a gloo group;
+  ``capture=True`` raises on the CPU, for every entry point, and under a
+  gloo group; ``parallel.shutdown`` drops every graph before it ends the
+  group;
 - ``capture.Step``'s bookkeeping with a stand-in for
   ``torch.cuda.CUDAGraph`` (``ReplayingGraph``): one graph per signature,
   the warm-up count, one pool, the static inputs, the launch counts, the
@@ -189,16 +191,53 @@ def test_enabled_picks_capture_and_raises_where_it_cannot_run():
         sampler(None, port_batch(mols))
 
 
-def test_default_is_eager_under_a_process_group():
+def test_default_is_eager_under_a_process_group(monkeypatch):
+    """Under a gloo group the steps run eagerly and ``capture=True``
+    raises: only NCCL collectives can be recorded into a CUDA graph.
+    Under NCCL (the group's backend stubbed here) the steps are captured
+    by default, the gradients' all-reduce inside the graph."""
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         assert capture.enabled(None, "cuda") is False
-        with pytest.raises(ValueError, match="process group"):
+        assert capture.enabled(False, "cuda") is False
+        with pytest.raises(ValueError, match="gloo process group"):
             capture.enabled(True, "cuda")
+        monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+        assert capture.enabled(None, "cuda") is True
+        assert capture.enabled(True, "cuda") is True
+        assert capture.enabled(None, "cpu") is False
+        assert capture.enabled(False, "cuda") is False
     finally:
+        monkeypatch.undo()
         dist.destroy_process_group()
     assert capture.enabled(None, "cuda") is True
+
+
+def test_shutdown_releases_every_graph_first(monkeypatch):
+    """``parallel.shutdown`` drops every step's graphs before it destroys
+    the process group (NCCL's destroy waits for ever on a communicator
+    that a live graph recorded); the steps capture anew afterwards."""
+    from equivariant_nn_zoo_tpu_torch import parallel
+
+    step = CPUStep("held", lambda x: x + 1)
+    for _ in range(3):
+        step(torch.ones(2))
+    assert step.captures == 1 and step.graphs
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    real, seen = dist.destroy_process_group, []
+
+    def destroy(*args, **kwargs):
+        seen.append(len(step.graphs))
+        real(*args, **kwargs)
+
+    monkeypatch.setattr(dist, "destroy_process_group", destroy)
+    parallel.shutdown()
+    assert seen == [0] and not dist.is_initialized()
+    step(torch.ones(2))
+    (entry,) = step.graphs.values()
+    assert entry.calls == 1 and entry.graph is None
 
 
 # ------------------------------------------------------------ bookkeeping

@@ -88,8 +88,6 @@ BY_DESIGN = {
     ("model_config", "edge_seed"): "the protein edge layer's random pairs "
                                    "come from a generator seeded with it, "
                                    "not from a key folded with t",
-    ("top", "find_unused_parameters"): "the energy bias of spec 'nll' gets "
-                                       "no gradient; DDP must look for it",
 }
 SPECS = [("config_energy", None), ("config_energy_force", None),
          ("config_dipole", None), ("config_dipole", "profiling"),

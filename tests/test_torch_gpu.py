@@ -21,7 +21,10 @@ path, K3 and K3b at 18 species repeated bit for bit on every layer, and a
 two-epoch ``Trainer.train`` through the pinned loader with a resume.  The
 compiled step (``run/capture.py``): a captured ``config_energy`` step
 replayed on two different batches equals the eager step on each, and a
-captured run repeats itself bit for bit.
+captured run repeats itself bit for bit.  ``build_model(...,
+kernels=False)``: a ``config_energy`` step through every kernel's plain
+version on the card launches no kernel and gives the kernels' loss and
+gradients.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -1811,3 +1814,33 @@ def test_captured_run_repeats_bit_for_bit(cuda):
     for p, q in zip(runs[0].ema_model.parameters(),
                     runs[1].ema_model.parameters()):
         assert torch.equal(p, q)
+
+
+def test_kernels_off_step_matches_the_kernels(cuda):
+    """One ``config_energy`` training step of a model built with
+    ``kernels=False`` (every wrapper's plain version on CUDA tensors)
+    launches no kernel, and its loss and every gradient equal those of the
+    default model, which launches K1, K2, K3 and K3b once a layer, at
+    1e-4."""
+    gb = _energy_batches(cuda, 1)[0]
+    n_layers = get_config("config_energy")["model_config"]["num_layers"]
+    counters = ((FullConv, "launches"), (FullConv, "backward_launches"),
+                (SpeciesScalarFCTP, "launches"),
+                (SpeciesScalarFCTP, "backward_launches"))
+    runs = {}
+    for kernels in (False, True):
+        model = build_model(get_config("config_energy")["model_config"],
+                            cuda, torch.Generator().manual_seed(0),
+                            kernels=kernels)
+        before = [getattr(c, a) for c, a in counters]
+        runs[kernels] = _step_gradients(model, gb)
+        torch.cuda.synchronize()
+        launched = [getattr(c, a) - b for (c, a), b in zip(counters, before)]
+        assert launched == ([n_layers] * 4 if kernels else [0] * 4), launched
+    (loss, got), (want_loss, want) = runs[True], runs[False]
+    assert abs(loss - want_loss) <= TOL * abs(want_loss)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert torch.isfinite(want[name]).all(), name
+        assert _rel(got[name], want[name]) <= TOL, (name, _rel(got[name],
+                                                               want[name]))

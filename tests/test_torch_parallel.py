@@ -22,6 +22,20 @@ script written into ``tmp_path``:
   loss and stop at the same epoch;
 - the SDE step's NaN/Inf skip: when one rank's batch is poisoned, both
   ranks skip the step and keep equal parameters;
+- one step at two ranks of ``config_dipole``, ``config_hamiltonian`` (the
+  ``Trainer``), ``config_diffusion`` ``"nll"`` and ``config_diffusion_CA``
+  (``get_step_fn``), narrow where the tests narrow them, all in one spawn,
+  against one process's step on both ranks' batches (``grad_acc`` 2, each
+  micro-batch with its rank's noise): each rank's loss at 1e-6, the
+  gradient the optimizer steps on at 1e-5 of the largest (Adam turns the
+  1e-17 noise of gradients that are zero by symmetry into steps of its
+  rate, so the parameters after it are not compared), the ranks'
+  parameters equal bit for bit (a parameter without a gradient,
+  ``"nll"``'s energy bias, averages zeros, with no
+  ``find_unused_parameters``);
+- in the same spawn, the flat reduce (``parallel.GradReducer``) against
+  ``DistributedDataParallel`` on the energy model, at ``grad_acc`` 1 and
+  2 (``no_sync`` on the first micro-batch): equal gradients bit for bit;
 - two ranks' loaders with ``num_shards`` 2 yield the parts of each global
   batch that the JAX loader stacks for a 2-device mesh.
 """
@@ -260,8 +274,93 @@ def sde_resume():
                 next=state["noise"].uniform(draws[0].shape).numpy())
 
 
+def ddp_against_flat(case):
+    """The narrow energy model's gradients from this rank's first
+    ``grad_acc`` micro-batches, through DDP (``no_sync`` on all but the
+    last) and through the flat reduce, from one seed."""
+    import contextlib
+
+    from equivariant_nn_zoo_tpu_torch.run import Loss
+
+    loss = Loss(case["loss"])
+    out = {{}}
+    for grad_acc in (1, 2):
+        micro = case["batches"][rank][:grad_acc]
+        for how in ("ddp", "flat"):
+            model = build_model(case["model_config"], "cpu",
+                                torch.Generator().manual_seed(0))
+
+            class Step(torch.nn.Module):
+                def __init__(self):
+                    super().__init__()
+                    self.model = model
+
+                def forward(self, gb):
+                    return loss(self.model(gb).data, gb.data)[0]
+
+            if how == "ddp":
+                ddp = torch.nn.parallel.DistributedDataParallel(
+                    Step(), broadcast_buffers=False)
+                for i, gb in enumerate(micro):
+                    with (ddp.no_sync() if i + 1 < grad_acc
+                          else contextlib.nullcontext()):
+                        ddp(gb).backward()
+            else:
+                grads = parallel.GradReducer(model.parameters())
+                for gb in micro:
+                    Step()(gb).backward()
+                grads.reduce()
+            out[(grad_acc, how)] = {{
+                n: p.grad.numpy().copy() for n, p in model.named_parameters()}}
+    return out
+
+
+def configs():
+    """One step of each config of ``inputs.pkl`` on this rank's batch (the
+    ``Trainer``, or ``get_step_fn`` with this rank's noise), the gradients
+    the optimizer steps on recorded; then ``ddp_against_flat``."""
+    from equivariant_nn_zoo_tpu_torch.run import sde_utils
+
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    parallel.init_distributed(world, rank, "127.0.0.1", port, "cpu")
+    out = {{}}
+    for name, case in inputs["cases"].items():
+        model = build_model(case["model_config"], "cpu",
+                            torch.Generator().manual_seed(0))
+        gb = case["batches"][rank]
+        grads = {{}}
+
+        def record(opt, args, kwargs):
+            grads.update({{n: p.grad.numpy().copy()
+                          for n, p in model.named_parameters()}})
+
+        if "loss" in case:
+            trainer = Trainer(model, case["loss"], learning_rate=1e-2,
+                              optimizer_name="Adam")
+            trainer.optimizer.register_step_pre_hook(record)
+            trainer.batch_step(gb)
+            loss = trainer.batch_losses["loss"]
+        else:
+            sde = sde_utils.VPSDE(case["diffusion_keys"], N=50)
+            optimizer = sde_utils.adam(model, 1e-2)
+            optimizer.register_step_pre_hook(record)
+            step = sde_utils.get_step_fn(
+                sde, True, model=model, optimizer=optimizer,
+                reduce_mean=True, grad_clid_norm=1.0)
+            state = sde_utils.init_sde_state(model,
+                                             sde_utils.Noise("cpu", rank))
+            state, loss, _ = step(state, gb)
+        out[name] = dict(loss=float(loss), grads=grads, params={{
+            n: p.detach().numpy().copy()
+            for n, p in model.named_parameters()}})
+    out["ddp"] = ddp_against_flat(inputs["ddp"])
+    parallel.shutdown()
+    return out
+
+
 result = dict(cli=cli, steps=steps, sde_nan=sde_nan,
-              sde_resume=sde_resume)[scenario]()
+              sde_resume=sde_resume, configs=configs)[scenario]()
 with open(os.path.join(tmp, f"out{{rank}}.pkl"), "wb") as f:
     pickle.dump(result, f)
 print("RANK_DONE", rank, flush=True)
@@ -651,3 +750,159 @@ def test_sharded_loader_parts_match_jax_mesh_shards(tmp_path):
                 for key, value in stacked.data.items():
                     np.testing.assert_array_equal(
                         got[key].numpy(), np.asarray(value)[r], err_msg=key)
+
+
+# ------------------------------------------- the configs at two ranks
+
+
+def _config_cases(tmp_path):
+    """Each config's model config and the two ranks' batches (and its loss
+    for the ``Trainer``, or its diffusion keys for ``get_step_fn``), at
+    the widths of the config's own tests."""
+    from test_torch_dipole import LOSS as DIPOLE_LOSS
+    from test_torch_dipole import NARROW as DIPOLE
+    from test_torch_dipole import dipole_config
+    from test_torch_dipole import molecules as dipole_molecules
+    from test_torch_dipole import port_batch as dipole_batch
+    from test_torch_hamiltonian import LOSS as HAMILTONIAN_LOSS
+    from test_torch_hamiltonian import (
+        _labelled,
+        _molecules,
+        _port_batch,
+        _port_config,
+    )
+    from test_torch_protein import E_CAP as PROTEIN_E_CAP
+    from test_torch_protein import narrow_config, write_proteins
+    from test_torch_sde import molecules as sde_molecules
+    from test_torch_sde import port_batch as sde_batch
+
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+    from equivariant_nn_zoo_tpu_torch.nn import PointwiseLinear
+    from equivariant_nn_zoo_tpu_torch.data import getDataIters
+
+    ca = narrow_config("config_diffusion_CA")
+    ca["data_config"].update(
+        path=[write_proteins(tmp_path / "pdb_0.hdf5")], n_train=0.7,
+        n_val=0.3, edge_capacity=PROTEIN_E_CAP)
+    ca["batch_size"] = 2
+    loader = getDataIters(ca, seed=0)[0]
+    rng = np.random.default_rng(12)
+    proteins = []
+    for _ in range(2):
+        gb = ca["data_config"]["scaler"](next(loader))
+        n = gb.node_capacity
+        proteins.append(gb.replace(_edge_rand=torch.tensor(
+            rng.uniform(size=(n, n)).astype(np.float32))))
+    nll = get_config("config_diffusion", "nll")
+    return {
+        "config_dipole": dict(
+            model_config=dipole_config(tlc, PointwiseLinear, **DIPOLE),
+            loss=DIPOLE_LOSS,
+            batches=[dipole_batch(dipole_molecules(seed=r)) for r in (0, 1)]),
+        "config_hamiltonian": dict(
+            model_config=_port_config(), loss=HAMILTONIAN_LOSS,
+            batches=[_port_batch(_labelled(_molecules(seed=r), seed=r))
+                     for r in (0, 1)]),
+        'config_diffusion "nll"': dict(
+            model_config=nll["model_config"],
+            diffusion_keys=dict(nll["diffusion_keys"]),
+            batches=[sde_batch(sde_molecules(seed=r)) for r in (0, 1)]),
+        "config_diffusion_CA": dict(
+            model_config=ca["model_config"],
+            diffusion_keys=dict(ca["diffusion_keys"]), batches=proteins),
+    }
+
+
+def _one_process(case):
+    """One process's step on both ranks' batches: ``grad_acc`` 2, the
+    micro-batches in rank order, each SDE micro-step with its rank's
+    noise.  Returns the micro-steps' losses and the gradients the
+    optimizer steps on."""
+    from equivariant_nn_zoo_tpu_torch.models import build_model
+    from equivariant_nn_zoo_tpu_torch.run import sde_utils
+
+    model = build_model(case["model_config"], "cpu",
+                        torch.Generator().manual_seed(0))
+    grads = {}
+
+    def record(opt, args, kwargs):
+        grads.update({n: p.grad.numpy().copy()
+                      for n, p in model.named_parameters()})
+
+    losses = []
+    if "loss" in case:
+        trainer = Trainer(model, case["loss"], learning_rate=1e-2,
+                          optimizer_name="Adam", grad_acc=2)
+        trainer.optimizer.register_step_pre_hook(record)
+        for gb in case["batches"]:
+            trainer.batch_step(gb)
+            losses.append(float(trainer.batch_losses["loss"]))
+    else:
+        sde = sde_utils.VPSDE(case["diffusion_keys"], N=50)
+        optimizer = sde_utils.adam(model, 1e-2)
+        optimizer.register_step_pre_hook(record)
+        step = sde_utils.get_step_fn(
+            sde, True, model=model, optimizer=optimizer, reduce_mean=True,
+            grad_clid_norm=1.0, grad_acc=2)
+        state = sde_utils.init_sde_state(model)
+        for rank, gb in enumerate(case["batches"]):
+            state["noise"] = sde_utils.Noise("cpu", rank)
+            state, loss, _ = step(state, gb)
+            losses.append(float(loss))
+    return losses, grads
+
+
+@pytest.fixture(scope="module")
+def two_rank_configs(tmp_path_factory, dp_reference):
+    """The ``configs`` scenario's results (one spawn), each config's
+    one-process reference, and the energy model's inputs for DDP."""
+    tmp_path = tmp_path_factory.mktemp("configs")
+    cases = _config_cases(tmp_path)
+    (a, c), (b, d) = dp_reference["steps"][:2]
+    energy = dict(model_config=tlc.addEnergyOutput(
+        tlc.featureModel(**NARROW), shifts=[0.0] * 10), loss=ENERGY_LOSS,
+        batches=[[a, b], [c, d]])
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(dict(cases=cases, ddp=energy), f)
+    ranks = run_ranks(tmp_path, "configs")
+    return dict(ranks=ranks, want={name: _one_process(case)
+                                   for name, case in cases.items()})
+
+
+CONFIG_NAMES = ["config_dipole", "config_hamiltonian",
+                'config_diffusion "nll"', "config_diffusion_CA"]
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
+def test_configs_step_at_two_ranks(two_rank_configs, name):
+    """Each rank's loss is the one-process step's on that rank's batch;
+    every rank steps on the gradient of the one-process step on both
+    batches, and the ranks' parameters end equal."""
+    ranks = two_rank_configs["ranks"]
+    losses, want = two_rank_configs["want"][name]
+    np.testing.assert_allclose([r[name]["loss"] for r in ranks], losses,
+                               rtol=1e-6)
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    assert scale > 0
+    for rank in range(2):
+        got = ranks[rank][name]["grads"]
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-5,
+                                       atol=1e-5 * scale, err_msg=k)
+    params = [r[name]["params"] for r in ranks]
+    for k in params[0]:
+        assert np.array_equal(params[0][k], params[1][k]), k
+
+
+@pytest.mark.parametrize("grad_acc", [1, 2])
+def test_flat_reduce_gives_ddp_gradients(two_rank_configs, grad_acc):
+    """The flat buffers' all-reduce and division give, on both ranks, the
+    gradients that DDP gives, bit for bit, with ``no_sync`` on the
+    micro-batches that apply nothing."""
+    for rank in range(2):
+        got = two_rank_configs["ranks"][rank]["ddp"]
+        ddp, flat = got[(grad_acc, "ddp")], got[(grad_acc, "flat")]
+        assert ddp.keys() == flat.keys()
+        for k in ddp:
+            np.testing.assert_array_equal(flat[k], ddp[k], err_msg=k)
