@@ -28,6 +28,7 @@
     python3 chip_smoke.py --dipole         # phases 22-25 alone
     python3 chip_smoke.py --protein        # phases 26-28 alone
     python3 chip_smoke.py --cli            # phases 29-32 alone
+    python3 chip_smoke.py --bf16           # phase 42 alone
     python3 chip_smoke.py --md             # phases 33-37 alone
     python3 chip_smoke.py --datasets       # phases 38-39 alone
     python3 chip_smoke.py --capture        # phases 40-41 alone
@@ -388,6 +389,28 @@ Phases, in order; any failure exits non-zero before the last line:
              run in each mode, finite.  Each path's ms per step (or
              evaluation) and launches in both modes, as phase 40's, and
              the phase's seconds.
+42. bfloat16 — ``config_energy`` with ``compute_dtype="bfloat16"``: (a) at
+             the hot layer, the bf16 K1, K2, K3, K3b and the mix GEMM's bf16
+             products (forward mix, dS and dwsel, K2's dW_out product)
+             against their bf16 plain contracts on the card, each output
+             within half of the plain contract's own distance from its
+             float32 contract (relative L2, see ``half_rel``) and repeated
+             bit for bit; (b) with every count set to 0 just before and read
+             just after: 4 batches of 128 served through
+             ``inference.evaluate`` and 4 captured ``Trainer`` steps, then
+             ``config_dipole`` at bf16, 2 batches of 256 served and 2
+             steps, each bf16 kernel launched and no float32 K1, K2, K3 or
+             K3b; (c) for the model's seed and one more, the node
+             energies of a 32-graph cut on the card against the CPU's bf16
+             plain path, within 0.75 of the CPU's bf16-vs-f32 distance
+             (five layers compound the kernels' one-place flips); (d) the
+             captured step and serving at batch 128 at float32 and at
+             bfloat16, in the order f32, bf16, bf16, f32 (median of 20,
+             CUDA events).  The bf16 variants' bounds take their operands'
+             bytes at 2 bytes and their products of bfloat16 operands
+             other than the walks' CG products (the radial MLP, the mix,
+             K3's and K3b's table products) over 989 TFLOP/s (bf16,
+             dense).
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -433,6 +456,7 @@ H2O_TRAIN_BATCHES = (16, 128)          # the config's batch, a larger one
 HOT_LAYER = "layer3"
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 CUDA cores, HBM3
 PEAK_TF32 = 495e12                       # H100 SXM: TF32 tensor cores, dense
+PEAK_BF16 = 989e12                       # H100 SXM: bf16 tensor cores, dense
 
 
 def fail(msg):
@@ -595,10 +619,15 @@ def digest(out):
     skipped): two checkouts' outputs on the same inputs compare by it."""
     import hashlib
 
+    import torch
+
     h = hashlib.sha1()
     for t in (out if isinstance(out, (tuple, list)) else (out,)):
         if t is not None:
-            h.update(t.detach().cpu().numpy().tobytes())
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:   # numpy has no bfloat16
+                t = t.view(torch.int16)
+            h.update(t.numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -833,13 +862,15 @@ def step_gradients(model, gb, loss_fn):
 # several kernels, each at most once, the most launched of them counts.
 # K4f's walk also runs inside K4b when it is given no scratch (the
 # pairing rule's calls), so its device count may pass its host count.
+# (the float32 kernels' names with or without the bfloat16 variants'
+# template flag, so that a parent checkout's kernels are counted too)
 LAUNCH_MARKS = {
-    "full_conv": (r"k1_walk_kernel<",),
+    "full_conv": (r"k1_walk_kernel<\d+(, false)?>",),
     "full_conv_bwd": (r"k2_walk_kernel<",),
     "full_conv_bwd_dsh": (r"k2_walk_kernel<\d+, true>",),
-    "species_sc": (r"table_product_kernel<false>",),
-    "species_sc_bwd": (r"table_product_kernel<true>",
-                       r"table_grad_sum_kernel"),
+    "species_sc": (r"table_product_kernel<false(, false)?>",),
+    "species_sc_bwd": (r"table_product_kernel<true(, false)?>",
+                       r"table_grad_sum_kernel(?!<true>)"),
     "full_conv_ext_fwd": (r"ext_dst_walk_kernel<\d+, false>",),
     "full_conv_ext_bwd": (r"ext_src_walk_kernel<\d+, false>",),
     "full_conv_ext_grad2": (r"ext_src_walk_kernel<\d+, true>",),
@@ -847,9 +878,22 @@ LAUNCH_MARKS = {
     "uvu_conv_bwd": (r"uvu_adj_kernel",),
     "pairwise_tp": (r"pairwise_fwd_kernel",),
     "pairwise_tp_bwd": (r"pairwise_dws_kernel", r"pairwise_adj_kernel"),
-    "row_mix_forward": (r"gemm_kernel<true, false>",),
-    "row_mix_products": (r"gemm_kernel<(?!true, false>)",),
+    "row_mix_forward": (r"gemm_kernel<true, false(, false)?>",),
+    "row_mix_products": (r"gemm_kernel<(?!true, false(, false)?>)(true|false), "
+                         r"(true|false)(, false)?>",),
+    # the bfloat16 variants (phase 42)
+    "full_conv_bf16": (r"k1_walk_kernel<\d+, true>",),
+    "full_conv_bwd_bf16": (r"k2_bf16_walk_kernel<",),
+    "species_sc_bf16": (r"table_product_kernel<false, true>",),
+    "species_sc_bwd_bf16": (r"table_product_kernel<true, true>",
+                            r"table_grad_sum_kernel<true>"),
+    "row_mix_forward_bf16": (r"gemm_kernel<true, false, true>",),
+    "row_mix_products_bf16": (r"gemm_kernel<(?!true, false, true>)"
+                              r"(true|false), (true|false), true>",),
 }
+BF16_KEYS = ("full_conv_bf16", "full_conv_bwd_bf16", "species_sc_bf16",
+             "species_sc_bwd_bf16", "row_mix_forward_bf16",
+             "row_mix_products_bf16")
 EXT_KEYS = ("full_conv_ext_fwd", "full_conv_ext_bwd", "full_conv_ext_grad2")
 CONV_KEYS = ("full_conv", "full_conv_bwd", "full_conv_bwd_dsh", "species_sc",
              "species_sc_bwd") + EXT_KEYS
@@ -880,7 +924,12 @@ def launch_counters():
             "uvu_conv": (UVUConv, "launches"),
             "uvu_conv_bwd": (UVUConv, "backward_launches"),
             "pairwise_tp": (PairwiseTP, "launches"),
-            "pairwise_tp_bwd": (PairwiseTP, "backward_launches")}
+            "pairwise_tp_bwd": (PairwiseTP, "backward_launches"),
+            "full_conv_bf16": (FullConv, "bf16_launches"),
+            "full_conv_bwd_bf16": (FullConv, "bf16_backward_launches"),
+            "species_sc_bf16": (SpeciesScalarFCTP, "bf16_launches"),
+            "species_sc_bwd_bf16": (SpeciesScalarFCTP,
+                                    "bf16_backward_launches")}
 
 
 def host_launches():
@@ -888,10 +937,12 @@ def host_launches():
     eager call or a capture; a CUDA graph's replay runs no wrapper)."""
     from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix
 
-    out = {k: getattr(cls, attr)
+    out = {k: getattr(cls, attr, 0)
            for k, (cls, attr) in launch_counters().items()}
     mix = row_mix.launches()
-    out.update(row_mix_forward=mix["forward"], row_mix_products=mix["backward"])
+    out.update(row_mix_forward=mix["forward"], row_mix_products=mix["backward"],
+               row_mix_forward_bf16=mix.get("forward_bf16", 0),
+               row_mix_products_bf16=mix.get("backward_bf16", 0))
     return out
 
 
@@ -993,13 +1044,16 @@ def worst_gradient_rel(got, want):
 # kernel families of a profile, first match wins: (label, regex on the name)
 PROFILE_FAMILIES = (
     ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
+    ("K2's bfloat16 edge walk (k2_bf16_walk_kernel)", "k2_bf16_walk_kernel"),
+    ("bfloat16 widening, narrowing and rounding passes (bf16.cuh)",
+     r"bf16::"),
     ("K4 walks (ext_dst_walk_kernel, ext_src_walk_kernel)", "ext_"),
     ("K5 and K5m fused (pairwise_fwd_kernel, pairwise_dws_kernel, "
      "pairwise_chunk_sum_kernel)", r"pairwise_(fwd|dws|chunk_sum)_kernel"),
     ("a parent's K5 CG sweep (pairwise_cg_kernel; its mix and dwsel are "
      "in the GEMM families)", "pairwise_cg_kernel"),
     ("forward mix (rowmix::gemm_kernel<true, false>: K1's; a parent's K6 "
-     "mix too)", r"gemm_kernel<true, false>|mix_rows_kernel"),
+     "mix too)", r"gemm_kernel<true, false(, (false|true))?>|mix_rows_kernel"),
     ("backward's tiled products (rowmix::gemm_kernel, its split sum and "
      "gout's copy: K2's, the K5 backward's dS; a parent's K6b dS and dwsel "
      "too)", r"rowmix::"),
@@ -5885,6 +5939,419 @@ def capture_only():
     print(json.dumps({"compiled": compiled_rest_phases(dev)}))
 
 
+def half_rel(name, got, plain16, plain32, share=0.5):
+    """Hold a bfloat16 kernel's output to its plain version: within
+    ``share`` (half) of the plain version's own distance from its float32
+    contract, both distances relative L2 (``||a - b|| / ||b||`` over the tensor); returns
+    (max_abs_err, the L2 distance, the bar).  Not the max norm: a long
+    float32 sum that lands on the other side of a bfloat16 rounding
+    boundary in another order moves its element by one bfloat16 place,
+    2^-8 of it, which at the largest element passes half of a typical
+    max-norm distance by itself (K2's dW_out, measured on one H100); such
+    isolated flips barely move the L2 distance, where a rounding point
+    out of place moves every element."""
+    got, p16, p32 = (t.detach().float() for t in (got, plain16, plain32))
+    if not bool(got.isfinite().all()):
+        fail(f"{name}: non-finite kernel output")
+    err = float((got - p16).abs().max())
+    linf = err / max(float(p16.abs().max()), 1e-30)
+    dist = float((got - p16).norm()) / max(float(p16.norm()), 1e-30)
+    bar = share * float((p16 - p32).norm()) / max(float(p32.norm()),
+                                                   1e-30)
+    print(f"{name}: max_abs_err={err:.3e} (rel-linf {linf:.3e}) L2 "
+          f"{dist:.3e}, bar {bar:.3e} ({share} of the plain version's "
+          f"bfloat16-vs-float32 L2 distance)")
+    if not dist <= bar:
+        fail(f"{name}: the bfloat16 kernel is off its plain version by "
+             f"{dist:.3e} > {bar:.3e} (relative L2)")
+    return err, dist, bar
+
+
+def bf16_record(name, source, replaces, launches, err, ms, plain_ms, flops,
+                bf16_flops, n_bytes, library_ms=None):
+    """A bfloat16 variant's line of the kernels JSON: its bound the larger
+    of its operations, ``bf16_flops`` of them products of bfloat16
+    operands over 989 TFLOP/s (bfloat16 tensor cores) and the rest (the
+    walks' CG products) over 67 TFLOP/s (float32 CUDA cores), and its bytes
+    (bfloat16 operands at 2 bytes) over 3.35 TB/s."""
+    t_ops = (flops - bf16_flops) / PEAK_FLOPS + bf16_flops / PEAK_BF16
+    t_mem = n_bytes / PEAK_BYTES
+    rec = dict(name=name, route="cuda",
+               source=f"equivariant_nn_zoo_tpu_torch/csrc/{source}",
+               replaces=f"equivariant_nn_zoo_tpu/ops/pallas/{replaces}",
+               launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=1e3 * max(t_ops, t_mem),
+               bound_by="operations" if t_ops >= t_mem else "bytes",
+               library_ms=library_ms)
+    print(f"{name}: {flops / 1e9:.3f} GFLOP ({bf16_flops / 1e9:.3f} at the "
+          f"bf16 tensor-core rate), {n_bytes / 1e6:.3f} MB, bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, kernel "
+          f"{ms:.4f} ms ({rec['bound_ms'] / ms:.3f} of the bound), plain "
+          f"{plain_ms:.4f} ms")
+    return rec
+
+
+def bf16_kernel_checks(model, gb, dev):
+    """Phase 42 (a): at ``HOT_LAYER`` of the bfloat16 ``config_energy``
+    model, K1, K2, K3, K3b and the mix GEMM's bfloat16 products against
+    their bfloat16 plain versions on the same inputs, each within half of
+    the plain version's distance from its float32 contract (the float32
+    plain version on the unrounded operands), and repeated bit for bit;
+    returns the records' measurements by kernel."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.nn.message_passing import ROUNDED_INPUT
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as conv_ops
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix as rm
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as sc_ops
+
+    bf = torch.bfloat16
+    conv = getattr(model, HOT_LAYER).conv
+    data = conv_inputs(conv, lambda: model(gb))
+    fconv, ssc = conv.full_conv, conv.species_sc
+    x_in = data.get(ROUNDED_INPUT, data["input_features"])
+    with torch.no_grad():
+        x1 = conv.linear_1(x_in.float())
+        er = data["edge_radial"] * data["_edge_mask"]
+    sh, src, dst = (data["edge_spherical"], data["edge_index"][0],
+                    data["edge_index"][1])
+    N, E = x1.shape[0], er.shape[0]
+    pre = 1.0 / conv.avg_num_neighbors ** 0.5
+    with torch.no_grad():
+        f16 = [t.detach() for t in fconv.flat_weights(
+            conv.fc, conv.tp.linear, pre)]
+        # the float32 contract's operands: the same conv's float32 weights
+        fconv.compute_dtype = torch.float32
+        f32 = [t.detach() for t in fconv.flat_weights(
+            conv.fc, conv.tp.linear, pre)]
+        fconv.compute_dtype = bf
+    x1b, shb = x1.to(bf), sh.to(bf)
+    order = edge_order.shared(src, dst, N)
+    print(f"bfloat16 hot layer {HOT_LAYER}: N={N} E={E} "
+          f"in={fconv.fused.irreps_in} out_dim={fconv.out_dim}")
+    out = {}
+    with torch.no_grad():
+        # K1
+        def k1():
+            return conv_ops.launch_forward(fconv, x1b, er, shb, src, dst,
+                                           *f16, N, order=order)
+        got, scratch = k1()
+        p16, _ = fconv.plain_forward_bf16(x1b, er, shb, src, dst, *f16, N)
+        p32, _ = fconv.plain_forward(x1, er, sh, src, dst, *f32, N)
+        err, *_ = half_rel("K1 bf16", got, p16, p32)
+        repeats("K1 bf16", k1)
+        out["K1"] = dict(err=err, ms=cuda_ms(lambda: k1()), plain_ms=cuda_ms(
+            lambda: fconv.plain_forward_bf16(x1b, er, shb, src, dst, *f16,
+                                             N)))
+        # K2
+        gout = torch.randn(N, fconv.out_dim, generator=torch.Generator(
+        ).manual_seed(1)).to(dev)
+        gb16 = gout.to(bf)
+        _, scratch32 = fconv.plain_forward(x1, er, sh, src, dst, *f32, N)
+
+        def k2():
+            return conv_ops.launch_backward(fconv, x1b, er, shb, src, dst,
+                                            *f16, N, scratch, gb16,
+                                            order=order)
+        got = k2()
+        p16 = fconv.plain_backward_bf16(x1b, er, shb, src, dst, *f16, N,
+                                        scratch, gb16)
+        p32 = fconv.plain_backward(x1, er, sh, src, dst, *f32, N, scratch32,
+                                   gout)
+        errs = [half_rel(f"K2 bf16 {what}", a, b, c)[0] for what, a, b, c in
+                zip(("dx", "d edge_radial", "dw_hidden", "dw_out", "dwsel"),
+                    got, p16, p32)]
+        repeats("K2 bf16", k2)
+        out["K2"] = dict(err=max(errs), ms=cuda_ms(lambda: k2()),
+                         plain_ms=cuda_ms(lambda: fconv.plain_backward_bf16(
+                             x1b, er, shb, src, dst, *f16, N, scratch,
+                             gb16)))
+        # K3 and K3b
+        attrs, spec = data["node_attrs"], data["species"].reshape(-1)
+        sorder = species_order.shared(spec, ssc.num_types)
+        t16 = ssc.tables(conv.sc, attrs, spec)
+        ssc.compute_dtype = torch.float32
+        t32 = ssc.tables(conv.sc, attrs, spec)
+        ssc.compute_dtype = bf
+        xb = x_in.to(bf)
+
+        def k3():
+            return sc_ops.launch_forward(ssc, xb, spec, t16, order=sorder)
+        half_rel("K3 bf16", k3(), ssc.table_product(xb, spec, t16),
+                 ssc.table_product(x_in.float(), spec, t32))
+        repeats("K3 bf16", k3)
+        out["K3"] = dict(err=float((k3().float() - ssc.table_product(
+            xb, spec, t16).float()).abs().max()), ms=cuda_ms(k3),
+            plain_ms=cuda_ms(lambda: ssc.table_product(xb, spec, t16)))
+        g3 = torch.randn(N, ssc.irreps_out.dim, generator=torch.Generator(
+        ).manual_seed(2)).to(dev)
+        g3b = g3.to(bf)
+
+        def k3b():
+            return sc_ops.launch_backward(ssc, xb, spec, t16, g3b,
+                                          order=sorder)
+        got = k3b()
+        p16 = ssc.plain_backward(xb, spec, t16, g3b)
+        p32 = ssc.plain_backward(x_in.float(), spec, t32, g3)
+        errs = [half_rel(f"K3b bf16 {what}", a, b, c)[0] for what, a, b, c
+                in zip(("dx", "dtables"), got, p16, p32)]
+        repeats("K3b bf16", k3b)
+        out["K3b"] = dict(err=max(errs), ms=cuda_ms(k3b), plain_ms=cuda_ms(
+            lambda: ssc.plain_backward(xb, spec, t16, g3b)))
+        # the mix GEMM's bfloat16 products at this layer: K1's mix of the
+        # scratch, K2's dS and dwsel, and K2's dW_out product
+        pr, KM, od, wl = fconv.prob_rows, fconv.KM, fconv.out_dim, \
+            fconv.wsel_len
+        wsel = f16[2].float()
+        g = gb16.float()
+        r = conv_ops.round_bf16
+
+        def fwd():
+            return rm.launch_forward(scratch, wsel, pr, od, bf16=True)
+
+        def products():
+            return (rm.launch_backward(rm.ROWS, pr, KM, g, wsel=wsel,
+                                       bf16=True),
+                    rm.launch_backward(rm.WEIGHTS, pr, KM, g, S=scratch,
+                                       wsel_len=wl, bf16=True))
+        half_rel("row_mix bf16 forward mix", fwd(),
+                 rm.run_plan(rm.FORWARD, pr, N, KM, od, S=r(scratch),
+                             wsel=wsel),
+                 rm.run_plan(rm.FORWARD, pr, N, KM, od, S=scratch,
+                             wsel=f32[2]))
+        repeats("row_mix bf16 forward mix", fwd)
+        plain_products = (
+            lambda: (rm.run_plan(rm.ROWS, pr, N, KM, od, wsel=wsel, gout=g),
+                     rm.run_plan(rm.WEIGHTS, pr, N, KM, od, S=r(scratch),
+                                 gout=g, wsel_len=wl)))
+        errs = [half_rel(f"row_mix bf16 {what}", a, b, c)[0]
+                for what, a, b, c in zip(
+                    ("dS", "dwsel"), products(), plain_products(),
+                    (rm.run_plan(rm.ROWS, pr, N, KM, od, wsel=f32[2],
+                                 gout=gout),
+                     rm.run_plan(rm.WEIGHTS, pr, N, KM, od, S=scratch,
+                                 gout=gout, wsel_len=wl)))]
+        repeats("row_mix bf16 backward products", products)
+        hL = torch.randn(E, fconv.fc_dims[1], generator=torch.Generator(
+        ).manual_seed(3)).to(dev)
+        dwp = torch.randn(E, fconv.fc_dims[-1], generator=torch.Generator(
+        ).manual_seed(4)).to(dev)
+        half_rel("row_mix bf16 matmul (K2's dW_out)",
+                 rm.launch_matmul(hL, dwp, a_t=True, split=True, bf16=True),
+                 r(hL).T @ r(dwp), hL.T @ dwp)
+        ops16 = mix_operands(pr, scratch.to(bf), f16[2], gb16)
+        out["mix_fwd"] = dict(
+            err=float((fwd() - rm.run_plan(rm.FORWARD, pr, N, KM, od,
+                                           S=r(scratch), wsel=wsel)
+                       ).abs().max()),
+            ms=cuda_ms(fwd), plain_ms=cuda_ms(lambda: rm.run_plan(
+                rm.FORWARD, pr, N, KM, od, S=r(scratch), wsel=wsel)),
+            library_ms=cuda_ms(lambda: library_forward(ops16)))
+        out["mix_bwd"] = dict(err=max(errs), ms=cuda_ms(products),
+                              plain_ms=cuda_ms(plain_products),
+                              library_ms=cuda_ms(
+                                  lambda: library_backward(ops16)))
+        del ops16
+    # bounds: the float32 kernels' operation counts, those of bfloat16
+    # operands (the radial MLP, K2's recompute of it and its products, the
+    # mix, the tables) at the bf16 tensor-core rate, the operands' bytes at
+    # their dtypes (bfloat16 for the rounded operands)
+    cc = conv_counts(fconv, N, E)
+    dims = fconv.fc_dims
+    mlp = 2 * E * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+    out["K1"]["cost"] = (mlp + cc["cg"] + 2 * cc["rows"] + cc["mix"],
+                         mlp + cc["mix"], nbytes(x1b, er, shb, src, dst, *f16)
+                         + N * od * 2)
+    out["K2"]["cost"] = (3 * mlp + 2 * cc["cg"] + 2 * cc["rows"]
+                         + 2 * cc["mix"], 3 * mlp + 2 * cc["mix"],
+                         nbytes(x1b, shb, src, dst, *f16, scratch, gb16)
+                         + 2 * nbytes(er) + nbytes(x1b, *f16))
+    items = ssc.bwd_item_table.cpu().numpy().reshape(-1, 6).astype(np.int64)
+    sc_flops = 2 * N * int((items[:, 1] * items[:, 4] * items[:, 5]).sum())
+    out["K3"]["cost"] = (sc_flops, sc_flops, nbytes(xb, spec, t16)
+                         + N * ssc.irreps_out.dim * 2)
+    out["K3b"]["cost"] = (2 * sc_flops, 2 * sc_flops,
+                          nbytes(xb, spec, t16, g3b)
+                          + N * ssc.in_dim * 4 + nbytes(t16))
+    flops = mix_flops(pr, N)
+    out["mix_fwd"]["cost"] = (flops, flops, nbytes(scratch, wsel)
+                              + N * od * 4)
+    out["mix_bwd"]["cost"] = (2 * flops, 2 * flops,
+                              nbytes(scratch, wsel, g) + N * KM * 4 + wl * 4)
+    return out
+
+
+def bf16_phases(dev):
+    """Phase 42: the bfloat16 compute dtype on the energy path."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+
+    cfg = get_config("config_energy")
+    mc32 = cfg["model_config"]
+    mc16 = dict(mc32, compute_dtype="bfloat16")
+    seed = torch.Generator().manual_seed
+    mols = synthetic_qm9(N_BATCHES * BATCH, np.random.default_rng(42))
+    batches = make_batches(mols, dev)
+    model = build_model(mc16, dev, seed(0)).eval()
+    checks = bf16_kernel_checks(model, batches[0], dev)
+
+    # the main path at bfloat16, every count set to 0 just before it and
+    # read just after: 4 served batches, 4 captured training steps; then
+    # config_dipole's 2 batches served and 2 steps
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    train = make_batches(synthetic_qm9(4 * BATCH, np.random.default_rng(
+        43), labels=True), dev)
+    trainer = Trainer(build_model(mc16, dev, seed(0)), **settings)
+    dcfg = get_config("config_dipole")
+    dmc = dict(dcfg["model_config"], compute_dtype="bfloat16")
+    dbatches = make_batches(synthetic_dipole_mols(
+        2 * DIPOLE_BATCH, np.random.default_rng(44)), dev, DIPOLE_BATCH)
+    dmodel = build_model(dmc, dev, seed(0)).eval()
+    dtrainer = Trainer(build_model(dmc, dev, seed(0)), **{
+        k: v for k, v in dcfg.items()
+        if k not in ("model_config", "data_config", "batch_size")})
+    counts = LaunchCounts()
+    res = evaluate(model, batches, ["total_energy"])
+    losses = []
+    for gb in train:
+        trainer.batch_step(gb)
+        losses.append(trainer.batch_losses["loss"])
+    dres = evaluate(dmodel, dbatches, ["dipole"])
+    for gb in dbatches:
+        dtrainer.batch_step(gb)
+        losses.append(dtrainer.batch_losses["loss"])
+    launches = counts.read(BF16_KEYS + ("full_conv", "full_conv_bwd",
+                                        "species_sc", "species_sc_bwd"))
+    print(f"bfloat16 main path: {len(res)} graphs served in "
+          f"{len(batches)} batches, {len(train)} training steps (captured "
+          f"by default), then config_dipole: {len(dres)} molecules served "
+          f"in {len(dbatches)} batches, {len(dbatches)} steps; losses "
+          f"{[round(float(v), 4) for v in losses]}; launches on the card "
+          f"{launches}, by the wrappers "
+          f"(eager and captured calls, no replay) "
+          f"{ {k: counts.host[k] for k in launches} }; graphs captured "
+          f"{ {k: getattr(s, 'captures', 0) for k, s in trainer._steps.items()} }",
+          flush=True)
+    if len(res) != N_BATCHES * BATCH or not np.isfinite(
+            res["total_energy"]).all():
+        fail("bfloat16 serving: wrong count or non-finite energies")
+    if len(dres) != 2 * DIPOLE_BATCH or not np.isfinite(
+            dres["dipole"]).all():
+        fail("bfloat16 dipole serving: wrong count or non-finite dipoles")
+    if not all(torch.isfinite(torch.stack(losses)).tolist()):
+        fail(f"bfloat16 training: non-finite loss {losses}")
+    for k in BF16_KEYS:
+        if launches[k] < 1:
+            fail(f"bfloat16 main path: {k} was not launched")
+    for k in ("full_conv", "full_conv_bwd", "species_sc", "species_sc_bwd"):
+        if launches[k]:
+            fail(f"bfloat16 main path: the float32 {k} ran")
+
+    # the card against the CPU's plain contracts on a 32-graph cut, the
+    # node energies before the per-species shifts, within 0.75 of the
+    # CPU's own bfloat16-vs-float32 distance (relative L2), for the model's
+    # seed and one more: through five layers a rounding that one order's
+    # float32 sum flips moves the next layer's inputs by a bfloat16 place,
+    # so the two orders part by about half the precision's distance (0.48
+    # of it for seed 0, measured on one H100), not by the one place that
+    # each kernel alone is held to; a card model that dropped a rounding
+    # point would part from it by about the whole distance
+    cut = cut_batch(mols, 32)
+
+    def node_energy(m, gb):
+        seen = {}
+        h = m.output_linear.register_forward_hook(
+            lambda mod, args, out: seen.update(e=out[0]["output"]))
+        with torch.inference_mode():
+            m(gb)
+        h.remove()
+        return seen["e"][gb["_node_mask"][:, 0] > 0].cpu()
+
+    for s in (0, 1):
+        half_rel(f"bfloat16 node energies, card against CPU (32 graphs, "
+                 f"seed {s})",
+                 node_energy(model if s == 0 else build_model(
+                     mc16, dev, seed(s)).eval(), cut.to(dev)),
+                 node_energy(build_model(mc16, "cpu", seed(s)).eval(), cut),
+                 node_energy(build_model(mc32, "cpu", seed(s)).eval(), cut),
+                 share=0.75)
+
+    # times: the captured step and serving at float32 and at bfloat16, in
+    # alternating pairs (float32, bfloat16, bfloat16, float32)
+    tr32 = Trainer(build_model(mc32, dev, seed(0)), **settings)
+    m32 = build_model(mc32, dev, seed(0)).eval()
+    it = iter(range(10 ** 9))
+    runs = {
+        ("step", "float32"): lambda: tr32.batch_step(train[next(it) % 4]),
+        ("step", "bfloat16"): lambda: trainer.batch_step(
+            train[next(it) % 4]),
+        ("serve", "float32"): lambda: evaluate(
+            m32, [batches[next(it) % 4]], ["total_energy"]),
+        ("serve", "bfloat16"): lambda: evaluate(
+            model, [batches[next(it) % 4]], ["total_energy"]),
+    }
+    times = {}
+    for what in ("step", "serve"):
+        for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+            times.setdefault(f"{what}_{dtype}_ms", []).append(
+                timed_ms(runs[(what, dtype)], CAPTURE_TIMED))
+    print(f"bfloat16 times (captured, batch {BATCH}, median of "
+          f"{CAPTURE_TIMED} CUDA-event timings, two runs each in the order "
+          f"float32, bfloat16, bfloat16, float32): {json.dumps(times)}",
+          flush=True)
+    costs = {k: v.pop("cost") for k, v in checks.items()}
+    rec = []
+    for name, key, source, replaces in (
+            ("full_conv_bf16", "K1", "full_conv.cu", "fused_conv.py:926"),
+            ("full_conv_bwd_bf16", "K2", "full_conv_bwd.cu",
+             "fused_conv.py:1051"),
+            ("species_sc_bf16", "K3", "species_sc.cu", "sc.py:181"),
+            ("species_sc_bwd_bf16", "K3b", "species_sc.cu", "sc.py:208"),
+            ("row_mix_forward_bf16", "mix_fwd", "row_mix.cuh",
+             "fused_conv.py:926"),
+            ("row_mix_products_bf16", "mix_bwd", "row_mix.cuh",
+             "fused_conv.py:1051")):
+        c = checks[key]
+        rec.append(bf16_record(name, source, replaces, launches[name],
+                               c["err"], c["ms"], c["plain_ms"], *costs[key],
+                               library_ms=c.get("library_ms")))
+    return rec, times
+
+
+def bf16_only():
+    """``python3 chip_smoke.py --bf16``: the build, then phase 42 alone;
+    its records as one JSON line."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          else "nvidia-smi failed")
+    t0 = time.perf_counter()
+    _, log = build()
+    print(f"build in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "bf16" in line or "spill" in line:
+            print("  " + line.strip())
+    t0 = time.perf_counter()
+    rec, times = bf16_phases(torch.device("cuda"))
+    print(f"phase 42: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"bf16": rec, "times": times}))
+
+
 def main():
     import torch
 
@@ -6107,6 +6574,7 @@ def main():
     datasets = timed("38-39", dataset_phases, n_layers)
     captured = timed("40", capture_phases, dev)
     compiled = timed("41", compiled_rest_phases, dev)
+    bf16_records, bf16_times = timed("42", bf16_phases, dev)
     print(f"phase seconds {json.dumps(seconds)}; "
           f"{time.perf_counter() - start:.1f} s in all", flush=True)
 
@@ -6135,6 +6603,7 @@ def main():
                    mix_launches["row_mix_forward"], mix_fwd),
         mix_record("row_mix_products", "fused_conv.py:1051",
                    mix_launches["row_mix_products"], mix_bwd),
+        *bf16_records,
     ]
     # K1, K2 and the K4 family also carry what they did on the diffusion
     # path (spec "" for K1 and K2, "nll" for the K4 family)
@@ -6168,6 +6637,7 @@ def main():
     print(json.dumps({"datasets": datasets}))
     print(json.dumps({"capture": captured}))
     print(json.dumps({"compiled": compiled}))
+    print(json.dumps({"bf16_times": bf16_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6505,7 +6975,7 @@ def mix_set(name, fn, library, flops, n_bytes):
     each kernel's device ms, the mix GEMM family's and the memsets' share,
     torch.matmul's ms on the products' operands, and the bounds."""
     split = kernel_split(fn)
-    rec = dict(ms=cuda_ms(fn), kernels=split,
+    rec = dict(ms=cuda_ms(fn), kernels=split, digest=digest(fn()),
                products_ms=round(sum(v for k, v in split.items()
                                      if k in MIX_KERNELS), 4),
                memset_ms=round(sum(v for k, v in split.items()
@@ -6611,6 +7081,7 @@ def sc_times(calls_only=False):
                    "K3_ms": cuda_ms(k3), "K3b_ms": cuda_ms(k3b),
                    "K3_kernels": kernel_split(k3),
                    "K3b_kernels": kernel_split(k3b),
+                   "K3_digest": digest(k3()), "K3b_digest": digest(k3b()),
                    # the wrapper's whole forward: the tables, the order
                    # where the package has one, K3; host-bound
                    "K3_launch_ms": cuda_ms(lambda: ssc.launch(
@@ -7321,6 +7792,9 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--capture-ranks"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         capture_ranks_only(int(sys.argv[2]) if sys.argv[2:] else None)
+    elif sys.argv[1:] == ["--bf16"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        bf16_only()
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 namespace walk {
 
 constexpr int kGroups = 4;       // blockDim.y: paths walked per block
@@ -81,12 +83,18 @@ __device__ __forceinline__ float ssp(float v, float cst) {
 // The radial MLP's hidden layers per edge, in edge order: a block takes
 // kHiddenEdges edges and stages their R <= kMaxRadial inputs.  Stores the last layer's activations into h_out
 // [E, H], or, with keep_all, every layer's pre-activations into z_all and
-// activations into h_out, both [n_hidden, E, H].
+// activations into h_out, both [n_hidden, E, H].  kBf16 (the bfloat16 K1
+// and K2, the TPU kernel's _mlp_fwd at bfloat16, fused_conv.py:813-828):
+// the inputs are rounded to bfloat16 as they are staged, the weights are
+// read as bfloat16 (widened as they are loaded), the sums stay float32
+// (z_all) and every activation is rounded to bfloat16.
 constexpr int kHiddenEdges = 16;
 
+template <bool kBf16 = false>
 static __global__ void mlp_hidden_kernel(
     const float* __restrict__ er, int R, int E,
-    const float* __restrict__ w_hidden, int H, int n_hidden, float act_cst,
+    const bf16::Op<kBf16>* __restrict__ w_hidden, int H, int n_hidden,
+    float act_cst,
     float* __restrict__ z_all, float* __restrict__ h_out, int keep_all) {
   __shared__ float s_h[2][kHiddenEdges][kMaxHidden];
   __shared__ float s_er[kHiddenEdges][kMaxRadial];
@@ -96,10 +104,11 @@ static __global__ void mlp_hidden_kernel(
   for (int i = tid; i < kHiddenEdges * R; i += nthr) {
     int el = i / R, r = i % R, e = e0 + el;
     s_er[el][r] = e < E ? er[(size_t)e * R + r] : 0.f;
+    if constexpr (kBf16) s_er[el][r] = bf16::rn(s_er[el][r]);
   }
   __syncthreads();
   int cur = 0;
-  const float* wl = w_hidden;
+  const bf16::Op<kBf16>* wl = w_hidden;
   for (int layer = 0; layer < n_hidden; ++layer) {
     const int fan = layer == 0 ? R : H;
     const int next = layer == 0 ? 0 : cur ^ 1;
@@ -107,10 +116,13 @@ static __global__ void mlp_hidden_kernel(
       int el = i / H, hh = i % H, e = e0 + el;
       float acc = 0.f;
       if (layer == 0)
-        for (int k = 0; k < fan; ++k) acc += s_er[el][k] * wl[k * H + hh];
+        for (int k = 0; k < fan; ++k)
+          acc += s_er[el][k] * bf16::f(wl[k * H + hh]);
       else
-        for (int k = 0; k < fan; ++k) acc += s_h[cur][el][k] * wl[k * H + hh];
-      const float hv = ssp(acc, act_cst);
+        for (int k = 0; k < fan; ++k)
+          acc += s_h[cur][el][k] * bf16::f(wl[k * H + hh]);
+      float hv = ssp(acc, act_cst);
+      if constexpr (kBf16) hv = bf16::rn(hv);
       s_h[next][el][hh] = hv;
       if (e >= E) continue;
       if (keep_all) {
@@ -170,10 +182,12 @@ __device__ __forceinline__ Item item_walk(const int* __restrict__ ptr, int N,
 
 // rows[head] = the sum of a long node's pieces, in item order; grid (T
 // items, column blocks): the item holding a node's first piece sums it,
-// one column per thread.
+// one column per thread.  Rows of bfloat16 (K2's bfloat16 dx) take the
+// sum rounded.
+template <class Row = float>
 static __global__ void walk_piece_sum_kernel(
     const int* __restrict__ ptr, int N, int T, int cap,
-    const float* __restrict__ pieces, int width, float* __restrict__ rows) {
+    const float* __restrict__ pieces, int width, Row* __restrict__ rows) {
   const int t = blockIdx.x;
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
   const Item it = item_walk(ptr, N, t, T, cap);
@@ -183,7 +197,7 @@ static __global__ void walk_piece_sum_kernel(
   float s = 0.f;
   for (int tt = t; tt <= (b - 1) / cap; ++tt)
     s += pieces[(size_t)tt * width + c];
-  rows[(size_t)it.head * width + c] = s;
+  bf16::put(rows + (size_t)it.head * width + c, s);
 }
 
 // Shared memory of the walk kernels, carved from one dynamic buffer: the
@@ -267,21 +281,24 @@ __device__ __forceinline__ Stage carve(void* base, int n_nz, int n_cells,
 // source and a second x operand (x2; none when x is null), and this
 // thread's column ``col`` of the external radial weights and of a second
 // weight operand (w, w2; w null when the kernel computes them).  The second
-// operands are read only by stage_edges<true>.
-struct Staged {
+// operands are read only by stage_edges<true>.  Xt: the element type of sh
+// and x (bfloat16 for the bfloat16 K1, widened as they are staged).
+template <class Xt = float>
+struct StagedOf {
   const float* h_last;
   int H;
-  const float* sh;
-  const float* sh2;
+  const Xt* sh;
+  const Xt* sh2;
   int J;
-  const float* x;
-  const float* x2;
+  const Xt* x;
+  const Xt* x2;
   int in_dim, x_off, xw;
   bool x_vec;
   const float* w;
   const float* w2;
   int PC, col;
 };
+using Staged = StagedOf<float>;
 
 // Stage positions [pos0, pos0 + nq) of the order: edge ids, key and other
 // endpoints, then what ``op`` names (kTwo: its second operands too, K4g's;
@@ -292,12 +309,13 @@ struct Staged {
 // flight at once: the stage waits for one round trip to memory, not one
 // per element.  h and x go in 16-byte pieces when H, resp. the x slice,
 // allow it (``x_vec``); st.h's columns past H stay as stage_chunk zeroed
-// them.
-template <bool kTwo = false>
+// them.  bfloat16 sh and x (one operand) are read with plain loads and
+// widened into the float32 stage.
+template <bool kTwo = false, class Xt = float>
 __device__ __forceinline__ void stage_edges(
     const Stage& st, int pos0, int nq, const int* __restrict__ perm,
     const long long* __restrict__ src, const long long* __restrict__ dst,
-    bool key_is_dst, const Staged& op, int tid, int nthr) {
+    bool key_is_dst, const StagedOf<Xt>& op, int tid, int nthr) {
   __syncthreads();
   for (int i = tid; i < nq; i += nthr) {
     const int e = perm[pos0 + i];
@@ -322,6 +340,20 @@ __device__ __forceinline__ void stage_edges(
     }
   }
   const int J = op.J;
+  if constexpr (bf16::is_bf16<Xt>) {
+    static_assert(!kTwo, "bfloat16 staging of one operand");
+    for (int i = tid; i < nq * J; i += nthr) {
+      const int q = i / J, j = i - q * J;
+      st.sh[q * kMaxSh + j] = bf16::f(op.sh[(size_t)st.edge[q] * J + j]);
+    }
+    const int xw = op.xw;
+    for (int i = tid; i < nq * xw; i += nthr) {
+      const int q = i / xw, c = i - q * xw;
+      const int s = key_is_dst ? st.other[q] : st.node[q];
+      st.x[q * xw + c] =
+          bf16::f(op.x[(size_t)s * op.in_dim + op.x_off + c]);
+    }
+  } else {
   for (int i = tid; i < nq * J; i += nthr) {
     const int q = i / J, j = i - q * J;
     const size_t at = (size_t)st.edge[q] * J + j;
@@ -349,6 +381,7 @@ __device__ __forceinline__ void stage_edges(
       }
     }
   }
+  }
   if (op.w) {
     for (int q = 0; q < nq; ++q) {
       const size_t at = (size_t)st.edge[q] * op.PC + op.col;
@@ -372,9 +405,11 @@ __device__ __forceinline__ bool x_vectors(const float* x, int in_dim,
 
 // Radial weights of the staged edges for column ``col``: w[q] = h[q] .
 // w_out[:, col], kStage independent sums, stored in this thread's slots of
-// st.w (read back by the same thread).
+// st.w (read back by the same thread).  W: w_out's element type (bfloat16
+// for the bfloat16 K1, widened as it is loaded).
+template <class W = float>
 __device__ __forceinline__ void radial_weights(const Stage& st,
-                                               const float* __restrict__ w_out,
+                                               const W* __restrict__ w_out,
                                                int H, int PC, int col,
                                                int tid, int nthr) {
   float w[kStage];
@@ -385,8 +420,9 @@ __device__ __forceinline__ void radial_weights(const Stage& st,
     float c[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      c[j] = 4 * k + j < H ? __ldg(w_out + (size_t)(4 * k + j) * PC + col)
-                           : 0.f;
+      c[j] = 4 * k + j < H
+                 ? bf16::f(__ldg(w_out + (size_t)(4 * k + j) * PC + col))
+                 : 0.f;
 #pragma unroll
     for (int q = 0; q < kStage; ++q) {
       const float4 v = h4[q * (kMaxHidden / 4) + k];
@@ -452,9 +488,10 @@ __device__ __forceinline__ void stage_chunk(const Stage& st,
 }
 
 // Launch the piece sum when some item may hold a piece (T > 1).
+template <class Row>
 static inline cudaError_t sum_pieces(const int* ptr, int N, int T, int cap,
                                      const float* pieces, int width,
-                                     float* rows, cudaStream_t s) {
+                                     Row* rows, cudaStream_t s) {
   if (T <= 1 || width <= 0) return cudaSuccess;
   const dim3 grid(T, (width + kPieceThreads - 1) / kPieceThreads);
   walk_piece_sum_kernel<<<grid, kPieceThreads, 0, s>>>(ptr, N, T, cap,

@@ -56,6 +56,22 @@
 // and output repeat bit for bit.  Padded edges need no special case:
 // their edge_radial is masked to zero and the MLP has no bias, so their
 // weights, and their messages, are zero.
+//
+// The bfloat16 variant (full_conv_fwd_bf16; kBf16 in the kernels) computes
+// the TPU kernel's contract at compute_dtype=bfloat16: x, sh, the MLP
+// weights and the mix matrices are read from bfloat16 tensors (half the
+// bytes), widened as they are staged or loaded (bf16.cuh); the MLP rounds
+// its inputs and activations (_mlp_fwd, fused_conv.py:813-828); the walk
+// rounds each radial weight, forms per channel and CG non-zero the product
+// bf16(sh[m2] x[m1]) (the outer product of _mid2_of, :863) times the
+// rounded CG value, sums a component's products in float32 and rounds it
+// (mid, :875), rounds mid * w (w2d, :847) and sums those over the node in
+// float32 (the scratch, kept float32 for K2); the mix runs as the GEMM's
+// bfloat16 products (the scratch rounded as it is loaded, :1025) and its
+// float32 sums are rounded as they are stored into the bfloat16 output
+// (:2298).  The per-channel CG loop replaces the shared matrices M = C sh,
+// which would round in the wrong place; it is the simple form, not yet a
+// fast one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,16 +84,17 @@ using namespace walk;
 namespace {
 
 // kRows: register rows of the node sums and of x, at least the components
-// of the widest irrep on either side (7: l <= 3; 9: l <= 4; 16: l <= 7)
-template <int kRows>
+// of the widest irrep on either side (7: l <= 3; 9: l <= 4; 16: l <= 7);
+// kBf16: the bfloat16 contract (see above)
+template <int kRows, bool kBf16 = false>
 __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
-    const float* __restrict__ x, int in_dim,
-    const float* __restrict__ sh, int J,
+    const bf16::Op<kBf16>* __restrict__ x, int in_dim,
+    const bf16::Op<kBf16>* __restrict__ sh, int J,
     const long long* __restrict__ src, const long long* __restrict__ dst,
     const int* __restrict__ perm, const int* __restrict__ ptr, int N,
     int cap, int T,
     const float* __restrict__ h_last, int H,
-    const float* __restrict__ w_out, int PC,
+    const bf16::Op<kBf16>* __restrict__ w_out, int PC,
     const int* __restrict__ walk_tab, const int* __restrict__ chunks,
     const int* __restrict__ cells, const float2* __restrict__ nz,
     float* __restrict__ scratch, float* __restrict__ pieces, int KM) {
@@ -94,9 +111,11 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
   const int z0 = cells[k0], z1 = cells[k1 - 1];
   const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr);
   stage_chunk(st, nz, z0, z1, cells, k0, k1, tid, nthr);
-  const Staged staged = {h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off,
-                         xw, x_vectors(x, in_dim, x_off, xw), nullptr,
-                         nullptr, 0, 0};
+  bool x_vec = false;
+  if constexpr (!kBf16) x_vec = x_vectors(x, in_dim, x_off, xw);
+  const StagedOf<bf16::Op<kBf16>> staged = {
+      h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off, xw, x_vec,
+      nullptr, nullptr, 0, 0};
 
   const bool active = g < cn;
   const int* pi = walk_tab + (size_t)(c0 + (active ? g : 0)) * kWalkFields;
@@ -124,8 +143,9 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
     const int nq = min(kStage, it.e_hi - pos0);
     stage_edges(st, pos0, nq, perm, src, dst, true, staged, tid, nthr);
     if (active) {
-      cg_matrices<kRows>(st, st.sh, st.m, nq, g, my_cells, d1, d3, j0, u,
-                         mul);
+      if constexpr (!kBf16)
+        cg_matrices<kRows>(st, st.sh, st.m, nq, g, my_cells, d1, d3, j0, u,
+                           mul);
       radial_weights(st, w_out, H, PC, pi[kWCol] + u, tid, nthr);
     }
     __syncthreads();
@@ -136,6 +156,27 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
       const float w = st.w[q * nthr + tid];
       float xr[kP];
       load_x<kRows>(xr, st.x + q * xw + u * d1, d1);
+      if constexpr (kBf16) {
+        const float wb = bf16::rn(w);
+        const float* shq = st.sh + q * kMaxSh + j0;
+#pragma unroll
+        for (int m3 = 0; m3 < kRows; ++m3) {
+          if (m3 >= d3) break;
+          float mid = 0.f;
+#pragma unroll
+          for (int m1 = 0; m1 < kRows; ++m1) {
+            if (m1 >= d1) break;
+            const int c = m3 * d1 + m1;
+            for (int z = my_cells[c]; z < my_cells[c + 1]; ++z) {
+              const float2 e = st.nz[z];
+              mid += bf16::rn(e.x) *
+                     bf16::rn(shq[__float_as_int(e.y)] * xr[m1]);
+            }
+          }
+          acc[m3] += bf16::rn(bf16::rn(mid) * wb);
+        }
+        continue;
+      }
       const float4* mq = reinterpret_cast<const float4*>(
           st.m + (q * kGroups + g) * kRows * kP);
 #pragma unroll
@@ -159,6 +200,61 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
 
 }  // namespace
 
+namespace {
+
+// The entries' pipeline; kBf16: x, sh, the MLP weights, the mix matrices
+// and out bfloat16.
+template <bool kBf16, class Op = bf16::Op<kBf16>>
+cudaError_t forward(
+    const Op* x, int N, int in_dim,
+    const Op* sh, int J,
+    const float* er, int R,
+    const long long* src, const long long* dst, int E,
+    const Op* w_hidden, int H, int n_hidden,
+    const Op* w_out, int PC, float act_cst,
+    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
+    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
+    const int* perm, const int* ptr, int cap, int T,
+    float* h_work, float* pieces,
+    float* scratch, int KM, int mul,
+    const Op* wsel, const int* probs_host, int n_probs,
+    Op* out, int out_dim, cudaStream_t s) {
+  const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
+  if (rows > 16 || R > kMaxRadial || cap < 1 || T < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (E > 0) {
+    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
+    mlp_hidden_kernel<kBf16><<<blocks, 256, 0, s>>>(
+        er, R, E, w_hidden, H, n_hidden, act_cst, nullptr, h_work, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (N > 0 && n_chunks > 0) {
+    const int kr = walk_rows(rows);
+    const size_t bytes =
+        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul,
+                    mul * kGroups, kr);
+    auto kernel = kr == 16      ? k1_walk_kernel<16, kBf16>
+                  : kr == kMaxD ? k1_walk_kernel<kMaxD, kBf16>
+                                : k1_walk_kernel<7, kBf16>;
+    err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(T, n_chunks), dim3(mul, kGroups), bytes, s>>>(
+        x, in_dim, sh, J, src, dst, perm, ptr, N, cap, T, h_work, H, w_out,
+        PC, walk_tab, chunks, cells, reinterpret_cast<const float2*>(nz),
+        scratch, pieces, KM);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);
+    if (err != cudaSuccess) return err;
+  }
+  return rowmix::mix_rows(scratch, N, KM, wsel, probs_host, n_probs, out,
+                          out_dim, s, kBf16);
+}
+
+}  // namespace
+
 // walk_tab, chunks, nz: the walk tables (ConvTables); perm, ptr: the
 // destination-major edge order; h_work [E, H] and pieces [T, KM]: work
 // buffers (f32, uninitialised); probs_host: the mix problem table, on the
@@ -177,37 +273,34 @@ extern "C" int full_conv_fwd(
     float* scratch, int KM, int mul,
     const float* wsel, const int* probs_host, int n_probs,
     float* out, int out_dim, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
-  if (rows > 16 || R > kMaxRadial || cap < 1 || T < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-  if (E > 0) {
-    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
-    mlp_hidden_kernel<<<blocks, 256, 0, s>>>(er, R, E, w_hidden, H, n_hidden,
-                                             act_cst, nullptr, h_work, 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (N > 0 && n_chunks > 0) {
-    const int kr = walk_rows(rows);
-    const size_t bytes =
-        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul,
-                    mul * kGroups, kr);
-    auto kernel = kr == 16      ? k1_walk_kernel<16>
-                  : kr == kMaxD ? k1_walk_kernel<kMaxD>
-                                : k1_walk_kernel<7>;
-    err = allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(T, n_chunks), dim3(mul, kGroups), bytes, s>>>(
-        x, in_dim, sh, J, src, dst, perm, ptr, N, cap, T, h_work, H, w_out,
-        PC, walk_tab, chunks, cells, reinterpret_cast<const float2*>(nz),
-        scratch, pieces, KM);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)rowmix::mix_rows(scratch, N, KM, wsel, probs_host, n_probs,
-                               out, out_dim, s);
+  return (int)forward<false>(
+      x, N, in_dim, sh, J, er, R, src, dst, E, w_hidden, H, n_hidden, w_out,
+      PC, act_cst, walk_tab, chunks, n_chunks, cells, nz, max_chunk_nz,
+      max_d1, max_d3, perm, ptr, cap, T, h_work, pieces, scratch, KM, mul,
+      wsel, probs_host, n_probs, out, out_dim,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 variant: the arguments of full_conv_fwd, with x, sh, the MLP
+// weights, the mix matrices and out bfloat16.
+extern "C" int full_conv_fwd_bf16(
+    const bf16::T* x, int N, int in_dim,
+    const bf16::T* sh, int J,
+    const float* er, int R,
+    const long long* src, const long long* dst, int E,
+    const bf16::T* w_hidden, int H, int n_hidden,
+    const bf16::T* w_out, int PC, float act_cst,
+    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
+    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
+    const int* perm, const int* ptr, int cap, int T,
+    float* h_work, float* pieces,
+    float* scratch, int KM, int mul,
+    const bf16::T* wsel, const int* probs_host, int n_probs,
+    bf16::T* out, int out_dim, void* stream) {
+  return (int)forward<true>(
+      x, N, in_dim, sh, J, er, R, src, dst, E, w_hidden, H, n_hidden, w_out,
+      PC, act_cst, walk_tab, chunks, n_chunks, cells, nz, max_chunk_nz,
+      max_d1, max_d3, perm, ptr, cap, T, h_work, pieces, scratch, KM, mul,
+      wsel, probs_host, n_probs, out, out_dim,
+      static_cast<cudaStream_t>(stream));
 }

@@ -79,12 +79,38 @@
 // The walk keeps the dx sums of one left irrep in registers, up to nine
 // of them (l <= 4, the hamiltonian trunk); the host refuses wider left
 // irreps.
+//
+// The bfloat16 variant (full_conv_bwd_bf16) computes the TPU kernel's
+// backward contract at compute_dtype=bfloat16, its own rounding points
+// (fused_conv.py:1126-1312) and not the adjoint of the rounded forward.
+// x, sh, the weights, the mix matrices and gout are read from bfloat16
+// tensors, widened as they are loaded (bf16.cuh).  a. dS and
+// dwsel by the GEMM's bfloat16 products (S rounded as it is loaded).  b.
+// the MLP recomputed with rounded activations (mlp_hidden_kernel<true>),
+// then k2_bf16_walk_kernel: per block one work item of the source-major
+// walk and one left irrep with ALL its paths, thread u one channel, per
+// edge: the radial weight of each path rounded, g = bf16(dS[dst]), mid
+// recomputed as K1 rounds it, dw = the bfloat16 sum over the path's
+// components of bf16(g mid), dmid = bf16(g w), and douter[j][m1] = the
+// float32 sum over the irrep's paths of C dmid, rounded once per (j, m1)
+// (the TPU kernel's C^T dot sums every path of a sh irrep section,
+// :886-905, which a chunk of four paths cannot), then dx_e[m1] = the
+// bfloat16 sum over j in order of bf16(sh_j douter[j][m1]) (:1293-1306),
+// summed over the node's edges in float32 and written once per node (long
+// runs in pieces, as above).  c. the MLP stage with every cotangent
+// rounded (:1264-1285): the GEMM's bfloat16 products, k2_act_grad_kernel
+// <true>.  dx, dW and dwsel are rounded as they are stored into bfloat16
+// outputs (the caller casts them to the inputs' dtypes, :2421-2433), d er
+// is float32, rounded.  No
+// sh cotangent: refused.  The walk's per-channel CG loops and its douter
+// rows (local memory) are the simple form, not yet a fast one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "bf16.cuh"
 #include "edge_walk.cuh"
 #include "row_mix.cuh"
 
@@ -94,13 +120,19 @@ namespace {
 
 using rowmix::matmul;
 
-// dz = dh * ssp'(z), ssp'(v) = sigmoid(v) * act_cst
+// dz = dh * ssp'(z), ssp'(v) = sigmoid(v) * act_cst; kBf16: dh and dz
+// rounded to bfloat16
+template <bool kBf16 = false>
 __global__ void k2_act_grad_kernel(const float* __restrict__ dh,
                                    const float* __restrict__ z, size_t count,
                                    float act_cst, float* __restrict__ dz) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x)
-    dz[i] = dh[i] * act_cst / (1.f + expf(-z[i]));
+       i += (size_t)gridDim.x * blockDim.x) {
+    if constexpr (kBf16)
+      dz[i] = bf16::rn(bf16::rn(dh[i]) * act_cst / (1.f + expf(-z[i])));
+    else
+      dz[i] = dh[i] * act_cst / (1.f + expf(-z[i]));
+  }
 }
 
 // The source-major walk (edge_walk.cuh) of the edge stage.  Thread (u, g)
@@ -279,6 +311,132 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
     dw[(size_t)perm[pos] * PC + wcol_u] = 0.f;
 }
 
+// The bfloat16 edge walk (see the head of the file).  grid (T items, left
+// irreps), block: mul threads, thread u channel u.  x, sh, w_out: bfloat16,
+// widened as they are loaded; h_last: the last hidden layer, rounded; dS:
+// the float32 node cotangent (rounded here); dw [E, PC]: the radial-weight
+// cotangent, bfloat16 values; dx [N, in_dim]: a node's float32 dx sum
+// rounded, or for a long run's pieces, pieces [T, in_dim] the float32 sums.
+// kRows: register rows of g and of the left irrep (7: l <= 3; 9: l <= 4).
+template <int kRows>
+__global__ void __launch_bounds__(64) k2_bf16_walk_kernel(
+    const bf16::T* __restrict__ x, int in_dim,
+    const bf16::T* __restrict__ sh, int J,
+    const long long* __restrict__ src, const long long* __restrict__ dst,
+    const int* __restrict__ perm, const int* __restrict__ ptr, int N, int E,
+    int cap, int T,
+    const float* __restrict__ h_last, int H,
+    const bf16::T* __restrict__ w_out, int PC,
+    const int* __restrict__ walk_tab, const int* __restrict__ irreps,
+    const int* __restrict__ cells, const float2* __restrict__ nz,
+    const float* __restrict__ dS, int KM, int mul,
+    float* __restrict__ dw, bf16::T* __restrict__ dx,
+    float* __restrict__ pieces) {
+  __shared__ float s_sh[2][kMaxSh];
+  const int u = threadIdx.x, t = blockIdx.x;
+  int p0 = 0;
+  for (int b = 0; b < (int)blockIdx.y; ++b) p0 += irreps[4 * b + 3];
+  const int* ir = irreps + 4 * blockIdx.y;
+  const int x_off = ir[0], d1 = ir[1], np = ir[3];
+  const Item it = item_walk(ptr, N, t, T, cap);
+  float dxv[kRows];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) dxv[m] = 0.f;
+  int cur = it.first;
+  auto flush = [&](int n) {
+    const size_t col = (size_t)x_off + u * d1;
+    float* piece = pieces + (size_t)t * in_dim + col;
+    bf16::T* row = dx + (size_t)n * in_dim + col;
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      if (m < d1) {
+        if (n == it.head)
+          piece[m] = dxv[m];
+        else
+          bf16::put(row + m, dxv[m]);
+      }
+      dxv[m] = 0.f;
+    }
+  };
+  for (int pos = it.e_lo; pos < it.e_hi; ++pos) {
+    const int e = perm[pos];
+    const int nd = (int)src[e], dn = (int)dst[e];
+    for (; cur < nd; ++cur) flush(cur);
+    // the edge's sh row, widened once into shared memory (read by every
+    // channel at each CG non-zero); two rows, so one barrier an edge
+    float* shq = s_sh[pos & 1];
+    for (int j = u; j < J; j += mul) shq[j] = bf16::f(sh[(size_t)e * J + j]);
+    __syncthreads();
+    float xr[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m)
+      xr[m] = m < d1 ? bf16::f(x[(size_t)nd * in_dim + x_off + u * d1 + m])
+                     : 0.f;
+    float douter[kMaxSh][kRows];
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) douter[j][m] = 0.f;
+    for (int p = p0; p < p0 + np; ++p) {
+      const int* pt = walk_tab + (size_t)p * kWalkFields;
+      const int j0 = pt[kJ0], d3 = pt[kD3], wcol = pt[kWCol] + u;
+      const int row_base = pt[kRowBase], row_stride = pt[kRowStride];
+      const int* pc = cells + pt[kCell0];
+      float w = 0.f;
+      for (int h = 0; h < H; ++h)
+        w += h_last[(size_t)e * H + h] *
+             bf16::f(__ldg(w_out + (size_t)h * PC + wcol));
+      w = bf16::rn(w);
+      const float* grow = dS + (size_t)dn * KM + (size_t)row_base * mul + u;
+      float dwv = 0.f;
+#pragma unroll
+      for (int m3 = 0; m3 < kRows; ++m3) {
+        if (m3 >= d3) break;
+        const float gv = bf16::rn(grow[(size_t)m3 * row_stride * mul]);
+        float mid = 0.f;
+#pragma unroll
+        for (int m1 = 0; m1 < kRows; ++m1) {
+          if (m1 >= d1) break;
+          for (int z = pc[m3 * d1 + m1]; z < pc[m3 * d1 + m1 + 1]; ++z) {
+            const float2 c = __ldg(nz + z);
+            mid += bf16::rn(c.x) *
+                   bf16::rn(shq[j0 + __float_as_int(c.y)] * xr[m1]);
+          }
+        }
+        const float prod = bf16::rn(gv * bf16::rn(mid));
+        dwv = m3 == 0 ? prod : bf16::rn(dwv + prod);
+        const float dmid = bf16::rn(gv * w);
+#pragma unroll
+        for (int m1 = 0; m1 < kRows; ++m1) {
+          if (m1 >= d1) break;
+          for (int z = pc[m3 * d1 + m1]; z < pc[m3 * d1 + m1 + 1]; ++z) {
+            const float2 c = __ldg(nz + z);
+            douter[j0 + __float_as_int(c.y)][m1] += bf16::rn(c.x) * dmid;
+          }
+        }
+      }
+      dw[(size_t)e * PC + wcol] = dwv;
+    }
+    float dxb[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) dxb[m] = 0.f;
+    for (int j = 0; j < J; ++j) {
+      const float sj = shq[j];
+#pragma unroll
+      for (int m = 0; m < kRows; ++m)
+        dxb[m] = bf16::rn(dxb[m] + bf16::rn(sj * bf16::rn(douter[j][m])));
+    }
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) dxv[m] += dxb[m];
+  }
+  for (; cur < it.end; ++cur) flush(cur);
+  // edges outside [0, N) are walked by no one: their dw is zero
+  const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
+  for (int pos = lo; pos < hi; ++pos)
+    for (int p = p0; p < p0 + np; ++p)
+      dw[(size_t)perm[pos] * PC + walk_tab[(size_t)p * kWalkFields + kWCol] +
+         u] = 0.f;
+}
+
 }  // namespace
 
 // probs_host: the mix problem table of the forward, on the host; walk_tab,
@@ -338,8 +496,8 @@ extern "C" int full_conv_bwd(
   const size_t EH = (size_t)E * H;
   if (E > 0) {
     const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
-    mlp_hidden_kernel<<<blocks, 256, 0, s>>>(er, R, E, w_hidden, H, n_hidden,
-                                             act_cst, z_all, h_all, 1);
+    mlp_hidden_kernel<false><<<blocks, 256, 0, s>>>(
+        er, R, E, w_hidden, H, n_hidden, act_cst, z_all, h_all, 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -396,8 +554,8 @@ extern "C" int full_conv_bwd(
     w_ofs -= (size_t)fan * H;
     const float* a_in = i == 0 ? er : h_all + (size_t)(i - 1) * EH;
     const unsigned blocks = (unsigned)std::min<size_t>((EH + 255) / 256, 4096);
-    k2_act_grad_kernel<<<blocks, 256, 0, s>>>(dh, z_all + (size_t)i * EH, EH,
-                                              act_cst, dz);
+    k2_act_grad_kernel<false><<<blocks, 256, 0, s>>>(
+        dh, z_all + (size_t)i * EH, EH, act_cst, dz);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     // dW_i[k, h] = sum_e a_in[e, k] dz[e, h]
@@ -407,6 +565,118 @@ extern "C" int full_conv_bwd(
     // d a_in[e, k] = sum_h dz[e, h] W_i[k, h]
     err = matmul(dz, true, w_hidden + w_ofs, true, i == 0 ? der : dh, E, fan,
                  H, false, nullptr, 0, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 variant: the arguments of full_conv_bwd, with x, sh, the
+// MLP weights, the mix matrices, gout, dx, dw_hidden, dw_out and dwsel
+// bfloat16 (d er float32), KMd = in_dim, pieces [T, in_dim] the float32
+// sums of the long runs' dx pieces, dxp unused, and no sh cotangent (dsh
+// and part null).
+extern "C" int full_conv_bwd_bf16(
+    const bf16::T* x, int N, int in_dim,
+    const bf16::T* sh, int J,
+    const float* er, int R,
+    const long long* src, const long long* dst, int E,
+    const bf16::T* w_hidden, int H, int n_hidden,
+    const bf16::T* w_out, int PC, float act_cst,
+    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
+    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
+    const int* irreps, int n_irreps, int KMd, int dx_covered,
+    const int* perm, const int* ptr, int cap, int T,
+    const float* scratch, int KM, int mul,
+    const bf16::T* wsel, int wsel_len, const int* probs_host, int n_probs,
+    const bf16::T* gout, int out_dim,
+    float* dS, float* dw, float* z_all, float* h_all, float* dh, float* dz,
+    float* dxp, float* pieces,
+    bf16::T* dx, float* der, bf16::T* dw_hidden, int w_hidden_len,
+    bf16::T* dw_out, bf16::T* dwsel, float* dsh, float* part, float* ws,
+    int ws_len, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
+  if (max_d1 > kMaxD || rows > kMaxD || J > kMaxSh || R > kMaxRadial ||
+      cap < 1 || T < 1 || mul > 64 || KMd != in_dim || dsh != nullptr ||
+      n_hidden < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t f = sizeof(float), b = sizeof(bf16::T);
+  cudaError_t err = cudaSuccess;
+  if (!dx_covered) {
+    err = cudaMemsetAsync(dx, 0, (size_t)N * in_dim * b, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(pieces, 0, (size_t)T * in_dim * f, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // a. node stage: dS and dwsel, the bfloat16 products
+  err = rowmix::mix_products<bf16::T>(rowmix::kMixRows, probs_host, n_probs,
+                                      N, KM, out_dim, nullptr, wsel, gout, dS,
+                                      wsel_len, ws, ws_len, s, true);
+  if (err != cudaSuccess) return (int)err;
+  err = rowmix::mix_products(rowmix::kMixWeights, probs_host, n_probs, N, KM,
+                             out_dim, scratch, nullptr, gout, dwsel, wsel_len,
+                             ws, ws_len, s, true);
+  if (err != cudaSuccess) return (int)err;
+
+  // b. edge stage
+  const size_t EH = (size_t)E * H;
+  if (E > 0) {
+    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
+    mlp_hidden_kernel<true><<<blocks, 256, 0, s>>>(
+        er, R, E, w_hidden, H, n_hidden, act_cst, z_all, h_all, 1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const float* h_last = h_all + (size_t)(n_hidden - 1) * EH;
+  if (n_irreps > 0) {  // with N = 0 it still zeroes every edge's dw
+    auto kernel = walk_rows(rows) == kMaxD ? k2_bf16_walk_kernel<kMaxD>
+                                           : k2_bf16_walk_kernel<7>;
+    kernel<<<dim3(T, n_irreps), mul, 0, s>>>(
+        x, in_dim, sh, J, src, dst, perm, ptr, N, E, cap, T, h_last, H,
+        w_out, PC, walk_tab, irreps, cells,
+        reinterpret_cast<const float2*>(nz), dS, KM, mul, dw, dx, pieces);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = sum_pieces(ptr, N, T, cap, pieces, in_dim, dx, s);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    err = cudaMemsetAsync(dw, 0, (size_t)E * PC * f, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dx, 0, (size_t)N * in_dim * b, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (E == 0) {  // no edge: the MLP's gradients are zero
+    err = cudaMemsetAsync(dw_hidden, 0, (size_t)w_hidden_len * b, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dw_out, 0, (size_t)H * PC * b, s);
+    return (int)err;
+  }
+
+  // c. MLP stage, every cotangent rounded (the bfloat16 dW stored rounded,
+  // d er rounded as it is stored)
+  err = matmul(h_last, false, dw, false, dw_out, H, PC, E, true, ws, ws_len,
+               s, true);
+  if (err != cudaSuccess) return (int)err;
+  err = matmul(dw, true, w_out, true, dh, E, H, PC, false, nullptr, 0, s,
+               true);
+  if (err != cudaSuccess) return (int)err;
+  size_t w_ofs = (size_t)w_hidden_len;
+  for (int i = n_hidden - 1; i >= 0; --i) {
+    const int fan = i == 0 ? R : H;
+    w_ofs -= (size_t)fan * H;
+    const float* a_in = i == 0 ? er : h_all + (size_t)(i - 1) * EH;
+    const unsigned blocks =
+        (unsigned)std::min<size_t>((EH + 255) / 256, 4096);
+    k2_act_grad_kernel<true><<<blocks, 256, 0, s>>>(
+        dh, z_all + (size_t)i * EH, EH, act_cst, dz);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = matmul(a_in, false, dz, false, dw_hidden + w_ofs, fan, H, E, true,
+                 ws, ws_len, s, true);
+    if (err != cudaSuccess) return (int)err;
+    err = matmul(dz, true, w_hidden + w_ofs, true, i == 0 ? der : dh, E, fan,
+                 H, false, nullptr, 0, s, true, i == 0);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

@@ -8,16 +8,17 @@
 
 #include "row_mix.cuh"
 
-long long rowmix_launches[2] = {0, 0};
+long long rowmix_launches[4] = {0, 0, 0, 0};
 
 // out [rows, out_dim] = the forward mix of S [rows, KM]; probs: the problem
-// table, on the host
+// table, on the host; bf16: the bfloat16 products
 extern "C" int row_mix_forward(const float* S, int rows, int KM,
                                const float* wsel, const int* probs,
                                int n_probs, float* out, int out_dim,
-                               void* stream) {
+                               int bf16, void* stream) {
   return (int)rowmix::mix_rows(S, rows, KM, wsel, probs, n_probs, out,
-                               out_dim, static_cast<cudaStream_t>(stream));
+                               out_dim, static_cast<cudaStream_t>(stream),
+                               bf16 != 0);
 }
 
 // which 1: dS [rows, KM] from gout and wsel; 2: dwsel [wsel_len] from S and
@@ -26,22 +27,22 @@ extern "C" int row_mix_backward(int which, const int* probs, int n_probs,
                                 int rows, int KM, int out_dim, const float* S,
                                 const float* wsel, const float* gout,
                                 float* C, int wsel_len, float* ws, int ws_len,
-                                void* stream) {
+                                int bf16, void* stream) {
   if (which != rowmix::kMixRows && which != rowmix::kMixWeights)
     return (int)cudaErrorInvalidValue;
   return (int)rowmix::mix_products(
       static_cast<rowmix::MixProduct>(which), probs, n_probs, rows, KM,
       out_dim, S, wsel, gout, C, wsel_len, ws, ws_len,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), bf16 != 0);
 }
 
 // C [M, N] = A B with A [M, K] (a_kc) or stored as [K, M], B [K, N] or
 // stored as [N, K] (b_kc); split: the reduction may be split into ws
 extern "C" int row_mix_matmul(const float* A, int a_kc, const float* B,
                               int b_kc, float* C, int M, int N, int K,
-                              int split, float* ws, int ws_len,
+                              int split, float* ws, int ws_len, int bf16,
                               void* stream) {
   return (int)rowmix::matmul(A, a_kc != 0, B, b_kc != 0, C, M, N, K,
                              split != 0, ws, ws_len,
-                             static_cast<cudaStream_t>(stream));
+                             static_cast<cudaStream_t>(stream), bf16 != 0);
 }

@@ -62,6 +62,19 @@
 //   of their reductions) travel as one __grid_constant__ parameter block,
 //   built on the host from the problem table.
 //
+// - bfloat16 products (the bfloat16 K1 and K2, template flag BF): both
+//   operands are rounded to bfloat16 as the fragments are built from the
+//   float32 stages (the stages, the ring and the tiles stay as they are),
+//   and one mma.sync m16n8k16 bf16 with float32 accumulation per 16 of the
+//   reduction takes the place of the three TF32 MMAs per 8.  A product of
+//   two bfloat16 values is exact in float32, so this is the TPU's bfloat16
+//   dot with preferred_element_type=float32 up to the order of the sum.
+//   An operand stored as bfloat16 (Operand::bf; the mix matrices, the MLP
+//   weights, gout) is read with plain loads and widened into the float32
+//   stage; an output of bfloat16 (Batch::c_mode) takes the float32 sums
+//   rounded as they are stored, and K2's d edge_radial the sums rounded
+//   and kept float32.
+//
 // What bounds it on the card: at the full-width shapes these products are
 // bound by bytes (the scratch S or dS, rows x KM floats, read or written
 // once) or, for K2's MLP stage (2 x 2 x E x 64 x 3072 FLOPs), by the
@@ -70,6 +83,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,9 +91,12 @@
 #include <map>
 #include <vector>
 
+#include "bf16.cuh"
+
 // launches of gemm_kernel, for the forward mix [0] and for the backward's
-// products [1] (defined in row_mix.cu; read by the Python wrappers)
-extern "C" long long rowmix_launches[2];
+// products [1], and the same of the bfloat16 products [2], [3] (defined in
+// row_mix.cu; read by the Python wrappers)
+extern "C" long long rowmix_launches[4];
 
 namespace rowmix {
 
@@ -98,10 +115,11 @@ constexpr int kMinSplitRows = 64;
 constexpr long long kWorkspaceFloats = 2LL * kTargetBlocks * kBM * kBN;
 
 // element j of line l at p[l * ld + start + j]; vec: p + start and ld are
-// 16-byte aligned, so lines take 16-byte copies
+// 16-byte aligned, so lines take 16-byte copies; bf: p holds bfloat16
+// elements (read by the BF kernels only)
 struct Operand {
   const float* p;
-  int ld, start, vec, pad;
+  int ld, start, vec, bf;
 };
 
 // one reduction of a product: sum_k A(m, k) B(k, n), k < K
@@ -119,9 +137,13 @@ struct Job {
   int m0, nm, tile0, tiles_n;
 };
 
+// how the BF kernels store C: float32, bfloat16, or float32 rounded to
+// bfloat16 values
+enum COut { kCF32 = 0, kCBf16 = 1, kCRounded = 2 };
+
 struct Batch {
   float* ws;
-  int n_jobs, splits, k_chunk, tiles;
+  int n_jobs, splits, k_chunk, tiles, c_mode;
   Job jobs[kMaxJobs];
   Member members[kMaxMembers];
 };
@@ -189,14 +211,46 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// acc += a b, one m16n8k16 bfloat16 MMA with float32 accumulation
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two float32 values rounded to bfloat16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Stage lines [l0, l0 + lines) x elements [j0, j0 + width) of an operand
 // into dst; lines at or past l_lim and elements at or past j_lim are zero.
-template <class Shape>
+// BF: a bfloat16 operand's elements are loaded and widened.
+template <class Shape, bool BF = false>
 __device__ __forceinline__ void stage_operand(float* dst, const Operand& o,
                                               int l0, int l_lim, int j0,
                                               int j_lim, int tid) {
-  const float* base = o.p + o.start + j0;
   const int valid = j_lim - j0;   // elements of a line
+  if constexpr (BF) {
+    if (o.bf) {
+      const bf16::T* bb =
+          reinterpret_cast<const bf16::T*>(o.p) + o.start + j0;
+#pragma unroll 4
+      for (int n = 0; n < Shape::lines * Shape::width / kThreads; ++n) {
+        const int i = tid + n * kThreads;
+        const int l = i / Shape::width, c = i % Shape::width;
+        dst[l * Shape::pitch + c] =
+            l0 + l < l_lim && c < valid
+                ? bf16::f(bb[(size_t)(l0 + l) * o.ld + c])
+                : 0.f;
+      }
+      return;
+    }
+  }
+  const float* base = o.p + o.start + j0;
   if (o.vec) {
     constexpr int chunks = Shape::width / 4;
 #pragma unroll
@@ -223,10 +277,19 @@ __device__ __forceinline__ void stage_operand(float* dst, const Operand& o,
   }
 }
 
+// C[at] = v, as c_mode stores it
+__device__ __forceinline__ void store_c(int c_mode, float* C, size_t at,
+                                        float v) {
+  if (c_mode == kCBf16)
+    bf16::put(reinterpret_cast<bf16::T*>(C) + at, v);
+  else
+    C[at] = c_mode == kCRounded ? bf16::rn(v) : v;
+}
+
 // grid: (tiles of every job of the batch, splits); 128 threads.  AK: A's
 // unit-stride axis is k (lines are m), else m (lines are k); BK: B's is k
-// (lines are n), else n (lines are k).
-template <bool AK, bool BK>
+// (lines are n), else n (lines are k).  BF: the bfloat16 products.
+template <bool AK, bool BK, bool BF = false>
 static __global__ void __launch_bounds__(kThreads, 4)
     gemm_kernel(const __grid_constant__ Batch b) {
   using SA = StageShape<AK, kBM>;
@@ -259,13 +322,13 @@ static __global__ void __launch_bounds__(kThreads, 4)
     float* bs = as + SA::floats;
     const int ke = k_end(t);
     if (AK)
-      stage_operand<SA>(as, mem[t].a, m0, job.M, k0, ke, tid);
+      stage_operand<SA, BF>(as, mem[t].a, m0, job.M, k0, ke, tid);
     else
-      stage_operand<SA>(as, mem[t].a, k0, ke, m0, job.M, tid);
+      stage_operand<SA, BF>(as, mem[t].a, k0, ke, m0, job.M, tid);
     if (BK)
-      stage_operand<SB>(bs, mem[t].b, n0, job.N, k0, ke, tid);
+      stage_operand<SB, BF>(bs, mem[t].b, n0, job.N, k0, ke, tid);
     else
-      stage_operand<SB>(bs, mem[t].b, k0, ke, n0, job.N, tid);
+      stage_operand<SB, BF>(bs, mem[t].b, k0, ke, n0, job.N, tid);
   };
 
   constexpr int MI = kWarpM / 16, NI = kWarpN / 8;   // MMA tiles a warp
@@ -284,6 +347,37 @@ static __global__ void __launch_bounds__(kThreads, 4)
   auto compute = [&](int slot) {
     const float* as = smem + slot * kStage;
     const float* bs = as + SA::floats;
+    auto A = [&](int r, int k) {
+      return AK ? as[r * SA::pitch + k] : as[k * SA::pitch + r];
+    };
+    auto B = [&](int c, int k) {
+      return BK ? bs[c * SB::pitch + k] : bs[k * SB::pitch + c];
+    };
+    if constexpr (BF) {
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16) {
+        const int k = kk + 2 * q4;
+        uint32_t bf[NI][2];
+#pragma unroll
+        for (int n = 0; n < NI; ++n) {
+          const int c = wn + n * 8 + g;
+          bf[n][0] = pack_bf16(B(c, k), B(c, k + 1));
+          bf[n][1] = pack_bf16(B(c, k + 8), B(c, k + 9));
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int r = wm + i * 16 + g;
+          const uint32_t af[4] = {
+              pack_bf16(A(r, k), A(r, k + 1)),
+              pack_bf16(A(r + 8, k), A(r + 8, k + 1)),
+              pack_bf16(A(r, k + 8), A(r, k + 9)),
+              pack_bf16(A(r + 8, k + 8), A(r + 8, k + 9))};
+#pragma unroll
+          for (int n = 0; n < NI; ++n) mma_bf16(acc[i][n], af, bf[n]);
+        }
+      }
+      return;
+    }
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 8) {
       uint32_t bh[NI][2], bl[NI][2];
@@ -346,6 +440,24 @@ static __global__ void __launch_bounds__(kThreads, 4)
 
   // one plain store per element: the tile, or this split's partial tile
   const bool partial = b.splits > 1;
+  if constexpr (BF) {
+    if (!partial && b.c_mode != kCF32) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int n = 0; n < NI; ++n)
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int r = m0 + wm + i * 16 + g + (h >> 1) * 8;
+            const int col = n0 + wn + n * 8 + 2 * q4 + (h & 1);
+            if (r < job.M && col < job.N)
+              store_c(b.c_mode, job.C,
+                      (size_t)r * job.scm + (size_t)col * job.scn,
+                      acc[i][n][h]);
+          }
+      return;
+    }
+  }
   float* out = partial ? b.ws + job.ws_off + (size_t)split * job.M * job.N
                        : job.C;
   const size_t scm = partial ? (size_t)job.N : (size_t)job.scm;
@@ -374,8 +486,9 @@ static __global__ void __launch_bounds__(kThreads, 4)
       }
 }
 
-// C = the sum of a split product's partial tiles, in split order.
-// grid: (element chunks, jobs)
+// C = the sum of a split product's partial tiles, in split order (BF: as
+// c_mode stores it).  grid: (element chunks, jobs)
+template <bool BF = false>
 static __global__ void reduce_kernel(const __grid_constant__ Batch b) {
   const Job& job = b.jobs[blockIdx.y];
   const size_t mn = (size_t)job.M * job.N;
@@ -384,7 +497,11 @@ static __global__ void reduce_kernel(const __grid_constant__ Batch b) {
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < b.splits; ++k) s += part[k * mn + i];
-    job.C[(i / job.N) * job.scm + (i % job.N) * job.scn] = s;
+    const size_t at = (i / job.N) * job.scm + (i % job.N) * job.scn;
+    if constexpr (BF)
+      store_c(b.c_mode, job.C, at, s);
+    else
+      job.C[at] = s;
   }
 }
 
@@ -398,18 +515,19 @@ struct Blocks {
 };
 static_assert(sizeof(Blocks) <= 4000, "kernel parameters are limited to 4 KB");
 
-// grid: (row chunks, blocks)
-static __global__ void deinterleave_kernel(const float* __restrict__ gout,
+// grid: (row chunks, blocks); G: gout's element type (bfloat16 widened)
+template <class G = float>
+static __global__ void deinterleave_kernel(const G* __restrict__ gout,
                                            int rows, int out_dim,
                                            const __grid_constant__ Blocks bl,
                                            float* __restrict__ gT) {
   const int s0 = bl.out_start[blockIdx.y], d = bl.d[blockIdx.y];
   const int wo = bl.wo[blockIdx.y], width = wo * d;
   for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const float* src = gout + (size_t)r * out_dim + s0;
+    const G* src = gout + (size_t)r * out_dim + s0;
     float* dst = gT + (size_t)r * out_dim + s0;
     for (int c = threadIdx.x; c < width; c += blockDim.x)
-      dst[(c % d) * wo + c / d] = src[c];
+      dst[(c % d) * wo + c / d] = bf16::f(src[c]);
   }
 }
 
@@ -427,6 +545,28 @@ static inline Operand operand(const float* p, int ld, int start) {
   return o;
 }
 
+// the same of bfloat16 elements (staged by the BF kernels' plain loads)
+static inline Operand operand(const bf16::T* p, int ld, int start) {
+  Operand o{};
+  o.p = reinterpret_cast<const float*>(p);
+  o.ld = ld;
+  o.start = start;
+  o.bf = 1;
+  return o;
+}
+
+// C's pointer in a Job, and how a C of that element type is stored: a
+// bfloat16 C rounded, a float32 C as it is or (``rounded``) rounded to
+// bfloat16 values
+template <class C>
+static inline float* c_ptr(C* p) {
+  return reinterpret_cast<float*>(p);
+}
+template <class C>
+static inline int c_mode(bool rounded) {
+  return bf16::is_bf16<C> ? kCBf16 : rounded ? kCRounded : kCF32;
+}
+
 enum Kind { kForward = 0, kBackward = 1 };
 
 // Collects products into launches of gemm_kernel (and reduce_kernel for
@@ -436,9 +576,12 @@ enum Kind { kForward = 0, kBackward = 1 };
 // b_kc are gemm_kernel's AK and BK.
 class Launcher {
  public:
+  // bf16: the bfloat16 products, C stored as c_mode says
   Launcher(Kind kind, bool split, float* ws, long long ws_len,
-           cudaStream_t s)
-      : kind_(kind), split_(split), ws_(ws), ws_len_(ws_len), s_(s) {
+           cudaStream_t s, bool bf16 = false, int c_mode = kCF32)
+      : kind_(kind), split_(split), bf16_(bf16), ws_(ws), ws_len_(ws_len),
+        s_(s) {
+    b_.c_mode = c_mode;
     reset();
   }
 
@@ -501,17 +644,25 @@ class Launcher {
       off += (long long)splits * b_.jobs[i].M * b_.jobs[i].N;
     }
     cudaError_t err =
-        a_kc_ ? (b_kc_ ? launch<true, true>() : launch<true, false>())
-              : (b_kc_ ? launch<false, true>() : launch<false, false>());
+        bf16_ ? (a_kc_ ? (b_kc_ ? launch<true, true, true>()
+                                : launch<true, false, true>())
+                       : (b_kc_ ? launch<false, true, true>()
+                                : launch<false, false, true>()))
+              : (a_kc_ ? (b_kc_ ? launch<true, true>() : launch<true, false>())
+                       : (b_kc_ ? launch<false, true>()
+                                : launch<false, false>()));
     if (err != cudaSuccess) return err;
-    ++rowmix_launches[kind_];
+    ++rowmix_launches[kind_ + (bf16_ ? 2 : 0)];
     if (splits > 1) {
       long long most = 0;
       for (int i = 0; i < b_.n_jobs; ++i)
         most = std::max(most, (long long)b_.jobs[i].M * b_.jobs[i].N);
       const unsigned chunks =
           (unsigned)std::min<long long>((most + 1023) / 1024, 1024);
-      reduce_kernel<<<dim3(chunks, b_.n_jobs), 256, 0, s_>>>(b_);
+      if (bf16_)
+        reduce_kernel<true><<<dim3(chunks, b_.n_jobs), 256, 0, s_>>>(b_);
+      else
+        reduce_kernel<false><<<dim3(chunks, b_.n_jobs), 256, 0, s_>>>(b_);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
@@ -520,7 +671,7 @@ class Launcher {
   }
 
  private:
-  template <bool AK, bool BK>
+  template <bool AK, bool BK, bool BF = false>
   cudaError_t launch() {
     constexpr size_t bytes =
         kStages *
@@ -528,12 +679,12 @@ class Launcher {
         sizeof(float);
     if (bytes > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
-          gemm_kernel<AK, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)bytes);
+          gemm_kernel<AK, BK, BF>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
       if (err != cudaSuccess) return err;
     }
-    gemm_kernel<AK, BK><<<dim3(b_.tiles, b_.splits), kThreads, bytes, s_>>>(
-        b_);
+    gemm_kernel<AK, BK, BF>
+        <<<dim3(b_.tiles, b_.splits), kThreads, bytes, s_>>>(b_);
     return cudaGetLastError();
   }
 
@@ -545,7 +696,7 @@ class Launcher {
   }
 
   Kind kind_;
-  bool split_;
+  bool split_, bf16_;
   float* ws_;
   long long ws_len_;
   cudaStream_t s_;
@@ -557,17 +708,22 @@ class Launcher {
 // C = A B, A [M, K] (a_kc) or stored transposed as [K, M], B [K, N] or
 // stored transposed as [N, K] (b_kc), all with unit-stride rows of their
 // stored shape; C [M, N] dense.  ``split``: the reduction may be split
-// (over K, into the workspace).
-static inline cudaError_t matmul(const float* A, bool a_kc, const float* B,
-                                 bool b_kc, float* C, int M, int N, int K,
+// (over K, into the workspace).  bf16: the bfloat16 products (which a
+// bfloat16 B or C implies); B and C may be bfloat16, a float32 C rounded
+// to bfloat16 values (``round_c``, with the bfloat16 products only).
+template <class TB = float, class TC = float>
+static inline cudaError_t matmul(const float* A, bool a_kc, const TB* B,
+                                 bool b_kc, TC* C, int M, int N, int K,
                                  bool split, float* ws, long long ws_len,
-                                 cudaStream_t s) {
+                                 cudaStream_t s, bool bf16 = false,
+                                 bool round_c = false) {
   Member m{};
   m.a = operand(A, a_kc ? K : M, 0);
   m.b = operand(B, b_kc ? K : N, 0);
   m.K = K;
-  Launcher l(kBackward, split, ws, ws_len, s);
-  cudaError_t err = l.add(C, N, 1, M, N, a_kc, b_kc, &m, 1);
+  bf16 = bf16 || ::bf16::is_bf16<TB> || ::bf16::is_bf16<TC>;
+  Launcher l(kBackward, split, ws, ws_len, s, bf16, c_mode<TC>(round_c));
+  cudaError_t err = l.add(c_ptr(C), N, 1, M, N, a_kc, b_kc, &m, 1);
   if (err != cudaSuccess) return err;
   return l.flush();
 }
@@ -598,18 +754,21 @@ static inline bool covers_scratch(const int* probs, int n_probs, int KM) {
 }
 
 // The forward mix of every problem over ``rows`` scratch rows, from the
-// problem table on the host; columns of no problem are zeroed.
+// problem table on the host; columns of no problem are zeroed.  bf16: the
+// bfloat16 products (which a bfloat16 wsel or out implies).
+template <class TW = float, class TO = float>
 static inline cudaError_t mix_rows(const float* S, int rows, int KM,
-                                   const float* wsel, const int* probs,
-                                   int n_probs, float* out, int out_dim,
-                                   cudaStream_t s) {
+                                   const TW* wsel, const int* probs,
+                                   int n_probs, TO* out, int out_dim,
+                                   cudaStream_t s, bool bf16 = false) {
   if (rows <= 0) return cudaSuccess;
   if (!covers_output(probs, n_probs, out_dim)) {
     cudaError_t err = cudaMemsetAsync(
-        out, 0, (size_t)rows * (size_t)out_dim * sizeof(float), s);
+        out, 0, (size_t)rows * (size_t)out_dim * sizeof(TO), s);
     if (err != cudaSuccess) return err;
   }
-  Launcher l(kForward, false, nullptr, 0, s);
+  bf16 = bf16 || ::bf16::is_bf16<TW> || ::bf16::is_bf16<TO>;
+  Launcher l(kForward, false, nullptr, 0, s, bf16, c_mode<TO>(false));
   for (int q = 0; q < n_probs; ++q) {
     const int* pr = probs + q * kProbFields;
     const int a_col = pr[0], kdim = pr[1], b_off = pr[2], wo = pr[3];
@@ -617,8 +776,8 @@ static inline cudaError_t mix_rows(const float* S, int rows, int KM,
     m.a = operand(S, KM, a_col);
     m.b = operand(wsel + b_off, wo, 0);
     m.K = kdim;
-    cudaError_t err = l.add(out + pr[4], out_dim, pr[5], rows, wo, true,
-                            false, &m, 1);
+    cudaError_t err = l.add(c_ptr(out + pr[4]), out_dim, pr[5], rows, wo,
+                            true, false, &m, 1);
     if (err != cudaSuccess) return err;
   }
   return l.flush();
@@ -639,9 +798,10 @@ static inline std::map<int, int> block_starts(const int* probs,
 
 // gT = gout with every (group, slot) block component-major: problem q's
 // columns start at s0 + (c_off - s0) * wo, s0 its block's first column.
+template <class G>
 static inline cudaError_t deinterleave(const int* probs, int n_probs,
                                        int rows, int out_dim,
-                                       const float* gout, float* gT,
+                                       const G* gout, float* gT,
                                        cudaStream_t s) {
   const std::map<int, int> first = block_starts(probs, n_probs);
   Blocks bl{};
@@ -672,15 +832,26 @@ static inline cudaError_t deinterleave(const int* probs, int n_probs,
 //   kMixRows:    dS (every column; those of no problem are zeroed)
 //   kMixWeights: dwsel (every entry), split over rows
 // ws [ws_len]: gout made component-major (rows * out_dim floats), then the
-// split products' partial tiles.
+// split products' partial tiles.  bf16: the bfloat16 products (which a
+// bfloat16 wsel, gout or C implies); TW, wsel's element type, is named by
+// the caller (wsel may be null).
 enum MixProduct { kMixRows = 1, kMixWeights = 2 };
 
+template <class T>
+struct Named {
+  using type = T;
+};
+
+template <class TW = float, class TG = float, class TC = float>
 static inline cudaError_t mix_products(MixProduct which, const int* probs,
                                        int n_probs, int rows, int KM,
                                        int out_dim, const float* S,
-                                       const float* wsel, const float* gout,
-                                       float* C, int wsel_len, float* ws,
-                                       long long ws_len, cudaStream_t s) {
+                                       const typename Named<TW>::type* wsel,
+                                       const TG* gout, TC* C, int wsel_len,
+                                       float* ws, long long ws_len,
+                                       cudaStream_t s, bool bf16 = false) {
+  bf16 = bf16 || ::bf16::is_bf16<TW> || ::bf16::is_bf16<TG> ||
+         ::bf16::is_bf16<TC>;
   const bool rows_kind = which == kMixRows;
   if (rows_kind && rows <= 0) return cudaSuccess;
   const long long gt_len = (long long)std::max(rows, 0) * out_dim;
@@ -707,14 +878,15 @@ static inline cudaError_t mix_products(MixProduct which, const int* probs,
                                   : covered == wsel_len;
   if (!complete) {   // columns or entries of no problem stay zero
     const size_t n = rows_kind ? (size_t)rows * KM : (size_t)wsel_len;
-    cudaError_t err = cudaMemsetAsync(C, 0, n * sizeof(float), s);
+    cudaError_t err = cudaMemsetAsync(C, 0, n * sizeof(TC), s);
     if (err != cudaSuccess) return err;
   }
   float* gT = ws;
   cudaError_t err = deinterleave(probs, n_probs, rows, out_dim, gout, gT, s);
   if (err != cudaSuccess) return err;
   const std::map<int, int> first = block_starts(probs, n_probs);
-  Launcher l(kBackward, !rows_kind, ws + gt_len, ws_len - gt_len, s);
+  Launcher l(kBackward, !rows_kind, ws + gt_len, ws_len - gt_len, s, bf16,
+             c_mode<TC>(false));
   Member members[kMaxMembers];
   for (const auto& own : owners) {
     const int* p0 = probs + own[0] * kProbFields;
@@ -736,9 +908,9 @@ static inline cudaError_t mix_products(MixProduct which, const int* probs,
         m.K = std::max(rows, 0);
       }
     }
-    err = rows_kind ? l.add(C + a_col, KM, 1, rows, kdim, true, true,
+    err = rows_kind ? l.add(c_ptr(C + a_col), KM, 1, rows, kdim, true, true,
                             members, (int)own.size())
-                    : l.add(C + b_off, wo, 1, kdim, wo, false, false,
+                    : l.add(c_ptr(C + b_off), wo, 1, kdim, wo, false, false,
                             members, (int)own.size());
     if (err != cudaSuccess) return err;
   }

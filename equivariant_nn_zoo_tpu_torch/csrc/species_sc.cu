@@ -62,10 +62,26 @@
 // The TPU kernels' dense per-species products with species masks over
 // [(Tn * d), M1] tiles and their e/o slot pairing were MXU devices and are
 // not carried over.
+//
+// The bfloat16 variants (species_sc_fwd_bf16, species_sc_bwd_bf16; kBf16 in
+// the kernels) take x, the tables and g as bfloat16 tensors, read straight
+// from device memory (half the bytes; plain loads widened as they are
+// staged, where the float32 kernels stage by cp.async) and computes the
+// TPU kernels' contract at compute_dtype=bfloat16 (sc.py:181-246): every
+// product of two bfloat16 values is exact in float32 and summed in float32;
+// per instruction the sum is rounded to bfloat16 (the TPU kernel's blocks
+// are per instruction); an output slot's instructions are added in
+// bfloat16 into the bfloat16 output, an input slot's dx in float32 (each
+// instruction's dx is a separate cotangent of x there), into a float32 dx;
+// dtables is summed in float32 and rounded once into the bfloat16 output
+// (the TPU kernel's caller casts it to the tables' dtype).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16.cuh"
 #include "row_mix.cuh"
 
 namespace {
@@ -138,21 +154,34 @@ __device__ inline bool find_tile(int i, int tn, const int* ptr, int types,
   return false;
 }
 
+// *dst <- *src when live, else 0: a float by cp.async (the caller commits
+// and waits), a bfloat16 value widened by a plain load
+__device__ __forceinline__ void stage_elem(float* dst, const float* src,
+                                           const float* base, bool live) {
+  cp_async4(dst, live ? src : base, live ? 4 : 0);
+}
+
+__device__ __forceinline__ void stage_elem(float* dst, const bf16::T* src,
+                                           const bf16::T*, bool live) {
+  *dst = live ? __bfloat162float(*src) : 0.f;
+}
+
 // rows_s[(nl * d + m) * kPitch + k] <- src[nodes[nl], off + k * d + m] for
 // nl < nn and k < kK by cp.async, zero for k >= kc: a warp per node, its
 // lanes along the node's contiguous floats.  The caller commits and waits.
+template <typename In = float>
 __device__ inline void stage_rows(float* rows_s, const int* nodes, int nn,
-                                  const float* __restrict__ src, int src_dim,
+                                  const In* __restrict__ src, int src_dim,
                                   int off, int d, int kc) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int span = kK * d, dk = 32 / d, dm = 32 % d;
   for (int nl = warp; nl < nn; nl += kThreads / 32) {
-    const float* row = src + (size_t)nodes[nl] * src_dim + off;
+    const In* row = src + (size_t)nodes[nl] * src_dim + off;
     float* dst = rows_s + nl * d * kPitch;
     int k = lane / d, m = lane % d;
     for (int j = lane; j < span; j += 32) {
       const bool live = k < kc;
-      cp_async4(dst + m * kPitch + k, live ? row + j : src, live ? 4 : 0);
+      stage_elem(dst + m * kPitch + k, row + j, src, live);
       k += dk;
       m += dm;
       if (m >= d) {
@@ -163,19 +192,63 @@ __device__ inline void stage_rows(float* rows_s, const int* nodes, int nn,
   }
 }
 
+// acc[r][c] += sum over the stage's kc reduction steps of x_s's row
+// rg + 16 r times A_s's column 4 cg + c
+__device__ __forceinline__ void product_steps(float (&acc)[8][4],
+                                              const float* A_s,
+                                              const float* x_s, int kc,
+                                              int rg, int cg, int rmax) {
+  for (int k = 0; k < kc; k += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[j] = *reinterpret_cast<const float4*>(A_s + (k + j) * kPitch +
+                                              cg * 4);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r >= rmax) break;
+      const float4 xv = *reinterpret_cast<const float4*>(
+          x_s + (rg + 16 * r) * kPitch + k);
+      acc[r][0] += xv.x * a[0].x + xv.y * a[1].x + xv.z * a[2].x +
+                   xv.w * a[3].x;
+      acc[r][1] += xv.x * a[0].y + xv.y * a[1].y + xv.z * a[2].y +
+                   xv.w * a[3].y;
+      acc[r][2] += xv.x * a[0].z + xv.y * a[1].z + xv.z * a[2].z +
+                   xv.w * a[3].z;
+      acc[r][3] += xv.x * a[0].w + xv.y * a[1].w + xv.z * a[2].w +
+                   xv.w * a[3].w;
+    }
+  }
+}
+
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(bf16::T* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // kBwd false, K3:  out[n, out_off + w*d + m] = sum over the slot's items,
 //                    sum_u x[n, x_off + u*d + m] A[t, a_off + u*mo + w];
 // kBwd true, dx:   dx[n, x_off + u*d + m] = sum over the slot's items,
 //                    sum_w g[n, out_off + w*d + m] A[t, a_off + u*mo + w].
 // Thread (rg, cg) keeps rows rg + 16 r (r < 8) by columns 4 cg .. 4 cg + 3.
-template <bool kBwd>
+// kBf16: src and the tables bfloat16, each item's sum rounded, the items
+// added in bfloat16 into a bfloat16 out (K3) or in float32 into a float32
+// dx.
+template <bool kBwd, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 3) table_product_kernel(
-    const float* __restrict__ src, int src_dim,
+    const typename std::conditional<kBf16, bf16::T, float>::type* __restrict__
+        src,
+    int src_dim,
     const int* __restrict__ perm, const int* __restrict__ ptr, int types,
-    int N, const float* __restrict__ tables, int a_stride,
+    int N,
+    const typename std::conditional<kBf16, bf16::T, float>::type* __restrict__
+        tables,
+    int a_stride,
     const int* __restrict__ slots, const int* __restrict__ items,
     const int* __restrict__ entries, int n_entries,
-    float* __restrict__ dst, int dst_dim) {
+    typename std::conditional<kBf16 && !kBwd, bf16::T, float>::type*
+        __restrict__ dst,
+    int dst_dim) {
   extern __shared__ float4 smem4[];
   float* A_s = reinterpret_cast<float*>(smem4);  // [kK][kPitch]: A[k][c]
   float* x_s = A_s + kK * kPitch;  // [kRows][kPitch], then the out tile
@@ -195,11 +268,11 @@ __global__ void __launch_bounds__(kThreads, 3) table_product_kernel(
   const int rmax = rg < nrows ? (nrows - 1 - rg) / 16 + 1 : 0;
   for (int i = tid; i < cnt; i += kThreads) s_nodes[i] = perm[p0 + i];
 
-  float acc[8][4];
+  float acc[8][4], part[8][4];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[r][c] = part[r][c] = 0.f;
 
   for (int it = t < types ? it0 : it1; it < it1; ++it) {
     int src_off, K, a_off, mo;
@@ -210,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 3) table_product_kernel(
       const int* pi = items + it * kFwdItemFields;
       src_off = pi[0], K = pi[1], a_off = pi[2], mo = width;
     }
-    const float* A = tables + (size_t)t * a_stride + a_off;
+    const auto* A = tables + (size_t)t * a_stride + a_off;
     for (int k0 = 0; k0 < K; k0 += kK) {
       const int kc = min(kK, K - k0);
       __syncthreads();  // the nodes are in; the previous chunk's reads done
@@ -229,33 +302,27 @@ __global__ void __launch_bounds__(kThreads, 3) table_product_kernel(
           at = (size_t)(k0 + k) * mo + c0 + c;
         }
         const bool live = k < kc && c < cw;
-        cp_async4(A_s + k * kPitch + c, live ? A + at : A, live ? 4 : 0);
+        stage_elem(A_s + k * kPitch + c, A + at, A, live);
       }
       stage_rows(x_s, s_nodes, cnt, src, src_dim, src_off + k0 * d, d, kc);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      for (int k = 0; k < kc; k += 4) {
-        float4 a[4];
+      if constexpr (kBf16)
+        product_steps(part, A_s, x_s, kc, rg, cg, rmax);
+      else
+        product_steps(acc, A_s, x_s, kc, rg, cg, rmax);
+    }
+    if constexpr (kBf16) {  // this item's sums rounded, then added
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          a[j] = *reinterpret_cast<const float4*>(A_s + (k + j) * kPitch +
-                                                  cg * 4);
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          if (r >= rmax) break;
-          const float4 xv = *reinterpret_cast<const float4*>(
-              x_s + (rg + 16 * r) * kPitch + k);
-          acc[r][0] += xv.x * a[0].x + xv.y * a[1].x + xv.z * a[2].x +
-                       xv.w * a[3].x;
-          acc[r][1] += xv.x * a[0].y + xv.y * a[1].y + xv.z * a[2].y +
-                       xv.w * a[3].y;
-          acc[r][2] += xv.x * a[0].z + xv.y * a[1].z + xv.z * a[2].z +
-                       xv.w * a[3].z;
-          acc[r][3] += xv.x * a[0].w + xv.y * a[1].w + xv.z * a[2].w +
-                       xv.w * a[3].w;
+        for (int c = 0; c < 4; ++c) {
+          const float v = bf16::rn(part[r][c]);
+          part[r][c] = 0.f;
+          acc[r][c] = kBwd ? acc[r][c] + v
+                           : it == it0 ? v : bf16::rn(acc[r][c] + v);
         }
-      }
     }
   }
 
@@ -273,8 +340,9 @@ __global__ void __launch_bounds__(kThreads, 3) table_product_kernel(
   __syncthreads();
   const int lane = tid % 32, warp = tid / 32, n_out = cw * d;
   for (int nl = warp; nl < cnt; nl += kThreads / 32) {
-    float* row = dst + (size_t)s_nodes[nl] * dst_dim + dst_off + c0 * d;
-    for (int j = lane; j < n_out; j += 32) row[j] = x_s[nl * span + j];
+    auto* row = dst + (size_t)s_nodes[nl] * dst_dim + dst_off + c0 * d;
+    for (int j = lane; j < n_out; j += 32)
+      store_elem(row + j, x_s[nl * span + j]);
   }
 }
 
@@ -282,9 +350,14 @@ __global__ void __launch_bounds__(kThreads, 3) table_product_kernel(
 // sum over the chunk's (node, m) rows of x[n, x_off + (u0+u)*d + m]
 // g[n, out_off + (w0+w)*d + m] to ws[(base + chunk) * kTile].  The rows
 // come in rounds of kRound / d nodes, the next round's copies in flight
-// while the block sums the current one.
+// while the block sums the current one.  kBf16: x and g bfloat16.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads) table_grad_kernel(
-    const float* __restrict__ x, int in_dim, const float* __restrict__ g,
+    const typename std::conditional<kBf16, bf16::T, float>::type* __restrict__
+        x,
+    int in_dim,
+    const typename std::conditional<kBf16, bf16::T, float>::type* __restrict__
+        g,
     int out_dim, const int* __restrict__ perm, const int* __restrict__ ptr,
     int types, int N, const int* __restrict__ items,
     const int* __restrict__ entries, int n_entries, int chunk_rows,
@@ -353,11 +426,14 @@ __global__ void __launch_bounds__(kThreads) table_grad_kernel(
 
 // dA[t, a_off + u*mo + w] = sum over species t's chunks, in chunk order, of
 // the partial tiles; zero for a species with no node.  grid: (types,
-// entries); four consecutive w per thread.
+// entries); four consecutive w per thread.  kBf16: dA bfloat16, each sum
+// rounded once.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads) table_grad_sum_kernel(
     const int* __restrict__ ptr, int types, int N,
     const int* __restrict__ items, const int* __restrict__ entries,
-    int chunk_rows, const float* __restrict__ ws, float* __restrict__ dA,
+    int chunk_rows, const float* __restrict__ ws,
+    typename std::conditional<kBf16, bf16::T, float>::type* __restrict__ dA,
     int a_stride) {
   const int t = blockIdx.x, e = blockIdx.y;
   int base = 0;
@@ -375,7 +451,7 @@ __global__ void __launch_bounds__(kThreads) table_grad_sum_kernel(
   for (int r = 0; r < t; ++r) i0 += (ptr[r + 1] - ptr[r] + tn - 1) / tn;
   const int nt = (ptr[t + 1] - ptr[t] + tn - 1) / tn;
   const float* part = ws + (size_t)(base + i0) * kTile;
-  float* out = dA + (size_t)t * a_stride + a_off;
+  auto* out = dA + (size_t)t * a_stride + a_off;
   for (int el = threadIdx.x * 4; el < kTile; el += kThreads * 4) {
     const int u = u0 + el / kCols, w = w0 + el % kCols;
     if (u >= mul1 || w >= mo) continue;
@@ -389,10 +465,10 @@ __global__ void __launch_bounds__(kThreads) table_grad_sum_kernel(
       s.w += v.w;
     }
     const float sv[4] = {s.x, s.y, s.z, s.w};
-    float* o = out + (size_t)u * mo + w;
+    auto* o = out + (size_t)u * mo + w;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (w + j < mo) o[j] = sv[j];
+      if (w + j < mo) store_elem(o + j, sv[j]);
   }
 }
 
@@ -422,27 +498,91 @@ int grad_blocks(const int* host_entries, int n_entries, int N, int types,
 }
 
 // the product and dtables kernels' shared memory exceeds the default
-// 48 KB: raise the limit once per device
+// 48 KB: raise the limit once per device (and variant)
+template <bool kBf16 = false>
 cudaError_t size_kernels() {
   static unsigned sized = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 32 && (sized >> dev & 1u)) return cudaSuccess;
-  err = cudaFuncSetAttribute(table_product_kernel<false>,
+  err = cudaFuncSetAttribute(table_product_kernel<false, kBf16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kProductSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(table_product_kernel<true>,
+    err = cudaFuncSetAttribute(table_product_kernel<true, kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kProductSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(table_grad_kernel,
+    err = cudaFuncSetAttribute(table_grad_kernel<kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kGradSmem);
   if (err != cudaSuccess) return err;
   if (dev < 32) sized |= 1u << dev;
   return cudaSuccess;
+}
+
+template <bool kBf16>
+using Elem = typename std::conditional<kBf16, bf16::T, float>::type;
+
+template <bool kBf16>
+cudaError_t forward(const Elem<kBf16>* x, int N, int in_dim, const int* perm,
+                    const int* ptr, int types, const Elem<kBf16>* tables,
+                    int a_stride, const int* slots, const int* items,
+                    const int* entries, const int* host_entries,
+                    int n_entries, Elem<kBf16>* out, int out_dim,
+                    cudaStream_t s) {
+  const int blocks = product_blocks(host_entries, n_entries, N, types + 1);
+  if (blocks < 0) return cudaErrorInvalidValue;
+  if (N == 0 || blocks == 0) return cudaSuccess;
+  cudaError_t err = size_kernels<kBf16>();
+  if (err != cudaSuccess) return err;
+  table_product_kernel<false, kBf16><<<blocks, kThreads, kProductSmem, s>>>(
+      x, in_dim, perm, ptr, types, N, tables, a_stride, slots, items,
+      entries, n_entries, out, out_dim);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t backward(
+    const Elem<kBf16>* x, int N, int in_dim, const int* perm, const int* ptr,
+    int types, const Elem<kBf16>* tables, int a_stride, const Elem<kBf16>* g,
+    int out_dim, const int* in_slots, const int* items,
+    const int* dx_entries, const int* host_dx_entries, int n_dx_entries,
+    const int* grad_entries, const int* host_grad_entries,
+    int n_grad_entries, int chunk_rows, float* ws, int ws_len,
+    float* dx, Elem<kBf16>* dA, cudaStream_t s) {
+  const int dx_blocks =
+      product_blocks(host_dx_entries, n_dx_entries, N, types + 1);
+  const int n_grad = chunk_rows < 1 ? -1
+                                    : grad_blocks(host_grad_entries,
+                                                  n_grad_entries, N, types,
+                                                  chunk_rows);
+  if (dx_blocks < 0 || n_grad < 0 || (long long)n_grad * kTile > ws_len)
+    return cudaErrorInvalidValue;
+  cudaError_t err = size_kernels<kBf16>();
+  if (err != cudaSuccess) return err;
+  if (N > 0 && dx_blocks > 0) {
+    table_product_kernel<true, kBf16>
+        <<<dx_blocks, kThreads, kProductSmem, s>>>(
+            g, out_dim, perm, ptr, types, N, tables, a_stride, in_slots,
+            items, dx_entries, n_dx_entries, dx, in_dim);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (N > 0 && n_grad > 0) {
+    table_grad_kernel<kBf16><<<n_grad, kThreads, kGradSmem, s>>>(
+        x, in_dim, g, out_dim, perm, ptr, types, N, items, grad_entries,
+        n_grad_entries, chunk_rows, ws);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (types > 0 && n_grad_entries > 0)
+    table_grad_sum_kernel<kBf16>
+        <<<dim3(types, n_grad_entries), kThreads, 0, s>>>(
+            ptr, types, N, items, grad_entries, chunk_rows, ws, dA,
+            a_stride);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -452,16 +592,10 @@ extern "C" int species_sc_fwd(
     int types, const float* tables, int a_stride, const int* slots,
     const int* items, const int* entries, const int* host_entries,
     int n_entries, float* out, int out_dim, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = product_blocks(host_entries, n_entries, N, types + 1);
-  if (blocks < 0) return (int)cudaErrorInvalidValue;
-  if (N == 0 || blocks == 0) return (int)cudaSuccess;
-  cudaError_t err = size_kernels();
-  if (err != cudaSuccess) return (int)err;
-  table_product_kernel<false><<<blocks, kThreads, kProductSmem, s>>>(
-      x, in_dim, perm, ptr, types, N, tables, a_stride, slots, items,
-      entries, n_entries, out, out_dim);
-  return (int)cudaGetLastError();
+  return (int)forward<false>(x, N, in_dim, perm, ptr, types, tables,
+                             a_stride, slots, items, entries, host_entries,
+                             n_entries, out, out_dim,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int species_sc_bwd(
@@ -472,33 +606,36 @@ extern "C" int species_sc_bwd(
     const int* grad_entries, const int* host_grad_entries,
     int n_grad_entries, int chunk_rows, float* ws, int ws_len,
     float* dx, float* dA, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dx_blocks =
-      product_blocks(host_dx_entries, n_dx_entries, N, types + 1);
-  const int n_grad = chunk_rows < 1 ? -1
-                                    : grad_blocks(host_grad_entries,
-                                                  n_grad_entries, N, types,
-                                                  chunk_rows);
-  if (dx_blocks < 0 || n_grad < 0 || (long long)n_grad * kTile > ws_len)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = size_kernels();
-  if (err != cudaSuccess) return (int)err;
-  if (N > 0 && dx_blocks > 0) {
-    table_product_kernel<true><<<dx_blocks, kThreads, kProductSmem, s>>>(
-        g, out_dim, perm, ptr, types, N, tables, a_stride, in_slots, items,
-        dx_entries, n_dx_entries, dx, in_dim);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (N > 0 && n_grad > 0) {
-    table_grad_kernel<<<n_grad, kThreads, kGradSmem, s>>>(
-        x, in_dim, g, out_dim, perm, ptr, types, N, items, grad_entries,
-        n_grad_entries, chunk_rows, ws);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (types > 0 && n_grad_entries > 0)
-    table_grad_sum_kernel<<<dim3(types, n_grad_entries), kThreads, 0, s>>>(
-        ptr, types, N, items, grad_entries, chunk_rows, ws, dA, a_stride);
-  return (int)cudaGetLastError();
+  return (int)backward<false>(
+      x, N, in_dim, perm, ptr, types, tables, a_stride, g, out_dim, in_slots,
+      items, dx_entries, host_dx_entries, n_dx_entries, grad_entries,
+      host_grad_entries, n_grad_entries, chunk_rows, ws, ws_len, dx, dA,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 variants: x, the tables, out and g bfloat16, dx float32, dA
+// bfloat16.
+extern "C" int species_sc_fwd_bf16(
+    const bf16::T* x, int N, int in_dim, const int* perm, const int* ptr,
+    int types, const bf16::T* tables, int a_stride, const int* slots,
+    const int* items, const int* entries, const int* host_entries,
+    int n_entries, bf16::T* out, int out_dim, void* stream) {
+  return (int)forward<true>(x, N, in_dim, perm, ptr, types, tables, a_stride,
+                            slots, items, entries, host_entries, n_entries,
+                            out, out_dim, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int species_sc_bwd_bf16(
+    const bf16::T* x, int N, int in_dim, const int* perm, const int* ptr,
+    int types, const bf16::T* tables, int a_stride, const bf16::T* g,
+    int out_dim, const int* in_slots, const int* items,
+    const int* dx_entries, const int* host_dx_entries, int n_dx_entries,
+    const int* grad_entries, const int* host_grad_entries,
+    int n_grad_entries, int chunk_rows, float* ws, int ws_len,
+    float* dx, bf16::T* dA, void* stream) {
+  return (int)backward<true>(
+      x, N, in_dim, perm, ptr, types, tables, a_stride, g, out_dim, in_slots,
+      items, dx_entries, host_dx_entries, n_dx_entries, grad_entries,
+      host_grad_entries, n_grad_entries, chunk_rows, ws, ws_len, dx, dA,
+      static_cast<cudaStream_t>(stream));
 }

@@ -16,6 +16,7 @@ from .config_dipole import get_config as config_dipole
 from .config_energy import get_config as config_energy
 from .config_energy_force import get_config as config_energy_force
 from .config_hamiltonian import get_config as config_hamiltonian
+from .layer_configs import withComputeDtype
 
 CONFIG_REGISTRY = {"config_energy": config_energy,
                    "config_energy_force": config_energy_force,
@@ -52,7 +53,14 @@ def build_model(model_config: dict, device="cuda",
     ``device``.  The same seed gives the same weights on every device.
     ``kernels=False``: every kernel wrapper of the model takes its plain
     PyTorch version on CUDA tensors too (``ops.cuda.build.set_kernels``),
-    the whole model's path without the hand-written kernels."""
+    the whole model's path without the hand-written kernels.
+    ``model_config["compute_dtype"]`` (``"float32"`` or ``"bfloat16"``)
+    reaches every layer that takes it (``layer_configs.withComputeDtype``;
+    without the key each layer keeps its own, float32 by default); a layer
+    whose kernels have no bfloat16 variant refuses bfloat16 here."""
+    if "compute_dtype" in model_config:
+        model_config = withComputeDtype(model_config,
+                                        model_config["compute_dtype"])
     model = build(model_config)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -22,7 +22,10 @@ def get_config(spec=None):
     num_types = 18
     r_max = 5.0
     model = dict(n_dim=32, l_max=2, r_max=r_max, num_layers=5,
-                 node_attrs="16x0e")
+                 node_attrs="16x0e",
+                 # "float32", or "bfloat16": the TPU kernels' operands
+                 # rounded where they round them (models.build_model)
+                 compute_dtype="float32")
     features = "+".join(f"{model['n_dim']}x{n}e+{model['n_dim']}x{n}o"
                         for n in range(model["l_max"] + 1))
     layer_configs = featureModel(

@@ -22,7 +22,10 @@ def get_config():
     num_types = 10
     r_max = 4.0
     model = dict(n_dim=64, l_max=3, r_max=r_max, num_layers=5,
-                 node_attrs="20x0e")
+                 node_attrs="20x0e",
+                 # "float32", or "bfloat16": the TPU kernels' operands
+                 # rounded where they round them (models.build_model)
+                 compute_dtype="float32")
     model.update(addEnergyOutput(featureModel(
         n_dim=model["n_dim"], l_max=model["l_max"],
         edge_spherical="1x0e+1x1o+1x2e", node_attrs=model["node_attrs"],

@@ -11,6 +11,7 @@ port's classes.
 
 from __future__ import annotations
 
+import inspect
 from copy import deepcopy
 
 from ..data import computeEdgeVector
@@ -173,6 +174,32 @@ def addForceOutput(config, gradients="forces", y="energy", sign=-1.0):
     config.update(module=GradientOutput, x=("1x1o", "pos"), y=("1x0e", y),
                   gradients=("1x1o", gradients), sign=sign)
     return config
+
+
+def withComputeDtype(config, compute_dtype="float32"):
+    """A copy of a model config whose layers take ``compute_dtype``
+    (``"float32"`` or ``"bfloat16"``): every layer node whose class names
+    the argument (``FactorizedConvolution``, ``Pairwise``), down through
+    the convolution node of each message-passing layer and the layers of
+    a wrapped network (``addForceOutput``'s ``func``), gets the key.  The
+    JAX package reads the same choice from ``E3_COMPUTE_DTYPE`` when its
+    layers are built."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        node = dict(node)
+        if "module" in node and "compute_dtype" in inspect.signature(
+                node["module"]).parameters:
+            node["compute_dtype"] = compute_dtype
+        for key in ("convolution", "func"):
+            if isinstance(node.get(key), dict):
+                node[key] = walk(node[key])
+        if "layers" in node:
+            node["layers"] = [(name, walk(layer))
+                              for name, layer in node["layers"]]
+        return node
+
+    return walk(config)
 
 
 def addMatrixOutput(config, tp_l, tp_r):

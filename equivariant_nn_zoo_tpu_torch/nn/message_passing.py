@@ -44,12 +44,27 @@ Each wrapper takes its kernel for CUDA tensors and its plain PyTorch version for
 CPU tensors, so the layer has one code path per order.  Padded-edge
 messages vanish because ``edge_radial`` is masked and the radial MLP has no
 bias.
+
+``compute_dtype="bfloat16"`` (the JAX layer's constructor argument,
+``message_passing.py:54``) runs the first-order path as the TPU route does
+at bfloat16: K1/K2 and K3/K3b in their bfloat16 variants, the conv's and
+the self-connection's bfloat16 outputs added in bfloat16 (the TPU conv
+folds the self-connection into its output blocks,
+``ops/pallas/fused_conv.py:2533``), and a
+layer after a first-order ``MessagePassing`` reading that layer's output
+rounded to bfloat16 (the TPU route's kernel-layout table,
+``message_passing.py:615-645``).  The routes whose kernels have no
+bfloat16 variant yet refuse it at build: ``grad_order >= 2`` (K4),
+``reduce=False`` (K6) and the per-node self-connection.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
+from ..ops.compute_dtype import compute_dtype_of
 from ..ops.cuda.full_conv import FullConv
 from ..ops.cuda.full_conv_ext import FullConvExt
 from ..ops.cuda.species_sc import SpeciesScalarFCTP
@@ -64,15 +79,21 @@ from .module import Module
 from .pointwise import LayerNormalization, TensorProductExpansion
 
 
+# the data key under which a bfloat16 conv reads its input rounded to
+# bfloat16 (the JAX package's ``input_features__kl``)
+ROUNDED_INPUT = "input_features__kl"
+
+
 class FactorizedConvolution(Module):
     def __init__(self, input_features, output_features, node_attrs,
                  edge_radial, edge_spherical, invariant_layers=1,
                  invariant_neurons=8, avg_num_neighbors=None, use_sc=True,
                  sc_species_types: int = None, grad_order: int = 1,
-                 reduce: bool = True):
+                 reduce: bool = True, compute_dtype: str = "float32"):
         super().__init__()
         self.grad_order = int(grad_order)
         self.reduce = bool(reduce)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.init_irreps(
             input_features=input_features, output_features=output_features,
             node_attrs=node_attrs, edge_radial=edge_radial,
@@ -94,8 +115,18 @@ class FactorizedConvolution(Module):
             [Irreps(self.irreps_in["edge_radial"]).num_irreps]
             + invariant_layers * [invariant_neurons]
             + [self.tp.tp.weight_numel],
-            activations["ssp"],
+            activations["ssp"], compute_dtype=compute_dtype,
         )
+        if self.bf16:
+            refused = ("grad_order >= 2 (the K4 family)"
+                       if self.grad_order >= 2 else
+                       "reduce=False (K6)" if not self.reduce else
+                       "a per-node self-connection (FusedScalarFCTP)"
+                       if self.use_sc and not sc_species_types else None)
+            if refused:
+                raise NotImplementedError(
+                    f"compute_dtype='bfloat16' is not ported for {refused} "
+                    f"yet: ROADMAP.md queue 1, the bfloat16 slices")
         if not self.reduce:
             if self.use_sc or self.grad_order >= 2:
                 raise NotImplementedError(
@@ -105,7 +136,7 @@ class FactorizedConvolution(Module):
         elif self.grad_order >= 2:
             self.full_conv = FullConvExt(self.tp)
         else:
-            self.full_conv = FullConv(self.tp, self.fc)
+            self.full_conv = FullConv(self.tp, self.fc, compute_dtype)
         self.species_sc = self.fused_sc = None
         if self.use_sc:
             self.sc = fully_connected_tp(
@@ -114,7 +145,8 @@ class FactorizedConvolution(Module):
             )
             if self.grad_order < 2 and sc_species_types:
                 self.species_sc = SpeciesScalarFCTP(self.sc,
-                                                    sc_species_types)
+                                                    sc_species_types,
+                                                    compute_dtype)
             else:
                 self.fused_sc = FusedScalarFCTP(self.sc)
 
@@ -126,16 +158,32 @@ class FactorizedConvolution(Module):
                                    data["species"])
         return self.fused_sc(x, data["node_attrs"])
 
+    @property
+    def bf16(self) -> bool:
+        return self.compute_dtype == torch.bfloat16
+
+    @property
+    def takes_rounded_input(self) -> bool:
+        """Whether a bfloat16 predecessor hands this layer its output
+        rounded (the TPU route's kernel-layout table): the first-order
+        node-summed conv over one multiplicity."""
+        return (self.bf16 and self.grad_order < 2 and self.reduce
+                and len({mi.mul for mi in Irreps(
+                    self.irreps_in["input_features"])}) == 1)
+
     def forward(self, data: Dict, attrs: Dict):
         edge_radial = data["edge_radial"]
         if "_edge_mask" in data:
             edge_radial = edge_radial * data["_edge_mask"]
-        x = data["input_features"]
+        # at bfloat16, the bfloat16 table of the previous layer's output,
+        # where it made one, feeds the self-connection and linear_1
+        x_in = data["input_features"]
+        x = data.get(ROUNDED_INPUT, x_in)
         edge_index = data["edge_index"]
         num_nodes = x.shape[0]
         if self.use_sc:
             sc = self.self_connection(x, data)
-        x = self.linear_1(x)
+        x = self.linear_1(x.to(x_in.dtype))
         if not self.reduce:
             out = self.full_conv(self.tp.linear, x, data["edge_spherical"],
                                  self.fc(edge_radial), edge_index[0],
@@ -155,6 +203,8 @@ class FactorizedConvolution(Module):
                                  edge_index[1], num_nodes, pre_scale=pre)
         if self.use_sc:
             out = out + sc
+        # a bfloat16 conv's output and self-connection add in bfloat16
+        out = out.to(x_in.dtype)
         return ({"output_features": out},
                 {"output_features": (attrs["input_features"][0],
                                      self.irreps_out["output_features"])})
@@ -217,8 +267,29 @@ class MessagePassing(Module):
         if self.normalize:
             out = self.irreps_out["output_features"]
             self.norm = LayerNormalization(out, out)
+        # a bfloat16 first-order conv hands the next layer its output
+        # rounded to bfloat16, under the output key + "__kl", as the TPU
+        # route's kernel-layout table (message_passing.py:615-645): not
+        # after a residual or a layer norm, and over one multiplicity
+        conv = self.conv
+        self._kl_in_key = next(
+            (k for k, v in self.input_key_mapping.items()
+             if v == "input_features"), "input_features") + "__kl"
+        self._kl_out_key = None
+        if (isinstance(conv, FactorizedConvolution)
+                and conv.takes_rounded_input and not self.resnet
+                and not self.normalize
+                and (conv.species_sc is not None or not conv.use_sc)
+                and len({mi.mul for mi in self.equivariant_nonlin.irreps_out})
+                == 1):
+            self._kl_out_key = self.output_key_mapping.get(
+                "output_features", "output_features") + "__kl"
 
     def forward(self, data: Dict, attrs: Dict):
+        if (self._kl_in_key in data
+                and getattr(self.conv, "takes_rounded_input", False)):
+            data = dict(data)
+            data[ROUNDED_INPUT] = data[self._kl_in_key]
         conv_out, _ = self.conv(data, attrs)
         output = self.equivariant_nonlin(conv_out["output_features"])
         if self.resnet:
@@ -229,6 +300,11 @@ class MessagePassing(Module):
                 {"input": (attrs["input_features"][0],
                            self.irreps_out["output_features"])})
             output = normed["output"]
-        return ({"output_features": output},
-                {"output_features": (attrs["input_features"][0],
-                                     self.irreps_out["output_features"])})
+        ret = {"output_features": output}
+        out_attrs = {"output_features": (attrs["input_features"][0],
+                                         self.irreps_out["output_features"])}
+        if self._kl_out_key is not None:
+            ret[self._kl_out_key] = output.to(torch.bfloat16)
+            out_attrs[self._kl_out_key] = (attrs["input_features"][0],
+                                           str(output.shape[-1]))
+        return ret, out_attrs

@@ -10,6 +10,7 @@ from typing import List
 
 import torch
 
+from ..ops.compute_dtype import compute_dtype_of
 from ..ops.gate import normalize2mom
 from ..utils.params import ParamModule
 
@@ -17,18 +18,34 @@ from ..utils.params import ParamModule
 class FullyConnectedNet(ParamModule):
     """Bias-free MLP.  Weights ``w{i}`` are stored N(0,1) and divided by
     ``sqrt(fan_in)`` at apply time; the activation (normalized to unit
-    second moment) runs between layers, not after the last."""
+    second moment) runs between layers, not after the last.
 
-    def __init__(self, dims: List[int], activation="ssp"):
+    ``compute_dtype="bfloat16"`` computes as the JAX ``apply`` does at
+    bfloat16: the input and each scaled weight are rounded to bfloat16,
+    every product is summed in float32, each activation's output is
+    rounded to bfloat16, and the last layer's float32 sum is returned as
+    it is (float32)."""
+
+    def __init__(self, dims: List[int], activation="ssp",
+                 compute_dtype: str = "float32"):
         super().__init__()
         assert len(dims) >= 2
         self.dims = list(dims)
         self.act = normalize2mom(activation)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         for i in range(len(dims) - 1):
             self.declare(f"w{i}", (dims[i], dims[i + 1]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.dims) - 1
+        if self.compute_dtype == torch.bfloat16:
+            x = x.to(torch.bfloat16).float()
+            for i in range(n):
+                w = getattr(self, f"w{i}") / float(self.dims[i]) ** 0.5
+                x = x @ w.to(torch.bfloat16).float()
+                if i < n - 1:
+                    x = self.act(x).to(torch.bfloat16).float()
+            return x
         for i in range(n):
             x = x @ (getattr(self, f"w{i}") / float(self.dims[i]) ** 0.5)
             if i < n - 1:

@@ -111,8 +111,12 @@ class Pairwise(Module):
 
     def __init__(self, node_features, edge_radial, edge_spherical, diagonal,
                  off_diagonal, invariant_layers=2, invariant_neurons=16,
-                 conv=None):
+                 conv=None, compute_dtype: str = "float32"):
         super().__init__()
+        if str(compute_dtype) != "float32":
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' is not ported for the pairwise "
+                "head (K5, K6) yet: ROADMAP.md queue 1, the bfloat16 slices")
         self.init_irreps(
             node_features=node_features, edge_radial=edge_radial,
             edge_spherical=edge_spherical, diagonal=diagonal,

@@ -190,21 +190,26 @@ SIGNATURES = {
     "row_mix_forward": [
         _P, _I, _I,            # scratch, rows, K * mul
         _P, _P, _I,            # mix matrices, host mix problems, count
-        _P, _I, _P,            # out, out_dim, stream
+        _P, _I, _I, _P,        # out, out_dim, bfloat16 products, stream
     ],
     "row_mix_backward": [
         _I, _P, _I,            # which (1 dS, 2 dwsel), host problems, count
         _I, _I, _I,            # rows, K * mul, out_dim
         _P, _P, _P,            # scratch, mix matrices, gout
         _P, _I,                # the product, the mix matrices' length
-        _P, _I, _P,            # workspace, its length, stream
+        _P, _I, _I, _P,        # workspace, its length, bfloat16, stream
     ],
     "row_mix_matmul": [
         _P, _I, _P, _I,        # A, A stored [M, K], B, B stored [N, K]
         _P, _I, _I, _I,        # C [M, N], M, N, K
-        _I, _P, _I, _P,        # split K, workspace, its length, stream
+        _I, _P, _I, _I, _P,    # split K, workspace, its length, bfloat16,
+                               # stream
     ],
 }
+# the bfloat16 variants of K1, K2, K3 and K3b: the float32 entries' lists
+# (bfloat16 pointers where the operands are bfloat16)
+SIGNATURES.update({e + "_bf16": SIGNATURES[e] for e in (
+    "full_conv_fwd", "full_conv_bwd", "species_sc_fwd", "species_sc_bwd")})
 
 
 def nvcc_path() -> str:

@@ -21,6 +21,18 @@ TPU kernel's ``compute_dsh``); when it does not, K2 is launched without it,
 so a training step pays nothing for it.  ``plain_forward`` and
 ``plain_backward`` are the plain PyTorch versions of the two kernels'
 contracts on the same flat inputs, for the tests and the on-card checks.
+
+With ``compute_dtype="bfloat16"`` the conv computes what the TPU kernels
+compute at bfloat16 (``fused_conv.py:813-878, 926-1049`` and the
+backward's own rounding points, ``:1051-1331``): the operands x, sh, the
+scaled MLP weights and the mix matrices are bfloat16 tensors, every product
+is summed in float32 and rounded where the TPU kernel rounds it, the
+output is bfloat16, and K2's gradients come out in the dtypes of their
+inputs (``f_bwd``, ``:2421-2433``).  Its backward is that contract, not
+autograd of the rounded forward, so on the CPU too the layer goes through
+``FullConvFunction``, with the plain contracts ``plain_forward_bf16`` and
+``plain_backward_bf16`` in place of the launches.  The sh cotangent (K2's
+dsh mode) has no bfloat16 variant yet and is refused.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..compute_dtype import compute_dtype_of
 from ..fused_tp import FusedUVUConv
 from ..gate import ScaledActivation, shifted_softplus
 from ..segment import segment_sum
@@ -42,6 +55,13 @@ MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 64, 64, 16, 9
 # takes on either side (l = 7), fields per path of the walk table
 WALK_GROUPS, WALK_ROWS, WALK_FIELDS = 4, 16, 10
 WALK_BLOCKS = 2048   # blocks the walk's grid aims at (walk_items)
+BF16 = torch.bfloat16
+PLAIN_EDGES = 2048   # edges per chunk of the bfloat16 plain contracts
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (nearest even), kept in float32."""
+    return t.to(BF16).float()
 
 
 def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
@@ -257,8 +277,10 @@ class FullConv(ConvTables):
     backward_launches = 0
     dsh_launches = 0     # of the backward launches, those with the sh
                          # cotangent
+    bf16_launches = 0    # the bfloat16 variants' launches, K1 and K2
+    bf16_backward_launches = 0
 
-    def __init__(self, tpe, fc):
+    def __init__(self, tpe, fc, compute_dtype: str = "float32"):
         super().__init__(tpe)
         act = fc.act
         if not (isinstance(act, ScaledActivation)
@@ -267,6 +289,35 @@ class FullConv(ConvTables):
                              "shifted-softplus radial MLP only")
         self.act_cst = float(act.cst)
         self.fc_dims = list(fc.dims)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+        if self.compute_dtype == BF16:
+            self._bf16_tables()
+
+    def _bf16_tables(self):
+        """What the bfloat16 plain contracts index by: per row k of the
+        expansion's CG products (path order, ``k_start(p) + m3``) its
+        scratch row (component-major inside the output group) and its
+        path's radial-weight block; the CG operator rounded."""
+        fused = self.fused
+        srow, widx = [], []
+        for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
+            w = getattr(fused, f"widx{g}").tolist()
+            for m in range(n_paths):
+                for m3 in range(d):
+                    srow.append(k0 + m3 * n_paths + m)
+                    widx.append(w[m])
+        self.register_buffer("bf16_srow", torch.tensor(srow),
+                             persistent=False)
+        self.register_buffer("bf16_widx", torch.tensor(widx),
+                             persistent=False)
+        J, K, I = fused.J_dim, fused.K_dim, fused.I_dim
+        self.register_buffer(
+            "bf16_C", round_bf16(fused.C_flat.reshape(J, K, I)),
+            persistent=False)
+
+    @property
+    def bf16(self) -> bool:
+        return self.compute_dtype == BF16
 
     def forward(self, fc, linear, x: torch.Tensor, edge_radial: torch.Tensor,
                 sh: torch.Tensor, edge_src: torch.Tensor,
@@ -282,7 +333,11 @@ class FullConv(ConvTables):
 
     def plain(self, fc, linear, x, edge_radial, sh, edge_src, edge_dst,
               num_nodes, pre_scale=None):
-        """Plain PyTorch version of the kernel (the same math, dense)."""
+        """Plain PyTorch version of the kernel (the same math, dense; at
+        bfloat16 the plain contracts through ``FullConvFunction``)."""
+        if self.bf16:
+            return self._bf16_call(fc, linear, x, edge_radial, sh, edge_src,
+                                   edge_dst, num_nodes, pre_scale, False)
         weight = fc(edge_radial)
         return self.fused(linear, x, edge_src, edge_dst, sh, weight,
                           num_nodes, pre_scale)
@@ -293,6 +348,9 @@ class FullConv(ConvTables):
         set of edges, so once per model forward), flat weights in plain
         PyTorch, then K1, through ``FullConvFunction`` (K2 in the backward)
         when a gradient is wanted."""
+        if self.bf16:
+            return self._bf16_call(fc, linear, x, edge_radial, sh, edge_src,
+                                   edge_dst, num_nodes, pre_scale, True)
         order = edge_order.shared(edge_src, edge_dst, num_nodes)
         if not torch.is_grad_enabled():
             return launch_forward(self, x, edge_radial, sh, edge_src,
@@ -304,12 +362,53 @@ class FullConv(ConvTables):
                                       wsel, sh, edge_src, edge_dst,
                                       int(num_nodes), order)
 
+    def _bf16_call(self, fc, linear, x, edge_radial, sh, edge_src, edge_dst,
+                   num_nodes, pre_scale, kernel: bool):
+        """The bfloat16 conv: x and sh rounded to bfloat16 (x may come
+        rounded), the flat weights in bfloat16, then K1 (``kernel``) or its
+        plain contract, through ``FullConvFunction`` when a gradient is
+        wanted: ``[N, out_dim]`` bfloat16."""
+        if torch.is_grad_enabled() and sh.requires_grad:
+            raise NotImplementedError(
+                "the bfloat16 conv has no sh cotangent (K2's dsh mode) yet: "
+                "ROADMAP.md queue 1, the bfloat16 slices")
+        order = (edge_order.shared(edge_src, edge_dst, num_nodes) if kernel
+                 else None)
+        args = (x.to(BF16), edge_radial, *self.flat_weights(fc, linear,
+                                                            pre_scale),
+                sh.to(BF16), edge_src, edge_dst, int(num_nodes), order,
+                kernel)
+        if not torch.is_grad_enabled():
+            x_b, er, w_hidden, w_out, wsel, sh_b = args[:6]
+            return _run_forward(kernel)(
+                self, x_b, er, sh_b, edge_src, edge_dst, w_hidden, w_out,
+                wsel, int(num_nodes), order=order)[0]
+        return FullConvFunction.apply(self, *args)
+
     def flat_weights(self, fc, linear, pre_scale=None):
         """The kernels' weights: hidden MLP layers (each divided by
         sqrt(fan_in), flattened and concatenated), the last MLP layer
         ``[H, PC]`` likewise, and the mix matrices of every problem (alphas
-        and ``pre_scale`` folded in), flattened in ``mix_plan`` order."""
+        and ``pre_scale`` folded in), flattened in ``mix_plan`` order.
+        At bfloat16 each as the TPU kernel's caller rounds it
+        (``fused_conv.py:2471-2477``): every MLP weight divided by
+        sqrt(fan_in), then rounded; the mix matrices rounded, then
+        multiplied by ``pre_scale`` rounded to bfloat16, and rounded
+        again."""
         n_hidden = len(self.fc_dims) - 2
+        if self.bf16:
+            ws = [(getattr(fc, f"w{i}") / float(self.fc_dims[i]) ** 0.5
+                   ).to(BF16) for i in range(n_hidden + 1)]
+            wsel = torch.cat([
+                self.fused.mix_weight(linear, g, io).to(BF16).reshape(-1)
+                for g, io in self.mix_plan])
+            if pre_scale is not None:
+                # pre_scale rounded on the host (no copy to the device, so
+                # a CUDA graph can record it); bfloat16 times an exact
+                # bfloat16 value rounds as JAX's weakly typed product does
+                wsel = wsel * float(torch.tensor(float(pre_scale)).to(BF16))
+            return (torch.cat([w.reshape(-1) for w in ws[:-1]]),
+                    ws[-1].contiguous(), wsel.contiguous())
         scale = [float(d) ** -0.5 for d in self.fc_dims[:-1]]
         w_hidden = torch.cat([
             (getattr(fc, f"w{i}") * scale[i]).reshape(-1)
@@ -351,6 +450,176 @@ class FullConv(ConvTables):
             return torch.autograd.grad(
                 out, ins + [sh_in] if dsh else ins, gout)
 
+    # ------------------------------------------------ bfloat16 contracts
+    def _mlp_bf16(self, edge_radial, w_hidden, w_out):
+        """The radial MLP as ``_mlp_fwd`` computes it at bfloat16
+        (``fused_conv.py:813-828``): ``(pre-activations, the activations
+        of every layer's input, w_edge)``, the input and every activation
+        rounded, sums in float32, w_edge rounded."""
+        R, H = self.fc_dims[0], self.fc_dims[1]
+        h, zs, hs, ofs = round_bf16(edge_radial), [], [], 0
+        for i in range(len(self.fc_dims) - 2):
+            fan = R if i == 0 else H
+            hs.append(h)
+            z = h @ w_hidden[ofs: ofs + fan * H].float().reshape(fan, H)
+            h = round_bf16(shifted_softplus(z) * self.act_cst)
+            zs.append(z)
+            ofs += fan * H
+        hs.append(h)
+        return zs, hs, round_bf16(h @ w_out.float())
+
+    def _x_table(self, x):
+        """x [N, in_dim] -> [N, I, mul] (component-major per irrep)."""
+        mul, blocks, ofs = self.fused.mul, [], 0
+        for mi in self.fused.irreps_in:
+            d = mi.ir.dim
+            blocks.append(x[:, ofs: ofs + mul * d].reshape(-1, mul, d)
+                          .transpose(1, 2))
+            ofs += mul * d
+        return torch.cat(blocks, dim=1)
+
+    def _x_columns(self, t):
+        """[N, I, mul] -> x's columns [N, in_dim]: the inverse of
+        ``_x_table``."""
+        cols, i0 = [], 0
+        for mi in self.fused.irreps_in:
+            d = mi.ir.dim
+            cols.append(t[:, i0: i0 + d].transpose(1, 2).reshape(
+                t.shape[0], -1))
+            i0 += d
+        return torch.cat(cols, dim=1)
+
+    def _mid_bf16(self, xT, sh, src):
+        """The CG products of some edges as ``_mid2_of`` rounds them
+        (``fused_conv.py:848-878``): the outer products sh_j x_i rounded,
+        contracted with the rounded CG in float32, rounded: ``[E, K,
+        mul]``, rows in path order."""
+        outer = round_bf16(sh[:, :, None, None] * xT[src][:, None])
+        return round_bf16(torch.einsum("jki,ejiu->eku", self.bf16_C, outer))
+
+    def plain_forward_bf16(self, x, edge_radial, sh, edge_src, edge_dst,
+                           w_hidden, w_out, wsel, num_nodes):
+        """Plain PyTorch version of K1's bfloat16 contract: ``(out [N,
+        out_dim] bfloat16, scratch [N, K * mul] float32)`` from bfloat16 x,
+        sh, MLP weights and mix matrices and float32 edge_radial.  Per edge
+        and path w2d = bf16(mid * w_edge) (``:847``), the node sums in
+        float32 (the scratch), rounded to bfloat16 before the mix, the mix
+        summed in float32 over the bfloat16 matrices, the output rounded
+        (``:1008-1047``)."""
+        mul, N = self.fused.mul, int(num_nodes)
+        xT, shf = self._x_table(x.float()), sh.float()
+        scratch = x.new_zeros((N, self.KM), dtype=torch.float32)
+        cols = (self.bf16_srow[:, None] * mul
+                + torch.arange(mul, device=x.device)).reshape(-1)
+        for e0 in range(0, sh.shape[0], PLAIN_EDGES):
+            e = slice(e0, e0 + PLAIN_EDGES)
+            _, _, w = self._mlp_bf16(edge_radial[e], w_hidden, w_out)
+            w_mid = w.reshape(w.shape[0], -1, mul)[:, self.bf16_widx]
+            mid = self._mid_bf16(xT, shf[e], edge_src[e])
+            w2d = round_bf16(mid * w_mid).reshape(w.shape[0], -1)
+            rows = torch.zeros_like(w2d).index_copy(1, cols, w2d)
+            scratch = scratch + segment_sum(rows, edge_dst[e], N)
+        out = mix_rows(round_bf16(scratch), wsel.float(), self.prob_rows,
+                       self.out_dim)
+        return out.to(BF16), scratch
+
+    def plain_backward_bf16(self, x, edge_radial, sh, edge_src, edge_dst,
+                            w_hidden, w_out, wsel, num_nodes, scratch, gout):
+        """Plain PyTorch version of K2's bfloat16 contract, the TPU
+        kernel's own rounding points (``fused_conv.py:1126-1312``) and not
+        autograd of the rounded forward: ``(dx, d edge_radial, dw_hidden,
+        dw_out, dwsel)``, in the dtypes of x, edge_radial and the weights
+        (bfloat16, float32, bfloat16 ...).
+
+        dS = bf16(gout wsel^T) per node, dwsel = bf16(S) ^T gout; per edge
+        (all sums float32, then rounded): the recomputed mid and w_edge,
+        g = dS[dst]; dw = the bf16 sum over a path's components of bf16(g
+        mid); dmid = bf16(g w); douter[j, i] = bf16(C^T dmid); dx_e = the
+        bf16 sum over j in order of bf16(sh_j douter[j]); dx = the float32
+        sum over a node's edges, rounded; the MLP backward with every
+        cotangent rounded (``:1264-1285``); dW, dwsel and dx rounded as the
+        caller casts them to the inputs' dtypes (``:2421-2433``)."""
+        mul, N = self.fused.mul, int(num_nodes)
+        n_hidden = len(self.fc_dims) - 2
+        g = gout.float()
+        with torch.enable_grad():
+            S = round_bf16(scratch).requires_grad_(True)
+            ws = wsel.float().requires_grad_(True)
+            out = mix_rows(S, ws, self.prob_rows, self.out_dim)
+            dS, dwsel = torch.autograd.grad(out, (S, ws), g)
+        dS = round_bf16(dS)
+        xT, shf = self._x_table(x.float()), sh.float()
+        cols = (self.bf16_srow[:, None] * mul
+                + torch.arange(mul, device=x.device)).reshape(-1)
+        C = self.bf16_C
+        dxT = xT.new_zeros(xT.shape)
+        dWs = [None] * (n_hidden + 1)
+        ders = []
+        R, H = self.fc_dims[0], self.fc_dims[1]
+        fans = [R] + [H] * (n_hidden - 1)
+        P = self.fc_dims[-1] // mul
+        for e0 in range(0, sh.shape[0], PLAIN_EDGES):
+            e = slice(e0, e0 + PLAIN_EDGES)
+            E = shf[e].shape[0]
+            zs, hs, w = self._mlp_bf16(edge_radial[e], w_hidden, w_out)
+            w_mid = w.reshape(E, P, mul)[:, self.bf16_widx]
+            mid = self._mid_bf16(xT, shf[e], edge_src[e])
+            gv = dS[edge_dst[e]][:, cols].reshape(E, -1, mul)
+            dwp = round_bf16(gv * mid)
+            dw = mid.new_zeros((E, P, mul))
+            k = 0
+            for ir, k0, n_paths, d, p0 in self.fused.groups:
+                blk = dwp[:, k: k + n_paths * d].reshape(E, n_paths, d, mul)
+                acc = blk[:, :, 0]
+                for dd in range(1, d):
+                    acc = round_bf16(acc + blk[:, :, dd])
+                dw[:, self.bf16_widx[k: k + n_paths * d: d]] = acc
+                k += n_paths * d
+            dmid = round_bf16(gv * w_mid)
+            douter = round_bf16(torch.einsum("jki,eku->ejiu", C, dmid))
+            c = round_bf16(shf[e][:, :, None, None] * douter)
+            dxe = torch.zeros_like(c[:, 0])
+            for j in range(c.shape[1]):
+                dxe = round_bf16(dxe + c[:, j])
+            dxT = dxT + segment_sum(dxe, edge_src[e], N)
+            # the radial MLP backward, every cotangent rounded
+            dh = dw.reshape(E, -1)
+            for i in reversed(range(n_hidden + 1)):
+                W = (w_out if i == n_hidden else w_hidden[
+                    sum(f * H for f in fans[:i]):
+                    sum(f * H for f in fans[: i + 1])].reshape(fans[i], H)
+                     ).float()
+                dWi = hs[i].T @ dh
+                dWs[i] = dWi if dWs[i] is None else dWs[i] + dWi
+                dh = round_bf16(dh @ W.T)
+                if i > 0:
+                    dh = round_bf16(dh * self.act_cst
+                                    * torch.sigmoid(zs[i - 1]))
+            ders.append(dh)
+        dx = self._x_columns(dxT).to(BF16)
+        der = torch.cat(ders) if ders else edge_radial.new_zeros(
+            edge_radial.shape)
+        return (dx, der, torch.cat([d.reshape(-1) for d in dWs[:-1]]).to(BF16),
+                dWs[-1].to(BF16), dwsel.to(BF16))
+
+
+def _plain_forward(conv, *args, order=None):
+    return conv.plain_forward_bf16(*args)
+
+
+def _plain_backward(conv, *args, order=None):
+    return conv.plain_backward_bf16(*args)
+
+
+def _run_forward(kernel: bool):
+    """K1's launch, or the bfloat16 plain contract for CPU tensors (read
+    at call time, so that a test may route the launches)."""
+    return launch_forward if kernel else _plain_forward
+
+
+def _run_backward(kernel: bool):
+    return launch_backward if kernel else _plain_backward
+
 
 class FullConvFunction(torch.autograd.Function):
     """K1 forward, K2 backward, on one edge order (saved for the backward).
@@ -363,13 +632,14 @@ class FullConvFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, conv, x, edge_radial, w_hidden, w_out, wsel, sh,
-                edge_src, edge_dst, num_nodes, order):
-        out, scratch = launch_forward(conv, x, edge_radial, sh, edge_src,
-                                      edge_dst, w_hidden, w_out, wsel,
-                                      num_nodes, order=order)
+                edge_src, edge_dst, num_nodes, order, kernel=True):
+        out, scratch = _run_forward(kernel)(
+            conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden, w_out,
+            wsel, num_nodes, order=order)
         ctx.save_for_backward(x, edge_radial, w_hidden, w_out, wsel, sh,
-                              edge_src, edge_dst, scratch, *order)
-        ctx.conv, ctx.num_nodes = conv, num_nodes
+                              edge_src, edge_dst, scratch,
+                              *(order if order is not None else ()))
+        ctx.conv, ctx.num_nodes, ctx.kernel = conv, num_nodes, kernel
         return out
 
     @staticmethod
@@ -380,12 +650,12 @@ class FullConvFunction(torch.autograd.Function):
         # the sh cotangent only when wanted (a keyword the launches take
         # only then)
         kw = {"dsh": True} if ctx.needs_input_grad[6] else {}
-        grads = launch_backward(ctx.conv, x, er, sh, src, dst, w_hidden,
-                                w_out, wsel, ctx.num_nodes, scratch,
-                                gout.contiguous(),
-                                order=edge_order.EdgeOrder(*order), **kw)
+        grads = _run_backward(ctx.kernel)(
+            ctx.conv, x, er, sh, src, dst, w_hidden, w_out, wsel,
+            ctx.num_nodes, scratch, gout.contiguous(),
+            order=edge_order.EdgeOrder(*order) if order else None, **kw)
         dsh = grads[5] if kw else None
-        return (None, *grads[:5], dsh, None, None, None, None)
+        return (None, *grads[:5], dsh, None, None, None, None, None)
 
 
 def check_structure(conv, backward: bool = False, dsh: bool = False) -> None:
@@ -433,8 +703,11 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     N, E = int(num_nodes), sh.shape[0]
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     n_hidden = len(conv.fc_dims) - 2
-    check_tensor(x, "x", (N, fused.irreps_in.dim), torch.float32, dev)
-    check_tensor(sh, "sh", (E, fused.J_dim), torch.float32, dev)
+    cd = conv.compute_dtype   # the dtype of the operands the kernels round
+    if dsh and cd != torch.float32:
+        raise NotImplementedError("K2's dsh mode has no bfloat16 variant")
+    check_tensor(x, "x", (N, fused.irreps_in.dim), cd, dev)
+    check_tensor(sh, "sh", (E, fused.J_dim), cd, dev)
     check_tensor(edge_radial, "edge_radial", (E, R), torch.float32, dev)
     check_tensor(edge_src, "edge_src", (E,), torch.int64, dev)
     check_tensor(edge_dst, "edge_dst", (E,), torch.int64, dev)
@@ -442,9 +715,9 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     if conv.path_table.device != dev:
         raise ValueError("FullConv tables are not on the input's device")
     n_w = R * H + (n_hidden - 1) * H * H
-    check_tensor(w_hidden, "w_hidden", (n_w,), torch.float32, dev)
-    check_tensor(w_out, "w_out", (H, PC), torch.float32, dev)
-    check_tensor(wsel, "wsel", (conv.wsel_len,), torch.float32, dev)
+    check_tensor(w_hidden, "w_hidden", (n_w,), cd, dev)
+    check_tensor(w_out, "w_out", (H, PC), cd, dev)
+    check_tensor(wsel, "wsel", (conv.wsel_len,), cd, dev)
     return dev, N, E
 
 
@@ -481,14 +754,16 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     cap, T = walk_items(E, conv.n_chunks)
     scratch = torch.empty((N, conv.KM), dtype=torch.float32, device=dev)
-    out = torch.empty((N, conv.out_dim), dtype=torch.float32, device=dev)
+    out = torch.empty((N, conv.out_dim), dtype=conv.compute_dtype,
+                      device=dev)
     # work: the last hidden layer per edge, the long runs' pieces
     h_work = torch.empty((E, H), dtype=torch.float32, device=dev)
     pieces = torch.empty((T, conv.KM), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.full_conv_fwd(
+        entry = lib.full_conv_fwd_bf16 if conv.bf16 else lib.full_conv_fwd
+        err = entry(
             x.data_ptr(), N, fused.irreps_in.dim,
             sh.data_ptr(), fused.J_dim,
             edge_radial.data_ptr(), R,
@@ -506,7 +781,10 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             out.data_ptr(), conv.out_dim, stream,
         )
     check(err, "full_conv_fwd")
-    FullConv.launches += 1
+    if conv.bf16:
+        FullConv.bf16_launches += 1
+    else:
+        FullConv.launches += 1
     return out, scratch
 
 
@@ -516,30 +794,34 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     """Launch K2: ``(dx, d edge_radial, dw_hidden, dw_out, dwsel)``, all
     float32, from the forward's inputs, its scratch and ``gout``; with
     ``dsh`` the sh cotangent ``[E, J]`` last.  ``order``: the edges'
-    ``EdgeOrder``, built here when not given."""
+    ``EdgeOrder``, built here when not given.  At bfloat16 (``gout``
+    bfloat16) the gradients come in the dtypes of their inputs."""
     dev, N, E = _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst,
                               w_hidden, w_out, wsel, num_nodes,
                               backward=True, dsh=dsh)
     order = _order(order, edge_src, edge_dst, N)
     cap, T = walk_items(E, conv.n_chunks)
     check_tensor(scratch, "scratch", (N, conv.KM), torch.float32, dev)
-    check_tensor(gout, "gout", (N, conv.out_dim), torch.float32, dev)
+    cd = conv.compute_dtype
+    check_tensor(gout, "gout", (N, conv.out_dim), cd, dev)
     fused = conv.fused
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     n_hidden = len(conv.fc_dims) - 2
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    dx, der = empty(N, fused.irreps_in.dim), empty(E, R)
-    dw_hidden, dw_out, dwsel = empty(w_hidden.numel()), empty(H, PC), \
-        empty(conv.wsel_len)
+    dx, der = empty(N, fused.irreps_in.dim, dtype=cd), empty(E, R)
+    dw_hidden, dw_out, dwsel = empty(w_hidden.numel(), dtype=cd), \
+        empty(H, PC, dtype=cd), empty(conv.wsel_len, dtype=cd)
     # work buffers: node cotangent of the scratch, per-edge radial-weight
     # cotangent, the MLP's pre-activations and activations, two rows, the
     # per-path dx rows and the long runs' pieces of them
+    # (bfloat16: no per-path rows, the long runs' pieces of dx [T, in_dim])
+    KMd = conv.KMd if not conv.bf16 else fused.irreps_in.dim
     work = [empty(N, conv.KM), empty(E, PC), empty(n_hidden, E, H),
             empty(n_hidden, E, H), empty(E, H), empty(E, H),
-            empty(N, conv.KMd), empty(T, conv.KMd)]
+            empty(N, KMd) if not conv.bf16 else None, empty(T, KMd)]
     # the sh cotangent and its path chunks' rows, or null pointers
     d_sh = (empty(E, fused.J_dim), empty(conv.n_chunks, E, fused.J_dim)) \
         if dsh else ()
@@ -547,7 +829,8 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.full_conv_bwd(
+        entry = lib.full_conv_bwd_bf16 if conv.bf16 else lib.full_conv_bwd
+        err = entry(
             x.data_ptr(), N, fused.irreps_in.dim,
             sh.data_ptr(), fused.J_dim,
             edge_radial.data_ptr(), R,
@@ -558,21 +841,24 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             conv.n_chunks, conv.walk_cells.data_ptr(),
             conv.walk_nz.data_ptr(), conv.max_chunk_nz,
             conv.max_d1, conv.max_d3,
-            conv.walk_irreps.data_ptr(), conv.n_walk_irreps, conv.KMd,
+            conv.walk_irreps.data_ptr(), conv.n_walk_irreps, KMd,
             int(conv.dx_covered),
             order.src_perm.data_ptr(), order.src_ptr.data_ptr(), cap, T,
             scratch.data_ptr(), conv.KM, fused.mul,
             wsel.data_ptr(), conv.wsel_len,
             conv.prob_rows.ctypes.data, conv.n_probs,
             gout.data_ptr(), conv.out_dim,
-            *(t.data_ptr() for t in work),
+            *(t.data_ptr() if t is not None else None for t in work),
             dx.data_ptr(), der.data_ptr(), dw_hidden.data_ptr(),
             w_hidden.numel(), dw_out.data_ptr(), dwsel.data_ptr(),
             *((t.data_ptr() for t in d_sh) if dsh else (None, None)),
             ws.data_ptr(), ws.numel(), stream,
         )
     check(err, "full_conv_bwd")
-    FullConv.backward_launches += 1
+    if conv.bf16:
+        FullConv.bf16_backward_launches += 1
+    else:
+        FullConv.backward_launches += 1
     if dsh:
         FullConv.dsh_launches += 1
         return dx, der, dw_hidden, dw_out, dwsel, d_sh[0]

@@ -15,6 +15,11 @@ a mix table into owners and launches, ``split_rows`` sizes a launch's row
 splits, and ``run_plan`` runs a plan with ``torch.matmul`` in float32 —
 the plain version of the kernel's arithmetic, and what the CPU tests hold
 to ``full_conv.mix_rows`` and its autograd.
+
+``bf16``: the GEMM's bfloat16 products (the bfloat16 K1 and K2), which
+round both operands to bfloat16 and sum their exact products in float32
+(one ``mma.sync ... bf16`` per 16 of the reduction); the plain version
+rounds the operands and runs the float32 plan.
 """
 
 from __future__ import annotations
@@ -148,18 +153,29 @@ def run_plan(kind: int, prob_rows, rows: int, KM: int, out_dim: int,
     return out
 
 
+COUNTERS = ("forward", "backward", "forward_bf16", "backward_bf16")
+
+
 def launches():
-    """``{"forward": n, "backward": n}``: the GEMM's launches counted by the
-    kernel library since it was loaded or last reset."""
-    counts = (ctypes.c_longlong * 2).in_dll(load_library(),
-                                            "rowmix_launches")
-    return {"forward": int(counts[0]), "backward": int(counts[1])}
+    """``{"forward": n, "backward": n, "forward_bf16": n, "backward_bf16":
+    n}``: the GEMM's launches counted by the kernel library since it was
+    loaded or last reset, the float32 and the bfloat16 products apart."""
+    counts = (ctypes.c_longlong * len(COUNTERS)).in_dll(load_library(),
+                                                        "rowmix_launches")
+    return {k: int(counts[i]) for i, k in enumerate(COUNTERS)}
 
 
 def reset_launches() -> None:
-    counts = (ctypes.c_longlong * 2).in_dll(load_library(),
-                                            "rowmix_launches")
-    counts[0] = counts[1] = 0
+    counts = (ctypes.c_longlong * len(COUNTERS)).in_dll(load_library(),
+                                                        "rowmix_launches")
+    for i in range(len(COUNTERS)):
+        counts[i] = 0
+
+
+def _rounded(bf16: bool, *ts):
+    """The operands as the bfloat16 products read them."""
+    return [t.to(torch.bfloat16).float() if bf16 and t is not None else t
+            for t in ts]
 
 
 def workspace(device, gout_numel: int = 0) -> torch.Tensor:
@@ -192,11 +208,13 @@ def _check_mix(prob_rows, S, wsel, gout, rows, KM, out_dim):
     return dev
 
 
-def launch_forward(S, wsel, prob_rows, out_dim: int) -> torch.Tensor:
+def launch_forward(S, wsel, prob_rows, out_dim: int,
+                   bf16: bool = False) -> torch.Tensor:
     """The forward mix of S [rows, KM]: out [rows, out_dim]; the plain
     version on the CPU (``run_plan``)."""
     rows, KM = S.shape
     if S.device.type == "cpu":
+        S, wsel = _rounded(bf16, S, wsel)
         return run_plan(FORWARD, prob_rows, rows, KM, out_dim, S=S,
                         wsel=wsel)
     dev = _check_mix(prob_rows, S, wsel, None, rows, KM, out_dim)
@@ -204,18 +222,20 @@ def launch_forward(S, wsel, prob_rows, out_dim: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = load_library().row_mix_forward(
             S.data_ptr(), rows, KM, wsel.data_ptr(), prob_rows.ctypes.data,
-            len(prob_rows), out.data_ptr(), out_dim, _stream(dev))
+            len(prob_rows), out.data_ptr(), out_dim, int(bf16),
+            _stream(dev))
     check(err, "row_mix_forward")
     return out
 
 
 def launch_backward(kind: int, prob_rows, KM: int, gout, S=None, wsel=None,
-                    wsel_len: int = 0) -> torch.Tensor:
+                    wsel_len: int = 0, bf16: bool = False) -> torch.Tensor:
     """ROWS: dS [rows, KM] from gout [rows, out_dim] and wsel; WEIGHTS:
     dwsel [wsel_len] from S [rows, KM] and gout.  The plain version on the
     CPU."""
     rows, out_dim = gout.shape
     if gout.device.type == "cpu":
+        gout, S, wsel = _rounded(bf16, gout, S, wsel)
         return run_plan(kind, prob_rows, rows, KM, out_dim, S=S, wsel=wsel,
                         gout=gout, wsel_len=wsel_len)
     if kind not in (ROWS, WEIGHTS):
@@ -229,20 +249,21 @@ def launch_backward(kind: int, prob_rows, KM: int, gout, S=None, wsel=None,
             kind, prob_rows.ctypes.data, len(prob_rows), rows, KM, out_dim,
             S.data_ptr() if S is not None else None,
             wsel.data_ptr() if wsel is not None else None, gout.data_ptr(),
-            out.data_ptr(), wsel_len, ws.data_ptr(), ws.numel(),
+            out.data_ptr(), wsel_len, ws.data_ptr(), ws.numel(), int(bf16),
             _stream(dev))
     check(err, "row_mix_backward")
     return out
 
 
 def launch_matmul(A, B, a_t: bool = False, b_t: bool = False,
-                  split: bool = False) -> torch.Tensor:
+                  split: bool = False, bf16: bool = False) -> torch.Tensor:
     """C = op(A) @ op(B), op(X) = X.T where ``*_t``, for contiguous float32
     A and B (K2's radial-MLP products: dW = h.T @ dw with ``a_t`` and
     ``split``, dh = dw @ W.T with ``b_t``); torch.matmul on the CPU."""
     Am = A.T if a_t else A
     Bm = B.T if b_t else B
     if A.device.type == "cpu":
+        Am, Bm = _rounded(bf16, Am, Bm)
         return Am @ Bm
     dev = A.device
     (M, K), N = Am.shape, Bm.shape[1]
@@ -256,6 +277,6 @@ def launch_matmul(A, B, a_t: bool = False, b_t: bool = False,
         err = load_library().row_mix_matmul(
             A.data_ptr(), int(not a_t), B.data_ptr(), int(b_t), C.data_ptr(),
             M, N, K, int(split), ws.data_ptr() if ws is not None else None,
-            ws.numel() if ws is not None else 0, _stream(dev))
+            ws.numel() if ws is not None else 0, int(bf16), _stream(dev))
     check(err, "row_mix_matmul")
     return C

@@ -26,6 +26,19 @@ TensorProduct weight and the attributes) is left to autograd.  Beside each
 kernel stands a plain PyTorch version of its contract on the same inputs
 (``table_product`` and ``plain_backward``), used by the tests and the
 on-card checks.
+
+With ``compute_dtype="bfloat16"`` the tables, the output and the
+backward's cotangent are bfloat16 and x is rounded to bfloat16, as the TPU
+kernels take them (``sc.py:104-120, 165-172, 208-246, 307``): the tables
+are bf16(bf16(rep) @ bf16(W pw / sqrt(d))), every product is summed in
+float32 and rounded per instruction (the TPU kernel's blocks are per
+instruction), the instructions of an output slot added in bfloat16, those
+of an input slot's dx in float32 (each is a separate cotangent of x
+there), and dtables rounded (the TPU kernel's caller casts it to the
+tables' dtype).  dx comes out float32; autograd rounds it for a bfloat16 x.
+On the CPU too the bfloat16 layer goes through
+``SpeciesScalarFCTPFunction``, with the plain contracts in place of the
+launches.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..compute_dtype import compute_dtype_of
 from ..fused_tp import FusedScalarFCTP
 from . import species_order
 from .build import KernelSwitch, check, check_tensor, load_library
@@ -96,10 +110,13 @@ class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
     #: kernel launches, over all instances (the main path's proof of use)
     launches = 0
     backward_launches = 0
+    bf16_launches = 0    # the bfloat16 variants' launches, K3 and K3b
+    bf16_backward_launches = 0
 
-    def __init__(self, tp, num_types: int):
+    def __init__(self, tp, num_types: int, compute_dtype: str = "float32"):
         super().__init__()
         self.num_types = int(num_types)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         ir1, ir2 = tp.irreps_in1, tp.irreps_in2
         assert all(mi.ir.l == 0 and mi.ir.p == 1 for mi in ir2), \
             "scalars only"
@@ -143,6 +160,9 @@ class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
                 col += mul1 * mul_out
         self.table_width = col
         self.outs, self.items = outs, items
+        # the table columns of each instruction, in column order
+        self.item_columns = sorted(
+            (it[2], it[1] * o[2]) for o in outs for it in items[o[3]:o[4]])
         # backward tables: items grouped by input slot, with their output
         # columns, and one row per input slot (an input slot no item reads,
         # like an output slot no item writes, has an empty item range: the
@@ -223,7 +243,18 @@ class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
             rep = attrs.new_zeros((self.num_types, self.mul2))
             rep[spec] = attrs
         W = tp.weight[self.w_index].reshape(self.mul2, self.table_width)
+        if self.bf16:
+            # per instruction, rep rounded on its own (its cotangents add
+            # up in float32, as the TPU package's per-item casts give them)
+            bf, Ws = torch.bfloat16, W * self.w_scale
+            return torch.cat([
+                (rep.to(bf).float() @ Ws[:, a: a + n].to(bf).float()).to(bf)
+                for a, n in self.item_columns], dim=1)
         return rep @ (W * self.w_scale)
+
+    @property
+    def bf16(self) -> bool:
+        return self.compute_dtype == torch.bfloat16
 
     def forward(self, tp, x: torch.Tensor, attrs: torch.Tensor,
                 species: torch.Tensor) -> torch.Tensor:
@@ -236,7 +267,10 @@ class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
     def plain(self, tp, x, attrs, species):
         """Plain PyTorch version: the per-node formulation
         (``FusedScalarFCTP``), equal to the per-species tables when the
-        attributes are species-pure."""
+        attributes are species-pure; at bfloat16 the plain contracts of K3
+        and K3b through ``SpeciesScalarFCTPFunction``."""
+        if self.bf16:
+            return self._call(tp, x, attrs, species, False)
         return FusedScalarFCTP(tp)(x, attrs)
 
     def launch(self, tp, x, attrs, species):
@@ -244,18 +278,26 @@ class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
         one per forward), tables in plain PyTorch, then K3, through
         ``SpeciesScalarFCTPFunction`` (K3b in the backward, on the same
         order) when a gradient is wanted."""
+        return self._call(tp, x, attrs, species, True)
+
+    def _call(self, tp, x, attrs, species, kernel: bool):
         spec = species.reshape(-1)
-        order = species_order.shared(spec, self.num_types)
+        order = (species_order.shared(spec, self.num_types) if kernel
+                 else species_order.SpeciesOrder(None, None))
         tables = self.tables(tp, attrs, spec)
         if not torch.is_grad_enabled():
-            return launch_forward(self, x, spec, tables.contiguous(),
-                                  order=order)
+            return _run_forward(kernel)(self, _operand(self, x), spec,
+                                        tables.contiguous(), order=order)
         return SpeciesScalarFCTPFunction.apply(self, x, tables, spec,
-                                               *order)
+                                               *order, kernel)
 
     def table_product(self, x, species, tables):
         """Plain PyTorch version of K3's contract: ``out[n] = x[n] @
-        A[species_n]`` per instruction, from the tables."""
+        A[species_n]`` per instruction, from the tables.  For bfloat16 x
+        and tables the products are summed in float32 and the output is
+        rounded to bfloat16."""
+        if tables.dtype == torch.bfloat16:
+            return self._table_product_bf16(x, species, tables)
         N = x.shape[0]
         A_n = tables[species.reshape(-1)]               # [N, table_width]
         chunks = []
@@ -273,14 +315,90 @@ class SpeciesScalarFCTP(KernelSwitch, torch.nn.Module):
             out = out.index_add(1, cols, o)
         return out
 
+    def _item_products(self, x, species, tables):
+        """Per output slot and instruction ``(out_off, d, mo, item, x_n,
+        A_n)``: the instruction's x block ``[N, mul1, d]`` and table rows
+        ``[N, mul1, mo]``, float32 of the bfloat16-rounded operands."""
+        N = x.shape[0]
+        A_n = tables.float()[species.reshape(-1)]
+        xr = x.to(torch.bfloat16).float()
+        for out_off, d, mo, it0, it1 in self.outs:
+            for item in self.items[it0:it1]:
+                x_off, mul1, a_off = item
+                yield (out_off, d, mo, item,
+                       xr[:, x_off: x_off + mul1 * d].reshape(N, mul1, d),
+                       A_n[:, a_off: a_off + mul1 * mo].reshape(N, mul1, mo))
+
+    def _table_product_bf16(self, x, species, tables):
+        """K3's bfloat16 contract: per instruction the float32 sum of the
+        rounded operands' products, rounded; an output slot's
+        instructions added in bfloat16: ``[N, out_dim]`` bfloat16."""
+        bf = torch.bfloat16
+        out = x.new_zeros((x.shape[0], self.irreps_out.dim), dtype=bf)
+        slots = {}
+        for out_off, d, mo, _, xb, A in self._item_products(x, species,
+                                                            tables):
+            o = torch.einsum("nuw,nuk->nwk", A, xb).reshape(
+                x.shape[0], mo * d).to(bf)
+            slots[out_off] = o if out_off not in slots else \
+                slots[out_off] + o
+        for out_off, o in slots.items():
+            out[:, out_off: out_off + o.shape[1]] = o
+        return out
+
     def plain_backward(self, x, species, tables, g):
         """Plain PyTorch version of K3b's contract: ``(dx, dtables)`` of
-        ``table_product`` for the cotangent ``g``, by autograd."""
+        ``table_product`` for the cotangent ``g``, by autograd; at
+        bfloat16 (bfloat16 tables) per instruction the float32 sums
+        rounded, dx added over an input slot's instructions in float32
+        (float32), dtables bfloat16."""
+        if tables.dtype == torch.bfloat16:
+            return self._plain_backward_bf16(x, species, tables, g)
         with torch.enable_grad():
             xs = x.detach().requires_grad_(True)
             ts = tables.detach().requires_grad_(True)
             out = self.table_product(xs, species, ts)
             return torch.autograd.grad(out, (xs, ts), g)
+
+    def _plain_backward_bf16(self, x, species, tables, g):
+        N = x.shape[0]
+        spec = species.reshape(-1)
+        dx = x.new_zeros((N, self.in_dim), dtype=torch.float32)
+        dt = tables.new_zeros(tables.shape, dtype=torch.float32)
+        gf = g.float()
+        for out_off, d, mo, (x_off, mul1, a_off), xb, A in \
+                self._item_products(x, species, tables):
+            gs = gf[:, out_off: out_off + mo * d].reshape(N, mo, d)
+            dxi = torch.einsum("nwk,nuw->nuk", gs, A)
+            dx[:, x_off: x_off + mul1 * d] += dxi.to(
+                torch.bfloat16).float().reshape(N, -1)
+            dA = torch.einsum("nwk,nuk->nuw", gs, xb).reshape(N, -1)
+            dt[:, a_off: a_off + mul1 * mo] = dt[
+                :, a_off: a_off + mul1 * mo].index_add(0, spec, dA)
+        return dx, dt.to(torch.bfloat16)
+
+
+def _plain_forward(sc, x, species, tables, order=None):
+    return sc.table_product(x, species, tables)
+
+
+def _operand(sc, x):
+    """x as K3's entry takes it: rounded to bfloat16 at bfloat16."""
+    return x.to(sc.compute_dtype)
+
+
+def _plain_backward(sc, x, species, tables, g, order=None):
+    return sc.plain_backward(x, species, tables, g)
+
+
+def _run_forward(kernel: bool):
+    """K3's launch, or its plain contract for CPU tensors (read at call
+    time, so that a test may route the launches)."""
+    return launch_forward if kernel else _plain_forward
+
+
+def _run_backward(kernel: bool):
+    return launch_backward if kernel else _plain_backward
 
 
 class SpeciesScalarFCTPFunction(torch.autograd.Function):
@@ -288,21 +406,22 @@ class SpeciesScalarFCTPFunction(torch.autograd.Function):
     tables; autograd carries ``dtables`` on to the weight and attrs."""
 
     @staticmethod
-    def forward(ctx, sc, x, tables, species, perm, ptr):
+    def forward(ctx, sc, x, tables, species, perm, ptr, kernel=True):
         tables = tables.contiguous()
         order = species_order.SpeciesOrder(perm, ptr)
-        out = launch_forward(sc, x, species, tables, order=order)
+        x = _operand(sc, x)
+        out = _run_forward(kernel)(sc, x, species, tables, order=order)
         ctx.save_for_backward(x, tables, species, perm, ptr)
-        ctx.sc = sc
+        ctx.sc, ctx.kernel = sc, kernel
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, tables, species, perm, ptr = ctx.saved_tensors
-        dx, dtables = launch_backward(
+        dx, dtables = _run_backward(ctx.kernel)(
             ctx.sc, x, species, tables, g.contiguous(),
             order=species_order.SpeciesOrder(perm, ptr))
-        return None, dx, dtables, None, None, None
+        return None, dx, dtables, None, None, None, None
 
 
 def _check_inputs(sc, x, species, tables, order):
@@ -311,10 +430,10 @@ def _check_inputs(sc, x, species, tables, order):
         raise ValueError(
             f"SpeciesScalarFCTP kernel needs CUDA tensors, got {dev}")
     N = x.shape[0]
-    check_tensor(x, "x", (N, sc.in_dim), torch.float32, dev)
+    cd = sc.compute_dtype   # x, the tables, g and the outputs
+    check_tensor(x, "x", (N, sc.in_dim), cd, dev)
     check_tensor(species, "species", (N,), torch.int64, dev)
-    check_tensor(tables, "tables", (sc.num_types, sc.table_width),
-                 torch.float32, dev)
+    check_tensor(tables, "tables", (sc.num_types, sc.table_width), cd, dev)
     if sc.out_table.device != dev:
         raise ValueError("SpeciesScalarFCTP tables are not on the "
                          "input's device")
@@ -330,11 +449,12 @@ def launch_forward(sc, x, species, tables, order=None):
     ``species``, built here when missing)."""
     dev, N, order = _check_inputs(sc, x, species, tables, order)
     out_dim = sc.irreps_out.dim
-    out = torch.empty((N, out_dim), dtype=torch.float32, device=dev)
+    out = torch.empty((N, out_dim), dtype=sc.compute_dtype, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.species_sc_fwd(
+        entry = lib.species_sc_fwd_bf16 if sc.bf16 else lib.species_sc_fwd
+        err = entry(
             x.data_ptr(), N, sc.in_dim, order.perm.data_ptr(),
             order.ptr.data_ptr(), sc.num_types, tables.data_ptr(),
             sc.table_width, sc.out_table.data_ptr(),
@@ -343,22 +463,26 @@ def launch_forward(sc, x, species, tables, order=None):
             out.data_ptr(), out_dim, stream,
         )
     check(err, "species_sc_fwd")
-    SpeciesScalarFCTP.launches += 1
+    if sc.bf16:
+        SpeciesScalarFCTP.bf16_launches += 1
+    else:
+        SpeciesScalarFCTP.launches += 1
     return out
 
 
 def launch_backward(sc, x, species, tables, g, order=None):
     """Launch K3b: ``(dx [N, in_dim], dtables [types, table_width])``, on
     ``order`` (built here when missing); the dtables partials go to a
-    workspace of ``grad_blocks`` tiles."""
+    workspace of ``grad_blocks`` tiles.  dx is float32, dtables in the
+    compute dtype."""
     dev, N, order = _check_inputs(sc, x, species, tables, order)
-    check_tensor(g, "g", (N, sc.irreps_out.dim), torch.float32, dev)
+    check_tensor(g, "g", (N, sc.irreps_out.dim), sc.compute_dtype, dev)
     if sc.max_d > MAX_D:
         raise ValueError(f"the K3 backward takes irreps up to l = 4, got "
                          f"d = {sc.max_d}")
     dx = torch.empty((N, sc.in_dim), dtype=torch.float32, device=dev)
     dtables = torch.empty((sc.num_types, sc.table_width),
-                          dtype=torch.float32, device=dev)
+                          dtype=sc.compute_dtype, device=dev)
     chunk_rows = grad_chunk_rows(N, sc.grad_entries,
                                  2 * _multiprocessors(dev))
     ws = torch.empty(
@@ -370,7 +494,8 @@ def launch_backward(sc, x, species, tables, g, order=None):
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.species_sc_bwd(
+        entry = lib.species_sc_bwd_bf16 if sc.bf16 else lib.species_sc_bwd
+        err = entry(
             x.data_ptr(), N, sc.in_dim, order.perm.data_ptr(),
             order.ptr.data_ptr(), sc.num_types, tables.data_ptr(),
             sc.table_width, g.data_ptr(), sc.irreps_out.dim,
@@ -382,5 +507,8 @@ def launch_backward(sc, x, species, tables, g, order=None):
             stream,
         )
     check(err, "species_sc_bwd")
-    SpeciesScalarFCTP.backward_launches += 1
+    if sc.bf16:
+        SpeciesScalarFCTP.bf16_backward_launches += 1
+    else:
+        SpeciesScalarFCTP.backward_launches += 1
     return dx, dtables

@@ -88,6 +88,10 @@ BY_DESIGN = {
     ("model_config", "edge_seed"): "the protein edge layer's random pairs "
                                    "come from a generator seeded with it, "
                                    "not from a key folded with t",
+    ("model_config", "compute_dtype"): "the port's layers take the compute "
+                                       "dtype from the model config; JAX's "
+                                       "read E3_COMPUTE_DTYPE from the "
+                                       "environment",
 }
 SPECS = [("config_energy", None), ("config_energy_force", None),
          ("config_dipole", None), ("config_dipole", "profiling"),

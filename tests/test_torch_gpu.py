@@ -24,7 +24,9 @@ replayed on two different batches equals the eager step on each, and a
 captured run repeats itself bit for bit.  ``build_model(...,
 kernels=False)``: a ``config_energy`` step through every kernel's plain
 version on the card launches no kernel and gives the kernels' loss and
-gradients.
+gradients.  At ``compute_dtype="bfloat16"``: a training step through the
+bfloat16 K1, K2, K3 and K3b against their plain contracts on the card,
+within the plain step's distance from float32.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -1844,3 +1846,60 @@ def test_kernels_off_step_matches_the_kernels(cuda):
         assert torch.isfinite(want[name]).all(), name
         assert _rel(got[name], want[name]) <= TOL, (name, _rel(got[name],
                                                                want[name]))
+
+
+BF16_STEP_SHARE = 0.75
+
+
+def test_bf16_step_matches_its_plain_version(cuda):
+    """One bfloat16 ``config_energy`` training step on the card through the
+    bfloat16 K1, K2, K3 and K3b (once a layer each) against the same step
+    through their bfloat16 plain contracts on the card (``kernels=False``):
+    the loss and every gradient within ``BF16_STEP_SHARE`` of the plain
+    step's own distance from the float32 plain step, relative L2 per
+    tensor.  Each kernel alone is held to half of it (``chip_smoke.py``
+    phase 42); through five layers and back, a rounding that one order's
+    float32 sum flips moves the next layer's operands by a bfloat16 place,
+    so a whole step's two orders part by about half the precision's
+    distance (the node energies: 0.48 of it, measured on one H100), where a
+    card model that dropped a rounding point would part by about all of
+    it."""
+    gb = _energy_batches(cuda, 1)[0]
+    mc = get_config("config_energy")["model_config"]
+    n_layers = mc["num_layers"]
+    counters = ((FullConv, "bf16_launches"),
+                (FullConv, "bf16_backward_launches"),
+                (SpeciesScalarFCTP, "bf16_launches"),
+                (SpeciesScalarFCTP, "bf16_backward_launches"))
+    runs = {}
+    for dtype, kernels in (("bfloat16", True), ("bfloat16", False),
+                           ("float32", False)):
+        model = build_model(dict(mc, compute_dtype=dtype), cuda,
+                            torch.Generator().manual_seed(0),
+                            kernels=kernels)
+        before = [getattr(c, a) for c, a in counters]
+        runs[dtype, kernels] = _step_gradients(model, gb)
+        torch.cuda.synchronize()
+        launched = [getattr(c, a) - b for (c, a), b in zip(counters, before)]
+        want = n_layers if kernels else 0
+        assert launched == [want] * 4, (dtype, kernels, launched)
+    (loss, got), (loss16, p16), (loss32, p32) = (
+        runs["bfloat16", True], runs["bfloat16", False],
+        runs["float32", False])
+    assert got.keys() == p16.keys() == p32.keys()
+
+    def share(err, bar):
+        return err / bar if bar else (0.0 if not err else float("inf"))
+
+    def rel2(a, b):
+        return share(float((a - b).norm()), float(b.norm()))
+
+    shares = {"loss": share(abs(loss - loss16), abs(loss16 - loss32))}
+    for name in p16:
+        assert torch.isfinite(got[name]).all(), name
+        shares[name] = share(rel2(got[name], p16[name]),
+                             rel2(p16[name], p32[name]))
+    print("bf16 step, the card's distance from the plain step over the "
+          "plain step's distance from float32:", shares)
+    over = {k: v for k, v in shares.items() if not v <= BF16_STEP_SHARE}
+    assert not over, over
