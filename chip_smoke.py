@@ -2,8 +2,10 @@
 """On-card smoke run of the PyTorch/CUDA port (one NVIDIA GPU, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --conv-times     # K1 and K2 alone, see conv_times
-    python3 chip_smoke.py --walk-ablation [source.cu ...]
+    python3 chip_smoke.py --conv-times [bf16]
+                                           # K1 and K2 alone (bf16: the
+                                           # bf16 entries), see conv_times
+    python3 chip_smoke.py --walk-ablation [source.cu ... | bf16]
                                            # the walks', K3/K3b's and the
                                            # K5 kernels' parts, see
                                            # walk_ablation
@@ -882,7 +884,7 @@ LAUNCH_MARKS = {
     "row_mix_products": (r"gemm_kernel<(?!true, false(, false)?>)(true|false), "
                          r"(true|false)(, false)?>",),
     # the bfloat16 variants (phase 42)
-    "full_conv_bf16": (r"k1_walk_kernel<\d+, true>",),
+    "full_conv_bf16": (r"k1_bf16_walk_kernel<",),
     "full_conv_bwd_bf16": (r"k2_bf16_walk_kernel<",),
     "species_sc_bf16": (r"table_product_kernel<false, true>",),
     "species_sc_bwd_bf16": (r"table_product_kernel<true, true>",
@@ -1044,6 +1046,7 @@ def worst_gradient_rel(got, want):
 # kernel families of a profile, first match wins: (label, regex on the name)
 PROFILE_FAMILIES = (
     ("K2 edge walk (k2_walk_kernel)", "k2_walk_kernel"),
+    ("K1's bfloat16 edge walk (k1_bf16_walk_kernel)", "k1_bf16_walk_kernel"),
     ("K2's bfloat16 edge walk (k2_bf16_walk_kernel)", "k2_bf16_walk_kernel"),
     ("bfloat16 widening, narrowing and rounding passes (bf16.cuh)",
      r"bf16::"),
@@ -5972,8 +5975,9 @@ def bf16_record(name, source, replaces, launches, err, ms, plain_ms, flops,
     """A bfloat16 variant's line of the kernels JSON: its bound the larger
     of its operations, ``bf16_flops`` of them products of bfloat16
     operands over 989 TFLOP/s (bfloat16 tensor cores) and the rest (the
-    walks' CG products) over 67 TFLOP/s (float32 CUDA cores), and its bytes
-    (bfloat16 operands at 2 bytes) over 3.35 TB/s."""
+    walks' per-row products and float32 sums) over 67 TFLOP/s (float32
+    CUDA cores), and its bytes (bfloat16 operands at 2 bytes) over 3.35
+    TB/s."""
     t_ops = (flops - bf16_flops) / PEAK_FLOPS + bf16_flops / PEAK_BF16
     t_mem = n_bytes / PEAK_BYTES
     rec = dict(name=name, route="cuda",
@@ -6156,16 +6160,18 @@ def bf16_kernel_checks(model, gb, dev):
         del ops16
     # bounds: the float32 kernels' operation counts, those of bfloat16
     # operands (the radial MLP, K2's recompute of it and its products, the
-    # mix, the tables) at the bf16 tensor-core rate, the operands' bytes at
-    # their dtypes (bfloat16 for the rounded operands)
+    # walks' CG and C^T contractions, the mix, the tables) at the bf16
+    # tensor-core rate, the operands' bytes at their dtypes (bfloat16 for
+    # the rounded operands)
     cc = conv_counts(fconv, N, E)
     dims = fconv.fc_dims
     mlp = 2 * E * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
     out["K1"]["cost"] = (mlp + cc["cg"] + 2 * cc["rows"] + cc["mix"],
-                         mlp + cc["mix"], nbytes(x1b, er, shb, src, dst, *f16)
-                         + N * od * 2)
+                         mlp + cc["cg"] + cc["mix"],
+                         nbytes(x1b, er, shb, src, dst, *f16) + N * od * 2)
     out["K2"]["cost"] = (3 * mlp + 2 * cc["cg"] + 2 * cc["rows"]
-                         + 2 * cc["mix"], 3 * mlp + 2 * cc["mix"],
+                         + 2 * cc["mix"], 3 * mlp + 2 * cc["cg"]
+                         + 2 * cc["mix"],
                          nbytes(x1b, shb, src, dst, *f16, scratch, gb16)
                          + 2 * nbytes(er) + nbytes(x1b, *f16))
     items = ssc.bwd_item_table.cpu().numpy().reshape(-1, 6).astype(np.int64)
@@ -6749,17 +6755,21 @@ def kernel_split(fn, n=6):
             sorted(split.items(), key=lambda kv: -kv[1])}
 
 
-def conv_times():
-    """``python3 chip_smoke.py --conv-times``: K1 and K2 of the package in
-    the current directory (run it from two checkouts in turn to compare them
-    on one card), ms per call with CUDA events at ``config_energy``'s hot
-    layer (the first 128-graph batch of phase 7), at the l = 4 hot layer
-    of a 512- and a 16-molecule batch (phases 14-16) and at the diffusion
-    and dipole hot layers (phases 19 and 22), each C entry through
-    ``launch_forward`` / ``launch_backward``, with each kernel's device ms
-    per call (``kernel_split``) and a digest of each entry's outputs (two
-    checkouts whose kernels compute alike print the same); one JSON line.
-    K2 gets the forward's edge order where the package has one."""
+def conv_times(which="all"):
+    """``python3 chip_smoke.py --conv-times [bf16]``: K1 and K2 of the
+    package in the current directory (run it from two checkouts in turn to
+    compare them on one card), ms per call with CUDA events at
+    ``config_energy``'s hot layer (the first 128-graph batch of phase 7), at
+    the l = 4 hot layer of a 512- and a 16-molecule batch (phases 14-16) and
+    at the diffusion and dipole hot layers (phases 19 and 22), then the
+    bfloat16 entries (``full_conv_fwd_bf16``, ``full_conv_bwd_bf16``) at
+    the energy and dipole hot layers of the bfloat16 models (phase 42's
+    operands: x after ``linear_1``, sh and the flat weights rounded), each
+    C entry through ``launch_forward`` / ``launch_backward``, with each
+    kernel's device ms per call (``kernel_split``) and a digest of each
+    entry's outputs (two checkouts whose kernels compute alike print the
+    same); one JSON line.  ``bf16``: the bfloat16 entries alone.  K2 gets
+    the forward's edge order where the package has one."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6770,6 +6780,12 @@ def conv_times():
     from equivariant_nn_zoo_tpu_torch.run.sde_utils import with_t
 
     try:
+        from equivariant_nn_zoo_tpu_torch.nn.message_passing import \
+            ROUNDED_INPUT
+    except ImportError:
+        ROUNDED_INPUT = None
+
+    try:
         from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
     except ImportError:
         edge_order = None
@@ -6778,6 +6794,7 @@ def conv_times():
     energy = synthetic_qm9(N_BATCHES * BATCH, np.random.default_rng(0))
     water = synthetic_h2o(N_BATCHES * max(H2O_BATCHES),
                           np.random.default_rng(20))
+    dipole = synthetic_dipole_mols(DIPOLE_BATCH, np.random.default_rng(30))
     cases = (("energy", "config_energy", energy, BATCH, HOT_LAYER),
              ("l4_3072", "config_hamiltonian", water, max(H2O_BATCHES),
               HOT_LAYER),
@@ -6786,15 +6803,22 @@ def conv_times():
              ("diffusion", "config_diffusion", synthetic_diffusion_mols(
                  DIFF_BATCH, np.random.default_rng(21)), DIFF_BATCH,
               DIFF_HOT_LAYER),
-             ("dipole", "config_dipole", synthetic_dipole_mols(
-                 DIPOLE_BATCH, np.random.default_rng(30)), DIPOLE_BATCH,
+             ("dipole", "config_dipole", dipole, DIPOLE_BATCH,
+              DIPOLE_HOT_LAYER),
+             ("energy_bf16", "config_energy", energy, BATCH, HOT_LAYER),
+             ("dipole_bf16", "config_dipole", dipole, DIPOLE_BATCH,
               DIPOLE_HOT_LAYER))
+    if which == "bf16":
+        cases = cases[-2:]
     times, models = {}, {}
     for key, name, mols, size, layer in cases:
-        if name not in models:
-            models[name] = build_model(get_config(name)["model_config"], dev,
-                                       torch.Generator().manual_seed(0))
-        model = models[name]
+        bf16 = key.endswith("_bf16")
+        if (name, bf16) not in models:
+            mc = get_config(name)["model_config"]
+            models[name, bf16] = build_model(
+                dict(mc, compute_dtype="bfloat16") if bf16 else mc, dev,
+                torch.Generator().manual_seed(0))
+        model = models[name, bf16]
         gb = make_batches(mols[:N_BATCHES * size], dev, size)[0]
         if name == "config_diffusion":
             gb = with_t(gb, torch.full((size, 1), 0.5, device=dev))
@@ -6806,10 +6830,15 @@ def conv_times():
             model(gb)
             hook.remove()
             data = seen["data"]
-            x1 = conv.linear_1(data["input_features"])
+            x_in = data["input_features"]
+            if bf16 and ROUNDED_INPUT is not None:
+                x_in = data.get(ROUNDED_INPUT, x_in)
+            x1 = conv.linear_1(x_in.float())
+            cd = torch.bfloat16 if bf16 else torch.float32
+            x1 = x1.to(cd)
             er = data["edge_radial"] * data["_edge_mask"]
             pre = 1.0 / conv.avg_num_neighbors ** 0.5
-            edges = (data["edge_spherical"], data["edge_index"][0],
+            edges = (data["edge_spherical"].to(cd), data["edge_index"][0],
                      data["edge_index"][1])
             N = x1.shape[0]
             flat = [t.detach() for t in fconv.flat_weights(
@@ -6819,7 +6848,7 @@ def conv_times():
             _, scratch = conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
                                                  N, **kw)
             gout = torch.randn(N, fconv.out_dim, generator=torch.Generator(
-            ).manual_seed(1)).to(dev)
+            ).manual_seed(1)).to(dev, cd)
 
             def k1():
                 return conv_ops.launch_forward(fconv, x1, er, *edges, *flat,
@@ -7628,7 +7657,7 @@ WALK_PARTS = {
         (r"for \(int r = 0; r < rows; \+\+r\)",
          "for (int r = 0; r < 0; ++r)", 1)]},
     "staging copies": {"species_sc.cu": [
-        (r"\bcp_async4\(", "if (false) cp_async4(", 2)]},
+        (r"\bcp_async4\(", "if (false) cp_async4(", 1)]},
     # the adjoint sweep of the K5 backward (pairwise_tp.cu, --pw-calls)
     "adjoint staging copies": {"pairwise_tp.cu": [
         (r"\bbulk_copy\(d", "if (false) bulk_copy(d", 2),
@@ -7647,6 +7676,32 @@ WALK_PARTS = {
     "fused non-zero loops": {
         src: [(r"for \(; z < z1; \+\+z\)", "for (; z < 0; ++z)", 1)]
         for src in ("pairwise_tp.cu", "uvu_conv.cu")},
+    # the bfloat16 K1 and K2 (bf16_walk.cuh, full_conv.cu, full_conv_bwd.cu;
+    # --conv-times bf16): the radial-weight MMAs, the outer products formed
+    # into the A fragments, the CG MMAs (their operands go with them), K1's
+    # epilogue (bf16(mid w) summed per node), K2's dS gathers, its dw sums
+    # over m3, its C^T MMAs and its dx sums over j
+    "bf16 radial MMA": {
+        src: [(r"\n *bwalk::radial_mma\([^;]*;", "", 1)]
+        for src in ("full_conv.cu", "full_conv_bwd.cu")},
+    "bf16 outer products": {"bf16_walk.cuh": [
+        (r"const uint32_t a\[4\] = \{[^}]*\};",
+         "const uint32_t a[4] = {0u, 0u, 0u, 0u};", 1)]},
+    "bf16 CG MMA": {"bf16_walk.cuh": [
+        (r"rowmix::mma_bf16\(acc\[nt\], a, b\);", "", 1)]},
+    "bf16 K1 epilogue": {"full_conv.cu": [
+        (r"__bfloat1622float2\(__hmul2_rn\(m, w\)\)",
+         "make_float2(acc[nt][2 * r], acc[nt][2 * r + 1])", 1)]},
+    "bf16 K2 dS gathers": {"full_conv_bwd.cu": [
+        (r"__ldg\(grow \+ \(size_t\)srow \* mul \+ u\)", "1.f", 1)]},
+    "bf16 K2 dw sums": {"full_conv_bwd.cu": [
+        (r"for \(int i0 = lane; i0 < 16 \* P; i0 \+= 4 \* 32\)",
+         "for (int i0 = lane; i0 < 0; i0 += 4 * 32)", 1)]},
+    "bf16 K2 C^T MMA": {"full_conv_bwd.cu": [
+        (r"rowmix::mma_bf16\(c, ap\[kk\], b\);", "", 1)]},
+    "bf16 K2 dx sums": {"full_conv_bwd.cu": [
+        (r"dxb\[mb\]\[r\] = __hadd2_rn\(dxb\[mb\]\[r\], __hmul2_rn\(sj, d\)\);",
+         "dxb[mb][r] = d;", 1)]},
     # K6b's adjoint sweep (uvu_conv.cu, --uvu-calls): its non-zero sweeps
     # (dx; dw and dsh) and its dS products on the tensor cores
     "K6b non-zero sweeps": {"uvu_conv.cu": [
@@ -7675,6 +7730,17 @@ WALK_ABLATIONS = (
     ("without K6b's non-zero sweeps", ["K6b non-zero sweeps"]),
     ("without K6b's dS products", ["K6b dS products"]),
     ("without both K6b parts", ["K6b non-zero sweeps", "K6b dS products"]),
+    ("without the bf16 radial MMAs", ["bf16 radial MMA"]),
+    ("without the bf16 outer products", ["bf16 outer products"]),
+    ("without the bf16 CG MMAs", ["bf16 CG MMA"]),
+    ("without the bf16 K1 epilogue", ["bf16 K1 epilogue"]),
+    ("without the bf16 K2 dS gathers", ["bf16 K2 dS gathers"]),
+    ("without the bf16 K2 dw sums", ["bf16 K2 dw sums"]),
+    ("without the bf16 K2 C^T MMAs", ["bf16 K2 C^T MMA"]),
+    ("without the bf16 K2 dx sums", ["bf16 K2 dx sums"]),
+    ("bf16 staging only", ["bf16 radial MMA", "bf16 CG MMA",
+                           "bf16 K2 dS gathers", "bf16 K2 dw sums",
+                           "bf16 K2 C^T MMA"]),
 )
 
 
@@ -7693,21 +7759,25 @@ def walk_ablation(sources=()):
     the edits touch, after the package itself; with sources named, only
     the variants that edit them (``cg_tile.cuh`` goes with either of
     ``pairwise_tp.cu`` and ``uvu_conv.cu``, and its variant is timed for
-    the sources named).  A part costs about the time that its absence
-    saves."""
+    the sources named).  ``bf16`` names the bfloat16 K1 and K2's variants
+    (``bf16_walk.cuh``), timed by ``--conv-times bf16``.  A part costs
+    about the time that its absence saves."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
     pkg = os.path.join(root, "equivariant_nn_zoo_tpu_torch")
     every = {"full_conv.cu", "full_conv_ext.cu", "species_sc.cu",
-             "pairwise_tp.cu", "uvu_conv.cu"}
+             "pairwise_tp.cu", "uvu_conv.cu", "bf16"}
     fused = {"pairwise_tp.cu", "uvu_conv.cu"}
     named = set(sources) or every
     wanted = named | ({"cg_tile.cuh"} if named & fused else set()) \
         | ({"edge_walk.cuh"} if "full_conv_ext.cu" in named else set())
     runs = [("package as it is", root, named)]
     for i, (label, parts) in enumerate(WALK_ABLATIONS):
-        if not any(set(WALK_PARTS[p]) & wanted for p in parts):
+        if "bf16" in label:
+            if "bf16" not in named:
+                continue
+        elif not any(set(WALK_PARTS[p]) & wanted for p in parts):
             continue
         dest = os.path.join(root, "build", "walk_ablation", str(i))
         shutil.rmtree(dest, ignore_errors=True)
@@ -7731,17 +7801,20 @@ def walk_ablation(sources=()):
             touched |= named & fused
         if "edge_walk.cuh" in touched:   # the dsh lane sums: K4b's times
             touched |= {"full_conv_ext.cu"}
+        if "bf16" in label:              # the bfloat16 entries alone
+            touched = {"bf16"}
         runs.append((label, dest, touched))
     for label, cwd, touched in runs:
-        modes = (["--conv-times"] if touched & {"full_conv.cu",
-                                                "full_conv_bwd.cu"} else []) \
-            + (["--ext-calls"] if "full_conv_ext.cu" in touched else []) \
-            + (["--sc-calls"] if "species_sc.cu" in touched else []) \
-            + (["--pw-calls"] if "pairwise_tp.cu" in touched else []) \
-            + (["--uvu-calls"] if "uvu_conv.cu" in touched else [])
+        conv = touched & {"full_conv.cu", "full_conv_bwd.cu"}
+        modes = ([["--conv-times"]] if conv else
+                 [["--conv-times", "bf16"]] if "bf16" in touched else []) \
+            + ([["--ext-calls"]] if "full_conv_ext.cu" in touched else []) \
+            + ([["--sc-calls"]] if "species_sc.cu" in touched else []) \
+            + ([["--pw-calls"]] if "pairwise_tp.cu" in touched else []) \
+            + ([["--uvu-calls"]] if "uvu_conv.cu" in touched else [])
         for mode in modes:
             res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  mode], cwd=cwd, capture_output=True,
+                                  *mode], cwd=cwd, capture_output=True,
                                  text=True, timeout=600)
             if res.returncode != 0:
                 fail(f"walk ablation, {label}:\n{res.stdout}{res.stderr}")
@@ -7750,9 +7823,9 @@ def walk_ablation(sources=()):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--conv-times"]:
+    if sys.argv[1:2] == ["--conv-times"]:
         sys.path.insert(0, os.getcwd())
-        conv_times()
+        conv_times(*sys.argv[2:3])
     elif sys.argv[1:] == ["--mix-times"]:
         sys.path.insert(0, os.getcwd())
         mix_times()

@@ -24,6 +24,7 @@
 namespace bf16 {
 
 using T = __nv_bfloat16;
+using T2 = __nv_bfloat162;
 
 // the element type of an operand that the bfloat16 variant stores as
 // bfloat16
@@ -41,6 +42,11 @@ __device__ __forceinline__ float rn(float v) {
 // an element as a float (a bfloat16 widened; a float as it is)
 __device__ __forceinline__ float f(float v) { return v; }
 __device__ __forceinline__ float f(T v) { return __bfloat162float(v); }
+
+// the 32 bits of a bfloat16 pair (an MMA operand register)
+__device__ __forceinline__ uint32_t bits(T2 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // *p = v (a bfloat16 output: v rounded)
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }

@@ -281,24 +281,21 @@ __device__ __forceinline__ Stage carve(void* base, int n_nz, int n_cells,
 // source and a second x operand (x2; none when x is null), and this
 // thread's column ``col`` of the external radial weights and of a second
 // weight operand (w, w2; w null when the kernel computes them).  The second
-// operands are read only by stage_edges<true>.  Xt: the element type of sh
-// and x (bfloat16 for the bfloat16 K1, widened as they are staged).
-template <class Xt = float>
-struct StagedOf {
+// operands are read only by stage_edges<true>.
+struct Staged {
   const float* h_last;
   int H;
-  const Xt* sh;
-  const Xt* sh2;
+  const float* sh;
+  const float* sh2;
   int J;
-  const Xt* x;
-  const Xt* x2;
+  const float* x;
+  const float* x2;
   int in_dim, x_off, xw;
   bool x_vec;
   const float* w;
   const float* w2;
   int PC, col;
 };
-using Staged = StagedOf<float>;
 
 // Stage positions [pos0, pos0 + nq) of the order: edge ids, key and other
 // endpoints, then what ``op`` names (kTwo: its second operands too, K4g's;
@@ -309,13 +306,12 @@ using Staged = StagedOf<float>;
 // flight at once: the stage waits for one round trip to memory, not one
 // per element.  h and x go in 16-byte pieces when H, resp. the x slice,
 // allow it (``x_vec``); st.h's columns past H stay as stage_chunk zeroed
-// them.  bfloat16 sh and x (one operand) are read with plain loads and
-// widened into the float32 stage.
-template <bool kTwo = false, class Xt = float>
+// them.
+template <bool kTwo = false>
 __device__ __forceinline__ void stage_edges(
     const Stage& st, int pos0, int nq, const int* __restrict__ perm,
     const long long* __restrict__ src, const long long* __restrict__ dst,
-    bool key_is_dst, const StagedOf<Xt>& op, int tid, int nthr) {
+    bool key_is_dst, const Staged& op, int tid, int nthr) {
   __syncthreads();
   for (int i = tid; i < nq; i += nthr) {
     const int e = perm[pos0 + i];
@@ -340,20 +336,6 @@ __device__ __forceinline__ void stage_edges(
     }
   }
   const int J = op.J;
-  if constexpr (bf16::is_bf16<Xt>) {
-    static_assert(!kTwo, "bfloat16 staging of one operand");
-    for (int i = tid; i < nq * J; i += nthr) {
-      const int q = i / J, j = i - q * J;
-      st.sh[q * kMaxSh + j] = bf16::f(op.sh[(size_t)st.edge[q] * J + j]);
-    }
-    const int xw = op.xw;
-    for (int i = tid; i < nq * xw; i += nthr) {
-      const int q = i / xw, c = i - q * xw;
-      const int s = key_is_dst ? st.other[q] : st.node[q];
-      st.x[q * xw + c] =
-          bf16::f(op.x[(size_t)s * op.in_dim + op.x_off + c]);
-    }
-  } else {
   for (int i = tid; i < nq * J; i += nthr) {
     const int q = i / J, j = i - q * J;
     const size_t at = (size_t)st.edge[q] * J + j;
@@ -381,7 +363,6 @@ __device__ __forceinline__ void stage_edges(
       }
     }
   }
-  }
   if (op.w) {
     for (int q = 0; q < nq; ++q) {
       const size_t at = (size_t)st.edge[q] * op.PC + op.col;
@@ -405,11 +386,9 @@ __device__ __forceinline__ bool x_vectors(const float* x, int in_dim,
 
 // Radial weights of the staged edges for column ``col``: w[q] = h[q] .
 // w_out[:, col], kStage independent sums, stored in this thread's slots of
-// st.w (read back by the same thread).  W: w_out's element type (bfloat16
-// for the bfloat16 K1, widened as it is loaded).
-template <class W = float>
+// st.w (read back by the same thread).
 __device__ __forceinline__ void radial_weights(const Stage& st,
-                                               const W* __restrict__ w_out,
+                                               const float* __restrict__ w_out,
                                                int H, int PC, int col,
                                                int tid, int nthr) {
   float w[kStage];
@@ -420,9 +399,8 @@ __device__ __forceinline__ void radial_weights(const Stage& st,
     float c[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      c[j] = 4 * k + j < H
-                 ? bf16::f(__ldg(w_out + (size_t)(4 * k + j) * PC + col))
-                 : 0.f;
+      c[j] = 4 * k + j < H ? __ldg(w_out + (size_t)(4 * k + j) * PC + col)
+                           : 0.f;
 #pragma unroll
     for (int q = 0; q < kStage; ++q) {
       const float4 v = h4[q * (kMaxHidden / 4) + k];

@@ -57,25 +57,29 @@
 // their edge_radial is masked to zero and the MLP has no bias, so their
 // weights, and their messages, are zero.
 //
-// The bfloat16 variant (full_conv_fwd_bf16; kBf16 in the kernels) computes
-// the TPU kernel's contract at compute_dtype=bfloat16: x, sh, the MLP
-// weights and the mix matrices are read from bfloat16 tensors (half the
-// bytes), widened as they are staged or loaded (bf16.cuh); the MLP rounds
-// its inputs and activations (_mlp_fwd, fused_conv.py:813-828); the walk
-// rounds each radial weight, forms per channel and CG non-zero the product
-// bf16(sh[m2] x[m1]) (the outer product of _mid2_of, :863) times the
-// rounded CG value, sums a component's products in float32 and rounds it
-// (mid, :875), rounds mid * w (w2d, :847) and sums those over the node in
-// float32 (the scratch, kept float32 for K2); the mix runs as the GEMM's
-// bfloat16 products (the scratch rounded as it is loaded, :1025) and its
-// float32 sums are rounded as they are stored into the bfloat16 output
-// (:2298).  The per-channel CG loop replaces the shared matrices M = C sh,
-// which would round in the wrong place; it is the simple form, not yet a
-// fast one.
+// The bfloat16 variant (full_conv_fwd_bf16) computes the TPU kernel's
+// contract at compute_dtype=bfloat16: x, sh, the MLP weights and the mix
+// matrices are bfloat16 tensors; the MLP rounds its inputs and activations
+// (mlp_hidden_kernel<true>; _mlp_fwd, fused_conv.py:813-828), then
+// k1_bf16_walk_kernel (bf16_walk.cuh) walks the same destination-major
+// items, a block per item and left irrep with all its paths, 4 warps of 16
+// channels at mul = 64: per stage the radial weights bf16(h_last W_out)
+// as tensor-core MMAs, per edge the rounded outer products
+// bf16(sh_j x[m1]) (_mid2_of, :863) formed once into the A fragments, mid
+// = bf16(O C) as MMAs over the unit's non-zero CG tiles (:871-875), then
+// bf16(mid * w) (w2d, :847) summed per destination node in float32 (the
+// scratch, kept float32 for K2), flushed as the float32 walk flushes; the
+// mix runs as the GEMM's bfloat16 products (the scratch rounded as it is
+// loaded, :1025), its float32 sums rounded as they are stored into the
+// bfloat16 output (:2298).  What bounds it: the per-edge work of a warp
+// (the A fragments' products and packs, the MMAs, the epilogue's
+// roundings), a chain per edge, at 20 warps per SM (5 blocks of ~45 KB of
+// shared memory and at most 102 registers at config_energy's widths).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_walk.cuh"
 #include "edge_walk.cuh"
 #include "row_mix.cuh"
 
@@ -84,17 +88,16 @@ using namespace walk;
 namespace {
 
 // kRows: register rows of the node sums and of x, at least the components
-// of the widest irrep on either side (7: l <= 3; 9: l <= 4; 16: l <= 7);
-// kBf16: the bfloat16 contract (see above)
-template <int kRows, bool kBf16 = false>
+// of the widest irrep on either side (7: l <= 3; 9: l <= 4; 16: l <= 7)
+template <int kRows>
 __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
-    const bf16::Op<kBf16>* __restrict__ x, int in_dim,
-    const bf16::Op<kBf16>* __restrict__ sh, int J,
+    const float* __restrict__ x, int in_dim,
+    const float* __restrict__ sh, int J,
     const long long* __restrict__ src, const long long* __restrict__ dst,
     const int* __restrict__ perm, const int* __restrict__ ptr, int N,
     int cap, int T,
     const float* __restrict__ h_last, int H,
-    const bf16::Op<kBf16>* __restrict__ w_out, int PC,
+    const float* __restrict__ w_out, int PC,
     const int* __restrict__ walk_tab, const int* __restrict__ chunks,
     const int* __restrict__ cells, const float2* __restrict__ nz,
     float* __restrict__ scratch, float* __restrict__ pieces, int KM) {
@@ -111,11 +114,9 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
   const int z0 = cells[k0], z1 = cells[k1 - 1];
   const Stage st = carve(smem, z1 - z0, k1 - k0, xw, nthr);
   stage_chunk(st, nz, z0, z1, cells, k0, k1, tid, nthr);
-  bool x_vec = false;
-  if constexpr (!kBf16) x_vec = x_vectors(x, in_dim, x_off, xw);
-  const StagedOf<bf16::Op<kBf16>> staged = {
-      h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off, xw, x_vec,
-      nullptr, nullptr, 0, 0};
+  const Staged staged = {h_last, H, sh, nullptr, J, x, nullptr, in_dim, x_off,
+                         xw, x_vectors(x, in_dim, x_off, xw), nullptr,
+                         nullptr, 0, 0};
 
   const bool active = g < cn;
   const int* pi = walk_tab + (size_t)(c0 + (active ? g : 0)) * kWalkFields;
@@ -143,9 +144,8 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
     const int nq = min(kStage, it.e_hi - pos0);
     stage_edges(st, pos0, nq, perm, src, dst, true, staged, tid, nthr);
     if (active) {
-      if constexpr (!kBf16)
-        cg_matrices<kRows>(st, st.sh, st.m, nq, g, my_cells, d1, d3, j0, u,
-                           mul);
+      cg_matrices<kRows>(st, st.sh, st.m, nq, g, my_cells, d1, d3, j0, u,
+                         mul);
       radial_weights(st, w_out, H, PC, pi[kWCol] + u, tid, nthr);
     }
     __syncthreads();
@@ -156,27 +156,6 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
       const float w = st.w[q * nthr + tid];
       float xr[kP];
       load_x<kRows>(xr, st.x + q * xw + u * d1, d1);
-      if constexpr (kBf16) {
-        const float wb = bf16::rn(w);
-        const float* shq = st.sh + q * kMaxSh + j0;
-#pragma unroll
-        for (int m3 = 0; m3 < kRows; ++m3) {
-          if (m3 >= d3) break;
-          float mid = 0.f;
-#pragma unroll
-          for (int m1 = 0; m1 < kRows; ++m1) {
-            if (m1 >= d1) break;
-            const int c = m3 * d1 + m1;
-            for (int z = my_cells[c]; z < my_cells[c + 1]; ++z) {
-              const float2 e = st.nz[z];
-              mid += bf16::rn(e.x) *
-                     bf16::rn(shq[__float_as_int(e.y)] * xr[m1]);
-            }
-          }
-          acc[m3] += bf16::rn(bf16::rn(mid) * wb);
-        }
-        continue;
-      }
       const float4* mq = reinterpret_cast<const float4*>(
           st.m + (q * kGroups + g) * kRows * kP);
 #pragma unroll
@@ -198,59 +177,102 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
     for (; cur < it.end; ++cur) flush(cur);
 }
 
-}  // namespace
+// The bfloat16 walk (bf16_walk.cuh; see the head of the file).  grid (T
+// items, units), block 32 x ceil(mul / 16) threads, warp w channels 16 w ..
+// 16 w + 15.  Per staged edge q each warp forms mid = bf16(O C) of its 16
+// channels and the unit's columns, then adds bf16(mid * w) to the node's
+// sums in registers (the C fragments' layout: rows g, g + 8, columns 8 nt +
+// 2 t, + 1); when the destination changes it stores the node's rows of
+// the f32 scratch once (zeros for nodes without edges; a long run's piece
+// into pieces), plain stores.  kNt: n-tiles of the widest unit (at most);
+// kMB: m1 blocks of 8 of the widest left irrep.
+template <int kNt, int kMB>
+__global__ void __launch_bounds__(128, kNt <= 6 ? 5 : 2) k1_bf16_walk_kernel(
+    const bf16::T* __restrict__ x, int in_dim,
+    const bf16::T* __restrict__ sh, int J,
+    const long long* __restrict__ src, const long long* __restrict__ dst,
+    const int* __restrict__ perm, const int* __restrict__ ptr, int N,
+    int cap, int T,
+    const float* __restrict__ h_last, int H,
+    const bf16::T* __restrict__ wt,
+    const int* __restrict__ tab, const int* __restrict__ tiles,
+    const bwalk::Layout l,
+    float* __restrict__ scratch, float* __restrict__ pieces, int KM,
+    int mul) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int c0 = 16 * warp, t = blockIdx.x;
+  const bwalk::Smem s = bwalk::carve(smem, l, warp);
+  bwalk::stage_unit(s, tab, tiles, blockIdx.y, tid, nthr);
+  __syncthreads();
+  const int* unit = tab + __ldg(tab + blockIdx.y);
+  const int x_off = __ldg(unit + bwalk::kUXOff);
+  const int d1 = __ldg(unit + bwalk::kUD1);
+  const int NT = __ldg(unit + bwalk::kUNT);
+  const int* cols = s.itab + __ldg(unit + bwalk::kUCol);
+  const bwalk::Operands op = {h_last, H, sh, J, x, in_dim, x_off, d1 * mul,
+                              bwalk::x_vectors(x, in_dim, x_off, d1 * mul)};
 
-namespace {
+  const Item it = item_walk(ptr, N, t, T, cap);
+  float nacc[kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) nacc[nt][i] = 0.f;
+  int cur = it.first;
+  auto flush = [&](int n) {
+    float* row = n == it.head ? pieces + (size_t)t * KM
+                              : scratch + (size_t)n * KM;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      if (nt >= NT) break;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int srow = cols[2 * (8 * nt + 2 * tq + b)];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int u = c0 + g + 8 * r;
+          if (srow >= 0 && u < mul)
+            row[(size_t)srow * mul + u] = nacc[nt][2 * r + b];
+          nacc[nt][2 * r + b] = 0.f;
+        }
+      }
+    }
+  };
 
-// The entries' pipeline; kBf16: x, sh, the MLP weights, the mix matrices
-// and out bfloat16.
-template <bool kBf16, class Op = bf16::Op<kBf16>>
-cudaError_t forward(
-    const Op* x, int N, int in_dim,
-    const Op* sh, int J,
-    const float* er, int R,
-    const long long* src, const long long* dst, int E,
-    const Op* w_hidden, int H, int n_hidden,
-    const Op* w_out, int PC, float act_cst,
-    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
-    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
-    const int* perm, const int* ptr, int cap, int T,
-    float* h_work, float* pieces,
-    float* scratch, int KM, int mul,
-    const Op* wsel, const int* probs_host, int n_probs,
-    Op* out, int out_dim, cudaStream_t s) {
-  const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
-  if (rows > 16 || R > kMaxRadial || cap < 1 || T < 1)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-  if (E > 0) {
-    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
-    mlp_hidden_kernel<kBf16><<<blocks, 256, 0, s>>>(
-        er, R, E, w_hidden, H, n_hidden, act_cst, nullptr, h_work, 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
+    const int nq = min(kStage, it.e_hi - pos0);
+    bwalk::stage_edges(s, l, pos0, nq, perm, src, dst, true, op, tid, nthr);
+    bwalk::radial_mma(s, wt, mul, c0, lane);
+    __syncwarp();
+    for (int q = 0; q != nq; ++q) {
+      const int nd = s.node[q];
+      for (; cur < nd; ++cur) flush(cur);
+      bf16::T2 xr[kMB][2];
+      bwalk::load_x<kMB>(xr, s, l, q, d1, mul, c0, lane);
+      float acc[kNt][4];
+      bwalk::mid_mma<kNt, kMB>(acc, s, q, xr, lane);
+      // w2d = bf16(bf16(mid) * w), two columns a bfloat16x2 product,
+      // summed over the node in f32
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        if (nt >= NT) break;
+        const int col = 8 * nt + 2 * tq;
+        const int s0 = cols[2 * col + 1], s1 = cols[2 * col + 3];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bf16::T2 m =
+              __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
+          const bf16::T2 w = bwalk::radial2(s, q, s0, s1, g + 8 * r);
+          const float2 p = __bfloat1622float2(__hmul2_rn(m, w));
+          nacc[nt][2 * r] += p.x;
+          nacc[nt][2 * r + 1] += p.y;
+        }
+      }
+    }
   }
-  if (N > 0 && n_chunks > 0) {
-    const int kr = walk_rows(rows);
-    const size_t bytes =
-        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul,
-                    mul * kGroups, kr);
-    auto kernel = kr == 16      ? k1_walk_kernel<16, kBf16>
-                  : kr == kMaxD ? k1_walk_kernel<kMaxD, kBf16>
-                                : k1_walk_kernel<7, kBf16>;
-    err = allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(T, n_chunks), dim3(mul, kGroups), bytes, s>>>(
-        x, in_dim, sh, J, src, dst, perm, ptr, N, cap, T, h_work, H, w_out,
-        PC, walk_tab, chunks, cells, reinterpret_cast<const float2*>(nz),
-        scratch, pieces, KM);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);
-    if (err != cudaSuccess) return err;
-  }
-  return rowmix::mix_rows(scratch, N, KM, wsel, probs_host, n_probs, out,
-                          out_dim, s, kBf16);
+  for (; cur < it.end; ++cur) flush(cur);
 }
 
 }  // namespace
@@ -273,16 +295,46 @@ extern "C" int full_conv_fwd(
     float* scratch, int KM, int mul,
     const float* wsel, const int* probs_host, int n_probs,
     float* out, int out_dim, void* stream) {
-  return (int)forward<false>(
-      x, N, in_dim, sh, J, er, R, src, dst, E, w_hidden, H, n_hidden, w_out,
-      PC, act_cst, walk_tab, chunks, n_chunks, cells, nz, max_chunk_nz,
-      max_d1, max_d3, perm, ptr, cap, T, h_work, pieces, scratch, KM, mul,
-      wsel, probs_host, n_probs, out, out_dim,
-      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
+  if (rows > 16 || R > kMaxRadial || cap < 1 || T < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (E > 0) {
+    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
+    mlp_hidden_kernel<<<blocks, 256, 0, s>>>(er, R, E, w_hidden, H, n_hidden,
+                                             act_cst, nullptr, h_work, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (N > 0 && n_chunks > 0) {
+    const int kr = walk_rows(rows);
+    const size_t bytes =
+        stage_bytes(max_chunk_nz, max_d1, max_d3, max_d1 * mul,
+                    mul * kGroups, kr);
+    auto kernel = kr == 16      ? k1_walk_kernel<16>
+                  : kr == kMaxD ? k1_walk_kernel<kMaxD>
+                                : k1_walk_kernel<7>;
+    err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(T, n_chunks), dim3(mul, kGroups), bytes, s>>>(
+        x, in_dim, sh, J, src, dst, perm, ptr, N, cap, T, h_work, H, w_out,
+        PC, walk_tab, chunks, cells, reinterpret_cast<const float2*>(nz),
+        scratch, pieces, KM);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)rowmix::mix_rows(scratch, N, KM, wsel, probs_host, n_probs,
+                               out, out_dim, s);
 }
 
-// The bfloat16 variant: the arguments of full_conv_fwd, with x, sh, the MLP
-// weights, the mix matrices and out bfloat16.
+// The bfloat16 variant: x, sh, the MLP weights, the mix matrices and out
+// bfloat16; in place of the float32 walk tables, the bfloat16 walk's
+// (FullConv._bf16_walk_tables): tab and tiles on the device, n_units
+// units, dims (host) their dimensions (bf16_walk.cuh kDims); wt [PC, 64]
+// a work buffer (W_out transposed).
 extern "C" int full_conv_fwd_bf16(
     const bf16::T* x, int N, int in_dim,
     const bf16::T* sh, int J,
@@ -290,17 +342,39 @@ extern "C" int full_conv_fwd_bf16(
     const long long* src, const long long* dst, int E,
     const bf16::T* w_hidden, int H, int n_hidden,
     const bf16::T* w_out, int PC, float act_cst,
-    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
-    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
+    const int* tab, const int* tiles, int n_units, const int* dims,
     const int* perm, const int* ptr, int cap, int T,
-    float* h_work, float* pieces,
+    float* h_work, float* pieces, bf16::T* wt,
     float* scratch, int KM, int mul,
     const bf16::T* wsel, const int* probs_host, int n_probs,
     bf16::T* out, int out_dim, void* stream) {
-  return (int)forward<true>(
-      x, N, in_dim, sh, J, er, R, src, dst, E, w_hidden, H, n_hidden, w_out,
-      PC, act_cst, walk_tab, chunks, n_chunks, cells, nz, max_chunk_nz,
-      max_d1, max_d3, perm, ptr, cap, T, h_work, pieces, scratch, KM, mul,
-      wsel, probs_host, n_probs, out, out_dim,
-      static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R > kMaxRadial || cap < 1 || T < 1 || n_units != dims[bwalk::kDUnits])
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (E > 0) {
+    const unsigned blocks = (E + kHiddenEdges - 1) / kHiddenEdges;
+    mlp_hidden_kernel<true><<<blocks, 256, 0, s>>>(
+        er, R, E, w_hidden, H, n_hidden, act_cst, nullptr, h_work, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (N > 0 && n_units > 0) {
+    const bool wide = dims[bwalk::kDNT] > 6 || dims[bwalk::kDXw] > 8 * mul;
+    auto kernel = wide ? k1_bf16_walk_kernel<12, 2>
+                       : k1_bf16_walk_kernel<6, 1>;
+    bwalk::Layout l;
+    err = bwalk::prepare(kernel, dims, mul, J, H, false, l);
+    if (err == cudaSuccess) err = bwalk::transpose_w(w_out, H, PC, wt, s);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(T, n_units), 32 * ((mul + 15) / 16), l.end, s>>>(
+        x, in_dim, sh, J, src, dst, perm, ptr, N, cap, T, h_work, H, wt, tab,
+        tiles, l, scratch, pieces, KM, mul);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)rowmix::mix_rows(scratch, N, KM, wsel, probs_host, n_probs,
+                               out, out_dim, s, true);
 }

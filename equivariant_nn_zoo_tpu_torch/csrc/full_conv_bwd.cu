@@ -84,26 +84,28 @@
 // backward contract at compute_dtype=bfloat16, its own rounding points
 // (fused_conv.py:1126-1312) and not the adjoint of the rounded forward.
 // x, sh, the weights, the mix matrices and gout are read from bfloat16
-// tensors, widened as they are loaded (bf16.cuh).  a. dS and
-// dwsel by the GEMM's bfloat16 products (S rounded as it is loaded).  b.
-// the MLP recomputed with rounded activations (mlp_hidden_kernel<true>),
-// then k2_bf16_walk_kernel: per block one work item of the source-major
-// walk and one left irrep with ALL its paths, thread u one channel, per
-// edge: the radial weight of each path rounded, g = bf16(dS[dst]), mid
-// recomputed as K1 rounds it, dw = the bfloat16 sum over the path's
-// components of bf16(g mid), dmid = bf16(g w), and douter[j][m1] = the
-// float32 sum over the irrep's paths of C dmid, rounded once per (j, m1)
+// tensors.  a. dS and dwsel by the GEMM's bfloat16 products (S rounded as
+// it is loaded).  b. the MLP recomputed with rounded activations
+// (mlp_hidden_kernel<true>), then k2_bf16_walk_kernel (bf16_walk.cuh): the
+// source-major items, a block per item and left irrep with ALL its paths
 // (the TPU kernel's C^T dot sums every path of a sh irrep section,
-// :886-905, which a chunk of four paths cannot), then dx_e[m1] = the
-// bfloat16 sum over j in order of bf16(sh_j douter[j][m1]) (:1293-1306),
-// summed over the node's edges in float32 and written once per node (long
-// runs in pieces, as above).  c. the MLP stage with every cotangent
-// rounded (:1264-1285): the GEMM's bfloat16 products, k2_act_grad_kernel
-// <true>.  dx, dW and dwsel are rounded as they are stored into bfloat16
-// outputs (the caller casts them to the inputs' dtypes, :2421-2433), d er
-// is float32, rounded.  No
-// sh cotangent: refused.  The walk's per-channel CG loops and its douter
-// rows (local memory) are the simple form, not yet a fast one.
+// :886-905), 4 warps of 16 channels at mul = 64; per stage the radial
+// weights as tensor-core MMAs, per edge mid = bf16(O C) as in K1, g =
+// bf16(dS[dst]), dw = the bfloat16 sum over the path's components of
+// bf16(g mid), dmid = bf16(g w), douter = bf16(dmid C^T) as a second chain
+// of MMAs whose A fragments are dmid's C fragments packed (one rounding per
+// (j, m1)), then dx_e[m1] = the bfloat16 sum over j in order of bf16(sh_j
+// douter[j][m1]) (:1293-1306), summed over the node's edges in float32 and
+// written once per node (long runs in pieces, as above).  c. the MLP stage
+// with every cotangent rounded (:1264-1285): the GEMM's bfloat16 products,
+// k2_act_grad_kernel<true>.  dx, dW and dwsel are rounded as they are
+// stored into bfloat16 outputs (the caller casts them to the inputs'
+// dtypes, :2421-2433), d er is float32, rounded.  No sh cotangent:
+// refused.  What bounds the walk: a warp's per-edge chain (the dS gather,
+// the two MMA chains, the roundings of the epilogue and of the ordered
+// sums), at 16 warps per SM (4 blocks of ~51 KB of shared memory and at
+// most 128 registers at config_energy's widths); dS is read per edge
+// through L2 (K * mul floats).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,6 +113,7 @@
 #include <algorithm>
 
 #include "bf16.cuh"
+#include "bf16_walk.cuh"
 #include "edge_walk.cuh"
 #include "row_mix.cuh"
 
@@ -311,130 +314,219 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
     dw[(size_t)perm[pos] * PC + wcol_u] = 0.f;
 }
 
-// The bfloat16 edge walk (see the head of the file).  grid (T items, left
-// irreps), block: mul threads, thread u channel u.  x, sh, w_out: bfloat16,
-// widened as they are loaded; h_last: the last hidden layer, rounded; dS:
-// the float32 node cotangent (rounded here); dw [E, PC]: the radial-weight
-// cotangent, bfloat16 values; dx [N, in_dim]: a node's float32 dx sum
-// rounded, or for a long run's pieces, pieces [T, in_dim] the float32 sums.
-// kRows: register rows of g and of the left irrep (7: l <= 3; 9: l <= 4).
-template <int kRows>
-__global__ void __launch_bounds__(64) k2_bf16_walk_kernel(
+// The bfloat16 edge walk (bf16_walk.cuh; see the head of the file).  grid
+// (T items, units), block 32 x ceil(mul / 16) threads, warp w channels 16 w
+// .. 16 w + 15.  Per staged edge q (source s = the walk's key, destination
+// dn) each warp, on the C fragments of its 16 channels and the unit's
+// columns (rows g, g + 8; columns 8 nt + 2 t, + 1):
+//   g     = bf16(dS[dn, srow(col), u])              (a gather, f32 rounded)
+//   mid   = bf16(O C)                               (bf16_walk.cuh)
+//   prod  = bf16(g mid)    -> the warp's shared rows; dw[e, wcol + u] = the
+//                             bf16 sum over the path's m3 in order
+//   dmid  = bf16(g w)      -> packed, two n-tiles a k-step, as the A
+//                             fragments of douter = bf16(dmid C^T), one MMA
+//                             chain per (j, m1 block) over the unit's
+//                             non-zero backward tiles
+//   dx_e  = the bf16 sum over j in order of bf16(sh_j douter[j])   (in the
+//           lane: its two channels' m1 = 8 mb + 2 t, + 1 of every j)
+// and sums dx_e over the node's edges in f32, stored once per node (dx
+// rounded; a long run's piece into pieces [T, in_dim], f32).  kNt, kMB as
+// in K1's k1_bf16_walk_kernel.
+template <int kNt, int kMB>
+__global__ void __launch_bounds__(128, kNt <= 6 ? 4 : 2) k2_bf16_walk_kernel(
     const bf16::T* __restrict__ x, int in_dim,
     const bf16::T* __restrict__ sh, int J,
     const long long* __restrict__ src, const long long* __restrict__ dst,
     const int* __restrict__ perm, const int* __restrict__ ptr, int N, int E,
     int cap, int T,
     const float* __restrict__ h_last, int H,
-    const bf16::T* __restrict__ w_out, int PC,
-    const int* __restrict__ walk_tab, const int* __restrict__ irreps,
-    const int* __restrict__ cells, const float2* __restrict__ nz,
+    const bf16::T* __restrict__ wt, int PC,
+    const int* __restrict__ tab, const int* __restrict__ tiles,
+    const bwalk::Layout l,
     const float* __restrict__ dS, int KM, int mul,
     float* __restrict__ dw, bf16::T* __restrict__ dx,
     float* __restrict__ pieces) {
-  __shared__ float s_sh[2][kMaxSh];
-  const int u = threadIdx.x, t = blockIdx.x;
-  int p0 = 0;
-  for (int b = 0; b < (int)blockIdx.y; ++b) p0 += irreps[4 * b + 3];
-  const int* ir = irreps + 4 * blockIdx.y;
-  const int x_off = ir[0], d1 = ir[1], np = ir[3];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int c0 = 16 * warp, t = blockIdx.x;
+  const bwalk::Smem s = bwalk::carve(smem, l, warp);
+  bwalk::stage_unit(s, tab, tiles, blockIdx.y, tid, nthr);
+  __syncthreads();
+  const int* unit = tab + __ldg(tab + blockIdx.y);
+  const int x_off = __ldg(unit + bwalk::kUXOff);
+  const int d1 = __ldg(unit + bwalk::kUD1);
+  const int NT = __ldg(unit + bwalk::kUNT), MB = __ldg(unit + bwalk::kUMB);
+  const int P = __ldg(unit + bwalk::kUPaths);
+  const int* cols = s.itab + __ldg(unit + bwalk::kUCol);
+  const int* slots = s.itab + __ldg(unit + bwalk::kUSlot);
+  const int2* bmap =
+      reinterpret_cast<const int2*>(s.itab + __ldg(unit + bwalk::kUBmap));
+  const bwalk::Operands op = {h_last, H, sh, J, x, in_dim, x_off, d1 * mul,
+                              bwalk::x_vectors(x, in_dim, x_off, d1 * mul)};
+  constexpr int kKk = kNt / 2;
+
   const Item it = item_walk(ptr, N, t, T, cap);
-  float dxv[kRows];
+  float dxv[kMB][4];
 #pragma unroll
-  for (int m = 0; m < kRows; ++m) dxv[m] = 0.f;
+  for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dxv[mb][i] = 0.f;
   int cur = it.first;
   auto flush = [&](int n) {
-    const size_t col = (size_t)x_off + u * d1;
-    float* piece = pieces + (size_t)t * in_dim + col;
-    bf16::T* row = dx + (size_t)n * in_dim + col;
 #pragma unroll
-    for (int m = 0; m < kRows; ++m) {
-      if (m < d1) {
-        if (n == it.head)
-          piece[m] = dxv[m];
-        else
-          bf16::put(row + m, dxv[m]);
+    for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int u = c0 + g + 8 * (i >> 1), m1 = 8 * mb + 2 * tq + (i & 1);
+        if (u < mul && m1 < d1) {
+          const size_t col = (size_t)x_off + u * d1 + m1;
+          if (n == it.head)
+            pieces[(size_t)t * in_dim + col] = dxv[mb][i];
+          else
+            bf16::put(dx + (size_t)n * in_dim + col, dxv[mb][i]);
+        }
+        dxv[mb][i] = 0.f;
       }
-      dxv[m] = 0.f;
-    }
   };
-  for (int pos = it.e_lo; pos < it.e_hi; ++pos) {
-    const int e = perm[pos];
-    const int nd = (int)src[e], dn = (int)dst[e];
-    for (; cur < nd; ++cur) flush(cur);
-    // the edge's sh row, widened once into shared memory (read by every
-    // channel at each CG non-zero); two rows, so one barrier an edge
-    float* shq = s_sh[pos & 1];
-    for (int j = u; j < J; j += mul) shq[j] = bf16::f(sh[(size_t)e * J + j]);
-    __syncthreads();
-    float xr[kRows];
+
+  for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
+    const int nq = min(kStage, it.e_hi - pos0);
+    bwalk::stage_edges(s, l, pos0, nq, perm, src, dst, false, op, tid, nthr);
+    bwalk::radial_mma(s, wt, mul, c0, lane);
+    __syncwarp();
+    for (int q = 0; q != nq; ++q) {
+      const int nd = s.node[q];
+      for (; cur < nd; ++cur) flush(cur);
+      // the cotangent rows of the destination, gathered first
+      const float* grow = dS + (size_t)s.other[q] * KM;
+      float gv[kNt][4];
 #pragma unroll
-    for (int m = 0; m < kRows; ++m)
-      xr[m] = m < d1 ? bf16::f(x[(size_t)nd * in_dim + x_off + u * d1 + m])
-                     : 0.f;
-    float douter[kMaxSh][kRows];
-    for (int j = 0; j < J; ++j)
+      for (int nt = 0; nt < kNt; ++nt) {
+        if (nt >= NT) break;
 #pragma unroll
-      for (int m = 0; m < kRows; ++m) douter[j][m] = 0.f;
-    for (int p = p0; p < p0 + np; ++p) {
-      const int* pt = walk_tab + (size_t)p * kWalkFields;
-      const int j0 = pt[kJ0], d3 = pt[kD3], wcol = pt[kWCol] + u;
-      const int row_base = pt[kRowBase], row_stride = pt[kRowStride];
-      const int* pc = cells + pt[kCell0];
-      float w = 0.f;
-      for (int h = 0; h < H; ++h)
-        w += h_last[(size_t)e * H + h] *
-             bf16::f(__ldg(w_out + (size_t)h * PC + wcol));
-      w = bf16::rn(w);
-      const float* grow = dS + (size_t)dn * KM + (size_t)row_base * mul + u;
-      float dwv = 0.f;
+        for (int b = 0; b < 2; ++b) {
+          const int srow = cols[2 * (8 * nt + 2 * tq + b)];
 #pragma unroll
-      for (int m3 = 0; m3 < kRows; ++m3) {
-        if (m3 >= d3) break;
-        const float gv = bf16::rn(grow[(size_t)m3 * row_stride * mul]);
-        float mid = 0.f;
-#pragma unroll
-        for (int m1 = 0; m1 < kRows; ++m1) {
-          if (m1 >= d1) break;
-          for (int z = pc[m3 * d1 + m1]; z < pc[m3 * d1 + m1 + 1]; ++z) {
-            const float2 c = __ldg(nz + z);
-            mid += bf16::rn(c.x) *
-                   bf16::rn(shq[j0 + __float_as_int(c.y)] * xr[m1]);
-          }
-        }
-        const float prod = bf16::rn(gv * bf16::rn(mid));
-        dwv = m3 == 0 ? prod : bf16::rn(dwv + prod);
-        const float dmid = bf16::rn(gv * w);
-#pragma unroll
-        for (int m1 = 0; m1 < kRows; ++m1) {
-          if (m1 >= d1) break;
-          for (int z = pc[m3 * d1 + m1]; z < pc[m3 * d1 + m1 + 1]; ++z) {
-            const float2 c = __ldg(nz + z);
-            douter[j0 + __float_as_int(c.y)][m1] += bf16::rn(c.x) * dmid;
+          for (int r = 0; r < 2; ++r) {
+            const int u = c0 + g + 8 * r;
+            gv[nt][2 * r + b] = srow >= 0 && u < mul
+                                    ? __ldg(grow + (size_t)srow * mul + u)
+                                    : 0.f;
           }
         }
       }
-      dw[(size_t)e * PC + wcol] = dwv;
+      bf16::T2 xr[kMB][2];
+      bwalk::load_x<kMB>(xr, s, l, q, d1, mul, c0, lane);
+      float acc[kNt][4];
+      bwalk::mid_mma<kNt, kMB>(acc, s, q, xr, lane);
+      // prod = bf16(g mid) into the warp's rows, dmid = bf16(g w) as the
+      // A fragments of douter, two columns a bfloat16x2 product (each
+      // product of two bfloat16 values rounded once, as the f32 product
+      // rounded)
+      uint32_t ap[kKk][4];
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        if (nt >= NT) break;
+        const int col = 8 * nt + 2 * tq;
+        const int s0 = cols[2 * col + 1], s1 = cols[2 * col + 3];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bf16::T2 gb =
+              __floats2bfloat162_rn(gv[nt][2 * r], gv[nt][2 * r + 1]);
+          const bf16::T2 m =
+              __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
+          *reinterpret_cast<bf16::T2*>(s.pr + (g + 8 * r) * l.pr_pitch +
+                                       col) = __hmul2_rn(gb, m);
+          ap[nt / 2][2 * (nt & 1) + r] = bf16::bits(
+              __hmul2_rn(gb, bwalk::radial2(s, q, s0, s1, g + 8 * r)));
+        }
+      }
+      // douter per (j, m1 block), then dx_e over j in order: rows g, g + 8,
+      // columns m1 = 8 mb + 2 t, + 1, bfloat16x2 (a sum of two bfloat16
+      // values rounded once equals the f32 sum rounded; the _rn forms keep
+      // the compiler from fusing the product and the sum into one FMA,
+      // which would round once where the contract rounds twice)
+      const float* shq = s.sh + q * kMaxSh;
+      bf16::T2 dxb[kMB][2];
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) dxb[mb][r] = __float2bfloat162_rn(0.f);
+#pragma unroll
+      for (int j = 0; j < kMaxSh; ++j) {
+        if (j >= J) break;
+        const bf16::T2 sj = __float2bfloat162_rn(shq[j]);
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb) {
+          if (mb >= MB) break;
+          const int2 bm = bmap[j * MB + mb];     // (mask, base)
+          // a j that no path of the unit reads adds bf16(sh_j 0): nothing
+          if (!bm.x) continue;
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < kKk; ++kk) {
+            if (!(bm.x >> kk & 1)) continue;
+            const int ti = bm.y + __popc(bm.x & ((1 << kk) - 1));
+            const uint2 bv = s.tiles[ti * 32 + lane];
+            const uint32_t b[2] = {bv.x, bv.y};
+            rowmix::mma_bf16(c, ap[kk], b);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const bf16::T2 d = __floats2bfloat162_rn(c[2 * r], c[2 * r + 1]);
+            dxb[mb][r] = __hadd2_rn(dxb[mb][r], __hmul2_rn(sj, d));
+          }
+        }
+      }
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 v = __bfloat1622float2(dxb[mb][r]);
+          dxv[mb][2 * r] += v.x;
+          dxv[mb][2 * r + 1] += v.y;
+        }
+      // dw: the bf16 sum over each path's m3 in order, lane (row, slot),
+      // four (row, slot) pairs' chains at a time
+      __syncwarp();
+      const int e = s.edge[q];
+      for (int i0 = lane; i0 < 16 * P; i0 += 4 * 32) {
+        bf16::T v[4];
+        const bf16::T* pp[4];
+        int d3[4], d3_max = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = i0 + 32 * k, row = i & 15;
+          const bool ok = i < 16 * P && c0 + row < mul;
+          const int* sp = slots + 3 * (ok ? i >> 4 : 0);
+          pp[k] = s.pr + row * l.pr_pitch + sp[1];
+          d3[k] = ok ? sp[2] : 0;
+          v[k] = pp[k][0];
+          d3_max = max(d3_max, d3[k]);
+        }
+        for (int m3 = 1; m3 < d3_max; ++m3)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (m3 < d3[k]) v[k] = __hadd_rn(v[k], pp[k][m3]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = i0 + 32 * k;
+          if (d3[k])
+            dw[(size_t)e * PC + slots[3 * (i >> 4)] + c0 + (i & 15)] =
+                __bfloat162float(v[k]);
+        }
+      }
+      __syncwarp();
     }
-    float dxb[kRows];
-#pragma unroll
-    for (int m = 0; m < kRows; ++m) dxb[m] = 0.f;
-    for (int j = 0; j < J; ++j) {
-      const float sj = shq[j];
-#pragma unroll
-      for (int m = 0; m < kRows; ++m)
-        dxb[m] = bf16::rn(dxb[m] + bf16::rn(sj * bf16::rn(douter[j][m])));
-    }
-#pragma unroll
-    for (int m = 0; m < kRows; ++m) dxv[m] += dxb[m];
   }
   for (; cur < it.end; ++cur) flush(cur);
   // edges outside [0, N) are walked by no one: their dw is zero
   const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
-  for (int pos = lo; pos < hi; ++pos)
-    for (int p = p0; p < p0 + np; ++p)
-      dw[(size_t)perm[pos] * PC + walk_tab[(size_t)p * kWalkFields + kWCol] +
-         u] = 0.f;
+  for (int i = tid; i < (hi - lo) * P * mul; i += nthr) {
+    const int pos = lo + i / (P * mul), r = i % (P * mul);
+    dw[(size_t)perm[pos] * PC + slots[3 * (r / mul)] + r % mul] = 0.f;
+  }
 }
 
 }  // namespace
@@ -570,11 +662,12 @@ extern "C" int full_conv_bwd(
   return (int)cudaGetLastError();
 }
 
-// The bfloat16 variant: the arguments of full_conv_bwd, with x, sh, the
+// The bfloat16 variant: the arguments of full_conv_bwd with x, sh, the
 // MLP weights, the mix matrices, gout, dx, dw_hidden, dw_out and dwsel
-// bfloat16 (d er float32), KMd = in_dim, pieces [T, in_dim] the float32
-// sums of the long runs' dx pieces, dxp unused, and no sh cotangent (dsh
-// and part null).
+// bfloat16 (d er float32); in place of the float32 walk tables, the
+// bfloat16 walk's (tab, tiles, n_units, dims: see full_conv_fwd_bf16);
+// pieces [T, in_dim] the float32 sums of the long runs' dx pieces, wt
+// [PC, 64] W_out transposed (work buffers); no sh cotangent.
 extern "C" int full_conv_bwd_bf16(
     const bf16::T* x, int N, int in_dim,
     const bf16::T* sh, int J,
@@ -582,23 +675,19 @@ extern "C" int full_conv_bwd_bf16(
     const long long* src, const long long* dst, int E,
     const bf16::T* w_hidden, int H, int n_hidden,
     const bf16::T* w_out, int PC, float act_cst,
-    const int* walk_tab, const int* chunks, int n_chunks, const int* cells,
-    const float* nz, int max_chunk_nz, int max_d1, int max_d3,
-    const int* irreps, int n_irreps, int KMd, int dx_covered,
+    const int* tab, const int* tiles, int n_units, const int* dims,
+    int dx_covered,
     const int* perm, const int* ptr, int cap, int T,
     const float* scratch, int KM, int mul,
     const bf16::T* wsel, int wsel_len, const int* probs_host, int n_probs,
     const bf16::T* gout, int out_dim,
     float* dS, float* dw, float* z_all, float* h_all, float* dh, float* dz,
-    float* dxp, float* pieces,
+    float* pieces, bf16::T* wt,
     bf16::T* dx, float* der, bf16::T* dw_hidden, int w_hidden_len,
-    bf16::T* dw_out, bf16::T* dwsel, float* dsh, float* part, float* ws,
-    int ws_len, void* stream) {
+    bf16::T* dw_out, bf16::T* dwsel, float* ws, int ws_len, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = max_d1 > max_d3 ? max_d1 : max_d3;
-  if (max_d1 > kMaxD || rows > kMaxD || J > kMaxSh || R > kMaxRadial ||
-      cap < 1 || T < 1 || mul > 64 || KMd != in_dim || dsh != nullptr ||
-      n_hidden < 1)
+  if (R > kMaxRadial || cap < 1 || T < 1 || n_hidden < 1 ||
+      n_units != dims[bwalk::kDUnits])
     return (int)cudaErrorInvalidValue;
   const size_t f = sizeof(float), b = sizeof(bf16::T);
   cudaError_t err = cudaSuccess;
@@ -629,13 +718,17 @@ extern "C" int full_conv_bwd_bf16(
     if (err != cudaSuccess) return (int)err;
   }
   const float* h_last = h_all + (size_t)(n_hidden - 1) * EH;
-  if (n_irreps > 0) {  // with N = 0 it still zeroes every edge's dw
-    auto kernel = walk_rows(rows) == kMaxD ? k2_bf16_walk_kernel<kMaxD>
-                                           : k2_bf16_walk_kernel<7>;
-    kernel<<<dim3(T, n_irreps), mul, 0, s>>>(
-        x, in_dim, sh, J, src, dst, perm, ptr, N, E, cap, T, h_last, H,
-        w_out, PC, walk_tab, irreps, cells,
-        reinterpret_cast<const float2*>(nz), dS, KM, mul, dw, dx, pieces);
+  if (n_units > 0) {  // with N = 0 it still zeroes every edge's dw
+    const bool wide = dims[bwalk::kDNT] > 6 || dims[bwalk::kDXw] > 8 * mul;
+    auto kernel = wide ? k2_bf16_walk_kernel<12, 2>
+                       : k2_bf16_walk_kernel<6, 1>;
+    bwalk::Layout l;
+    err = bwalk::prepare(kernel, dims, mul, J, H, true, l);
+    if (err == cudaSuccess) err = bwalk::transpose_w(w_out, H, PC, wt, s);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(T, n_units), 32 * ((mul + 15) / 16), l.end, s>>>(
+        x, in_dim, sh, J, src, dst, perm, ptr, N, E, cap, T, h_last, H, wt,
+        PC, tab, tiles, l, dS, KM, mul, dw, dx, pieces);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = sum_pieces(ptr, N, T, cap, pieces, in_dim, dx, s);

@@ -206,10 +206,32 @@ SIGNATURES = {
                                # stream
     ],
 }
-# the bfloat16 variants of K1, K2, K3 and K3b: the float32 entries' lists
+# the bfloat16 variants of K3 and K3b: the float32 entries' lists
 # (bfloat16 pointers where the operands are bfloat16)
 SIGNATURES.update({e + "_bf16": SIGNATURES[e] for e in (
-    "full_conv_fwd", "full_conv_bwd", "species_sc_fwd", "species_sc_bwd")})
+    "species_sc_fwd", "species_sc_bwd")})
+# the bfloat16 K1 and K2: the float32 entries' lists with the bfloat16
+# walk's tables (csrc/bf16_walk.cuh) in place of the float32 walk's
+_BF16_WALK = [_P, _P, _I, _P]  # tables, tiles, units, host dimensions
+_CONV_HEAD = SIGNATURES["full_conv_fwd"][:16]
+SIGNATURES["full_conv_fwd_bf16"] = [
+    *_CONV_HEAD, *_BF16_WALK, *_WALK[8:],
+    _P, _P, _P,                # work: last hidden layer, long-run pieces,
+                               # W_out transposed
+    *SIGNATURES["full_conv_fwd"][30:]]
+SIGNATURES["full_conv_bwd_bf16"] = [
+    *_CONV_HEAD, *_BF16_WALK,
+    _I,                        # dx covered
+    *_WALK[8:],
+    _P, _I, _I,                # forward scratch, K * mul, mul
+    _P, _I, _P, _I,            # mix matrices, their length, host problems, n
+    _P, _I,                    # gout, out_dim
+    _P, _P, _P, _P, _P, _P,    # work: dS, dw, z, h, dh, dz,
+    _P, _P,                    # long-run pieces of dx, W_out transposed
+    _P, _P, _P, _I,            # dx, d edge_radial, d hidden weights, length
+    _P, _P,                    # d last layer, d mix matrices
+    _P, _I, _P,                # workspace, its length, stream
+]
 
 
 def nvcc_path() -> str:

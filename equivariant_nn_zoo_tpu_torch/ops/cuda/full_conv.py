@@ -55,6 +55,12 @@ MAX_RADIAL, MAX_HIDDEN, MAX_SH, MAX_D = 64, 64, 16, 9
 # takes on either side (l = 7), fields per path of the walk table
 WALK_GROUPS, WALK_ROWS, WALK_FIELDS = 4, 16, 10
 WALK_BLOCKS = 2048   # blocks the walk's grid aims at (walk_items)
+# the bfloat16 walks' unit header (csrc/bf16_walk.cuh, kUnitFields): x_off,
+# d1, MB, paths, columns N, n-tiles NT, forward k-steps KS, ints of the
+# region, first tile, tiles, and the offsets of the columns, slots, forward
+# and backward maps in the region
+BF16_UNIT_FIELDS = 16
+BF16_MAX_NT = 12     # n-tiles of 8 columns a unit (the kernels' kNt)
 BF16 = torch.bfloat16
 PLAIN_EDGES = 2048   # edges per chunk of the bfloat16 plain contracts
 
@@ -62,6 +68,16 @@ PLAIN_EDGES = 2048   # edges per chunk of the bfloat16 plain contracts
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bfloat16 (nearest even), kept in float32."""
     return t.to(BF16).float()
+
+
+def _mask_rows(rows):
+    """Map rows of tile indices (-1: no tile; the tiles of a row
+    consecutive) as (mask, base) pairs, flattened."""
+    out = []
+    for row in rows:
+        live = [n for n, ti in enumerate(row) if ti >= 0]
+        out += [sum(1 << n for n in live), row[live[0]] if live else 0]
+    return out
 
 
 def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
@@ -314,6 +330,122 @@ class FullConv(ConvTables):
         self.register_buffer(
             "bf16_C", round_bf16(fused.C_flat.reshape(J, K, I)),
             persistent=False)
+        self._bf16_walk_tables(srow)
+
+    def _bf16_walk_tables(self, srow):
+        """The tables of the bfloat16 walks (``csrc/bf16_walk.cuh``): one
+        unit per left irrep L (a block's work), its (path, m3) columns
+        (paths sorted by sh irrep, then in walk order; m3 consecutive)
+        padded to a multiple of 16, and the rounded CG coefficients cut
+        into the B operands of ``mma.sync m16n8k16`` tiles, each stored as
+        the 32 lanes' fragments (lane (g, t) = divmod(lane, 4) holds B[2t,
+        g] | B[2t + 1, g] << 16, then B[2t + 8, g] | B[2t + 9, g] << 16, as
+        bfloat16 bits):
+
+        - the forward tiles ``mid = O C`` (K1 and K2): k-step ks = jp * MB
+          + mb holds the outer-product columns (j, m1), j = 2 jp + c // 8,
+          m1 = 8 mb + c % 8 for c < 16 (MB = ceil(d1 / 8)); n-tile nt the
+          columns 8 nt .. 8 nt + 7;
+        - the backward tiles ``douter = dmid C^T`` (K2): k-step kk holds
+          the columns 16 kk .. 16 kk + 15, n-tile (j, mb) the m1 = 8 mb ..
+          8 mb + 7 of one j.
+
+        Only tiles with a non-zero coefficient are kept, in the order of
+        the maps' rows (forward, then backward); a map row is (mask, base):
+        its tiles are base + the set bits of mask below an n-tile (forward:
+        a row per k-step over the NT n-tiles; backward: a row per (j, mb)
+        over the NT / 2 k-steps).  ``bf16_walk_tab`` holds,
+        per unit, the offset of its region, then the regions: a header
+        (``BF16_UNIT_FIELDS``), per column its scratch row (-1 past N) and
+        its path slot, per slot its W_out column, first column and d3, the
+        forward map's KS rows and the backward map's J * MB rows.
+        ``bf16_walk_dims`` (host): units, and the most n-tiles, forward
+        k-steps, paths, x columns (mul * d1), ints of a region and tiles of
+        a unit."""
+        mul, J = self.fused.mul, self.fused.J_dim
+        C = self.bf16_C.numpy()
+        rows = self.walk_table.numpy().reshape(-1, WALK_FIELDS)
+        k_of = {int(r): k for k, r in enumerate(srow)}
+        bits = lambda v: torch.tensor(np.asarray(v, np.float32)).to(
+            BF16).view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+        regions, tiles, dims = [], [], np.zeros(7, np.int64)
+        p0 = 0
+        for x_off, d1, _, n_paths in self.walk_irreps.numpy().reshape(-1, 4):
+            ps = sorted(range(p0, p0 + n_paths), key=lambda p: (rows[p][2], p))
+            p0 += n_paths
+            i0, MB = x_off // mul, -(-d1 // 8)
+            cols, slots = [], []
+            for s, p in enumerate(ps):
+                j0, d3, rb, rs, wcol = rows[p][[2, 3, 4, 5, 6]]
+                slots += [wcol, len(cols) // 2, d3]
+                for m3 in range(d3):
+                    cols += [rb + m3 * rs, s]
+            N = len(cols) // 2
+            NT = -(-N // 16) * 2
+            cols += [-1, 0] * (8 * NT - N)
+            # the dense operand [(j, m1), column] of the forward product
+            dense = np.zeros((J, 8 * MB, 8 * NT))
+            for s, p in enumerate(ps):
+                j0, d3, d2, c0 = rows[p][2], rows[p][3], rows[p][9], \
+                    slots[3 * s + 1]
+                k0 = k_of[int(rows[p][4])]
+                dense[j0: j0 + d2, :d1, c0: c0 + d3] = C[
+                    j0: j0 + d2, k0: k0 + d3, i0: i0 + d1].transpose(0, 2, 1)
+            JP = -(-J // 2)
+            dense = np.concatenate(
+                [dense, np.zeros((2 * JP - J,) + dense.shape[1:])])
+            unit_tiles = []
+
+            def keep(b):                 # b [16, 8]: its tile index or -1
+                if not b.any():
+                    return -1
+                g, t = np.divmod(np.arange(32), 4)
+                pairs = [(2 * t, g), (2 * t + 8, g)]
+                frag = np.stack([bits(b[k, n]) | bits(b[k + 1, n]) << 16
+                                 for k, n in pairs], 1)
+                unit_tiles.append(frag.astype(np.uint32).view(np.int32))
+                return len(unit_tiles) - 1
+
+            KS = JP * MB
+            fmap = [[keep(dense[2 * jp: 2 * jp + 2, 8 * mb: 8 * mb + 8,
+                                8 * nt: 8 * nt + 8].reshape(16, 8))
+                     for nt in range(NT)]
+                    for jp in range(JP) for mb in range(MB)]
+            bmap = [[keep(dense[j, 8 * mb: 8 * mb + 8,
+                                16 * kk: 16 * kk + 16].T)
+                     for kk in range(NT // 2)]
+                    for j in range(J) for mb in range(MB)]
+            fmap, bmap = _mask_rows(fmap), _mask_rows(bmap)
+            col0 = BF16_UNIT_FIELDS
+            slot0 = col0 + len(cols)
+            fmap0 = -(-(slot0 + len(slots)) // 2) * 2   # the rows: int2
+            bmap0 = fmap0 + len(fmap)
+            ints = -(-(bmap0 + len(bmap)) // 4) * 4
+            head = [x_off, d1, MB, n_paths, N, NT, KS, ints,
+                    len(tiles), len(unit_tiles), col0, slot0, fmap0, bmap0]
+            region = np.zeros(ints, np.int64)
+            region[:len(head)] = head
+            region[col0: col0 + len(cols)] = cols
+            region[slot0: slot0 + len(slots)] = slots
+            region[fmap0: bmap0] = fmap
+            region[bmap0: bmap0 + len(bmap)] = bmap
+            regions.append(region)
+            tiles += unit_tiles
+            dims[1:7] = np.maximum(dims[1:7], [NT, KS, n_paths, mul * d1,
+                                               ints, len(unit_tiles)])
+        dims[0] = len(regions)
+        lead = -(-len(regions) // 4) * 4
+        offsets = np.cumsum([lead] + [len(r) for r in regions])[:-1]
+        tab = np.concatenate([np.pad(offsets, (0, lead - len(regions)))]
+                             + regions).astype(np.int32)
+        self.register_buffer("bf16_walk_tab", torch.tensor(tab),
+                             persistent=False)
+        self.register_buffer(
+            "bf16_walk_tiles",
+            torch.tensor(np.stack(tiles).reshape(-1, 64) if tiles
+                         else np.zeros((1, 64), np.int32)),
+            persistent=False)
+        self.bf16_walk_dims = dims.astype(np.int32)
 
     @property
     def bf16(self) -> bool:
@@ -666,7 +798,9 @@ def check_structure(conv, backward: bool = False, dsh: bool = False) -> None:
     of them (l = 4, the hamiltonian trunk).  The sh cotangent (``dsh``)
     holds a node matrix of every irrep up to l = 4 by each sh irrep up to
     l = 3, and sums each path's shares over lane groups of min(mul, 32)
-    lanes (a power of two, at least 8)."""
+    lanes (a power of two, at least 8).  At bfloat16 a block's four warps
+    hold 16 channels each (mul up to 64) and a warp's accumulators the
+    (path, component) columns of one left irrep, up to 96 of them."""
     fused = conv.fused
     R, H, PC = conv.fc_dims[0], conv.fc_dims[1], conv.fc_dims[-1]
     n_hidden = len(conv.fc_dims) - 2
@@ -680,6 +814,12 @@ def check_structure(conv, backward: bool = False, dsh: bool = False) -> None:
     if max(conv.max_d1, conv.max_d3) > WALK_ROWS:
         raise ValueError(f"the FullConv kernels take irreps up to l = 7, "
                          f"got d = {max(conv.max_d1, conv.max_d3)}")
+    if conv.bf16 and not (fused.mul <= 64
+                          and conv.bf16_walk_dims[1] <= BF16_MAX_NT):
+        raise ValueError(f"the bfloat16 FullConv kernels take mul up to 64 "
+                         f"and up to {8 * BF16_MAX_NT} (path, component) "
+                         f"columns a left irrep; got mul = {fused.mul}, "
+                         f"{8 * int(conv.bf16_walk_dims[1])} columns")
     if backward and conv.max_d1 > MAX_D:
         raise ValueError(f"the FullConv backward takes left irreps up to "
                          f"l = 4, got d = {conv.max_d1}")
@@ -721,6 +861,20 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     return dev, N, E
 
 
+def _walk_args(conv):
+    """The walk tables' arguments of the C entries: the float32 walk's
+    (``ConvTables._walk_tables``), or the bfloat16 walk's
+    (``FullConv._bf16_walk_tables``)."""
+    if conv.bf16:
+        return (conv.bf16_walk_tab.data_ptr(),
+                conv.bf16_walk_tiles.data_ptr(),
+                int(conv.bf16_walk_dims[0]), conv.bf16_walk_dims.ctypes.data)
+    return (conv.walk_table.data_ptr(), conv.walk_chunks.data_ptr(),
+            conv.n_chunks, conv.walk_cells.data_ptr(),
+            conv.walk_nz.data_ptr(), conv.max_chunk_nz, conv.max_d1,
+            conv.max_d3)
+
+
 def walk_items(E: int, n_chunks: int):
     """``(cap, T)`` of the node-major walk: T = ceil(E / cap) work items of
     cap edges (a node with more is walked in pieces), cap chosen so that
@@ -756,9 +910,12 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     scratch = torch.empty((N, conv.KM), dtype=torch.float32, device=dev)
     out = torch.empty((N, conv.out_dim), dtype=conv.compute_dtype,
                       device=dev)
-    # work: the last hidden layer per edge, the long runs' pieces
+    # work: the last hidden layer per edge, the long runs' pieces (and at
+    # bfloat16 W_out transposed, [PC, MAX_HIDDEN])
     h_work = torch.empty((E, H), dtype=torch.float32, device=dev)
     pieces = torch.empty((T, conv.KM), dtype=torch.float32, device=dev)
+    wt = (torch.empty((PC, MAX_HIDDEN), dtype=BF16, device=dev),) \
+        if conv.bf16 else ()
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -770,12 +927,10 @@ def launch_forward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             edge_src.data_ptr(), edge_dst.data_ptr(), E,
             w_hidden.data_ptr(), H, len(conv.fc_dims) - 2,
             w_out.data_ptr(), PC, conv.act_cst,
-            conv.walk_table.data_ptr(), conv.walk_chunks.data_ptr(),
-            conv.n_chunks, conv.walk_cells.data_ptr(),
-            conv.walk_nz.data_ptr(), conv.max_chunk_nz,
-            conv.max_d1, conv.max_d3,
+            *_walk_args(conv),
             order.dst_perm.data_ptr(), order.dst_ptr.data_ptr(), cap, T,
             h_work.data_ptr(), pieces.data_ptr(),
+            *(t.data_ptr() for t in wt),
             scratch.data_ptr(), conv.KM, fused.mul,
             wsel.data_ptr(), conv.prob_rows.ctypes.data, conv.n_probs,
             out.data_ptr(), conv.out_dim, stream,
@@ -817,11 +972,13 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     # work buffers: node cotangent of the scratch, per-edge radial-weight
     # cotangent, the MLP's pre-activations and activations, two rows, the
     # per-path dx rows and the long runs' pieces of them
-    # (bfloat16: no per-path rows, the long runs' pieces of dx [T, in_dim])
+    # (bfloat16: no per-path rows, the long runs' pieces of dx [T, in_dim],
+    # W_out transposed [PC, MAX_HIDDEN])
     KMd = conv.KMd if not conv.bf16 else fused.irreps_in.dim
     work = [empty(N, conv.KM), empty(E, PC), empty(n_hidden, E, H),
             empty(n_hidden, E, H), empty(E, H), empty(E, H),
-            empty(N, KMd) if not conv.bf16 else None, empty(T, KMd)]
+            *(() if conv.bf16 else (empty(N, KMd),)), empty(T, KMd),
+            *((empty(PC, MAX_HIDDEN, dtype=BF16),) if conv.bf16 else ())]
     # the sh cotangent and its path chunks' rows, or null pointers
     d_sh = (empty(E, fused.J_dim), empty(conv.n_chunks, E, fused.J_dim)) \
         if dsh else ()
@@ -830,6 +987,9 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry = lib.full_conv_bwd_bf16 if conv.bf16 else lib.full_conv_bwd
+        walk = _walk_args(conv) if conv.bf16 else (
+            *_walk_args(conv), conv.walk_irreps.data_ptr(),
+            conv.n_walk_irreps, KMd)
         err = entry(
             x.data_ptr(), N, fused.irreps_in.dim,
             sh.data_ptr(), fused.J_dim,
@@ -837,21 +997,17 @@ def launch_backward(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
             edge_src.data_ptr(), edge_dst.data_ptr(), E,
             w_hidden.data_ptr(), H, n_hidden,
             w_out.data_ptr(), PC, conv.act_cst,
-            conv.walk_table.data_ptr(), conv.walk_chunks.data_ptr(),
-            conv.n_chunks, conv.walk_cells.data_ptr(),
-            conv.walk_nz.data_ptr(), conv.max_chunk_nz,
-            conv.max_d1, conv.max_d3,
-            conv.walk_irreps.data_ptr(), conv.n_walk_irreps, KMd,
-            int(conv.dx_covered),
+            *walk, int(conv.dx_covered),
             order.src_perm.data_ptr(), order.src_ptr.data_ptr(), cap, T,
             scratch.data_ptr(), conv.KM, fused.mul,
             wsel.data_ptr(), conv.wsel_len,
             conv.prob_rows.ctypes.data, conv.n_probs,
             gout.data_ptr(), conv.out_dim,
-            *(t.data_ptr() if t is not None else None for t in work),
+            *(t.data_ptr() for t in work),
             dx.data_ptr(), der.data_ptr(), dw_hidden.data_ptr(),
             w_hidden.numel(), dw_out.data_ptr(), dwsel.data_ptr(),
-            *((t.data_ptr() for t in d_sh) if dsh else (None, None)),
+            *(() if conv.bf16 else (t.data_ptr() for t in d_sh) if dsh
+              else (None, None)),
             ws.data_ptr(), ws.numel(), stream,
         )
     check(err, "full_conv_bwd")

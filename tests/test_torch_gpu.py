@@ -465,13 +465,35 @@ def test_walk_kernels_match_plain_on_hard_edge_orders(model_and_batch, kind):
     _assert_all_close((got[0], got[1][keep], *got[2:]), want, K2_OUT)
 
 
-def _step_gradients(model, gb):
+def _step_gradients(model, gb, loss64=False):
+    """One step's loss and every parameter's gradient; ``loss64``: the
+    loss value computed again in float64 from the same step's float32 node
+    energies before the model's tail (per-species shift, sum over each
+    graph's atoms; the gradients are the float32 loss's)."""
+    seen = {}
+    hook = model.rescale.register_forward_hook(
+        lambda mod, args, out: seen.update(e=args[0]["input"]))
     model.zero_grad()
     out = model(gb)
-    loss, _ = Loss({"total_energy": [1e3, "MSELoss"]})(out.data, gb.data)
+    hook.remove()
+    loss_fn = Loss({"total_energy": [1e3, "MSELoss"]})
+    loss, _ = loss_fn(out.data, gb.data)
     loss.backward()
-    return loss.item(), {n: p.grad.detach().cpu() for n, p in
-                         model.named_parameters()}
+    value = loss.item()
+    if loss64:
+        d = {k: v.detach().double() if torch.is_tensor(v)
+             and v.is_floating_point() else v for k, v in gb.data.items()}
+        r, species = model.rescale, gb["species"].reshape(-1).long()
+        e = seen["e"].detach().double()
+        if r.has_scales:
+            e = r.scales[species][:, None].double() * e
+        e = (r.shifts[species][:, None].double() + e) * d["_node_mask"]
+        energy = torch.zeros(d["_graph_mask"].shape[0] + 1, 1,
+                             dtype=torch.float64, device=e.device)
+        energy = energy.index_add(0, gb["_node_segment"], e)[:-1]
+        value = float(loss_fn({"total_energy": energy}, d)[0])
+    return value, {n: p.grad.detach().cpu() for n, p in
+                   model.named_parameters()}
 
 
 def test_train_step_gradients_match_cpu(model_and_batch):
@@ -1863,7 +1885,13 @@ def test_bf16_step_matches_its_plain_version(cuda):
     so a whole step's two orders part by about half the precision's
     distance (the node energies: 0.48 of it, measured on one H100), where a
     card model that dropped a rounding point would part by about all of
-    it."""
+    it.  The losses are compared as computed in float64 from each step's
+    float32 node energies (the model's tail, per-species shifts of order
+    -1e3 an atom and the sum over a graph's atoms, redone in float64): the
+    float32 energies of order -2e4 carry one place of 0.002, as much as
+    the whole bfloat16-vs-float32 difference of a graph's energy, so the
+    float32 loss (about 4e11, one place 32768) compares the last places of
+    the tail's sums, not the kernels."""
     gb = _energy_batches(cuda, 1)[0]
     mc = get_config("config_energy")["model_config"]
     n_layers = mc["num_layers"]
@@ -1878,7 +1906,7 @@ def test_bf16_step_matches_its_plain_version(cuda):
                             torch.Generator().manual_seed(0),
                             kernels=kernels)
         before = [getattr(c, a) for c, a in counters]
-        runs[dtype, kernels] = _step_gradients(model, gb)
+        runs[dtype, kernels] = _step_gradients(model, gb, loss64=True)
         torch.cuda.synchronize()
         launched = [getattr(c, a) - b for (c, a), b in zip(counters, before)]
         want = n_layers if kernels else 0
@@ -1899,7 +1927,96 @@ def test_bf16_step_matches_its_plain_version(cuda):
         assert torch.isfinite(got[name]).all(), name
         shares[name] = share(rel2(got[name], p16[name]),
                              rel2(p16[name], p32[name]))
-    print("bf16 step, the card's distance from the plain step over the "
-          "plain step's distance from float32:", shares)
+    print(f"bf16 step, losses {loss!r} (card), {loss16!r} (plain bf16), "
+          f"{loss32!r} (plain f32); the card's distance from the plain step "
+          f"over the plain step's distance from float32:", shares)
     over = {k: v for k, v in shares.items() if not v <= BF16_STEP_SHARE}
     assert not over, over
+
+
+def _rel2(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _bf16_conv(cuda, name):
+    """A bfloat16 conv layer: ``layer3`` of a full-width config, or
+    (``l4``) the hamiltonian trunk's widths, irreps up to l = 4 and sh up
+    to l = 3 at 64 channels (two m1 blocks, eight j pairs)."""
+    from equivariant_nn_zoo_tpu_torch.nn.message_passing import (
+        FactorizedConvolution,
+    )
+    from equivariant_nn_zoo_tpu_torch.utils import init_parameters
+
+    if name != "l4":
+        mc = dict(get_config(name)["model_config"], compute_dtype="bfloat16")
+        return build_model(mc, cuda,
+                           torch.Generator().manual_seed(0)).layer3.conv
+    feats = "+".join(f"64x{l}{p}" for l in range(5) for p in "eo")
+    conv = FactorizedConvolution(
+        input_features=feats, output_features=feats, node_attrs="4x0e",
+        edge_radial="8x0e", edge_spherical="1x0e+1x1o+1x2e+1x3o",
+        invariant_layers=2, invariant_neurons=64, avg_num_neighbors=5.0,
+        sc_species_types=5, compute_dtype="bfloat16")
+    init_parameters(conv, torch.Generator().manual_seed(1))
+    return conv.to(cuda)
+
+
+@pytest.mark.parametrize("name", ["config_energy", "config_dipole", "l4"])
+def test_bf16_walks_match_plain_on_a_ragged_batch(cuda, name):
+    """The bfloat16 K1 and K2 (``k1_bf16_walk_kernel``,
+    ``k2_bf16_walk_kernel``) at full width (``layer3``, and at l = 4)
+    against their bfloat16 plain contracts on a ragged batch: 5,001 edges
+    (not a multiple of the walk's 16-edge stage), a node with no incoming
+    and one with no outgoing edge, and 2,000 padded edges at the dummy
+    node, a run walked in pieces each way.  Each output within half of the plain
+    contract's own distance from the float32 contract (relative L2: the
+    tensor cores sum in another order, which may flip a bfloat16 rounding),
+    and every output equal bit for bit over two launches."""
+    conv = _bf16_conv(cuda, name)
+    fc = conv.full_conv
+    N, g = 211, torch.Generator().manual_seed(40)
+    src = torch.randint(0, N - 1, (3001,), generator=g)
+    dst = torch.randint(0, N - 1, (3001,), generator=g)
+    dst[dst == 7], src[src == 9] = 8, 10
+    src = torch.cat([src, torch.full((2000,), N - 1)])
+    dst = torch.cat([dst, torch.full((2000,), N - 1)])
+    perm = torch.randperm(src.shape[0], generator=g)
+    src, dst = src[perm].to(cuda), dst[perm].to(cuda)
+    E = src.shape[0]
+    bf = torch.bfloat16
+    x = torch.randn(N, fc.fused.irreps_in.dim, generator=g).to(cuda, bf)
+    sh = torch.randn(E, fc.fused.J_dim, generator=g).to(cuda, bf)
+    er = torch.randn(E, fc.fc_dims[0], generator=g)
+    er[perm >= 3001] = 0.0
+    er = er.to(cuda)
+    gout = torch.randn(N, fc.out_dim, generator=g).to(cuda, bf)
+    with torch.no_grad():
+        w16 = [t.detach() for t in fc.flat_weights(conv.fc, conv.tp.linear,
+                                                   0.3)]
+        fc.compute_dtype = torch.float32
+        w32 = [t.detach() for t in fc.flat_weights(conv.fc, conv.tp.linear,
+                                                   0.3)]
+        fc.compute_dtype = bf
+        args = (x, er, sh, src, dst)
+        f32_args = (x.float(), er, sh.float(), src, dst)
+        out, scratch = full_conv_mod.launch_forward(fc, *args, *w16, N)
+        again = full_conv_mod.launch_forward(fc, *args, *w16, N)
+        p16, _ = fc.plain_forward_bf16(*args, *w16, N)
+        p32, scratch32 = fc.plain_forward(*f32_args, *w32, N)
+        got = full_conv_mod.launch_backward(fc, *args, *w16, N, scratch,
+                                            gout)
+        got2 = full_conv_mod.launch_backward(fc, *args, *w16, N, scratch,
+                                             gout)
+        q16 = fc.plain_backward_bf16(*args, *w16, N, scratch, gout)
+        q32 = fc.plain_backward(*f32_args, *w32, N, scratch32, gout.float())
+    torch.cuda.synchronize()
+    assert FullConv.bf16_launches and FullConv.bf16_backward_launches
+    assert torch.equal(out, again[0]) and torch.equal(scratch, again[1])
+    for a, b in zip(got, got2):
+        assert torch.equal(a, b)
+    checks = [("out", out, p16, p32)] + list(zip(K2_OUT, got, q16, q32))
+    for what, a, b, c in checks:
+        assert torch.isfinite(a.float()).all(), what
+        assert _rel2(a, b) <= 0.5 * _rel2(b, c), (what, _rel2(a, b),
+                                                  _rel2(b, c))
