@@ -17,6 +17,7 @@
     python3 chip_smoke.py --ext-times      # K4f, K4b, K4g alone and the
                                            # force step, see ext_times
     python3 chip_smoke.py --ext-calls      # K4f, K4b, K4g alone
+    python3 chip_smoke.py --ext-times bf16 # the bf16 K4f, K4b, K4g alone
     python3 chip_smoke.py --pw-times       # the K5 forward and backward
                                            # entries alone, hamiltonian
                                            # serving and the step, see
@@ -31,12 +32,19 @@
     python3 chip_smoke.py --protein        # phases 26-28 alone
     python3 chip_smoke.py --cli            # phases 29-32 alone
     python3 chip_smoke.py --bf16           # phase 42 alone
+    python3 chip_smoke.py --bf16-force     # phase 43 alone
     python3 chip_smoke.py --md             # phases 33-37 alone
     python3 chip_smoke.py --datasets       # phases 38-39 alone
     python3 chip_smoke.py --capture        # phases 40-41 alone
     python3 chip_smoke.py --capture-ranks [N]
                                            # phase 41 (b) as N NCCL ranks,
                                            # one per card
+    python3 chip_smoke.py --profile-edges [N]
+                                           # N profiled windows per mode of
+                                           # config_dipole serving with no
+                                           # idle edges and with
+                                           # PROFILE_EDGE_S, in turns: how
+                                           # many lost device events
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -413,6 +421,27 @@ Phases, in order; any failure exits non-zero before the last line:
              other than the walks' CG products (the radial MLP, the mix,
              K3's and K3b's table products) over 989 TFLOP/s (bf16,
              dense).
+43. bfloat16 force — ``config_energy_force`` with
+             ``compute_dtype="bfloat16"``: (a) at the hot layer of a
+             64-fragment batch, the bf16 K4f, K4b (on K4f's saved scratch
+             and recomputed) and K4g against their bf16 plain contracts on
+             the card, each output within half of the plain contract's
+             distance from its float32 contract (relative L2) and repeated
+             bit for bit; (b) with every count set to 0 just before and
+             read just after: 2 batches of 64 served (energies and forces)
+             and 2 captured force-training steps, each bf16 K4 kernel
+             launched and no float32 one; (c) for two seeds, energies and
+             forces of a 16-fragment cut on the card against the CPU's
+             bf16 plain path, within 0.75 of the CPU's bf16-vs-f32
+             distance; (d) ``config_diffusion`` ``"nll"`` at bf16: one SDE
+             step and 4 PC steps of 32 molecules, every bf16 K4 kernel
+             launched; (e) the captured force step at float32 and at
+             bfloat16 in the order f32, bf16, bf16, f32 (median of 20,
+             CUDA events), and each one's peak memory over its first
+             call (warm-up and capture).  The bounds price the CG and C^T contractions
+             of the three kernels' walks and every mix product at 989
+             TFLOP/s (bf16 MMAs), K4g's at the five contractions of the
+             TPU body (its walks recompute two).
 
 Phase 8 traces 4 energy training steps with ``torch.profiler`` and writes
 their kernel-time table to ``chiprun_out/energy_step_profile.txt``; phase
@@ -883,20 +912,27 @@ LAUNCH_MARKS = {
     "row_mix_forward": (r"gemm_kernel<true, false(, false)?>",),
     "row_mix_products": (r"gemm_kernel<(?!true, false(, false)?>)(true|false), "
                          r"(true|false)(, false)?>",),
-    # the bfloat16 variants (phase 42)
-    "full_conv_bf16": (r"k1_bf16_walk_kernel<",),
-    "full_conv_bwd_bf16": (r"k2_bf16_walk_kernel<",),
+    # the bfloat16 variants (phase 42; K1's and K2's walks on the MLP's
+    # radial weights, kOps 0, where K4f's and K4b's walks carry 1 and K4g's
+    # 2; a parent checkout's carry no flag)
+    "full_conv_bf16": (r"k1_bf16_walk_kernel<\d+, \d+(, 0)?>",),
+    "full_conv_bwd_bf16": (r"k2_bf16_walk_kernel<\d+, \d+(, 0)?>",),
     "species_sc_bf16": (r"table_product_kernel<false, true>",),
     "species_sc_bwd_bf16": (r"table_product_kernel<true, true>",
                             r"table_grad_sum_kernel<true>"),
     "row_mix_forward_bf16": (r"gemm_kernel<true, false, true>",),
     "row_mix_products_bf16": (r"gemm_kernel<(?!true, false, true>)"
                               r"(true|false), (true|false), true>",),
+    # the bfloat16 K4 family (phase 43)
+    "full_conv_ext_fwd_bf16": (r"k1_bf16_walk_kernel<\d+, \d+, 1>",),
+    "full_conv_ext_bwd_bf16": (r"k2_bf16_walk_kernel<\d+, \d+, 1>",),
+    "full_conv_ext_grad2_bf16": (r"k2_bf16_walk_kernel<\d+, \d+, 2>",),
 }
 BF16_KEYS = ("full_conv_bf16", "full_conv_bwd_bf16", "species_sc_bf16",
              "species_sc_bwd_bf16", "row_mix_forward_bf16",
              "row_mix_products_bf16")
 EXT_KEYS = ("full_conv_ext_fwd", "full_conv_ext_bwd", "full_conv_ext_grad2")
+EXT_BF16_KEYS = tuple(k + "_bf16" for k in EXT_KEYS)
 CONV_KEYS = ("full_conv", "full_conv_bwd", "full_conv_bwd_dsh", "species_sc",
              "species_sc_bwd") + EXT_KEYS
 HEAD_KEYS = ("full_conv", "full_conv_bwd", "species_sc", "species_sc_bwd",
@@ -931,7 +967,11 @@ def launch_counters():
             "full_conv_bwd_bf16": (FullConv, "bf16_backward_launches"),
             "species_sc_bf16": (SpeciesScalarFCTP, "bf16_launches"),
             "species_sc_bwd_bf16": (SpeciesScalarFCTP,
-                                    "bf16_backward_launches")}
+                                    "bf16_backward_launches"),
+            "full_conv_ext_fwd_bf16": (FullConvExt, "bf16_launches_fwd"),
+            "full_conv_ext_bwd_bf16": (FullConvExt, "bf16_launches_bwd"),
+            "full_conv_ext_grad2_bf16": (FullConvExt,
+                                         "bf16_launches_grad2")}
 
 
 def host_launches():
@@ -977,6 +1017,13 @@ def reset_launches():
     row_mix.reset_launches()
 
 
+#: idle seconds between the profiler's start and the stretch it counts, and
+#: between the stretch's end and the profiler's stop: where a stretch's
+#: kernels ran right at the edges of its window, torch.profiler now and then
+#: lost the first or the last few hundred of them (``--profile-edges``)
+PROFILE_EDGE_S = 0.05
+
+
 class LaunchCounts:
     """The launches of every kernel in a stretch of the run, from where it
     is made to ``read``, two ways.  ``host``: what the wrappers counted,
@@ -986,7 +1033,8 @@ class LaunchCounts:
     events, every replay included; what the script checks and reports.
     ``eager``: the stretch captures and replays nothing, so each device
     count must equal the wrapper's (K4f's may pass it).  A stretch known to
-    be eager (the examples) reads ``host_launches`` alone."""
+    be eager (the examples) reads ``host_launches`` alone.  The profiler
+    idles ``PROFILE_EDGE_S`` at each end of the stretch."""
 
     def __init__(self, eager=False):
         import torch
@@ -999,6 +1047,7 @@ class LaunchCounts:
         self.prof = profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA])
         self.prof.__enter__()
+        time.sleep(PROFILE_EDGE_S)
 
     def read(self, keys=tuple(LAUNCH_MARKS)):
         """The device counts of ``keys`` (the profiler stops at the first
@@ -1007,6 +1056,7 @@ class LaunchCounts:
 
         if self.device is None:
             torch.cuda.synchronize()
+            time.sleep(PROFILE_EDGE_S)
             self.prof.__exit__(None, None, None)
             self.host = host_launches()
             self.events = kernel_counts(self.prof)
@@ -1014,8 +1064,8 @@ class LaunchCounts:
             self.device = device_launches(self.events)
             if self.eager:
                 off = {k: (self.host[k], n) for k, n in self.device.items()
-                       if n < self.host[k] or (
-                           n > self.host[k] and k != "full_conv_ext_fwd")}
+                       if n < self.host[k] or (n > self.host[k] and k not in (
+                           "full_conv_ext_fwd", "full_conv_ext_fwd_bf16"))}
                 if off:
                     fail(f"eager launches: the device ran another count "
                          f"than the wrappers launched, (host, device): {off}")
@@ -6358,6 +6408,332 @@ def bf16_only():
     print(json.dumps({"bf16": rec, "times": times}))
 
 
+# ------------------------------------------------------------- phase 43
+BF16_FORCE_SERVED = 2        # served 64-fragment batches at bfloat16
+BF16_FORCE_STEPS = 2         # captured force-training steps at bfloat16
+BF16_NLL_BATCH = 32          # molecules of the "nll" SDE step and sampler
+BF16_NLL_PC = 4              # PC evaluations (sampler steps) of "nll"
+
+
+def bf16_force_operands(model, gb, dev):
+    """The K4 kernels' operands at ``HOT_LAYER`` of the bfloat16 force
+    model ``model`` on ``gb`` (``force_hot_layer``'s), at both contracts:
+    ``(fc, ops16, ops32)``, each ``(x, sh, w, wsel, src, dst, N, cx, csh,
+    cw, gout)``: the bfloat16 operands rounded (the mix matrices as the
+    layer rounds them), the float32 ones as they are."""
+    import torch
+
+    bf = torch.bfloat16
+    fc, ops32 = force_hot_layer(model, gb, dev)
+    conv = getattr(model.func, HOT_LAYER).conv
+    x, sh, w, wsel16, src, dst, N, cx, csh, cw, gout = ops32
+    with torch.no_grad():
+        fc.compute_dtype = torch.float32
+        wsel32 = fc.flat_wsel(conv.tp.linear, conv.avg_num_neighbors ** -0.5)
+        fc.compute_dtype = bf
+    r = [t.to(bf) for t in (x, sh, w)]
+    ops16 = (*r, wsel16, src, dst, N, cx.to(bf), csh.to(bf), cw.to(bf),
+             gout.to(bf))
+    return fc, ops16, (x, sh, w, wsel32, src, dst, N, cx, csh, cw, gout)
+
+
+def bf16_ext_checks(fc, ops16, ops32):
+    """Phase 43 (a): K4f, K4b (on K4f's saved scratch and recomputed) and
+    K4g at bfloat16 against their bfloat16 plain versions on the same
+    operands, each output within half of the plain version's distance from
+    its float32 contract (relative L2, ``half_rel``), every output
+    repeated bit for bit; returns per kernel its error, ms, plain ms and
+    cost ``(flops, flops of bfloat16 tensor-core products, bytes)``."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import edge_order
+    from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv_ext as ext
+
+    x, sh, w, wsel, src, dst, N, cx, csh, cw, gout = ops16
+    fa, ga = (x, sh, w, wsel, src, dst, N), \
+        (x, cx, sh, csh, w, cw, wsel, src, dst, N, gout)
+    x3, sh3, w3, ws3, _, _, _, cx3, csh3, cw3, g3 = ops32
+    fa3, ga3 = (x3, sh3, w3, ws3, src, dst, N), \
+        (x3, cx3, sh3, csh3, w3, cw3, ws3, src, dst, N, g3)
+    order = edge_order.shared(src, dst, N)
+    with torch.no_grad():
+        saved = ext.launch_forward(fc, *fa, order=order)[1]
+    kernels = {
+        "K4f": (lambda: ext.launch_forward(fc, *fa, order=order)[:1],
+                lambda: fc.plain_forward_bf16(*fa)[:1],
+                lambda: (fc.plain_forward(*fa3),), ("out",)),
+        "K4b": (lambda: ext.launch_backward(fc, *fa, gout, order=order,
+                                            scratch=saved),
+                lambda: fc.plain_backward_bf16(*fa, gout, scratch=saved),
+                lambda: fc.plain_backward(*fa3, g3),
+                ("dx", "dsh", "dw", "dwsel")),
+        "K4b recomputed": (lambda: ext.launch_backward(fc, *fa, gout,
+                                                       order=order),
+                           lambda: fc.plain_backward_bf16(*fa, gout),
+                           lambda: fc.plain_backward(*fa3, g3),
+                           ("dx", "dsh", "dw", "dwsel")),
+        "K4g": (lambda: ext.launch_grad2(fc, *ga, order=order),
+                lambda: fc.plain_grad2_bf16(*ga),
+                lambda: fc.plain_grad2(*ga3),
+                ("c_x", "c_s", "c_w", "c_m", "c_g")),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (kern, p16, p32, names) in kernels.items():
+            got, want16, want32 = kern(), p16(), p32()
+            errs = [half_rel(f"{name} bf16 {what}", a, b, c)[0]
+                    for what, a, b, c in zip(names, got, want16, want32)]
+            repeats(f"{name} bf16", kern)
+            out[name] = dict(err=max(errs), ms=cuda_ms(kern),
+                             plain_ms=cuda_ms(p16, iters=3, warmup=1),
+                             digest=digest(got))
+            del got, want16, want32
+    # bounds: the float32 K4 family's operation counts; the CG and C^T
+    # contractions and every mix product are products of bfloat16
+    # operands (989 TFLOP/s), K4g's five CG and C^T contractions the TPU
+    # body's mid_a, mid_b, mid_c, dow and doc (its walks form mid_a and
+    # mid_b twice, the kernel's choice); bytes at the operands' dtypes
+    # (bfloat16 operands, outputs and cotangents)
+    E = sh.shape[0]
+    cc = conv_counts(fc, N, E)
+    ops, edges = nbytes(x, sh, w, wsel), nbytes(src, dst)
+    g_bytes = nbytes(gout)
+    out["K4f"]["cost"] = (cc["cg"] + 2 * cc["rows"] + cc["mix"],
+                          cc["cg"] + cc["mix"], ops + edges + g_bytes)
+    out["K4b"]["cost"] = (2 * cc["cg"] + 2 * cc["rows"] + 2 * cc["mix"],
+                          2 * cc["cg"] + 2 * cc["mix"],
+                          2 * ops + edges + g_bytes + nbytes(saved))
+    out["K4b recomputed"]["cost"] = (
+        3 * cc["cg"] + 4 * cc["rows"] + 2 * cc["mix"],
+        3 * cc["cg"] + 2 * cc["mix"], 2 * ops + edges + g_bytes)
+    out["K4g"]["cost"] = (5 * cc["cg"] + 6 * cc["rows"] + 3 * cc["mix"],
+                          5 * cc["cg"] + 3 * cc["mix"],
+                          2 * ops + nbytes(cx, csh, cw) + edges
+                          + 2 * g_bytes)
+    return out
+
+
+def bf16_force_phases(dev):
+    """Phase 43: the bfloat16 compute dtype on the force path."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+    from equivariant_nn_zoo_tpu_torch.models import build_model, get_config
+    from equivariant_nn_zoo_tpu_torch.models.sde_config import (
+        get_config as sde_get_config,
+    )
+    from equivariant_nn_zoo_tpu_torch.run import Trainer
+    from equivariant_nn_zoo_tpu_torch.run.sde_sampling import (
+        get_corrector,
+        get_pc_sampler,
+        get_predictor,
+    )
+    from equivariant_nn_zoo_tpu_torch.run.sde_utils import (
+        VPSDE,
+        Noise,
+        adam,
+        get_step_fn,
+        init_sde_state,
+    )
+
+    cfg = get_config("config_energy_force")
+    mc32 = cfg["model_config"]
+    mc16 = dict(mc32, compute_dtype="bfloat16")
+    seed = torch.Generator().manual_seed
+    mols = synthetic_fragments(BF16_FORCE_SERVED * FORCE_BATCH,
+                               np.random.default_rng(10))
+    batches = make_batches(mols, dev, FORCE_BATCH)
+    model = build_model(mc16, dev, seed(0)).eval()
+    # (a) the three kernels against their plain versions
+    checks = bf16_ext_checks(*bf16_force_operands(model, batches[0], dev))
+
+    # (b) the main path at bfloat16, every count set to 0 just before it
+    # and read just after: served batches (energies and forces), then
+    # captured force-training steps (forces with create_graph: K4g)
+    settings = {k: v for k, v in cfg.items()
+                if k not in ("model_config", "data_config", "batch_size")}
+    train = make_batches(synthetic_fragments(
+        BF16_FORCE_STEPS * FORCE_BATCH, np.random.default_rng(11)), dev,
+        FORCE_BATCH)
+    trainer = Trainer(build_model(mc16, dev, seed(0)), **settings)
+    keys = ["energy", "forces"]
+    counts = LaunchCounts()
+    res = evaluate(model, batches, keys)
+    losses = []
+    for gb in train:
+        trainer.batch_step(gb)
+        losses.append(trainer.batch_losses["loss"])
+    launches = counts.read(EXT_BF16_KEYS + EXT_KEYS)
+    n_real = sum(int(gb["_node_mask"].sum()) for gb in batches)
+    steps = trainer._steps.items()
+    print(f"bfloat16 force main path: {len(res)} graphs ({n_real} atoms) "
+          f"served in {len(batches)} batches, {len(train)} training steps "
+          f"(captured by default); losses "
+          f"{[round(float(v), 4) for v in losses]}; launches on the card "
+          f"{launches}, by the wrappers (eager and captured calls, no "
+          f"replay) { {k: counts.host[k] for k in launches} }; graphs "
+          f"captured { {k: getattr(st, 'captures', 0) for k, st in steps} }",
+          flush=True)
+    if len(res) != len(mols) or res["forces"].shape != (n_real, 3):
+        fail("bfloat16 force serving: wrong count or shape")
+    for key in keys:
+        if not np.isfinite(res[key]).all():
+            fail(f"bfloat16 force serving: non-finite {key}")
+    if not all(torch.isfinite(torch.stack(losses)).tolist()):
+        fail(f"bfloat16 force training: non-finite loss {losses}")
+    for k in EXT_BF16_KEYS:
+        if launches[k] < 1:
+            fail(f"bfloat16 force main path: {k} was not launched")
+    for k in EXT_KEYS:
+        if launches[k]:
+            fail(f"bfloat16 force main path: the float32 {k} ran")
+
+    # (c) the card against the CPU's bfloat16 plain path on a cut, the node
+    # energies before the per-species shifts (as phase 42 (c): the shifted
+    # totals carry their float32 sums' last places, not the kernels') and
+    # the forces, within 0.75 of the CPU's own bfloat16-vs-float32
+    # distance (relative L2), for two seeds (see phase 42 (c) for the 0.75)
+    cut = cut_batch(mols, FORCE_CUT)
+
+    def outputs(m, b):
+        seen = {}
+        h = m.func.output_linear.register_forward_hook(
+            lambda mod, args, out: seen.update(e=out[0]["output"]))
+        with torch.no_grad():
+            o = m(b)
+        h.remove()
+        mask = b["_node_mask"][:, 0] > 0
+        return {"node energies": seen["e"][mask].detach().cpu(),
+                "forces": o["forces"].detach()[mask].cpu()}
+
+    for s in (0, 1):
+        m16 = model if s == 0 else build_model(mc16, dev, seed(s)).eval()
+        outs = [outputs(m, b) for m, b in (
+            (m16, cut.to(dev)),
+            (build_model(mc16, "cpu", seed(s)).eval(), cut),
+            (build_model(mc32, "cpu", seed(s)).eval(), cut))]
+        for k in outs[0]:
+            half_rel(f"bfloat16 {k}, card against CPU ({FORCE_CUT} graphs, "
+                     f"seed {s})", *(o[k] for o in outs), share=0.75)
+    del trainer
+
+    # (d) config_diffusion "nll" at bfloat16: one captured SDE step and a
+    # few PC evaluations of the sampler
+    dcfg = get_config("config_diffusion", "nll")
+    dmc = dict(dcfg["model_config"], compute_dtype="bfloat16")
+    sde_cfg = sde_get_config()
+    sm = sde_cfg["model"]
+    sde = VPSDE({"pos": 3}, beta_min=sm["beta_min"],
+                beta_max=sm["beta_max"], N=sm["num_scales"])
+    dmols = synthetic_diffusion_mols(BF16_NLL_BATCH,
+                                     np.random.default_rng(45))
+    dgb = make_batches(dmols, dev, BF16_NLL_BATCH)[0]
+    dmodel = build_model(dmc, dev, seed(0))
+    dmodel.train()
+    state = init_sde_state(dmodel, Noise(dev, 7))
+    tr = sde_cfg["training"]
+    step = get_step_fn(sde, True, model=dmodel,
+                       optimizer=adam(dmodel, dcfg["learning_rate"]),
+                       reduce_mean=tr["reduce_mean"],
+                       continuous=tr["continuous"],
+                       likelihood_weighting=tr["likelihood_weighting"],
+                       grad_clid_norm=dcfg["grad_clid_norm"],
+                       grad_acc=dcfg["grad_acc"], ema_decay=sm["ema_rate"],
+                       ema_use_num_updates=dcfg["ema_use_num_updates"])
+    sampling = sde_cfg["sampling"]
+    pc = get_pc_sampler(sde, get_predictor(sampling["predictor"]),
+                        get_corrector(sampling["corrector"]), None,
+                        sampling["snr"], sampling["n_steps_each"],
+                        eps=SAMPLING_EPS)
+    counts = LaunchCounts()
+    state, loss, _ = step(state, dgb)
+    dmodel.eval()
+    res, nfe = pc(dmodel, dgb, Noise(dev, 71), steps=BF16_NLL_PC)
+    nll_launches = counts.read(EXT_BF16_KEYS + EXT_KEYS)
+    print(f"bfloat16 config_diffusion nll: one SDE step (loss "
+          f"{float(loss):.6g}), {BF16_NLL_PC} PC steps of {BF16_NLL_BATCH} "
+          f"molecules; launches on the card {nll_launches}", flush=True)
+    if not bool(torch.isfinite(loss)) or not bool(
+            torch.isfinite(res["pos"]).all()):
+        fail("bfloat16 nll: non-finite loss or positions")
+    for k in EXT_BF16_KEYS:
+        if nll_launches[k] < 1:
+            fail(f"bfloat16 nll: {k} was not launched")
+    for k in EXT_KEYS:
+        if nll_launches[k]:
+            fail(f"bfloat16 nll: the float32 {k} ran")
+    del dmodel, state, step, pc
+
+    # (e) the captured force step at float32 and at bfloat16 in turns
+    tr32 = Trainer(build_model(mc32, dev, seed(0)), **settings)
+    tr16 = Trainer(build_model(mc16, dev, seed(0)), **settings)
+    it = iter(range(10 ** 9))
+    runs = {"float32": lambda: tr32.batch_step(train[next(it) % len(train)]),
+            "bfloat16": lambda: tr16.batch_step(
+                train[next(it) % len(train)])}
+    times = {}
+    # peak memory of a step: allocated above what was before, over each
+    # trainer's first call (its warm-up and the capture allocate the step's
+    # buffers; a replay allocates nothing)
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs[dtype]()
+        torch.cuda.synchronize()
+        times[f"force_step_{dtype}_peak_gib"] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+        times.setdefault(f"force_step_{dtype}_ms", []).append(
+            timed_ms(runs[dtype], CAPTURE_TIMED))
+    print(f"bfloat16 force times (captured, batch {FORCE_BATCH}, median of "
+          f"{CAPTURE_TIMED} CUDA-event timings, in the order float32, "
+          f"bfloat16, bfloat16, float32; peak GiB over the first call): "
+          f"{json.dumps(times)}", flush=True)
+    rec = []
+    for name, key, replaces in (
+            ("full_conv_ext_fwd_bf16", "K4f", "fused_conv.py:1348"),
+            ("full_conv_ext_bwd_bf16", "K4b", "fused_conv.py:1432"),
+            ("full_conv_ext_grad2_bf16", "K4g", "fused_conv.py:1618")):
+        c = checks[key]
+        r = bf16_record(name, "full_conv_ext.cu", replaces, launches[name],
+                        c["err"], c["ms"], c["plain_ms"], *c["cost"])
+        if key == "K4b":
+            re_ = checks["K4b recomputed"]
+            r["recomputed_ms"] = re_["ms"]
+            r["recomputed_max_abs_err"] = re_["err"]
+        rec.append(r)
+    return rec, times
+
+
+def bf16_force_only():
+    """``python3 chip_smoke.py --bf16-force``: the build, then phase 43
+    alone; its records as one JSON line."""
+    import torch
+
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          else "nvidia-smi failed")
+    t0 = time.perf_counter()
+    _, log = build()
+    print(f"build in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "bf16" in line or "spill" in line:
+            print("  " + line.strip())
+    t0 = time.perf_counter()
+    rec, times = bf16_force_phases(torch.device("cuda"))
+    print(f"phase 43: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"bf16_force": rec, "times": times}))
+
+
 def main():
     import torch
 
@@ -6581,6 +6957,8 @@ def main():
     captured = timed("40", capture_phases, dev)
     compiled = timed("41", compiled_rest_phases, dev)
     bf16_records, bf16_times = timed("42", bf16_phases, dev)
+    bf16_force_records, bf16_force_times = timed("43", bf16_force_phases,
+                                                 dev)
     print(f"phase seconds {json.dumps(seconds)}; "
           f"{time.perf_counter() - start:.1f} s in all", flush=True)
 
@@ -6610,6 +6988,7 @@ def main():
         mix_record("row_mix_products", "fused_conv.py:1051",
                    mix_launches["row_mix_products"], mix_bwd),
         *bf16_records,
+        *bf16_force_records,
     ]
     # K1, K2 and the K4 family also carry what they did on the diffusion
     # path (spec "" for K1 and K2, "nll" for the K4 family)
@@ -6644,6 +7023,7 @@ def main():
     print(json.dumps({"capture": captured}))
     print(json.dumps({"compiled": compiled}))
     print(json.dumps({"bf16_times": bf16_times}))
+    print(json.dumps({"bf16_force_times": bf16_force_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6666,6 +7046,66 @@ def diffusion_only():
     print(f"build: {os.path.relpath(lib)} in "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"diffusion": diffusion_phases(torch.device("cuda"))}))
+
+
+def profile_edges(n):
+    """``python3 chip_smoke.py --profile-edges [N]``: ``N`` torch.profiler
+    windows of two ``config_dipole`` serving calls per mode (captured,
+    eager), opened and closed with no idle time at the edges and with
+    ``PROFILE_EDGE_S``, in turns (none, edges, none, edges); a window whose
+    device counts of ``LAUNCH_MARKS`` differ from the most common ones of
+    its mode lost events.  Prints the lost windows of each setting."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from equivariant_nn_zoo_tpu_torch.inference import evaluate
+    from equivariant_nn_zoo_tpu_torch.models import get_config
+    from equivariant_nn_zoo_tpu_torch.ops.cuda.build import build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build()
+    dev = torch.device("cuda")
+    dip = make_batches(synthetic_dipole_mols(4 * DIPOLE_BATCH,
+                                             np.random.default_rng(41)),
+                       dev, DIPOLE_BATCH)
+    pair, _ = trainer_pair("config_dipole", get_config("config_dipole"), dip,
+                           dev, 2, check=False, grad_acc=4)
+    model = pair[0].model
+    model.eval()
+
+    def window(run, edge):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(edge)
+            run()
+            run()
+            torch.cuda.synchronize()
+            time.sleep(edge)
+        return json.dumps(device_launches(kernel_counts(prof)),
+                          sort_keys=True)
+
+    seen = {}
+    for edge in (0.0, PROFILE_EDGE_S) * 2:
+        for i in range(n):
+            for mode, c in (("captured", None), ("eager", False)):
+                def run(b=dip[i % len(dip)], c=c):
+                    evaluate(model, [b], ["dipole"], capture=c)
+                run()
+                seen.setdefault((edge, mode), []).append(window(run, edge))
+    for mode in ("captured", "eager"):
+        common = collections.Counter(
+            w for (_, m), ws in seen.items() if m == mode
+            for w in ws).most_common(1)[0][0]
+        for edge in (0.0, PROFILE_EDGE_S):
+            ws = seen[(edge, mode)]
+            print(f"profile edges {edge} s, {mode}: "
+                  f"{sum(w != common for w in ws)} of {len(ws)} windows "
+                  f"lost device events", flush=True)
 
 
 def dipole_only():
@@ -6872,7 +7312,7 @@ def conv_times(which="all"):
                       "conv_times": times}))
 
 
-def ext_times(calls_only=False):
+def ext_times(calls_only=False, bf16=False):
     """``python3 chip_smoke.py --ext-times``: the force path's three C
     entries (K4f, K4b, K4g) of the package in the current directory (run it
     from two checkouts in turn to compare them on one card), at
@@ -6885,8 +7325,10 @@ def ext_times(calls_only=False):
     ``synchronize`` over 12 steps, peak memory, and kernel ms per step by
     family over 4 profiled steps) and force serving (energies and forces of
     phase 11's 4 batches: host ms per batch, kernel ms per batch by
-    family).  One JSON line.  ``--ext-calls`` times the three entries
-    alone (``calls_only``)."""
+    family).  One JSON line, with a digest of each entry's outputs.
+    ``--ext-calls`` times the three entries alone (``calls_only``).
+    ``--ext-times bf16`` times the bfloat16 entries alone instead
+    (``bf16``: the bfloat16 model's operands at that layer, phase 43's)."""
     import inspect
 
     import torch
@@ -6902,16 +7344,22 @@ def ext_times(calls_only=False):
     dev = torch.device("cuda")
     cfg = get_config("config_energy_force")
     mc = cfg["model_config"]
+    if bf16:
+        mc = dict(mc, compute_dtype="bfloat16")
     batches = make_batches(synthetic_fragments(
         N_BATCHES * FORCE_BATCH, np.random.default_rng(10)), dev, FORCE_BATCH)
     model = build_model(mc, dev, torch.Generator().manual_seed(0))
     model.eval()
-    fc, (x, sh, w, wsel, src, dst, N, cx, csh, cw, gout) = force_hot_layer(
-        model, batches[0], dev)
+    if bf16:
+        fc, ops, _ = bf16_force_operands(model, batches[0], dev)
+    else:
+        fc, ops = force_hot_layer(model, batches[0], dev)
+    x, sh, w, wsel, src, dst, N, cx, csh, cw, gout = ops
     fa = (x, sh, w, wsel, src, dst, N)
     ga = (x, cx, sh, csh, w, cw, wsel, src, dst, N, gout)
     walks = "order" in inspect.signature(ext.launch_backward).parameters
-    rec = {"N": N, "E": int(sh.shape[0]), "walks": walks}
+    rec = {"N": N, "E": int(sh.shape[0]), "walks": walks,
+           "dtype": "bfloat16" if bf16 else "float32"}
     with torch.no_grad():
         entries = {}
         if walks:
@@ -6931,16 +7379,17 @@ def ext_times(calls_only=False):
                 fc, *fa, gout)
             entries["K4g"] = lambda: ext.launch_grad2(fc, *ga)
         for name, fn in entries.items():
-            rec[name] = {"ms": cuda_ms(fn), "kernels": kernel_split(fn)}
-            print(f"{name}: {rec[name]['ms']:.4f} ms {rec[name]['kernels']}",
-                  flush=True)
-    del entries, fa, ga, x, sh, w, cx, csh, cw, gout
+            rec[name] = {"ms": cuda_ms(fn), "kernels": kernel_split(fn),
+                         "digest": digest(fn())}
+            print(f"{name}: {rec[name]['ms']:.4f} ms {rec[name]['kernels']}"
+                  f" digest {rec[name]['digest']}", flush=True)
+    del entries, fa, ga, ops, x, sh, w, cx, csh, cw, gout
     if walks:
         del saved, kw
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    if calls_only:
+    if calls_only or bf16:
         print(json.dumps({"package": os.path.dirname(pkg.__file__),
                           "card": smi.stdout.strip(), "ext_times": rec}))
         return
@@ -7676,30 +8125,29 @@ WALK_PARTS = {
     "fused non-zero loops": {
         src: [(r"for \(; z < z1; \+\+z\)", "for (; z < 0; ++z)", 1)]
         for src in ("pairwise_tp.cu", "uvu_conv.cu")},
-    # the bfloat16 K1 and K2 (bf16_walk.cuh, full_conv.cu, full_conv_bwd.cu;
+    # the bfloat16 K1 and K2 (bf16_walk.cuh, whose walks K4f and K4b share;
     # --conv-times bf16): the radial-weight MMAs, the outer products formed
     # into the A fragments, the CG MMAs (their operands go with them), K1's
     # epilogue (bf16(mid w) summed per node), K2's dS gathers, its dw sums
     # over m3, its C^T MMAs and its dx sums over j
-    "bf16 radial MMA": {
-        src: [(r"\n *bwalk::radial_mma\([^;]*;", "", 1)]
-        for src in ("full_conv.cu", "full_conv_bwd.cu")},
+    "bf16 radial MMA": {"bf16_walk.cuh": [
+        (r"\n *radial_mma\(s, wt, mul, c0, lane\);", "\n      ;", 2)]},
     "bf16 outer products": {"bf16_walk.cuh": [
         (r"const uint32_t a\[4\] = \{[^}]*\};",
          "const uint32_t a[4] = {0u, 0u, 0u, 0u};", 1)]},
     "bf16 CG MMA": {"bf16_walk.cuh": [
         (r"rowmix::mma_bf16\(acc\[nt\], a, b\);", "", 1)]},
-    "bf16 K1 epilogue": {"full_conv.cu": [
+    "bf16 K1 epilogue": {"bf16_walk.cuh": [
         (r"__bfloat1622float2\(__hmul2_rn\(m, w\)\)",
          "make_float2(acc[nt][2 * r], acc[nt][2 * r + 1])", 1)]},
-    "bf16 K2 dS gathers": {"full_conv_bwd.cu": [
+    "bf16 K2 dS gathers": {"bf16_walk.cuh": [
         (r"__ldg\(grow \+ \(size_t\)srow \* mul \+ u\)", "1.f", 1)]},
-    "bf16 K2 dw sums": {"full_conv_bwd.cu": [
+    "bf16 K2 dw sums": {"bf16_walk.cuh": [
         (r"for \(int i0 = lane; i0 < 16 \* P; i0 \+= 4 \* 32\)",
          "for (int i0 = lane; i0 < 0; i0 += 4 * 32)", 1)]},
-    "bf16 K2 C^T MMA": {"full_conv_bwd.cu": [
+    "bf16 K2 C^T MMA": {"bf16_walk.cuh": [
         (r"rowmix::mma_bf16\(c, ap\[kk\], b\);", "", 1)]},
-    "bf16 K2 dx sums": {"full_conv_bwd.cu": [
+    "bf16 K2 dx sums": {"bf16_walk.cuh": [
         (r"dxb\[mb\]\[r\] = __hadd2_rn\(dxb\[mb\]\[r\], __hmul2_rn\(sj, d\)\);",
          "dxb[mb][r] = d;", 1)]},
     # K6b's adjoint sweep (uvu_conv.cu, --uvu-calls): its non-zero sweeps
@@ -7835,6 +8283,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] in (["--ext-times"], ["--ext-calls"]):
         sys.path.insert(0, os.getcwd())
         ext_times(calls_only=sys.argv[1] == "--ext-calls")
+    elif sys.argv[1:] == ["--ext-times", "bf16"]:
+        sys.path.insert(0, os.getcwd())
+        ext_times(bf16=True)
     elif sys.argv[1:] in (["--pw-times"], ["--pw-calls"]):
         sys.path.insert(0, os.getcwd())
         pw_times(calls_only=sys.argv[1] == "--pw-calls")
@@ -7868,6 +8319,12 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--bf16"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         bf16_only()
+    elif sys.argv[1:] == ["--bf16-force"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        bf16_force_only()
+    elif sys.argv[1:2] == ["--profile-edges"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        profile_edges(int(sys.argv[2]) if sys.argv[2:] else 200)
     elif sys.argv[1:2] == ["--walk-ablation"]:
         walk_ablation(sys.argv[2:])
     else:

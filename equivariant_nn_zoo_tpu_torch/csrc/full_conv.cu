@@ -177,104 +177,6 @@ __global__ void __launch_bounds__(256, 2) k1_walk_kernel(
     for (; cur < it.end; ++cur) flush(cur);
 }
 
-// The bfloat16 walk (bf16_walk.cuh; see the head of the file).  grid (T
-// items, units), block 32 x ceil(mul / 16) threads, warp w channels 16 w ..
-// 16 w + 15.  Per staged edge q each warp forms mid = bf16(O C) of its 16
-// channels and the unit's columns, then adds bf16(mid * w) to the node's
-// sums in registers (the C fragments' layout: rows g, g + 8, columns 8 nt +
-// 2 t, + 1); when the destination changes it stores the node's rows of
-// the f32 scratch once (zeros for nodes without edges; a long run's piece
-// into pieces), plain stores.  kNt: n-tiles of the widest unit (at most);
-// kMB: m1 blocks of 8 of the widest left irrep.
-template <int kNt, int kMB>
-__global__ void __launch_bounds__(128, kNt <= 6 ? 5 : 2) k1_bf16_walk_kernel(
-    const bf16::T* __restrict__ x, int in_dim,
-    const bf16::T* __restrict__ sh, int J,
-    const long long* __restrict__ src, const long long* __restrict__ dst,
-    const int* __restrict__ perm, const int* __restrict__ ptr, int N,
-    int cap, int T,
-    const float* __restrict__ h_last, int H,
-    const bf16::T* __restrict__ wt,
-    const int* __restrict__ tab, const int* __restrict__ tiles,
-    const bwalk::Layout l,
-    float* __restrict__ scratch, float* __restrict__ pieces, int KM,
-    int mul) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
-  const int c0 = 16 * warp, t = blockIdx.x;
-  const bwalk::Smem s = bwalk::carve(smem, l, warp);
-  bwalk::stage_unit(s, tab, tiles, blockIdx.y, tid, nthr);
-  __syncthreads();
-  const int* unit = tab + __ldg(tab + blockIdx.y);
-  const int x_off = __ldg(unit + bwalk::kUXOff);
-  const int d1 = __ldg(unit + bwalk::kUD1);
-  const int NT = __ldg(unit + bwalk::kUNT);
-  const int* cols = s.itab + __ldg(unit + bwalk::kUCol);
-  const bwalk::Operands op = {h_last, H, sh, J, x, in_dim, x_off, d1 * mul,
-                              bwalk::x_vectors(x, in_dim, x_off, d1 * mul)};
-
-  const Item it = item_walk(ptr, N, t, T, cap);
-  float nacc[kNt][4];
-#pragma unroll
-  for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) nacc[nt][i] = 0.f;
-  int cur = it.first;
-  auto flush = [&](int n) {
-    float* row = n == it.head ? pieces + (size_t)t * KM
-                              : scratch + (size_t)n * KM;
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      if (nt >= NT) break;
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int srow = cols[2 * (8 * nt + 2 * tq + b)];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int u = c0 + g + 8 * r;
-          if (srow >= 0 && u < mul)
-            row[(size_t)srow * mul + u] = nacc[nt][2 * r + b];
-          nacc[nt][2 * r + b] = 0.f;
-        }
-      }
-    }
-  };
-
-  for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
-    const int nq = min(kStage, it.e_hi - pos0);
-    bwalk::stage_edges(s, l, pos0, nq, perm, src, dst, true, op, tid, nthr);
-    bwalk::radial_mma(s, wt, mul, c0, lane);
-    __syncwarp();
-    for (int q = 0; q != nq; ++q) {
-      const int nd = s.node[q];
-      for (; cur < nd; ++cur) flush(cur);
-      bf16::T2 xr[kMB][2];
-      bwalk::load_x<kMB>(xr, s, l, q, d1, mul, c0, lane);
-      float acc[kNt][4];
-      bwalk::mid_mma<kNt, kMB>(acc, s, q, xr, lane);
-      // w2d = bf16(bf16(mid) * w), two columns a bfloat16x2 product,
-      // summed over the node in f32
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        if (nt >= NT) break;
-        const int col = 8 * nt + 2 * tq;
-        const int s0 = cols[2 * col + 1], s1 = cols[2 * col + 3];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const bf16::T2 m =
-              __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
-          const bf16::T2 w = bwalk::radial2(s, q, s0, s1, g + 8 * r);
-          const float2 p = __bfloat1622float2(__hmul2_rn(m, w));
-          nacc[nt][2 * r] += p.x;
-          nacc[nt][2 * r + 1] += p.y;
-        }
-      }
-    }
-  }
-  for (; cur < it.end; ++cur) flush(cur);
-}
-
 }  // namespace
 
 // walk_tab, chunks, nz: the walk tables (ConvTables); perm, ptr: the
@@ -361,15 +263,15 @@ extern "C" int full_conv_fwd_bf16(
   }
   if (N > 0 && n_units > 0) {
     const bool wide = dims[bwalk::kDNT] > 6 || dims[bwalk::kDXw] > 8 * mul;
-    auto kernel = wide ? k1_bf16_walk_kernel<12, 2>
-                       : k1_bf16_walk_kernel<6, 1>;
+    auto kernel = wide ? bwalk::k1_bf16_walk_kernel<12, 2, bwalk::kMlp>
+                       : bwalk::k1_bf16_walk_kernel<6, 1, bwalk::kMlp>;
     bwalk::Layout l;
-    err = bwalk::prepare(kernel, dims, mul, J, H, false, l);
+    err = bwalk::prepare(kernel, dims, mul, J, H, false, false, l);
     if (err == cudaSuccess) err = bwalk::transpose_w(w_out, H, PC, wt, s);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3(T, n_units), 32 * ((mul + 15) / 16), l.end, s>>>(
         x, in_dim, sh, J, src, dst, perm, ptr, N, cap, T, h_work, H, wt, tab,
-        tiles, l, scratch, pieces, KM, mul);
+        tiles, l, scratch, pieces, KM, mul, nullptr, 0, bwalk::Cot{});
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = sum_pieces(ptr, N, T, cap, pieces, KM, scratch, s);

@@ -314,221 +314,6 @@ __global__ void __launch_bounds__(256, 2) k2_walk_kernel(
     dw[(size_t)perm[pos] * PC + wcol_u] = 0.f;
 }
 
-// The bfloat16 edge walk (bf16_walk.cuh; see the head of the file).  grid
-// (T items, units), block 32 x ceil(mul / 16) threads, warp w channels 16 w
-// .. 16 w + 15.  Per staged edge q (source s = the walk's key, destination
-// dn) each warp, on the C fragments of its 16 channels and the unit's
-// columns (rows g, g + 8; columns 8 nt + 2 t, + 1):
-//   g     = bf16(dS[dn, srow(col), u])              (a gather, f32 rounded)
-//   mid   = bf16(O C)                               (bf16_walk.cuh)
-//   prod  = bf16(g mid)    -> the warp's shared rows; dw[e, wcol + u] = the
-//                             bf16 sum over the path's m3 in order
-//   dmid  = bf16(g w)      -> packed, two n-tiles a k-step, as the A
-//                             fragments of douter = bf16(dmid C^T), one MMA
-//                             chain per (j, m1 block) over the unit's
-//                             non-zero backward tiles
-//   dx_e  = the bf16 sum over j in order of bf16(sh_j douter[j])   (in the
-//           lane: its two channels' m1 = 8 mb + 2 t, + 1 of every j)
-// and sums dx_e over the node's edges in f32, stored once per node (dx
-// rounded; a long run's piece into pieces [T, in_dim], f32).  kNt, kMB as
-// in K1's k1_bf16_walk_kernel.
-template <int kNt, int kMB>
-__global__ void __launch_bounds__(128, kNt <= 6 ? 4 : 2) k2_bf16_walk_kernel(
-    const bf16::T* __restrict__ x, int in_dim,
-    const bf16::T* __restrict__ sh, int J,
-    const long long* __restrict__ src, const long long* __restrict__ dst,
-    const int* __restrict__ perm, const int* __restrict__ ptr, int N, int E,
-    int cap, int T,
-    const float* __restrict__ h_last, int H,
-    const bf16::T* __restrict__ wt, int PC,
-    const int* __restrict__ tab, const int* __restrict__ tiles,
-    const bwalk::Layout l,
-    const float* __restrict__ dS, int KM, int mul,
-    float* __restrict__ dw, bf16::T* __restrict__ dx,
-    float* __restrict__ pieces) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
-  const int c0 = 16 * warp, t = blockIdx.x;
-  const bwalk::Smem s = bwalk::carve(smem, l, warp);
-  bwalk::stage_unit(s, tab, tiles, blockIdx.y, tid, nthr);
-  __syncthreads();
-  const int* unit = tab + __ldg(tab + blockIdx.y);
-  const int x_off = __ldg(unit + bwalk::kUXOff);
-  const int d1 = __ldg(unit + bwalk::kUD1);
-  const int NT = __ldg(unit + bwalk::kUNT), MB = __ldg(unit + bwalk::kUMB);
-  const int P = __ldg(unit + bwalk::kUPaths);
-  const int* cols = s.itab + __ldg(unit + bwalk::kUCol);
-  const int* slots = s.itab + __ldg(unit + bwalk::kUSlot);
-  const int2* bmap =
-      reinterpret_cast<const int2*>(s.itab + __ldg(unit + bwalk::kUBmap));
-  const bwalk::Operands op = {h_last, H, sh, J, x, in_dim, x_off, d1 * mul,
-                              bwalk::x_vectors(x, in_dim, x_off, d1 * mul)};
-  constexpr int kKk = kNt / 2;
-
-  const Item it = item_walk(ptr, N, t, T, cap);
-  float dxv[kMB][4];
-#pragma unroll
-  for (int mb = 0; mb < kMB; ++mb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dxv[mb][i] = 0.f;
-  int cur = it.first;
-  auto flush = [&](int n) {
-#pragma unroll
-    for (int mb = 0; mb < kMB; ++mb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int u = c0 + g + 8 * (i >> 1), m1 = 8 * mb + 2 * tq + (i & 1);
-        if (u < mul && m1 < d1) {
-          const size_t col = (size_t)x_off + u * d1 + m1;
-          if (n == it.head)
-            pieces[(size_t)t * in_dim + col] = dxv[mb][i];
-          else
-            bf16::put(dx + (size_t)n * in_dim + col, dxv[mb][i]);
-        }
-        dxv[mb][i] = 0.f;
-      }
-  };
-
-  for (int pos0 = it.e_lo; pos0 < it.e_hi; pos0 += kStage) {
-    const int nq = min(kStage, it.e_hi - pos0);
-    bwalk::stage_edges(s, l, pos0, nq, perm, src, dst, false, op, tid, nthr);
-    bwalk::radial_mma(s, wt, mul, c0, lane);
-    __syncwarp();
-    for (int q = 0; q != nq; ++q) {
-      const int nd = s.node[q];
-      for (; cur < nd; ++cur) flush(cur);
-      // the cotangent rows of the destination, gathered first
-      const float* grow = dS + (size_t)s.other[q] * KM;
-      float gv[kNt][4];
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        if (nt >= NT) break;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int srow = cols[2 * (8 * nt + 2 * tq + b)];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int u = c0 + g + 8 * r;
-            gv[nt][2 * r + b] = srow >= 0 && u < mul
-                                    ? __ldg(grow + (size_t)srow * mul + u)
-                                    : 0.f;
-          }
-        }
-      }
-      bf16::T2 xr[kMB][2];
-      bwalk::load_x<kMB>(xr, s, l, q, d1, mul, c0, lane);
-      float acc[kNt][4];
-      bwalk::mid_mma<kNt, kMB>(acc, s, q, xr, lane);
-      // prod = bf16(g mid) into the warp's rows, dmid = bf16(g w) as the
-      // A fragments of douter, two columns a bfloat16x2 product (each
-      // product of two bfloat16 values rounded once, as the f32 product
-      // rounded)
-      uint32_t ap[kKk][4];
-#pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        if (nt >= NT) break;
-        const int col = 8 * nt + 2 * tq;
-        const int s0 = cols[2 * col + 1], s1 = cols[2 * col + 3];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const bf16::T2 gb =
-              __floats2bfloat162_rn(gv[nt][2 * r], gv[nt][2 * r + 1]);
-          const bf16::T2 m =
-              __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
-          *reinterpret_cast<bf16::T2*>(s.pr + (g + 8 * r) * l.pr_pitch +
-                                       col) = __hmul2_rn(gb, m);
-          ap[nt / 2][2 * (nt & 1) + r] = bf16::bits(
-              __hmul2_rn(gb, bwalk::radial2(s, q, s0, s1, g + 8 * r)));
-        }
-      }
-      // douter per (j, m1 block), then dx_e over j in order: rows g, g + 8,
-      // columns m1 = 8 mb + 2 t, + 1, bfloat16x2 (a sum of two bfloat16
-      // values rounded once equals the f32 sum rounded; the _rn forms keep
-      // the compiler from fusing the product and the sum into one FMA,
-      // which would round once where the contract rounds twice)
-      const float* shq = s.sh + q * kMaxSh;
-      bf16::T2 dxb[kMB][2];
-#pragma unroll
-      for (int mb = 0; mb < kMB; ++mb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) dxb[mb][r] = __float2bfloat162_rn(0.f);
-#pragma unroll
-      for (int j = 0; j < kMaxSh; ++j) {
-        if (j >= J) break;
-        const bf16::T2 sj = __float2bfloat162_rn(shq[j]);
-#pragma unroll
-        for (int mb = 0; mb < kMB; ++mb) {
-          if (mb >= MB) break;
-          const int2 bm = bmap[j * MB + mb];     // (mask, base)
-          // a j that no path of the unit reads adds bf16(sh_j 0): nothing
-          if (!bm.x) continue;
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kk = 0; kk < kKk; ++kk) {
-            if (!(bm.x >> kk & 1)) continue;
-            const int ti = bm.y + __popc(bm.x & ((1 << kk) - 1));
-            const uint2 bv = s.tiles[ti * 32 + lane];
-            const uint32_t b[2] = {bv.x, bv.y};
-            rowmix::mma_bf16(c, ap[kk], b);
-          }
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const bf16::T2 d = __floats2bfloat162_rn(c[2 * r], c[2 * r + 1]);
-            dxb[mb][r] = __hadd2_rn(dxb[mb][r], __hmul2_rn(sj, d));
-          }
-        }
-      }
-#pragma unroll
-      for (int mb = 0; mb < kMB; ++mb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float2 v = __bfloat1622float2(dxb[mb][r]);
-          dxv[mb][2 * r] += v.x;
-          dxv[mb][2 * r + 1] += v.y;
-        }
-      // dw: the bf16 sum over each path's m3 in order, lane (row, slot),
-      // four (row, slot) pairs' chains at a time
-      __syncwarp();
-      const int e = s.edge[q];
-      for (int i0 = lane; i0 < 16 * P; i0 += 4 * 32) {
-        bf16::T v[4];
-        const bf16::T* pp[4];
-        int d3[4], d3_max = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = i0 + 32 * k, row = i & 15;
-          const bool ok = i < 16 * P && c0 + row < mul;
-          const int* sp = slots + 3 * (ok ? i >> 4 : 0);
-          pp[k] = s.pr + row * l.pr_pitch + sp[1];
-          d3[k] = ok ? sp[2] : 0;
-          v[k] = pp[k][0];
-          d3_max = max(d3_max, d3[k]);
-        }
-        for (int m3 = 1; m3 < d3_max; ++m3)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (m3 < d3[k]) v[k] = __hadd_rn(v[k], pp[k][m3]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = i0 + 32 * k;
-          if (d3[k])
-            dw[(size_t)e * PC + slots[3 * (i >> 4)] + c0 + (i & 15)] =
-                __bfloat162float(v[k]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  for (; cur < it.end; ++cur) flush(cur);
-  // edges outside [0, N) are walked by no one: their dw is zero
-  const int lo = max(t * cap, ptr[N]), hi = min(t * cap + cap, E);
-  for (int i = tid; i < (hi - lo) * P * mul; i += nthr) {
-    const int pos = lo + i / (P * mul), r = i % (P * mul);
-    dw[(size_t)perm[pos] * PC + slots[3 * (r / mul)] + r % mul] = 0.f;
-  }
-}
-
 }  // namespace
 
 // probs_host: the mix problem table of the forward, on the host; walk_tab,
@@ -720,15 +505,16 @@ extern "C" int full_conv_bwd_bf16(
   const float* h_last = h_all + (size_t)(n_hidden - 1) * EH;
   if (n_units > 0) {  // with N = 0 it still zeroes every edge's dw
     const bool wide = dims[bwalk::kDNT] > 6 || dims[bwalk::kDXw] > 8 * mul;
-    auto kernel = wide ? k2_bf16_walk_kernel<12, 2>
-                       : k2_bf16_walk_kernel<6, 1>;
+    auto kernel = wide ? bwalk::k2_bf16_walk_kernel<12, 2, bwalk::kMlp>
+                       : bwalk::k2_bf16_walk_kernel<6, 1, bwalk::kMlp>;
     bwalk::Layout l;
-    err = bwalk::prepare(kernel, dims, mul, J, H, true, l);
+    err = bwalk::prepare(kernel, dims, mul, J, H, true, false, l);
     if (err == cudaSuccess) err = bwalk::transpose_w(w_out, H, PC, wt, s);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3(T, n_units), 32 * ((mul + 15) / 16), l.end, s>>>(
         x, in_dim, sh, J, src, dst, perm, ptr, N, E, cap, T, h_last, H, wt,
-        PC, tab, tiles, l, dS, KM, mul, dw, dx, pieces);
+        PC, tab, tiles, l, dS, KM, mul, dw, dx, pieces, nullptr, nullptr,
+        bwalk::Cot{});
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = sum_pieces(ptr, N, T, cap, pieces, in_dim, dx, s);

@@ -81,10 +81,31 @@
 // fixed order, so every output repeats bit for bit.  The mix and the
 // node-stage products are row_mix.cuh's tensor-core GEMM (3xTF32, shared
 // with every conv and pairwise kernel).
+//
+// The bfloat16 entries (full_conv_ext_{fwd,bwd,grad2}_bf16) compute the
+// TPU kernels' contract at compute_dtype=bfloat16 (fused_conv.py:1366-1428,
+// 1479-1614, 1660-1870): x, sh, w, the mix matrices, gout and the
+// cotangents are bfloat16; every product of two bfloat16 values is exact
+// in float32, every sum float32, rounded where the TPU body rounds
+// (the _rn intrinsics, so that no product and sum fuse into one rounding).
+// K4f and K4b are the bfloat16 MMA walks of bf16_walk.cuh (K1's and K2's)
+// on the caller's radial weights, and K4g the same two walks with its
+// cotangents beside the operands (three CG chains an edge destination-
+// major, two CG and two C^T chains source-major); the sh cotangent is
+// summed over each left irrep in the walk and over the irreps and the
+// channels by dsh_sum_kernel; the mix and the node-stage products are the
+// GEMM's bfloat16 products.  The float32 walks above cannot take the
+// bfloat16 contract: they contract C with sh first (M(sh), per edge and
+// path) and x with C first (X, per node), where the contract rounds each
+// outer product bf16(sh_j x_i) before the CG sum.
+// A node's messages are summed in float32 and rounded once (the TPU
+// kernel keeps a bfloat16 node accumulator across windows).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+#include "bf16_walk.cuh"
 #include "edge_walk.cuh"
 #include "row_mix.cuh"
 
@@ -490,6 +511,138 @@ cudaError_t src_walk(ExtWalk a, const Tables& tb, float* dx, float* dsh,
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
+// ---------------------------------------------------------------- bfloat16
+// K4f, K4b and K4g at bfloat16 are the bfloat16 walks of bf16_walk.cuh on
+// the caller's radial weights (kOps kExt; K4g's, kExt2, with the
+// cotangents cx, csh, cw staged beside x, sh, w).  The sh cotangent: the
+// source-major walk leaves, per left irrep (unit), edge, j and channel u,
+// the float32 sum over the unit's components of bf16(douter[j, m1, u]
+// x[src, m1, u]) (K4g: of bf16(dow cx) and of bf16(doc x), two halves);
+// dsh_sum_kernel adds the units in order, rounds (jnp.sum of bfloat16
+// products over the components sums in float32 and rounds,
+// fused_conv.py:1602; K4g adds its two rounded sums and rounds), sums over
+// the channels in a fixed order (a warp's xor tree) and rounds again
+// (:1603).
+
+// dsh[e, j] = bf16(sum_u bf16(sum_units part[unit, e, j, u])), or with
+// part2 (K4g) bf16(sum_u bf16(bf16(sum_units part) + bf16(sum_units
+// part2))); one warp per (e, j)
+static __global__ void dsh_sum_kernel(const float* __restrict__ part,
+                                      const float* __restrict__ part2,
+                                      int units, int E, int J, int mul,
+                                      bf16::T* __restrict__ dsh) {
+  const long long wid =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (wid >= (long long)E * J) return;   // whole warps
+  const int e = (int)(wid / J), j = (int)(wid % J);
+  float acc = 0.f;
+  for (int u = lane; u < mul; u += 32) {
+    float t = 0.f, t2 = 0.f;
+    for (int un = 0; un < units; ++un) {
+      const size_t at = (((size_t)un * E + e) * J + j) * mul + u;
+      t += part[at];
+      if (part2) t2 += part2[at];
+    }
+    if (part2) t = __fadd_rn(bf16::rn(t), bf16::rn(t2));
+    acc += bf16::rn(t);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dsh[(size_t)e * J + j] = __float2bfloat16_rn(acc);
+}
+
+// The bfloat16 walks' operands common to K4f, K4b and K4g.
+struct Bf16Walk {
+  const bf16::T* x;
+  const bf16::T* sh;
+  const bf16::T* w;
+  bwalk::Cot cot;        // K4g's cotangents, or null
+  const long long* src;
+  const long long* dst;
+  const int* tab;        // ConvTables._bf16_walk_tables
+  const int* tiles;
+  const int* dims;       // host
+  int n_units, N, E, in_dim, J, PC, KM, mul, cap, T;
+};
+
+static bool wide_unit(const Bf16Walk& a) {
+  return a.dims[bwalk::kDNT] > 6 || a.dims[bwalk::kDXw] > 8 * a.mul;
+}
+
+// The destination-major walk (K1's) into S [N, KM]: K4f's sums, or with
+// cotangents K4g's S_sum; pieces [T, KM]
+static cudaError_t bf16_dst_walk(const Bf16Walk& a, const int* perm,
+                                 const int* ptr, float* S, float* pieces,
+                                 cudaStream_t s) {
+  if (a.N <= 0 || a.n_units <= 0) return cudaSuccess;
+  const bool two = a.cot.x != nullptr;
+  auto kernel =
+      two ? (wide_unit(a) ? bwalk::k1_bf16_walk_kernel<12, 2, bwalk::kExt2>
+                          : bwalk::k1_bf16_walk_kernel<6, 1, bwalk::kExt2>)
+          : (wide_unit(a) ? bwalk::k1_bf16_walk_kernel<12, 2, bwalk::kExt>
+                          : bwalk::k1_bf16_walk_kernel<6, 1, bwalk::kExt>);
+  bwalk::Layout l;
+  cudaError_t err =
+      bwalk::prepare(kernel, a.dims, a.mul, a.J, 0, false, two, l);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.T, a.n_units), 32 * ((a.mul + 15) / 16), l.end, s>>>(
+      a.x, a.in_dim, a.sh, a.J, a.src, a.dst, perm, ptr, a.N, a.cap, a.T,
+      nullptr, 0, nullptr, a.tab, a.tiles, l, S, pieces, a.KM, a.mul, a.w,
+      a.PC, a.cot);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_pieces(ptr, a.N, a.T, a.cap, pieces, a.KM, S, s);
+}
+
+// The source-major walk (K2's) on dS [N, KM]: dx (K4g's c_x) float32, dw
+// (c_w) and dsh (c_s) bfloat16; work: pieces [T, in_dim], part [units, E,
+// J, mul] (K4g: two of them).  With N = 0 it still zeroes every edge's dw
+// and dsh.
+static cudaError_t bf16_src_walk(const Bf16Walk& a, const int* perm,
+                                 const int* ptr, int dx_covered,
+                                 const float* dS, float* pieces,
+                                 float* part, float* dx, bf16::T* dsh,
+                                 bf16::T* dw, cudaStream_t s) {
+  const size_t f = sizeof(float);
+  const bool two = a.cot.x != nullptr;
+  cudaError_t err = cudaSuccess;
+  if (!dx_covered) {
+    err = cudaMemsetAsync(dx, 0, (size_t)a.N * a.in_dim * f, s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(pieces, 0, (size_t)a.T * a.in_dim * f, s);
+    if (err != cudaSuccess) return err;
+  }
+  if (a.n_units > 0) {
+    auto kernel =
+        two ? (wide_unit(a) ? bwalk::k2_bf16_walk_kernel<12, 2, bwalk::kExt2>
+                            : bwalk::k2_bf16_walk_kernel<6, 1, bwalk::kExt2>)
+            : (wide_unit(a) ? bwalk::k2_bf16_walk_kernel<12, 2, bwalk::kExt>
+                            : bwalk::k2_bf16_walk_kernel<6, 1, bwalk::kExt>);
+    bwalk::Layout l;
+    err = bwalk::prepare(kernel, a.dims, a.mul, a.J, 0, true, two, l);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(a.T, a.n_units), 32 * ((a.mul + 15) / 16), l.end, s>>>(
+        a.x, a.in_dim, a.sh, a.J, a.src, a.dst, perm, ptr, a.N, a.E, a.cap,
+        a.T, nullptr, 0, nullptr, a.PC, a.tab, a.tiles, l, dS, a.KM, a.mul,
+        dw, dx, pieces, a.w, part, a.cot);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = sum_pieces(ptr, a.N, a.T, a.cap, pieces, a.in_dim, dx, s);
+  } else {
+    err = cudaMemsetAsync(dw, 0, (size_t)a.E * a.PC * sizeof(bf16::T), s);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(dx, 0, (size_t)a.N * a.in_dim * f, s);
+  }
+  if (err != cudaSuccess || a.E == 0) return err;
+  const long long threads = (long long)a.E * a.J * 32;
+  const size_t half = (size_t)a.n_units * a.E * a.J * a.mul;
+  dsh_sum_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      part, two ? part + half : nullptr, a.n_units, a.E, a.J, a.mul, dsh);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Arguments common to the three entries: sizes, the edge list, the walk
@@ -592,5 +745,94 @@ extern "C" int full_conv_ext_grad2(
   a.perm = src_perm; a.ptr = src_ptr; a.dS = dS; a.rows = dxp;
   a.dw = c_w; a.part = part;
   EXT_TRY(src_walk<true>(a, tb, c_x, c_s, s));
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 entries (x, sh, w, wsel, gout and the cotangents bfloat16):
+// the sizes and the edge list, the bfloat16 walks' tables
+// (ConvTables._bf16_walk_tables: tab and tiles on the device, n_units
+// units, dims on the host), dx covered, both edge orders, the walks' work
+// items (cap, T), the mix problems (host).
+#define EXT_BF16_COMMON                                                     \
+  int N, int in_dim, int J, const long long *src, const long long *dst,      \
+      int E, int PC, int KM, int mul, int out_dim, const int *tab,           \
+      const int *tiles, int n_units, const int *dims, int dx_covered,        \
+      const int *dst_perm, const int *dst_ptr, const int *src_perm,          \
+      const int *src_ptr, int cap, int T, const int *probs_host, int n_probs
+
+#define EXT_BF16_SETUP()                                                     \
+  cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
+  if (cap < 1 || T < 1 || J > kMaxSh || n_units != dims[bwalk::kDUnits])     \
+    return (int)cudaErrorInvalidValue;                                       \
+  Bf16Walk a = {};                                                           \
+  a.x = x; a.sh = sh; a.w = w; a.src = src; a.dst = dst;                     \
+  a.tab = tab; a.tiles = tiles; a.dims = dims; a.n_units = n_units;          \
+  a.N = N; a.E = E; a.in_dim = in_dim; a.J = J; a.PC = PC; a.KM = KM;        \
+  a.mul = mul; a.cap = cap; a.T = T
+
+// K4f: out (bfloat16) and S [N, KM] (float32, returned for K4b); pieces
+// [T, KM]: work.
+extern "C" int full_conv_ext_fwd_bf16(EXT_BF16_COMMON, const bf16::T* x,
+                                      const bf16::T* sh, const bf16::T* w,
+                                      const bf16::T* wsel, float* scratch,
+                                      float* pieces, bf16::T* out,
+                                      void* stream) {
+  EXT_BF16_SETUP();
+  EXT_TRY(bf16_dst_walk(a, dst_perm, dst_ptr, scratch, pieces, s));
+  EXT_TRY(mix_rows(scratch, N, KM, wsel, probs_host, n_probs, out, out_dim,
+                   s, true));
+  return (int)cudaGetLastError();
+}
+
+// K4b: dx and dwsel float32, dsh and dw bfloat16 (the TPU kernel's output
+// dtypes).  saved: K4f's S of these operands, or null (then recomputed
+// into scratch).  Work: scratch [N, KM], pieces [T, max(KM, in_dim)], dS
+// [N, KM], part [n_units, E, J, mul]; ws [ws_len]: the split products'
+// partial tiles.
+extern "C" int full_conv_ext_bwd_bf16(
+    EXT_BF16_COMMON, const bf16::T* x, const bf16::T* sh, const bf16::T* w,
+    const bf16::T* wsel, const bf16::T* gout, const float* saved,
+    float* scratch, float* pieces, float* dS, float* part, float* dx,
+    bf16::T* dsh, bf16::T* dw, float* dwsel, int wsel_len, float* ws,
+    int ws_len, void* stream) {
+  EXT_BF16_SETUP();
+  EXT_TRY(mix_products<bf16::T>(kMixRows, probs_host, n_probs, N, KM,
+                                out_dim, nullptr, wsel, gout, dS, wsel_len,
+                                ws, ws_len, s, true));
+  const float* S = saved;
+  if (!S) {
+    EXT_TRY(bf16_dst_walk(a, dst_perm, dst_ptr, scratch, pieces, s));
+    S = scratch;
+  }
+  EXT_TRY(mix_products(kMixWeights, probs_host, n_probs, N, KM, out_dim, S,
+                       nullptr, gout, dwsel, wsel_len, ws, ws_len, s, true));
+  EXT_TRY(bf16_src_walk(a, src_perm, src_ptr, dx_covered, dS, pieces, part,
+                        dx, dsh, dw, s));
+  return (int)cudaGetLastError();
+}
+
+// K4g: c_x and c_m float32, c_s, c_w and c_g bfloat16 (the TPU kernel's
+// output dtypes).  Work: scratch [N, KM] (S_sum), pieces [T, max(KM,
+// in_dim)], dS [N, KM], part [2, n_units, E, J, mul]; ws as K4b's.
+extern "C" int full_conv_ext_grad2_bf16(
+    EXT_BF16_COMMON, const bf16::T* x, const bf16::T* cx, const bf16::T* sh,
+    const bf16::T* csh, const bf16::T* w, const bf16::T* cw,
+    const bf16::T* wsel, const bf16::T* gout, float* scratch, float* pieces,
+    float* dS, float* part, float* c_x, bf16::T* c_s, bf16::T* c_w,
+    float* c_m, bf16::T* c_g, int wsel_len, float* ws, int ws_len,
+    void* stream) {
+  EXT_BF16_SETUP();
+  a.cot = {cx, csh, cw};
+  EXT_TRY(mix_products<bf16::T>(kMixRows, probs_host, n_probs, N, KM,
+                                out_dim, nullptr, wsel, gout, dS, wsel_len,
+                                ws, ws_len, s, true));
+  EXT_TRY(bf16_dst_walk(a, dst_perm, dst_ptr, scratch, pieces, s));
+  EXT_TRY(mix_rows(scratch, N, KM, wsel, probs_host, n_probs, c_g, out_dim,
+                   s, true));
+  EXT_TRY(mix_products(kMixWeights, probs_host, n_probs, N, KM, out_dim,
+                       scratch, nullptr, gout, c_m, wsel_len, ws, ws_len, s,
+                       true));
+  EXT_TRY(bf16_src_walk(a, src_perm, src_ptr, dx_covered, dS, pieces, part,
+                        c_x, c_s, c_w, s));
   return (int)cudaGetLastError();
 }

@@ -46,16 +46,17 @@ messages vanish because ``edge_radial`` is masked and the radial MLP has no
 bias.
 
 ``compute_dtype="bfloat16"`` (the JAX layer's constructor argument,
-``message_passing.py:54``) runs the first-order path as the TPU route does
-at bfloat16: K1/K2 and K3/K3b in their bfloat16 variants, the conv's and
-the self-connection's bfloat16 outputs added in bfloat16 (the TPU conv
-folds the self-connection into its output blocks,
-``ops/pallas/fused_conv.py:2533``), and a
-layer after a first-order ``MessagePassing`` reading that layer's output
-rounded to bfloat16 (the TPU route's kernel-layout table,
-``message_passing.py:615-645``).  The routes whose kernels have no
-bfloat16 variant yet refuse it at build: ``grad_order >= 2`` (K4),
-``reduce=False`` (K6) and the per-node self-connection.
+``message_passing.py:54``) runs the node-summed paths as the TPU route
+does at bfloat16: K1/K2 and K3/K3b, or on the second-order path the K4
+family and the per-node self-connection, in their bfloat16 variants (the
+radial MLP rounding as the JAX ``apply_T`` does, its output rounded), the
+conv's bfloat16 output and the self-connection rounded to bfloat16 added
+in bfloat16 (the TPU conv folds the self-connection into its output
+blocks, ``ops/pallas/fused_conv.py:2533``), and a layer after a
+``MessagePassing`` reading that layer's output rounded to bfloat16 (the
+TPU route's kernel-layout table, ``message_passing.py:615-645``).  The
+routes whose kernels have no bfloat16 variant yet refuse it at build:
+``reduce=False`` (K6) and the first-order per-node self-connection.
 """
 
 from __future__ import annotations
@@ -118,15 +119,17 @@ class FactorizedConvolution(Module):
             activations["ssp"], compute_dtype=compute_dtype,
         )
         if self.bf16:
-            refused = ("grad_order >= 2 (the K4 family)"
-                       if self.grad_order >= 2 else
-                       "reduce=False (K6)" if not self.reduce else
-                       "a per-node self-connection (FusedScalarFCTP)"
-                       if self.use_sc and not sc_species_types else None)
+            refused = ("reduce=False (K6): ROADMAP.md queue 1 item 3.2"
+                       if not self.reduce else
+                       "a first-order per-node self-connection "
+                       "(FusedScalarFCTP, K2's sh cotangent): ROADMAP.md "
+                       "queue 1 item 3.3"
+                       if self.use_sc and not sc_species_types
+                       and self.grad_order < 2 else None)
             if refused:
                 raise NotImplementedError(
                     f"compute_dtype='bfloat16' is not ported for {refused} "
-                    f"yet: ROADMAP.md queue 1, the bfloat16 slices")
+                    f"yet")
         if not self.reduce:
             if self.use_sc or self.grad_order >= 2:
                 raise NotImplementedError(
@@ -134,7 +137,7 @@ class FactorizedConvolution(Module):
                     "has no self-connection")
             self.full_conv = UVUConv(self.tp)
         elif self.grad_order >= 2:
-            self.full_conv = FullConvExt(self.tp)
+            self.full_conv = FullConvExt(self.tp, compute_dtype)
         else:
             self.full_conv = FullConv(self.tp, self.fc, compute_dtype)
         self.species_sc = self.fused_sc = None
@@ -148,7 +151,7 @@ class FactorizedConvolution(Module):
                                                     sc_species_types,
                                                     compute_dtype)
             else:
-                self.fused_sc = FusedScalarFCTP(self.sc)
+                self.fused_sc = FusedScalarFCTP(self.sc, compute_dtype)
 
     def self_connection(self, x, data: Dict):
         """The self-connection of features ``x``: on the species tables
@@ -165,11 +168,21 @@ class FactorizedConvolution(Module):
     @property
     def takes_rounded_input(self) -> bool:
         """Whether a bfloat16 predecessor hands this layer its output
-        rounded (the TPU route's kernel-layout table): the first-order
-        node-summed conv over one multiplicity."""
-        return (self.bf16 and self.grad_order < 2 and self.reduce
+        rounded (the TPU route's kernel-layout table): the node-summed
+        conv over one multiplicity, of either order."""
+        return (self.bf16 and self.reduce
                 and len({mi.mul for mi in Irreps(
                     self.irreps_in["input_features"])}) == 1)
+
+    @property
+    def folds_sc(self) -> bool:
+        """Whether the self-connection is added into the conv's output
+        blocks, before the output is formatted (the TPU route does it on
+        the species tables, and per node on the second-order path,
+        ``message_passing.py:274-290``): then the conv's output blocks are
+        the whole layer's, and feed the next layer's table."""
+        return (not self.use_sc or self.species_sc is not None
+                or self.grad_order >= 2)
 
     def forward(self, data: Dict, attrs: Dict):
         edge_radial = data["edge_radial"]
@@ -202,8 +215,10 @@ class FactorizedConvolution(Module):
                                  data["edge_spherical"], edge_index[0],
                                  edge_index[1], num_nodes, pre_scale=pre)
         if self.use_sc:
-            out = out + sc
-        # a bfloat16 conv's output and self-connection add in bfloat16
+            # a bfloat16 conv's output and self-connection add in bfloat16
+            # (the per-node self-connection's float32 output rounded, as
+            # fused_conv.py:2533 rounds the folded blocks)
+            out = out + sc.to(out.dtype)
         out = out.to(x_in.dtype)
         return ({"output_features": out},
                 {"output_features": (attrs["input_features"][0],
@@ -267,10 +282,10 @@ class MessagePassing(Module):
         if self.normalize:
             out = self.irreps_out["output_features"]
             self.norm = LayerNormalization(out, out)
-        # a bfloat16 first-order conv hands the next layer its output
-        # rounded to bfloat16, under the output key + "__kl", as the TPU
-        # route's kernel-layout table (message_passing.py:615-645): not
-        # after a residual or a layer norm, and over one multiplicity
+        # a bfloat16 conv hands the next layer its output rounded to
+        # bfloat16, under the output key + "__kl", as the TPU route's
+        # kernel-layout table (message_passing.py:615-645): not after a
+        # residual or a layer norm, and over one multiplicity
         conv = self.conv
         self._kl_in_key = next(
             (k for k, v in self.input_key_mapping.items()
@@ -278,8 +293,7 @@ class MessagePassing(Module):
         self._kl_out_key = None
         if (isinstance(conv, FactorizedConvolution)
                 and conv.takes_rounded_input and not self.resnet
-                and not self.normalize
-                and (conv.species_sc is not None or not conv.use_sc)
+                and not self.normalize and conv.folds_sc
                 and len({mi.mul for mi in self.equivariant_nonlin.irreps_out})
                 == 1):
             self._kl_out_key = self.output_key_mapping.get(

@@ -10,7 +10,7 @@ from typing import List
 
 import torch
 
-from ..ops.compute_dtype import compute_dtype_of
+from ..ops.compute_dtype import bf16_product, compute_dtype_of
 from ..ops.gate import normalize2mom
 from ..utils.params import ParamModule
 
@@ -20,11 +20,14 @@ class FullyConnectedNet(ParamModule):
     ``sqrt(fan_in)`` at apply time; the activation (normalized to unit
     second moment) runs between layers, not after the last.
 
-    ``compute_dtype="bfloat16"`` computes as the JAX ``apply`` does at
-    bfloat16: the input and each scaled weight are rounded to bfloat16,
-    every product is summed in float32, each activation's output is
-    rounded to bfloat16, and the last layer's float32 sum is returned as
-    it is (float32)."""
+    ``compute_dtype="bfloat16"`` computes as the JAX ``apply`` and
+    ``apply_T`` do at bfloat16: the input and each scaled weight are
+    rounded to bfloat16, every product is summed in float32, each
+    activation's output is rounded to bfloat16, and the last layer's
+    float32 sum is returned as it is (float32).  The products are
+    ``bf16_product``, so the MLP is differentiable to any order with
+    JAX's roundings of every cotangent (the force path differentiates it
+    twice)."""
 
     def __init__(self, dims: List[int], activation="ssp",
                  compute_dtype: str = "float32"):
@@ -39,12 +42,11 @@ class FullyConnectedNet(ParamModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.dims) - 1
         if self.compute_dtype == torch.bfloat16:
-            x = x.to(torch.bfloat16).float()
             for i in range(n):
                 w = getattr(self, f"w{i}") / float(self.dims[i]) ** 0.5
-                x = x @ w.to(torch.bfloat16).float()
+                x = bf16_product("ek,kh->eh", x, w)
                 if i < n - 1:
-                    x = self.act(x).to(torch.bfloat16).float()
+                    x = self.act(x)
             return x
         for i in range(n):
             x = x @ (getattr(self, f"w{i}") / float(self.dims[i]) ** 0.5)

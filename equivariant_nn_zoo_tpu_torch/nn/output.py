@@ -116,7 +116,7 @@ class Pairwise(Module):
         if str(compute_dtype) != "float32":
             raise NotImplementedError(
                 "compute_dtype='bfloat16' is not ported for the pairwise "
-                "head (K5, K6) yet: ROADMAP.md queue 1, the bfloat16 slices")
+                "head (K5, K6) yet: ROADMAP.md queue 1 item 3.2")
         self.init_irreps(
             node_features=node_features, edge_radial=edge_radial,
             edge_spherical=edge_spherical, diagonal=diagonal,

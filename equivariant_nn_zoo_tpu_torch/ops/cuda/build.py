@@ -219,6 +219,38 @@ SIGNATURES["full_conv_fwd_bf16"] = [
     _P, _P, _P,                # work: last hidden layer, long-run pieces,
                                # W_out transposed
     *SIGNATURES["full_conv_fwd"][30:]]
+# leading arguments of the bfloat16 K4f, K4b and K4g entries
+_EXT_BF16_COMMON = [
+    _I, _I, _I,                # N, in_dim, J
+    _P, _P, _I,                # src, dst, E
+    _I, _I, _I, _I,            # P * mul, K * mul, mul, out_dim
+    *_BF16_WALK,               # the bfloat16 walks' tables
+    _I,                        # dx covered
+    _P, _P, _P, _P,            # both edge orders and their row pointers
+    _I, _I,                    # cap, items
+    _P, _I,                    # host mix problems, count
+]
+SIGNATURES["full_conv_ext_fwd_bf16"] = _EXT_BF16_COMMON + [
+    _P, _P, _P, _P,            # x, sh, w, wsel
+    _P, _P, _P, _P,            # scratch, work: long-run pieces, out, stream
+]
+SIGNATURES["full_conv_ext_bwd_bf16"] = _EXT_BF16_COMMON + [
+    _P, _P, _P, _P, _P,        # x, sh, w, wsel, gout
+    _P,                        # K4f's saved scratch, or null
+    _P, _P, _P, _P,            # work: scratch, pieces, dS, each left
+                               # irrep's dsh sums
+    _P, _P, _P, _P, _I,        # dx, dsh, dw, dwsel, its length
+    _P, _I, _P,                # workspace, its length, stream
+]
+SIGNATURES["full_conv_ext_grad2_bf16"] = _EXT_BF16_COMMON + [
+    _P, _P, _P, _P,            # x, cx, sh, csh
+    _P, _P, _P, _P,            # w, cw, wsel, gout
+    _P, _P, _P, _P,            # work: scratch, pieces, dS, each left
+                               # irrep's two c_s sums
+    _P, _P, _P, _P, _P,        # c_x, c_s, c_w, c_m, c_g
+    _I,                        # wsel length
+    _P, _I, _P,                # workspace, its length, stream
+]
 SIGNATURES["full_conv_bwd_bf16"] = [
     *_CONV_HEAD, *_BF16_WALK,
     _I,                        # dx covered

@@ -98,11 +98,14 @@ def mix_rows(scratch, wsel, prob_rows, out_dim: int) -> torch.Tensor:
 class ConvTables(KernelSwitch, torch.nn.Module):
     """Constant tables of one uvu ``TensorProductExpansion`` for the conv
     kernels (K1, K2 and the external-weight K4 family): the CG paths with
-    their host-built wigner_3j non-zeros, and the mix problems.  Parameters
-    are passed at call time, so this module holds buffers only."""
+    their host-built wigner_3j non-zeros, and the mix problems; at
+    bfloat16 also the plain contracts' index tables and the bfloat16
+    walks' tiles.  Parameters are passed at call time, so this module
+    holds buffers only."""
 
-    def __init__(self, tpe):
+    def __init__(self, tpe, compute_dtype: str = "float32"):
         super().__init__()
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         self.fused = FusedUVUConv(tpe)
         fused = self.fused
         mul = fused.mul
@@ -178,6 +181,8 @@ class ConvTables(KernelSwitch, torch.nn.Module):
             "nz_c", torch.tensor(np.asarray(nz_c, np.float32)),
             persistent=False)
         self._walk_tables(paths, cgs, d3s, mul, int_buffer)
+        if self.bf16:
+            self._bf16_tables()
 
     def _walk_tables(self, paths, cgs, d3s, mul, int_buffer):
         """The node-major walk's tables (K1, K2 and the K4 family,
@@ -254,60 +259,6 @@ class ConvTables(KernelSwitch, torch.nn.Module):
         for x_off, d1, *_ in irreps:
             covered[x_off: x_off + d1 * mul] = True
         self.dx_covered = bool(covered.all())
-
-    def plain_core(self, x, sh, w, wsel, edge_src, edge_dst, num_nodes):
-        """The conv core on per-edge radial weights ``w [E, P * mul]``
-        (columns in the expansion's instruction order) and the flat mix
-        matrices: ``(out [N, out_dim], scratch [N, K * mul])``, the scratch
-        holding the unmixed node sums in the kernels' row order
-        (component-major inside each output-irrep group).  Plain PyTorch,
-        differentiable to any order."""
-        fused, mul, E = self.fused, self.fused.mul, sh.shape[0]
-        w3 = w.reshape(E, -1, mul)                        # [E, P, mul]
-        mid = fused.edge_mid(x, edge_src, sh)             # [E, K, mul]
-        rows = []
-        for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
-            block = mid[:, k0: k0 + n_paths * d].reshape(E, n_paths, d, mul)
-            block = block * w3[:, getattr(fused, f"widx{g}")][:, :, None]
-            rows.append(block.transpose(1, 2).reshape(E, -1))
-        scratch = segment_sum(torch.cat(rows, 1), edge_dst, int(num_nodes))
-        return mix_rows(scratch, wsel, self.prob_rows, self.out_dim), scratch
-
-    def flat_wsel(self, linear, pre_scale=None) -> torch.Tensor:
-        """The mix matrices of every problem (alphas and ``pre_scale``
-        folded in), flattened in ``mix_plan`` order."""
-        pre = 1.0 if pre_scale is None else float(pre_scale)
-        return torch.cat([
-            (self.fused.mix_weight(linear, g, io) * pre).reshape(-1)
-            for g, io in self.mix_plan
-        ]).contiguous()
-
-
-class FullConv(ConvTables):
-    """K1 and K2 for one ``FactorizedConvolution``: the radial
-    ``FullyConnectedNet`` and the expansion's mix ``Linear`` are passed at
-    call time."""
-
-    #: kernel launches, over all instances (the main path's proof of use)
-    launches = 0
-    backward_launches = 0
-    dsh_launches = 0     # of the backward launches, those with the sh
-                         # cotangent
-    bf16_launches = 0    # the bfloat16 variants' launches, K1 and K2
-    bf16_backward_launches = 0
-
-    def __init__(self, tpe, fc, compute_dtype: str = "float32"):
-        super().__init__(tpe)
-        act = fc.act
-        if not (isinstance(act, ScaledActivation)
-                and act.fn is shifted_softplus):
-            raise ValueError("the conv kernel implements the normalized "
-                             "shifted-softplus radial MLP only")
-        self.act_cst = float(act.cst)
-        self.fc_dims = list(fc.dims)
-        self.compute_dtype = compute_dtype_of(compute_dtype)
-        if self.compute_dtype == BF16:
-            self._bf16_tables()
 
     def _bf16_tables(self):
         """What the bfloat16 plain contracts index by: per row k of the
@@ -451,6 +402,99 @@ class FullConv(ConvTables):
     def bf16(self) -> bool:
         return self.compute_dtype == BF16
 
+    def _x_table(self, x):
+        """x [N, in_dim] -> [N, I, mul] (component-major per irrep)."""
+        mul, blocks, ofs = self.fused.mul, [], 0
+        for mi in self.fused.irreps_in:
+            d = mi.ir.dim
+            blocks.append(x[:, ofs: ofs + mul * d].reshape(-1, mul, d)
+                          .transpose(1, 2))
+            ofs += mul * d
+        return torch.cat(blocks, dim=1)
+
+    def _x_columns(self, t):
+        """[N, I, mul] -> x's columns [N, in_dim]: the inverse of
+        ``_x_table``."""
+        cols, i0 = [], 0
+        for mi in self.fused.irreps_in:
+            d = mi.ir.dim
+            cols.append(t[:, i0: i0 + d].transpose(1, 2).reshape(
+                t.shape[0], -1))
+            i0 += d
+        return torch.cat(cols, dim=1)
+
+    def _mid_bf16(self, xT, sh, src):
+        """The CG products of some edges as ``_mid2_of`` rounds them
+        (``fused_conv.py:848-878``): the outer products sh_j x_i rounded,
+        contracted with the rounded CG in float32, rounded: ``[E, K,
+        mul]``, rows in path order."""
+        outer = round_bf16(sh[:, :, None, None] * xT[src][:, None])
+        return round_bf16(torch.einsum("jki,ejiu->eku", self.bf16_C, outer))
+
+    def plain_core(self, x, sh, w, wsel, edge_src, edge_dst, num_nodes):
+        """The conv core on per-edge radial weights ``w [E, P * mul]``
+        (columns in the expansion's instruction order) and the flat mix
+        matrices: ``(out [N, out_dim], scratch [N, K * mul])``, the scratch
+        holding the unmixed node sums in the kernels' row order
+        (component-major inside each output-irrep group).  Plain PyTorch,
+        differentiable to any order."""
+        fused, mul, E = self.fused, self.fused.mul, sh.shape[0]
+        w3 = w.reshape(E, -1, mul)                        # [E, P, mul]
+        mid = fused.edge_mid(x, edge_src, sh)             # [E, K, mul]
+        rows = []
+        for g, (ir, k0, n_paths, d, p0) in enumerate(fused.groups):
+            block = mid[:, k0: k0 + n_paths * d].reshape(E, n_paths, d, mul)
+            block = block * w3[:, getattr(fused, f"widx{g}")][:, :, None]
+            rows.append(block.transpose(1, 2).reshape(E, -1))
+        scratch = segment_sum(torch.cat(rows, 1), edge_dst, int(num_nodes))
+        return mix_rows(scratch, wsel, self.prob_rows, self.out_dim), scratch
+
+    def flat_wsel(self, linear, pre_scale=None) -> torch.Tensor:
+        """The mix matrices of every problem (alphas and ``pre_scale``
+        folded in), flattened in ``mix_plan`` order.  At bfloat16 as the
+        TPU kernel's caller rounds them (``fused_conv.py:2241-2242,
+        2476-2478``): rounded, then multiplied by ``pre_scale`` rounded to
+        bfloat16, and rounded again."""
+        if self.bf16:
+            wsel = torch.cat([
+                self.fused.mix_weight(linear, g, io).to(BF16).reshape(-1)
+                for g, io in self.mix_plan])
+            if pre_scale is not None:
+                # pre_scale rounded on the host (no copy to the device, so
+                # a CUDA graph can record it); bfloat16 times an exact
+                # bfloat16 value rounds as JAX's weakly typed product does
+                wsel = wsel * float(torch.tensor(float(pre_scale)).to(BF16))
+            return wsel.contiguous()
+        pre = 1.0 if pre_scale is None else float(pre_scale)
+        return torch.cat([
+            (self.fused.mix_weight(linear, g, io) * pre).reshape(-1)
+            for g, io in self.mix_plan
+        ]).contiguous()
+
+
+class FullConv(ConvTables):
+    """K1 and K2 for one ``FactorizedConvolution``: the radial
+    ``FullyConnectedNet`` and the expansion's mix ``Linear`` are passed at
+    call time."""
+
+    #: kernel launches, over all instances (the main path's proof of use)
+    launches = 0
+    backward_launches = 0
+    dsh_launches = 0     # of the backward launches, those with the sh
+                         # cotangent
+    bf16_launches = 0    # the bfloat16 variants' launches, K1 and K2
+    bf16_backward_launches = 0
+
+    def __init__(self, tpe, fc, compute_dtype: str = "float32"):
+        super().__init__(tpe, compute_dtype)
+        act = fc.act
+        if not (isinstance(act, ScaledActivation)
+                and act.fn is shifted_softplus):
+            raise ValueError("the conv kernel implements the normalized "
+                             "shifted-softplus radial MLP only")
+        self.act_cst = float(act.cst)
+        self.fc_dims = list(fc.dims)
+
     def forward(self, fc, linear, x: torch.Tensor, edge_radial: torch.Tensor,
                 sh: torch.Tensor, edge_src: torch.Tensor,
                 edge_dst: torch.Tensor, num_nodes: int,
@@ -503,7 +547,7 @@ class FullConv(ConvTables):
         if torch.is_grad_enabled() and sh.requires_grad:
             raise NotImplementedError(
                 "the bfloat16 conv has no sh cotangent (K2's dsh mode) yet: "
-                "ROADMAP.md queue 1, the bfloat16 slices")
+                "ROADMAP.md queue 1 item 3.3")
         order = (edge_order.shared(edge_src, edge_dst, num_nodes) if kernel
                  else None)
         args = (x.to(BF16), edge_radial, *self.flat_weights(fc, linear,
@@ -524,23 +568,14 @@ class FullConv(ConvTables):
         and ``pre_scale`` folded in), flattened in ``mix_plan`` order.
         At bfloat16 each as the TPU kernel's caller rounds it
         (``fused_conv.py:2471-2477``): every MLP weight divided by
-        sqrt(fan_in), then rounded; the mix matrices rounded, then
-        multiplied by ``pre_scale`` rounded to bfloat16, and rounded
-        again."""
+        sqrt(fan_in), then rounded; the mix matrices as ``flat_wsel``
+        rounds them."""
         n_hidden = len(self.fc_dims) - 2
         if self.bf16:
             ws = [(getattr(fc, f"w{i}") / float(self.fc_dims[i]) ** 0.5
                    ).to(BF16) for i in range(n_hidden + 1)]
-            wsel = torch.cat([
-                self.fused.mix_weight(linear, g, io).to(BF16).reshape(-1)
-                for g, io in self.mix_plan])
-            if pre_scale is not None:
-                # pre_scale rounded on the host (no copy to the device, so
-                # a CUDA graph can record it); bfloat16 times an exact
-                # bfloat16 value rounds as JAX's weakly typed product does
-                wsel = wsel * float(torch.tensor(float(pre_scale)).to(BF16))
             return (torch.cat([w.reshape(-1) for w in ws[:-1]]),
-                    ws[-1].contiguous(), wsel.contiguous())
+                    ws[-1].contiguous(), self.flat_wsel(linear, pre_scale))
         scale = [float(d) ** -0.5 for d in self.fc_dims[:-1]]
         w_hidden = torch.cat([
             (getattr(fc, f"w{i}") * scale[i]).reshape(-1)
@@ -599,35 +634,6 @@ class FullConv(ConvTables):
             ofs += fan * H
         hs.append(h)
         return zs, hs, round_bf16(h @ w_out.float())
-
-    def _x_table(self, x):
-        """x [N, in_dim] -> [N, I, mul] (component-major per irrep)."""
-        mul, blocks, ofs = self.fused.mul, [], 0
-        for mi in self.fused.irreps_in:
-            d = mi.ir.dim
-            blocks.append(x[:, ofs: ofs + mul * d].reshape(-1, mul, d)
-                          .transpose(1, 2))
-            ofs += mul * d
-        return torch.cat(blocks, dim=1)
-
-    def _x_columns(self, t):
-        """[N, I, mul] -> x's columns [N, in_dim]: the inverse of
-        ``_x_table``."""
-        cols, i0 = [], 0
-        for mi in self.fused.irreps_in:
-            d = mi.ir.dim
-            cols.append(t[:, i0: i0 + d].transpose(1, 2).reshape(
-                t.shape[0], -1))
-            i0 += d
-        return torch.cat(cols, dim=1)
-
-    def _mid_bf16(self, xT, sh, src):
-        """The CG products of some edges as ``_mid2_of`` rounds them
-        (``fused_conv.py:848-878``): the outer products sh_j x_i rounded,
-        contracted with the rounded CG in float32, rounded: ``[E, K,
-        mul]``, rows in path order."""
-        outer = round_bf16(sh[:, :, None, None] * xT[src][:, None])
-        return round_bf16(torch.einsum("jki,ejiu->eku", self.bf16_C, outer))
 
     def plain_forward_bf16(self, x, edge_radial, sh, edge_src, edge_dst,
                            w_hidden, w_out, wsel, num_nodes):
@@ -845,7 +851,8 @@ def _check_inputs(conv, x, edge_radial, sh, edge_src, edge_dst, w_hidden,
     n_hidden = len(conv.fc_dims) - 2
     cd = conv.compute_dtype   # the dtype of the operands the kernels round
     if dsh and cd != torch.float32:
-        raise NotImplementedError("K2's dsh mode has no bfloat16 variant")
+        raise NotImplementedError("K2's dsh mode has no bfloat16 variant "
+                                  "yet: ROADMAP.md queue 1 item 3.3")
     check_tensor(x, "x", (N, fused.irreps_in.dim), cd, dev)
     check_tensor(sh, "sh", (E, fused.J_dim), cd, dev)
     check_tensor(edge_radial, "edge_radial", (E, R), torch.float32, dev)

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .compute_dtype import bf16_product, compute_dtype_of
 from .irreps import Irreps
 from .segment import segment_sum
 from .wigner import wigner_3j
@@ -192,10 +193,18 @@ class FusedScalarFCTP:
     """Self-connection (FullyConnectedTensorProduct with pure-scalar right
     input): ``out[n] = x_block(n) @ A(n)`` with ``A(n) = attrs(n) @ W`` —
     two dense products per instruction instead of per-path einsums.
-    Parameter-compatible with ``fully_connected_tp`` (same ``weight``)."""
+    Parameter-compatible with ``fully_connected_tp`` (same ``weight``).
 
-    def __init__(self, tp):
+    ``compute_dtype="bfloat16"`` computes as the JAX ``apply`` /
+    ``apply_blocks`` do at bfloat16 (``ops/fused_tp.py:295-330``): attrs,
+    the scaled weights and x rounded, A = attrs . W summed in float32 and
+    rounded, the output summed in float32 and returned float32; the
+    products are ``bf16_product``, differentiable to any order with JAX's
+    roundings of every cotangent."""
+
+    def __init__(self, tp, compute_dtype: str = "float32"):
         self.tp = tp
+        self.compute_dtype = compute_dtype_of(compute_dtype)
         ir2 = tp.irreps_in2
         assert all(mi.ir.l == 0 and mi.ir.p == 1 for mi in ir2), \
             "scalars only"
@@ -210,6 +219,11 @@ class FusedScalarFCTP:
         tp = self.tp
         N = x.shape[0]
         slices1 = tp.irreps_in1.slices()
+        product = torch.einsum
+        if self.compute_dtype == torch.bfloat16:
+            # attrs rounded once, its cotangents added in bfloat16 (JAX's
+            # ``a``); x rounded per instruction, as JAX's ``xb``
+            product, attrs = bf16_product, attrs.to(torch.bfloat16)
         chunks = {}
         for ins, w_ofs, (mul1, mul2, mul_out) in self.items:
             d = tp.irreps_in1[ins.i_in1].ir.dim
@@ -217,9 +231,9 @@ class FusedScalarFCTP:
             w = (tp.weight[w_ofs: w_ofs + mul1 * mul2 * mul_out]
                  .reshape(mul1, mul2, mul_out)
                  * (ins.path_weight / np.sqrt(d)))
-            A = torch.einsum("nv,uvw->nuw", attrs, w)     # [N, mul1, mul_out]
+            A = product("nv,uvw->nuw", attrs, w)          # [N, mul1, mul_out]
             xb = x[:, slices1[ins.i_in1]].reshape(N, mul1, d)
-            o = torch.einsum("nuw,nuk->nwk", A, xb).reshape(N, mul_out * d)
+            o = product("nuw,nuk->nwk", A, xb).reshape(N, mul_out * d)
             chunks[ins.i_out] = chunks[ins.i_out] + o \
                 if ins.i_out in chunks else o
         return torch.cat([

@@ -31,7 +31,8 @@ Pallas source rounds, as the TPU compiler does.
 
 Also: a float32 model equals, bit for bit, the model built without the
 option; every route without a bfloat16 kernel variant refuses it at
-build; the autograd Functions at bfloat16 with their launches routed to
+build, and the force path's (``grad_order=2``, ``config_energy_force``)
+builds on the bfloat16 K4 family (``tests/test_torch_bf16_force.py``); the autograd Functions at bfloat16 with their launches routed to
 the plain contracts give the plain path's values bit for bit.
 """
 
@@ -61,6 +62,7 @@ from equivariant_nn_zoo_tpu_torch.nn.message_passing import \
 from equivariant_nn_zoo_tpu_torch.nn.mlp import FullyConnectedNet
 from equivariant_nn_zoo_tpu_torch.nn.output import Pairwise
 from equivariant_nn_zoo_tpu_torch.ops.cuda import full_conv as full_conv_mod
+from equivariant_nn_zoo_tpu_torch.ops.cuda.full_conv_ext import FullConvExt
 from equivariant_nn_zoo_tpu_torch.ops.cuda import row_mix
 from equivariant_nn_zoo_tpu_torch.ops.cuda import species_sc as species_sc_mod
 from equivariant_nn_zoo_tpu_torch.run import Loss
@@ -362,15 +364,12 @@ def test_float64_copy_keeps_its_dtype():
     assert _rel(e32.double(), e64) <= 1e-5
 
 
-@pytest.mark.parametrize("route", ["grad_order", "reduce", "per_node_sc",
-                                   "pairwise", "config_energy_force",
+@pytest.mark.parametrize("route", ["reduce", "per_node_sc", "pairwise",
                                    "config_hamiltonian", "sh_gradient"])
 def test_routes_without_bf16_kernels_refuse(route):
     kw = dict(KW, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="bfloat16|dsh"):
-        if route == "grad_order":
-            TConv(**kw, sc_species_types=TYPES, grad_order=2)
-        elif route == "reduce":
+        if route == "reduce":
             TConv(**dict(kw, use_sc=False, node_attrs=None), reduce=False)
         elif route == "per_node_sc":
             TConv(**kw)
@@ -390,17 +389,33 @@ def test_routes_without_bf16_kernels_refuse(route):
             build_model(mc, "cpu")
 
 
-def test_bf16_configs_build(monkeypatch):
+@pytest.mark.parametrize("name", ["config_energy", "config_dipole",
+                                  "grad_order", "config_energy_force",
+                                  "config_diffusion_nll"])
+def test_bf16_configs_build(name):
     """``config_energy`` and ``config_dipole`` build at bfloat16 from their
-    model config's key: every conv takes the bfloat16 kernels."""
-    for name in ("config_energy", "config_dipole"):
-        mc = dict(get_config(name)["model_config"], num_layers=1)
-        mc = dict(mc, compute_dtype="bfloat16")
-        model = build_model(mc, "cpu")
-        convs = [m for m in model.modules() if isinstance(m, TConv)]
-        assert convs and all(
-            c.full_conv.bf16 and c.species_sc.bf16 and
-            c.fc.compute_dtype == torch.bfloat16 for c in convs), name
+    model config's key: every conv takes the bfloat16 kernels (K1/K2 and
+    K3/K3b); a ``grad_order=2`` layer, ``config_energy_force`` and
+    ``config_diffusion`` ``"nll"`` take the bfloat16 K4 family and the
+    per-node self-connection at bfloat16."""
+    if name == "grad_order":
+        convs = [TConv(**KW, sc_species_types=TYPES, grad_order=2,
+                       compute_dtype="bfloat16")]
+    else:
+        cfg = (get_config("config_diffusion", "nll")
+               if name == "config_diffusion_nll" else get_config(name))
+        mc = dict(cfg["model_config"], compute_dtype="bfloat16")
+        convs = [m for m in build_model(mc, "cpu").modules()
+                 if isinstance(m, TConv)]
+        assert len(convs) == mc["num_layers"], name
+    assert convs and all(c.full_conv.bf16 and c.fc.compute_dtype == torch.
+                         bfloat16 for c in convs), name
+    for c in convs:
+        if c.grad_order >= 2:
+            assert isinstance(c.full_conv, FullConvExt) and c.species_sc \
+                is None and c.fused_sc.compute_dtype == torch.bfloat16, name
+        else:
+            assert c.species_sc.bf16, name
 
 
 def _route(monkeypatch, counts):

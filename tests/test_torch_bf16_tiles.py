@@ -16,8 +16,11 @@ einsums before their rounding, at 1e-12 of the largest value:
   zero where no path of the unit reads j.
 
 At a narrow width (8 channels) for ``config_energy``'s and
-``config_dipole``'s hot layers (``layer3``), and at l = 4 with sh irreps
-up to l = 3 (two m1 blocks of 8, eight j pairs).
+``config_dipole``'s hot layers (``layer3``), for ``config_energy_force``'s
+(``grad_order=2``: ``FullConvExt``, whose K4f, K4b and K4g walk the same
+tiles; K4g's three CG products and two C^T products are these two
+contractions on other operands), and at l = 4 with sh irreps up to l = 3
+(two m1 blocks of 8, eight j pairs).
 """
 
 import numpy as np
@@ -63,21 +66,23 @@ def _features(mul, l_max, parities="eo"):
                     for p in parities)
 
 
-LAYERS = {
-    "energy": (_features(8, 3), "1x0e+1x1o+1x2e"),
-    "dipole": (_features(8, 2), "1x0e+1x1o+1x2e"),
-    "l4": (_features(8, 4), "1x0e+1x1o+1x2e+1x3o"),
+LAYERS = {   # features, sh irreps, grad_order
+    "energy": (_features(8, 3), "1x0e+1x1o+1x2e", 1),
+    "dipole": (_features(8, 2), "1x0e+1x1o+1x2e", 1),
+    "force": (_features(8, 2), "1x0e+1x1o+1x2e", 2),
+    "l4": (_features(8, 4), "1x0e+1x1o+1x2e+1x3o", 1),
 }
 
 
 @pytest.fixture(scope="module", params=sorted(LAYERS))
 def conv(request):
-    feats, sh = LAYERS[request.param]
+    feats, sh, grad_order = LAYERS[request.param]
     c = FactorizedConvolution(
         input_features=feats, output_features=feats, node_attrs="4x0e",
         edge_radial="8x0e", edge_spherical=sh, invariant_layers=2,
         invariant_neurons=16, avg_num_neighbors=5.0, sc_species_types=5,
-        compute_dtype="bfloat16")
+        grad_order=grad_order, compute_dtype="bfloat16")
+    assert (type(c.full_conv).__name__ == "FullConvExt") == (grad_order == 2)
     return c.full_conv
 
 

@@ -26,7 +26,10 @@ kernels=False)``: a ``config_energy`` step through every kernel's plain
 version on the card launches no kernel and gives the kernels' loss and
 gradients.  At ``compute_dtype="bfloat16"``: a training step through the
 bfloat16 K1, K2, K3 and K3b against their plain contracts on the card,
-within the plain step's distance from float32.
+within the plain step's distance from float32; the bfloat16 K1/K2 walks
+and K4f, K4b and K4g on ragged batches against their plain contracts
+(half of the plain distance, bit for bit twice), and a bfloat16
+``config_energy_force`` step against its ``kernels=False`` version.
 
 Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 ``pytest -m gpu tests/test_torch_gpu.py``.  Without a card every test
@@ -1871,6 +1874,9 @@ def test_kernels_off_step_matches_the_kernels(cuda):
 
 
 BF16_STEP_SHARE = 0.75
+# the least relative L2 distance that float32 resolves between two steps:
+# two roundings of one place each (2^-23 relative at most)
+F32_RESOLUTION = 2.0 ** -22
 
 
 def test_bf16_step_matches_its_plain_version(cuda):
@@ -2020,3 +2026,140 @@ def test_bf16_walks_match_plain_on_a_ragged_batch(cuda, name):
         assert torch.isfinite(a.float()).all(), what
         assert _rel2(a, b) <= 0.5 * _rel2(b, c), (what, _rel2(a, b),
                                                   _rel2(b, c))
+
+
+EXT_BF16_OUT = {"K4f": ("out",), "K4b": ("dx", "dsh", "dw", "dwsel"),
+                "K4g": ("c_x", "c_s", "c_w", "c_m", "c_g")}
+
+
+def test_bf16_ext_kernels_match_plain_on_a_ragged_batch(cuda):
+    """The bfloat16 K4f, K4b (on K4f's saved scratch and recomputed) and
+    K4g at full width (``config_energy_force``'s ``layer3``) against their
+    bfloat16 plain contracts on a ragged batch: 5,001 edges, a node with no
+    incoming and one with no outgoing edge, and 2,000 padded slots at the
+    dummy node with unmasked operands (the second-order rule substitutes
+    cotangents there).  Each output within half of the plain contract's own
+    distance from the float32 contract (relative L2), and every output
+    equal bit for bit over two launches."""
+    mc = dict(get_config("config_energy_force")["model_config"],
+              compute_dtype="bfloat16")
+    conv = build_model(mc, cuda, torch.Generator().manual_seed(0)).func.\
+        layer3.conv
+    fc = conv.full_conv
+    N, g = 211, torch.Generator().manual_seed(41)
+    src = torch.randint(0, N - 1, (3001,), generator=g)
+    dst = torch.randint(0, N - 1, (3001,), generator=g)
+    dst[dst == 7], src[src == 9] = 8, 10
+    src = torch.cat([src, torch.full((2000,), N - 1)])
+    dst = torch.cat([dst, torch.full((2000,), N - 1)])
+    perm = torch.randperm(src.shape[0], generator=g)
+    src, dst = src[perm].to(cuda), dst[perm].to(cuda)
+    E = src.shape[0]
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda)
+
+    x, cx = rnd(N, fc.fused.irreps_in.dim), rnd(N, fc.fused.irreps_in.dim)
+    sh, csh = rnd(E, fc.fused.J_dim), rnd(E, fc.fused.J_dim)
+    w, cw = rnd(E, fc.fused.weight_numel), rnd(E, fc.fused.weight_numel)
+    gout = rnd(N, fc.out_dim)
+    with torch.no_grad():
+        ws16 = fc.flat_wsel(conv.tp.linear, 0.3)
+        fc.compute_dtype = torch.float32
+        ws32 = fc.flat_wsel(conv.tp.linear, 0.3)
+        fc.compute_dtype = bf
+    b16 = [t.to(bf) for t in (x, cx, sh, csh, w, cw, gout)]
+    x16, cx16, sh16, csh16, w16, cw16, g16 = b16
+    fa = (x16, sh16, w16, ws16, src, dst, N)
+    fa32 = (x, sh, w, ws32, src, dst, N)
+    ga = (x16, cx16, sh16, csh16, w16, cw16, ws16, src, dst, N, g16)
+    ga32 = (x, cx, sh, csh, w, cw, ws32, src, dst, N, gout)
+    with torch.no_grad():
+        saved = ext_mod.launch_forward(fc, *fa)[1]
+        calls = {
+            "K4f": (lambda: ext_mod.launch_forward(fc, *fa)[:1],
+                    lambda: fc.plain_forward_bf16(*fa)[:1],
+                    lambda: (fc.plain_forward(*fa32),), "K4f"),
+            "K4b": (lambda: ext_mod.launch_backward(fc, *fa, g16,
+                                                    scratch=saved),
+                    lambda: fc.plain_backward_bf16(*fa, g16),
+                    lambda: fc.plain_backward(*fa32, gout), "K4b"),
+            "K4b recomputed": (lambda: ext_mod.launch_backward(fc, *fa, g16),
+                               lambda: fc.plain_backward_bf16(*fa, g16),
+                               lambda: fc.plain_backward(*fa32, gout),
+                               "K4b"),
+            "K4g": (lambda: ext_mod.launch_grad2(fc, *ga),
+                    lambda: fc.plain_grad2_bf16(*ga),
+                    lambda: fc.plain_grad2(*ga32), "K4g"),
+        }
+        for name, (kern, p16, p32, kind) in calls.items():
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            for a, b in zip(got, again):
+                assert torch.equal(a, b), name
+            for what, a, b, c in zip(EXT_BF16_OUT[kind], got, p16(), p32()):
+                assert torch.isfinite(a.float()).all(), (name, what)
+                assert _rel2(a, b) <= 0.5 * _rel2(b, c), (
+                    name, what, _rel2(a, b), _rel2(b, c))
+    assert FullConvExt.bf16_launches_fwd and FullConvExt.bf16_launches_bwd \
+        and FullConvExt.bf16_launches_grad2
+
+
+def test_bf16_force_step_matches_its_plain_version(cuda):
+    """One bfloat16 ``config_energy_force`` training step on the card
+    through the bfloat16 K4f, K4b and K4g against the same step through
+    their bfloat16 plain contracts on the card (``kernels=False``): the loss
+    and every gradient within ``BF16_STEP_SHARE`` of the plain step's own
+    distance from the float32 plain step (relative L2 per tensor; see
+    ``test_bf16_step_matches_its_plain_version``).  N(0, 1) labels: the
+    loss is a sum of squared residuals of order 1.  A plain distance below
+    ``F32_RESOLUTION`` counts as that: the output bias's gradient (the
+    energy term's alone, about 2.9e6) lands one float32 place apart
+    between two card runs of the same step (PyTorch's scatter atomics), and
+    the plain bf16 and f32 steps may round it alike."""
+    cfg = get_config("config_energy_force")
+    mc = cfg["model_config"]
+    gb = _batch(_fragments(16), cuda)
+    n_layers = mc["num_layers"]
+    counters = ((FullConvExt, "bf16_launches_fwd"),
+                (FullConvExt, "bf16_launches_bwd"),
+                (FullConvExt, "bf16_launches_grad2"))
+    runs = {}
+    for dtype, kernels in (("bfloat16", True), ("bfloat16", False),
+                           ("float32", False)):
+        model = build_model(dict(mc, compute_dtype=dtype), cuda,
+                            torch.Generator().manual_seed(0),
+                            kernels=kernels)
+        before = [getattr(c, a) for c, a in counters]
+        model.zero_grad()
+        out = model(gb)
+        loss, _ = Loss(cfg["loss_coeffs"])(out.data, gb.data)
+        loss.backward()
+        runs[dtype, kernels] = (loss.item(), {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        torch.cuda.synchronize()
+        launched = [getattr(c, a) - b for (c, a), b in zip(counters, before)]
+        # layer 0 pairs (2 K4b + 2 K4f); the others take K4g
+        want = [n_layers + 2, 2 * n_layers + 2, n_layers - 1] if kernels \
+            else [0, 0, 0]
+        assert launched == want, (dtype, kernels, launched)
+    (loss, got), (loss16, p16), (loss32, p32) = (
+        runs["bfloat16", True], runs["bfloat16", False],
+        runs["float32", False])
+    assert got.keys() == p16.keys() == p32.keys()
+
+    def share(err, bar):
+        return err / max(bar, F32_RESOLUTION)
+
+    shares = {"loss": share(abs(loss - loss16) / abs(loss16),
+                            abs(loss16 - loss32) / abs(loss16))}
+    for name in p16:
+        assert torch.isfinite(got[name]).all(), name
+        shares[name] = share(_rel2(got[name], p16[name]),
+                             _rel2(p16[name], p32[name]))
+    print(f"bf16 force step, losses {loss!r} (card), {loss16!r} (plain "
+          f"bf16), {loss32!r} (plain f32); the card's distance from the "
+          f"plain step over the plain step's distance from float32:", shares)
+    over = {k: v for k, v in shares.items() if not v <= BF16_STEP_SHARE}
+    assert not over, over

@@ -118,12 +118,15 @@ def _c_entries():
     from equivariant_nn_zoo_tpu_torch.ops.cuda.build import CSRC_DIR
 
     src = "".join(p.read_text() for p in sorted(CSRC_DIR.glob("*.cu")))
-    common = re.search(r"#define EXT_COMMON\s+\\\n((?:.*\\\n)*.*)\n",
-                       src).group(1).replace("\\\n", " ")
+    # the shared leading parameter lists (EXT_COMMON, EXT_BF16_COMMON)
+    commons = {m.group(1): m.group(2).replace("\\\n", " ")
+               for m in re.finditer(
+                   r"#define (\w+_COMMON)\s+\\\n((?:.*\\\n)*.*)\n", src)}
     entries = {}
     for name, params in re.findall(r'extern "C" int (\w+)\(\s*(.*?)\)\s*\{',
                                    src, re.S):
-        params = params.replace("EXT_COMMON", common)
+        params = re.sub(r"\b\w+_COMMON\b", lambda m: commons[m.group(0)],
+                        params)
         entries[name] = "".join(
             "P" if "*" in p else "F" if p.strip().startswith("float") else "I"
             for p in params.split(",") if p.strip())
